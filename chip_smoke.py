@@ -6,20 +6,28 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 (a) build the three CUDA kernels from ``llm_sharding_tpu_torch/csrc``;
-(b) hold each kernel against its plain PyTorch version on the card at the
-    Llama-3.2-3B shapes of the serving path, in bf16 and f32, and time
-    kernel, plain version and (flash only) ``F.scaled_dot_product_attention``
-    with the equivalent boolean mask, a yardstick the port never calls;
+(b) hold each kernel, and each KV mode of the paged kernels (an arena in
+    the query dtype, int8 codes, fp8-e4m3 codes, each code arena with
+    per-(block, KV head) f32 scales), against its plain PyTorch version on
+    the card at the Llama-3.2-3B shapes of the serving path, with bf16 and
+    f32 queries, and time kernel, plain version and (flash only)
+    ``F.scaled_dot_product_attention`` with the equivalent boolean mask, a
+    yardstick the port never calls;
 (c) f32 at full 3B width and 4 layers: the served greedy streams, one-shot
     and chunked, must be token-identical to the port's ``generate`` (a
     mismatch passes only where the oracle's top-2 logit gap is < 1e-4);
+    and with int8 and fp8 arenas, the served streams through the kernels
+    (``paged_attn="auto"``) must equal the same server's through the plain
+    versions (``paged_attn="plain"``), or differ first where the plain
+    run's top-2 gap is < 1e-3;
 (d) write a shard store of seeded random Llama-3.2-3B weights (28 layers,
     bf16), load it with ``Engine.from_shards`` and serve 8 staggered
     requests (4 prompts of 20-200 tokens, 4 of 1024-2048, 64 new tokens
-    each) through the paged server; every request must finish, the block
-    allocator must drain and every kernel must have launched;
-(e) one JSON line of per-kernel numbers, then the card's name and power
-    limit, then the final ``{"ok": true, "device": ...}`` line.
+    each) through the paged server, once per KV dtype (bf16, int8, fp8);
+    in each run every request must finish, the block allocator must drain
+    and every kernel (mode) of that path must have launched;
+(e) one JSON line of per-kernel, per-mode numbers, then the card's name and
+    power limit, then the final ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device, or without the rest of the repository next to it,
 it exits non-zero and prints no result.
@@ -27,6 +35,8 @@ it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -47,9 +57,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor
 # round the output, so they may differ by about one bf16 ulp (2^-7
 # relative) of the row's largest output; 2e-2 leaves a margin of ~2, while
 # a dropped KV block or a wrong load/cast moves whole rows by 10-100 %.
+#
+# The quantized modes are held to the same limits: kernel and plain version
+# dequantize each code to the query dtype with the same two roundings (an
+# exact f32 product, then one cast), so they see the same K/V values.
 TOL_ABS = {"bfloat16": 3e-2, "float32": 1e-4}
 TOL_REL = {"bfloat16": 2e-2, "float32": 1e-3}
 SENTINEL = 2**30
+KV_MODES = ("int8", "fp8")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -85,9 +100,34 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
 
 # --------------------------------------------------------------- phase (b)
 
-def decode_case(cfg, dtype, device, gen):
+def quantize_arena(k, v, kv: str):
+    """Codes and per-(block, KV head) scales of a [NB, BS, Nkv, D] K/V pair
+    (absmax / qmax, as an admission writes them); trash block 0 gets codes
+    0x7F (fp8 NaN) and Inf scales, which the kernels must never read."""
+    import torch
+
+    from llm_sharding_tpu_torch.ops import quant
+
+    out = []
+    dt = quant.kv_storage_dtype(kv)
+    for x in (k, v):
+        x = torch.nan_to_num(x.float(), nan=0.0, posinf=0.0)
+        sc = x.abs().amax(dim=(1, 3)) / quant.kv_qmax(dt)
+        codes = quant.kv_quantize(x, sc[:, None, :, None], dt)
+        codes.view(torch.uint8)[0] = 0x7F
+        sc[0] = float("inf")
+        out += [codes, sc.contiguous()]
+    return out
+
+
+def code_bytes(kv, dtype_bytes: int) -> int:
+    return 1 if kv else dtype_bytes
+
+
+def decode_case(cfg, dtype, device, gen, kv=None):
     """8 decode rows, contexts 100-2048, block size 64, table width 64
-    (capacity 4096) with the tail trash-mapped; trash block 0 holds NaN/Inf."""
+    (capacity 4096) with the tail trash-mapped; trash block 0 holds NaN/Inf
+    (an Inf scale for a code arena)."""
     import torch
 
     B, BS, T = 8, 64, 64
@@ -108,14 +148,19 @@ def decode_case(cfg, dtype, device, gen):
         kvpos[b, :c] = np.arange(c)
     q = torch.randn((B, 1, Nh, D), generator=gen, device=device).to(dtype)
     qpos = torch.from_numpy((ctx - 1)[:, None].astype(np.int32)).to(device)
+    scales = {}
+    if kv:
+        k, ks, v, vs = quantize_arena(k, v, kv)
+        scales = {"k_scale": ks, "v_scale": vs}
     args = (q, k, v, torch.from_numpy(tbl).to(device), qpos, torch.from_numpy(kvpos).to(device))
     isz = q.element_size()
-    nbytes = 2 * q.numel() * isz + 2 * int(ctx.sum()) * Nkv * D * isz + tbl.nbytes + kvpos.nbytes
+    nbytes = (2 * q.numel() * isz + 2 * int(ctx.sum()) * Nkv * D * code_bytes(kv, isz)
+              + tbl.nbytes + kvpos.nbytes + (2 * sum(nblk) * Nkv * 4 if kv else 0))
     flops = 4.0 * Nh * D * float(ctx.sum())
-    return args, {}, nbytes, flops, None
+    return args, scales, scales, nbytes, flops, None
 
 
-def prefill_case(cfg, dtype, device, gen):
+def prefill_case(cfg, dtype, device, gen, kv=None):
     """Chunks of 256 queries at written frontiers 256 and 2048 (two rows
     each); every row maps blocks for a 2048-token prompt + 65 columns, and
     the blocks past the frontier hold stale data the nlive clamp skips."""
@@ -138,17 +183,23 @@ def prefill_case(cfg, dtype, device, gen):
         tbl[b, :per_row] = 1 + b * per_row + np.arange(per_row)
         kvpos[b, :f] = np.arange(f)
         qpos[b] = np.arange(f - Sc, f)
-    nlive = torch.from_numpy(-(-frontier // BS).astype(np.int32)).to(device)
+    nlive_np = -(-frontier // BS).astype(np.int32)
+    nlive = torch.from_numpy(nlive_np).to(device)
     q = torch.randn((B, Sc, Nh, D), generator=gen, device=device).to(dtype)
+    scales = {}
+    if kv:
+        k, ks, v, vs = quantize_arena(k, v, kv)
+        scales = {"k_scale": ks, "v_scale": vs}
     args = (
         q, k, v, torch.from_numpy(tbl).to(device), torch.from_numpy(qpos).to(device),
         torch.from_numpy(kvpos).to(device),
     )
     isz = q.element_size()
-    nbytes = (2 * q.numel() * isz + 2 * int(frontier.sum()) * Nkv * D * isz + tbl.nbytes
-              + kvpos.nbytes + qpos.nbytes)
+    nbytes = (2 * q.numel() * isz + 2 * int(frontier.sum()) * Nkv * D * code_bytes(kv, isz)
+              + tbl.nbytes + kvpos.nbytes + qpos.nbytes
+              + (2 * int(nlive_np.sum()) * Nkv * 4 if kv else 0))
     flops = 4.0 * Nh * D * float((qpos.astype(np.int64) + 1).sum())
-    return args, {"nlive": nlive}, nbytes, flops, None
+    return args, {"nlive": nlive, **scales}, scales, nbytes, flops, None
 
 
 def flash_case(cfg, dtype, device, gen, S):
@@ -172,40 +223,46 @@ def flash_case(cfg, dtype, device, gen, S):
     def library():
         return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
-    return args, {}, nbytes, flops, library
+    return args, {}, {}, nbytes, flops, library
 
 
 def phase_kernels(cfg, device) -> list:
     import torch
 
     from llm_sharding_tpu_torch.ops import attention, flash_attention, paged_attention
-    from llm_sharding_tpu_torch.ops import kernels as K
 
     gen = torch.Generator(device=device).manual_seed(1234)
-    cases = [
-        ("paged_attention", "decode B=8 ctx 100-2048", K.PAGED_DECODE,
-         paged_attention.paged_attention, paged_attention.paged_attention_xla,
-         decode_case, "llm_sharding_tpu/ops/paged_attention.py:484",
-         "llm_sharding_tpu_torch/csrc/paged_attention.cu"),
-        ("paged_prefill", "chunk Sc=256 frontiers 256/2048", K.PAGED_PREFILL,
-         paged_attention.paged_prefill, paged_attention.paged_attention_xla,
-         prefill_case, "llm_sharding_tpu/ops/paged_attention.py:689",
-         "llm_sharding_tpu_torch/csrc/paged_prefill.cu"),
-        ("flash_attention", "S=C=2048 causal", K.FLASH,
+    paged = []
+    for kv in (None, *KV_MODES):
+        mode = f"[{kv}]" if kv else ""
+        paged += [
+            (f"paged_attention{mode}", "decode B=8 ctx 100-2048",
+             paged_attention.paged_attention, paged_attention.paged_attention_xla,
+             lambda *a, kv=kv: decode_case(*a, kv=kv),
+             "llm_sharding_tpu/ops/paged_attention.py:484",
+             "llm_sharding_tpu_torch/csrc/paged_attention.cu"),
+            (f"paged_prefill{mode}", "chunk Sc=256 frontiers 256/2048",
+             paged_attention.paged_prefill, paged_attention.paged_attention_xla,
+             lambda *a, kv=kv: prefill_case(*a, kv=kv),
+             "llm_sharding_tpu/ops/paged_attention.py:689",
+             "llm_sharding_tpu_torch/csrc/paged_prefill.cu"),
+        ]
+    cases = paged + [
+        ("flash_attention", "S=C=2048 causal",
          flash_attention.flash_attention, attention.cached_attention,
          lambda *a: flash_case(*a, S=2048), "llm_sharding_tpu/ops/flash_attention.py:124",
          "llm_sharding_tpu_torch/csrc/flash_attention.cu"),
-        ("flash_attention", "S=C=37 ragged", K.FLASH,
+        ("flash_attention", "S=C=37 ragged",
          flash_attention.flash_attention, attention.cached_attention,
          lambda *a: flash_case(*a, S=37), None, None),
     ]
     rows = []
-    for name, label, kern, fn, plain, make, replaces, source in cases:
+    for name, label, fn, plain, make, replaces, source in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
-            args, kw, nbytes, flops, library = make(cfg, dtype, device, gen)
+            args, kw, plain_kw, nbytes, flops, library = make(cfg, dtype, device, gen)
             got = fn(*args, **kw)
-            want = plain(*args)
+            want = plain(*args, **plain_kw)
             torch.cuda.synchronize()
             # rows with no visible key are garbage on every path (callers
             # discard them); every row here sees at least its own key
@@ -217,11 +274,11 @@ def phase_kernels(cfg, device) -> list:
             tol, tol_rel = TOL_ABS[dname], TOL_REL[dname]
             status = "ok" if err <= tol and rel <= tol_rel else "FAIL"
             ms = cuda_ms(lambda: fn(*args, **kw), iters=20)
-            plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+            plain_ms = cuda_ms(lambda: plain(*args, **plain_kw), iters=3, warmup=1)
             lib_ms = cuda_ms(library, iters=20) if library is not None else None
             bms, by = bound(nbytes, flops, dname)
             log(
-                f"[b] {name:16s} {label:32s} {dname:8s} max_abs_err={err:.3g} tol={tol:g} "
+                f"[b] {name:21s} {label:32s} {dname:8s} max_abs_err={err:.3g} tol={tol:g} "
                 f"max_row_rel_err={rel:.3g} tol={tol_rel:g} {status} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 f"bound_ms={bms:.4f} ({by})"
@@ -257,6 +314,47 @@ def top2_gap(cfg, params, ids: np.ndarray) -> float:
     return float(top[0] - top[1])
 
 
+@contextlib.contextmanager
+def recorded_gaps(srv):
+    """Record the top-2 logit gap of every token ``srv`` samples, per
+    request id (the served run's own decision margins)."""
+    import torch
+
+    from llm_sharding_tpu_torch.parallel import serve as serve_ops
+
+    gaps = collections.defaultdict(list)
+    sample = serve_ops._sample_rows
+
+    def recording(state, rows, logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
+        for i, r in enumerate(rows):
+            gaps[srv._req[r].id].append(float(top[i, 0] - top[i, 1]))
+        return sample(state, rows, logits)
+
+    serve_ops._sample_rows = recording
+    try:
+        yield gaps
+    finally:
+        serve_ops._sample_rows = sample
+
+
+def served_streams(eng, prompts, max_new: int, **serve_kw):
+    """Staggered submits (two, two steps, two more) on a fresh server;
+    returns each request's tokens and sampled-token gaps, in prompt order."""
+    srv = eng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
+                    prefill_chunk=256, **serve_kw)
+    with recorded_gaps(srv) as gaps:
+        reqs = [srv.submit(prompts[0], max_new), srv.submit(prompts[2], max_new)]
+        srv.step()
+        srv.step()
+        reqs += [srv.submit(prompts[1], max_new), srv.submit(prompts[3], max_new)]
+        srv.run_until_idle()
+    srv._alloc.check()
+    require(srv._alloc.in_use == 0, "phase c: KV blocks leaked")
+    by_prompt = dict(zip([0, 2, 1, 3], reqs))
+    return [by_prompt[i].tokens for i in range(4)], [gaps[by_prompt[i].id] for i in range(4)]
+
+
 def phase_token_check(device) -> None:
     import torch
 
@@ -270,40 +368,95 @@ def phase_token_check(device) -> None:
     lens = [40, 200, 700, 1000]  # buckets 64 and 256 one-shot, 1024 chunked
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     max_new = 16
-    srv = eng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
-                    prefill_chunk=256)
-    reqs = [srv.submit(prompts[0], max_new), srv.submit(prompts[2], max_new)]
-    srv.step()
-    srv.step()
-    reqs += [srv.submit(prompts[1], max_new), srv.submit(prompts[3], max_new)]
-    order = [0, 2, 1, 3]
-    srv.run_until_idle()
-    srv._alloc.check()
-    require(srv._alloc.in_use == 0, "phase c: KV blocks leaked")
-    for r, i in zip(reqs, order):
+    served, _ = served_streams(eng, prompts, max_new)
+    for i, got in enumerate(served):
         want = eng.generate_ids(prompts[i], max_new)
         w = want.tokens[0, lens[i] : want.lengths[0]].tolist()
         path = "chunked" if lens[i] > 256 else "one-shot"
-        if w == r.tokens:
+        if w == got:
             log(f"[c] prompt {lens[i]:5d} ({path}): {len(w)} tokens identical to generate")
             continue
-        step = next(j for j in range(min(len(w), len(r.tokens))) if w[j] != r.tokens[j])
+        step = next(j for j in range(min(len(w), len(got))) if w[j] != got[j])
         gap = top2_gap(cfg, params, np.concatenate([prompts[i], np.asarray(w[:step], np.int32)]))
         log(f"[c] prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
             f"oracle top-2 gap {gap:.3g}")
         require(gap < 1e-4, f"phase c: served tokens differ from generate (gap {gap})")
-    del eng, params, srv
+    for kv in KV_MODES:
+        kernel, _ = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="auto")
+        plain, gaps = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="plain")
+        for i, (got, want) in enumerate(zip(kernel, plain)):
+            path = "chunked" if lens[i] > 256 else "one-shot"
+            require(len(got) == len(want), f"phase c {kv}: stream lengths differ")
+            if got == want:
+                log(f"[c] {kv} prompt {lens[i]:5d} ({path}): {len(got)} tokens of the kernels "
+                    f"identical to the plain versions'")
+                continue
+            step = next(j for j in range(len(got)) if got[j] != want[j])
+            gap = gaps[i][step]
+            log(f"[c] {kv} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
+                f"plain run's top-2 gap {gap:.3g}")
+            require(gap < 1e-3, f"phase c {kv}: kernel tokens differ from plain (gap {gap})")
+    del eng, params
     torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase (d)
 
-def phase_serve(device, store_dir: str) -> dict:
+def serve_run(eng, kv: str) -> tuple[dict, list]:
+    """The 8-request workload on a fresh server with a ``kv`` arena: checks
+    it, prints its numbers; returns the run's launch counts and tokens."""
     import torch
 
     from llm_sharding_tpu_torch import smoke_workload
-    from llm_sharding_tpu_torch.models import config, llama
     from llm_sharding_tpu_torch.ops import kernels as K
+
+    cfg = eng.cfg
+    srv = eng.serve(capacity=4096, batch_per_slot=8, kv_block_size=64, kv_blocks=1024,
+                    prefill_chunk=256, kv_dtype=kv)
+    prompts = smoke_workload.prompts(cfg.vocab_size, np.random.default_rng(0))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t_start = time.perf_counter()
+    reqs = smoke_workload.submit_staggered(srv, prompts)
+    srv.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = K.launch_counts()
+    for r in reqs:
+        require(r.done and r.error is None, f"phase d {kv}: request {r.id} did not finish")
+        require(len(r.tokens) == smoke_workload.MAX_NEW
+                or r.tokens[-1] in cfg.eos_token_ids,
+                f"phase d {kv}: request {r.id} produced {len(r.tokens)} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in r.tokens),
+                f"phase d {kv}: token out of range")
+    srv._alloc.check()
+    require(srv._alloc.in_use == 0, f"phase d {kv}: {srv._alloc.in_use} KV blocks still held")
+    mode = "" if kv == "bf16" else f"[{kv}]"
+    for name in ("flash_attention", f"paged_attention{mode}", f"paged_prefill{mode}"):
+        require(counts.get(name, 0) > 0,
+                f"phase d {kv}: kernel {name} was never launched on the main path")
+    ttft = np.array([r.first_token_at - r.submitted_at for r in reqs])
+    ntok = sum(len(r.tokens) for r in reqs)
+    decode_span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+    decode_tok_s = sum(len(r.tokens) - 1 for r in reqs) / decode_span
+    log(f"[d] kv {kv}: served {len(reqs)} requests, {ntok} tokens in {wall:.2f}s: "
+        f"decode {decode_tok_s:.1f} tok/s, TTFT p50 {np.percentile(ttft, 50) * 1e3:.0f} ms "
+        f"p99 {np.percentile(ttft, 99) * 1e3:.0f} ms, arena {srv.arena_bytes() / 2**30:.3f} GiB "
+        f"({srv.kv_store_dtype}), peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"[d] kv {kv}: kernel launches on the main path: {counts}")
+    tokens = [list(r.tokens) for r in reqs]
+    del srv, reqs
+    torch.cuda.empty_cache()
+    return counts, tokens
+
+
+def phase_serve(device, store_dir: str) -> dict:
+    """The workload on random full-size weights loaded from a shard store,
+    once per KV dtype; returns the launch counts of each kernel mode from
+    the run that serves through it (flash: the bf16 run)."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
     from llm_sharding_tpu_torch.runtime.engine import Engine
     from llm_sharding_tpu_torch.utils.shard_store import save_shards
 
@@ -319,35 +472,13 @@ def phase_serve(device, store_dir: str) -> dict:
     t2 = time.perf_counter()
     log(f"[d] store written in {t1 - t0:.1f}s, loaded in {t2 - t1:.1f}s "
         f"({cfg.num_hidden_layers} layers, bf16)")
-    srv = eng.serve(capacity=4096, batch_per_slot=8, kv_block_size=64, kv_blocks=1024,
-                    prefill_chunk=256)
-    prompts = smoke_workload.prompts(cfg.vocab_size, np.random.default_rng(0))
-    K.reset_launch_counts()
-    t_start = time.perf_counter()
-    reqs = smoke_workload.submit_staggered(srv, prompts)
-    srv.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    counts = K.launch_counts()
-    for r in reqs:
-        require(r.done and r.error is None, f"phase d: request {r.id} did not finish")
-        require(len(r.tokens) == smoke_workload.MAX_NEW
-                or r.tokens[-1] in cfg.eos_token_ids,
-                f"phase d: request {r.id} produced {len(r.tokens)} tokens")
-        require(all(0 <= t < cfg.vocab_size for t in r.tokens), "phase d: token out of range")
-    srv._alloc.check()
-    require(srv._alloc.in_use == 0, f"phase d: {srv._alloc.in_use} KV blocks still held")
-    for name, n in counts.items():
-        require(n > 0, f"phase d: kernel {name} was never launched on the main path")
-    ttft = np.array([r.first_token_at - r.submitted_at for r in reqs])
-    ntok = sum(len(r.tokens) for r in reqs)
-    decode_span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
-    decode_tok_s = sum(len(r.tokens) - 1 for r in reqs) / decode_span
-    log(f"[d] served {len(reqs)} requests, {ntok} tokens in {wall:.2f}s: "
-        f"decode {decode_tok_s:.1f} tok/s, TTFT p50 {np.percentile(ttft, 50) * 1e3:.0f} ms "
-        f"p99 {np.percentile(ttft, 99) * 1e3:.0f} ms, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log(f"[d] kernel launches on the main path: {counts}")
+    counts, base = serve_run(eng, "bf16")
+    for kv in KV_MODES:
+        kv_counts, tokens = serve_run(eng, kv)
+        counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
+        frac = np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)])
+        log(f"[d] kv {kv}: token match against the bf16 arena's run {frac:.3f} "
+            f"(random weights: printed, not gated)")
     return counts
 
 

@@ -33,13 +33,28 @@
 // causal flash does ~half the tiles and decode skips the trash-mapped
 // tail of each block table. At B = 8 decode rows x Nkv = 8 KV heads the
 // decode grid is only 64 CTAs on 132 SMs; split-KV is the fix, later.
+//
+// Quantized arenas (the paged kernels' KV storage type KT = int8_t or
+// __nv_fp8_e4m3 instead of T; ops/paged_attention.py:440-451 and :650-658)
+// stream 1-byte codes, so each 16-byte load carries 16 of them: a quarter
+// (f32) or half (bf16) of the unquantized bytes. Each code is converted to
+// f32 exactly, multiplied by its column's per-(block, KV head) f32 scale
+// (staged in shared memory beside the column's offset) and rounded to T,
+// which is the plain version's kv_dequantize element for element; the
+// dequantized tile exists only in shared memory. Dead columns stay zeros
+// by the same select, so an Inf scale on the trash block never meets a
+// zero code (Inf x 0 = NaN). With KT = T the code path is the
+// unquantized one.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace attn {
 
@@ -59,6 +74,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
+// One 1-byte KV code (the low byte of b) to f32, exactly.
+template <typename KT> __device__ __forceinline__ float code_to_f(unsigned int b);
+template <> __device__ __forceinline__ float code_to_f<int8_t>(unsigned int b) {
+  return static_cast<float>(static_cast<int8_t>(static_cast<unsigned char>(b)));
+}
+template <> __device__ __forceinline__ float code_to_f<__nv_fp8_e4m3>(unsigned int b) {
+  __nv_fp8_e4m3 f;
+  f.__x = static_cast<__nv_fp8_storage_t>(b);
+  return static_cast<float>(f);
+}
+
 // Shared-memory row padding so a row stride is an odd number of 32-bit
 // words (no bank conflicts when 8 threads read 8 different rows).
 template <typename T> struct RowPad { static constexpr int value = 1; };
@@ -70,9 +96,11 @@ struct QGeom {
   int S, G, Nh, GS;
 };
 
-template <typename T, int D, int RI>
+template <typename T, int D, int RI, typename KT = T>
 struct Tile {
   static_assert(D % kTX == 0 && (D * sizeof(T)) % 16 == 0, "head_dim");
+  static constexpr bool kQuant = !std::is_same<KT, T>::value;  // 1-byte codes + scales
+  static_assert(!kQuant || (sizeof(KT) == 1 && D % 16 == 0), "KV storage type");
   static constexpr int BQ = kTY * RI;          // query rows per CTA
   static constexpr int LD = D + RowPad<T>::value;
   static constexpr int DJ = D / kTX;           // acc columns per thread
@@ -83,7 +111,8 @@ struct Tile {
 
   static constexpr size_t smem_bytes() {
     return sizeof(T) * size_t(BQ + 2 * kBK) * LD + sizeof(float) * size_t(BQ) * LDP +
-           sizeof(long long) * kBK + sizeof(int) * size_t(BQ + kBK);
+           sizeof(long long) * kBK + sizeof(int) * size_t(BQ + kBK) +
+           (kQuant ? 2 * sizeof(float) * kBK : 0);
   }
 
   T* sq;            // [BQ][LD] query tile
@@ -93,6 +122,8 @@ struct Tile {
   long long* soff;  // [kBK] element offset of each key row, -1 = dead
   int* sqpos;       // [BQ]
   int* skpos;       // [kBK]
+  float* sks;       // [kBK] K scale of each key row (quantized only)
+  float* svs;       // [kBK] V scale of each key row (quantized only)
   int tx, ty;
   float m[RI], l[RI], acc[RI][DJ];
 
@@ -104,6 +135,8 @@ struct Tile {
     soff = reinterpret_cast<long long*>(sp + BQ * LDP);
     sqpos = reinterpret_cast<int*>(soff + kBK);
     skpos = sqpos + BQ;
+    sks = reinterpret_cast<float*>(skpos + kBK);
+    svs = sks + kBK;
     tx = threadIdx.x % kTX;
     ty = threadIdx.x / kTX;
 #pragma unroll
@@ -143,17 +176,48 @@ struct Tile {
 
   // K/V rows of the staged tile (soff) into shared memory; dead rows and
   // rows past n are zeros (selected, not multiplied).
-  __device__ void load_kv(const T* k, const T* v, int n) {
-    for (int idx = threadIdx.x; idx < kBK * PER_ROW; idx += kThreads) {
-      const int r = idx / PER_ROW, cv = idx % PER_ROW;
-      uint4 uk = make_uint4(0u, 0u, 0u, 0u), uv = uk;
-      const long long off = r < n ? soff[r] : -1;
-      if (off >= 0) {
-        uk = *reinterpret_cast<const uint4*>(k + off + cv * VEC);
-        uv = *reinterpret_cast<const uint4*>(v + off + cv * VEC);
+  __device__ void load_kv(const KT* k, const KT* v, int n) {
+    if constexpr (kQuant) {
+      load_codes(k, v, n);
+    } else {
+      for (int idx = threadIdx.x; idx < kBK * PER_ROW; idx += kThreads) {
+        const int r = idx / PER_ROW, cv = idx % PER_ROW;
+        uint4 uk = make_uint4(0u, 0u, 0u, 0u), uv = uk;
+        const long long off = r < n ? soff[r] : -1;
+        if (off >= 0) {
+          uk = *reinterpret_cast<const uint4*>(k + off + cv * VEC);
+          uv = *reinterpret_cast<const uint4*>(v + off + cv * VEC);
+        }
+        store_vec(sk + r * LD + cv * VEC, uk);
+        store_vec(sv + r * LD + cv * VEC, uv);
       }
-      store_vec(sk + r * LD + cv * VEC, uk);
-      store_vec(sv + r * LD + cv * VEC, uv);
+    }
+  }
+
+  // Quantized load_kv: 16 codes per 16-byte load, dequantized against the
+  // row's staged scales (sks/svs) into T.
+  __device__ void load_codes(const KT* k, const KT* v, int n) {
+    constexpr int CPR = D / 16;  // 16-byte code loads per row
+    for (int idx = threadIdx.x; idx < kBK * CPR; idx += kThreads) {
+      const int r = idx / CPR, cv = idx % CPR;
+      T* dk = sk + r * LD + cv * 16;
+      T* dv = sv + r * LD + cv * 16;
+      const long long off = r < n ? soff[r] : -1;
+      if (off < 0) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) dk[i] = dv[i] = from_f<T>(0.f);
+        continue;
+      }
+      const uint4 uk = *reinterpret_cast<const uint4*>(k + off + cv * 16);
+      const uint4 uv = *reinterpret_cast<const uint4*>(v + off + cv * 16);
+      const unsigned int wk[4] = {uk.x, uk.y, uk.z, uk.w};
+      const unsigned int wv[4] = {uv.x, uv.y, uv.z, uv.w};
+      const float ks = sks[r], vs = svs[r];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        dk[i] = from_f<T>(code_to_f<KT>(wk[i / 4] >> (8 * (i % 4))) * ks);
+        dv[i] = from_f<T>(code_to_f<KT>(wv[i / 4] >> (8 * (i % 4))) * vs);
+      }
     }
   }
 
@@ -246,32 +310,49 @@ struct Tile {
 // Key columns of one (row, KV head) of the pooled paged arena, for the
 // decode and chunked-prefill kernels. kv_positions is per LOGICAL column
 // [B, T*BS]; column c lives in arena block tbl[c / BS] at slot c % BS, and
-// table entry 0 (the shared trash block) is dead.
+// table entry 0 (the shared trash block) is dead. A quantized arena's
+// column also has the scales of its (block, KV head).
 struct PagedCols {
   const int* tbl;       // this row's block table [T]
   const int* kvpos;     // this row's kv_positions [T * BS]
   int block_size;
   long long kv_stride;  // Nkv * D (one arena slot)
   long long head_off;   // kh * D
+  const float* k_scale; // [NB, Nkv] (null for an unquantized arena)
+  const float* v_scale;
+  int num_kv, kh;
   __device__ int pos(int c) const { return kvpos[c]; }
   __device__ long long offset(int c) const {
     const int blk = tbl[c / block_size];
     if (blk == 0) return -1;
     return (static_cast<long long>(blk) * block_size + c % block_size) * kv_stride + head_off;
   }
+  __device__ void scales(int c, float& ks, float& vs) const {
+    const int blk = tbl[c / block_size];
+    const long long i = static_cast<long long>(blk) * num_kv + kh;
+    ks = blk == 0 ? 0.f : k_scale[i];
+    vs = blk == 0 ? 0.f : v_scale[i];
+  }
 };
 
 // Stream ncols logical key columns through the tile. Cols supplies, per
-// column c, its key position (pos) and the element offset of its K/V row
-// in the source arrays (offset; -1 = dead, loaded as zeros).
-template <typename T, int D, int RI, typename Cols>
-__device__ void attend(Tile<T, D, RI>& t, const T* k, const T* v, int ncols, const Cols& cols,
-                       float scale, int r0, int GS) {
+// column c, its key position (pos), the element offset of its K/V row in
+// the source arrays (offset; -1 = dead, loaded as zeros) and, for 1-byte
+// codes, its K and V scales (scales).
+template <typename T, int D, int RI, typename KT, typename Cols>
+__device__ void attend(Tile<T, D, RI, KT>& t, const KT* k, const KT* v, int ncols,
+                       const Cols& cols, float scale, int r0, int GS) {
   for (int c0 = 0; c0 < ncols; c0 += kBK) {
     const int n = min(kBK, ncols - c0);
     for (int r = threadIdx.x; r < kBK; r += kThreads) {
       t.skpos[r] = r < n ? cols.pos(c0 + r) : 0;
       t.soff[r] = r < n ? cols.offset(c0 + r) : -1;
+      if constexpr (Tile<T, D, RI, KT>::kQuant) {
+        float ks = 0.f, vs = 0.f;
+        if (r < n) cols.scales(c0 + r, ks, vs);
+        t.sks[r] = ks;
+        t.svs[r] = vs;
+      }
     }
     __syncthreads();
     // Skip rule: no key of the tile is visible to any row, and every real
@@ -284,7 +365,7 @@ __device__ void attend(Tile<T, D, RI>& t, const T* k, const T* v, int ncols, con
       seeded = seeded && (r0 + row >= GS || t.m[i] > kNegInf);
       const int qp = t.sqpos[row];
 #pragma unroll
-      for (int jj = 0; jj < Tile<T, D, RI>::CJ; ++jj) {
+      for (int jj = 0; jj < Tile<T, D, RI, KT>::CJ; ++jj) {
         const int c = t.tx + kTX * jj;
         visible = visible || (c < n && t.skpos[c] <= qp);
       }
@@ -330,7 +411,17 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... a
     return attn::kBadArgs;                                                                   \
   } while (0)
 
+// The paged kernels' KV storage: 0 = the query dtype T, 1 = int8 codes,
+// 2 = fp8-e4m3 codes (each with per-(block, KV head) f32 scales).
+#define KV_DISPATCH(RUN, T, D, RI, kv, ...)                                                   \
+  do {                                                                                       \
+    if ((kv) == 0) return RUN<T, D, RI, T>(__VA_ARGS__);                                     \
+    if ((kv) == 1) return RUN<T, D, RI, int8_t>(__VA_ARGS__);                                \
+    if ((kv) == 2) return RUN<T, D, RI, __nv_fp8_e4m3>(__VA_ARGS__);                         \
+    return attn::kBadArgs;                                                                   \
+  } while (0)
+
 extern "C" const char* attn_error_string(int code) {
-  if (code == attn::kBadArgs) return "unsupported dtype or head_dim";
+  if (code == attn::kBadArgs) return "unsupported dtype, KV storage or head_dim";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -61,3 +61,10 @@ def block_pool_shape(cfg: ModelConfig, num_blocks: int, block_size: int) -> tupl
     if block_size < 1 or (block_size & (block_size - 1)):
         raise ValueError(f"block_size must be a power of two, got {block_size}")
     return (cfg.num_hidden_layers, num_blocks, block_size, cfg.num_key_value_heads, cfg.head_dim_)
+
+
+def block_scale_shape(cfg: ModelConfig, num_blocks: int) -> tuple:
+    """Shape of a quantized arena's per-(block, KV head) f32 scale pool,
+    ``[L, num_blocks, Nkv]`` (the JAX state's ``k_scale``/``v_scale`` on
+    one stage, ``parallel/serve.py:305-309``)."""
+    return (cfg.num_hidden_layers, num_blocks, cfg.num_key_value_heads)

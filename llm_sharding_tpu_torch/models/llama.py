@@ -190,19 +190,27 @@ def paged_decoder_layer(
     kv_positions: torch.Tensor,  # [B, T * BS] int32, this step's already recorded
     prefill: bool = False,  # chunk-shaped queries: the chunked-prefill kernel
     nlive: Optional[torch.Tensor] = None,  # [B] prefill traffic clamp
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arena, in place
+    v_scale: Optional[torch.Tensor] = None,
+    backend: str = "auto",  # ops/paged_attention.BACKENDS
 ) -> torch.Tensor:
     """Layer over the pooled arena (``llama.py:208-293``): the step's fresh
-    KV lands by a block-indexed scatter, then attention streams exactly the
-    blocks the table names. Write-then-attend, so causality within a chunk
-    falls out of the position mask."""
+    KV lands by a block-indexed scatter (quantized at insert against the
+    running block scales when the arena holds codes), then attention
+    streams exactly the blocks the table names. Write-then-attend, so
+    causality within a chunk falls out of the position mask."""
+    qkw = dict(k_scale=k_scale, v_scale=v_scale)
 
     def attn_fn(q, k, v):
-        write_block_kv(k_arena, v_arena, block_table, cols, k, v)
+        write_block_kv(k_arena, v_arena, block_table, cols, k, v, **qkw)
         if prefill:
             return paged_prefill(
-                q, k_arena, v_arena, block_table, positions, kv_positions, nlive=nlive
+                q, k_arena, v_arena, block_table, positions, kv_positions, nlive=nlive,
+                backend=backend, **qkw,
             )
-        return paged_attention(q, k_arena, v_arena, block_table, positions, kv_positions)
+        return paged_attention(
+            q, k_arena, v_arena, block_table, positions, kv_positions, backend=backend, **qkw
+        )
 
     return attn_mlp_block(cfg, p, h, cos, sin, attn_fn)
 
@@ -234,15 +242,21 @@ def forward_layers_paged(
     positions: torch.Tensor,  # [B, S]
     prefill: bool = False,
     nlive: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [L, NB, Nkv] f32, quantized arena
+    v_scale: Optional[torch.Tensor] = None,
+    backend: str = "auto",
 ) -> torch.Tensor:
     """Paged counterpart of ``forward_layers`` for the serve path: each
-    layer scatters into and attends from its arena slice (in place); key
-    position bookkeeping stays with the caller."""
+    layer scatters into and attends from its arena slice (and its scale
+    slice, for a quantized arena), in place; key position bookkeeping
+    stays with the caller."""
     cos, sin = rope_cos_sin(positions, cfg)
     for i, p in enumerate(layers):
         h = paged_decoder_layer(
             cfg, p, h, k_arena[i], v_arena[i], block_table, cols, cos, sin, positions,
             kv_positions, prefill, nlive,
+            None if k_scale is None else k_scale[i], None if v_scale is None else v_scale[i],
+            backend,
         )
     return h
 

@@ -10,12 +10,15 @@ and flags: the first use after a source change rebuilds, later uses load.
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent part is all they touch.
 
-Each ``CudaKernel`` keeps a plain integer ``launches`` that its wrapper's
-launch path adds one to, and nothing else does.
+Each ``CudaKernel`` keeps a ``launches`` counter per KV mode (``""`` for
+an arena in the query dtype, ``"int8"``, ``"fp8"``) that its wrapper's
+launch path adds one to, and nothing else does; ``launch_counts`` names a
+quantized mode ``"paged_attention[int8]"`` once it has launched.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -36,6 +39,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# 1-byte KV storage of the paged kernels: (kernel code, launch-count mode);
+# an arena in the query dtype is (0, "")
+KV_STORAGE = {torch.int8: (1, "int8"), torch.float8_e4m3fn: (2, "fp8")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,7 +63,7 @@ class CudaKernel:
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
+        self.launches = collections.Counter()
         self.build_log = ""
         self._fn = None
         self._lib = None
@@ -85,14 +91,14 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, mode: str = "") -> None:
         """Call the C entry point on the current stream's work; raise if the
         launch was refused or an earlier asynchronous fault surfaced."""
         rc = self._load()(*args)
         if rc != 0:
             msg = self._lib.attn_error_string(rc).decode()
             raise RuntimeError(f"{self.name} kernel launch failed ({rc}): {msg}")
-        self.launches += 1
+        self.launches[mode] += 1
 
 
 FLASH = CudaKernel(
@@ -101,11 +107,11 @@ FLASH = CudaKernel(
 )
 PAGED_DECODE = CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
 )
 PAGED_PREFILL = CudaKernel(
     "paged_prefill", "paged_prefill.cu", "paged_prefill_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
 )
 KERNELS = (FLASH, PAGED_DECODE, PAGED_PREFILL)
 
@@ -144,11 +150,22 @@ def build_all(kernels=KERNELS) -> float:
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches.clear()
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    """``{kernel name: launches with an arena in the query dtype}``, plus
+    ``"name[mode]"`` for each quantized mode that has launched."""
+    out = {k.name: k.launches[""] for k in KERNELS}
+    for k in KERNELS:
+        out.update({f"{k.name}[{m}]": n for m, n in k.launches.items() if m})
+    return out
+
+
+def kv_storage(arena: torch.Tensor) -> tuple[int, str]:
+    """The paged kernels' KV storage code of an arena and its launch-count
+    mode: ``(0, "")``, ``(1, "int8")`` or ``(2, "fp8")``."""
+    return KV_STORAGE.get(arena.dtype, (0, ""))
 
 
 def current_stream_handle(device: torch.device) -> int:
@@ -157,11 +174,11 @@ def current_stream_handle(device: torch.device) -> int:
 
 def check_operand(
     name: str, t: torch.Tensor, device: torch.device,
-    dtype: Optional[torch.dtype] = None, shape: Optional[tuple] = None,
+    dtype: Optional[torch.dtype] = None, shape: Optional[tuple] = None, align: int = 16,
 ) -> None:
     """Raise on what the kernels do not take: another device, dtype, shape,
-    a non-contiguous layout or a base address that is not 16-byte aligned
-    (the kernels read K/V/Q rows with 16-byte loads)."""
+    a non-contiguous layout or a base address that is not ``align``-byte
+    aligned (the kernels read K/V/Q rows with 16-byte loads)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if dtype is not None and t.dtype != dtype:
@@ -170,8 +187,8 @@ def check_operand(
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def int32_operand(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
@@ -183,8 +200,13 @@ def int32_operand(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Ten
     return t
 
 
-def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Shared q/k/v checks; returns the kernel dtype code."""
+def check_attention_inputs(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None,
+) -> int:
+    """Shared q/k/v checks; returns the kernel dtype code. K/V are in the
+    query dtype, or (paged kernels) 1-byte int8/fp8 codes that come with
+    contiguous f32 scales ``[NB, Nkv]``, and scales come with nothing else."""
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"attention kernels take float32 or bfloat16, got {q.dtype}")
     D = q.shape[-1]
@@ -192,9 +214,19 @@ def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
         raise ValueError(f"attention kernels take head_dim 64 or 128, got {D}")
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"{q.shape[2]} query heads not a multiple of {k.shape[2]} KV heads")
+    quantized = k.dtype in KV_STORAGE
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError(
+            f"a {k.dtype} arena needs k_scale and v_scale exactly when it holds 1-byte "
+            f"int8/fp8 codes (got k_scale={'set' if k_scale is not None else None}, "
+            f"v_scale={'set' if v_scale is not None else None})"
+        )
     check_operand("q", q, q.device)
-    check_operand("k", k, q.device, q.dtype)
-    check_operand("v", v, q.device, q.dtype, tuple(k.shape))
+    check_operand("k", k, q.device, k.dtype if quantized else q.dtype)
+    check_operand("v", v, q.device, k.dtype, tuple(k.shape))
+    if quantized:
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_operand(name, s, q.device, torch.float32, (k.shape[0], k.shape[2]), align=4)
     if k.shape[-1] != D:
         raise ValueError(f"k head_dim {k.shape[-1]} != q head_dim {D}")
     return DTYPE_CODES[q.dtype]

@@ -1,24 +1,33 @@
 """Attention over the pooled paged KV arena: the decode kernel (kernel 1)
-and the chunked-prefill kernel (kernel 2), unquantized mode.
+and the chunked-prefill kernel (kernel 2), unquantized and quantized.
 
 Counterpart of ``llm_sharding_tpu/ops/paged_attention.py``:
 
-- ``gather_block_kv`` (``:133``) and ``write_block_kv`` (``:172``, the
-  unquantized branch with entry-granular ``valid``);
-- ``paged_attention_xla`` (``:264``), the plain version of both kernels:
-  gather each row's logical window, then ``cached_attention``;
+- ``gather_block_kv`` (``:133``) and ``write_block_kv`` (``:172``, both
+  branches, with entry-granular ``valid``);
+- ``paged_attention_xla`` (``:264``), the plain version of both kernels
+  in both modes: gather (dequantizing a quantized arena into the query
+  dtype), then ``cached_attention``;
 - ``paged_attention`` → ``csrc/paged_attention.cu``, the port of
   ``paged_attention_tpu`` (``:484``, body ``_paged_kernel`` at ``:404``);
 - ``paged_prefill`` → ``csrc/paged_prefill.cu``, the port of
   ``paged_prefill_tpu`` (``:689``, body ``_paged_prefill_kernel`` at
   ``:619``).
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. The arena is ``[NB, BS, Nkv, D]``, the block table ``[B, T]``
-(entry 0 is the reserved trash block, which reads as zeros everywhere),
-and ``kv_positions`` is per LOGICAL column ``[B, T * BS]``: column ``c``
-of row ``b`` lives in arena block ``table[b, c // BS]`` at slot
-``c % BS``.
+The arena is ``[NB, BS, Nkv, D]``, the block table ``[B, T]`` (entry 0
+is the reserved trash block, which reads as zeros everywhere), and
+``kv_positions`` is per LOGICAL column ``[B, T * BS]``: column ``c`` of
+row ``b`` lives in arena block ``table[b, c // BS]`` at slot ``c % BS``.
+A quantized arena holds int8 or fp8-e4m3 codes with per-(block, KV head)
+f32 scales ``k_scale``/``v_scale`` ``[NB, Nkv]``; every reader
+dequantizes into the query dtype before the score dot. 1-byte arenas are
+indexed through ``uint8`` views (some CUDA indexing ops lack fp8).
+
+``backend`` picks the path (the port's counterpart of the JAX package's
+``BACKENDS``, ``:80``, without the env override): ``"auto"`` launches
+the kernel on a CUDA tensor and runs the plain version on a CPU tensor;
+``"kernel"`` on a CPU tensor raises; ``"plain"`` is the plain version
+anywhere, and on the card only ever an explicit caller choice.
 
 Rows with no visible key are garbage on every path and are discarded by
 the callers. They can differ between paths in one way: the prefill
@@ -34,24 +43,74 @@ import torch
 
 from . import kernels
 from .attention import cached_attention
+from .quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize
+
+BACKENDS = ("auto", "kernel", "plain")
+
+
+def _bytes(arena: torch.Tensor) -> torch.Tensor:
+    """A view the indexing ops take for every arena dtype."""
+    return arena.view(torch.uint8) if is_kv_quantized(arena.dtype) else arena
+
+
+def _take(arena: torch.Tensor, idx) -> torch.Tensor:
+    """``arena[idx]`` as a copy in the arena's dtype."""
+    return _bytes(arena)[idx].view(arena.dtype)
 
 
 def gather_block_kv(
     k_arena: torch.Tensor,  # [NB, BS, Nkv, D]
     v_arena: torch.Tensor,
     block_table: torch.Tensor,  # [B, T]
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arenas only
+    v_scale: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,  # dequant target; default the scale dtype
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each row's logical window ``[B, T * BS, Nkv, D]``; trash-mapped
-    entries (block 0) gather as zeros, selected rather than multiplied
-    (the trash block may hold Inf/NaN garbage)."""
+    entries (block 0) gather as zeros, selected after the dequant rather
+    than multiplied (the trash block may hold Inf/NaN garbage, and its
+    scale may be Inf)."""
     B, T = block_table.shape
     BS = k_arena.shape[1]
     idx = block_table.long()
+    k, v = _take(k_arena, idx), _take(v_arena, idx)
+    if k_scale is not None:
+        dt = out_dtype or k_scale.dtype
+        k = kv_dequantize(k, k_scale[idx][:, :, None, :, None], dt)
+        v = kv_dequantize(v, v_scale[idx][:, :, None, :, None], dt)
     live = (block_table != 0)[:, :, None, None, None]
-    zero = torch.zeros((), dtype=k_arena.dtype, device=k_arena.device)
-    k = torch.where(live, k_arena[idx], zero)
-    v = torch.where(live, v_arena[idx], zero)
+    k = torch.where(live, k, torch.zeros((), dtype=k.dtype, device=k.device))
+    v = torch.where(live, v, torch.zeros((), dtype=v.dtype, device=v.device))
     return k.reshape(B, T * BS, *k.shape[3:]), v.reshape(B, T * BS, *v.shape[3:])
+
+
+def _write_quantized(arena, scale, blk, slot, touched, new, keep):
+    """The quantized branch of ``write_block_kv`` for one of K/V, in place.
+    Reads every ``touched`` block before writing any and requantizes each
+    once."""
+    qmax = kv_qmax(arena.dtype)
+    Nkv = new.shape[2]
+    # candidate scale of each fresh entry; gated entries must not grow it
+    cand = new.float().abs().amax(dim=-1) / qmax  # [B, S, Nkv]
+    if keep is not None:
+        cand = torch.where(keep[..., None], cand, torch.zeros((), device=cand.device))
+    flat = blk.reshape(-1)
+    s_old = scale[touched]  # [U, Nkv] pre-update scales
+    old = _take(arena, touched)  # [U, BS, Nkv, D] codes
+    scale.scatter_reduce_(
+        0, flat[:, None].expand(-1, Nkv), cand.reshape(-1, Nkv), "amax", include_self=True
+    )
+    s_fin = scale[touched]
+    # requantize the touched blocks to their final scales (round(q * 1.0)
+    # where a scale did not grow), then land the fresh entries
+    old_f = kv_dequantize(old, s_old[:, None, :, None], torch.float32)
+    req = kv_quantize(old_f, s_fin[:, None, :, None], arena.dtype)
+    codes = _bytes(arena)
+    codes[touched] = req.view(torch.uint8)
+    qn = kv_quantize(new, scale[blk][..., None], arena.dtype)
+    if keep is not None:
+        blk, slot, qn = blk[keep], slot[keep], qn[keep]
+    codes[blk, slot] = qn.view(torch.uint8)
 
 
 def write_block_kv(
@@ -62,23 +121,43 @@ def write_block_kv(
     k_new: torch.Tensor,  # [B, S, Nkv, D]
     v_new: torch.Tensor,
     valid: Optional[torch.Tensor] = None,  # [B, S] bool; False keeps old contents
-) -> tuple[torch.Tensor, torch.Tensor]:
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arenas only,
+    v_scale: Optional[torch.Tensor] = None,  # updated IN PLACE
+):
     """Scatter a step's fresh KV entries into their owning arena blocks.
 
     Unlike the JAX version, which returns new arrays, this writes the
-    arenas IN PLACE (an arena is gigabytes; a functional copy per layer per
-    step would double it) and returns them. Trash-mapped columns land in
-    the shared trash block, which nobody reads; collisions there resolve
-    in any order."""
+    arenas (and scales) IN PLACE (an arena is gigabytes; a functional copy
+    per layer per step would double it) and returns them: ``(k, v)``, or
+    ``(k, v, k_scale, v_scale)`` for a quantized arena. Trash-mapped
+    columns land in the shared trash block, which nobody reads; collisions
+    there resolve in any order.
+
+    A quantized arena quantizes at insert against a running per-block,
+    per-head absmax: each entry's candidate scale is ``max|x| / qmax``,
+    scales grow order-free (``amax``), every touched block's codes are
+    requantized from its old scale to its final one, then the entries
+    land quantized. The bytes equal the JAX function's."""
     BS = k_arena.shape[1]
     W = block_table.shape[1] * BS
     cols = cols.long().clamp(0, W - 1)
     blk = torch.gather(block_table.long(), 1, cols // BS)
     slot = cols % BS
-    kn = k_new.to(k_arena.dtype)
-    vn = v_new.to(v_arena.dtype)
+    keep = None
     if valid is not None:
         keep = torch.as_tensor(valid, device=cols.device).expand(cols.shape)
+    if k_scale is not None:
+        # the distinct blocks the entries touch: a one-entry-per-row decode
+        # step's are distinct already (trash aside, whose identical
+        # rewrites are harmless); a chunk of 256 entries hits ~4 blocks 64
+        # times each
+        touched = blk.reshape(-1) if blk.shape[1] == 1 else torch.unique(blk)
+        _write_quantized(k_arena, k_scale, blk, slot, touched, k_new, keep)
+        _write_quantized(v_arena, v_scale, blk, slot, touched, v_new, keep)
+        return k_arena, v_arena, k_scale, v_scale
+    kn = k_new.to(k_arena.dtype)
+    vn = v_new.to(v_arena.dtype)
+    if keep is not None:
         blk, slot, kn, vn = blk[keep], slot[keep], kn[keep], vn[keep]
     k_arena[blk, slot] = kn
     v_arena[blk, slot] = vn
@@ -93,14 +172,31 @@ def paged_attention_xla(
     q_positions: torch.Tensor,  # [B, S]
     kv_positions: torch.Tensor,  # [B, T * BS]
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv], quantized arenas only
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The plain version of both paged kernels: gather, then the
+    """The plain version of both paged kernels: gather (a quantized arena
+    dequantizes into the query dtype, the kernels' target too), then the
     position-masked ``cached_attention``."""
-    k, v = gather_block_kv(k_arena, v_arena, block_table)
+    k, v = gather_block_kv(k_arena, v_arena, block_table, k_scale, v_scale, out_dtype=q.dtype)
     return cached_attention(q, k, v, q_positions, kv_positions, scale)
 
 
-def _check_paged(q, k_arena, v_arena, block_table, q_positions, kv_positions):
+def _use_kernel(name: str, q: torch.Tensor, backend: str) -> bool:
+    if backend not in BACKENDS:
+        raise ValueError(f"{name} backend {backend!r}: expected one of {BACKENDS}")
+    if backend == "plain":
+        return False
+    if q.device.type == "cpu":
+        if backend == "kernel":
+            raise ValueError(f"{name}: backend='kernel' needs CUDA tensors, got cpu")
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    return True
+
+
+def _check_paged(q, k_arena, v_arena, block_table, q_positions, kv_positions, k_scale, v_scale):
     B, S = q.shape[:2]
     T = block_table.shape[1]
     BS = k_arena.shape[1]
@@ -108,11 +204,17 @@ def _check_paged(q, k_arena, v_arena, block_table, q_positions, kv_positions):
         raise ValueError(
             f"kv_positions must be [B, T*BS]={(B, T * BS)}, got {tuple(kv_positions.shape)}"
         )
-    code = kernels.check_attention_inputs(q, k_arena, v_arena)
+    code = kernels.check_attention_inputs(q, k_arena, v_arena, k_scale, v_scale)
     tbl = kernels.int32_operand("block_table", block_table, (B, T), q.device)
     qpos = kernels.int32_operand("q_positions", q_positions, (B, S), q.device)
     kvpos = kernels.int32_operand("kv_positions", kv_positions, (B, T * BS), q.device)
     return code, tbl, qpos, kvpos
+
+
+def _scale_ptrs(k_scale, v_scale) -> tuple[int, int]:
+    if k_scale is None:
+        return 0, 0
+    return k_scale.data_ptr(), v_scale.data_ptr()
 
 
 def paged_attention(
@@ -123,28 +225,31 @@ def paged_attention(
     q_positions: torch.Tensor,  # [B, S] int32
     kv_positions: torch.Tensor,  # [B, T * BS] int32
     scale: Optional[float] = None,
+    *,
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arenas only
+    v_scale: Optional[torch.Tensor] = None,
+    backend: str = "auto",
 ) -> torch.Tensor:
     """Decode attention of each row over exactly the blocks its table
-    names (kernel 1 on CUDA, ``paged_attention_xla`` on the CPU)."""
-    if q.device.type == "cpu":
+    names (kernel 1, or ``paged_attention_xla``; see ``backend``)."""
+    if not _use_kernel("paged_attention", q, backend):
         return paged_attention_xla(
-            q, k_arena, v_arena, block_table, q_positions, kv_positions, scale
+            q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale, v_scale
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
     B, S, Nh, D = q.shape
     BS, Nkv = k_arena.shape[1], k_arena.shape[2]
     T = block_table.shape[1]
     if scale is None:
         scale = D ** -0.5
     code, tbl, qpos, kvpos = _check_paged(
-        q, k_arena, v_arena, block_table, q_positions, kv_positions
+        q, k_arena, v_arena, block_table, q_positions, kv_positions, k_scale, v_scale
     )
+    kv, mode = kernels.kv_storage(k_arena)
     out = torch.empty_like(q)
     kernels.PAGED_DECODE.launch(
-        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), tbl.data_ptr(),
-        qpos.data_ptr(), kvpos.data_ptr(), out.data_ptr(), B, S, Nh, Nkv, D, BS, T,
-        float(scale), code, kernels.current_stream_handle(q.device),
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),
+        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), out.data_ptr(), B, S, Nh, Nkv, D,
+        BS, T, float(scale), code, kv, kernels.current_stream_handle(q.device), mode=mode,
     )
     return out
 
@@ -158,31 +263,35 @@ def paged_prefill(
     kv_positions: torch.Tensor,  # [B, T * BS] int32
     scale: Optional[float] = None,
     nlive: Optional[torch.Tensor] = None,  # [B] blocks covering the written frontier
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    backend: str = "auto",
 ) -> torch.Tensor:
-    """Chunked-prefill attention over the arena (kernel 2 on CUDA,
-    ``paged_attention_xla`` on the CPU, which reads the whole window: the
-    ``nlive`` clamp only bounds the kernel's KV traffic)."""
-    if q.device.type == "cpu":
+    """Chunked-prefill attention over the arena (kernel 2, or
+    ``paged_attention_xla``, which reads the whole window: the ``nlive``
+    clamp only bounds the kernel's KV traffic)."""
+    if not _use_kernel("paged_prefill", q, backend):
         return paged_attention_xla(
-            q, k_arena, v_arena, block_table, q_positions, kv_positions, scale
+            q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale, v_scale
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_prefill runs on cpu or cuda, not {q.device}")
     B, S, Nh, D = q.shape
     BS, Nkv = k_arena.shape[1], k_arena.shape[2]
     T = block_table.shape[1]
     if scale is None:
         scale = D ** -0.5
     code, tbl, qpos, kvpos = _check_paged(
-        q, k_arena, v_arena, block_table, q_positions, kv_positions
+        q, k_arena, v_arena, block_table, q_positions, kv_positions, k_scale, v_scale
     )
     if nlive is None:
         nlive = torch.full((B,), T, dtype=torch.int32, device=q.device)
     nl = kernels.int32_operand("nlive", nlive.clamp(0, T).to(torch.int32), (B,), q.device)
+    kv, mode = kernels.kv_storage(k_arena)
     out = torch.empty_like(q)
     kernels.PAGED_PREFILL.launch(
-        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), tbl.data_ptr(),
-        qpos.data_ptr(), kvpos.data_ptr(), nl.data_ptr(), out.data_ptr(), B, S, Nh, Nkv,
-        D, BS, T, float(scale), code, kernels.current_stream_handle(q.device),
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),
+        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl.data_ptr(), out.data_ptr(), B, S,
+        Nh, Nkv, D, BS, T, float(scale), code, kv, kernels.current_stream_handle(q.device),
+        mode=mode,
     )
     return out

@@ -14,19 +14,29 @@ The arena and the per-column key positions live on the device; the small
 per-row bookkeeping (positions, write offsets, lengths, budgets, the token
 buffer) lives on the host, because the host reads every committed token
 anyway to stream it.
+
+A quantized arena (``kv_dtype`` int8 / fp8) holds 1-byte codes with
+per-(block, KV head) f32 scales, as in the JAX state. The dense prefill of
+a one-shot admission still runs in the engine's dtype; its window is
+quantized as it is scattered (``scatter_pages_q``). A chunked admission
+resets its rows' block scales on the first chunk, and every later write
+(chunks, decode) quantizes against the running block absmax
+(``ops/paged_attention.write_block_kv``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..models import llama
-from ..models.cache import POS_SENTINEL, block_pool_shape, init_cache
+from ..models.cache import POS_SENTINEL, block_pool_shape, block_scale_shape, init_cache
 from ..models.config import ModelConfig
 from ..ops.paged_attention import write_block_kv
+from ..ops.quant import is_kv_quantized, kv_qmax, kv_quantize, kv_storage_dtype
 from ..ops.sampling import sample
 
 
@@ -36,6 +46,9 @@ class ServeState:
 
     k: torch.Tensor  # [L, NB, BS, Nkv, D] pooled arena; block 0 = trash
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor]  # [L, NB, Nkv] f32 of an int8/fp8 arena, else None
+    v_scale: Optional[torch.Tensor]
+    cache_dtype: torch.dtype  # the engine's dtype: dense prefill cache, attention queries
     kpos: torch.Tensor  # [M, W] int32 key position per LOGICAL column
     block_tables: torch.Tensor  # [M, T] int32 (the server owns the host mirror)
     pos_slots: np.ndarray  # [M] position of each row's next input token
@@ -64,15 +77,34 @@ def make_state(
     kv_block_size: int,
     dtype: torch.dtype,
     device: torch.device,
+    kv_dtype: str = "bf16",
 ) -> ServeState:
     """Empty state: every row free (done), every table entry trash. Each
-    row's logical window is ``W = ceil(capacity / BS) * BS`` columns."""
+    row's logical window is ``W = ceil(capacity / BS) * BS`` columns.
+    ``kv_dtype`` "int8"/"fp8" allocates 1-byte arenas and zero scales;
+    "bf16" stores in ``dtype``, the engine's own."""
     T = -(-capacity // kv_block_size)
     W = T * kv_block_size
     shape = block_pool_shape(cfg, kv_blocks, kv_block_size)
+    store = kv_storage_dtype(kv_dtype, dtype)
+    quantized = is_kv_quantized(store)
+
+    def arena():
+        if quantized:  # zero bytes, viewed: fills of fp8 tensors are not everywhere
+            return torch.zeros(shape, dtype=torch.uint8, device=device).view(store)
+        return torch.zeros(shape, dtype=store, device=device)
+
+    def scales():
+        if not quantized:
+            return None
+        return torch.zeros(block_scale_shape(cfg, kv_blocks), dtype=torch.float32, device=device)
+
     return ServeState(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=arena(),
+        v=arena(),
+        k_scale=scales(),
+        v_scale=scales(),
+        cache_dtype=dtype,
         kpos=torch.full((rows, W), POS_SENTINEL, dtype=torch.int32, device=device),
         block_tables=torch.zeros((rows, T), dtype=torch.int32, device=device),
         pos_slots=np.zeros(rows, np.int64),
@@ -122,6 +154,31 @@ def _stop_mask(cfg: ModelConfig, toks: np.ndarray) -> np.ndarray:
     return np.isin(toks, cfg.eos_token_ids)
 
 
+def scatter_pages_q(
+    arena: torch.Tensor,  # [NB, BS, Nkv, D] 1-byte codes, written in place
+    scale: torch.Tensor,  # [NB, Nkv] f32, written in place
+    block_table: torch.Tensor,  # [n, T] the rows' tables
+    window: torch.Tensor,  # [n, Sp, Nkv, D] the rows' fresh KV in columns [0, Sp)
+) -> None:
+    """Quantizing scatter of one layer of a one-shot admission
+    (``_scatter_pages_q``, ``serve.py:194-212``): each row's WHOLE logical
+    window, ``window`` followed by zeros, lands through its table as codes,
+    and every mapped block's scale is RESET to its new content's absmax /
+    qmax. Not the running max: a recycled block would keep its previous
+    occupant's larger scale and store coarser codes. The trash entries of
+    a table receive garbage, as in the JAX program."""
+    n, T = block_table.shape
+    BS, Nkv, D = arena.shape[1:]
+    full = torch.zeros((n, T * BS, Nkv, D), dtype=window.dtype, device=window.device)
+    full[:, : window.shape[1]] = window
+    vals = full.reshape(n, T, BS, Nkv, D)
+    sc = vals.float().abs().amax(dim=(2, 4)) / kv_qmax(arena.dtype)  # [n, T, Nkv]
+    codes = kv_quantize(vals, sc[:, :, None, :, None], arena.dtype)
+    idx = block_table.long()
+    arena.view(torch.uint8)[idx] = codes.view(torch.uint8)
+    scale[idx] = sc
+
+
 def serve_admit(
     cfg: ModelConfig,
     params: dict,
@@ -146,7 +203,7 @@ def serve_admit(
     idx = np.arange(Sp)[None, :]
     positions = np.where(idx < prompt_len[:, None], idx, POS_SENTINEL).astype(np.int32)
     pos_t = torch.from_numpy(positions).to(dev)
-    cache = init_cache(cfg, n, Sp, dtype=state.k.dtype, device=dev)
+    cache = init_cache(cfg, n, Sp, dtype=state.cache_dtype, device=dev)
     h = llama.embed(cfg, params, torch.from_numpy(prompts).to(dev))
     h, cache = llama.forward_layers(cfg, params["layers"], h, cache, pos_t)
     last = torch.from_numpy(prompt_len - 1).to(dev)
@@ -158,7 +215,13 @@ def serve_admit(
     tbl = state.block_tables[rows_t]
     cols = torch.arange(Sp, device=dev).expand(n, Sp)
     for layer in range(cache.num_layers):
-        write_block_kv(state.k[layer], state.v[layer], tbl, cols, cache.k[layer], cache.v[layer])
+        if state.k_scale is None:
+            write_block_kv(
+                state.k[layer], state.v[layer], tbl, cols, cache.k[layer], cache.v[layer]
+            )
+            continue
+        scatter_pages_q(state.k[layer], state.k_scale[layer], tbl, cache.k[layer])
+        scatter_pages_q(state.v[layer], state.v_scale[layer], tbl, cache.v[layer])
     kpos = torch.full((n, state.kpos.shape[1]), POS_SENTINEL, dtype=torch.int32, device=dev)
     kpos[:, :Sp] = pos_t
     state.kpos[rows_t] = kpos
@@ -188,20 +251,27 @@ def serve_prefill_chunk(
     #   prompt and at its final token (that one enters via the first decode)
     chunk_off: int,  # column of the chunk's first token
     reset: bool,  # first chunk: forget the rows' previous occupants
+    backend: str = "auto",  # ops/paged_attention.BACKENDS
 ) -> None:
     """One bounded chunk of a chunked admission. The chunk's KV lands in the
     rows' blocks by a block-indexed scatter, then its queries attend every
     written block in place through the chunked-prefill kernel, each row
     bounded by its written frontier (``nlive``). The rows stay parked
-    (done) until ``serve_admit_finish``."""
+    (done) until ``serve_admit_finish``. On a quantized arena the first
+    chunk resets the scales of every block the rows' tables name
+    (``serve.py:974-989``), so a previous occupant's larger scale does not
+    coarsen this admission's codes."""
     dev = state.k.device
     n, Sc = tokens.shape
     BS = state.block_size
     rows_t = torch.as_tensor(rows, device=dev)
+    tbl = state.block_tables[rows_t]
     if reset:
         state.kpos[rows_t] = POS_SENTINEL
         state.out[rows] = 0
-    tbl = state.block_tables[rows_t]
+        if state.k_scale is not None:
+            state.k_scale[:, tbl.long()] = 0.0
+            state.v_scale[:, tbl.long()] = 0.0
     pos_t = torch.from_numpy(np.asarray(positions, np.int32)).to(dev)
     kv_pos = state.kpos[rows_t]
     kv_pos[:, chunk_off : chunk_off + Sc] = pos_t
@@ -210,7 +280,8 @@ def serve_prefill_chunk(
     h = llama.embed(cfg, params, torch.from_numpy(tokens).to(dev))
     llama.forward_layers_paged(
         cfg, params["layers"], h, state.k, state.v, tbl, cols, kv_pos, pos_t,
-        prefill=True, nlive=nlive,
+        prefill=True, nlive=nlive, k_scale=state.k_scale, v_scale=state.v_scale,
+        backend=backend,
     )
     state.kpos[rows_t] = kv_pos
     state.write_off[rows] = chunk_off + Sc
@@ -241,10 +312,13 @@ def serve_admit_finish(
         state.tok[r] = last_tok[i]
 
 
-def serve_step(cfg: ModelConfig, params: dict, state: ServeState, rows: list) -> np.ndarray:
+def serve_step(
+    cfg: ModelConfig, params: dict, state: ServeState, rows: list, backend: str = "auto"
+) -> np.ndarray:
     """One decode step for the live ``rows``: feed each row's next token,
-    write its KV at the row's write column, attend the row's blocks through
-    the paged decode kernel, commit the sampled token. Returns the tokens."""
+    write its KV at the row's write column (quantized against the running
+    block scale on an int8/fp8 arena), attend the row's blocks through the
+    paged decode kernel, commit the sampled token. Returns the tokens."""
     dev = state.k.device
     n = len(rows)
     rows_t = torch.as_tensor(rows, device=dev)
@@ -257,7 +331,7 @@ def serve_step(cfg: ModelConfig, params: dict, state: ServeState, rows: list) ->
     h = llama.embed(cfg, params, torch.from_numpy(state.tok[rows][:, None]).to(dev))
     h = llama.forward_layers_paged(
         cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
-        kv_pos, pos_t,
+        kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
     )
     logits = llama.final_logits(cfg, params, h)[:, 0]
     nxt = _sample_rows(state, rows, logits)

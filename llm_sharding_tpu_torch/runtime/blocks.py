@@ -51,6 +51,30 @@ class BlockAllocator:
         """Allocatable blocks (the trash block never counts)."""
         return self.num_blocks - 1
 
+    def bytes_per_block(
+        self, *, num_layers: int, num_kv_heads: int, head_dim: int, kv_dtype,
+    ) -> int:
+        """Device bytes one arena block costs across all layers
+        (``blocks.py:81-96``): K + V codes, ``2 * L * BS * Nkv * D *
+        itemsize``, plus for the 1-byte int8/fp8 dtypes the block's slice of
+        the f32 scale pools, ``2 * L * Nkv * 4``. At an equal byte budget,
+        ``budget // bytes_per_block`` is how many blocks each dtype admits.
+        ``kv_dtype`` is the arena's torch dtype."""
+        item = kv_dtype.itemsize
+        kv = 2 * num_layers * self.block_size * num_kv_heads * head_dim * item
+        scales = 2 * num_layers * num_kv_heads * 4 if item == 1 else 0
+        return kv + scales
+
+    def arena_bytes(
+        self, *, num_layers: int, num_kv_heads: int, head_dim: int, kv_dtype,
+    ) -> int:
+        """Device bytes of this pool's whole arena, the reserved trash block
+        included (``blocks.py:98-108``)."""
+        return self.num_blocks * self.bytes_per_block(
+            num_layers=num_layers, num_kv_heads=num_kv_heads, head_dim=head_dim,
+            kv_dtype=kv_dtype,
+        )
+
     @property
     def num_free(self) -> int:
         return len(self._free)

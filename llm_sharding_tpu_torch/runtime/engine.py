@@ -19,9 +19,10 @@ from .generate import GenerateResult, generate
 
 
 class Engine:
-    """A model's weights on one device. The KV cache takes the weights'
-    dtype: the attention kernels require the cache dtype to equal the
-    query's. A separate cache dtype comes with KV quantization."""
+    """A model's weights on one device. The compute KV cache takes the
+    weights' dtype (the attention kernels take queries and an unquantized
+    cache of one dtype); a server's paged arena may instead store int8 or
+    fp8 codes (``serve(kv_dtype=)``), dequantized inside the kernels."""
 
     def __init__(self, cfg, params: dict):
         self.cfg = cfg
@@ -50,10 +51,15 @@ class Engine:
         prefill_chunk: Optional[int] = None,
         kv_block_size: Optional[int] = None,
         kv_blocks: Optional[int] = None,
+        kv_dtype: str = "bf16",
+        paged_attn: str = "auto",
     ):
         """A paged continuous-batching server over ``batch_per_slot`` rows
         (``runtime/server.PipelineServer``). Paged KV is required here:
-        dense serving comes with a later slice."""
+        dense serving comes with a later slice. ``kv_dtype`` ("bf16" = the
+        engine's dtype, "int8", "fp8") is the arena's storage;
+        ``paged_attn`` ("auto", "kernel", "plain") the paged attention
+        path."""
         if kv_block_size is None and kv_blocks is None:
             raise NotPorted(
                 "dense serving (serve() without kv_block_size/kv_blocks) comes with "
@@ -70,4 +76,5 @@ class Engine:
         return PipelineServer(
             self, capacity=capacity, batch_per_slot=batch_per_slot,
             prefill_chunk=prefill_chunk, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+            kv_dtype=kv_dtype, paged_attn=paged_attn,
         )

@@ -16,8 +16,16 @@ into the row's blocks. A request that can never fit is refused at submit
 with ``NeverFits`` (``server.py:2971``). Blocks are released on finish and
 on cancel, the table remapped to trash first.
 
-Not in this slice: dense serving, the prefix cache, KV quantization,
-speculation, faults, deadlines, snapshots, metrics and traces.
+``kv_dtype`` picks the arena's storage (``server.py:1058-1084``): "bf16"
+is the engine's own dtype (an f32 engine stays f32), "int8" and "fp8"
+store 1-byte codes with per-(block, KV head) scales, quantized at insert
+and dequantized inside the paged kernels. ``paged_attn`` picks the paged
+attention path once, at construction: "auto" is the CUDA kernels on the
+GPU and the plain versions on the CPU, "kernel" insists on the kernels,
+"plain" runs the plain versions anywhere (the card's reference run).
+
+Not in this slice: dense serving, the prefix cache, speculation, faults,
+deadlines, snapshots, metrics and traces.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from ..models.cache import POS_SENTINEL
+from ..ops.quant import KV_DTYPES, fp8_kv_supported, kv_storage_dtype
 from ..ops.sampling import validate_top_p
 from ..parallel import serve as serve_ops
 from .blocks import BlockAllocator
@@ -90,7 +99,23 @@ class PipelineServer:
         prefill_chunk: Optional[int] = None,
         kv_block_size: int,
         kv_blocks: int,
+        kv_dtype: str = "bf16",
+        paged_attn: str = "auto",
     ):
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+        if kv_dtype == "fp8" and not fp8_kv_supported(engine.device):
+            raise ValueError(
+                f"kv_dtype='fp8': {engine.device} cannot serve float8_e4m3fn KV (the "
+                "kernels need compute capability 9.0); use kv_dtype='int8'"
+            )
+        if paged_attn not in ("auto", "kernel", "plain"):
+            raise ValueError(f"paged_attn must be auto, kernel or plain, got {paged_attn!r}")
+        if paged_attn == "kernel" and engine.device.type != "cuda":
+            raise ValueError(
+                f"paged_attn='kernel' requires a CUDA device (the engine is on "
+                f"{engine.device}); use paged_attn='auto' or 'plain'"
+            )
         if prefill_chunk is not None and (prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1)):
             raise ValueError("prefill_chunk must be a power of two")
         if kv_block_size < 1 or kv_block_size & (kv_block_size - 1):
@@ -103,10 +128,18 @@ class PipelineServer:
         self.prefill_chunk = prefill_chunk
         self.kv_block_size = int(kv_block_size)
         self.kv_blocks = int(kv_blocks)
+        self.kv_dtype = kv_dtype
+        #: the arena's storage dtype (engine.cache_dtype stays the compute dtype)
+        self.kv_store_dtype = kv_storage_dtype(kv_dtype, engine.cache_dtype)
+        #: the paged attention backend every serve program runs
+        self.attn_backend = (
+            "kernel" if paged_attn != "plain" and engine.device.type == "cuda" else "plain"
+        )
         self._alloc = BlockAllocator(self.kv_blocks, self.kv_block_size)
         self.state = serve_ops.make_state(
             self.cfg, self.rows, capacity=self.capacity, kv_blocks=self.kv_blocks,
             kv_block_size=self.kv_block_size, dtype=engine.cache_dtype, device=engine.device,
+            kv_dtype=kv_dtype,
         )
         # host mirror of the device block tables; pushed before each dispatch
         # that reads them once a release or a mapping edited it
@@ -233,6 +266,13 @@ class PipelineServer:
                     self._release(r.row)
                 r.error, r.done = err, True
 
+    def arena_bytes(self) -> int:
+        """Device bytes of the KV arena and its scale pools."""
+        return self._alloc.arena_bytes(
+            num_layers=self.cfg.num_hidden_layers, num_kv_heads=self.cfg.num_key_value_heads,
+            head_dim=self.cfg.head_dim_, kv_dtype=self.kv_store_dtype,
+        )
+
     # ---------------------------------------------------------- internals
 
     def _bucket(self, n: int) -> int:
@@ -353,7 +393,7 @@ class PipelineServer:
                 self._flush_tables()
                 serve_ops.serve_prefill_chunk(
                     self.cfg, self.params, self.state, rows, prompts[:, off : off + Sc],
-                    positions[:, off : off + Sc], off, ci == 0,
+                    positions[:, off : off + Sc], off, ci == 0, self.attn_backend,
                 )
                 others = self._live_rows(exclude=self._admitting)
                 if others:
@@ -365,7 +405,7 @@ class PipelineServer:
 
     def _decode(self, rows: list) -> None:
         self._flush_tables()
-        toks = serve_ops.serve_step(self.cfg, self.params, self.state, rows)
+        toks = serve_ops.serve_step(self.cfg, self.params, self.state, rows, self.attn_backend)
         for row, t in zip(rows, toks):
             self._commit(row, int(t))
 

@@ -1,6 +1,6 @@
 """Where the time of the paged server goes on one GPU.
 
-    python -m llm_sharding_tpu_torch.serve_profile
+    python -m llm_sharding_tpu_torch.serve_profile [--kv-dtype bf16|int8|fp8]
 
 Serves the workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8
 staggered requests, 4 prompts of 20-200 tokens, 4 of 1024-2048, 64 new
@@ -12,11 +12,14 @@ decode-only steps at 8 live rows. A warm-up request runs first so
 first-call costs (kernel build, allocator growth) stay out of the window;
 the workload runs once unprofiled (wall and step times) and once under the
 profiler (kernel table; the profiler slows the host, so its wall is longer).
+``--kv-dtype`` picks the arena (int8 / fp8 run the quantized kernel modes,
+whose instantiations name the code type, so the table splits by mode).
 Needs a GPU; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import subprocess
@@ -36,7 +39,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    from .ops.quant import KV_DTYPES
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kv-dtype", choices=KV_DTYPES, default="bf16")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
@@ -49,7 +57,7 @@ def main() -> int:
     cfg = config.llama32_3b()
     eng = Engine(cfg, llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev))
     srv = eng.serve(capacity=4096, batch_per_slot=8, kv_block_size=64, kv_blocks=1024,
-                    prefill_chunk=256)
+                    prefill_chunk=256, kv_dtype=args.kv_dtype)
     rng = np.random.default_rng(0)
     srv.result(srv.submit(rng.integers(0, cfg.vocab_size, 300).astype(np.int32), 8))
 
@@ -84,7 +92,7 @@ def main() -> int:
             per_kernel[evt.key] += us
             calls[evt.key] += evt.count
     busy_ms = sum(per_kernel.values()) / 1e3
-    print(f"{torch.cuda.get_device_name(0)}: unprofiled wall {plain_wall_ms:.1f} ms; "
+    print(f"{torch.cuda.get_device_name(0)}, kv {args.kv_dtype}: unprofiled wall {plain_wall_ms:.1f} ms; "
           f"profiled wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), tokens {sum(len(r.tokens) for r in reqs)}")
     for key, us in per_kernel.most_common(15):
@@ -96,7 +104,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
     print(json.dumps({
-        "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "kv_dtype": args.kv_dtype, "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "decode_step_ms_p50": float(np.percentile(decode_ms, 50)) if decode_ms else None,
         "top": [[k, us / 1e3, calls[k]] for k, us in per_kernel.most_common(15)],
     }))

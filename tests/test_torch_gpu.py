@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: each kernel against its plain
-version, the wrappers' input checks and launch counters, and a small served
-run that must go through all three kernels.
+"""The port's CUDA kernels on the card: each kernel (and each quantized KV
+mode of the paged kernels) against its plain version, the wrappers' input
+checks and launch counters, and small served runs that must go through
+all three kernels, and through the int8 modes for an int8 arena.
 
 Every test here needs an NVIDIA GPU (``cuda`` marker) and skips elsewhere.
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -13,6 +14,8 @@ Tolerances, kernel vs plain version on the same inputs, as in
 bfloat16 3e-2 (one bf16 ulp of outputs of magnitude ~2-4); and max error
 relative to the largest output of its (query row, head), float32 1e-3,
 bfloat16 2e-2 (about one bf16 ulp of that output, times a margin of 2).
+The quantized modes take the same limits: kernel and plain version
+dequantize each code with the same two roundings.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from llm_sharding_tpu_torch.models.cache import POS_SENTINEL
 from llm_sharding_tpu_torch.ops import flash_attention as tfa
 from llm_sharding_tpu_torch.ops import kernels
 from llm_sharding_tpu_torch.ops import paged_attention as tpa
+from llm_sharding_tpu_torch.ops import quant as tquant
 from llm_sharding_tpu_torch.runtime.engine import Engine
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -179,3 +183,91 @@ def test_served_streams_go_through_the_kernels(cuda_device):
     for r, p in zip(reqs, prompts):
         want = eng.generate_ids(p, max_new)
         assert r.tokens == want.tokens[0, len(p) : want.lengths[0]].tolist()
+
+
+def _quantize(k, v, kv):
+    """1-byte codes and [NB, Nkv] scales of K/V; trash block 0 gets code
+    0x7F (NaN in fp8) and Inf scales."""
+    dt = tquant.kv_storage_dtype(kv)
+    out = []
+    for x in (k, v):
+        x = torch.nan_to_num(x.float(), nan=0.0, posinf=0.0)
+        sc = x.abs().amax(dim=(1, 3)) / tquant.kv_qmax(dt)
+        codes = tquant.kv_quantize(x, sc[:, None, :, None], dt)
+        codes.view(torch.uint8)[0] = 0x7F
+        sc[0] = float("inf")
+        out += [codes, sc.contiguous()]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("which", ["decode", "prefill"])
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantized_kernel_matches_plain_on_gpu(cuda_device, kv, which, dtype):
+    """The fused-dequant modes of the paged kernels against the plain
+    version with the same codes and scales."""
+    q, k, v, tbl, qpos, kvpos = _paged_args(cuda_device, 1 if which == "decode" else 20, dtype)
+    kc, ks, vc, vs = _quantize(k, v, kv)
+    sc = dict(k_scale=ks, v_scale=vs)
+    fn = tpa.paged_attention if which == "decode" else tpa.paged_prefill
+    kernels.reset_launch_counts()
+    got = fn(q, kc, vc, tbl, qpos, kvpos, **sc)
+    want = tpa.paged_attention_xla(q, kc, vc, tbl, qpos, kvpos, **sc)
+    torch.cuda.synchronize()
+    name = "paged_attention" if which == "decode" else "paged_prefill"
+    assert kernels.launch_counts()[f"{name}[{kv}]"] == 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    row_scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    assert ((got.float() - want.float()).abs() / row_scale).max().item() <= TOL_REL[dtype]
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_quantized_arenas(cuda_device):
+    """A 1-byte arena needs [NB, Nkv] f32 scales, and scales need one."""
+    q, k, v, tbl, qpos, kvpos = _paged_args(cuda_device, 1, torch.float32)
+    kc, ks, vc, vs = _quantize(k, v, "int8")
+    kernels.reset_launch_counts()
+    bad = [
+        ((kc, vc), {}, "k_scale and v_scale"),
+        ((kc, vc), dict(k_scale=ks), "k_scale and v_scale"),
+        ((k, v), dict(k_scale=ks, v_scale=vs), "k_scale and v_scale"),
+        ((kc, vc), dict(k_scale=ks.double(), v_scale=vs), "float32"),
+        ((kc, vc), dict(k_scale=ks[:, :1].contiguous(), v_scale=vs), "shape"),
+        ((kc, vc.view(torch.float8_e4m3fn)), dict(k_scale=ks, v_scale=vs), "dtype"),
+    ]
+    for (ka, va), sc, match in bad:
+        for fn in (tpa.paged_attention, tpa.paged_prefill):
+            with pytest.raises(ValueError, match=match):
+                fn(q, ka, va, tbl, qpos, kvpos, **sc)
+    assert not any(kernels.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_served_int8_stream_goes_through_the_quantized_kernels(cuda_device):
+    """A tiny float32 model served on the card from an int8 arena: the
+    paged work runs in the int8 modes only, and the streams equal the same
+    server's through the plain versions."""
+    cfg = tcfg.tiny_llama(head_dim=64, num_attention_heads=6, num_key_value_heads=2)
+    eng = Engine(cfg, tllama.init_params(cfg, seed=3, dtype=torch.float32, device=cuda_device))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 30, 12)]
+    streams = {}
+    for attn in ("plain", "auto"):
+        srv = eng.serve(capacity=64, batch_per_slot=3, kv_block_size=8, kv_blocks=40,
+                        prefill_chunk=8, kv_dtype="int8", paged_attn=attn)
+        assert srv.state.k.dtype == torch.int8
+        kernels.reset_launch_counts()
+        reqs = [srv.submit(p, 8) for p in prompts[:2]]
+        srv.step()
+        reqs += [srv.submit(p, 8) for p in prompts[2:]]
+        srv.run_until_idle()
+        streams[attn] = [r.tokens for r in reqs]
+        counts = kernels.launch_counts()
+        srv._alloc.check()
+        assert srv._alloc.in_use == 0
+    assert counts["paged_attention[int8]"] > 0 and counts["paged_prefill[int8]"] > 0, counts
+    assert counts["flash_attention"] > 0
+    assert counts["paged_attention"] == counts["paged_prefill"] == 0
+    assert streams["auto"] == streams["plain"]
