@@ -10,9 +10,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the query dtype, int8 codes, fp8-e4m3 codes, each code arena with
     per-(block, KV head) f32 scales), against its plain PyTorch version on
     the card at the Llama-3.2-3B shapes of the serving path, with bf16 and
-    f32 queries, and time kernel, plain version and (flash only)
-    ``F.scaled_dot_product_attention`` with the equivalent boolean mask, a
-    yardstick the port never calls;
+    f32 queries: decode at 8 rows of 100-2048 tokens and at one 2048-token
+    row, chunked prefill, flash at S = C = 2048, at a one-shot admission's
+    bucket (256, 200 real positions) and ragged; time kernel, plain version
+    and (flash only) ``F.scaled_dot_product_attention`` with the equivalent
+    boolean mask, a yardstick the port never calls;
 (c) f32 at full 3B width and 4 layers: the served greedy streams, one-shot
     and chunked, must be token-identical to the port's ``generate`` (a
     mismatch passes only where the oracle's top-2 logit gap is < 1e-4);
@@ -65,6 +67,7 @@ TOL_ABS = {"bfloat16": 3e-2, "float32": 1e-4}
 TOL_REL = {"bfloat16": 2e-2, "float32": 1e-3}
 SENTINEL = 2**30
 KV_MODES = ("int8", "fp8")
+SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's boost clock: sleeps at least as long as asked
 
 
 def require(cond: bool, msg: str) -> None:
@@ -77,13 +80,22 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events. The
+    device first sleeps for twice the host time of the calls, so all of
+    them are queued before the start event runs: the events then time the
+    device's work, not the host's enqueueing."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -124,15 +136,16 @@ def code_bytes(kv, dtype_bytes: int) -> int:
     return 1 if kv else dtype_bytes
 
 
-def decode_case(cfg, dtype, device, gen, kv=None):
-    """8 decode rows, contexts 100-2048, block size 64, table width 64
-    (capacity 4096) with the tail trash-mapped; trash block 0 holds NaN/Inf
-    (an Inf scale for a code arena)."""
+def decode_case(cfg, dtype, device, gen, kv=None, ctx=None):
+    """Decode rows (default 8, contexts 100-2048), block size 64, table
+    width 64 (capacity 4096) with the tail trash-mapped; trash block 0
+    holds NaN/Inf (an Inf scale for a code arena)."""
     import torch
 
-    B, BS, T = 8, 64, 64
+    BS, T = 64, 64
+    ctx = np.linspace(100, 2048, 8).astype(int) if ctx is None else np.asarray(ctx)
+    B = len(ctx)
     Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    ctx = np.linspace(100, 2048, B).astype(int)
     nblk = [-(-int(c) // BS) for c in ctx]
     NB = sum(nblk) + 1
     k = torch.randn((NB, BS, Nkv, D), generator=gen, device=device).to(dtype)
@@ -202,19 +215,24 @@ def prefill_case(cfg, dtype, device, gen, kv=None):
     return args, {"nlive": nlive, **scales}, scales, nbytes, flops, None
 
 
-def flash_case(cfg, dtype, device, gen, S):
-    """Causal self-attention prefill of one S-token prompt (S = C)."""
+def flash_case(cfg, dtype, device, gen, S, real=None):
+    """Causal self-attention prefill of one S-token prompt (S = C); with
+    ``real``, only the first ``real`` positions are the prompt and the rest
+    of the bucket carries the sentinel (a one-shot admission's shape)."""
     import torch
 
     Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    real = S if real is None else real
     q = torch.randn((1, S, Nh, D), generator=gen, device=device).to(dtype)
     k = torch.randn((1, S, Nkv, D), generator=gen, device=device).to(dtype)
     v = torch.randn((1, S, Nkv, D), generator=gen, device=device).to(dtype)
     pos = torch.arange(S, dtype=torch.int32, device=device)[None]
+    pos[:, real:] = SENTINEL
     args = (q, k, v, pos, pos)
     isz = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + 2 * pos.numel() * 4
-    flops = 4.0 * Nh * D * S * (S + 1) / 2
+    # visible (query, key) pairs: causal over the prompt; each sentinel row sees every key
+    flops = 4.0 * Nh * D * (real * (real + 1) / 2 + (S - real) * S)
     G = Nh // Nkv
     # yardstick: one library call computing the same function
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
@@ -241,6 +259,11 @@ def phase_kernels(cfg, device) -> list:
              lambda *a, kv=kv: decode_case(*a, kv=kv),
              "llm_sharding_tpu/ops/paged_attention.py:484",
              "llm_sharding_tpu_torch/csrc/paged_attention.cu"),
+            (f"paged_attention{mode}", "decode B=1 ctx 2048",
+             paged_attention.paged_attention, paged_attention.paged_attention_xla,
+             lambda *a, kv=kv: decode_case(*a, kv=kv, ctx=[2048]),
+             "llm_sharding_tpu/ops/paged_attention.py:484",
+             "llm_sharding_tpu_torch/csrc/paged_attention.cu"),
             (f"paged_prefill{mode}", "chunk Sc=256 frontiers 256/2048",
              paged_attention.paged_prefill, paged_attention.paged_attention_xla,
              lambda *a, kv=kv: prefill_case(*a, kv=kv),
@@ -251,6 +274,10 @@ def phase_kernels(cfg, device) -> list:
         ("flash_attention", "S=C=2048 causal",
          flash_attention.flash_attention, attention.cached_attention,
          lambda *a: flash_case(*a, S=2048), "llm_sharding_tpu/ops/flash_attention.py:124",
+         "llm_sharding_tpu_torch/csrc/flash_attention.cu"),
+        ("flash_attention", "S=C=256 200 real (admission)",
+         flash_attention.flash_attention, attention.cached_attention,
+         lambda *a: flash_case(*a, S=256, real=200), "llm_sharding_tpu/ops/flash_attention.py:124",
          "llm_sharding_tpu_torch/csrc/flash_attention.cu"),
         ("flash_attention", "S=C=37 ragged",
          flash_attention.flash_attention, attention.cached_attention,
@@ -288,7 +315,7 @@ def phase_kernels(cfg, device) -> list:
                     f"{name} {label} {dname}: max row-relative error {rel} > {tol_rel}")
             if replaces is not None and dtype == torch.bfloat16:
                 rows.append(dict(
-                    name=name, route="cuda", source=source, replaces=replaces,
+                    name=name, shape=label, route="cuda", source=source, replaces=replaces,
                     launches=None, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms,
                 ))

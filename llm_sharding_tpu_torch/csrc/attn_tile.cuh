@@ -1,5 +1,6 @@
-// Shared core of the port's three attention kernels (flash_attention.cu,
-// paged_attention.cu, paged_prefill.cu): one CTA owns one query tile of
+// Shared core of the port's CUDA-core attention paths (paged_prefill.cu,
+// and flash_attention.cu for f32 queries; paged_attention.cu uses its
+// helpers and contract): one CTA owns one query tile of
 // GQA-folded rows of one (batch row, KV head) and streams KV tiles of
 // kBK keys through shared memory with the online-softmax recurrence of
 // llm_sharding_tpu/ops/paged_attention.py:376-401 (_online_update) and
@@ -21,18 +22,19 @@
 // caller marks dead (trash block 0, blocks past nlive) are loaded as zeros
 // with a select, never read: the shared trash block may hold Inf/NaN.
 //
-// What bounds it on the H100: decode and chunked prefill read each KV byte
-// once per (row, KV head) and do ~2 flops per byte per query row, far
-// below the ~295 flops/byte ridge, so they are bound by HBM bytes; the
-// dense flash prefill at S = C = 2048 is bound by operations. This first
-// design does the arithmetic on the CUDA cores in f32 (no wgmma/mma, no
-// TMA, no split-KV): right first, fast in a later change. Two things it
-// does about the bound: K/V tiles are copied with 16-byte loads, and a
-// tile whose every key is masked for every row of the CTA is skipped once
-// every row has seen a visible key (its keys would add exactly zero), so
-// causal flash does ~half the tiles and decode skips the trash-mapped
-// tail of each block table. At B = 8 decode rows x Nkv = 8 KV heads the
-// decode grid is only 64 CTAs on 132 SMs; split-KV is the fix, later.
+// What is true of each kernel now:
+// - paged_attention.cu (decode) is split-KV: many CTAs per (row, KV head),
+//   per-warp cp.async rings, a merge pass (its own note); it keeps only
+//   this header's conversions and the contract above.
+// - flash_attention.cu runs bf16 on the tensor cores (wgmma fed by TMA,
+//   hopper.cuh) and keeps this Tile for f32 queries only.
+// - paged_prefill.cu still runs on this Tile: f32 FMAs on the CUDA cores,
+//   no wgmma, no TMA. Chunked prefill at Sc = 256 is bound by operations
+//   (~4 flops per query-key pair per head dim), so moving it to wgmma + TMA
+//   is the next kernel's redesign. What the Tile does about its bound: K/V
+//   tiles are copied with 16-byte loads, and a tile whose every key is
+//   masked for every row of the CTA is skipped once every row has seen a
+//   visible key (its keys would add exactly zero).
 //
 // Quantized arenas (the paged kernels' KV storage type KT = int8_t or
 // __nv_fp8_e4m3 instead of T; ops/paged_attention.py:440-451 and :650-658)
@@ -65,6 +67,7 @@ constexpr int kTX = 8;              // threads across key columns / head dim
 constexpr int kTY = 16;             // threads across query rows
 constexpr int kPadPos = -2147483647 - 1;  // q position of a tile-padding row
 constexpr int kBadArgs = -1;        // unsupported dtype / head_dim
+constexpr int kNoTensorMap = -2;    // cuTensorMapEncodeTiled missing or refused
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -72,6 +75,15 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// 2^x (the hardware's approximation, flushing denormals): the redesigned
+// kernels run scores in the log2 domain, t = s * scale * log2(e), so
+// exp(s * scale - m) is ex2(t - m * log2(e)); ex2(-inf) = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // One 1-byte KV code (the low byte of b) to f32, exactly.
@@ -308,7 +320,7 @@ struct Tile {
 };
 
 // Key columns of one (row, KV head) of the pooled paged arena, for the
-// decode and chunked-prefill kernels. kv_positions is per LOGICAL column
+// chunked-prefill kernel. kv_positions is per LOGICAL column
 // [B, T*BS]; column c lives in arena block tbl[c / BS] at slot c % BS, and
 // table entry 0 (the shared trash block) is dead. A quantized arena's
 // column also has the scales of its (block, KV head).
@@ -381,20 +393,28 @@ __device__ void attend(Tile<T, D, RI, KT>& t, const KT* k, const KT* v, int ncol
 }
 
 // Set the dynamic shared-memory limit of a kernel instantiation, launch it
-// on the caller's stream and return cudaGetLastError().
+// with `threads` threads per CTA on the caller's stream and return
+// cudaGetLastError().
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+int launch_n(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+             Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_n with the Tile's kThreads.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  return launch_n(kernel, grid, kThreads, smem, stream, args...);
 }
 
 }  // namespace attn
 
 // dtype: 0 = float32, 1 = bfloat16. RI = 1 (16-row query tiles) when all
-// folded rows fit one small tile (decode), else RI = 4 (64-row tiles).
+// folded rows fit one small tile (a short chunk), else RI = 4 (64-row tiles).
 #define ATTN_DISPATCH(RUN, dtype, head_dim, GS, ...)                                         \
   do {                                                                                       \
     const bool small_ = (GS) <= attn::kTY;                                                   \
@@ -423,5 +443,6 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... a
 
 extern "C" const char* attn_error_string(int code) {
   if (code == attn::kBadArgs) return "unsupported dtype, KV storage or head_dim";
+  if (code == attn::kNoTensorMap) return "cuTensorMapEncodeTiled is missing or refused a map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -9,8 +9,11 @@ Counterpart of ``llm_sharding_tpu/ops/flash_attention.py``: the TPU kernel
 softmax, same ``-1e30`` masking, so a row with no visible key gives the
 same uniform average on both (callers discard such rows).
 
-What bounds the kernel on the H100, and what its design does about it:
-``csrc/attn_tile.cuh``.
+The kernel dispatches by dtype: bf16 queries run on the tensor cores
+(``wgmma`` fed by TMA), f32 queries on the CUDA-core tile of
+``csrc/attn_tile.cuh`` (f32 on the tensor cores would be TF32). What
+bounds each on the H100, and what its design does about it: the notes in
+``csrc/flash_attention.cu``.
 """
 
 from __future__ import annotations

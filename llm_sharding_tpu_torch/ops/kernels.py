@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,11 +34,13 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-HEADERS = ("attn_tile.cuh",)
+HEADERS = ("attn_tile.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# after the source: hopper.cuh finds libcuda's cuTensorMapEncodeTiled with dlsym
+LINK_FLAGS = ("-ldl",)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # 1-byte KV storage of the paged kernels: (kernel code, launch-count mode);
 # an arena in the query dtype is (0, "")
@@ -69,13 +72,13 @@ class CudaKernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
         for name in (self.source, *HEADERS):
             h.update((CSRC_DIR / name).read_bytes())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def nvcc_command(self, out: Path) -> list:
-        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / self.source)]
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / self.source), *LINK_FLAGS]
 
     def _load(self):
         if self._fn is None:
@@ -107,7 +110,7 @@ FLASH = CudaKernel(
 )
 PAGED_DECODE = CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P],
 )
 PAGED_PREFILL = CudaKernel(
     "paged_prefill", "paged_prefill.cu", "paged_prefill_fwd",
@@ -170,6 +173,13 @@ def kv_storage(arena: torch.Tensor) -> tuple[int, str]:
 
 def current_stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the split-KV planner's
+    input)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_operand(

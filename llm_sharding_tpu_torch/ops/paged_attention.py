@@ -8,8 +8,13 @@ Counterpart of ``llm_sharding_tpu/ops/paged_attention.py``:
 - ``paged_attention_xla`` (``:264``), the plain version of both kernels
   in both modes: gather (dequantizing a quantized arena into the query
   dtype), then ``cached_attention``;
+- ``attn_stats_xla`` (``:284``) and ``combine_attn_stats`` (``:349``) as
+  ``attn_stats`` and ``combine_attn_stats``, the latter over a leading
+  split axis: the plain form of the decode kernel's split-KV merge;
 - ``paged_attention`` → ``csrc/paged_attention.cu``, the port of
-  ``paged_attention_tpu`` (``:484``, body ``_paged_kernel`` at ``:404``);
+  ``paged_attention_tpu`` (``:484``, body ``_paged_kernel`` at ``:404``),
+  as split-KV: ``plan_splits`` cuts each row's columns into runs, one CTA
+  each, and a second pass merges the runs' partials;
 - ``paged_prefill`` → ``csrc/paged_prefill.cu``, the port of
   ``paged_prefill_tpu`` (``:689``, body ``_paged_prefill_kernel`` at
   ``:619``).
@@ -42,10 +47,17 @@ from typing import Optional
 import torch
 
 from . import kernels
-from .attention import cached_attention
+from .attention import NEG_INF, cached_attention
 from .quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize
 
 BACKENDS = ("auto", "kernel", "plain")
+# split-KV decode: CTAs wanted per SM, and the shortest and longest column
+# run of one CTA (csrc/paged_attention.cu stages a run's positions in shared
+# memory); chosen by timing chip_smoke.py's decode cases on the H100 at
+# several values
+SPLIT_CTAS_PER_SM = 4
+SPLIT_MIN_COLS = 128
+SPLIT_MAX_COLS = 2048
 
 
 def _bytes(arena: torch.Tensor) -> torch.Tensor:
@@ -182,6 +194,76 @@ def paged_attention_xla(
     return cached_attention(q, k, v, q_positions, kv_positions, scale)
 
 
+def attn_stats(
+    q: torch.Tensor,  # [B, S, Nh, D]
+    k_arena: torch.Tensor,  # [NB, BS, Nkv, D]
+    v_arena: torch.Tensor,
+    block_table: torch.Tensor,  # [B, T]
+    q_positions: torch.Tensor,  # [B, S]
+    kv_positions: torch.Tensor,  # [B, T * BS]
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv], quantized arenas only
+    v_scale: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The online-softmax triple of each query row over its window, not
+    normalised: ``acc [B, S, Nh, D]`` (f32, sum of ``exp(s - m) * v``),
+    ``m [B, S, Nh]`` (row max) and ``l [B, S, Nh]`` (sum of ``exp(s - m)``);
+    the counterpart of ``attn_stats_xla`` (``:284``). A column is masked by
+    position AND by liveness (``block_table != 0``), and a masked column
+    adds exactly zero, so a row with no visible column is ``(0, -1e30, 0)``."""
+    B, S, Nh, D = q.shape
+    BS = k_arena.shape[1]
+    k, v = gather_block_kv(k_arena, v_arena, block_table, k_scale, v_scale, out_dtype=q.dtype)
+    Nkv = k.shape[2]
+    G = Nh // Nkv
+    if scale is None:
+        scale = D ** -0.5
+    qg = q.reshape(B, S, Nkv, G, D).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    live = (block_table != 0).repeat_interleave(BS, dim=1)  # [B, T * BS]
+    mask = ((kv_positions[:, None, :] <= q_positions[:, :, None]) & live[:, None, :])[:, None, None]
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
+    m = scores.amax(dim=-1)  # [B, Nkv, G, S]
+    p = torch.where(mask, torch.exp(scores - m[..., None]), torch.zeros((), device=q.device))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype).float(), v.float()).reshape(B, S, Nh, D)
+
+    def to_bsn(x):
+        return x.permute(0, 3, 1, 2).reshape(B, S, Nh)
+
+    return acc, to_bsn(m), to_bsn(l)
+
+
+def combine_attn_stats(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Merge partial triples stacked on a leading split axis (``acc [P, B,
+    S, Nh, D]``, ``m``/``l [P, B, S, Nh]``) into the normalised f32 output
+    ``[B, S, Nh, D]``: ``combine_attn_stats`` (``:349``) over splits instead
+    of mesh shards. A row no split attends comes out as zeros."""
+    m_all = m.amax(dim=0)
+    corr = torch.exp(m - m_all)  # a dead split's exp(-1e30 - m) is 0
+    l_all = (l * corr).sum(dim=0)
+    acc_all = (acc * corr[..., None]).sum(dim=0)
+    return torch.where(
+        l_all[..., None] > 0.0,
+        acc_all / l_all.clamp_min(1e-30)[..., None],
+        torch.zeros((), device=acc.device),
+    )
+
+
+def plan_splits(B: int, Nkv: int, T: int, BS: int, sm_count: int) -> tuple[int, int]:
+    """Split-KV plan of the decode kernel: ``(split_cols, nsplit)``. Each
+    row's ``T * BS`` columns are cut into ``nsplit`` runs of ``split_cols``
+    (a multiple of ``BS``; the last run may be shorter), enough that ``B *
+    Nkv * nsplit`` CTAs give each SM ``SPLIT_CTAS_PER_SM`` of them, but no
+    run shorter than ``SPLIT_MIN_COLS`` (a CTA's fixed cost must buy some
+    columns) or longer than ``SPLIT_MAX_COLS`` (the kernel stages a run's
+    positions in shared memory). Depends on nothing but its arguments."""
+    want = -(-SPLIT_CTAS_PER_SM * sm_count // max(1, B * Nkv))
+    split_blocks = max(-(-T // max(1, min(T, want))), -(-SPLIT_MIN_COLS // BS))
+    split_blocks = max(1, min(split_blocks, T, SPLIT_MAX_COLS // BS))
+    return split_blocks * BS, -(-T // split_blocks)
+
+
 def _use_kernel(name: str, q: torch.Tensor, backend: str) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"{name} backend {backend!r}: expected one of {BACKENDS}")
@@ -245,11 +327,17 @@ def paged_attention(
         q, k_arena, v_arena, block_table, q_positions, kv_positions, k_scale, v_scale
     )
     kv, mode = kernels.kv_storage(k_arena)
+    split_cols, nsplit = plan_splits(B, Nkv, T, BS, kernels.sm_count(q.device))
+    # per-split partials (acc [B, Nkv, nsplit, G*S, D], then (m, l) pairs)
+    # that the kernel's second pass merges; the kernel allocates nothing
+    rows = B * Nkv * nsplit * (Nh // Nkv) * S
+    part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     kernels.PAGED_DECODE.launch(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), out.data_ptr(), B, S, Nh, Nkv, D,
-        BS, T, float(scale), code, kv, kernels.current_stream_handle(q.device), mode=mode,
+        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), out.data_ptr(), part.data_ptr(),
+        part.data_ptr() + rows * D * 4, B, S, Nh, Nkv, D, BS, T, split_cols, nsplit,
+        float(scale), code, kv, kernels.current_stream_handle(q.device), mode=mode,
     )
     return out
 

@@ -271,3 +271,124 @@ def test_served_int8_stream_goes_through_the_quantized_kernels(cuda_device):
     assert counts["flash_attention"] > 0
     assert counts["paged_attention"] == counts["paged_prefill"] == 0
     assert streams["auto"] == streams["plain"]
+
+
+def _flash_case(dev, dtype, S, D, G, B=1, pad=0, seed=40):
+    """B rows of an S-token causal prefill (S = C); the last row's final
+    ``pad`` positions carry the sentinel (a bucket-padded admission)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Nkv = 2
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    if pad:
+        pos[-1, S - pad :] = POS_SENTINEL
+    return t(B, S, Nkv * G, D), t(B, S, Nkv, D), t(B, S, Nkv, D), pos, pos
+
+
+def _assert_close_rows(got, want, dtype):
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    row_scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    assert ((got.float() - want.float()).abs() / row_scale).max().item() <= TOL_REL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [37, 200, 2048])
+def test_flash_tensor_core_kernel_matches_plain(cuda_device, S, D, G):
+    """bf16 flash (wgmma + TMA) against the plain version: ragged and
+    tile-multiple lengths, both head dims, with and without GQA."""
+    args = _flash_case(cuda_device, torch.bfloat16, S, D, G)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention(*args)
+    want = tfa.cached_attention(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    _assert_close_rows(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_tensor_core_kernel_sentinel_padded_rows(cuda_device, D):
+    """B = 2, the second row bucket-padded (200 real of 256): the padded
+    query rows see every key, as on the plain path."""
+    args = _flash_case(cuda_device, torch.bfloat16, 256, D, 3, B=2, pad=56)
+    got, want = tfa.flash_attention(*args), tfa.cached_attention(*args)
+    torch.cuda.synchronize()
+    _assert_close_rows(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_f32_inputs_take_the_tile_path(cuda_device):
+    """The same inputs in f32 (dispatched by dtype to the CUDA-core tile,
+    never the tensor cores) meet the f32 limits; in bf16 the bf16 ones."""
+    args32 = _flash_case(cuda_device, torch.float32, 200, 128, 3, B=2, pad=56)
+    args16 = tuple(a.bfloat16() if a.is_floating_point() else a for a in args32)
+    for args, dtype in ((args32, torch.float32), (args16, torch.bfloat16)):
+        got, want = tfa.flash_attention(*args), tfa.cached_attention(*args)
+        torch.cuda.synchronize()
+        _assert_close_rows(got, want, dtype)
+
+
+def _decode_case(dev, dtype, B, S, ctx, kv, seed=41):
+    """Decode over a 40-block table (block size 16): each row maps its
+    context's blocks in random arena order, the rest is trash block 0,
+    which holds NaN/Inf (0x7F codes and Inf scales for a code arena)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    BS, T, Nkv, G, D = 16, 40, 2, 3, 128
+    nblk = [-(-c // BS) for c in ctx]
+    NB = sum(nblk) + 1
+    k = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    k[0], v[0] = float("nan"), float("inf")
+    perm = torch.randperm(NB - 1, generator=g, device=dev) + 1
+    tbl = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    kvpos = torch.full((B, T * BS), POS_SENTINEL, dtype=torch.int32, device=dev)
+    qpos = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    j = 0
+    for b, c in enumerate(ctx):
+        tbl[b, : nblk[b]] = perm[j : j + nblk[b]]
+        j += nblk[b]
+        kvpos[b, :c] = torch.arange(c)
+        qpos[b] = torch.arange(c - S, c)
+    q = torch.randn((B, S, Nkv * G, D), generator=g, device=dev).to(dtype)
+    sc = {}
+    if kv is not None:
+        k, ks, v, vs = _quantize(k, v, kv)
+        sc = dict(k_scale=ks, v_scale=vs)
+    return (q, k, v, tbl, qpos, kvpos), sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("B", [1, 8])
+def test_split_kv_decode_matches_plain(cuda_device, B, S, kv):
+    """Split-KV decode against the plain version: contexts of one block,
+    exactly k blocks, and the whole table width; S = 4 folds 12 rows per KV
+    head (three CTAs along y); NaN/Inf in trash block 0."""
+    full = 40 * 16
+    cases = [[16], [48], [full]] if B == 1 else [[16, 48, full, S, 300, 16, 64, full]]
+    name = "paged_attention" + (f"[{kv}]" if kv else "")
+    for ctx in cases:
+        args, sc = _decode_case(cuda_device, torch.bfloat16, B, S, ctx, kv)
+        kernels.reset_launch_counts()
+        got = tpa.paged_attention(*args, **sc)
+        want = tpa.paged_attention_xla(*args, **sc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == 1
+        _assert_close_rows(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_split_kv_decode_f32_queries(cuda_device):
+    """f32 queries over an f32 arena and an int8 one, at f32 limits."""
+    for kv in (None, "int8"):
+        args, sc = _decode_case(cuda_device, torch.float32, 8, 1, [16, 48, 640, 1, 300, 16, 64, 640], kv)
+        got, want = tpa.paged_attention(*args, **sc), tpa.paged_attention_xla(*args, **sc)
+        torch.cuda.synchronize()
+        _assert_close_rows(got, want, torch.float32)
