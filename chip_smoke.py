@@ -173,14 +173,17 @@ def decode_case(cfg, dtype, device, gen, kv=None, ctx=None):
     return args, scales, scales, nbytes, flops, None
 
 
-def prefill_case(cfg, dtype, device, gen, kv=None):
-    """Chunks of 256 queries at written frontiers 256 and 2048 (two rows
-    each); every row maps blocks for a 2048-token prompt + 65 columns, and
-    the blocks past the frontier hold stale data the nlive clamp skips."""
+def prefill_case(cfg, dtype, device, gen, kv=None, frontier=(256, 2048, 256, 2048), trash=False):
+    """Chunks of 256 queries at the given written frontiers (default two
+    rows at 256 and two at 2048); every row maps blocks for a 2048-token
+    prompt + 65 columns, and the blocks past the frontier hold stale data
+    the nlive clamp skips. With ``trash``, the last row's table maps trash
+    block 0 (NaN/Inf; 0x7F codes and Inf scales for a code arena) at its
+    sixth block, positions 320-383, visible to every query of the chunk."""
     import torch
 
     BS, Sc = 64, 256
-    frontier = np.array([256, 2048, 256, 2048])
+    frontier = np.asarray(frontier)
     B = len(frontier)
     T = 64
     Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -196,6 +199,8 @@ def prefill_case(cfg, dtype, device, gen, kv=None):
         tbl[b, :per_row] = 1 + b * per_row + np.arange(per_row)
         kvpos[b, :f] = np.arange(f)
         qpos[b] = np.arange(f - Sc, f)
+    if trash:
+        tbl[-1, 5] = 0
     nlive_np = -(-frontier // BS).astype(np.int32)
     nlive = torch.from_numpy(nlive_np).to(device)
     q = torch.randn((B, Sc, Nh, D), generator=gen, device=device).to(dtype)
@@ -208,9 +213,10 @@ def prefill_case(cfg, dtype, device, gen, kv=None):
         torch.from_numpy(kvpos).to(device),
     )
     isz = q.element_size()
-    nbytes = (2 * q.numel() * isz + 2 * int(frontier.sum()) * Nkv * D * code_bytes(kv, isz)
+    read_blocks = int(nlive_np.sum()) - int(trash)  # the trash block is never read
+    nbytes = (2 * q.numel() * isz + 2 * read_blocks * BS * Nkv * D * code_bytes(kv, isz)
               + tbl.nbytes + kvpos.nbytes + qpos.nbytes
-              + (2 * int(nlive_np.sum()) * Nkv * 4 if kv else 0))
+              + (2 * read_blocks * Nkv * 4 if kv else 0))
     flops = 4.0 * Nh * D * float((qpos.astype(np.int64) + 1).sum())
     return args, {"nlive": nlive, **scales}, scales, nbytes, flops, None
 
@@ -269,6 +275,15 @@ def phase_kernels(cfg, device) -> list:
              lambda *a, kv=kv: prefill_case(*a, kv=kv),
              "llm_sharding_tpu/ops/paged_attention.py:689",
              "llm_sharding_tpu_torch/csrc/paged_prefill.cu"),
+            (f"paged_prefill{mode}", "chunk Sc=256 B=1 frontier 2048",
+             paged_attention.paged_prefill, paged_attention.paged_attention_xla,
+             lambda *a, kv=kv: prefill_case(*a, kv=kv, frontier=(2048,)),
+             "llm_sharding_tpu/ops/paged_attention.py:689",
+             "llm_sharding_tpu_torch/csrc/paged_prefill.cu"),
+            (f"paged_prefill{mode}", "chunk Sc=256 B=2 trash in window",
+             paged_attention.paged_prefill, paged_attention.paged_attention_xla,
+             lambda *a, kv=kv: prefill_case(*a, kv=kv, frontier=(1024, 2048), trash=True),
+             None, None),
         ]
     cases = paged + [
         ("flash_attention", "S=C=2048 causal",
@@ -304,8 +319,14 @@ def phase_kernels(cfg, device) -> list:
             plain_ms = cuda_ms(lambda: plain(*args, **plain_kw), iters=3, warmup=1)
             lib_ms = cuda_ms(library, iters=20) if library is not None else None
             bms, by = bound(nbytes, flops, dname)
+            design = None
+            if name.startswith("paged_prefill"):
+                # the route the wrapper's rule picks for these inputs (BS = 64)
+                design = paged_attention.prefill_design(dtype, args[1].shape[1])
+                require(dtype != torch.bfloat16 or design == "wgmma",
+                        f"{name} {label}: bf16 at block size 64 must take the wgmma route")
             log(
-                f"[b] {name:21s} {label:32s} {dname:8s} max_abs_err={err:.3g} tol={tol:g} "
+                f"[b] {name:21s} {label:32s} {dname:8s} {design or '':5s} max_abs_err={err:.3g} tol={tol:g} "
                 f"max_row_rel_err={rel:.3g} tol={tol_rel:g} {status} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 f"bound_ms={bms:.4f} ({by})"
@@ -318,6 +339,7 @@ def phase_kernels(cfg, device) -> list:
                     name=name, shape=label, route="cuda", source=source, replaces=replaces,
                     launches=None, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms,
+                    **({"design": design} if design else {}),
                 ))
             del args, got, want
     return rows

@@ -1,6 +1,6 @@
-// Shared core of the port's CUDA-core attention paths (paged_prefill.cu,
+// Shared core of the port's CUDA-core attention paths (paged_prefill.cu
 // and flash_attention.cu for f32 queries; paged_attention.cu uses its
-// helpers and contract): one CTA owns one query tile of
+// helpers, its merge pass and its contract): one CTA owns one query tile of
 // GQA-folded rows of one (batch row, KV head) and streams KV tiles of
 // kBK keys through shared memory with the online-softmax recurrence of
 // llm_sharding_tpu/ops/paged_attention.py:376-401 (_online_update) and
@@ -24,17 +24,18 @@
 //
 // What is true of each kernel now:
 // - paged_attention.cu (decode) is split-KV: many CTAs per (row, KV head),
-//   per-warp cp.async rings, a merge pass (its own note); it keeps only
-//   this header's conversions and the contract above.
+//   per-warp cp.async rings (its own note); it keeps this header's
+//   conversions, the contract above and the merge pass below.
 // - flash_attention.cu runs bf16 on the tensor cores (wgmma fed by TMA,
 //   hopper.cuh) and keeps this Tile for f32 queries only.
-// - paged_prefill.cu still runs on this Tile: f32 FMAs on the CUDA cores,
-//   no wgmma, no TMA. Chunked prefill at Sc = 256 is bound by operations
-//   (~4 flops per query-key pair per head dim), so moving it to wgmma + TMA
-//   is the next kernel's redesign. What the Tile does about its bound: K/V
-//   tiles are copied with 16-byte loads, and a tile whose every key is
-//   masked for every row of the CTA is skipped once every row has seen a
-//   visible key (its keys would add exactly zero).
+// - paged_prefill.cu runs bf16 queries on the tensor cores (wgmma fed by
+//   TMA boxes over the block table, wgmma_attn.cuh, split into runs merged
+//   by split_merge_kernel below when a chunk's CTAs fall short of the SMs)
+//   at block sizes 16, 32 and multiples of 64, and keeps this Tile for f32
+//   queries and other block sizes. On the Tile, K/V tiles are copied with
+//   16-byte loads, and a tile whose every key is masked for every row of
+//   the CTA is skipped once every row has seen a visible key (its keys
+//   would add exactly zero).
 //
 // Quantized arenas (the paged kernels' KV storage type KT = int8_t or
 // __nv_fp8_e4m3 instead of T; ops/paged_attention.py:440-451 and :650-658)
@@ -409,6 +410,57 @@ int launch_n(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t st
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   return launch_n(kernel, grid, kThreads, smem, stream, args...);
+}
+
+// The merge pass of the split kernels (paged_attention.cu's split-KV
+// decode, paged_prefill.cu's split tensor-core prefill). Partial row
+// ((b * Nkv + kh) * nsplit + split) * G*S + r of folded row r = g*S + s
+// (query head kh*G + g) holds acc [D] (unnormalised, f32) in part_acc and
+// (m, l) in part_ml, m in the log2 domain. One thread per head-dim
+// element of one folded row folds the nsplit partials with the recurrence
+// of combine_attn_stats (m = max m_i, l = sum 2^(m_i - m) l_i, acc
+// likewise; a dead run's (0, -1e30, 0) weighs 0 against any seen key) and
+// writes acc / max(l, 1e-30).
+template <typename T>
+__global__ void split_merge_kernel(const float* part_acc, const float* part_ml, T* out, int S,
+                                   int Nh, int Nkv, int D, int nsplit) {
+  // launched early (programmatic dependent launch): wait here until the
+  // split kernel's partials are complete and visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int G = Nh / Nkv, GS = G * S;
+  const size_t base = (size_t(b) * Nkv + kh) * nsplit * GS + r;
+  float M = kNegInf;
+  for (int i = 0; i < nsplit; ++i) M = fmaxf(M, part_ml[(base + size_t(i) * GS) * 2]);
+  float L = 0.f, A = 0.f;
+  for (int i = 0; i < nsplit; ++i) {
+    const size_t pr = base + size_t(i) * GS;
+    const float c = ex2(part_ml[pr * 2] - M);
+    L += c * part_ml[pr * 2 + 1];
+    A += c * part_acc[pr * D + d];
+  }
+  out[((size_t(b) * S + r % S) * Nh + size_t(kh) * G + r / S) * D + d] =
+      from_f<T>(A / fmaxf(L, 1e-30f));
+}
+
+// Launch the merge as a programmatic dependent of the split kernel just
+// queued on `stream` (its launch overlaps that kernel's tail); returns
+// 0 or the error.
+template <typename T>
+int launch_merge(const float* part_acc, const float* part_ml, T* out, int B, int S, int Nh,
+                 int Nkv, int D, int nsplit, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Nh / Nkv) * S, Nkv, B);
+  cfg.blockDim = dim3(D);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, split_merge_kernel<T>, part_acc, part_ml, out, S, Nh, Nkv, D, nsplit);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace attn

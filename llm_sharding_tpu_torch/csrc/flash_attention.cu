@@ -9,7 +9,8 @@
 // What bounds it on the H100: at S = C = 2048 it does ~4*S*C/2*D flops per
 // query head against ~S*D bytes per head, far above the ~295 flops/byte
 // ridge, so it is bound by operations, and only the tensor cores reach the
-// card's rate. The bf16 design (hopper.cuh has the primitives):
+// card's rate. The bf16 design (hopper.cuh has the primitives, and
+// wgmma_attn.cuh the consumer loop it shares with paged_prefill.cu):
 //
 // - One CTA = 128 query rows of ONE query head (grid: (ceil(S/128), Nh, B),
 //   heaviest causal tiles first): two consumer warpgroups of 64 rows and
@@ -46,6 +47,7 @@
 
 #include "attn_tile.cuh"
 #include "hopper.cuh"
+#include "wgmma_attn.cuh"
 
 namespace {
 
@@ -99,12 +101,12 @@ int run(const FlashArgs& a) {
 
 // ----------------------------------------------- bf16: wgmma + TMA kernel
 
-constexpr int kBM = 64;                        // query rows per consumer warpgroup
-constexpr int kWG = 2;                         // consumer warpgroups
-constexpr int kBN = 64;                        // keys per KV tile
+using wgattn::kBM;
+using wgattn::kBN;
+using wgattn::kBox;
+using wgattn::kWG;
 constexpr int kStages = 4;                     // K/V ring depth
 constexpr int kFlashThreads = 128 * kWG + 32;  // + one producer warp
-constexpr int kBox = 64 * 64 * 2;              // one 64 x 64 bf16 box (8 KB)
 
 template <int D>
 struct Smem {
@@ -118,13 +120,6 @@ struct Smem {
   static constexpr int BAR = (ALL + kStages * 4 + 7) / 8 * 8;
   static constexpr size_t BYTES = BAR + (2 * kStages + 1) * 8 + 1024;  // + base alignment
 };
-
-// Keep the compiler from moving register traffic across an in-flight wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 template <int D>
 __global__ void __launch_bounds__(kFlashThreads, 1)
@@ -239,126 +234,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
 #pragma unroll
   for (int i = 0; i < NB * 32; ++i) o[i] = 0.f;
   float m[2] = {attn::kNegInf, attn::kNegInf}, l[2] = {0.f, 0.f};
-  const uint32_t sq = sb + L::Q + wg * NB * kBox;
-
-  // S = Q K^T of the tile in `st`, issued asynchronously into acc
-  auto issue_qk = [&](float* acc, int st) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t koff = (kk % 4) * 32;
-      hopper::wgmma_ss_m64n64k16(acc, hopper::desc_sw128(sq + (kk / 4) * kBox + koff, 16, 1024),
-                                 hopper::desc_sw128(k_box(st, kk / 4) + koff, 16, 1024), kk > 0);
-    }
-  };
-
   hopper::mbar_wait(qbar, 0);
-  int stage = 0;
-  uint32_t parity = 0;
-  hopper::mbar_wait(full(stage), parity);
-  int c0 = sc0[stage];
-  float sa[32], sn[32];
-  if (c0 >= 0) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sa[i] = 0.f;
-    hopper::wg_fence();
-    issue_qk(sa, stage);
-    hopper::wg_commit();
-    hopper::wg_wait0();
-    fence_regs<32>(sa);
-  }
-  while (c0 >= 0) {
-    int nstage = stage + 1;
-    uint32_t nparity = parity;
-    if (nstage == kStages) {
-      nstage = 0;
-      nparity ^= 1;
-    }
-    hopper::mbar_wait(full(nstage), nparity);
-    const int nc0 = sc0[nstage];
-    // the next tile's S = Q K^T runs on the tensor cores during this softmax
-    if (nc0 >= 0) {
-      hopper::wg_fence();
-      issue_qk(sn, nstage);
-      hopper::wg_commit();
-    }
-
-    // mask (unless the whole tile is visible) and online softmax on the
-    // fragment: element 4j + 2t + e is row (row + 8t), key 8j + 2*quad + e
-    const int* sp = spos + stage * kBN;
-    const bool all = sall[stage] != 0;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      float mx = attn::kNegInf;
-      if (all) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          sa[4 * j + 2 * t] *= sl2;
-          sa[4 * j + 2 * t + 1] *= sl2;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * t + e, col = 8 * j + 2 * quad + e;
-            sa[i] = c0 + col >= C ? -INFINITY : sp[col] <= qp[t] ? sa[i] * sl2 : attn::kNegInf;
-          }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sa[4 * j + 2 * t], sa[4 * j + 2 * t + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[t], mx);
-      const float corr = attn::ex2(m[t] - mn);
-      m[t] = mn;
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * t + e;
-          sa[i] = attn::ex2(sa[i] - mn);
-          ls += sa[i];
-        }
-      l[t] = l[t] * corr + ls;  // this thread's columns; the quad is summed at the end
-#pragma unroll
-      for (int j = 0; j < 8 * NB; ++j) {
-        o[4 * j + 2 * t] *= corr;
-        o[4 * j + 2 * t + 1] *= corr;
-      }
-    }
-    // P as the m64k16 A fragments of the four 16-key steps
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = hopper::pack_bf16(sa[8 * kk + 0], sa[8 * kk + 1]);
-      pa[kk][1] = hopper::pack_bf16(sa[8 * kk + 2], sa[8 * kk + 3]);
-      pa[kk][2] = hopper::pack_bf16(sa[8 * kk + 4], sa[8 * kk + 5]);
-      pa[kk][3] = hopper::pack_bf16(sa[8 * kk + 6], sa[8 * kk + 7]);
-    }
-    // O += P V
-    hopper::wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (NB == 2) {
-        hopper::wgmma_rs_m64n128k16_tb(
-            o, pa[kk], hopper::desc_sw128(v_box(stage, 0) + kk * 16 * 128, kBox, 1024));
-      } else {
-        hopper::wgmma_rs_m64n64k16_tb(
-            o, pa[kk], hopper::desc_sw128(v_box(stage, 0) + kk * 16 * 128, kBox, 1024));
-      }
-    }
-    hopper::wg_commit();
-    hopper::wg_wait0();  // this PV and the next tile's QK
-    fence_regs<NB * 32>(o);
-    fence_regs<32>(sn);
-    hopper::mbar_arrive(empty(stage));
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sa[i] = sn[i];
-    stage = nstage;
-    parity = nparity;
-    c0 = nc0;
-  }
+  const wgattn::Ring ring{sb + L::K, sb + L::V, full(0), empty(0), spos, sc0, sall};
+  wgattn::consume<D, kStages>(ring, sb + L::Q + wg * NB * kBox, C, qp, sl2, o, m, l);
 
 #pragma unroll
   for (int t = 0; t < 2; ++t) {

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash kernel
-// (flash_attention.cu): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors for 128-byte-swizzled bf16 tiles, the wgmma shapes the
-// kernel issues, and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (flash_attention.cu, paged_prefill.cu): mbarriers, TMA tile loads, the
+// proxy fence, wgmma shared-memory descriptors for 128-byte-swizzled bf16
+// tiles, the wgmma shapes the kernels issue, and the host-side tensor-map
+// encoders.
 //
 // The tensor-map encoder (cuTensorMapEncodeTiled) lives in libcuda, not in
 // the runtime. It is looked up in the already-loaded libcuda with dlsym, so the
@@ -61,6 +62,12 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// Order this thread's plain shared-memory stores before later reads of
+// the same bytes by the async proxy (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -148,18 +155,37 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A bf16 tensor [d3][d2][d1][d0] (d0 contiguous, dense) read in boxes of
-// 64 x 1 x 64 x 1 elements (dims 0 and 2), 128-byte swizzled; boxes past
-// the end of dim 2 are zero-filled. Returns false if libcuda refuses.
+// 64 x 1 x box_rows x 1 elements (dims 0 and 2), 128-byte swizzled; boxes
+// past the end of dim 2 are zero-filled. A box of fewer than 64 rows lands
+// at a 1024-byte-aligned row offset of a 64-row tile with the tile's
+// swizzle (box_rows a multiple of 8). Returns false if libcuda refuses.
 inline bool map_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-                        uint64_t d2, uint64_t d3) {
+                        uint64_t d2, uint64_t d3, uint32_t box_rows = 64) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
   const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
              box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 1-byte tensor [d3][d2][d1][d0] (int8 / fp8 codes, d0 contiguous, dense;
+// d0 a multiple of 16, at most 256) read in unswizzled boxes of
+// d0 x 1 x box_rows x 1 bytes: rows of d0 bytes, one after another.
+inline bool map_u8_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                      uint64_t d3, uint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {d0, d0 * d1, d0 * d1 * d2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d0), 1, box_rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -31,9 +31,10 @@
 //   (acc 0, m -1e30, l 0) and loads no K/V: exact for every row that sees a
 //   key elsewhere (the merge's 2^(-1e30 - m) is 0), finite for the rest.
 // - Each CTA writes one f32 partial (acc[D], m, l) per folded row; a second
-//   small kernel merges the runs with the recurrence of combine_attn_stats
-//   (m = max m_i, l = sum 2^(m_i - m) l_i, acc likewise, out = acc /
-//   max(l, 1e-30)). It is launched as a programmatic dependent of the first
+//   small kernel (attn::split_merge_kernel in attn_tile.cuh, shared with
+//   the split chunked prefill) merges the runs with the recurrence of
+//   combine_attn_stats (m = max m_i, l = sum 2^(m_i - m) l_i, acc
+//   likewise, out = acc / max(l, 1e-30)). It is launched as a programmatic dependent of the first
 //   (its launch overlaps the split kernel's tail; griddepcontrol.wait orders
 //   it after the partials). One call of paged_attention_fwd is both launches.
 //
@@ -333,30 +334,6 @@ split_decode_kernel(const T* q, const KT* k_arena, const KT* v_arena, const floa
   }
 }
 
-// One thread per head-dim element of one folded row: merge its nsplit
-// partials and write the output row.
-template <typename T>
-__global__ void split_merge_kernel(const float* part_acc, const float* part_ml, T* out, int S,
-                                   int Nh, int Nkv, int D, int nsplit) {
-  // launched early (programmatic dependent launch): wait here until the
-  // split kernel's partials are complete and visible
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
-  const int G = Nh / Nkv, GS = G * S;
-  const size_t base = (size_t(b) * Nkv + kh) * nsplit * GS + r;
-  float M = kNegInf;
-  for (int i = 0; i < nsplit; ++i) M = fmaxf(M, part_ml[(base + size_t(i) * GS) * 2]);
-  float L = 0.f, A = 0.f;
-  for (int i = 0; i < nsplit; ++i) {
-    const size_t pr = base + size_t(i) * GS;
-    const float c = attn::ex2(part_ml[pr * 2] - M);
-    L += c * part_ml[pr * 2 + 1];
-    A += c * part_acc[pr * D + d];
-  }
-  out[((size_t(b) * S + r % S) * Nh + size_t(kh) * G + r / S) * D + d] =
-      attn::from_f<T>(A / fmaxf(L, 1e-30f));
-}
-
 struct DecodeArgs {
   const void *q, *k, *v;
   const float *k_scale, *v_scale;
@@ -383,20 +360,8 @@ int run_rp(const DecodeArgs& a) {
                              a.kvpos, a.part_acc, a.part_ml, a.S, a.Nh, a.Nkv, a.BS, a.Tb,
                              a.split_cols, a.nsplit, a.scale * 1.4426950408889634f);
   if (e != 0) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(GS, a.Nkv, a.B);
-  cfg.blockDim = dim3(D);
-  cfg.stream = a.stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t me =
-      cudaLaunchKernelEx(&cfg, split_merge_kernel<T>, static_cast<const float*>(a.part_acc),
-                         static_cast<const float*>(a.part_ml), static_cast<T*>(a.out), a.S, a.Nh,
-                         a.Nkv, D, a.nsplit);
-  return static_cast<int>(me != cudaSuccess ? me : cudaGetLastError());
+  return attn::launch_merge<T>(a.part_acc, a.part_ml, static_cast<T*>(a.out), a.B, a.S, a.Nh,
+                               a.Nkv, D, a.nsplit, a.stream);
 }
 
 // RP folded rows per CTA: 3 where they divide G*S (G = 3, Llama-3.2-3B),

@@ -34,7 +34,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-HEADERS = ("attn_tile.cuh", "hopper.cuh")
+HEADERS = ("attn_tile.cuh", "hopper.cuh", "wgmma_attn.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -114,7 +114,7 @@ PAGED_DECODE = CudaKernel(
 )
 PAGED_PREFILL = CudaKernel(
     "paged_prefill", "paged_prefill.cu", "paged_prefill_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    [_P] * 12 + [_I] * 9 + [_F, _I, _I, _I, _P],
 )
 KERNELS = (FLASH, PAGED_DECODE, PAGED_PREFILL)
 

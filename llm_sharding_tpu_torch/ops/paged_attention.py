@@ -17,7 +17,11 @@ Counterpart of ``llm_sharding_tpu/ops/paged_attention.py``:
   each, and a second pass merges the runs' partials;
 - ``paged_prefill`` → ``csrc/paged_prefill.cu``, the port of
   ``paged_prefill_tpu`` (``:689``, body ``_paged_prefill_kernel`` at
-  ``:619``).
+  ``:619``): bf16 queries at block sizes 16, 32 or a multiple of 64 run
+  on the tensor cores (``prefill_design``), each row's live columns cut
+  into runs when the chunk's CTAs fall short of the SMs
+  (``plan_prefill_splits``, ``prefill_run_cols``), merged like decode's;
+  f32 queries and other block sizes run on the CUDA-core tile.
 
 The arena is ``[NB, BS, Nkv, D]``, the block table ``[B, T]`` (entry 0
 is the reserved trash block, which reads as zeros everywhere), and
@@ -58,6 +62,11 @@ BACKENDS = ("auto", "kernel", "plain")
 SPLIT_CTAS_PER_SM = 4
 SPLIT_MIN_COLS = 128
 SPLIT_MAX_COLS = 2048
+# chunked prefill on the tensor cores: query rows (chunk positions of one
+# head) per CTA, keys per K/V tile, and the most runs a row is cut into
+PREFILL_Q_ROWS = 128
+PREFILL_TILE_COLS = 64
+PREFILL_MAX_SPLITS = 16
 
 
 def _bytes(arena: torch.Tensor) -> torch.Tensor:
@@ -264,6 +273,48 @@ def plan_splits(B: int, Nkv: int, T: int, BS: int, sm_count: int) -> tuple[int, 
     return split_blocks * BS, -(-T // split_blocks)
 
 
+def prefill_design(dtype: torch.dtype, block_size: int) -> str:
+    """The chunked-prefill kernel's route, from the query dtype and the
+    arena's block size alone: ``"wgmma"`` (tensor cores, TMA boxes over
+    the block table) for bf16 queries at block size 16, 32 or a multiple
+    of 64, else ``"tile"`` (CUDA-core FMAs; f32 on the tensor cores would
+    be TF32, and other block sizes do not tile a 64-key box)."""
+    bs_ok = block_size in (16, 32) or (block_size > 0 and block_size % 64 == 0)
+    return "wgmma" if dtype == torch.bfloat16 and bs_ok else "tile"
+
+
+def prefill_run_cols(live_cols: int, nsplit: int, block_size: int) -> int:
+    """Length of each run when a row's ``live_cols`` written columns are cut
+    into ``nsplit`` runs: an even share rounded up to a whole number of
+    ``max(PREFILL_TILE_COLS, block_size)`` columns (a multiple of the block
+    size and of the tile). Run ``i`` is ``[i * run, min((i + 1) * run,
+    live_cols))``; trailing runs may be empty. The kernel computes the same
+    from each row's own ``nlive``."""
+    unit = max(PREFILL_TILE_COLS, block_size)
+    share = -(-live_cols // max(1, nsplit))
+    return -(-share // unit) * unit
+
+
+def plan_prefill_splits(
+    B: int, Sc: int, Nh: int, live_cols: int, block_size: int, sm_count: int
+) -> tuple[int, int]:
+    """Split plan of the tensor-core chunked prefill: ``(run_cols,
+    nsplit)``. A chunk gives ``B * Nh * ceil(Sc / PREFILL_Q_ROWS)`` CTAs,
+    each holding one SM (its rings fill the shared memory). When they fall
+    short of ``sm_count``, each row's live columns are cut into ``nsplit``
+    runs, as many as fit in one wave of the SMs, at most one per tile of
+    ``live_cols`` and at most ``PREFILL_MAX_SPLITS``; ``run_cols`` is
+    ``prefill_run_cols`` of ``live_cols``. The wrapper passes the table's
+    width (the frontier is on the device; each CTA sizes its run from its
+    row's own). Depends on nothing but its arguments."""
+    ctas = B * Nh * -(-Sc // PREFILL_Q_ROWS)
+    unit = max(PREFILL_TILE_COLS, block_size)
+    nsplit = 1
+    if 0 < ctas < sm_count:
+        nsplit = max(1, min(sm_count // ctas, -(-live_cols // unit), PREFILL_MAX_SPLITS))
+    return prefill_run_cols(live_cols, nsplit, block_size), nsplit
+
+
 def _use_kernel(name: str, q: torch.Tensor, backend: str) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"{name} backend {backend!r}: expected one of {BACKENDS}")
@@ -358,7 +409,10 @@ def paged_prefill(
 ) -> torch.Tensor:
     """Chunked-prefill attention over the arena (kernel 2, or
     ``paged_attention_xla``, which reads the whole window: the ``nlive``
-    clamp only bounds the kernel's KV traffic)."""
+    clamp only bounds the kernel's KV traffic). On the card the route is
+    ``prefill_design(q.dtype, BS)``; the tensor-core route cuts rows into
+    ``plan_prefill_splits`` runs whose partials a second pass merges (one
+    launch count per call)."""
     if not _use_kernel("paged_prefill", q, backend):
         return paged_attention_xla(
             q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale, v_scale
@@ -375,11 +429,22 @@ def paged_prefill(
         nlive = torch.full((B,), T, dtype=torch.int32, device=q.device)
     nl = kernels.int32_operand("nlive", nlive.clamp(0, T).to(torch.int32), (B,), q.device)
     kv, mode = kernels.kv_storage(k_arena)
+    design = prefill_design(q.dtype, BS)
+    nsplit = 1
+    if design == "wgmma":
+        _, nsplit = plan_prefill_splits(B, S, Nh, T * BS, BS, kernels.sm_count(q.device))
+    part_acc = part_ml = 0
+    if nsplit > 1:
+        # per-run partials (acc [B, Nkv, nsplit, G*S, D], then (m, l) pairs)
+        # that the kernel's second pass merges; the kernel allocates nothing
+        rows = B * nsplit * Nh * S
+        part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+        part_acc, part_ml = part.data_ptr(), part.data_ptr() + rows * D * 4
     out = torch.empty_like(q)
     kernels.PAGED_PREFILL.launch(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl.data_ptr(), out.data_ptr(), B, S,
-        Nh, Nkv, D, BS, T, float(scale), code, kv, kernels.current_stream_handle(q.device),
-        mode=mode,
+        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl.data_ptr(), out.data_ptr(),
+        part_acc, part_ml, B, S, Nh, Nkv, D, BS, T, k_arena.shape[0], nsplit, float(scale), code,
+        kv, int(design == "wgmma"), kernels.current_stream_handle(q.device), mode=mode,
     )
     return out

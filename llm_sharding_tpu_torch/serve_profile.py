@@ -6,7 +6,9 @@ Serves the workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8
 staggered requests, 4 prompts of 20-200 tokens, 4 of 1024-2048, 64 new
 tokens each) on seeded random Llama-3.2-3B weights (all 28 layers, bf16),
 made on the card, under ``torch.profiler``. Prints the device time per
-kernel (top 15), the
+kernel (top 15), then the total and launch count of each of the port's own
+kernels by name (``PORT_KERNELS``, split by KV storage type) beside the
+chunked-prefill kernel's operations bound over the workload, the
 device-busy share of the run's wall time, and the host wall time of
 decode-only steps at 8 live rows. A warm-up request runs first so
 first-call costs (kernel build, allocator growth) stay out of the window;
@@ -30,6 +32,52 @@ import numpy as np
 import torch
 
 from . import smoke_workload
+
+
+PREFILL_CHUNK = 256
+BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
+# the port's CUDA kernels by function name (csrc/*.cu); the split merge is
+# one kernel, launched by both split paths (decode and tensor-core prefill)
+PORT_KERNELS = (
+    "flash_wgmma_kernel", "flash_kernel", "split_decode_kernel", "split_merge_kernel",
+    "prefill_wgmma_kernel", "paged_prefill_kernel",
+)
+
+
+def port_kernel_totals(per_kernel: dict, calls: dict) -> list:
+    """``[name, KV storage, ms, launches]`` of each port kernel present in a
+    profile's kernel table (template instantiations summed per KV storage
+    type: int8 codes, fp8 codes, or the query dtype)."""
+    out = collections.OrderedDict()
+    for key, us in per_kernel.items():
+        name = next((n for n in PORT_KERNELS if f"{n}<" in key), None)
+        if name is None:
+            continue
+        kv = "int8" if "signed char" in key else "fp8" if "fp8" in key else "-"
+        ms, n = out.get((name, kv), (0.0, 0))
+        out[(name, kv)] = (ms + us / 1e3, n + calls[key])
+    return [[name, kv, ms, n] for (name, kv), (ms, n) in out.items()]
+
+
+def chunked_prefill_pairs(lens, prefill_chunk: int) -> int:
+    """Visible query-key pairs, per layer, of the chunked admissions of
+    prompts of ``lens`` tokens, each admitted alone as the server does it:
+    a prompt whose bucket exceeds ``prefill_chunk`` runs in chunks of that
+    size, each attending every column written up to its end; a query at
+    position p sees p + 1 keys, and the padding queries and the prompt's
+    final one carry the sentinel position, which sees every such column."""
+    from .runtime.server import ADMIT_BUCKETS
+
+    pairs = 0
+    for n in lens:
+        bucket = next(b for b in ADMIT_BUCKETS if b >= n)
+        if bucket <= prefill_chunk:
+            continue
+        for off in range(0, bucket, prefill_chunk):
+            end = off + prefill_chunk
+            real = min(max(n - 1 - off, 0), prefill_chunk)
+            pairs += real * off + real * (real + 1) // 2 + (prefill_chunk - real) * end
+    return pairs
 
 
 def _device_us(evt) -> float:
@@ -57,7 +105,7 @@ def main(argv=None) -> int:
     cfg = config.llama32_3b()
     eng = Engine(cfg, llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev))
     srv = eng.serve(capacity=4096, batch_per_slot=8, kv_block_size=64, kv_blocks=1024,
-                    prefill_chunk=256, kv_dtype=args.kv_dtype)
+                    prefill_chunk=PREFILL_CHUNK, kv_dtype=args.kv_dtype)
     rng = np.random.default_rng(0)
     srv.result(srv.submit(rng.integers(0, cfg.vocab_size, 300).astype(np.int32), 8))
 
@@ -97,6 +145,15 @@ def main(argv=None) -> int:
           f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), tokens {sum(len(r.tokens) for r in reqs)}")
     for key, us in per_kernel.most_common(15):
         print(f"  {us / 1e3:9.2f} ms {us / 1e3 / busy_ms:6.1%} {calls[key]:7d}x  {key[:90]}")
+    pairs = chunked_prefill_pairs(smoke_workload.LENS, PREFILL_CHUNK)
+    flops = 4.0 * cfg.num_attention_heads * cfg.head_dim_ * pairs * cfg.num_hidden_layers
+    bound_ms = flops / BF16_FLOPS * 1e3
+    print(f"chunked-prefill kernel's operations bound over the workload: {bound_ms:.4f} ms "
+          f"({pairs} visible query-key pairs per layer, {BF16_FLOPS / 1e12:.0f} TFLOP/s)")
+    port = port_kernel_totals(per_kernel, calls)
+    print("port kernels (all launches in the window):")
+    for name, kv, ms, n in port:
+        print(f"  {ms:9.2f} ms {n:7d}x  {name} [{kv}]")
     if decode_ms:
         print(f"decode-only steps at 8 live rows: {len(decode_ms)}, wall ms p50 "
               f"{np.percentile(decode_ms, 50):.2f} min {min(decode_ms):.2f}")
@@ -107,6 +164,7 @@ def main(argv=None) -> int:
         "kv_dtype": args.kv_dtype, "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "decode_step_ms_p50": float(np.percentile(decode_ms, 50)) if decode_ms else None,
         "top": [[k, us / 1e3, calls[k]] for k, us in per_kernel.most_common(15)],
+        "port_kernels": port,
     }))
     return 0
 

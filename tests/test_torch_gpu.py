@@ -101,11 +101,13 @@ def test_kernel_matches_plain_on_gpu(cuda_device, which, dtype):
 
 
 @pytest.mark.cuda
-def test_paged_prefill_nlive_bounds_the_kv_loop(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_paged_prefill_nlive_bounds_the_kv_loop(cuda_device, dtype):
     """A block at or past ``nlive`` is never read: NaN in row 1's block 6
     leaves the output bit-identical, while without the clamp the NaN
-    reaches the output through a masked key's zero probability."""
-    args = list(_paged_args(cuda_device, 20, torch.float32))
+    reaches the output through a masked key's zero probability. f32 runs
+    on the CUDA-core tile, bf16 on the tensor cores (TMA boxes)."""
+    args = list(_paged_args(cuda_device, 20, dtype))
     nlive = torch.tensor([4, 2], dtype=torch.int32, device=cuda_device)
     want = tpa.paged_prefill(*args, nlive=nlive)
     args[1][6], args[2][6] = float("nan"), float("nan")
@@ -392,3 +394,86 @@ def test_split_kv_decode_f32_queries(cuda_device):
         got, want = tpa.paged_attention(*args, **sc), tpa.paged_attention_xla(*args, **sc)
         torch.cuda.synchronize()
         _assert_close_rows(got, want, torch.float32)
+
+
+def _prefill_case(dev, dtype, frontiers, Sc, BS, D, kv, pad=0, seed=42):
+    """Chunked prefill of Sc queries per row at the given written frontiers
+    over a table with two stale blocks past the longest (sentinel
+    positions); rows map their blocks in random arena order. Trash block 0
+    (NaN/Inf; 0x7F codes and Inf scales for a code arena) is mapped inside
+    row 0's window at visible positions BS..2*BS-1; the last row's final
+    ``pad`` queries carry the sentinel. Returns the args, the kernel's and
+    the plain version's keywords, and the query rows that see a key."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Nkv, G = 2, 3
+    B = len(frontiers)
+    T = max(-(-f // BS) for f in frontiers) + 2
+    NB = B * T + 1
+    k = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    k[0], v[0] = float("nan"), float("inf")
+    perm = torch.randperm(NB - 1, generator=g, device=dev) + 1
+    tbl = perm[: B * T].reshape(B, T).to(torch.int32)
+    tbl[0, 1] = 0
+    kvpos = torch.full((B, T * BS), POS_SENTINEL, dtype=torch.int32, device=dev)
+    qpos = torch.zeros((B, Sc), dtype=torch.int32, device=dev)
+    for b, f in enumerate(frontiers):
+        kvpos[b, :f] = torch.arange(f)
+        qpos[b] = torch.arange(f - Sc, f)
+    if pad:
+        qpos[-1, Sc - pad :] = POS_SENTINEL
+    nlive = torch.tensor([-(-f // BS) for f in frontiers], dtype=torch.int32, device=dev)
+    q = torch.randn((B, Sc, Nkv * G, D), generator=g, device=dev).to(dtype)
+    sc = {}
+    if kv is not None:
+        k, ks, v, vs = _quantize(k, v, kv)
+        sc = dict(k_scale=ks, v_scale=vs)
+    return (q, k, v, tbl, qpos, kvpos), dict(nlive=nlive, **sc), sc, qpos < POS_SENTINEL
+
+
+# B = 2: a ragged chunk (100 queries: the second 128-row tile is mostly
+# padding) at two frontiers, one split run per row; B = 1: 256 queries at a
+# 1500-token frontier, 12 CTAs, so the row is cut into several runs
+PREFILL_SHAPES = {"B2-ragged": ((300, 130), 100, 9), "B1-long-split": ((1500,), 256, 40)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("BS", [16, 64])
+@pytest.mark.parametrize("shape", list(PREFILL_SHAPES))
+def test_prefill_tensor_core_kernel_matches_plain(cuda_device, shape, BS, D, kv):
+    """bf16 chunked prefill on the tensor cores against the plain version:
+    both block sizes (16: four TMA boxes per 64-key tile; 64: one), both
+    head dims, every KV mode, trash inside a window at visible positions,
+    sentinel query rows (left out: no visible key past the clamp on one
+    side, the whole window on the other)."""
+    frontiers, Sc, pad = PREFILL_SHAPES[shape]
+    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.bfloat16, frontiers, Sc, BS, D, kv,
+                                             pad=pad)
+    assert tpa.prefill_design(torch.bfloat16, BS) == "wgmma"
+    if shape == "B1-long-split":
+        _, nsplit = tpa.plan_prefill_splits(1, Sc, 6, args[3].shape[1] * BS, BS,
+                                            kernels.sm_count(cuda_device))
+        assert nsplit > 1
+    kernels.reset_launch_counts()
+    got = tpa.paged_prefill(*args, **kw)
+    want = tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_prefill" + (f"[{kv}]" if kv else "")] == 1
+    assert torch.isfinite(got).all()
+    _assert_close_rows(got[rows], want[rows], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+def test_prefill_f32_queries_take_the_tile_path(cuda_device, kv):
+    """f32 queries at block size 64 (dispatched by dtype to the CUDA-core
+    tile, never the tensor cores) meet the f32 limits, trash and split
+    shape as above."""
+    assert tpa.prefill_design(torch.float32, 64) == "tile"
+    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.float32, (1500,), 256, 64, 128,
+                                             kv, pad=40)
+    got, want = tpa.paged_prefill(*args, **kw), tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    _assert_close_rows(got[rows], want[rows], torch.float32)
