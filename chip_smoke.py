@@ -9,25 +9,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 (b) hold each kernel, and each KV mode of the paged kernels (an arena in
     the query dtype, int8 codes, fp8-e4m3 codes, each code arena with
     per-(block, KV head) f32 scales), against its plain PyTorch version on
-    the card at the Llama-3.2-3B shapes of the serving path, with bf16 and
-    f32 queries: decode at 8 rows of 100-2048 tokens and at one 2048-token
-    row, chunked prefill, flash at S = C = 2048, at a one-shot admission's
-    bucket (256, 200 real positions) and ragged; time kernel, plain version
-    and (flash only) ``F.scaled_dot_product_attention`` with the equivalent
-    boolean mask, a yardstick the port never calls;
-(c) f32 at full 3B width and 4 layers: the served greedy streams, one-shot
-    and chunked, must be token-identical to the port's ``generate`` (a
-    mismatch passes only where the oracle's top-2 logit gap is < 1e-4);
-    and with int8 and fp8 arenas, the served streams through the kernels
-    (``paged_attn="auto"``) must equal the same server's through the plain
-    versions (``paged_attn="plain"``), or differ first where the plain
-    run's top-2 gap is < 1e-3;
-(d) write a shard store of seeded random Llama-3.2-3B weights (28 layers,
-    bf16), load it with ``Engine.from_shards`` and serve 8 staggered
-    requests (4 prompts of 20-200 tokens, 4 of 1024-2048, 64 new tokens
-    each) through the paged server, once per KV dtype (bf16, int8, fp8);
-    in each run every request must finish, the block allocator must drain
-    and every kernel (mode) of that path must have launched;
+    the card at the serving path's shapes, with bf16 and f32 queries.
+    Llama-3.2-3B (G = 3, D = 128): decode at 8 rows of 100-2048 tokens and
+    at one 2048-token row, chunked prefill, flash at S = C = 2048, at a
+    one-shot admission's bucket (256, 200 real positions) and ragged.
+    GPT-2 small (G = 1, D = 64): decode at 8 rows of 100-960 tokens,
+    chunked prefill of one row at frontier 512, flash at the admission
+    bucket. Time kernel, plain version and (flash only)
+    ``F.scaled_dot_product_attention`` with the equivalent boolean mask, a
+    yardstick the port never calls;
+(c) f32 token checks: the served greedy streams, one-shot and chunked,
+    must be token-identical to the port's ``generate`` on the same weights
+    (a mismatch passes only where the oracle's top-2 logit gap is < 1e-4):
+    Llama-3.2-3B at full width and 4 layers, raw, then loaded from a
+    port-written int8 store (vocab table quantized too) and an int4 store;
+    GPT-2 small at full width and depth. With int8 and fp8 arenas, the 3B's
+    served streams through the kernels (``paged_attn="auto"``) must equal
+    the same server's through the plain versions (``paged_attn="plain"``),
+    or differ first where the plain run's top-2 gap is < 1e-3;
+(d) write shard stores of seeded random full-depth weights with the
+    port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
+    quantized from the same bf16 weights; GPT-2 small bf16), load each
+    with ``Engine.from_shards`` and serve its ``smoke_workload`` (8
+    staggered requests, 64 new tokens each) through the paged server: the
+    bf16 stores once per KV dtype (bf16, int8, fp8), the int8 and int4
+    stores with a bf16 arena. In each run every request must finish, the
+    block allocator must drain and every kernel (mode) of that path must
+    have launched; each store's bytes on disk and resident after load are
+    printed;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -41,6 +50,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -136,13 +146,13 @@ def code_bytes(kv, dtype_bytes: int) -> int:
     return 1 if kv else dtype_bytes
 
 
-def decode_case(cfg, dtype, device, gen, kv=None, ctx=None):
+def decode_case(cfg, dtype, device, gen, kv=None, ctx=None, T=64):
     """Decode rows (default 8, contexts 100-2048), block size 64, table
-    width 64 (capacity 4096) with the tail trash-mapped; trash block 0
-    holds NaN/Inf (an Inf scale for a code arena)."""
+    width ``T`` (64: capacity 4096) with the tail trash-mapped; trash
+    block 0 holds NaN/Inf (an Inf scale for a code arena)."""
     import torch
 
-    BS, T = 64, 64
+    BS = 64
     ctx = np.linspace(100, 2048, 8).astype(int) if ctx is None else np.asarray(ctx)
     B = len(ctx)
     Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -173,21 +183,22 @@ def decode_case(cfg, dtype, device, gen, kv=None, ctx=None):
     return args, scales, scales, nbytes, flops, None
 
 
-def prefill_case(cfg, dtype, device, gen, kv=None, frontier=(256, 2048, 256, 2048), trash=False):
+def prefill_case(cfg, dtype, device, gen, kv=None, frontier=(256, 2048, 256, 2048), trash=False,
+                 prompt=2048, T=64):
     """Chunks of 256 queries at the given written frontiers (default two
-    rows at 256 and two at 2048); every row maps blocks for a 2048-token
-    prompt + 65 columns, and the blocks past the frontier hold stale data
-    the nlive clamp skips. With ``trash``, the last row's table maps trash
-    block 0 (NaN/Inf; 0x7F codes and Inf scales for a code arena) at its
-    sixth block, positions 320-383, visible to every query of the chunk."""
+    rows at 256 and two at 2048); every row maps blocks for a
+    ``prompt``-token prompt + 65 columns in a table of width ``T``, and
+    the blocks past the frontier hold stale data the nlive clamp skips.
+    With ``trash``, the last row's table maps trash block 0 (NaN/Inf; 0x7F
+    codes and Inf scales for a code arena) at its sixth block, positions
+    320-383, visible to every query of the chunk."""
     import torch
 
     BS, Sc = 64, 256
     frontier = np.asarray(frontier)
     B = len(frontier)
-    T = 64
     Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-    per_row = -(-(2048 + 65) // BS)
+    per_row = -(-(prompt + 65) // BS)
     NB = B * per_row + 1
     k = torch.randn((NB, BS, Nkv, D), generator=gen, device=device).to(dtype)
     v = torch.randn((NB, BS, Nkv, D), generator=gen, device=device).to(dtype)
@@ -250,54 +261,65 @@ def flash_case(cfg, dtype, device, gen, S, real=None):
     return args, {}, {}, nbytes, flops, library
 
 
-def phase_kernels(cfg, device) -> list:
-    import torch
-
+def kernel_cases(model: str) -> list:
+    """``(name, shape label, kernel, plain version, case maker, TPU
+    function, port source)`` of each [b] case at ``model``'s serving
+    shapes; a case without a TPU function is checked but not tabled."""
     from llm_sharding_tpu_torch.ops import attention, flash_attention, paged_attention
 
-    gen = torch.Generator(device=device).manual_seed(1234)
-    paged = []
+    dec = ("llm_sharding_tpu/ops/paged_attention.py:484", "llm_sharding_tpu_torch/csrc/paged_attention.cu")
+    pre = ("llm_sharding_tpu/ops/paged_attention.py:689", "llm_sharding_tpu_torch/csrc/paged_prefill.cu")
+    fla = ("llm_sharding_tpu/ops/flash_attention.py:124", "llm_sharding_tpu_torch/csrc/flash_attention.cu")
+    pa, pp, xla = paged_attention.paged_attention, paged_attention.paged_prefill, paged_attention.paged_attention_xla
+    fa, plain_fa = flash_attention.flash_attention, attention.cached_attention
+    cases = []
+    if model == "gpt2_small":
+        # GPT-2 small: 12 heads, G = 1, D = 64; table width 16 (capacity 1024);
+        # the served chunks end at frontiers 256 and 512 (prompts <= 512)
+        gpt2_ctx = np.linspace(100, 960, 8).astype(int)
+        for kv in (None, *KV_MODES):
+            mode = f"[{kv}]" if kv else ""
+            cases += [
+                (f"paged_attention{mode}", "gpt2 decode B=8 ctx 100-960", pa, xla,
+                 lambda *a, kv=kv: decode_case(*a, kv=kv, ctx=gpt2_ctx, T=16), *dec),
+                (f"paged_prefill{mode}", "gpt2 chunk Sc=256 B=1 frontier 512", pp, xla,
+                 lambda *a, kv=kv: prefill_case(*a, kv=kv, frontier=(512,), prompt=512, T=16),
+                 *pre),
+            ]
+        return cases + [("flash_attention", "gpt2 S=C=256 200 real (admission)", fa, plain_fa,
+                         lambda *a: flash_case(*a, S=256, real=200), *fla)]
     for kv in (None, *KV_MODES):
         mode = f"[{kv}]" if kv else ""
-        paged += [
-            (f"paged_attention{mode}", "decode B=8 ctx 100-2048",
-             paged_attention.paged_attention, paged_attention.paged_attention_xla,
-             lambda *a, kv=kv: decode_case(*a, kv=kv),
-             "llm_sharding_tpu/ops/paged_attention.py:484",
-             "llm_sharding_tpu_torch/csrc/paged_attention.cu"),
-            (f"paged_attention{mode}", "decode B=1 ctx 2048",
-             paged_attention.paged_attention, paged_attention.paged_attention_xla,
-             lambda *a, kv=kv: decode_case(*a, kv=kv, ctx=[2048]),
-             "llm_sharding_tpu/ops/paged_attention.py:484",
-             "llm_sharding_tpu_torch/csrc/paged_attention.cu"),
-            (f"paged_prefill{mode}", "chunk Sc=256 frontiers 256/2048",
-             paged_attention.paged_prefill, paged_attention.paged_attention_xla,
-             lambda *a, kv=kv: prefill_case(*a, kv=kv),
-             "llm_sharding_tpu/ops/paged_attention.py:689",
-             "llm_sharding_tpu_torch/csrc/paged_prefill.cu"),
-            (f"paged_prefill{mode}", "chunk Sc=256 B=1 frontier 2048",
-             paged_attention.paged_prefill, paged_attention.paged_attention_xla,
-             lambda *a, kv=kv: prefill_case(*a, kv=kv, frontier=(2048,)),
-             "llm_sharding_tpu/ops/paged_attention.py:689",
-             "llm_sharding_tpu_torch/csrc/paged_prefill.cu"),
-            (f"paged_prefill{mode}", "chunk Sc=256 B=2 trash in window",
-             paged_attention.paged_prefill, paged_attention.paged_attention_xla,
+        cases += [
+            (f"paged_attention{mode}", "decode B=8 ctx 100-2048", pa, xla,
+             lambda *a, kv=kv: decode_case(*a, kv=kv), *dec),
+            (f"paged_attention{mode}", "decode B=1 ctx 2048", pa, xla,
+             lambda *a, kv=kv: decode_case(*a, kv=kv, ctx=[2048]), *dec),
+            (f"paged_prefill{mode}", "chunk Sc=256 frontiers 256/2048", pp, xla,
+             lambda *a, kv=kv: prefill_case(*a, kv=kv), *pre),
+            (f"paged_prefill{mode}", "chunk Sc=256 B=1 frontier 2048", pp, xla,
+             lambda *a, kv=kv: prefill_case(*a, kv=kv, frontier=(2048,)), *pre),
+            (f"paged_prefill{mode}", "chunk Sc=256 B=2 trash in window", pp, xla,
              lambda *a, kv=kv: prefill_case(*a, kv=kv, frontier=(1024, 2048), trash=True),
              None, None),
         ]
-    cases = paged + [
-        ("flash_attention", "S=C=2048 causal",
-         flash_attention.flash_attention, attention.cached_attention,
-         lambda *a: flash_case(*a, S=2048), "llm_sharding_tpu/ops/flash_attention.py:124",
-         "llm_sharding_tpu_torch/csrc/flash_attention.cu"),
-        ("flash_attention", "S=C=256 200 real (admission)",
-         flash_attention.flash_attention, attention.cached_attention,
-         lambda *a: flash_case(*a, S=256, real=200), "llm_sharding_tpu/ops/flash_attention.py:124",
-         "llm_sharding_tpu_torch/csrc/flash_attention.cu"),
-        ("flash_attention", "S=C=37 ragged",
-         flash_attention.flash_attention, attention.cached_attention,
-         lambda *a: flash_case(*a, S=37), None, None),
+    return cases + [
+        ("flash_attention", "S=C=2048 causal", fa, plain_fa, lambda *a: flash_case(*a, S=2048), *fla),
+        ("flash_attention", "S=C=256 200 real (admission)", fa, plain_fa,
+         lambda *a: flash_case(*a, S=256, real=200), *fla),
+        ("flash_attention", "S=C=37 ragged", fa, plain_fa, lambda *a: flash_case(*a, S=37), None, None),
     ]
+
+
+def phase_kernels(cfg, device, model: str) -> list:
+    """Each kernel case of ``model`` against its plain version, timed;
+    returns the tabled rows (bf16 queries), tagged with the model."""
+    import torch
+
+    from llm_sharding_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=device).manual_seed(1234)
+    cases = kernel_cases(model)
     rows = []
     for name, label, fn, plain, make, replaces, source in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -326,7 +348,7 @@ def phase_kernels(cfg, device) -> list:
                 require(dtype != torch.bfloat16 or design == "wgmma",
                         f"{name} {label}: bf16 at block size 64 must take the wgmma route")
             log(
-                f"[b] {name:21s} {label:32s} {dname:8s} {design or '':5s} max_abs_err={err:.3g} tol={tol:g} "
+                f"[b] {name:21s} {label:36s} {dname:8s} {design or '':5s} max_abs_err={err:.3g} tol={tol:g} "
                 f"max_row_rel_err={rel:.3g} tol={tol_rel:g} {status} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 f"bound_ms={bms:.4f} ({by})"
@@ -336,7 +358,7 @@ def phase_kernels(cfg, device) -> list:
                     f"{name} {label} {dname}: max row-relative error {rel} > {tol_rel}")
             if replaces is not None and dtype == torch.bfloat16:
                 rows.append(dict(
-                    name=name, shape=label, route="cuda", source=source, replaces=replaces,
+                    name=name, model=model, shape=label, route="cuda", source=source, replaces=replaces,
                     launches=None, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms,
                     **({"design": design} if design else {}),
@@ -352,13 +374,14 @@ def top2_gap(cfg, params, ids: np.ndarray) -> float:
     prefill of the whole sequence (the oracle's decision margin)."""
     import torch
 
-    from llm_sharding_tpu_torch.models import llama
     from llm_sharding_tpu_torch.models.cache import init_cache
+    from llm_sharding_tpu_torch.ops.quant import act_dtype, base
+    from llm_sharding_tpu_torch.parallel.pipeline import model_fns
 
-    dev = params["embed"].device
-    cache = init_cache(cfg, 1, len(ids), dtype=params["embed"].dtype, device=dev)
+    dev = base(params["embed"]).device
+    cache = init_cache(cfg, 1, len(ids), dtype=act_dtype(params["embed"]), device=dev)
     pos = torch.arange(len(ids), dtype=torch.int32, device=dev)[None]
-    logits, _ = llama.forward(cfg, params, torch.from_numpy(ids[None]).to(dev), cache, pos)
+    logits, _ = model_fns(cfg).forward(cfg, params, torch.from_numpy(ids[None]).to(dev), cache, pos)
     top = torch.topk(logits[0, -1], 2).values
     return float(top[0] - top[1])
 
@@ -387,10 +410,10 @@ def recorded_gaps(srv):
         serve_ops._sample_rows = sample
 
 
-def served_streams(eng, prompts, max_new: int, **serve_kw):
+def served_streams(eng, prompts, max_new: int, capacity: int = 2048, **serve_kw):
     """Staggered submits (two, two steps, two more) on a fresh server;
     returns each request's tokens and sampled-token gaps, in prompt order."""
-    srv = eng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
+    srv = eng.serve(capacity=capacity, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
                     prefill_chunk=256, **serve_kw)
     with recorded_gaps(srv) as gaps:
         reqs = [srv.submit(prompts[0], max_new), srv.submit(prompts[2], max_new)]
@@ -404,11 +427,36 @@ def served_streams(eng, prompts, max_new: int, **serve_kw):
     return [by_prompt[i].tokens for i in range(4)], [gaps[by_prompt[i].id] for i in range(4)]
 
 
-def phase_token_check(device) -> None:
+def check_against_generate(tag: str, eng, prompts, lens, max_new: int, capacity: int = 2048) -> None:
+    """The served greedy streams (one-shot and chunked admissions) must be
+    the engine's ``generate`` tokens; a mismatch passes only where the
+    oracle's top-2 logit gap is < 1e-4."""
+    served, _ = served_streams(eng, prompts, max_new, capacity=capacity)
+    for i, got in enumerate(served):
+        want = eng.generate_ids(prompts[i], max_new)
+        w = want.tokens[0, lens[i] : want.lengths[0]].tolist()
+        path = "chunked" if lens[i] > 256 else "one-shot"
+        if w == got:
+            log(f"[c] {tag} prompt {lens[i]:5d} ({path}): {len(w)} tokens identical to generate")
+            continue
+        step = next(j for j in range(min(len(w), len(got))) if w[j] != got[j])
+        gap = top2_gap(eng.cfg, eng.params,
+                       np.concatenate([prompts[i], np.asarray(w[:step], np.int32)]))
+        log(f"[c] {tag} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
+            f"oracle top-2 gap {gap:.3g}")
+        require(gap < 1e-4, f"phase c {tag}: served tokens differ from generate (gap {gap})")
+
+
+def phase_token_check(device, store_root: str) -> None:
+    """f32 token checks: Llama-3.2-3B at 4 layers (raw weights, then from
+    an int8 store with the head quantized and from an int4 store, both
+    written by the port), and GPT-2 small at full depth."""
     import torch
 
-    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.models import config, gpt2, llama
+    from llm_sharding_tpu_torch.ops.quant import quantize_params
     from llm_sharding_tpu_torch.runtime.engine import Engine
+    from llm_sharding_tpu_torch.utils.shard_store import save_shards
 
     cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=4)
     params = llama.init_params(cfg, seed=7, dtype=torch.float32, device=device)
@@ -417,19 +465,7 @@ def phase_token_check(device) -> None:
     lens = [40, 200, 700, 1000]  # buckets 64 and 256 one-shot, 1024 chunked
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     max_new = 16
-    served, _ = served_streams(eng, prompts, max_new)
-    for i, got in enumerate(served):
-        want = eng.generate_ids(prompts[i], max_new)
-        w = want.tokens[0, lens[i] : want.lengths[0]].tolist()
-        path = "chunked" if lens[i] > 256 else "one-shot"
-        if w == got:
-            log(f"[c] prompt {lens[i]:5d} ({path}): {len(w)} tokens identical to generate")
-            continue
-        step = next(j for j in range(min(len(w), len(got))) if w[j] != got[j])
-        gap = top2_gap(cfg, params, np.concatenate([prompts[i], np.asarray(w[:step], np.int32)]))
-        log(f"[c] prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
-            f"oracle top-2 gap {gap:.3g}")
-        require(gap < 1e-4, f"phase c: served tokens differ from generate (gap {gap})")
+    check_against_generate("3B", eng, prompts, lens, max_new)
     for kv in KV_MODES:
         kernel, _ = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="auto")
         plain, gaps = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="plain")
@@ -445,14 +481,35 @@ def phase_token_check(device) -> None:
             log(f"[c] {kv} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
                 f"plain run's top-2 gap {gap:.3g}")
             require(gap < 1e-3, f"phase c {kv}: kernel tokens differ from plain (gap {gap})")
-    del eng, params
+    del eng
+    for bits, head in ((8, True), (4, False)):
+        tag = f"3B int{bits}{' +head' if head else ''} store"
+        store = os.path.join(store_root, f"c_int{bits}")
+        save_shards(cfg, quantize_params(params, quantize_head=head, bits=bits), store)
+        qeng = Engine.from_shards(store, dtype=torch.float32, device=device)
+        shutil.rmtree(store)
+        check_against_generate(tag, qeng, prompts, lens, max_new)
+        del qeng
+    del params
+    torch.cuda.empty_cache()
+
+    gcfg = config.gpt2_small()
+    geng = Engine(gcfg, gpt2.init_params(gcfg, seed=8, dtype=torch.float32, device=device))
+    glens = [40, 200, 300, 500]  # buckets 64 and 256 one-shot, 512 chunked
+    gprompts = [rng.integers(0, gcfg.vocab_size, n).astype(np.int32) for n in glens]
+    check_against_generate("gpt2", geng, gprompts, glens, max_new, capacity=1024)
+    del geng
     torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase (d)
 
-def serve_run(eng, kv: str) -> tuple[dict, list]:
-    """The 8-request workload on a fresh server with a ``kv`` arena: checks
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def serve_run(eng, model: str, tag: str, kv: str = "bf16") -> tuple[dict, list]:
+    """``model``'s workload on a fresh server with a ``kv`` arena: checks
     it, prints its numbers; returns the run's launch counts and tokens."""
     import torch
 
@@ -460,9 +517,9 @@ def serve_run(eng, kv: str) -> tuple[dict, list]:
     from llm_sharding_tpu_torch.ops import kernels as K
 
     cfg = eng.cfg
-    srv = eng.serve(capacity=4096, batch_per_slot=8, kv_block_size=64, kv_blocks=1024,
-                    prefill_chunk=256, kv_dtype=kv)
-    prompts = smoke_workload.prompts(cfg.vocab_size, np.random.default_rng(0))
+    srv = smoke_workload.serve(eng, model, kv_dtype=kv)
+    prompts = smoke_workload.prompts(cfg.vocab_size, np.random.default_rng(0),
+                                     smoke_workload.WORKLOADS[model].lens)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t_start = time.perf_counter()
@@ -472,63 +529,118 @@ def serve_run(eng, kv: str) -> tuple[dict, list]:
     wall = time.perf_counter() - t_start
     counts = K.launch_counts()
     for r in reqs:
-        require(r.done and r.error is None, f"phase d {kv}: request {r.id} did not finish")
+        require(r.done and r.error is None, f"phase d {tag}: request {r.id} did not finish")
         require(len(r.tokens) == smoke_workload.MAX_NEW
                 or r.tokens[-1] in cfg.eos_token_ids,
-                f"phase d {kv}: request {r.id} produced {len(r.tokens)} tokens")
+                f"phase d {tag}: request {r.id} produced {len(r.tokens)} tokens")
         require(all(0 <= t < cfg.vocab_size for t in r.tokens),
-                f"phase d {kv}: token out of range")
+                f"phase d {tag}: token out of range")
     srv._alloc.check()
-    require(srv._alloc.in_use == 0, f"phase d {kv}: {srv._alloc.in_use} KV blocks still held")
+    require(srv._alloc.in_use == 0, f"phase d {tag}: {srv._alloc.in_use} KV blocks still held")
     mode = "" if kv == "bf16" else f"[{kv}]"
     for name in ("flash_attention", f"paged_attention{mode}", f"paged_prefill{mode}"):
         require(counts.get(name, 0) > 0,
-                f"phase d {kv}: kernel {name} was never launched on the main path")
+                f"phase d {tag}: kernel {name} was never launched on the main path")
     ttft = np.array([r.first_token_at - r.submitted_at for r in reqs])
     ntok = sum(len(r.tokens) for r in reqs)
     decode_span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
     decode_tok_s = sum(len(r.tokens) - 1 for r in reqs) / decode_span
-    log(f"[d] kv {kv}: served {len(reqs)} requests, {ntok} tokens in {wall:.2f}s: "
+    log(f"[d] {tag}: served {len(reqs)} requests, {ntok} tokens in {wall:.2f}s: "
         f"decode {decode_tok_s:.1f} tok/s, TTFT p50 {np.percentile(ttft, 50) * 1e3:.0f} ms "
         f"p99 {np.percentile(ttft, 99) * 1e3:.0f} ms, arena {srv.arena_bytes() / 2**30:.3f} GiB "
         f"({srv.kv_store_dtype}), peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log(f"[d] kv {kv}: kernel launches on the main path: {counts}")
+    log(f"[d] {tag}: kernel launches on the main path: {counts}")
     tokens = [list(r.tokens) for r in reqs]
     del srv, reqs
     torch.cuda.empty_cache()
     return counts, tokens
 
 
-def phase_serve(device, store_dir: str) -> dict:
-    """The workload on random full-size weights loaded from a shard store,
-    once per KV dtype; returns the launch counts of each kernel mode from
-    the run that serves through it (flash: the bf16 run)."""
+def load_store(store: str, tag: str, device, write_s: float):
+    """``Engine.from_shards`` of a store, printing its bytes on disk, the
+    weight bytes it made resident and the write and load seconds."""
     import torch
 
-    from llm_sharding_tpu_torch.models import config, llama
     from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = Engine.from_shards(store, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - before
+    log(f"[d] {tag} store: {dir_bytes(store) / 1e9:.3f} GB on disk, {resident / 1e9:.3f} GB "
+        f"resident after load, written in {write_s:.1f}s, loaded in {load_s:.1f}s "
+        f"({eng.cfg.num_hidden_layers} layers)")
+    return eng
+
+
+def phase_serve(device, store_root: str) -> dict:
+    """The workloads on random full-size weights loaded from port-written
+    stores: Llama-3.2-3B bf16 (once per KV dtype), int8 and int4 (bf16
+    arena), then GPT-2 small bf16 (once per KV dtype). Returns the launch
+    counts of each kernel mode per model, each from the run that serves
+    through it (unquantized modes: the bf16 weights' bf16 arena)."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, gpt2, llama
+    from llm_sharding_tpu_torch.ops.quant import quantize_params
     from llm_sharding_tpu_torch.utils.shard_store import save_shards
 
     cfg = config.llama32_3b()
-    t0 = time.perf_counter()
+    stores, write_s = {}, {}
     params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
-    save_shards(cfg, params, store_dir)
+    for w in ("bf16", "int8", "int4"):
+        t0 = time.perf_counter()
+        stores[w] = os.path.join(store_root, f"llama32_3b_{w}")
+        out = params if w == "bf16" else quantize_params(params, bits=8 if w == "int8" else 4)
+        save_shards(cfg, out, stores[w])
+        del out
+        write_s[w] = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    eng = Engine.from_shards(store_dir, device=device)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    log(f"[d] store written in {t1 - t0:.1f}s, loaded in {t2 - t1:.1f}s "
-        f"({cfg.num_hidden_layers} layers, bf16)")
-    counts, base = serve_run(eng, "bf16")
+
+    eng = load_store(stores["bf16"], "3B bf16", device, write_s["bf16"])
+    counts, base = serve_run(eng, "llama32_3b", "3B bf16 weights, kv bf16")
     for kv in KV_MODES:
-        kv_counts, tokens = serve_run(eng, kv)
+        kv_counts, tokens = serve_run(eng, "llama32_3b", f"3B bf16 weights, kv {kv}", kv)
         counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
-        frac = np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)])
-        log(f"[d] kv {kv}: token match against the bf16 arena's run {frac:.3f} "
+        log(f"[d] kv {kv}: token match against the bf16 arena's run {match_frac(tokens, base):.3f} "
             f"(random weights: printed, not gated)")
-    return counts
+    del eng
+    shutil.rmtree(stores["bf16"])
+    torch.cuda.empty_cache()
+    for w in ("int8", "int4"):
+        eng = load_store(stores[w], f"3B {w}", device, write_s[w])
+        _, tokens = serve_run(eng, "llama32_3b", f"3B {w} weights, kv bf16")
+        log(f"[d] {w} weights: token match against the bf16 weights' run "
+            f"{match_frac(tokens, base):.3f} (random weights: printed, not gated)")
+        del eng
+        shutil.rmtree(stores[w])
+        torch.cuda.empty_cache()
+
+    gcfg = config.gpt2_small()
+    t0 = time.perf_counter()
+    gstore = os.path.join(store_root, "gpt2_small_bf16")
+    gparams = gpt2.init_params(gcfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(gcfg, gparams, gstore)
+    del gparams
+    torch.cuda.empty_cache()
+    eng = load_store(gstore, "gpt2 bf16", device, time.perf_counter() - t0)
+    gcounts, gbase = serve_run(eng, "gpt2_small", "gpt2 bf16 weights, kv bf16")
+    for kv in KV_MODES:
+        kv_counts, tokens = serve_run(eng, "gpt2_small", f"gpt2 bf16 weights, kv {kv}", kv)
+        gcounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
+        log(f"[d] gpt2 kv {kv}: token match against the bf16 arena's run "
+            f"{match_frac(tokens, gbase):.3f} (random weights: printed, not gated)")
+    del eng
+    torch.cuda.empty_cache()
+    return {"llama32_3b": counts, "gpt2_small": gcounts}
+
+
+def match_frac(tokens, base) -> float:
+    return float(np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)]))
 
 
 def main() -> int:
@@ -561,16 +673,16 @@ def main() -> int:
         log(f"[a] built {k.source}; non-zero spill lines: {len(spills)}")
     log(f"[a] kernel build: {secs:.1f}s (nvcc, sm_90a, one process per source)")
 
-    cfg = config.llama32_3b()
-    rows = phase_kernels(cfg, device)
-    phase_token_check(device)
+    rows = phase_kernels(config.llama32_3b(), device, "llama32_3b")
+    rows += phase_kernels(config.gpt2_small(), device, "gpt2_small")
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
+        phase_token_check(device, store)
         counts = phase_serve(device, store)
     finally:
         shutil.rmtree(store, ignore_errors=True)
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = counts[r["model"]][r["name"]]
     log(f"[e] total {time.perf_counter() - t_all:.0f}s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

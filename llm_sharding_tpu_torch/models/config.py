@@ -1,19 +1,19 @@
 """Model configuration: the port's own copy of
-``llm_sharding_tpu/models/config.py:18-205`` (``RopeScaling``,
-``ModelConfig`` and its JSON form) with the presets this slice uses. The
-HuggingFace mapping (``from_hf_config``) comes with the convert slice.
+``llm_sharding_tpu/models/config.py`` (``RopeScaling``, ``ModelConfig``,
+its JSON form, the HuggingFace mapping ``from_hf_config`` and every
+preset).
 
-The dataclass is stdlib-only, but the port cannot import the JAX
-package's copy: ``llm_sharding_tpu/models/__init__.py`` imports jax. The
-JSON form is the shard store's ``config.json``, so either package reads
-the other's stores.
+The module is stdlib-only, but the port cannot import the JAX package's
+copy: ``llm_sharding_tpu/models/__init__.py`` imports jax. The JSON form is
+the shard store's ``config.json``, so either package reads the other's
+stores.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +31,8 @@ class RopeScaling:
 class ModelConfig:
     """Architecture hyper-parameters for a causal LM.
 
-    ``model_type`` selects the block structure ("llama" or "gpt2"); this
-    slice of the port runs the llama family (llama / qwen2 / gemma-1).
+    ``model_type`` selects the block structure: "llama" (llama / qwen2 /
+    gemma-1, ``models/llama.py``) or "gpt2" (``models/gpt2.py``).
     """
 
     model_type: str = "llama"  # "llama" | "gpt2"
@@ -74,6 +74,10 @@ class ModelConfig:
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
 
+    @property
+    def num_kv_groups(self) -> int:
+        return self.num_attention_heads // self.num_key_value_heads
+
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
         return json.dumps(d, indent=2)
@@ -85,9 +89,163 @@ class ModelConfig:
             d["rope_scaling"] = RopeScaling(**d["rope_scaling"])
         return cls(**d)
 
+    @classmethod
+    def from_hf_config(cls, hf: dict[str, Any]) -> "ModelConfig":
+        """Build from a HuggingFace ``config.json`` dict (llama or gpt2)."""
+        mt = hf.get("model_type", "llama")
+        if mt == "qwen2":
+            # Qwen2/2.5 is the llama block structure with q/k/v projection
+            # biases (HF's Qwen2Attention hard-codes qkv bias on, o bias
+            # off — the converter emits bq/bk/bv and the block adds them by
+            # key presence). Sliding-window variants are out of scope.
+            if hf.get("use_sliding_window", False):
+                raise ValueError(
+                    "qwen2 sliding-window attention is not supported; "
+                    "convert a checkpoint with use_sliding_window=false"
+                )
+            hf = dict(hf, model_type="llama", attention_bias=True)
+            mt = "llama"
+        if mt == "gemma":
+            # Gemma-1 is the llama block with three deltas (HF
+            # modeling_gemma.py): gelu-tanh MLP activation, embeddings
+            # scaled by sqrt(hidden), and RMSNorm out*(1+w) in fp32; always
+            # tied embeddings, explicit head_dim (256). Gemma-2's softcaps /
+            # alternating sliding window are a different block — refused.
+            act = hf.get("hidden_activation") or hf.get(
+                "hidden_act", "gelu_pytorch_tanh"
+            )
+            if act not in ("gelu_pytorch_tanh", "gelu", "gelu_tanh"):
+                raise ValueError(f"gemma activation {act!r} not supported")
+            # value check, not key presence: HF serializers emit null-valued
+            # keys for attributes copied across config versions
+            if (hf.get("final_logit_softcapping") is not None
+                    or hf.get("sliding_window") is not None):
+                raise ValueError(
+                    "gemma-2 (softcapping / sliding window) is not "
+                    "supported; this maps gemma-1 checkpoints"
+                )
+            hf = dict(
+                hf,
+                model_type="llama",
+                hidden_act="gelu_tanh",
+                norm_offset=1.0,
+                embed_multiplier=float(hf["hidden_size"]) ** 0.5,
+                tie_word_embeddings=True,
+            )
+            mt = "llama"
+        if mt in ("llama",):
+            act = hf.get("hidden_act", "silu")
+            if act not in ("silu", "gelu_tanh"):
+                raise ValueError(
+                    f"unsupported llama-family hidden_act {act!r}"
+                )
+            rs = None
+            raw_rs = hf.get("rope_scaling")
+            if raw_rs:
+                rt = raw_rs.get("rope_type", raw_rs.get("type"))
+                if rt == "llama3":
+                    rs = RopeScaling(
+                        factor=raw_rs.get("factor", 8.0),
+                        low_freq_factor=raw_rs.get("low_freq_factor", 1.0),
+                        high_freq_factor=raw_rs.get("high_freq_factor", 4.0),
+                        original_max_position_embeddings=raw_rs.get(
+                            "original_max_position_embeddings", 8192
+                        ),
+                    )
+                elif rt in ("default", None):
+                    rs = None
+                else:
+                    raise ValueError(
+                        f"unsupported rope_scaling type {rt!r}; only 'llama3' "
+                        "and default RoPE are implemented"
+                    )
+            eos = hf.get("eos_token_id", 2)
+            eos_ids = tuple(eos) if isinstance(eos, list) else (eos,)
+            return cls(
+                model_type="llama",
+                vocab_size=hf["vocab_size"],
+                hidden_size=hf["hidden_size"],
+                intermediate_size=hf["intermediate_size"],
+                num_hidden_layers=hf["num_hidden_layers"],
+                num_attention_heads=hf["num_attention_heads"],
+                num_key_value_heads=hf.get(
+                    "num_key_value_heads", hf["num_attention_heads"]
+                ),
+                head_dim=hf.get("head_dim"),
+                max_position_embeddings=hf.get("max_position_embeddings", 4096),
+                rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+                rope_theta=hf.get("rope_theta", 10000.0),
+                rope_scaling=rs,
+                tie_word_embeddings=hf.get("tie_word_embeddings", False),
+                attention_bias=hf.get("attention_bias", False),
+                mlp_bias=hf.get("mlp_bias", False),
+                hidden_act=act,
+                norm_offset=hf.get("norm_offset", 0.0),
+                embed_multiplier=hf.get("embed_multiplier", 1.0),
+                bos_token_id=hf.get("bos_token_id", 1),
+                eos_token_id=eos_ids[0],
+                eos_token_ids=eos_ids,
+            )
+        elif mt == "gpt2":
+            n_embd = hf.get("n_embd", 768)
+            return cls(
+                model_type="gpt2",
+                vocab_size=hf.get("vocab_size", 50257),
+                hidden_size=n_embd,
+                intermediate_size=hf.get("n_inner") or 4 * n_embd,
+                num_hidden_layers=hf.get("n_layer", 12),
+                num_attention_heads=hf.get("n_head", 12),
+                num_key_value_heads=hf.get("n_head", 12),
+                max_position_embeddings=hf.get("n_positions", 1024),
+                layer_norm_epsilon=hf.get("layer_norm_epsilon", 1e-5),
+                tie_word_embeddings=True,
+                bos_token_id=hf.get("bos_token_id", 50256),
+                eos_token_id=hf.get("eos_token_id", 50256),
+            )
+        raise ValueError(f"unsupported model_type: {mt!r}")
 
-# Presets: the model this slice serves on the card, and the tiny CPU-test
-# configurations (``llm_sharding_tpu/models/config.py:249-264, 343-371``).
+
+# Presets (``llm_sharding_tpu/models/config.py:210-410``): the published
+# widths of the served models, and the tiny CPU-test configurations.
+def llama2_7b() -> ModelConfig:
+    return ModelConfig()
+
+
+def llama2_13b() -> ModelConfig:
+    return ModelConfig(
+        hidden_size=5120,
+        intermediate_size=13824,
+        num_hidden_layers=40,
+        num_attention_heads=40,
+        num_key_value_heads=40,
+    )
+
+
+def llama3_8b() -> ModelConfig:
+    # Llama-3-8B proper: plain 500k-theta RoPE, 8k context, NO rope_scaling
+    # (only the 3.1+ releases scale frequencies — see llama31_8b).
+    return ModelConfig(
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=8,
+        max_position_embeddings=8192,
+        rope_theta=500000.0,
+        bos_token_id=128000,
+        eos_token_id=128001,
+    )
+
+
+def llama31_8b() -> ModelConfig:
+    return dataclasses.replace(
+        llama3_8b(),
+        max_position_embeddings=131072,
+        rope_scaling=RopeScaling(),
+    )
+
+
 def llama32_3b() -> ModelConfig:
     return ModelConfig(
         vocab_size=128256,
@@ -106,10 +264,96 @@ def llama32_3b() -> ModelConfig:
     )
 
 
+def llama2_70b() -> ModelConfig:
+    return ModelConfig(
+        hidden_size=8192,
+        intermediate_size=28672,
+        num_hidden_layers=80,
+        num_attention_heads=64,
+        num_key_value_heads=8,
+    )
+
+
+def gpt2_small() -> ModelConfig:
+    return ModelConfig.from_hf_config({"model_type": "gpt2"})
+
+
+def qwen25_7b() -> ModelConfig:
+    """Qwen2.5-7B: llama block structure + qkv biases (third model family)."""
+    return ModelConfig.from_hf_config({
+        "model_type": "qwen2",
+        "vocab_size": 152064,
+        "hidden_size": 3584,
+        "intermediate_size": 18944,
+        "num_hidden_layers": 28,
+        "num_attention_heads": 28,
+        "num_key_value_heads": 4,
+        "max_position_embeddings": 32768,
+        "rms_norm_eps": 1e-6,
+        "rope_theta": 1000000.0,
+        "tie_word_embeddings": False,
+        "bos_token_id": 151643,
+        # both the Instruct eos (<|im_end|> 151645) and the base/endoftext id
+        # (151643): the stop set must catch either, whichever weights load
+        "eos_token_id": [151645, 151643],
+    })
+
+
+def gemma_2b() -> ModelConfig:
+    """Gemma-2B (fourth model family): MQA (1 kv head), head_dim 256
+    decoupled from hidden/heads, gelu MLP, scaled embeddings, tied head."""
+    return ModelConfig.from_hf_config({
+        "model_type": "gemma",
+        "vocab_size": 256000,
+        "hidden_size": 2048,
+        "intermediate_size": 16384,
+        "num_hidden_layers": 18,
+        "num_attention_heads": 8,
+        "num_key_value_heads": 1,
+        "head_dim": 256,
+        "max_position_embeddings": 8192,
+        "rms_norm_eps": 1e-6,
+        "rope_theta": 10000.0,
+        "hidden_act": "gelu_pytorch_tanh",
+        "bos_token_id": 2,
+        "eos_token_id": 1,
+    })
+
+
+def gemma_7b() -> ModelConfig:
+    """Gemma-7B."""
+    return ModelConfig.from_hf_config({
+        "model_type": "gemma",
+        "vocab_size": 256000,
+        "hidden_size": 3072,
+        "intermediate_size": 24576,
+        "num_hidden_layers": 28,
+        "num_attention_heads": 16,
+        "num_key_value_heads": 16,
+        "head_dim": 256,
+        "max_position_embeddings": 8192,
+        "rms_norm_eps": 1e-6,
+        "rope_theta": 10000.0,
+        "hidden_act": "gelu_pytorch_tanh",
+        "bos_token_id": 2,
+        "eos_token_id": 1,
+    })
+
+
 def tiny_qwen2(**kw) -> ModelConfig:
-    """Tiny qwen2-layout config (llama + qkv biases) for CPU tests: what the
-    JAX preset's HF mapping of ``model_type="qwen2"`` yields."""
-    return tiny_llama(**{"attention_bias": True, **kw})
+    """Tiny qwen2-layout config (llama + qkv biases) for CPU tests."""
+    base = dict(
+        model_type="qwen2",
+        vocab_size=256,
+        hidden_size=64,
+        intermediate_size=128,
+        num_hidden_layers=4,
+        num_attention_heads=4,
+        num_key_value_heads=2,
+        max_position_embeddings=128,
+    )
+    base.update(kw)
+    return ModelConfig.from_hf_config(base)
 
 
 def tiny_llama(**kw) -> ModelConfig:
@@ -122,6 +366,46 @@ def tiny_llama(**kw) -> ModelConfig:
         num_attention_heads=4,
         num_key_value_heads=2,
         max_position_embeddings=128,
+    )
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def tiny_gemma(**kw) -> ModelConfig:
+    """Tiny gemma-layout config (llama block + gelu MLP + scaled embeddings
+    + offset RMSNorm + tied head, explicit head_dim) for CPU tests."""
+    base = dict(
+        vocab_size=256,
+        hidden_size=64,
+        intermediate_size=128,
+        num_hidden_layers=4,
+        num_attention_heads=4,
+        num_key_value_heads=2,
+        head_dim=32,  # decoupled from hidden/heads like the real family
+        max_position_embeddings=128,
+        rms_norm_eps=1e-6,
+        hidden_act="gelu_tanh",
+        norm_offset=1.0,
+        embed_multiplier=64.0 ** 0.5,
+        tie_word_embeddings=True,
+    )
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def tiny_gpt2(**kw) -> ModelConfig:
+    base = dict(
+        model_type="gpt2",
+        vocab_size=256,
+        hidden_size=64,
+        intermediate_size=256,
+        num_hidden_layers=4,
+        num_attention_heads=4,
+        num_key_value_heads=4,
+        max_position_embeddings=128,
+        tie_word_embeddings=True,
+        bos_token_id=0,
+        eos_token_id=0,
     )
     base.update(kw)
     return ModelConfig(**base)

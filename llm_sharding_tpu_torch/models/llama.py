@@ -7,6 +7,11 @@ Parameters are plain dicts of tensors, weights in the JAX package's
     {"embed": [V, H], "layers": [ {per-layer weights}, ... ],
      "final_norm": [H], "lm_head": [H, V] (untied models only)}
 
+Any matmul weight, and the vocab tables, may be an int8 / int4
+``ops/quant.QTensor``: every projection goes through ``qmatmul``, the
+embedding through ``embed_rows``, the head through ``head_logits`` /
+``tied_logits``.
+
 The layer stack is a Python loop (``models/stack.py``). The dense path
 (``forward``) attends through ``ops/flash_attention`` (the flash kernel for
 prefill); the paged path (``forward_layers_paged``) through
@@ -17,29 +22,28 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import NotPorted, resolve_device
+from ..device import resolve_device
 from ..ops.flash_attention import attention_step
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention, paged_prefill, write_block_kv
-from ..ops.quant import embed_rows, head_logits, qmatmul, tied_logits
+from ..ops.quant import embed_rows, head_logits, out_dim, qmatmul, tied_logits
 from ..ops.rope import apply_rope, rope_cos_sin
-from ..utils.shard_store import tensor_from_numpy
+from ..utils import convert
 from .cache import KVCache
 from .config import ModelConfig
-from .stack import scan_layers
+from .stack import scan_layers, scan_layers_paged
 
 Params = dict[str, Any]
 
 
 def _require_llama(cfg: ModelConfig) -> None:
     if cfg.model_type != "llama":
-        raise NotPorted(
-            f"model_type {cfg.model_type!r}: the port runs the llama family; "
-            "gpt2 comes with a later slice (ROADMAP.md §A slice 3)"
+        raise ValueError(
+            f"model_type {cfg.model_type!r} is not the llama family; "
+            "parallel/pipeline.model_fns picks the family's module"
         )
 
 
@@ -96,22 +100,12 @@ def init_params(
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, dtype=None, device=None) -> Params:
-    """The JAX package's params pytree (leaves as numpy arrays, layers
-    stacked ``[L, ...]``) → the port's params on ``device``. How the tests
-    feed both packages the same weights."""
+    """The JAX package's llama params pytree (numpy leaves, layers stacked
+    ``[L, ...]``, quantized leaves as its ``QTensor``s) → the port's
+    params on ``device``. How the tests feed both packages the same
+    weights."""
     _require_llama(cfg)
-    dev = resolve_device(device)
-
-    def conv(a):
-        t = tensor_from_numpy(np.asarray(a))
-        return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
-
-    stacked = {k: conv(v) for k, v in tree["layers"].items()}
-    params = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    params["layers"] = [
-        {k: v[i].clone() for k, v in stacked.items()} for i in range(cfg.num_hidden_layers)
-    ]
-    return params
+    return convert.params_from_numpy(cfg, tree, dtype, device)
 
 
 def attn_mlp_block(
@@ -126,8 +120,8 @@ def attn_mlp_block(
     (``llama.py:113-182``). Projection biases are keyed by presence."""
     B, S, _ = h.shape
     D = cfg.head_dim_
-    Nh = p["wq"].shape[-1] // D
-    Nkv = p["wk"].shape[-1] // D
+    Nh = out_dim(p["wq"]) // D
+    Nkv = out_dim(p["wk"]) // D
     x = rms_norm(h, p["input_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     qx, kx, vx = qmatmul(x, p["wq"]), qmatmul(x, p["wk"]), qmatmul(x, p["wv"])
     if "bq" in p:
@@ -193,16 +187,30 @@ def paged_decoder_layer(
     k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arena, in place
     v_scale: Optional[torch.Tensor] = None,
     backend: str = "auto",  # ops/paged_attention.BACKENDS
+    valid: Optional[torch.Tensor] = None,  # scalar bool: False leaves the arena as it was
 ) -> torch.Tensor:
     """Layer over the pooled arena (``llama.py:208-293``): the step's fresh
     KV lands by a block-indexed scatter (quantized at insert against the
     running block scales when the arena holds codes), then attention
     streams exactly the blocks the table names. Write-then-attend, so
     causality within a chunk falls out of the position mask."""
+    return attn_mlp_block(cfg, p, h, cos, sin, paged_attn_fn(
+        k_arena, v_arena, block_table, cols, positions, kv_positions, prefill, nlive,
+        k_scale, v_scale, backend, valid,
+    ))
+
+
+def paged_attn_fn(
+    k_arena, v_arena, block_table, cols, positions, kv_positions, prefill, nlive,
+    k_scale, v_scale, backend, valid,
+):
+    """The attention of a paged layer, shared by the model families:
+    scatter the fresh K/V (gated by ``valid``), then the chunked-prefill
+    kernel for chunk-shaped queries or the decode kernel."""
     qkw = dict(k_scale=k_scale, v_scale=v_scale)
 
     def attn_fn(q, k, v):
-        write_block_kv(k_arena, v_arena, block_table, cols, k, v, **qkw)
+        write_block_kv(k_arena, v_arena, block_table, cols, k, v, valid=valid, **qkw)
         if prefill:
             return paged_prefill(
                 q, k_arena, v_arena, block_table, positions, kv_positions, nlive=nlive,
@@ -212,7 +220,7 @@ def paged_decoder_layer(
             q, k_arena, v_arena, block_table, positions, kv_positions, backend=backend, **qkw
         )
 
-    return attn_mlp_block(cfg, p, h, cos, sin, attn_fn)
+    return attn_fn
 
 
 def forward_layers(
@@ -221,13 +229,14 @@ def forward_layers(
     h: torch.Tensor,
     cache: KVCache,
     positions: torch.Tensor,
+    layer_mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     cos, sin = rope_cos_sin(positions, cfg)
 
     def apply(p, h, k_row, v_row, kv_pos, length):
         return decoder_layer(cfg, p, h, k_row, v_row, cos, sin, positions, kv_pos, length)
 
-    return scan_layers(layers, h, cache, positions, apply)
+    return scan_layers(layers, h, cache, positions, apply, layer_mask)
 
 
 def forward_layers_paged(
@@ -240,6 +249,7 @@ def forward_layers_paged(
     cols: torch.Tensor,  # [B, S]
     kv_positions: torch.Tensor,  # [B, T * BS]
     positions: torch.Tensor,  # [B, S]
+    layer_mask: Optional[torch.Tensor] = None,  # [L] bool, padded stages
     prefill: bool = False,
     nlive: Optional[torch.Tensor] = None,
     k_scale: Optional[torch.Tensor] = None,  # [L, NB, Nkv] f32, quantized arena
@@ -251,14 +261,14 @@ def forward_layers_paged(
     slice, for a quantized arena), in place; key position bookkeeping
     stays with the caller."""
     cos, sin = rope_cos_sin(positions, cfg)
-    for i, p in enumerate(layers):
-        h = paged_decoder_layer(
-            cfg, p, h, k_arena[i], v_arena[i], block_table, cols, cos, sin, positions,
-            kv_positions, prefill, nlive,
-            None if k_scale is None else k_scale[i], None if v_scale is None else v_scale[i],
-            backend,
+
+    def apply(p, valid, h, k_l, v_l, ks_l, vs_l):
+        return paged_decoder_layer(
+            cfg, p, h, k_l, v_l, block_table, cols, cos, sin, positions, kv_positions,
+            prefill, nlive, ks_l, vs_l, backend, valid,
         )
-    return h
+
+    return scan_layers_paged(layers, h, k_arena, v_arena, apply, layer_mask, k_scale, v_scale)
 
 
 def final_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -270,9 +280,15 @@ def final_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Ten
     return tied_logits(h, params["embed"])
 
 
-def embed(cfg: ModelConfig, params: Params, token_ids: torch.Tensor) -> torch.Tensor:
+def embed(
+    cfg: ModelConfig,
+    params: Params,
+    token_ids: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,  # unused: RoPE is inside the layers
+) -> torch.Tensor:
     """Token embedding with the family's multiplier (gemma: sqrt(H)),
-    which the JAX package applies in ``forward`` instead."""
+    which the JAX package applies in ``forward`` instead. The table may be
+    row-quantized (``ops/quant.embed_rows``)."""
     h = embed_rows(params["embed"], token_ids)
     if cfg.embed_multiplier != 1.0:
         h = h * torch.tensor(cfg.embed_multiplier, dtype=h.dtype, device=h.device)
@@ -288,6 +304,6 @@ def forward(
 ) -> tuple[torch.Tensor, KVCache]:
     """Full-model step: embed → layers → fp32 logits ``[B, S, V]``."""
     _require_llama(cfg)
-    h = embed(cfg, params, token_ids)
+    h = embed(cfg, params, token_ids, positions)
     h, cache = forward_layers(cfg, params["layers"], h, cache, positions)
     return final_logits(cfg, params, h), cache

@@ -8,7 +8,9 @@ plain pass over the layers, so the in-flight ring block, its validity bit
 and the per-slot schedule fields have no counterpart here. Rows are
 independent: each admission fills whichever rows are free, and one decode
 step advances every live row by one token. Pipeline stages come with a
-later slice.
+later slice. The model family's functions come from one table
+(``parallel/pipeline.model_fns``), so every program serves llama-family
+and GPT-2 weights alike, raw or quantized.
 
 The arena and the per-column key positions live on the device; the small
 per-row bookkeeping (positions, write offsets, lengths, budgets, the token
@@ -32,12 +34,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models import llama
 from ..models.cache import POS_SENTINEL, block_pool_shape, block_scale_shape, init_cache
 from ..models.config import ModelConfig
 from ..ops.paged_attention import write_block_kv
 from ..ops.quant import is_kv_quantized, kv_qmax, kv_quantize, kv_storage_dtype
 from ..ops.sampling import sample
+from .pipeline import model_fns
 
 
 @dataclasses.dataclass
@@ -204,11 +206,12 @@ def serve_admit(
     positions = np.where(idx < prompt_len[:, None], idx, POS_SENTINEL).astype(np.int32)
     pos_t = torch.from_numpy(positions).to(dev)
     cache = init_cache(cfg, n, Sp, dtype=state.cache_dtype, device=dev)
-    h = llama.embed(cfg, params, torch.from_numpy(prompts).to(dev))
-    h, cache = llama.forward_layers(cfg, params["layers"], h, cache, pos_t)
+    fns = model_fns(cfg)
+    h = fns.embed(cfg, params, torch.from_numpy(prompts).to(dev), pos_t)
+    h, cache = fns.stage(cfg, params["layers"], h, cache, pos_t)
     last = torch.from_numpy(prompt_len - 1).to(dev)
     h_last = h[torch.arange(n, device=dev), last][:, None]
-    logits = llama.final_logits(cfg, params, h_last)[:, 0]
+    logits = fns.final_logits(cfg, params, h_last)[:, 0]
     _arm_sampling(state, rows, seeds, temps, topks, topps)
     tok0 = _sample_rows(state, rows, logits)
 
@@ -277,8 +280,9 @@ def serve_prefill_chunk(
     kv_pos[:, chunk_off : chunk_off + Sc] = pos_t
     cols = (chunk_off + torch.arange(Sc, device=dev)).expand(n, Sc)
     nlive = torch.full((n,), -(-(chunk_off + Sc) // BS), dtype=torch.int32, device=dev)
-    h = llama.embed(cfg, params, torch.from_numpy(tokens).to(dev))
-    llama.forward_layers_paged(
+    fns = model_fns(cfg)
+    h = fns.embed(cfg, params, torch.from_numpy(tokens).to(dev), pos_t)
+    fns.stage_paged(
         cfg, params["layers"], h, state.k, state.v, tbl, cols, kv_pos, pos_t,
         prefill=True, nlive=nlive, k_scale=state.k_scale, v_scale=state.v_scale,
         backend=backend,
@@ -328,12 +332,13 @@ def serve_step(
     cols_t = torch.from_numpy(cols[:, None]).to(dev)
     kv_pos = state.kpos[rows_t]
     kv_pos[torch.arange(n, device=dev), cols_t[:, 0]] = pos_t[:, 0]
-    h = llama.embed(cfg, params, torch.from_numpy(state.tok[rows][:, None]).to(dev))
-    h = llama.forward_layers_paged(
+    fns = model_fns(cfg)
+    h = fns.embed(cfg, params, torch.from_numpy(state.tok[rows][:, None]).to(dev), pos_t)
+    h = fns.stage_paged(
         cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
         kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
     )
-    logits = llama.final_logits(cfg, params, h)[:, 0]
+    logits = fns.final_logits(cfg, params, h)[:, 0]
     nxt = _sample_rows(state, rows, logits)
     state.kpos[rows_t] = kv_pos
     state.write_off[rows] += 1

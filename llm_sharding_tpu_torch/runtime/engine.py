@@ -14,28 +14,34 @@ from typing import Optional
 import torch
 
 from ..device import NotPorted, resolve_device
+from ..ops.quant import act_dtype, base
 from ..utils import shard_store
 from .generate import GenerateResult, generate
 
 
 class Engine:
-    """A model's weights on one device. The compute KV cache takes the
-    weights' dtype (the attention kernels take queries and an unquantized
-    cache of one dtype); a server's paged arena may instead store int8 or
-    fp8 codes (``serve(kv_dtype=)``), dequantized inside the kernels."""
+    """A model's weights on one device, llama family or GPT-2, raw or
+    with int8 / int4 ``QTensor`` weights. The compute KV cache takes the
+    weights' compute dtype (a quantized weight's scale dtype; the attention
+    kernels take queries and an unquantized cache of one dtype); a
+    server's paged arena may instead store int8 or fp8 codes
+    (``serve(kv_dtype=)``), dequantized inside the kernels."""
 
     def __init__(self, cfg, params: dict):
         self.cfg = cfg
         self.params = params
-        self.device = params["embed"].device
-        self.cache_dtype = params["embed"].dtype
+        # a quantized table's codes are int8: its scale carries the dtype
+        self.device = base(params["embed"]).device
+        self.cache_dtype = act_dtype(params["embed"])
 
     @classmethod
     def from_shards(
         cls, shards_dir: str, *, dtype: torch.dtype = torch.bfloat16, device=None
     ) -> "Engine":
-        """Load a store written by either package (default device: the GPU;
-        raises without one unless ``device="cpu"``)."""
+        """Load a store written by either package: llama family or GPT-2,
+        raw or int8 / int4 quantized (``dtype`` casts the raw tensors and
+        the scales, never the codes). Default device: the GPU; raises
+        without one unless ``device="cpu"``."""
         cfg, params = shard_store.load_full(shards_dir, dtype=dtype, device=resolve_device(device))
         return cls(cfg, params)
 

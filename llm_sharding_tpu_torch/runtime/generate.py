@@ -1,7 +1,8 @@
 """Single-host autoregressive generation, the port's oracle (counterpart of
 ``llm_sharding_tpu/runtime/generate.py:280-356``).
 
-Prefill the (right-padded) prompts through the dense forward, then one
+Prefill the (right-padded) prompts through the model family's dense
+forward (``parallel/pipeline.model_fns``), then one
 decode step per token until every row hit a stop id or the budget. Greedy
 by default; temperature/top-k/top-p sampling draws its Gumbel noise from
 one ``torch.Generator`` seeded with ``seed``. Output layout is the JAX
@@ -19,10 +20,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models import llama
 from ..models.cache import POS_SENTINEL, KVCache, init_cache
 from ..models.config import ModelConfig
+from ..ops.quant import act_dtype, base
 from ..ops.sampling import is_stop, sample, validate_top_p
+from ..parallel.pipeline import model_fns
 
 
 class GenerateResult(NamedTuple):
@@ -59,8 +61,9 @@ def generate(
     seed: int = 0,
 ) -> GenerateResult:
     """Runs on the device the weights live on; the KV cache takes the
-    weights' dtype."""
-    device = params["embed"].device
+    weights' compute dtype (a quantized table's scale dtype)."""
+    device = base(params["embed"]).device
+    forward = model_fns(cfg).forward
     prompt = np.asarray(prompt_ids, np.int32)
     if prompt.ndim == 1:
         prompt = prompt[None]
@@ -77,11 +80,11 @@ def generate(
     def pick(logits):
         return sample(logits, temperature, int(top_k), top_p, generator=gen)
 
-    cache = init_cache(cfg, B, capacity, dtype=params["embed"].dtype, device=device)
+    cache = init_cache(cfg, B, capacity, dtype=act_dtype(params["embed"]), device=device)
     idx = np.arange(S)[None, :]
     positions = np.where(idx < plen[:, None], idx, POS_SENTINEL).astype(np.int32)
     ids = torch.from_numpy(prompt).to(device)
-    logits, cache = llama.forward(cfg, params, ids, cache, torch.from_numpy(positions).to(device))
+    logits, cache = forward(cfg, params, ids, cache, torch.from_numpy(positions).to(device))
     rows = torch.arange(B, device=device)
     last = logits[rows, torch.from_numpy(plen - 1).to(device)]
     tok = pick(last)
@@ -97,7 +100,7 @@ def generate(
         if done.all():
             break
         step_pos = torch.from_numpy(pos[:, None].astype(np.int32)).to(device)
-        logits, cache = llama.forward(cfg, params, tok[:, None], cache, step_pos)
+        logits, cache = forward(cfg, params, tok[:, None], cache, step_pos)
         nxt = pick(logits[:, 0])
         nxt = torch.where(torch.from_numpy(done).to(device), torch.zeros_like(nxt), nxt)
         pos = pos + 1

@@ -1,11 +1,13 @@
 """Where the time of the paged server goes on one GPU.
 
-    python -m llm_sharding_tpu_torch.serve_profile [--kv-dtype bf16|int8|fp8]
+    python -m llm_sharding_tpu_torch.serve_profile [--model llama32_3b|gpt2_small]
+        [--weights bf16|int8|int4] [--kv-dtype bf16|int8|fp8]
 
-Serves the workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8
-staggered requests, 4 prompts of 20-200 tokens, 4 of 1024-2048, 64 new
-tokens each) on seeded random Llama-3.2-3B weights (all 28 layers, bf16),
-made on the card, under ``torch.profiler``. Prints the device time per
+Serves a workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8
+staggered requests, 4 short prompts and 4 long ones, 64 new tokens each)
+on seeded random weights of the model (full width and depth, bf16, made
+on the card; ``--weights int8|int4`` quantizes the layers' matmul
+weights), under ``torch.profiler``. Prints the device time per
 kernel (top 15), then the total and launch count of each of the port's own
 kernels by name (``PORT_KERNELS``, split by KV storage type) beside the
 chunked-prefill kernel's operations bound over the workload, the
@@ -34,7 +36,6 @@ import torch
 from . import smoke_workload
 
 
-PREFILL_CHUNK = 256
 BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 # the port's CUDA kernels by function name (csrc/*.cu); the split merge is
 # one kernel, launched by both split paths (decode and tensor-core prefill)
@@ -91,25 +92,32 @@ def main(argv=None) -> int:
     from .ops.quant import KV_DTYPES
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=sorted(smoke_workload.WORKLOADS), default="llama32_3b")
+    ap.add_argument("--weights", choices=("bf16", "int8", "int4"), default="bf16")
     ap.add_argument("--kv-dtype", choices=KV_DTYPES, default="bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
-    from .models import config, llama
+    from .models import config, gpt2, llama
     from .ops import kernels
+    from .ops.quant import quantize_params
     from .runtime.engine import Engine
 
     kernels.build_all()
     dev = torch.device("cuda")
-    cfg = config.llama32_3b()
-    eng = Engine(cfg, llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev))
-    srv = eng.serve(capacity=4096, batch_per_slot=8, kv_block_size=64, kv_blocks=1024,
-                    prefill_chunk=PREFILL_CHUNK, kv_dtype=args.kv_dtype)
+    cfg = getattr(config, args.model)()
+    family = gpt2 if cfg.model_type == "gpt2" else llama
+    params = family.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    if args.weights != "bf16":
+        params = quantize_params(params, bits=8 if args.weights == "int8" else 4)
+    eng = Engine(cfg, params)
+    srv = smoke_workload.serve(eng, args.model, kv_dtype=args.kv_dtype)
     rng = np.random.default_rng(0)
     srv.result(srv.submit(rng.integers(0, cfg.vocab_size, 300).astype(np.int32), 8))
 
-    prompts = smoke_workload.prompts(cfg.vocab_size, rng)
+    lens = smoke_workload.WORKLOADS[args.model].lens
+    prompts = smoke_workload.prompts(cfg.vocab_size, rng, lens)
 
     def workload():
         """The staggered 8-request run; returns (requests, wall ms, host wall
@@ -118,7 +126,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         reqs, steps = smoke_workload.submit_staggered(srv, prompts), []
         while srv._queue or srv._live_rows():
-            decode_only = not srv._queue and len(srv._live_rows()) == 8
+            decode_only = not srv._queue and len(srv._live_rows()) == smoke_workload.ROWS
             ts = time.perf_counter()
             srv.step()
             if decode_only:
@@ -140,12 +148,13 @@ def main(argv=None) -> int:
             per_kernel[evt.key] += us
             calls[evt.key] += evt.count
     busy_ms = sum(per_kernel.values()) / 1e3
-    print(f"{torch.cuda.get_device_name(0)}, kv {args.kv_dtype}: unprofiled wall {plain_wall_ms:.1f} ms; "
+    print(f"{torch.cuda.get_device_name(0)}, {args.model}, weights {args.weights}, kv {args.kv_dtype}: "
+          f"unprofiled wall {plain_wall_ms:.1f} ms; "
           f"profiled wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), tokens {sum(len(r.tokens) for r in reqs)}")
     for key, us in per_kernel.most_common(15):
         print(f"  {us / 1e3:9.2f} ms {us / 1e3 / busy_ms:6.1%} {calls[key]:7d}x  {key[:90]}")
-    pairs = chunked_prefill_pairs(smoke_workload.LENS, PREFILL_CHUNK)
+    pairs = chunked_prefill_pairs(lens, smoke_workload.PREFILL_CHUNK)
     flops = 4.0 * cfg.num_attention_heads * cfg.head_dim_ * pairs * cfg.num_hidden_layers
     bound_ms = flops / BF16_FLOPS * 1e3
     print(f"chunked-prefill kernel's operations bound over the workload: {bound_ms:.4f} ms "
@@ -155,13 +164,13 @@ def main(argv=None) -> int:
     for name, kv, ms, n in port:
         print(f"  {ms:9.2f} ms {n:7d}x  {name} [{kv}]")
     if decode_ms:
-        print(f"decode-only steps at 8 live rows: {len(decode_ms)}, wall ms p50 "
+        print(f"decode-only steps at {smoke_workload.ROWS} live rows: {len(decode_ms)}, wall ms p50 "
               f"{np.percentile(decode_ms, 50):.2f} min {min(decode_ms):.2f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
     print(json.dumps({
-        "kv_dtype": args.kv_dtype, "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "model": args.model, "weights": args.weights, "kv_dtype": args.kv_dtype, "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "decode_step_ms_p50": float(np.percentile(decode_ms, 50)) if decode_ms else None,
         "top": [[k, us / 1e3, calls[k]] for k, us in per_kernel.most_common(15)],
         "port_kernels": port,

@@ -336,12 +336,12 @@ def test_flash_f32_inputs_take_the_tile_path(cuda_device):
         _assert_close_rows(got, want, dtype)
 
 
-def _decode_case(dev, dtype, B, S, ctx, kv, seed=41):
+def _decode_case(dev, dtype, B, S, ctx, kv, seed=41, Nkv=2, G=3, D=128):
     """Decode over a 40-block table (block size 16): each row maps its
     context's blocks in random arena order, the rest is trash block 0,
     which holds NaN/Inf (0x7F codes and Inf scales for a code arena)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    BS, T, Nkv, G, D = 16, 40, 2, 3, 128
+    BS, T = 16, 40
     nblk = [-(-c // BS) for c in ctx]
     NB = sum(nblk) + 1
     k = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
@@ -396,7 +396,7 @@ def test_split_kv_decode_f32_queries(cuda_device):
         _assert_close_rows(got, want, torch.float32)
 
 
-def _prefill_case(dev, dtype, frontiers, Sc, BS, D, kv, pad=0, seed=42):
+def _prefill_case(dev, dtype, frontiers, Sc, BS, D, kv, pad=0, seed=42, Nkv=2, G=3):
     """Chunked prefill of Sc queries per row at the given written frontiers
     over a table with two stale blocks past the longest (sentinel
     positions); rows map their blocks in random arena order. Trash block 0
@@ -405,7 +405,6 @@ def _prefill_case(dev, dtype, frontiers, Sc, BS, D, kv, pad=0, seed=42):
     ``pad`` queries carry the sentinel. Returns the args, the kernel's and
     the plain version's keywords, and the query rows that see a key."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    Nkv, G = 2, 3
     B = len(frontiers)
     T = max(-(-f // BS) for f in frontiers) + 2
     NB = B * T + 1
@@ -477,3 +476,54 @@ def test_prefill_f32_queries_take_the_tile_path(cuda_device, kv):
     got, want = tpa.paged_prefill(*args, **kw), tpa.paged_attention_xla(*args, **plain_kw)
     torch.cuda.synchronize()
     _assert_close_rows(got[rows], want[rows], torch.float32)
+
+
+# GPT-2's attention: one KV head per query head (G = 1), head dim 64 (and
+# 128 for decode); 12 heads, so the prefill kernel's B = 1 chunk has 24
+# CTAs and is cut into runs
+MHA = dict(Nkv=12, G=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_split_kv_decode_mha_matches_plain(cuda_device, D, B, S, kv):
+    """Split-KV decode at G = 1 (multi-head attention, as GPT-2) against
+    the plain version, the contexts of ``test_split_kv_decode_matches_plain``."""
+    full = 40 * 16
+    cases = [[16], [48], [full]] if B == 1 else [[16, 48, full, S, 300, 16, 64, full]]
+    name = "paged_attention" + (f"[{kv}]" if kv else "")
+    for ctx in cases:
+        args, sc = _decode_case(cuda_device, torch.bfloat16, B, S, ctx, kv, D=D, **MHA)
+        kernels.reset_launch_counts()
+        got = tpa.paged_attention(*args, **sc)
+        want = tpa.paged_attention_xla(*args, **sc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == 1
+        _assert_close_rows(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("BS", [16, 64])
+@pytest.mark.parametrize("shape", list(PREFILL_SHAPES))
+def test_prefill_tensor_core_kernel_mha_matches_plain(cuda_device, shape, BS, kv):
+    """bf16 chunked prefill on the tensor cores at G = 1, D = 64 (GPT-2's
+    attention), the shapes of ``test_prefill_tensor_core_kernel_matches_plain``."""
+    frontiers, Sc, pad = PREFILL_SHAPES[shape]
+    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.bfloat16, frontiers, Sc, BS, 64,
+                                             kv, pad=pad, **MHA)
+    assert tpa.prefill_design(torch.bfloat16, BS) == "wgmma"
+    if shape == "B1-long-split":
+        _, nsplit = tpa.plan_prefill_splits(1, Sc, 12, args[3].shape[1] * BS, BS,
+                                            kernels.sm_count(cuda_device))
+        assert nsplit > 1
+    kernels.reset_launch_counts()
+    got = tpa.paged_prefill(*args, **kw)
+    want = tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_prefill" + (f"[{kv}]" if kv else "")] == 1
+    assert torch.isfinite(got).all()
+    _assert_close_rows(got[rows], want[rows], torch.bfloat16)

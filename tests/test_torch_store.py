@@ -2,8 +2,9 @@
 stays independent of JAX and of the JAX package.
 
 A store written by the JAX package loads in the port into identical
-tensors (bf16 and f32), and the reverse; a quantized store is refused with
-``NotPorted``. A subprocess imports every port module (and
+tensors (bf16 and f32), and the reverse (quantized stores:
+``tests/test_torch_weight_quant.py``); a quantized entry without its scale
+is refused. A subprocess imports every port module (and
 ``chip_smoke.py``) and finds neither ``jax`` nor ``llm_sharding_tpu`` in
 ``sys.modules``; an AST scan finds no such import in their sources.
 """
@@ -19,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from llm_sharding_tpu_torch.device import NotPorted
 from llm_sharding_tpu_torch.models import config as tcfg
 from llm_sharding_tpu_torch.models import llama as tllama
 from llm_sharding_tpu_torch.utils import shard_store as tstore
@@ -80,11 +80,19 @@ def test_port_store_loads_in_jax(tmp_path, dt, jx):
 
 
 def test_quantized_store_is_refused(tmp_path, jx):
+    """A quantized store loads (since the weight-quantization slice); one
+    whose ``__q`` codes lost their ``__scale`` entry is refused."""
     cfg = jx.cfg.tiny_llama(num_hidden_layers=1)
     params = jx.llama.init_params(cfg, jx.jax.random.key(0))
     params["layers"] = jx.quantize(params["layers"])
     jx.store.save_shards(cfg, params, str(tmp_path))
-    with pytest.raises(NotPorted, match="quantized"):
+    _, got = tstore.load_full(str(tmp_path), device="cpu")
+    assert got["layers"][0]["wq"].q.dtype == torch.int8
+    block = tmp_path / "block_0.npz"
+    with np.load(block) as z:
+        kept = {k: z[k] for k in z.files if k != "wq__scale"}
+    np.savez(block, **kept)
+    with pytest.raises(ValueError, match="quantized weight 'wq'"):
         tstore.load_full(str(tmp_path), device="cpu")
 
 
