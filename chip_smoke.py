@@ -2,6 +2,12 @@
 """Drive the PyTorch/CUDA port (``llm_sharding_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels MODEL [MODEL ...]
+
+The second form runs (a) and (b) only, bf16 queries, at the named
+models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
+``gemma_7b``), and prints the rows as one JSON line: run it in two trees
+in one call to compare their kernels.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -15,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     one-shot admission's bucket (256, 200 real positions) and ragged.
     GPT-2 small (G = 1, D = 64): decode at 8 rows of 100-960 tokens,
     chunked prefill of one row at frontier 512, flash at the admission
-    bucket. Time kernel, plain version and (flash only)
+    bucket. gemma-2B (G = 8, D = 256): the 3B's decode, chunked-prefill
+    and flash shapes but the ragged ones, both query dtypes; gemma-7B
+    (G = 1, D = 256): decode at 8 rows, one chunk at frontier 2048, flash
+    at S = C = 2048, bf16 only. Time kernel, plain version and (flash only)
     ``F.scaled_dot_product_attention`` with the equivalent boolean mask, a
     yardstick the port never calls;
 (c) f32 token checks: the served greedy streams, one-shot and chunked,
@@ -23,17 +32,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (a mismatch passes only where the oracle's top-2 logit gap is < 1e-4):
     Llama-3.2-3B at full width and 4 layers, raw, then loaded from a
     port-written int8 store (vocab table quantized too) and an int4 store;
-    GPT-2 small at full width and depth. With int8 and fp8 arenas, the 3B's
-    served streams through the kernels (``paged_attn="auto"``) must equal
-    the same server's through the plain versions (``paged_attn="plain"``),
-    or differ first where the plain run's top-2 gap is < 1e-3;
+    GPT-2 small at full width and depth; gemma-2B at full width and 4
+    layers, also against ``generate`` run on this machine's CPU (no kernel
+    on that side, flash included). With int8 and fp8 arenas, the 3B's and
+    gemma-2B's served streams through the kernels (``paged_attn="auto"``)
+    must equal the same server's through the plain versions
+    (``paged_attn="plain"``), or differ first where the plain run's top-2
+    gap is < 1e-3;
 (d) write shard stores of seeded random full-depth weights with the
     port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
-    quantized from the same bf16 weights; GPT-2 small bf16), load each
+    quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
+    full depth; gemma-7B bf16, full width, 4 of its 28 layers), load each
     with ``Engine.from_shards`` and serve its ``smoke_workload`` (8
     staggered requests, 64 new tokens each) through the paged server: the
-    bf16 stores once per KV dtype (bf16, int8, fp8), the int8 and int4
-    stores with a bf16 arena. In each run every request must finish, the
+    3B, GPT-2 and gemma-2B bf16 stores once per KV dtype (bf16, int8,
+    fp8), the others with a bf16 arena. In each run every request must finish, the
     block allocator must drain and every kernel (mode) of that path must
     have launched; each store's bytes on disk and resident after load are
     printed;
@@ -273,6 +286,36 @@ def kernel_cases(model: str) -> list:
     pa, pp, xla = paged_attention.paged_attention, paged_attention.paged_prefill, paged_attention.paged_attention_xla
     fa, plain_fa = flash_attention.flash_attention, attention.cached_attention
     cases = []
+    if model == "gemma_7b":
+        # gemma-7B: 16 heads over 16 KV heads (G = 1), head dim 256; bf16 only
+        return [
+            ("paged_attention", "gemma7b decode B=8 ctx 100-2048", pa, xla, decode_case, *dec),
+            ("paged_prefill", "gemma7b chunk Sc=256 B=1 frontier 2048", pp, xla,
+             lambda *a: prefill_case(*a, frontier=(2048,)), *pre),
+            ("flash_attention", "gemma7b S=C=2048 causal", fa, plain_fa,
+             lambda *a: flash_case(*a, S=2048), *fla),
+        ]
+    if model == "gemma_2b":
+        # gemma-2B: 8 heads over 1 KV head (G = 8), head dim 256; the 3B's
+        # served shapes (capacity 4096, block size 64, chunks of 256)
+        for kv in (None, *KV_MODES):
+            mode = f"[{kv}]" if kv else ""
+            cases += [
+                (f"paged_attention{mode}", "gemma2b decode B=8 ctx 100-2048", pa, xla,
+                 lambda *a, kv=kv: decode_case(*a, kv=kv), *dec),
+                (f"paged_attention{mode}", "gemma2b decode B=1 ctx 2048", pa, xla,
+                 lambda *a, kv=kv: decode_case(*a, kv=kv, ctx=[2048]), *dec),
+                (f"paged_prefill{mode}", "gemma2b chunk Sc=256 frontiers 256/2048", pp, xla,
+                 lambda *a, kv=kv: prefill_case(*a, kv=kv), *pre),
+                (f"paged_prefill{mode}", "gemma2b chunk Sc=256 B=1 frontier 2048", pp, xla,
+                 lambda *a, kv=kv: prefill_case(*a, kv=kv, frontier=(2048,)), *pre),
+            ]
+        return cases + [
+            ("flash_attention", "gemma2b S=C=2048 causal", fa, plain_fa,
+             lambda *a: flash_case(*a, S=2048), *fla),
+            ("flash_attention", "gemma2b S=C=256 200 real (admission)", fa, plain_fa,
+             lambda *a: flash_case(*a, S=256, real=200), *fla),
+        ]
     if model == "gpt2_small":
         # GPT-2 small: 12 heads, G = 1, D = 64; table width 16 (capacity 1024);
         # the served chunks end at frontiers 256 and 512 (prompts <= 512)
@@ -311,9 +354,10 @@ def kernel_cases(model: str) -> list:
     ]
 
 
-def phase_kernels(cfg, device, model: str) -> list:
-    """Each kernel case of ``model`` against its plain version, timed;
-    returns the tabled rows (bf16 queries), tagged with the model."""
+def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32")) -> list:
+    """Each kernel case of ``model`` against its plain version, with
+    queries of each of ``dtypes``, timed; returns the tabled rows (bf16
+    queries), tagged with the model."""
     import torch
 
     from llm_sharding_tpu_torch.ops import paged_attention
@@ -322,7 +366,7 @@ def phase_kernels(cfg, device, model: str) -> list:
     cases = kernel_cases(model)
     rows = []
     for name, label, fn, plain, make, replaces, source in cases:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (getattr(torch, d) for d in dtypes):
             dname = str(dtype).split(".")[-1]
             args, kw, plain_kw, nbytes, flops, library = make(cfg, dtype, device, gen)
             got = fn(*args, **kw)
@@ -348,7 +392,7 @@ def phase_kernels(cfg, device, model: str) -> list:
                 require(dtype != torch.bfloat16 or design == "wgmma",
                         f"{name} {label}: bf16 at block size 64 must take the wgmma route")
             log(
-                f"[b] {name:21s} {label:36s} {dname:8s} {design or '':5s} max_abs_err={err:.3g} tol={tol:g} "
+                f"[b] {name:21s} {label:40s} {dname:8s} {design or '':5s} max_abs_err={err:.3g} tol={tol:g} "
                 f"max_row_rel_err={rel:.3g} tol={tol_rel:g} {status} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={'-' if lib_ms is None else f'{lib_ms:.4f}'} "
                 f"bound_ms={bms:.4f} ({by})"
@@ -411,46 +455,84 @@ def recorded_gaps(srv):
 
 
 def served_streams(eng, prompts, max_new: int, capacity: int = 2048, **serve_kw):
-    """Staggered submits (two, two steps, two more) on a fresh server;
-    returns each request's tokens and sampled-token gaps, in prompt order."""
+    """Staggered submits (the even-indexed prompts, two steps, then the
+    odd-indexed ones) on a fresh server; returns each request's tokens and
+    sampled-token gaps, in prompt order."""
     srv = eng.serve(capacity=capacity, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
                     prefill_chunk=256, **serve_kw)
+    order = [*range(0, len(prompts), 2), *range(1, len(prompts), 2)]
+    first = (len(prompts) + 1) // 2
     with recorded_gaps(srv) as gaps:
-        reqs = [srv.submit(prompts[0], max_new), srv.submit(prompts[2], max_new)]
+        reqs = [srv.submit(prompts[i], max_new) for i in order[:first]]
         srv.step()
         srv.step()
-        reqs += [srv.submit(prompts[1], max_new), srv.submit(prompts[3], max_new)]
+        reqs += [srv.submit(prompts[i], max_new) for i in order[first:]]
         srv.run_until_idle()
     srv._alloc.check()
     require(srv._alloc.in_use == 0, "phase c: KV blocks leaked")
-    by_prompt = dict(zip([0, 2, 1, 3], reqs))
-    return [by_prompt[i].tokens for i in range(4)], [gaps[by_prompt[i].id] for i in range(4)]
+    by_prompt = dict(zip(order, reqs))
+    n = len(prompts)
+    return [by_prompt[i].tokens for i in range(n)], [gaps[by_prompt[i].id] for i in range(n)]
 
 
-def check_against_generate(tag: str, eng, prompts, lens, max_new: int, capacity: int = 2048) -> None:
+def check_against_generate(tag: str, eng, prompts, lens, max_new: int, capacity: int = 2048,
+                           oracle=None) -> None:
     """The served greedy streams (one-shot and chunked admissions) must be
-    the engine's ``generate`` tokens; a mismatch passes only where the
-    oracle's top-2 logit gap is < 1e-4."""
+    the ``generate`` tokens of ``oracle`` (default: the same engine); a
+    mismatch passes only where the oracle's top-2 logit gap is < 1e-4."""
+    oracle = oracle or eng
     served, _ = served_streams(eng, prompts, max_new, capacity=capacity)
     for i, got in enumerate(served):
-        want = eng.generate_ids(prompts[i], max_new)
+        want = oracle.generate_ids(prompts[i], max_new)
         w = want.tokens[0, lens[i] : want.lengths[0]].tolist()
         path = "chunked" if lens[i] > 256 else "one-shot"
         if w == got:
             log(f"[c] {tag} prompt {lens[i]:5d} ({path}): {len(w)} tokens identical to generate")
             continue
         step = next(j for j in range(min(len(w), len(got))) if w[j] != got[j])
-        gap = top2_gap(eng.cfg, eng.params,
+        gap = top2_gap(oracle.cfg, oracle.params,
                        np.concatenate([prompts[i], np.asarray(w[:step], np.int32)]))
         log(f"[c] {tag} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
             f"oracle top-2 gap {gap:.3g}")
         require(gap < 1e-4, f"phase c {tag}: served tokens differ from generate (gap {gap})")
 
 
+def check_kernels_against_plain(tag: str, eng, prompts, lens, max_new: int) -> None:
+    """With int8 and fp8 arenas, the served streams through the kernels must
+    equal the same server's through the plain versions, or differ first
+    where the plain run's top-2 gap is < 1e-3."""
+    for kv in KV_MODES:
+        kernel, _ = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="auto")
+        plain, gaps = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="plain")
+        for i, (got, want) in enumerate(zip(kernel, plain)):
+            path = "chunked" if lens[i] > 256 else "one-shot"
+            require(len(got) == len(want), f"phase c {tag} {kv}: stream lengths differ")
+            if got == want:
+                log(f"[c] {tag} {kv} prompt {lens[i]:5d} ({path}): {len(got)} tokens of the "
+                    f"kernels identical to the plain versions'")
+                continue
+            step = next(j for j in range(len(got)) if got[j] != want[j])
+            gap = gaps[i][step]
+            log(f"[c] {tag} {kv} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
+                f"plain run's top-2 gap {gap:.3g}")
+            require(gap < 1e-3, f"phase c {tag} {kv}: kernel tokens differ from plain (gap {gap})")
+
+
+def to_device(tree, device):
+    """A params tree (dicts, lists, tensors) copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
 def phase_token_check(device, store_root: str) -> None:
     """f32 token checks: Llama-3.2-3B at 4 layers (raw weights, then from
     an int8 store with the head quantized and from an int4 store, both
-    written by the port), and GPT-2 small at full depth."""
+    written by the port), GPT-2 small at full depth, and gemma-2B at 4
+    layers, whose served streams are also held against ``generate`` run on
+    this machine's CPU (a reference with no kernel in it)."""
     import torch
 
     from llm_sharding_tpu_torch.models import config, gpt2, llama
@@ -466,21 +548,7 @@ def phase_token_check(device, store_root: str) -> None:
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     max_new = 16
     check_against_generate("3B", eng, prompts, lens, max_new)
-    for kv in KV_MODES:
-        kernel, _ = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="auto")
-        plain, gaps = served_streams(eng, prompts, max_new, kv_dtype=kv, paged_attn="plain")
-        for i, (got, want) in enumerate(zip(kernel, plain)):
-            path = "chunked" if lens[i] > 256 else "one-shot"
-            require(len(got) == len(want), f"phase c {kv}: stream lengths differ")
-            if got == want:
-                log(f"[c] {kv} prompt {lens[i]:5d} ({path}): {len(got)} tokens of the kernels "
-                    f"identical to the plain versions'")
-                continue
-            step = next(j for j in range(len(got)) if got[j] != want[j])
-            gap = gaps[i][step]
-            log(f"[c] {kv} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
-                f"plain run's top-2 gap {gap:.3g}")
-            require(gap < 1e-3, f"phase c {kv}: kernel tokens differ from plain (gap {gap})")
+    check_kernels_against_plain("3B", eng, prompts, lens, max_new)
     del eng
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -499,6 +567,22 @@ def phase_token_check(device, store_root: str) -> None:
     gprompts = [rng.integers(0, gcfg.vocab_size, n).astype(np.int32) for n in glens]
     check_against_generate("gpt2", geng, gprompts, glens, max_new, capacity=1024)
     del geng
+    torch.cuda.empty_cache()
+
+    # gemma-2B (G = 8, head dim 256) at full width, 4 layers; the same
+    # weights on the card and on the CPU
+    mcfg = dataclasses.replace(config.gemma_2b(), num_hidden_layers=4)
+    cpu_params = llama.init_params(mcfg, seed=9, dtype=torch.float32, device="cpu")
+    meng = Engine(mcfg, to_device(cpu_params, device))
+    mlens = [40, 300]  # bucket 64 one-shot, 512 chunked (two chunks)
+    mprompts = [rng.integers(0, mcfg.vocab_size, n).astype(np.int32) for n in mlens]
+    check_against_generate("gemma2b", meng, mprompts, mlens, max_new)
+    t0 = time.perf_counter()
+    check_against_generate("gemma2b vs CPU", meng, mprompts, mlens, max_new,
+                           oracle=Engine(mcfg, cpu_params))
+    log(f"[c] gemma2b: CPU generate reference took {time.perf_counter() - t0:.1f}s")
+    check_kernels_against_plain("gemma2b", meng, mprompts, mlens, max_new)
+    del meng, cpu_params
     torch.cuda.empty_cache()
 
 
@@ -579,9 +663,10 @@ def load_store(store: str, tag: str, device, write_s: float):
 def phase_serve(device, store_root: str) -> dict:
     """The workloads on random full-size weights loaded from port-written
     stores: Llama-3.2-3B bf16 (once per KV dtype), int8 and int4 (bf16
-    arena), then GPT-2 small bf16 (once per KV dtype). Returns the launch
-    counts of each kernel mode per model, each from the run that serves
-    through it (unquantized modes: the bf16 weights' bf16 arena)."""
+    arena), GPT-2 small and gemma-2B bf16 (once per KV dtype), then
+    gemma-7B bf16 at 4 layers (bf16 arena). Returns the launch counts of
+    each kernel mode per model, each from the run that serves through it
+    (unquantized modes: the bf16 weights' bf16 arena)."""
     import torch
 
     from llm_sharding_tpu_torch.models import config, gpt2, llama
@@ -636,14 +721,47 @@ def phase_serve(device, store_root: str) -> dict:
             f"{match_frac(tokens, gbase):.3f} (random weights: printed, not gated)")
     del eng
     torch.cuda.empty_cache()
-    return {"llama32_3b": counts, "gpt2_small": gcounts}
+
+    mcfg = config.gemma_2b()
+    t0 = time.perf_counter()
+    mstore = os.path.join(store_root, "gemma_2b_bf16")
+    mparams = llama.init_params(mcfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(mcfg, mparams, mstore)
+    del mparams
+    torch.cuda.empty_cache()
+    eng = load_store(mstore, "gemma2b bf16", device, time.perf_counter() - t0)
+    mcounts, mbase = serve_run(eng, "gemma_2b", "gemma2b bf16 weights, kv bf16")
+    for kv in KV_MODES:
+        kv_counts, tokens = serve_run(eng, "gemma_2b", f"gemma2b bf16 weights, kv {kv}", kv)
+        mcounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
+        log(f"[d] gemma2b kv {kv}: token match against the bf16 arena's run "
+            f"{match_frac(tokens, mbase):.3f} (random weights: printed, not gated)")
+    del eng
+    shutil.rmtree(mstore)
+    torch.cuda.empty_cache()
+
+    # gemma-7B (G = 1) at full width, depth cut to 4 of its 28 layers
+    scfg = dataclasses.replace(config.gemma_7b(), num_hidden_layers=4)
+    t0 = time.perf_counter()
+    sstore = os.path.join(store_root, "gemma_7b_bf16")
+    sparams = llama.init_params(scfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(scfg, sparams, sstore)
+    del sparams
+    torch.cuda.empty_cache()
+    eng = load_store(sstore, "gemma7b bf16", device, time.perf_counter() - t0)
+    scounts, _ = serve_run(eng, "gemma_7b", "gemma7b bf16 weights, kv bf16")
+    del eng
+    shutil.rmtree(sstore)
+    torch.cuda.empty_cache()
+    return {"llama32_3b": counts, "gpt2_small": gcounts, "gemma_2b": mcounts,
+            "gemma_7b": scounts}
 
 
 def match_frac(tokens, base) -> float:
     return float(np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)]))
 
 
-def main() -> int:
+def main(argv: list) -> int:
     try:
         import torch
     except ImportError:
@@ -672,9 +790,16 @@ def main() -> int:
         spills = [ln.strip() for ln in k.build_log.splitlines() if "spill" in ln and " 0 bytes spill" not in ln]
         log(f"[a] built {k.source}; non-zero spill lines: {len(spills)}")
     log(f"[a] kernel build: {secs:.1f}s (nvcc, sm_90a, one process per source)")
+    if argv[:1] == ["--kernels"]:
+        rows = [r for m in argv[1:]
+                for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",))]
+        print(json.dumps({"kernels": rows}))
+        return 0
 
     rows = phase_kernels(config.llama32_3b(), device, "llama32_3b")
     rows += phase_kernels(config.gpt2_small(), device, "gpt2_small")
+    rows += phase_kernels(config.gemma_2b(), device, "gemma_2b")
+    rows += phase_kernels(config.gemma_7b(), device, "gemma_7b", dtypes=("bfloat16",))
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         phase_token_check(device, store)
@@ -698,4 +823,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

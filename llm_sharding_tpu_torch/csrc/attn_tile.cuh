@@ -474,12 +474,17 @@ int launch_merge(const float* part_acc, const float* part_ml, T* out, int B, int
       return small_ ? RUN<float, 64, 1>(__VA_ARGS__) : RUN<float, 64, 4>(__VA_ARGS__);       \
     if ((dtype) == 0 && (head_dim) == 128)                                                   \
       return small_ ? RUN<float, 128, 1>(__VA_ARGS__) : RUN<float, 128, 4>(__VA_ARGS__);     \
+    if ((dtype) == 0 && (head_dim) == 256)                                                   \
+      return small_ ? RUN<float, 256, 1>(__VA_ARGS__) : RUN<float, 256, 4>(__VA_ARGS__);     \
     if ((dtype) == 1 && (head_dim) == 64)                                                    \
       return small_ ? RUN<__nv_bfloat16, 64, 1>(__VA_ARGS__)                                 \
                     : RUN<__nv_bfloat16, 64, 4>(__VA_ARGS__);                                \
     if ((dtype) == 1 && (head_dim) == 128)                                                   \
       return small_ ? RUN<__nv_bfloat16, 128, 1>(__VA_ARGS__)                                \
                     : RUN<__nv_bfloat16, 128, 4>(__VA_ARGS__);                               \
+    if ((dtype) == 1 && (head_dim) == 256)                                                   \
+      return small_ ? RUN<__nv_bfloat16, 256, 1>(__VA_ARGS__)                                \
+                    : RUN<__nv_bfloat16, 256, 4>(__VA_ARGS__);                               \
     return attn::kBadArgs;                                                                   \
   } while (0)
 

@@ -19,8 +19,10 @@
 //   causal skip stays tight; the G heads of a KV head re-read its K/V tiles
 //   from L2 (all of K/V at S = 2048 is 8 MB).
 // - The producer warp streams 64-key K and V tiles by TMA into a ring of 4
-//   stages with full/empty mbarriers. A 128-element bf16 row (256 B) is two
-//   64-column boxes, each 128-byte swizzled. The tensor maps (built on every
+//   stages (2 at head dim 256, where Q and one stage take 96 KB: four
+//   stages would need 320 KB of the 227 KB a CTA may have) with full/empty
+//   mbarriers. A 128-element bf16 row (256 B) is two 64-column boxes, a
+//   256-element one four, each 128-byte swizzled. The tensor maps (built on every
 //   call, they encode the base pointers) are 4-D [B, C, Nkv, D], so keys past
 //   C are zero-filled and then scored -inf, never as valid zero keys.
 // - Skip rule, exact, decided by the producer from positions before the
@@ -105,12 +107,12 @@ using wgattn::kBM;
 using wgattn::kBN;
 using wgattn::kBox;
 using wgattn::kWG;
-constexpr int kStages = 4;                     // K/V ring depth
 constexpr int kFlashThreads = 128 * kWG + 32;  // + one producer warp
 
 template <int D>
 struct Smem {
   static constexpr int NB = D / 64;  // boxes across a row
+  static constexpr int kStages = D <= 128 ? 4 : 2;  // K/V ring depth
   static constexpr int Q = 0;        // [kWG][NB] boxes
   static constexpr int K = Q + kWG * NB * kBox;
   static constexpr int V = K + kStages * NB * kBox;
@@ -127,7 +129,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
                    const __grid_constant__ CUtensorMap tm_v, const int* qpos, const int* kvpos,
                    __nv_bfloat16* out, int S, int C, int Nh, int Nkv, float scale) {
   using L = Smem<D>;
-  constexpr int NB = L::NB;
+  constexpr int NB = L::NB, kStages = L::kStages;
   extern __shared__ __align__(1024) char smem_raw[];
   char* smem = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t sb = hopper::smem_u32(smem);
@@ -288,8 +290,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                     static_cast<cudaStream_t>(stream)};
   if (dtype == 1 && D == 64) return run_wgmma<64>(a);
   if (dtype == 1 && D == 128) return run_wgmma<128>(a);
+  if (dtype == 1 && D == 256) return run_wgmma<256>(a);
   const bool small = (Nh / Nkv) * S <= attn::kTY;
   if (dtype == 0 && D == 64) return small ? run<float, 64, 1>(a) : run<float, 64, 4>(a);
   if (dtype == 0 && D == 128) return small ? run<float, 128, 1>(a) : run<float, 128, 4>(a);
+  if (dtype == 0 && D == 256) return small ? run<float, 256, 1>(a) : run<float, 256, 4>(a);
   return attn::kBadArgs;
 }

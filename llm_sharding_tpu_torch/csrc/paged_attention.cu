@@ -18,7 +18,9 @@
 //   G*S and 4 does not, so Llama-3.2-3B's 3 decode rows carry no padding;
 //   else 4; more rows take more CTAs along y) and spreads the keys over its
 //   8 warps and, inside a warp, over lane groups of LPK lanes: each lane
-//   owns 16 bytes of a K/V row. Each lane copies exactly the bytes it later
+//   owns 16 bytes of a K/V row, or VPL = 2 vectors of 16 bytes, LPK * 16
+//   bytes apart, where a row exceeds a warp's 512 bytes (f32 at head dim
+//   256: 1 KB). Each lane copies exactly the bytes it later
 //   computes on, with cp.async into its warp's own ring of kStages chunks,
 //   so there is no block-wide sync per key tile: a CTA syncs once after
 //   staging its run's table entries and positions (the query rows load
@@ -61,13 +63,17 @@ constexpr int kChunkBytes = 2048;  // K bytes of one ring chunk (V the same)
 template <int D, typename KT>
 struct Geo {
   static constexpr int ROW = D * int(sizeof(KT));  // bytes of one K/V row
-  static constexpr int LPK = ROW / 16;             // lanes per key
+  static constexpr int VPL = ROW > 512 ? ROW / 512 : 1;  // 16-byte vectors a lane owns
+  static constexpr int LPK = ROW / (16 * VPL);     // lanes per key
   static constexpr int KPW = 32 / LPK;             // keys a warp scores at once
-  static constexpr int E = 16 / int(sizeof(KT));   // row elements per lane
+  static constexpr int E1 = 16 / int(sizeof(KT));  // row elements per vector
+  static constexpr int E = VPL * E1;               // row elements per lane
   static constexpr int KC = kChunkBytes / ROW;     // keys per chunk
   static constexpr int J = KC / KPW;               // keys per lane group per chunk
   static constexpr int kRing = kWarps * kStages * 2 * kChunkBytes;
   static_assert(LPK >= 1 && LPK <= 32 && J >= 1 && KC % KPW == 0, "geometry");
+  // row element of a lane's element e (vector e / E1 of the lane's VPL)
+  __device__ static int col(int sub, int e) { return ((e / E1) * LPK + sub) * E1 + e % E1; }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -105,7 +111,8 @@ split_decode_kernel(const T* q, const KT* k_arena, const KT* v_arena, const floa
                     float* part_acc, float* part_ml, int S, int Nh, int Nkv, int BS,
                     int T_blocks, int split_cols, int nsplit, float sl2) {
   using Gm = Geo<D, KT>;
-  constexpr int E = Gm::E, J = Gm::J, LPK = Gm::LPK, KPW = Gm::KPW;
+  constexpr int E = Gm::E, E1 = Gm::E1, VPL = Gm::VPL, J = Gm::J, LPK = Gm::LPK,
+                KPW = Gm::KPW;
   constexpr bool kQuant = !std::is_same<KT, T>::value;
   extern __shared__ __align__(16) char smem[];
   const int split = blockIdx.x, b = blockIdx.z;
@@ -136,10 +143,10 @@ split_decode_kernel(const T* q, const KT* k_arena, const KT* v_arena, const floa
 #pragma unroll
   for (int i = 0; i < RP; ++i) {
     const int fr = r0 + i;
-    const T* src = q + ((size_t(b) * S + fr % S) * Nh + size_t(kh) * G + fr / S) * D + sub * E;
+    const T* src = q + ((size_t(b) * S + fr % S) * Nh + size_t(kh) * G + fr / S) * D;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      qf[i][e] = fr < GS ? attn::to_f(src[e]) : 0.f;
+      qf[i][e] = fr < GS ? attn::to_f(src[Gm::col(sub, e)]) : 0.f;
       acc[i][e] = 0.f;
     }
     m[i] = kNegInf;
@@ -202,11 +209,16 @@ split_decode_kernel(const T* q, const KT* k_arena, const KT* v_arena, const floa
         int bi, slot;
         locate(cbase, kk, bi, slot);
         const int blk = cl < ncols ? sblk[bi] : 0;
-        const size_t off = (size_t(blk) * BS + slot) * kv_stride + size_t(kh) * D + sub * E;
         const int bytes = blk != 0 ? 16 : 0;
-        cp_async16(st + kk * Gm::ROW + sub * 16, bytes ? k_arena + off : k_arena, bytes);
-        cp_async16(st + kChunkBytes + kk * Gm::ROW + sub * 16, bytes ? v_arena + off : v_arena,
-                   bytes);
+#pragma unroll
+        for (int u = 0; u < VPL; ++u) {
+          const int vec = u * LPK + sub;
+          const size_t off =
+              (size_t(blk) * BS + slot) * kv_stride + size_t(kh) * D + size_t(vec) * E1;
+          cp_async16(st + kk * Gm::ROW + vec * 16, bytes ? k_arena + off : k_arena, bytes);
+          cp_async16(st + kChunkBytes + kk * Gm::ROW + vec * 16,
+                     bytes ? v_arena + off : v_arena, bytes);
+        }
       }
     }
     cp_commit();  // empty groups keep the group count uniform
@@ -226,8 +238,10 @@ split_decode_kernel(const T* q, const KT* k_arena, const KT* v_arena, const floa
       int bi = 0, slot;
       if constexpr (kQuant) locate(cbase, kk, bi, slot);
       float kf[E];
-      unpack<T, KT>(*reinterpret_cast<const uint4*>(st + kk * Gm::ROW + sub * 16),
-                    kQuant && in ? sks[bi] : 0.f, kf);
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        unpack<T, KT>(*reinterpret_cast<const uint4*>(st + kk * Gm::ROW + (u * LPK + sub) * 16),
+                      kQuant && in ? sks[bi] : 0.f, kf + u * E1);
       float dot[RP];
 #pragma unroll
       for (int i = 0; i < RP; ++i) {
@@ -269,8 +283,11 @@ split_decode_kernel(const T* q, const KT* k_arena, const KT* v_arena, const floa
       int bi = 0, slot;
       if constexpr (kQuant) locate(cbase, kk, bi, slot);
       float vf[E];
-      unpack<T, KT>(*reinterpret_cast<const uint4*>(st + kChunkBytes + kk * Gm::ROW + sub * 16),
-                    kQuant && cl < ncols ? svs[bi] : 0.f, vf);
+#pragma unroll
+      for (int u = 0; u < VPL; ++u)
+        unpack<T, KT>(*reinterpret_cast<const uint4*>(st + kChunkBytes + kk * Gm::ROW +
+                                                      (u * LPK + sub) * 16),
+                      kQuant && cl < ncols ? svs[bi] : 0.f, vf + u * E1);
 #pragma unroll
       for (int i = 0; i < RP; ++i)
 #pragma unroll
@@ -305,7 +322,7 @@ split_decode_kernel(const T* q, const KT* k_arena, const KT* v_arena, const floa
 #pragma unroll
     for (int i = 0; i < RP; ++i) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) wacc[(warp * RP + i) * D + sub * E + e] = acc[i][e];
+      for (int e = 0; e < E; ++e) wacc[(warp * RP + i) * D + Gm::col(sub, e)] = acc[i][e];
       if (sub == 0) {
         wml[(warp * RP + i) * 2] = m[i];
         wml[(warp * RP + i) * 2 + 1] = l[i];
@@ -399,7 +416,9 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_arena, const voi
                      nsplit,   scale,   static_cast<cudaStream_t>(stream)};
   if (dtype == 0 && D == 64) return run<float, 64>(a, kv_dtype);
   if (dtype == 0 && D == 128) return run<float, 128>(a, kv_dtype);
+  if (dtype == 0 && D == 256) return run<float, 256>(a, kv_dtype);
   if (dtype == 1 && D == 64) return run<__nv_bfloat16, 64>(a, kv_dtype);
   if (dtype == 1 && D == 128) return run<__nv_bfloat16, 128>(a, kv_dtype);
+  if (dtype == 1 && D == 256) return run<__nv_bfloat16, 256>(a, kv_dtype);
   return attn::kBadArgs;
 }

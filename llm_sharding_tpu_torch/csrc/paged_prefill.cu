@@ -57,7 +57,9 @@
 //   key's row is written as zeros by a select: its codes are never loaded
 //   and its scale (Inf on the trash block) is never read. 384 threads in
 //   all, 168 registers each (the consumers need no more; handing the
-//   producer group's registers over with setmaxnreg measured slower).
+//   producer group's registers over with setmaxnreg measured slower). At
+//   head dim 256 the rings are 2 (bf16) and 1 (codes) stages deep (PSmem's
+//   note).
 // - Filling the card at B = 1: when B * Nh * ceil(Sc/128) CTAs fall short of
 //   the SMs, each row's live columns are cut into nsplit runs
 //   (ops/paged_attention.plan_prefill_splits picks nsplit; each CTA sizes
@@ -132,11 +134,16 @@ using wgattn::kWG;
 constexpr int kDeqThreads = 96;    // the dequant warps of a code arena's producer group
 constexpr float kDeadScale = -1.f;  // staged scale of a key that is not loaded (scales are >= 0)
 
+// Shared-memory layout. At head dim 256 a row is four boxes: Q of both
+// warpgroups takes 64 KB and one K/V stage 64 KB, so the bf16 ring has 2
+// stages (four would need 320 KB of the 227 KB a CTA may have) and the
+// code ring 1 (32 KB: 226 KB in all).
 template <int D, bool kQuant>
 struct PSmem {
   static constexpr int NB = D / 64;                  // bf16 boxes across a row
-  static constexpr int kStages = 4;                  // bf16 K/V ring the consumers read
-  static constexpr int kCodeStages = kQuant ? 3 : 0;  // code ring the dequant warps read
+  static constexpr int kStages = D <= 128 ? 4 : 2;   // bf16 K/V ring the consumers read
+  // code ring the dequant warps read
+  static constexpr int kCodeStages = kQuant ? (D <= 128 ? 3 : 1) : 0;
   // the producer warp's ring: the bf16 one, or the code one for a code arena
   static constexpr int kWalk = kQuant ? kCodeStages : kStages;
   static constexpr int kThreads = 128 * kWG + (kQuant ? 128 : 32);
@@ -570,6 +577,7 @@ extern "C" int paged_prefill_fwd(const void* q, const void* k_arena, const void*
       return attn::kBadArgs;
     if (D == 64) return run_wgmma_kv<64>(a);
     if (D == 128) return run_wgmma_kv<128>(a);
+    if (D == 256) return run_wgmma_kv<256>(a);
     return attn::kBadArgs;
   }
   if (design != 0 || nsplit != 1) return attn::kBadArgs;

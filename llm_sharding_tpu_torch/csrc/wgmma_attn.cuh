@@ -6,15 +6,22 @@
 //
 // Per tile, in the contract of attn_tile.cuh's note:
 // - S = Q K^T by wgmma m64n64k16 (Q and K both K-major, 128-byte-swizzled
-//   64-column boxes in shared memory); the next tile's S is issued before
-//   this tile's softmax, so the tensor cores work while the softmax runs;
+//   64-column boxes in shared memory); at D = 64 and 128 the next tile's S
+//   is issued before this tile's softmax, so the tensor cores work while
+//   the softmax runs; at D = 256 the O accumulator alone is 128 registers a
+//   thread of the 168 ptxas gives these CTAs (it rounds their 9 or 12 warps
+//   up to whole warps per SM sub-partition, 3 of the 4), so a second S
+//   fragment does not fit and each tile's S is issued and awaited at its
+//   turn (issued early at D = 256, the flash and chunked-prefill kernels
+//   ran 1.13-1.34x slower on an H100);
 // - the online softmax runs on the f32 accumulator fragment (a row spans
 //   a quad of lanes: max by two shuffles) in the log2 domain: scores times
 //   scale * log2 e, then ex2; masked scores are -1e30 and the running max
 //   starts there; columns at or past the walk's end score -inf;
 // - P is rounded to bf16 in registers ("p cast to the V dtype") and
-//   O += P V by wgmma m64n128k16 (m64n64k16 at D = 64) with A from
-//   registers and the V tile as the MN-major B operand (transpose bit).
+//   O += P V by wgmma m64n128k16 (m64n64k16 at D = 64, two m64n128k16 over
+//   boxes 0-1 and 2-3 at D = 256) with A from registers and the V tile as
+//   the MN-major B operand (transpose bit).
 //
 // The producer's side of the ring, per stage: the K and V boxes, the
 // tile's key positions (kBN ints), its first column (-1 ends the walk)
@@ -62,6 +69,7 @@ template <int D, int kStages>
 __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const int* qp,
                                         float sl2, float* o, float* m, float* l) {
   constexpr int NB = D / 64;
+  constexpr bool kEarly = D <= 128;  // issue the next tile's S before this softmax
   const int quad = threadIdx.x % 4;
   auto full = [&](int st) { return r.full0 + 8 * st; };
   auto empty = [&](int st) { return r.empty0 + 8 * st; };
@@ -99,13 +107,16 @@ __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const
       nstage = 0;
       nparity ^= 1;
     }
-    hopper::mbar_wait(full(nstage), nparity);
-    const int nc0 = r.c0[nstage];
-    // the next tile's S = Q K^T runs on the tensor cores during this softmax
-    if (nc0 >= 0) {
-      hopper::wg_fence();
-      issue_qk(sn, nstage);
-      hopper::wg_commit();
+    int nc0 = -1;
+    if constexpr (kEarly) {
+      hopper::mbar_wait(full(nstage), nparity);
+      nc0 = r.c0[nstage];
+      // the next tile's S = Q K^T runs on the tensor cores during this softmax
+      if (nc0 >= 0) {
+        hopper::wg_fence();
+        issue_qk(sn, nstage);
+        hopper::wg_commit();
+      }
     }
 
     // mask (unless the whole tile is visible) and online softmax on the
@@ -166,7 +177,12 @@ __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (NB == 2) {
+      if constexpr (NB == 4) {
+        hopper::wgmma_rs_m64n128k16_tb(
+            o, pa[kk], hopper::desc_sw128(v_box(stage, 0) + kk * 16 * 128, kBox, 1024));
+        hopper::wgmma_rs_m64n128k16_tb(
+            o + 64, pa[kk], hopper::desc_sw128(v_box(stage, 2) + kk * 16 * 128, kBox, 1024));
+      } else if constexpr (NB == 2) {
         hopper::wgmma_rs_m64n128k16_tb(
             o, pa[kk], hopper::desc_sw128(v_box(stage, 0) + kk * 16 * 128, kBox, 1024));
       } else {
@@ -175,12 +191,24 @@ __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const
       }
     }
     hopper::wg_commit();
-    hopper::wg_wait0();  // this PV and the next tile's QK
+    hopper::wg_wait0();  // this PV (and, issued early, the next tile's QK)
     fence_regs<NB * 32>(o);
-    fence_regs<32>(sn);
+    if constexpr (kEarly) fence_regs<32>(sn);
     hopper::mbar_arrive(empty(stage));
+    if constexpr (kEarly) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sa[i] = sn[i];
+      for (int i = 0; i < 32; ++i) sa[i] = sn[i];
+    } else {
+      hopper::mbar_wait(full(nstage), nparity);
+      nc0 = r.c0[nstage];
+      if (nc0 >= 0) {
+        hopper::wg_fence();
+        issue_qk(sa, nstage);
+        hopper::wg_commit();
+        hopper::wg_wait0();
+        fence_regs<32>(sa);
+      }
+    }
     stage = nstage;
     parity = nparity;
     c0 = nc0;

@@ -42,6 +42,8 @@ NVCC_FLAGS = (
 # after the source: hopper.cuh finds libcuda's cuTensorMapEncodeTiled with dlsym
 LINK_FLAGS = ("-ldl",)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims every kernel is instantiated for (256: gemma-1)
+HEAD_DIMS = (64, 128, 256)
 # 1-byte KV storage of the paged kernels: (kernel code, launch-count mode);
 # an arena in the query dtype is (0, "")
 KV_STORAGE = {torch.int8: (1, "int8"), torch.float8_e4m3fn: (2, "fp8")}
@@ -220,8 +222,8 @@ def check_attention_inputs(
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"attention kernels take float32 or bfloat16, got {q.dtype}")
     D = q.shape[-1]
-    if D not in (64, 128):
-        raise ValueError(f"attention kernels take head_dim 64 or 128, got {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"attention kernels take head_dim 64, 128 or 256, got {D}")
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"{q.shape[2]} query heads not a multiple of {k.shape[2]} KV heads")
     quantized = k.dtype in KV_STORAGE

@@ -1,6 +1,6 @@
 """Where the time of the paged server goes on one GPU.
 
-    python -m llm_sharding_tpu_torch.serve_profile [--model llama32_3b|gpt2_small]
+    python -m llm_sharding_tpu_torch.serve_profile [--model llama32_3b|gemma_2b|gpt2_small]
         [--weights bf16|int8|int4] [--kv-dtype bf16|int8|fp8]
 
 Serves a workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8

@@ -6,6 +6,8 @@ measure.
 
 - Llama-3.2-3B: prompts of 20-200 and 1024-2048 tokens, capacity 4096,
   1024 blocks.
+- gemma-2B and gemma-7B: the 3B's workload (gemma-2B's arena of 1024
+  blocks holds 1.21 GB in bf16: one KV head of 256 over 18 layers).
 - GPT-2 small: prompts of 20-200 and 320-512 tokens, capacity 1024 (its
   position limit), 256 blocks. A prompt over 512 tokens falls in the
   1024-token admission bucket, which with any new token exceeds the 1024
@@ -35,6 +37,7 @@ WORKLOADS = {
     "llama32_3b": Workload((20, 1024, 90, 1536, 150, 2048, 200, 1800), 4096, 1024),
     "gpt2_small": Workload((20, 512, 90, 384, 150, 448, 200, 320), 1024, 256),
 }
+WORKLOADS["gemma_2b"] = WORKLOADS["gemma_7b"] = WORKLOADS["llama32_3b"]
 LENS = WORKLOADS["llama32_3b"].lens
 
 

@@ -33,6 +33,7 @@ from llm_sharding_tpu_torch.runtime.engine import Engine
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 TOL_REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+BF16_STEP = 2.0**-7  # |x| * 2^-7 is at least the bf16 spacing at x
 
 
 @pytest.fixture
@@ -290,16 +291,23 @@ def _flash_case(dev, dtype, S, D, G, B=1, pad=0, seed=40):
     return t(B, S, Nkv * G, D), t(B, S, Nkv, D), t(B, S, Nkv, D), pos, pos
 
 
-def _assert_close_rows(got, want, dtype):
+def _assert_close_rows(got, want, dtype, step=False):
+    """Absolute limit TOL and row-relative limit TOL_REL. With ``step``
+    (bf16 at head dim 256) each output's absolute limit is TOL or one bf16
+    step of its expected value, whichever is larger."""
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    if step:
+        atol = (want.float().abs() * BF16_STEP).clamp_min(TOL[dtype])
+        assert ((got.float() - want.float()).abs() <= atol).all()
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
     row_scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
     assert ((got.float() - want.float()).abs() / row_scale).max().item() <= TOL_REL[dtype]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 3])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S", [37, 200, 2048])
 def test_flash_tensor_core_kernel_matches_plain(cuda_device, S, D, G):
     """bf16 flash (wgmma + TMA) against the plain version: ragged and
@@ -314,7 +322,7 @@ def test_flash_tensor_core_kernel_matches_plain(cuda_device, S, D, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_tensor_core_kernel_sentinel_padded_rows(cuda_device, D):
     """B = 2, the second row bucket-padded (200 real of 256): the padded
     query rows see every key, as on the plain path."""
@@ -479,7 +487,7 @@ def test_prefill_f32_queries_take_the_tile_path(cuda_device, kv):
 
 
 # GPT-2's attention: one KV head per query head (G = 1), head dim 64 (and
-# 128 for decode); 12 heads, so the prefill kernel's B = 1 chunk has 24
+# 128, Llama-2-7B's); 12 heads, so the prefill kernel's B = 1 chunk has 24
 # CTAs and is cut into runs
 MHA = dict(Nkv=12, G=1)
 
@@ -509,11 +517,13 @@ def test_split_kv_decode_mha_matches_plain(cuda_device, D, B, S, kv):
 @pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
 @pytest.mark.parametrize("BS", [16, 64])
 @pytest.mark.parametrize("shape", list(PREFILL_SHAPES))
-def test_prefill_tensor_core_kernel_mha_matches_plain(cuda_device, shape, BS, kv):
-    """bf16 chunked prefill on the tensor cores at G = 1, D = 64 (GPT-2's
-    attention), the shapes of ``test_prefill_tensor_core_kernel_matches_plain``."""
+@pytest.mark.parametrize("D", [64, 128])
+def test_prefill_tensor_core_kernel_mha_matches_plain(cuda_device, D, shape, BS, kv):
+    """bf16 chunked prefill on the tensor cores at G = 1 (GPT-2's attention
+    at D = 64, Llama-2-7B's at D = 128), the shapes of
+    ``test_prefill_tensor_core_kernel_matches_plain``."""
     frontiers, Sc, pad = PREFILL_SHAPES[shape]
-    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.bfloat16, frontiers, Sc, BS, 64,
+    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.bfloat16, frontiers, Sc, BS, D,
                                              kv, pad=pad, **MHA)
     assert tpa.prefill_design(torch.bfloat16, BS) == "wgmma"
     if shape == "B1-long-split":
@@ -527,3 +537,94 @@ def test_prefill_tensor_core_kernel_mha_matches_plain(cuda_device, shape, BS, kv
     assert kernels.launch_counts()["paged_prefill" + (f"[{kv}]" if kv else "")] == 1
     assert torch.isfinite(got).all()
     _assert_close_rows(got[rows], want[rows], torch.bfloat16)
+
+
+# gemma-1's attention, head dim 256: gemma-2B's 8 query heads over one KV
+# head (G = 8) and gemma-7B's one query head per KV head (G = 1; 4 KV heads
+# here, 16 in the model). A row that sees one or two keys outputs about one
+# V value, and among 256-wide rows of unit-scale V some exceed magnitude 4,
+# where one bf16 step (2^-5 = 0.031) is above the absolute limit TOL: the
+# bf16 decode and prefill cases hold each output to TOL or one step of it.
+GEMMA = {8: dict(Nkv=1, G=8), 1: dict(Nkv=4, G=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("G", [8, 1])
+def test_split_kv_decode_head_dim_256_matches_plain(cuda_device, G, B, S, kv):
+    """Split-KV decode at D = 256 against the plain version, the contexts
+    of ``test_split_kv_decode_matches_plain``: a 512-byte bf16 row is one
+    key per warp, a 256-byte code row two."""
+    full = 40 * 16
+    cases = [[16], [48], [full]] if B == 1 else [[16, 48, full, S, 300, 16, 64, full]]
+    name = "paged_attention" + (f"[{kv}]" if kv else "")
+    for ctx in cases:
+        args, sc = _decode_case(cuda_device, torch.bfloat16, B, S, ctx, kv, D=256, **GEMMA[G])
+        kernels.reset_launch_counts()
+        got = tpa.paged_attention(*args, **sc)
+        want = tpa.paged_attention_xla(*args, **sc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == 1
+        _assert_close_rows(got, want, torch.bfloat16, step=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+def test_split_kv_decode_f32_queries_head_dim_256(cuda_device, kv):
+    """f32 queries at D = 256 at f32 limits: over an f32 arena a 1 KB row
+    is two 16-byte vectors per lane; over a code arena, one."""
+    args, sc = _decode_case(cuda_device, torch.float32, 8, 1, [16, 48, 640, 1, 300, 16, 64, 640],
+                            kv, D=256, **GEMMA[8])
+    got, want = tpa.paged_attention(*args, **sc), tpa.paged_attention_xla(*args, **sc)
+    torch.cuda.synchronize()
+    _assert_close_rows(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("BS", [16, 64])
+@pytest.mark.parametrize("shape", list(PREFILL_SHAPES))
+def test_prefill_tensor_core_kernel_head_dim_256_matches_plain(cuda_device, shape, BS, kv):
+    """bf16 chunked prefill on the tensor cores at D = 256, G = 8 (gemma-2B's
+    attention), the shapes of ``test_prefill_tensor_core_kernel_matches_plain``:
+    four TMA boxes per row, two bf16 ring stages (one code stage)."""
+    frontiers, Sc, pad = PREFILL_SHAPES[shape]
+    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.bfloat16, frontiers, Sc, BS, 256,
+                                             kv, pad=pad, **GEMMA[8])
+    assert tpa.prefill_design(torch.bfloat16, BS) == "wgmma"
+    if shape == "B1-long-split":
+        _, nsplit = tpa.plan_prefill_splits(1, Sc, 8, args[3].shape[1] * BS, BS,
+                                            kernels.sm_count(cuda_device))
+        assert nsplit > 1
+    kernels.reset_launch_counts()
+    got = tpa.paged_prefill(*args, **kw)
+    want = tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_prefill" + (f"[{kv}]" if kv else "")] == 1
+    assert torch.isfinite(got).all()
+    _assert_close_rows(got[rows], want[rows], torch.bfloat16, step=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+def test_prefill_f32_queries_head_dim_256_take_the_tile_path(cuda_device, kv):
+    """f32 queries at D = 256 (the CUDA-core tile, 64-row query tiles)
+    meet the f32 limits, trash and split shape as above."""
+    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.float32, (1500,), 256, 64, 256,
+                                             kv, pad=40, **GEMMA[8])
+    got, want = tpa.paged_prefill(*args, **kw), tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    _assert_close_rows(got[rows], want[rows], torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [8, 1])
+def test_flash_f32_head_dim_256_takes_the_tile_path(cuda_device, G):
+    """f32 flash at D = 256 (the CUDA-core tile) at f32 limits: a padded
+    admission bucket, with and without GQA."""
+    args = _flash_case(cuda_device, torch.float32, 200, 256, G, B=2, pad=56)
+    got, want = tfa.flash_attention(*args), tfa.cached_attention(*args)
+    torch.cuda.synchronize()
+    _assert_close_rows(got, want, torch.float32)
