@@ -24,21 +24,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     bucket. gemma-2B (G = 8, D = 256): the 3B's decode, chunked-prefill
     and flash shapes but the ragged ones, both query dtypes; gemma-7B
     (G = 1, D = 256): decode at 8 rows, one chunk at frontier 2048, flash
-    at S = C = 2048, bf16 only. Time kernel, plain version and (flash only)
-    ``F.scaled_dot_product_attention`` with the equivalent boolean mask, a
-    yardstick the port never calls;
+    at S = C = 2048, bf16 only. A prefix-cache hit's shapes: flash at the
+    3B's and gemma-2B's with S = 256 queries at positions 1024-1279 over
+    C = 1280 keys; the 3B's chunked prefill of two rows at column 1024 over
+    16 shared blocks, in each KV mode. Time kernel, plain version and
+    (flash only) ``F.scaled_dot_product_attention`` with the equivalent
+    boolean mask, a yardstick the port never calls;
 (c) f32 token checks: the served greedy streams, one-shot and chunked,
     must be token-identical to the port's ``generate`` on the same weights
     (a mismatch passes only where the oracle's top-2 logit gap is < 1e-4):
     Llama-3.2-3B at full width and 4 layers, raw, then loaded from a
     port-written int8 store (vocab table quantized too) and an int4 store;
     GPT-2 small at full width and depth; gemma-2B at full width and 4
-    layers, also against ``generate`` run on this machine's CPU (no kernel
-    on that side, flash included). With int8 and fp8 arenas, the 3B's and
-    gemma-2B's served streams through the kernels (``paged_attn="auto"``)
-    must equal the same server's through the plain versions
-    (``paged_attn="plain"``), or differ first where the plain run's top-2
-    gap is < 1e-3;
+    layers. The raw 3B's, GPT-2's and gemma-2B's streams are also held
+    against ``generate`` run on this machine's CPU (no kernel on that side,
+    flash included; the weights are made on the CPU and copied to the
+    card). With int8 and fp8 arenas, the 3B's and gemma-2B's served
+    streams through the kernels (``paged_attn="auto"``) must equal the same
+    server's through the plain versions (``paged_attn="plain"``), or
+    differ first where the plain run's top-2 gap is < 1e-3. The prefix
+    cache, 3B raw: a primer caches a 512-token prefix, then a one-shot and
+    a chunked hit, with ``prefix_cache`` hbm, host and disk (the lower
+    tiers stream the prefix back), held to the cache-off streams and to
+    ``generate`` on the CPU; with int8 and fp8 arenas, the cached streams
+    through the kernels against the plain versions' (gap < 1e-3);
 (d) write shard stores of seeded random full-depth weights with the
     port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
     quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
@@ -49,7 +58,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     fp8), the others with a bf16 arena. In each run every request must finish, the
     block allocator must drain and every kernel (mode) of that path must
     have launched; each store's bytes on disk and resident after load are
-    printed;
+    printed. The 3B also serves the shared-prefix workload
+    (``smoke_workload.SHARED_PREFIX``: a primer caches a 1024-token prefix,
+    then 8 staggered requests, each the prefix and a suffix of 20-1000
+    tokens), cold (``prefix_cache="off"``) and warm (hbm) in the bf16
+    arena, warm in the int8 and fp8 arenas, printing TTFT p50/p99, decode
+    tok/s and the hit rate; every warm request must hit the whole prefix,
+    flash and the chunked-prefill kernel must launch, and after the tree is
+    dropped no block may stay held. Then the host tier (prefixes A, B, A
+    through a 40-block arena) and the disk tier (A, B, C, A, a 16-block
+    host pool, the pool under ``TMPDIR``, removed after) must each show
+    evictions to and hits from their tier. gemma-2B serves the
+    shared-prefix workload warm;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -274,6 +294,97 @@ def flash_case(cfg, dtype, device, gen, S, real=None):
     return args, {}, {}, nbytes, flops, library
 
 
+def flash_prefix_case(cfg, dtype, device, gen, S=256, P=1024):
+    """A one-shot radix hit's flash: the suffix bucket's S queries at
+    positions P..P+S-1 over C = P + S keys, the first P the cached
+    prefix's (fewer queries than keys)."""
+    import torch
+
+    Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    C = P + S
+    q = torch.randn((1, S, Nh, D), generator=gen, device=device).to(dtype)
+    k = torch.randn((1, C, Nkv, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((1, C, Nkv, D), generator=gen, device=device).to(dtype)
+    qpos = (P + torch.arange(S, dtype=torch.int32, device=device))[None]
+    kvpos = torch.arange(C, dtype=torch.int32, device=device)[None]
+    args = (q, k, v, qpos, kvpos)
+    isz = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + (qpos.numel() + kvpos.numel()) * 4
+    flops = 4.0 * Nh * D * (S * P + S * (S + 1) / 2)  # query i sees P + i + 1 keys
+    G = Nh // Nkv
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+    mask = (kvpos[0][None, :] <= qpos[0][:, None])[None, None]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    return args, {}, {}, nbytes, flops, library
+
+
+def prefill_prefix_case(cfg, dtype, device, gen, kv=None, P=1024, Sc=256, B=2):
+    """A chunked radix hit's first chunk: B rows whose first P / 64 table
+    entries are the same shared blocks (the cached prefix), each a chunk of
+    Sc queries at columns and positions P..P+Sc-1 over its own private
+    blocks, two stale blocks past the frontier, trash block 0 (NaN/Inf;
+    0x7F codes and Inf scales) in the rest of a width-64 table; ``nlive``
+    counts the prefix. The bound reads each distinct block once."""
+    import torch
+
+    BS, T = 64, 64
+    Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    npfx, nchunk = P // BS, Sc // BS
+    NB = npfx + B * (nchunk + 2) + 1
+    k = torch.randn((NB, BS, Nkv, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((NB, BS, Nkv, D), generator=gen, device=device).to(dtype)
+    k[0], v[0] = float("nan"), float("inf")
+    tbl = np.zeros((B, T), np.int32)
+    tbl[:, :npfx] = 1 + np.arange(npfx)
+    for b in range(B):
+        lo = 1 + npfx + b * (nchunk + 2)
+        tbl[b, npfx : npfx + nchunk + 2] = lo + np.arange(nchunk + 2)
+    kvpos = np.full((B, T * BS), SENTINEL, np.int32)
+    kvpos[:, : P + Sc] = np.arange(P + Sc)
+    qpos = np.tile(P + np.arange(Sc, dtype=np.int32), (B, 1))
+    nlive = torch.full((B,), (P + Sc) // BS, dtype=torch.int32, device=device)
+    q = torch.randn((B, Sc, Nh, D), generator=gen, device=device).to(dtype)
+    scales = {}
+    if kv:
+        k, ks, v, vs = quantize_arena(k, v, kv)
+        scales = {"k_scale": ks, "v_scale": vs}
+    args = (
+        q, k, v, torch.from_numpy(tbl).to(device), torch.from_numpy(qpos).to(device),
+        torch.from_numpy(kvpos).to(device),
+    )
+    isz = q.element_size()
+    read_blocks = npfx + B * nchunk
+    nbytes = (2 * q.numel() * isz + 2 * read_blocks * BS * Nkv * D * code_bytes(kv, isz)
+              + tbl.nbytes + kvpos.nbytes + qpos.nbytes
+              + (2 * read_blocks * Nkv * 4 if kv else 0))
+    flops = 4.0 * Nh * D * float((qpos.astype(np.int64) + 1).sum())
+    return args, {"nlive": nlive, **scales}, scales, nbytes, flops, None
+
+
+def prefix_kernel_cases(model: str) -> list:
+    """The [b] cases of a prefix-cache hit at ``model``'s serving shapes
+    (a 1024-token cached prefix, block size 64, chunks of 256): flash past
+    the prefix, and for the 3B the chunked prefill over shared blocks in
+    each KV mode. Same tuple as ``kernel_cases``."""
+    from llm_sharding_tpu_torch.ops import attention, flash_attention, paged_attention
+
+    pre = ("llm_sharding_tpu/ops/paged_attention.py:689", "llm_sharding_tpu_torch/csrc/paged_prefill.cu")
+    fla = ("llm_sharding_tpu/ops/flash_attention.py:124", "llm_sharding_tpu_torch/csrc/flash_attention.cu")
+    tag = {"llama32_3b": "", "gemma_2b": "gemma2b "}[model]
+    cases = [("flash_attention", f"{tag}S=256 C=1280 past a 1024 prefix", flash_attention.flash_attention,
+              attention.cached_attention, flash_prefix_case, *fla)]
+    if model == "llama32_3b":
+        for kv in (None, *KV_MODES):
+            mode = f"[{kv}]" if kv else ""
+            cases.append((f"paged_prefill{mode}", "chunk Sc=256 B=2 at column 1024, 16 shared blocks",
+                          paged_attention.paged_prefill, paged_attention.paged_attention_xla,
+                          lambda *a, kv=kv: prefill_prefix_case(*a, kv=kv), *pre))
+    return cases
+
+
 def kernel_cases(model: str) -> list:
     """``(name, shape label, kernel, plain version, case maker, TPU
     function, port source)`` of each [b] case at ``model``'s serving
@@ -354,16 +465,18 @@ def kernel_cases(model: str) -> list:
     ]
 
 
-def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32")) -> list:
+def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefix=False) -> list:
     """Each kernel case of ``model`` against its plain version, with
     queries of each of ``dtypes``, timed; returns the tabled rows (bf16
-    queries), tagged with the model."""
+    queries), tagged with the model and the [d] workload whose run counts
+    their launches. ``prefix``: the prefix-cache hit's cases."""
     import torch
 
     from llm_sharding_tpu_torch.ops import paged_attention
 
     gen = torch.Generator(device=device).manual_seed(1234)
-    cases = kernel_cases(model)
+    cases = prefix_kernel_cases(model) if prefix else kernel_cases(model)
+    workload = "shared_prefix" if prefix else "standard"
     rows = []
     for name, label, fn, plain, make, replaces, source in cases:
         for dtype in (getattr(torch, d) for d in dtypes):
@@ -402,7 +515,8 @@ def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32")) -> li
                     f"{name} {label} {dname}: max row-relative error {rel} > {tol_rel}")
             if replaces is not None and dtype == torch.bfloat16:
                 rows.append(dict(
-                    name=name, model=model, shape=label, route="cuda", source=source, replaces=replaces,
+                    name=name, model=model, workload=workload, shape=label, route="cuda",
+                    source=source, replaces=replaces,
                     launches=None, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms,
                     **({"design": design} if design else {}),
@@ -527,12 +641,98 @@ def to_device(tree, device):
     return tree.to(device)
 
 
+def prefix_streams(eng, primer, prompts, max_new: int, cache: str = "off", pool=None,
+                   **serve_kw):
+    """The prefix-cache pattern on a fresh server (``served_streams``'s
+    shape): the primer run to idle, so its prefix is in the tree; with a
+    host or disk tier every node then demoted to that tier; then
+    ``prompts`` submitted together. Returns each request's tokens and
+    sampled-token gaps, and the cache's stats. Both invariants must hold
+    and, once the tree is dropped, no block may stay held."""
+    srv = eng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
+                    prefill_chunk=256, prefix_cache=cache,
+                    **({"disk_pool_dir": pool} if cache == "disk" else {}), **serve_kw)
+    with recorded_gaps(srv) as gaps:
+        srv.result(srv.submit(primer, max_new))
+        if cache in ("host", "disk"):
+            srv._radix.demote_all(to_disk=cache == "disk")
+        reqs = [srv.submit(p, max_new) for p in prompts]
+        srv.run_until_idle()
+    srv._alloc.check()
+    stats = srv.prefix_cache_stats()
+    if srv._radix is not None:
+        srv._radix.check()
+        require(srv._alloc.in_use == srv._radix.device_blocks, "phase c: row blocks leaked")
+        srv._radix.drop_all()
+    require(srv._alloc.in_use == 0, "phase c: KV blocks leaked")
+    return [r.tokens for r in reqs], [gaps[r.id] for r in reqs], stats
+
+
+def hold_streams(tag: str, got: list, want: list, prompts, oracle, limit: float = 1e-4,
+                 gaps=None) -> None:
+    """Each stream of ``got`` equals ``want``'s, or first differs where the
+    oracle's top-2 logit gap is below ``limit``: ``gaps`` (the ``want``
+    run's own, recorded) when given, else a fresh prefill on ``oracle``."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        n = len(prompts[i])
+        if g == w:
+            log(f"[c] {tag} prompt {n:5d}: {len(w)} tokens identical")
+            continue
+        require(len(g) == len(w), f"phase c {tag}: stream lengths differ")
+        step = next(j for j in range(len(w)) if w[j] != g[j])
+        gap = gaps[i][step] if gaps is not None else top2_gap(
+            oracle.cfg, oracle.params, np.concatenate([prompts[i], np.asarray(w[:step], np.int32)]))
+        log(f"[c] {tag} prompt {n:5d}: first mismatch at step {step}, top-2 gap {gap:.3g}")
+        require(gap < limit, f"phase c {tag}: streams differ (gap {gap})")
+
+
+def check_prefix_cache(tag: str, eng, cpu_eng, rng, pool_root: str) -> None:
+    """Prefix-cache hits on the card: a 512-token prefix (8 blocks) cached
+    by a primer, then a one-shot hit (suffix 40: flash at S = 64 past the
+    prefix) and a chunked hit (suffix 500: chunks from column 512), in each
+    tier (hbm; host and disk, where the hits stream the prefix back). The
+    streams must equal the cache-off server's and ``generate``'s on the
+    CPU (top-2 gap rule); with int8 and fp8 arenas the kernels' cached
+    streams must equal the plain versions' (gap < 1e-3)."""
+    V = eng.cfg.vocab_size
+    prefix = rng.integers(0, V, 512).astype(np.int32)
+    primer = np.concatenate([prefix, rng.integers(0, V, 64).astype(np.int32)])
+    prompts = [np.concatenate([prefix, rng.integers(0, V, n).astype(np.int32)]) for n in (40, 500)]
+    max_new = 16
+    off, _, _ = prefix_streams(eng, primer, prompts, max_new)
+    cpu = []
+    for p in prompts:
+        r = cpu_eng.generate_ids(p, max_new)
+        cpu.append(r.tokens[0, len(p) : r.lengths[0]].tolist())
+    hold_streams(f"{tag} cache off vs CPU generate", off, cpu, prompts, cpu_eng)
+    for cache in ("hbm", "host", "disk"):
+        pool = tempfile.mkdtemp(prefix="chip_smoke_pool_", dir=pool_root)
+        got, _, st = prefix_streams(eng, primer, prompts, max_new, cache, pool)
+        shutil.rmtree(pool)
+        tier = {"hbm": None, "host": "host_hit_tokens", "disk": "disk_hit_tokens"}[cache]
+        log(f"[c] {tag} prefix_cache={cache}: hit {st['hit_tokens']} of {st['eligible_tokens']} "
+            f"tokens, host hits {st['host_hit_tokens']}, disk hits {st['disk_hit_tokens']}")
+        require(st["hit_tokens"] == 2 * 512, f"phase c {tag} {cache}: hits {st}")
+        require(tier is None or st[tier] == 512, f"phase c {tag} {cache}: tier hits {st}")
+        hold_streams(f"{tag} {cache} vs cache off", got, off, prompts, eng)
+        hold_streams(f"{tag} {cache} vs CPU generate", got, cpu, prompts, cpu_eng)
+    for kv in KV_MODES:
+        kernel, _, _ = prefix_streams(eng, primer, prompts, max_new, "hbm", kv_dtype=kv)
+        plain, gaps, _ = prefix_streams(eng, primer, prompts, max_new, "hbm", kv_dtype=kv,
+                                        paged_attn="plain")
+        hold_streams(f"{tag} {kv} cached, kernels vs plain", kernel, plain, prompts, None,
+                     limit=1e-3, gaps=gaps)
+
+
 def phase_token_check(device, store_root: str) -> None:
     """f32 token checks: Llama-3.2-3B at 4 layers (raw weights, then from
     an int8 store with the head quantized and from an int4 store, both
     written by the port), GPT-2 small at full depth, and gemma-2B at 4
-    layers, whose served streams are also held against ``generate`` run on
-    this machine's CPU (a reference with no kernel in it)."""
+    layers. The raw 3B's, GPT-2's and gemma-2B's served streams are also
+    held against ``generate`` run on this machine's CPU (a reference with
+    no kernel in it: the weights are made on the CPU and copied to the
+    card), and the raw 3B's prefix-cache hits against the cache-off
+    streams and that CPU reference (``check_prefix_cache``)."""
     import torch
 
     from llm_sharding_tpu_torch.models import config, gpt2, llama
@@ -541,15 +741,23 @@ def phase_token_check(device, store_root: str) -> None:
     from llm_sharding_tpu_torch.utils.shard_store import save_shards
 
     cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=4)
-    params = llama.init_params(cfg, seed=7, dtype=torch.float32, device=device)
+    cpu_params = llama.init_params(cfg, seed=7, dtype=torch.float32, device="cpu")
+    params = to_device(cpu_params, device)
     eng = Engine(cfg, params)
+    cpu_eng = Engine(cfg, cpu_params)
     rng = np.random.default_rng(7)
     lens = [40, 200, 700, 1000]  # buckets 64 and 256 one-shot, 1024 chunked
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     max_new = 16
     check_against_generate("3B", eng, prompts, lens, max_new)
+    t0 = time.perf_counter()
+    check_against_generate("3B vs CPU", eng, prompts, lens, max_new, oracle=cpu_eng)
+    log(f"[c] 3B: CPU generate reference took {time.perf_counter() - t0:.1f}s")
     check_kernels_against_plain("3B", eng, prompts, lens, max_new)
-    del eng
+    t0 = time.perf_counter()
+    check_prefix_cache("3B", eng, cpu_eng, rng, store_root)
+    log(f"[c] 3B prefix cache checks took {time.perf_counter() - t0:.1f}s")
+    del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
         store = os.path.join(store_root, f"c_int{bits}")
@@ -562,11 +770,16 @@ def phase_token_check(device, store_root: str) -> None:
     torch.cuda.empty_cache()
 
     gcfg = config.gpt2_small()
-    geng = Engine(gcfg, gpt2.init_params(gcfg, seed=8, dtype=torch.float32, device=device))
+    gcpu_params = gpt2.init_params(gcfg, seed=8, dtype=torch.float32, device="cpu")
+    geng = Engine(gcfg, to_device(gcpu_params, device))
     glens = [40, 200, 300, 500]  # buckets 64 and 256 one-shot, 512 chunked
     gprompts = [rng.integers(0, gcfg.vocab_size, n).astype(np.int32) for n in glens]
     check_against_generate("gpt2", geng, gprompts, glens, max_new, capacity=1024)
-    del geng
+    t0 = time.perf_counter()
+    check_against_generate("gpt2 vs CPU", geng, gprompts, glens, max_new, capacity=1024,
+                           oracle=Engine(gcfg, gcpu_params))
+    log(f"[c] gpt2: CPU generate reference took {time.perf_counter() - t0:.1f}s")
+    del geng, gcpu_params
     torch.cuda.empty_cache()
 
     # gemma-2B (G = 8, head dim 256) at full width, 4 layers; the same
@@ -640,6 +853,107 @@ def serve_run(eng, model: str, tag: str, kv: str = "bf16") -> tuple[dict, list]:
     return counts, tokens
 
 
+def prefix_serve_run(eng, model: str, tag: str, cache: str = "hbm", kv: str = "bf16"):
+    """``model``'s shared-prefix workload (``smoke_workload.SHARED_PREFIX``)
+    on a fresh server: the primer run to idle, then the 8 staggered
+    requests, timed. Every request must finish; with the cache on every
+    one must hit the whole prefix, and once the tree is dropped no block
+    may stay held; both paged kernels (of the ``kv`` mode) must have
+    launched, and flash with the cache on. Prints TTFT, decode tok/s, the hit rate and the
+    launches; returns the counts, the tokens and ``(TTFT p50, p99, tok/s)``."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    cfg = eng.cfg
+    w = smoke_workload.SHARED_PREFIX[model]
+    srv = smoke_workload.serve(eng, model, shared_prefix=True, kv_dtype=kv, prefix_cache=cache)
+    primer, prompts = smoke_workload.shared_prefix_prompts(cfg.vocab_size, np.random.default_rng(1), w)
+    srv.result(srv.submit(primer, smoke_workload.MAX_NEW))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t_start = time.perf_counter()
+    reqs = smoke_workload.submit_staggered(srv, prompts)
+    srv.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = K.launch_counts()
+    for r in reqs:
+        require(r.done and r.error is None, f"phase d {tag}: request {r.id} did not finish")
+        require(len(r.tokens) == smoke_workload.MAX_NEW or r.tokens[-1] in cfg.eos_token_ids,
+                f"phase d {tag}: request {r.id} produced {len(r.tokens)} tokens")
+        require(all(0 <= t < cfg.vocab_size for t in r.tokens), f"phase d {tag}: token out of range")
+    srv._alloc.check()
+    st = srv.prefix_cache_stats()
+    hits = "cache off"
+    if st is not None:
+        srv._radix.check()
+        require(st["hit_tokens"] == len(prompts) * w.prefix,
+                f"phase d {tag}: {st['hit_tokens']} hit tokens, not {len(prompts)} x {w.prefix}")
+        hits = (f"hit {st['hit_tokens']} of {st['eligible_tokens']} eligible tokens "
+                f"({st['hit_tokens'] / st['eligible_tokens']:.3f}, the primer's included)")
+        srv._radix.drop_all()
+    require(srv._alloc.in_use == 0, f"phase d {tag}: {srv._alloc.in_use} KV blocks held after drop_all")
+    mode = "" if kv == "bf16" else f"[{kv}]"
+    # cold, every prompt (1044-2024 tokens) admits chunked: no flash
+    for name in ("flash_attention",) * (cache != "off") + (f"paged_attention{mode}",
+                                                           f"paged_prefill{mode}"):
+        require(counts.get(name, 0) > 0, f"phase d {tag}: kernel {name} was never launched")
+    ttft = np.array([r.first_token_at - r.submitted_at for r in reqs])
+    decode_span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+    tok_s = sum(len(r.tokens) - 1 for r in reqs) / decode_span
+    p50, p99 = (float(np.percentile(ttft, q)) * 1e3 for q in (50, 99))
+    log(f"[d] {tag}: {len(reqs)} requests in {wall:.2f}s: decode {tok_s:.1f} tok/s, TTFT p50 "
+        f"{p50:.0f} ms p99 {p99:.0f} ms, {hits}")
+    log(f"[d] {tag}: kernel launches: {counts}")
+    tokens = [list(r.tokens) for r in reqs]
+    del srv, reqs
+    torch.cuda.empty_cache()
+    return counts, tokens, (p50, p99, tok_s)
+
+
+def prefix_tier_run(eng, cache: str, pool_root: str) -> None:
+    """The tiers under pressure: 1088-token requests over alternating
+    1024-token prefixes through a 40-block arena, one at a time. "host":
+    prefixes A, B, A (B's admission demotes A to host RAM, the second A
+    streams it back). "disk": a host pool of 16 blocks and A, B, C, A (C's
+    admission demotes B to host and spills A to disk, the last A promotes
+    it back). The tier's evictions and hits must be nonzero, and once the
+    tree is dropped no block may stay held; the pool is removed."""
+    from llm_sharding_tpu_torch import smoke_workload
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(2)
+    prefixes = [rng.integers(0, cfg.vocab_size, 1024).astype(np.int32) for _ in range(3)]
+    order = [0, 1, 0] if cache == "host" else [0, 1, 2, 0]
+    pool = tempfile.mkdtemp(prefix="chip_smoke_pool_", dir=pool_root) if cache == "disk" else None
+    try:
+        srv = eng.serve(capacity=4096, batch_per_slot=smoke_workload.ROWS,
+                        kv_block_size=smoke_workload.BLOCK_SIZE, kv_blocks=40,
+                        prefill_chunk=smoke_workload.PREFILL_CHUNK, prefix_cache=cache,
+                        **({"host_pool_blocks": 16, "disk_pool_dir": pool} if pool else {}))
+        t0 = time.perf_counter()
+        for i in order:
+            p = np.concatenate([prefixes[i], rng.integers(0, cfg.vocab_size, 64).astype(np.int32)])
+            r = srv.submit(p, smoke_workload.MAX_NEW)
+            srv.run_until_idle()
+            require(r.done and r.error is None, f"phase d {cache} tier: request {r.id} failed")
+        st = srv.prefix_cache_stats()
+        log(f"[d] 3B {cache} tier, prefixes {order} through 40 blocks, {time.perf_counter() - t0:.2f}s: "
+            f"{st}")
+        require(st[f"evictions_to_{cache}"] > 0 and st[f"{cache}_hit_tokens"] > 0,
+                f"phase d {cache} tier: no eviction to, or hit from, the {cache} tier: {st}")
+        srv._radix.check()
+        srv._alloc.check()
+        srv._radix.drop_all()
+        require(srv._alloc.in_use == 0, f"phase d {cache} tier: blocks held after drop_all")
+        srv.close()
+    finally:
+        if pool is not None:
+            shutil.rmtree(pool, ignore_errors=True)
+
+
 def load_store(store: str, tag: str, device, write_s: float):
     """``Engine.from_shards`` of a store, printing its bytes on disk, the
     weight bytes it made resident and the write and load seconds."""
@@ -662,11 +976,15 @@ def load_store(store: str, tag: str, device, write_s: float):
 
 def phase_serve(device, store_root: str) -> dict:
     """The workloads on random full-size weights loaded from port-written
-    stores: Llama-3.2-3B bf16 (once per KV dtype), int8 and int4 (bf16
-    arena), GPT-2 small and gemma-2B bf16 (once per KV dtype), then
+    stores: Llama-3.2-3B bf16 (once per KV dtype; its shared-prefix
+    workload cold and warm in each arena, and the host and disk tiers under
+    pressure), int8 and int4 (bf16 arena), GPT-2 small and gemma-2B bf16
+    (once per KV dtype, gemma-2B's shared-prefix workload warm), then
     gemma-7B bf16 at 4 layers (bf16 arena). Returns the launch counts of
-    each kernel mode per model, each from the run that serves through it
-    (unquantized modes: the bf16 weights' bf16 arena)."""
+    each kernel mode per model and workload (``model`` or
+    ``model/shared_prefix``), each from the run that serves through it
+    (unquantized modes: the bf16 weights' bf16 arena, warm for the shared
+    prefix)."""
     import torch
 
     from llm_sharding_tpu_torch.models import config, gpt2, llama
@@ -693,6 +1011,24 @@ def phase_serve(device, store_root: str) -> dict:
         counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
         log(f"[d] kv {kv}: token match against the bf16 arena's run {match_frac(tokens, base):.3f} "
             f"(random weights: printed, not gated)")
+    # the shared-prefix workload, cold (cache off) and warm in each arena,
+    # then the host and disk tiers under pressure
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[d] shared-prefix workload on {smi}")
+    _, cold_tokens, cold = prefix_serve_run(eng, "llama32_3b", "3B shared prefix, cold", "off")
+    pcounts, warm_base, warm = prefix_serve_run(eng, "llama32_3b", "3B shared prefix, warm")
+    log(f"[d] 3B shared prefix: warm / cold TTFT p50 {warm[0] / cold[0]:.3f}, p99 "
+        f"{warm[1] / cold[1]:.3f}, decode tok/s {warm[2] / cold[2]:.3f}; warm token match against "
+        f"cold {match_frac(warm_base, cold_tokens):.3f} (printed, not gated)")
+    for kv in KV_MODES:
+        kv_counts, tokens, _ = prefix_serve_run(eng, "llama32_3b", f"3B shared prefix, warm, kv {kv}",
+                                                kv=kv)
+        pcounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
+        log(f"[d] shared prefix kv {kv}: token match against the bf16 arena's warm run "
+            f"{match_frac(tokens, warm_base):.3f} (random weights: printed, not gated)")
+    prefix_tier_run(eng, "host", store_root)
+    prefix_tier_run(eng, "disk", store_root)
     del eng
     shutil.rmtree(stores["bf16"])
     torch.cuda.empty_cache()
@@ -736,6 +1072,7 @@ def phase_serve(device, store_root: str) -> dict:
         mcounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
         log(f"[d] gemma2b kv {kv}: token match against the bf16 arena's run "
             f"{match_frac(tokens, mbase):.3f} (random weights: printed, not gated)")
+    mpcounts, _, _ = prefix_serve_run(eng, "gemma_2b", "gemma2b shared prefix, warm")
     del eng
     shutil.rmtree(mstore)
     torch.cuda.empty_cache()
@@ -754,7 +1091,8 @@ def phase_serve(device, store_root: str) -> dict:
     shutil.rmtree(sstore)
     torch.cuda.empty_cache()
     return {"llama32_3b": counts, "gpt2_small": gcounts, "gemma_2b": mcounts,
-            "gemma_7b": scounts}
+            "gemma_7b": scounts, "llama32_3b/shared_prefix": pcounts,
+            "gemma_2b/shared_prefix": mpcounts}
 
 
 def match_frac(tokens, base) -> float:
@@ -793,6 +1131,9 @@ def main(argv: list) -> int:
     if argv[:1] == ["--kernels"]:
         rows = [r for m in argv[1:]
                 for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",))]
+        rows += [r for m in argv[1:] if m in ("llama32_3b", "gemma_2b")
+                 for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",),
+                                        prefix=True)]
         print(json.dumps({"kernels": rows}))
         return 0
 
@@ -800,6 +1141,8 @@ def main(argv: list) -> int:
     rows += phase_kernels(config.gpt2_small(), device, "gpt2_small")
     rows += phase_kernels(config.gemma_2b(), device, "gemma_2b")
     rows += phase_kernels(config.gemma_7b(), device, "gemma_7b", dtypes=("bfloat16",))
+    rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", prefix=True)
+    rows += phase_kernels(config.gemma_2b(), device, "gemma_2b", prefix=True)
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         phase_token_check(device, store)
@@ -807,7 +1150,8 @@ def main(argv: list) -> int:
     finally:
         shutil.rmtree(store, ignore_errors=True)
     for r in rows:
-        r["launches"] = counts[r["model"]][r["name"]]
+        run = r["model"] if r["workload"] == "standard" else f"{r['model']}/{r['workload']}"
+        r["launches"] = counts[run][r["name"]]
     log(f"[e] total {time.perf_counter() - t_all:.0f}s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

@@ -1,5 +1,7 @@
 """Serve programs over the paged KV arena, one stage on one device: the port
 of ``llm_sharding_tpu/parallel/serve.py`` (``ServeState`` ``:71-111``,
+``prefix_prefill`` ``:345``, ``gather_prefix_kv`` ``:408``,
+``write_arena_blocks`` / ``write_arena_blocks_q`` ``:465`` / ``:483``,
 ``serve_admit`` ``:542``, ``serve_prefill_chunk`` ``:861``,
 ``serve_admit_finish`` ``:1074``, ``serve_chunk`` ``:1198``).
 
@@ -21,9 +23,15 @@ A quantized arena (``kv_dtype`` int8 / fp8) holds 1-byte codes with
 per-(block, KV head) f32 scales, as in the JAX state. The dense prefill of
 a one-shot admission still runs in the engine's dtype; its window is
 quantized as it is scattered (``scatter_pages_q``). A chunked admission
-resets its rows' block scales on the first chunk, and every later write
-(chunks, decode) quantizes against the running block absmax
+resets its rows' PRIVATE block scales on the first chunk, and every later
+write (chunks, decode) quantizes against the running block absmax
 (``ops/paged_attention.write_block_kv``).
+
+A prefix (an explicit handle's KV, or a radix-cache hit's blocks) puts a
+row's suffix at absolute positions and columns ``prefix + i``. A radix
+hit's shared blocks are already in the arena and are never written again
+(``prefix_in_arena``, ``prefix_off``): their codes and scales stay
+byte-stable under every row that maps them.
 """
 
 from __future__ import annotations
@@ -36,8 +44,8 @@ import torch
 
 from ..models.cache import POS_SENTINEL, block_pool_shape, block_scale_shape, init_cache
 from ..models.config import ModelConfig
-from ..ops.paged_attention import write_block_kv
-from ..ops.quant import is_kv_quantized, kv_qmax, kv_quantize, kv_storage_dtype
+from ..ops.paged_attention import _bytes, _take, write_block_kv
+from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
 from ..ops.sampling import sample
 from .pipeline import model_fns
 
@@ -181,6 +189,105 @@ def scatter_pages_q(
     scale[idx] = sc
 
 
+def _raw(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bytes as numpy (on the host): bfloat16 as its ``uint16``
+    view, float8_e4m3fn as ``uint8`` (numpy has neither dtype)."""
+    t = t.cpu()  # synchronous: the bytes are final when numpy sees them
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
+
+
+def _from_raw(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Inverse of ``_raw``: host bytes → a tensor of ``dtype`` on ``device``."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # a memory-mapped disk entry
+        a = a.copy()
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).to(device).view(torch.bfloat16)
+    if dtype == torch.float8_e4m3fn:
+        return torch.from_numpy(a.view(np.uint8)).to(device).view(dtype)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def prefix_prefill(
+    cfg: ModelConfig,
+    params: dict,
+    prefix: np.ndarray,  # [1, Spx] right-padded prefix ids
+    prefix_len: int,  # real prefix length
+    dtype: torch.dtype,  # the engine's compute dtype
+    device: torch.device,
+) -> tuple:
+    """Prefill a shared prefix once through the dense layer path (the flash
+    kernel) and return its KV, ``(k [L, 1, Spx, Nkv, D], v, pos [1,
+    Spx])`` with the sentinel past ``prefix_len``: the handle a
+    ``serve_admit(prefix_kv=)`` seeds its rows' caches from
+    (``serve.py:345``)."""
+    Spx = prefix.shape[1]
+    idx = np.arange(Spx)[None, :]
+    positions = np.where(idx < prefix_len, idx, POS_SENTINEL).astype(np.int32)
+    pos_t = torch.from_numpy(positions).to(device)
+    cache = init_cache(cfg, 1, Spx, dtype=dtype, device=device)
+    fns = model_fns(cfg)
+    h = fns.embed(cfg, params, torch.from_numpy(prefix).to(device), pos_t)
+    fns.stage(cfg, params["layers"], h, cache, pos_t)
+    return cache.k, cache.v, cache.pos
+
+
+def gather_prefix_kv(state: ServeState, blocks: list, out_dtype: torch.dtype) -> tuple:
+    """A radix hit's prefix operand straight from the arena
+    (``serve.py:408``): the ``T`` matched blocks as ``(k [L, 1, T*BS, Nkv,
+    D], v, pos [1, T*BS])``, no prefill. A quantized arena's codes come
+    back dequantized into ``out_dtype``, the engine's compute dtype.
+    Matches are block-aligned and gap-free, so ``pos`` is ``arange``."""
+    dev = state.k.device
+    idx = torch.as_tensor(blocks, dtype=torch.long, device=dev)
+    out = []
+    for arena, scale in ((state.k, state.k_scale), (state.v, state.v_scale)):
+        g = _take(arena, (slice(None), idx))  # [L, T, BS, Nkv, D]
+        if scale is not None:
+            g = kv_dequantize(g, scale[:, idx][:, :, None, :, None], out_dtype)
+        L, T, BS = g.shape[:3]
+        out.append(g.reshape(L, 1, T * BS, *g.shape[3:]))
+    pos = torch.arange(out[0].shape[2], dtype=torch.int32, device=dev)[None]
+    return out[0], out[1], pos
+
+
+def read_arena_blocks(state: ServeState, blocks: list) -> tuple:
+    """Device→host copy of arena blocks (the host half of JAX
+    ``runtime/server.py:3145``/``:3176``): ``(k, v)`` numpy ``[1, L, nb,
+    BS, Nkv, D]`` in the arena's bytes (``_raw``), plus ``(k_scale,
+    v_scale)`` ``[1, L, nb, Nkv]`` f32 for an int8/fp8 arena. The copy is
+    complete when this returns."""
+    idx = torch.as_tensor(blocks, dtype=torch.long, device=state.k.device)
+    parts = [state.k, state.v]
+    if state.k_scale is not None:
+        parts += [state.k_scale, state.v_scale]
+    return tuple(_raw(_take(a, (slice(None), idx)))[None] for a in parts)
+
+
+def write_arena_blocks(k_arena, v_arena, blocks: list, k_host, v_host) -> None:
+    """Host copies (``read_arena_blocks``'s) back into arena blocks, in
+    place (``serve.py:465``). Queued on the current stream, so it lands
+    before any later program that reads those blocks. Byte-exact."""
+    idx = torch.as_tensor(blocks, dtype=torch.long, device=k_arena.device)
+    for arena, host in ((k_arena, k_host), (v_arena, v_host)):
+        _bytes(arena)[:, idx] = _bytes(_from_raw(host[0], arena.dtype, arena.device))
+
+
+def write_arena_blocks_q(
+    k_arena, v_arena, k_scale, v_scale, blocks: list, k_host, v_host, ks_host, vs_host
+) -> None:
+    """``write_arena_blocks`` for an int8/fp8 arena (``serve.py:483``): the
+    codes and their per-(block, KV head) scales, byte-exact."""
+    write_arena_blocks(k_arena, v_arena, blocks, k_host, v_host)
+    idx = torch.as_tensor(blocks, dtype=torch.long, device=k_scale.device)
+    k_scale[:, idx] = _from_raw(ks_host[0], torch.float32, k_scale.device)
+    v_scale[:, idx] = _from_raw(vs_host[0], torch.float32, v_scale.device)
+
+
 def serve_admit(
     cfg: ModelConfig,
     params: dict,
@@ -193,19 +300,43 @@ def serve_admit(
     temps: np.ndarray,
     topks: np.ndarray,
     topps: np.ndarray,
+    prefix_kv: Optional[tuple] = None,  # (k, v, pos) of prefix_prefill / gather_prefix_kv
+    prefix_len: int = 0,  # real prefix length (positions resume there)
+    prefix_in_arena: bool = False,  # the prefix blocks already hold this KV
 ) -> np.ndarray:
     """One-shot admission: prefill the rows' prompts through the dense
     layer path (the flash kernel), scatter the fresh window into the rows'
     blocks (their tables are on the device already) and sample each row's
     first token, which is returned. The first decode step then feeds that
-    token at position ``prompt_len`` into column ``Sp``."""
+    token at position ``prompt_len`` into column ``Sp``.
+
+    With ``prefix_kv`` (``Spx`` columns) each row's dense cache is seeded
+    with the prefix, the suffix prefills at positions ``prefix_len + i``
+    into columns ``Spx + i`` (flash at S = Sp over C = Spx + Sp), and every
+    length, position and column counts the prefix. ``out`` columns are
+    prefix-inclusive for what a row generates (tok0 at ``prefix_len +
+    prompt_len``); the suffix ids sit at ``[0, prompt_len)``
+    (``serve.py:748-757``). With ``prefix_in_arena`` (a radix hit: the
+    mapped shared blocks already hold the prefix) the scatter skips those
+    blocks (``serve.py:715-740``), so a quantized shared block is never
+    requantized; an explicit handle's freshly allocated blocks are written
+    by every admission that maps them, with the same bytes each time."""
     dev = state.k.device
     n, Sp = prompts.shape
+    BS = state.block_size
     rows_t = torch.as_tensor(rows, device=dev)
+    Spx = 0 if prefix_kv is None else prefix_kv[0].shape[2]
+    pfx = 0 if prefix_kv is None else int(prefix_len)
     idx = np.arange(Sp)[None, :]
-    positions = np.where(idx < prompt_len[:, None], idx, POS_SENTINEL).astype(np.int32)
+    positions = np.where(idx < prompt_len[:, None], pfx + idx, POS_SENTINEL).astype(np.int32)
     pos_t = torch.from_numpy(positions).to(dev)
-    cache = init_cache(cfg, n, Sp, dtype=state.cache_dtype, device=dev)
+    cache = init_cache(cfg, n, Spx + Sp, dtype=state.cache_dtype, device=dev)
+    if prefix_kv is not None:
+        pk, pv, ppos = prefix_kv
+        cache.k[:, :, :Spx] = pk.to(state.cache_dtype)
+        cache.v[:, :, :Spx] = pv.to(state.cache_dtype)
+        cache.pos[:, :Spx] = ppos
+        cache.length = Spx
     fns = model_fns(cfg)
     h = fns.embed(cfg, params, torch.from_numpy(prompts).to(dev), pos_t)
     h, cache = fns.stage(cfg, params["layers"], h, cache, pos_t)
@@ -215,30 +346,42 @@ def serve_admit(
     _arm_sampling(state, rows, seeds, temps, topks, topps)
     tok0 = _sample_rows(state, rows, logits)
 
+    # a radix hit skips the shared prefix blocks: the scatter covers the
+    # columns from w0 on, through the table entries from npfx on
+    npfx = 0
+    if prefix_in_arena and Spx:
+        if Spx % BS:
+            raise ValueError(
+                f"prefix_in_arena needs a block-aligned prefix, got {Spx} tokens at "
+                f"block size {BS}"
+            )
+        npfx = Spx // BS
+    w0 = npfx * BS
     tbl = state.block_tables[rows_t]
-    cols = torch.arange(Sp, device=dev).expand(n, Sp)
+    cols = torch.arange(w0, Spx + Sp, device=dev).expand(n, Spx + Sp - w0)
     for layer in range(cache.num_layers):
         if state.k_scale is None:
             write_block_kv(
-                state.k[layer], state.v[layer], tbl, cols, cache.k[layer], cache.v[layer]
+                state.k[layer], state.v[layer], tbl, cols, cache.k[layer][:, w0:],
+                cache.v[layer][:, w0:],
             )
             continue
-        scatter_pages_q(state.k[layer], state.k_scale[layer], tbl, cache.k[layer])
-        scatter_pages_q(state.v[layer], state.v_scale[layer], tbl, cache.v[layer])
+        scatter_pages_q(state.k[layer], state.k_scale[layer], tbl[:, npfx:], cache.k[layer][:, w0:])
+        scatter_pages_q(state.v[layer], state.v_scale[layer], tbl[:, npfx:], cache.v[layer][:, w0:])
     kpos = torch.full((n, state.kpos.shape[1]), POS_SENTINEL, dtype=torch.int32, device=dev)
-    kpos[:, :Sp] = pos_t
+    kpos[:, : Spx + Sp] = cache.pos
     state.kpos[rows_t] = kpos
 
     stop = _stop_mask(cfg, tok0)
     for i, r in enumerate(rows):
-        plen = int(prompt_len[i])
+        total = pfx + int(prompt_len[i])
         state.out[r] = 0
         state.out[r, :Sp] = prompts[i]
-        state.out[r, plen] = tok0[i]
-        state.write_off[r] = Sp
-        state.pos_slots[r] = plen
-        state.lengths[r] = plen + 1
-        state.budget[r] = plen + int(max_new[i])
+        state.out[r, total] = tok0[i]
+        state.write_off[r] = Spx + Sp
+        state.pos_slots[r] = total
+        state.lengths[r] = total + 1
+        state.budget[r] = total + int(max_new[i])
         state.done[r] = bool(stop[i]) or int(max_new[i]) <= 1
         state.tok[r] = tok0[i]
     return tok0
@@ -252,34 +395,47 @@ def serve_prefill_chunk(
     tokens: np.ndarray,  # [n, Sc] one chunk of the right-padded prompts
     positions: np.ndarray,  # [n, Sc] absolute positions; sentinel past each
     #   prompt and at its final token (that one enters via the first decode)
-    chunk_off: int,  # column of the chunk's first token
+    chunk_off: int,  # suffix-relative offset of the chunk (its ``out`` column)
     reset: bool,  # first chunk: forget the rows' previous occupants
     backend: str = "auto",  # ops/paged_attention.BACKENDS
+    prefix_off: int = 0,  # block-aligned prefix already resident in the
+    #   rows' first table entries (a radix hit); the chunk's arena column
+    #   is prefix_off + chunk_off
 ) -> None:
     """One bounded chunk of a chunked admission. The chunk's KV lands in the
     rows' blocks by a block-indexed scatter, then its queries attend every
     written block in place through the chunked-prefill kernel, each row
-    bounded by its written frontier (``nlive``). The rows stay parked
-    (done) until ``serve_admit_finish``. On a quantized arena the first
-    chunk resets the scales of every block the rows' tables name
-    (``serve.py:974-989``), so a previous occupant's larger scale does not
-    coarsen this admission's codes."""
+    bounded by its written frontier, resident prefix included (``nlive``
+    blocks cover columns ``[0, prefix_off + chunk_off + Sc)``). The rows
+    stay parked (done) until ``serve_admit_finish``.
+
+    The first chunk gives the prefix columns their positions (a radix
+    match is gap-free, so position = column) and every later column the
+    sentinel (``serve.py:958-967``); on a quantized arena it resets the
+    scales of the rows' PRIVATE blocks only (``serve.py:974-989``), so a
+    previous occupant's larger scale does not coarsen this admission's
+    codes while the shared prefix blocks keep theirs: their codes would
+    otherwise dequantize to zero under every row that maps them."""
     dev = state.k.device
     n, Sc = tokens.shape
     BS = state.block_size
     rows_t = torch.as_tensor(rows, device=dev)
     tbl = state.block_tables[rows_t]
+    col0 = prefix_off + chunk_off
     if reset:
-        state.kpos[rows_t] = POS_SENTINEL
+        col = torch.arange(state.kpos.shape[1], dtype=torch.int32, device=dev)
+        state.kpos[rows_t] = torch.where(col < prefix_off, col, POS_SENTINEL)[None]
         state.out[rows] = 0
         if state.k_scale is not None:
-            state.k_scale[:, tbl.long()] = 0.0
-            state.v_scale[:, tbl.long()] = 0.0
+            priv = tbl.long().clone()
+            priv[:, : prefix_off // BS] = 0  # shared prefix blocks keep their scales
+            state.k_scale[:, priv] = 0.0
+            state.v_scale[:, priv] = 0.0
     pos_t = torch.from_numpy(np.asarray(positions, np.int32)).to(dev)
     kv_pos = state.kpos[rows_t]
-    kv_pos[:, chunk_off : chunk_off + Sc] = pos_t
-    cols = (chunk_off + torch.arange(Sc, device=dev)).expand(n, Sc)
-    nlive = torch.full((n,), -(-(chunk_off + Sc) // BS), dtype=torch.int32, device=dev)
+    kv_pos[:, col0 : col0 + Sc] = pos_t
+    cols = (col0 + torch.arange(Sc, device=dev)).expand(n, Sc)
+    nlive = torch.full((n,), -(-(col0 + Sc) // BS), dtype=torch.int32, device=dev)
     fns = model_fns(cfg)
     h = fns.embed(cfg, params, torch.from_numpy(tokens).to(dev), pos_t)
     fns.stage_paged(
@@ -288,7 +444,7 @@ def serve_prefill_chunk(
         backend=backend,
     )
     state.kpos[rows_t] = kv_pos
-    state.write_off[rows] = chunk_off + Sc
+    state.write_off[rows] = col0 + Sc
     state.out[rows, chunk_off : chunk_off + Sc] = tokens
 
 

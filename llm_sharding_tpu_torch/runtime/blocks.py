@@ -9,9 +9,12 @@ steps in order: remap its table to trash, then return the blocks.
 Blocks are refcounted as in the JAX allocator, which catches double
 frees; exhaustion is the typed ``BlockExhausted``, and the server checks
 ``num_free`` first, so an exhausted pool is a queue wait, never a crash.
-Block sharing (``share``) and the prefix-cache marks, snapshot
-``restore`` and the context-parallel ``ShardedBlockAllocator`` come with
-their slices.
+``share`` adds a reference to a block another owner holds (a prefix
+handle's, or a radix-tree node's, mapped read-only into a row), and the
+``_cached`` marks tag the blocks whose owning reference is the prefix
+cache's (``runtime/radix.py``). The context-parallel
+``ShardedBlockAllocator`` and its ``alloc_at`` placement hint come with
+the context-parallel slice.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ class BlockAllocator:
         self._free: list[int] = list(range(num_blocks - 1, 0, -1))
         self._ref = np.zeros(num_blocks, np.int32)
         self._ref[TRASH_BLOCK] = 1  # pinned forever
+        # blocks whose owning reference is the prefix cache's, not a row's
+        self._cached = np.zeros(num_blocks, bool)
 
     @property
     def capacity_blocks(self) -> int:
@@ -83,6 +88,17 @@ class BlockAllocator:
     def in_use(self) -> int:
         return self.capacity_blocks - len(self._free)
 
+    def mark_cached(self, blocks) -> None:
+        """Tag allocated blocks as cache-owned (``runtime/radix.py`` calls
+        this when a node takes a row's blocks or restores a demoted node)."""
+        for b in blocks:
+            if self._ref[b] < 1 or b == TRASH_BLOCK:
+                raise ValueError(f"mark_cached of unallocated block {b}")
+        self._cached[list(blocks)] = True
+
+    def unmark_cached(self, blocks) -> None:
+        self._cached[list(blocks)] = False
+
     def alloc(self, n: int) -> list[int]:
         """Take ``n`` blocks (refcount 1 each); raises ``BlockExhausted``
         without partial allocation when fewer than ``n`` are free."""
@@ -96,6 +112,14 @@ class BlockAllocator:
         self._ref[taken] = 1
         return taken
 
+    def share(self, blocks) -> None:
+        """Add a reference to each of ``blocks`` (``blocks.py:166``): a row
+        maps an already-allocated block read-only into its table."""
+        for b in blocks:
+            if self._ref[b] < 1 or b == TRASH_BLOCK:
+                raise ValueError(f"share of unallocated/reserved block {b}")
+            self._ref[b] += 1
+
     def free(self, blocks) -> None:
         """Drop one reference per block; a block returns to the free list
         when its last reference drops."""
@@ -108,9 +132,35 @@ class BlockAllocator:
             if self._ref[b] == 0:
                 self._free.append(int(b))
 
+    def restore(self, private_rows, shared_rows) -> None:
+        """Rebuild allocation state from per-row ownership lists
+        (``blocks.py:186``): private blocks get refcount 1, shared blocks
+        one reference per row mapping them. Only on a fresh allocator."""
+        if self.in_use:
+            raise ValueError("restore on a non-empty allocator")
+        free = set(self._free)
+        for blocks in private_rows:
+            for b in blocks:
+                if b not in free:
+                    raise ValueError(f"snapshot block {b} double-owned or reserved")
+                free.discard(b)
+                self._ref[b] = 1
+        for blocks in shared_rows:
+            for b in blocks:
+                if b in free:
+                    free.discard(b)
+                    self._ref[b] = 1
+                elif self._ref[b] >= 1:
+                    self._ref[b] += 1
+                else:
+                    raise ValueError(f"snapshot shared block {b} reserved")
+        # keep LIFO order deterministic after restore
+        self._free = sorted(free, reverse=True)
+
     def check(self) -> None:
         """Invariant: the free list and the refcounted blocks exactly
-        partition the non-reserved pool, with no double entries."""
+        partition the non-reserved pool, with no double entries, and no
+        free block is cache-marked."""
         free = self._free
         if len(set(free)) != len(free):
             raise AssertionError(f"free list has duplicates: {free}")
@@ -119,6 +169,8 @@ class BlockAllocator:
                 raise AssertionError(f"bad free-list entry {b}")
             if self._ref[b] != 0:
                 raise AssertionError(f"free block {b} has refcount {self._ref[b]}")
+            if self._cached[b]:
+                raise AssertionError(f"free block {b} still cache-marked")
         held = [b for b in range(1, self.num_blocks) if self._ref[b] > 0]
         if len(held) + len(free) != self.capacity_blocks:
             raise AssertionError(

@@ -59,13 +59,20 @@ class Engine:
         kv_blocks: Optional[int] = None,
         kv_dtype: str = "bf16",
         paged_attn: str = "auto",
+        prefix_cache: str = "off",
+        host_pool_blocks: int = 0,
+        disk_pool_dir: Optional[str] = None,
+        disk_pool_blocks: int = 0,
     ):
         """A paged continuous-batching server over ``batch_per_slot`` rows
         (``runtime/server.PipelineServer``). Paged KV is required here:
         dense serving comes with a later slice. ``kv_dtype`` ("bf16" = the
         engine's dtype, "int8", "fp8") is the arena's storage;
         ``paged_attn`` ("auto", "kernel", "plain") the paged attention
-        path."""
+        path; ``prefix_cache`` ("off", "hbm", "host", "disk") the automatic
+        prefix cache, with the host tier's size in blocks
+        (``host_pool_blocks``, default the arena's) and the disk tier's
+        directory and size (``disk_pool_dir``, ``disk_pool_blocks``)."""
         if kv_block_size is None and kv_blocks is None:
             raise NotPorted(
                 "dense serving (serve() without kv_block_size/kv_blocks) comes with "
@@ -82,5 +89,7 @@ class Engine:
         return PipelineServer(
             self, capacity=capacity, batch_per_slot=batch_per_slot,
             prefill_chunk=prefill_chunk, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
-            kv_dtype=kv_dtype, paged_attn=paged_attn,
+            kv_dtype=kv_dtype, paged_attn=paged_attn, prefix_cache=prefix_cache,
+            host_pool_blocks=host_pool_blocks, disk_pool_dir=disk_pool_dir,
+            disk_pool_blocks=disk_pool_blocks,
         )

@@ -1,7 +1,7 @@
 """Where the time of the paged server goes on one GPU.
 
     python -m llm_sharding_tpu_torch.serve_profile [--model llama32_3b|gemma_2b|gpt2_small]
-        [--weights bf16|int8|int4] [--kv-dtype bf16|int8|fp8]
+        [--weights bf16|int8|int4] [--kv-dtype bf16|int8|fp8] [--shared-prefix]
 
 Serves a workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8
 staggered requests, 4 short prompts and 4 long ones, 64 new tokens each)
@@ -18,6 +18,11 @@ the workload runs once unprofiled (wall and step times) and once under the
 profiler (kernel table; the profiler slows the host, so its wall is longer).
 ``--kv-dtype`` picks the arena (int8 / fp8 run the quantized kernel modes,
 whose instantiations name the code type, so the table splits by mode).
+``--shared-prefix`` serves the model's shared-prefix workload instead
+(``smoke_workload.SHARED_PREFIX``) warm, with ``prefix_cache="hbm"``:
+before each of the two runs, outside its window, the tree is emptied and
+the primer run to idle, so only the prefix is cached and both runs admit
+alike.
 Needs a GPU; exits non-zero without one.
 """
 
@@ -60,13 +65,15 @@ def port_kernel_totals(per_kernel: dict, calls: dict) -> list:
     return [[name, kv, ms, n] for (name, kv), (ms, n) in out.items()]
 
 
-def chunked_prefill_pairs(lens, prefill_chunk: int) -> int:
+def chunked_prefill_pairs(lens, prefill_chunk: int, prefix: int = 0) -> int:
     """Visible query-key pairs, per layer, of the chunked admissions of
     prompts of ``lens`` tokens, each admitted alone as the server does it:
     a prompt whose bucket exceeds ``prefill_chunk`` runs in chunks of that
     size, each attending every column written up to its end; a query at
     position p sees p + 1 keys, and the padding queries and the prompt's
-    final one carry the sentinel position, which sees every such column."""
+    final one carry the sentinel position, which sees every such column.
+    With ``prefix``, ``lens`` are the suffixes of radix hits on a cached
+    ``prefix``-token prefix: their chunks start at that column."""
     from .runtime.server import ADMIT_BUCKETS
 
     pairs = 0
@@ -75,9 +82,9 @@ def chunked_prefill_pairs(lens, prefill_chunk: int) -> int:
         if bucket <= prefill_chunk:
             continue
         for off in range(0, bucket, prefill_chunk):
-            end = off + prefill_chunk
+            end = prefix + off + prefill_chunk
             real = min(max(n - 1 - off, 0), prefill_chunk)
-            pairs += real * off + real * (real + 1) // 2 + (prefill_chunk - real) * end
+            pairs += real * (prefix + off) + real * (real + 1) // 2 + (prefill_chunk - real) * end
     return pairs
 
 
@@ -95,7 +102,10 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=sorted(smoke_workload.WORKLOADS), default="llama32_3b")
     ap.add_argument("--weights", choices=("bf16", "int8", "int4"), default="bf16")
     ap.add_argument("--kv-dtype", choices=KV_DTYPES, default="bf16")
+    ap.add_argument("--shared-prefix", action="store_true")
     args = ap.parse_args(argv)
+    if args.shared_prefix and args.model not in smoke_workload.SHARED_PREFIX:
+        ap.error(f"--shared-prefix: no shared-prefix workload for {args.model}")
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
@@ -112,12 +122,25 @@ def main(argv=None) -> int:
     if args.weights != "bf16":
         params = quantize_params(params, bits=8 if args.weights == "int8" else 4)
     eng = Engine(cfg, params)
-    srv = smoke_workload.serve(eng, args.model, kv_dtype=args.kv_dtype)
+    extra = dict(prefix_cache="hbm", shared_prefix=True) if args.shared_prefix else {}
+    srv = smoke_workload.serve(eng, args.model, kv_dtype=args.kv_dtype, **extra)
     rng = np.random.default_rng(0)
     srv.result(srv.submit(rng.integers(0, cfg.vocab_size, 300).astype(np.int32), 8))
 
-    lens = smoke_workload.WORKLOADS[args.model].lens
-    prompts = smoke_workload.prompts(cfg.vocab_size, rng, lens)
+    prefix = 0
+    if args.shared_prefix:
+        w = smoke_workload.SHARED_PREFIX[args.model]
+        primer, prompts = smoke_workload.shared_prefix_prompts(cfg.vocab_size, rng, w)
+        lens, prefix = w.suffixes, w.prefix
+    else:
+        lens = smoke_workload.WORKLOADS[args.model].lens
+        prompts = smoke_workload.prompts(cfg.vocab_size, rng, lens)
+
+    def prime():
+        """Shared prefix: a tree holding the prefix alone."""
+        if args.shared_prefix:
+            srv._radix.drop_all()
+            srv.result(srv.submit(primer, smoke_workload.MAX_NEW))
 
     def workload():
         """The staggered 8-request run; returns (requests, wall ms, host wall
@@ -134,7 +157,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return reqs, (time.perf_counter() - t0) * 1e3, steps
 
+    prime()
     reqs, plain_wall_ms, decode_ms = workload()
+    prime()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         reqs, wall_ms, _ = workload()
@@ -148,13 +173,17 @@ def main(argv=None) -> int:
             per_kernel[evt.key] += us
             calls[evt.key] += evt.count
     busy_ms = sum(per_kernel.values()) / 1e3
-    print(f"{torch.cuda.get_device_name(0)}, {args.model}, weights {args.weights}, kv {args.kv_dtype}: "
+    stats = srv.prefix_cache_stats()
+    if stats is not None:
+        print(f"prefix cache after both runs: {stats}")
+    print(f"{torch.cuda.get_device_name(0)}, {args.model}, weights {args.weights}, kv {args.kv_dtype}"
+          f"{', shared prefix' if args.shared_prefix else ''}: "
           f"unprofiled wall {plain_wall_ms:.1f} ms; "
           f"profiled wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), tokens {sum(len(r.tokens) for r in reqs)}")
     for key, us in per_kernel.most_common(15):
         print(f"  {us / 1e3:9.2f} ms {us / 1e3 / busy_ms:6.1%} {calls[key]:7d}x  {key[:90]}")
-    pairs = chunked_prefill_pairs(lens, smoke_workload.PREFILL_CHUNK)
+    pairs = chunked_prefill_pairs(lens, smoke_workload.PREFILL_CHUNK, prefix)
     flops = 4.0 * cfg.num_attention_heads * cfg.head_dim_ * pairs * cfg.num_hidden_layers
     bound_ms = flops / BF16_FLOPS * 1e3
     print(f"chunked-prefill kernel's operations bound over the workload: {bound_ms:.4f} ms "
@@ -170,7 +199,9 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
     print(json.dumps({
-        "model": args.model, "weights": args.weights, "kv_dtype": args.kv_dtype, "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "model": args.model, "weights": args.weights, "kv_dtype": args.kv_dtype,
+        "shared_prefix": args.shared_prefix, "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
         "decode_step_ms_p50": float(np.percentile(decode_ms, 50)) if decode_ms else None,
         "top": [[k, us / 1e3, calls[k]] for k, us in per_kernel.most_common(15)],
         "port_kernels": port,

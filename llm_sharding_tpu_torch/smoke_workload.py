@@ -13,6 +13,16 @@ measure.
   1024-token admission bucket, which with any new token exceeds the 1024
   positions, so 512 is the longest prompt GPT-2 can be served here; each
   long prompt is admitted in two chunks, at frontiers 256 and 512.
+
+The shared-prefix workload (``SHARED_PREFIX``, a workload of its own: the
+ones above stay as they are) is the traffic the prefix cache exists for,
+a system prompt shared by every request, as in chat serving: one seeded
+1024-token prefix (16 blocks), a primer request (the prefix and 64 more
+tokens, run to idle so the prefix's 16 blocks are in the tree), then 8
+staggered requests, each the prefix and a suffix of 20-1000 tokens. With
+the cache on, the short suffixes admit one-shot (flash with S = the suffix
+bucket over C = 1024 + S keys) and the long ones chunked from column 1024;
+with it off, every request prefills its whole prompt.
 """
 
 from __future__ import annotations
@@ -41,15 +51,41 @@ WORKLOADS["gemma_2b"] = WORKLOADS["gemma_7b"] = WORKLOADS["llama32_3b"]
 LENS = WORKLOADS["llama32_3b"].lens
 
 
+class SharedPrefix(NamedTuple):
+    prefix: int  # tokens of the shared prefix
+    primer_tail: int  # tokens the primer adds past the prefix
+    suffixes: tuple  # suffix lengths, in submit order
+    capacity: int
+    kv_blocks: int
+
+
+SHARED_PREFIX = {
+    "llama32_3b": SharedPrefix(1024, 64, (20, 400, 90, 600, 150, 800, 200, 1000), 4096, 1024),
+}
+SHARED_PREFIX["gemma_2b"] = SHARED_PREFIX["llama32_3b"]
+
+
 def prompts(vocab_size: int, rng: np.random.Generator, lens=LENS) -> list:
     return [rng.integers(0, vocab_size, n).astype(np.int32) for n in lens]
 
 
-def serve(eng, model: str, **kw):
-    """A server for ``model``'s workload on ``eng`` (``kw``: e.g. kv_dtype)."""
-    w = WORKLOADS[model]
+def serve(eng, model: str, shared_prefix: bool = False, **kw):
+    """A server for ``model``'s workload on ``eng`` (``kw``: e.g. kv_dtype,
+    prefix_cache); ``shared_prefix`` picks its ``SHARED_PREFIX`` entry."""
+    w = (SHARED_PREFIX if shared_prefix else WORKLOADS)[model]
     return eng.serve(capacity=w.capacity, batch_per_slot=ROWS, kv_block_size=BLOCK_SIZE,
                      kv_blocks=w.kv_blocks, prefill_chunk=PREFILL_CHUNK, **kw)
+
+
+def shared_prefix_prompts(vocab_size: int, rng: np.random.Generator, w: SharedPrefix) -> tuple:
+    """``(primer, prompts)`` of a shared-prefix workload: the prefix and
+    ``primer_tail`` tokens, then the prefix and each suffix."""
+    prefix = rng.integers(0, vocab_size, w.prefix).astype(np.int32)
+
+    def tail(n):
+        return np.concatenate([prefix, rng.integers(0, vocab_size, n).astype(np.int32)])
+
+    return tail(w.primer_tail), [tail(n) for n in w.suffixes]
 
 
 def submit_staggered(srv, prompts) -> list:

@@ -628,3 +628,205 @@ def test_flash_f32_head_dim_256_takes_the_tile_path(cuda_device, G):
     got, want = tfa.flash_attention(*args), tfa.cached_attention(*args)
     torch.cuda.synchronize()
     _assert_close_rows(got, want, torch.float32)
+
+
+# A prefix-cache hit's shapes. A one-shot hit runs flash with fewer queries
+# than keys: S suffix queries at positions P.. over C = P + S keys, the
+# first P the prefix. A chunked hit runs its first chunk at column P, over
+# table entries that rows share. Decode then reads tables whose leading
+# blocks are shared.
+
+
+def _flash_past_prefix_case(dev, dtype, S, P, D, G, seed=43):
+    """Two rows of S queries at positions P..P+S-1 over C = P + S keys; the
+    second row bucket-padded (S - S//4 real), its padding queries and keys
+    the sentinel."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Nkv, C = 2, P + S
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    real = S - S // 4
+    qpos = (P + torch.arange(S, dtype=torch.int32, device=dev))[None].repeat(2, 1)
+    qpos[1, real:] = POS_SENTINEL
+    kvpos = torch.arange(C, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+    kvpos[1, P + real :] = POS_SENTINEL
+    return t(2, S, Nkv * G, D), t(2, C, Nkv, D), t(2, C, Nkv, D), qpos, kvpos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D, G", [(64, 1), (128, 3), (256, 8)])
+@pytest.mark.parametrize("S, P", [(256, 1024), (37, 64)])
+def test_flash_past_a_prefix_matches_plain(cuda_device, S, P, D, G, dtype):
+    """Flash at S < C with query positions from P: the tensor-core kernel
+    (bf16) and the tile (f32) against the plain version, on the rows that
+    see a key (every query row here: padding rows see every key)."""
+    args = _flash_past_prefix_case(cuda_device, dtype, S, P, D, G)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention(*args)
+    want = tfa.cached_attention(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    _assert_close_rows(got, want, dtype, step=dtype == torch.bfloat16 and D == 256)
+
+
+def _shared_prefix_chunk_case(dev, dtype, kv, P, Sc, BS, D, Nkv, G, seed=44):
+    """Two rows whose first P / BS table entries are the same shared
+    blocks, each with its own private blocks after them; a chunk of Sc
+    queries per row at columns and positions P..P+Sc-1, the second row's
+    last quarter the sentinel; two stale private blocks past the frontier;
+    trash block 0 (NaN/Inf; 0x7F codes and Inf scales) maps the table's
+    tail. ``nlive`` counts the prefix."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    npfx, nchunk = P // BS, -(-Sc // BS)
+    T = npfx + nchunk + 4
+    NB = npfx + 2 * (nchunk + 2) + 1
+    k = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    k[0], v[0] = float("nan"), float("inf")
+    perm = (torch.randperm(NB - 1, generator=g, device=dev) + 1).to(torch.int32)
+    tbl = torch.zeros((2, T), dtype=torch.int32, device=dev)
+    tbl[:, :npfx] = perm[:npfx]
+    for b in range(2):
+        lo = npfx + b * (nchunk + 2)
+        tbl[b, npfx : npfx + nchunk + 2] = perm[lo : lo + nchunk + 2]
+    kvpos = torch.full((2, T * BS), POS_SENTINEL, dtype=torch.int32, device=dev)
+    kvpos[:, : P + Sc] = torch.arange(P + Sc, dtype=torch.int32, device=dev)
+    qpos = (P + torch.arange(Sc, dtype=torch.int32, device=dev))[None].repeat(2, 1)
+    real = Sc - Sc // 4
+    qpos[1, real:] = POS_SENTINEL
+    kvpos[1, P + real : P + Sc] = POS_SENTINEL
+    nlive = torch.full((2,), -(-(P + Sc) // BS), dtype=torch.int32, device=dev)
+    q = torch.randn((2, Sc, Nkv * G, D), generator=g, device=dev).to(dtype)
+    sc = {}
+    if kv is not None:
+        k, ks, v, vs = _quantize(k, v, kv)
+        sc = dict(k_scale=ks, v_scale=vs)
+    return (q, k, v, tbl, qpos, kvpos), dict(nlive=nlive, **sc), sc, qpos < POS_SENTINEL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("D, Nkv, G", [(128, 2, 3), (256, 1, 8)])
+@pytest.mark.parametrize("P, Sc, BS", [(1024, 256, 64), (48, 100, 16)])
+def test_prefill_chunk_past_a_shared_prefix_matches_plain(cuda_device, P, Sc, BS, D, Nkv, G, kv):
+    """The first chunk of a chunked radix hit (bf16, tensor cores) against
+    the plain version: over blocks two rows share, from column P, ``nlive``
+    covering prefix and chunk; held on the query rows that see a key."""
+    args, kw, plain_kw, rows = _shared_prefix_chunk_case(cuda_device, torch.bfloat16, kv, P, Sc,
+                                                         BS, D, Nkv, G)
+    kernels.reset_launch_counts()
+    got = tpa.paged_prefill(*args, **kw)
+    want = tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_prefill" + (f"[{kv}]" if kv else "")] == 1
+    assert torch.isfinite(got).all()
+    _assert_close_rows(got[rows], want[rows], torch.bfloat16, step=D == 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+def test_prefill_chunk_past_a_shared_prefix_f32_tile(cuda_device, kv):
+    """The same with f32 queries (the CUDA-core tile), at f32 limits."""
+    args, kw, plain_kw, rows = _shared_prefix_chunk_case(cuda_device, torch.float32, kv, 1024, 256,
+                                                         64, 128, 2, 3)
+    got, want = tpa.paged_prefill(*args, **kw), tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    _assert_close_rows(got[rows], want[rows], torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("D, Nkv, G", [(128, 2, 3), (256, 1, 8)])
+def test_decode_over_shared_leading_blocks_matches_plain(cuda_device, D, Nkv, G, kv):
+    """Split-KV decode over 8 rows whose tables share their first 16
+    blocks (a 1024-token prefix at block size 64), each row then its own
+    blocks to contexts of 1030-2000 tokens, trash past them."""
+    g = torch.Generator(device=cuda_device).manual_seed(45)
+    BS, T, npfx = 64, 40, 16
+    ctx = [1030, 1100, 1500, 2000, 1024 + 64, 1200, 1900, 1031]
+    own = [-(-c // BS) - npfx for c in ctx]
+    NB = npfx + sum(own) + 1
+    k = torch.randn((NB, BS, Nkv, D), generator=g, device=cuda_device).to(torch.bfloat16)
+    v = torch.randn((NB, BS, Nkv, D), generator=g, device=cuda_device).to(torch.bfloat16)
+    k[0], v[0] = float("nan"), float("inf")
+    perm = (torch.randperm(NB - 1, generator=g, device=cuda_device) + 1).to(torch.int32)
+    tbl = torch.zeros((8, T), dtype=torch.int32, device=cuda_device)
+    tbl[:, :npfx] = perm[:npfx]
+    kvpos = torch.full((8, T * BS), POS_SENTINEL, dtype=torch.int32, device=cuda_device)
+    j = npfx
+    for b, c in enumerate(ctx):
+        tbl[b, npfx : npfx + own[b]] = perm[j : j + own[b]]
+        j += own[b]
+        kvpos[b, :c] = torch.arange(c)
+    qpos = torch.tensor(ctx, dtype=torch.int32, device=cuda_device)[:, None] - 1
+    q = torch.randn((8, 1, Nkv * G, D), generator=g, device=cuda_device).to(torch.bfloat16)
+    sc = {}
+    if kv is not None:
+        k, ks, v, vs = _quantize(k, v, kv)
+        sc = dict(k_scale=ks, v_scale=vs)
+    args = (q, k, v, tbl, qpos, kvpos)
+    kernels.reset_launch_counts()
+    got = tpa.paged_attention(*args, **sc)
+    want = tpa.paged_attention_xla(*args, **sc)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_attention" + (f"[{kv}]" if kv else "")] == 1
+    _assert_close_rows(got, want, torch.bfloat16, step=D == 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_served_prefix_cache_goes_through_the_kernels(cuda_device, tmp_path, kv):
+    """A tiny float32 model served on the card with the disk-tier prefix
+    cache: a cold prompt, then a one-shot and a chunked hit, then a hit
+    after every node was spilled to disk. A demote/restore round trip is
+    byte-exact on the card, the hits went through flash and the
+    chunked-prefill kernel, and the streams equal the cache-off server's
+    (f32 arena) or, with an int8 arena, where a hit reads the prefix from
+    codes, the same cached server's through the plain versions."""
+    cfg = tcfg.tiny_llama(head_dim=64, num_attention_heads=6, num_key_value_heads=2)
+    eng = Engine(cfg, tllama.init_params(cfg, seed=3, dtype=torch.float32, device=cuda_device))
+    rng = np.random.default_rng(4)
+    p1 = rng.integers(0, cfg.vocab_size, 33).astype(np.int32)
+    prompts = [p1, np.concatenate([p1, rng.integers(0, cfg.vocab_size, 5)]),
+               np.concatenate([p1, rng.integers(0, cfg.vocab_size, 30)]),
+               np.concatenate([p1, rng.integers(0, cfg.vocab_size, 7)])]
+    kw = dict(capacity=128, batch_per_slot=2, kv_block_size=8, kv_blocks=64, prefill_chunk=16,
+              kv_dtype=kv)
+    runs = [("off", "auto"), ("disk", "auto")] + ([("disk", "plain")] if kv == "int8" else [])
+    streams = {}
+    for cache, attn in runs:
+        extra = {}
+        if cache == "disk":
+            extra = dict(disk_pool_dir=str(tmp_path / attn))
+        srv = eng.serve(prefix_cache=cache, paged_attn=attn, **kw, **extra)
+        out = []
+        for i, p in enumerate(prompts):
+            if cache == "disk" and i == 3:
+                node = srv._radix.root.children[int(p1[0])]
+                before = srv._read_arena_blocks(list(node.blocks))
+                srv._radix.demote_all(to_disk=True)
+                ref = srv._radix.take(p1, 32)
+                after = srv._read_arena_blocks(list(ref.blocks))
+                srv._radix.release(ref)
+                assert all(a.tobytes() == b.tobytes() for a, b in zip(before, after))
+                srv._radix.demote_all(to_disk=True)
+            kernels.reset_launch_counts()
+            r = srv.submit(p, 6)
+            srv.run_until_idle()
+            out.append(r.tokens)
+            if (cache, attn) == ("disk", "auto") and i in (1, 2):
+                mode = "" if kv == "bf16" else f"[{kv}]"
+                name = "flash_attention" if i == 1 else "paged_prefill" + mode
+                assert kernels.launch_counts()[name] > 0
+        streams[cache, attn] = out
+        if cache == "disk":
+            st = srv.prefix_cache_stats()
+            assert st["hit_tokens"] == 3 * 32 and st["disk_hit_tokens"] == 2 * 32
+            srv._radix.check()
+            srv._alloc.check()
+            assert srv._alloc.in_use == srv._radix.device_blocks
+    want = streams["off", "auto"] if kv == "bf16" else streams["disk", "plain"]
+    assert streams["disk", "auto"] == want
