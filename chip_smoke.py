@@ -47,7 +47,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     a chunked hit, with ``prefix_cache`` hbm, host and disk (the lower
     tiers stream the prefix back), held to the cache-off streams and to
     ``generate`` on the CPU; with int8 and fp8 arenas, the cached streams
-    through the kernels against the plain versions' (gap < 1e-3);
+    through the kernels against the plain versions' (gap < 1e-3).
+    Resilience, 3B raw: snapshot, drop, restore mid-decode in each arena
+    (restored streams identical to the uninterrupted ones; the f32 arena's
+    also held to CPU ``generate``); ``extract`` / ``adopt`` of 2 greedy and 2
+    sampled rows to a second server (greedy: the uninterrupted streams and
+    CPU ``generate``, gap rule; sampled: identical to ``generate(seed=)`` on
+    the card); a transient fault plan at all five sites (identical); a
+    permanent ``request_apply`` fault (that request fails, the others hold);
+    a snapshot with ``prefix_cache="hbm"`` whose restored tree a new request
+    hits;
 (d) write shard stores of seeded random full-depth weights with the
     port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
     quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
@@ -68,8 +77,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     dropped no block may stay held. Then the host tier (prefixes A, B, A
     through a 40-block arena) and the disk tier (A, B, C, A, a 16-block
     host pool, the pool under ``TMPDIR``, removed after) must each show
-    evictions to and hits from their tier. gemma-2B serves the
-    shared-prefix workload warm;
+    evictions to and hits from their tier. The 3B then serves the resilience
+    workload (``smoke_workload.RESILIENCE``: the 8 prompts over 320 blocks):
+    in each arena, killed once every row holds 8 tokens (``save_snapshot``
+    under ``TMPDIR``, the server dropped, ``load_snapshot`` and ``restore``),
+    every stream must equal the uninterrupted run's, the tokens streamed
+    before the kill a prefix of it, and the restore's peak device memory
+    stay under the resident bytes plus half an arena (snapshot bytes,
+    capture, write, load and restore seconds, the first step's wall and the
+    peak are printed); 4 live rows (2 greedy, 2 sampled at 0.8) migrated to
+    a second server, which must launch flash and the chunked-prefill kernel
+    for the re-prefills, every stream equal to the uninterrupted run's or
+    (greedy) first differing at a bf16 tie, a top-2 gap of at most one bf16
+    ulp of the top logit; a transient plan at all five sites (identical
+    streams, retries by site printed), a ``max_queue=4`` burst
+    (``QueueFull``), a 50 ms deadline (``DeadlineExceeded``, blocks
+    returned) and the health states SERVING, DEGRADED, SERVING, DRAINING;
+    the registry's TTFT p50 / p99 beside the host clock's. gemma-2B serves
+    the shared-prefix workload warm;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -545,9 +570,10 @@ def top2_gap(cfg, params, ids: np.ndarray) -> float:
 
 
 @contextlib.contextmanager
-def recorded_gaps(srv):
+def recorded_gaps(srv, tops=None):
     """Record the top-2 logit gap of every token ``srv`` samples, per
-    request id (the served run's own decision margins)."""
+    request id (the served run's own decision margins); with ``tops`` (a
+    dict) also the top logit of each."""
     import torch
 
     from llm_sharding_tpu_torch.parallel import serve as serve_ops
@@ -559,6 +585,8 @@ def recorded_gaps(srv):
         top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
         for i, r in enumerate(rows):
             gaps[srv._req[r].id].append(float(top[i, 0] - top[i, 1]))
+            if tops is not None:
+                tops.setdefault(srv._req[r].id, []).append(float(top[i, 0]))
         return sample(state, rows, logits)
 
     serve_ops._sample_rows = recording
@@ -590,15 +618,18 @@ def served_streams(eng, prompts, max_new: int, capacity: int = 2048, **serve_kw)
 
 
 def check_against_generate(tag: str, eng, prompts, lens, max_new: int, capacity: int = 2048,
-                           oracle=None) -> None:
+                           oracle=None) -> list:
     """The served greedy streams (one-shot and chunked admissions) must be
     the ``generate`` tokens of ``oracle`` (default: the same engine); a
-    mismatch passes only where the oracle's top-2 logit gap is < 1e-4."""
+    mismatch passes only where the oracle's top-2 logit gap is < 1e-4.
+    Returns the oracle's streams."""
     oracle = oracle or eng
     served, _ = served_streams(eng, prompts, max_new, capacity=capacity)
+    wants = []
     for i, got in enumerate(served):
         want = oracle.generate_ids(prompts[i], max_new)
         w = want.tokens[0, lens[i] : want.lengths[0]].tolist()
+        wants.append(w)
         path = "chunked" if lens[i] > 256 else "one-shot"
         if w == got:
             log(f"[c] {tag} prompt {lens[i]:5d} ({path}): {len(w)} tokens identical to generate")
@@ -609,6 +640,7 @@ def check_against_generate(tag: str, eng, prompts, lens, max_new: int, capacity:
         log(f"[c] {tag} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
             f"oracle top-2 gap {gap:.3g}")
         require(gap < 1e-4, f"phase c {tag}: served tokens differ from generate (gap {gap})")
+    return wants
 
 
 def check_kernels_against_plain(tag: str, eng, prompts, lens, max_new: int) -> None:
@@ -724,6 +756,173 @@ def check_prefix_cache(tag: str, eng, cpu_eng, rng, pool_root: str) -> None:
                      limit=1e-3, gaps=gaps)
 
 
+def resilience_server(eng, **kw):
+    """The [c] resilience checks' server: ``served_streams``'s shape."""
+    return eng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
+                     prefill_chunk=256, **kw)
+
+
+def step_until(srv, reqs, n: int) -> None:
+    """Step ``srv`` until every request of ``reqs`` holds ``n`` tokens or is done."""
+    while any(not r.done and len(r.tokens) < n for r in reqs):
+        require(srv.step(), "a step made no progress")
+
+
+def interrupted_run(eng, prompts, max_new: int, interrupt=None, sampling=None, gaps=False,
+                    **serve_kw):
+    """Submit every prompt at once (``sampling[i]``: request ``i``'s sampling
+    options), step until each request holds 4 tokens, then hand the server
+    and its requests to ``interrupt``, which returns the servers and the
+    requests to run on; run those to idle. Returns each request's tokens
+    (and, with ``gaps``, the run's recorded top-2 gaps: uninterrupted runs
+    only). Every server's allocator must drain."""
+    srv = resilience_server(eng, **serve_kw)
+    ctx = recorded_gaps(srv) if gaps else contextlib.nullcontext(None)
+    with ctx as recorded:
+        reqs = [srv.submit(p, max_new, **(sampling or {}).get(i, {}))
+                for i, p in enumerate(prompts)]
+        step_until(srv, reqs, 4)
+        servers = [srv]
+        if interrupt is not None:
+            servers, reqs = interrupt(srv, reqs)
+        for s in servers:
+            s.run_until_idle()
+            s._alloc.check()
+            require(s._radix is not None or s._alloc.in_use == 0, "phase c: KV blocks leaked")
+    tokens = [list(r.tokens) for r in reqs]
+    return (tokens, [recorded[r.id] for r in reqs]) if gaps else tokens
+
+
+def restore_interrupt(eng):
+    """Snapshot the server, drop it, restore a fresh one on ``eng``."""
+    import torch
+
+    from llm_sharding_tpu_torch.runtime.server import PipelineServer
+
+    def interrupt(srv, reqs):
+        snap = srv.snapshot()
+        srv.close()
+        torch.cuda.empty_cache()
+        srv2 = PipelineServer.restore(eng, snap)
+        by_id = {r.id: r for r in list(srv2._req) + list(srv2._queue) if r is not None}
+        return [srv2], [by_id[r.id] for r in reqs]
+
+    return interrupt
+
+
+def migrate_interrupt(eng, **serve_kw):
+    """Extract every live request from the server and adopt it on a second
+    server on the same engine; the same request objects stream on."""
+    def interrupt(srv, reqs):
+        dst = resilience_server(eng, **serve_kw)
+        for r in reqs:
+            require(not r.done, "phase c: a request to migrate finished early")
+            dst.adopt(srv.extract(r), r)
+        return [srv, dst], reqs
+
+    return interrupt
+
+
+def check_resilience(tag: str, eng, cpu_eng, prompts, cpu_want) -> None:
+    """[c] on the 4-layer f32 3B: snapshot, drop, restore mid-decode in each
+    arena (restored streams equal the uninterrupted ones exactly, the same
+    launches on the same bytes; the f32 arena's also hold to CPU
+    ``generate``); ``extract`` / ``adopt`` of 2 greedy and 2 sampled rows
+    to a second server (greedy: the uninterrupted streams and CPU
+    ``generate`` under the top-2 gap rule, a re-prefill is not the decode's
+    arithmetic; sampled: the port's ``generate(seed=)`` on the card); a
+    transient plan at all five sites (exact); a permanent ``request_apply``
+    fault on one request (it fails, the others hold under the gap rule);
+    and a snapshot with ``prefix_cache="hbm"`` after which a new request
+    hits the restored tree."""
+    from llm_sharding_tpu_torch.runtime.faults import FaultPlan, FaultSpec, PermanentFault
+
+    max_new = 16
+    for kv in ("bf16", *KV_MODES):
+        base, gaps = interrupted_run(eng, prompts, max_new, gaps=True, kv_dtype=kv)
+        got = interrupted_run(eng, prompts, max_new, restore_interrupt(eng), kv_dtype=kv)
+        require(got == base, f"phase c {tag} {kv}: restored streams differ from the uninterrupted")
+        log(f"[c] {tag} kv {kv}: snapshot / drop / restore mid-decode, {len(got)} streams "
+            f"identical to the uninterrupted run")
+        if kv == "bf16":
+            f32_base, f32_gaps = base, gaps
+            hold_streams(f"{tag} restored vs CPU generate", got, cpu_want, prompts, cpu_eng)
+    sampling = {2: dict(temperature=0.8, seed=5), 3: dict(temperature=0.8, seed=6)}
+    sbase, sgaps = interrupted_run(eng, prompts, max_new, sampling=sampling, gaps=True)
+    got = interrupted_run(eng, prompts, max_new, migrate_interrupt(eng), sampling=sampling)
+    hold_streams(f"{tag} migrated greedy vs uninterrupted", got[:2], sbase[:2], prompts, None,
+                 gaps=sgaps)
+    hold_streams(f"{tag} migrated greedy vs CPU generate", got[:2], cpu_want[:2], prompts,
+                 cpu_eng)
+    for i in (2, 3):
+        want = eng.generate_ids(prompts[i], max_new, **sampling[i])
+        w = want.tokens[0, len(prompts[i]) : want.lengths[0]].tolist()
+        require(got[i] == w, f"phase c {tag}: migrated sampled stream {i} differs from generate")
+        require(sbase[i] == w, f"phase c {tag}: served sampled stream {i} differs from generate")
+    log(f"[c] {tag}: 2 greedy + 2 sampled rows migrated mid-decode; sampled streams identical "
+        f"to generate(seed=) on the card")
+    plan = FaultPlan([
+        FaultSpec("admit_dispatch", "transient", at=(0, 2)),
+        FaultSpec("chunk_dispatch", "transient", at=(0, 3, 7)),
+        FaultSpec("log_fetch", "transient", at=(1, 5)),
+        FaultSpec("snapshot_write", "transient", at=(0,)),
+        FaultSpec("request_apply", "transient", at=(2,), key=1),
+    ])
+
+    def snapshot_once(srv, reqs):
+        srv.enable_auto_snapshot(tempfile.mkdtemp(prefix="chip_smoke_snap_"), 0.0)
+        srv.step()
+        shutil.rmtree(srv._snapshot_path, ignore_errors=True)
+        srv.enable_auto_snapshot(None, None)
+        return [srv], reqs
+
+    got = interrupted_run(eng, prompts, max_new, snapshot_once, fault_plan=plan,
+                          fault_backoff_s=0.0)
+    require(got == f32_base, f"phase c {tag}: streams under transient faults differ")
+    require(plan.stats()["total_fires"] == 9, f"phase c {tag}: fires {plan.stats()}")
+    log(f"[c] {tag}: transient faults at all five sites ({plan.stats()['total_fires']} fired, "
+        f"all retried): streams identical to the run without faults")
+    victim = {}
+
+    def keep(srv, reqs):
+        victim.update(req=reqs[1])
+        return [srv], reqs
+
+    got = interrupted_run(eng, prompts, max_new, keep, fault_plan=FaultPlan(
+        [FaultSpec("request_apply", "permanent", key=1, from_call=3)]), fault_backoff_s=0.0)
+    require(isinstance(victim["req"].error, PermanentFault) and len(got[1]) == 3,
+            f"phase c {tag}: the poisoned request did not fail at its 4th token")
+    others = [0, 2, 3]
+    hold_streams(f"{tag} beside a failed request", [got[i] for i in others],
+                 [f32_base[i] for i in others], [prompts[i] for i in others], None,
+                 gaps=[f32_gaps[i] for i in others])
+    log(f"[c] {tag}: a permanent request_apply fault failed its request only")
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, eng.cfg.vocab_size, 512).astype(np.int32)
+    primer = np.concatenate([prefix, rng.integers(0, eng.cfg.vocab_size, 64).astype(np.int32)])
+    hits = [np.concatenate([prefix, rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32)])
+            for n in (40, 500)]
+    srv = resilience_server(eng, prefix_cache="hbm")
+    srv.result(srv.submit(primer, max_new))
+    r0 = srv.submit(hits[0], max_new)
+    step_until(srv, [r0], 4)
+    [srv], [r0] = restore_interrupt(eng)(srv, [r0])
+    before = srv.prefix_cache_stats()["hit_tokens"]
+    r1 = srv.submit(hits[1], max_new)
+    srv.run_until_idle()
+    st = srv.prefix_cache_stats()
+    require(st["hit_tokens"] == before + 512, f"phase c {tag}: restored tree not hit: {st}")
+    srv._radix.check()
+    srv._alloc.check()
+    want = []
+    for p in hits:
+        w = cpu_eng.generate_ids(p, max_new)
+        want.append(w.tokens[0, len(p) : w.lengths[0]].tolist())
+    hold_streams(f"{tag} hit on a restored tree vs CPU generate", [r0.tokens, r1.tokens], want,
+                 hits, cpu_eng)
+    srv.close()
+
+
 def phase_token_check(device, store_root: str) -> None:
     """f32 token checks: Llama-3.2-3B at 4 layers (raw weights, then from
     an int8 store with the head quantized and from an int4 store, both
@@ -751,12 +950,15 @@ def phase_token_check(device, store_root: str) -> None:
     max_new = 16
     check_against_generate("3B", eng, prompts, lens, max_new)
     t0 = time.perf_counter()
-    check_against_generate("3B vs CPU", eng, prompts, lens, max_new, oracle=cpu_eng)
+    cpu_want = check_against_generate("3B vs CPU", eng, prompts, lens, max_new, oracle=cpu_eng)
     log(f"[c] 3B: CPU generate reference took {time.perf_counter() - t0:.1f}s")
     check_kernels_against_plain("3B", eng, prompts, lens, max_new)
     t0 = time.perf_counter()
     check_prefix_cache("3B", eng, cpu_eng, rng, store_root)
     log(f"[c] 3B prefix cache checks took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    check_resilience("3B", eng, cpu_eng, prompts, cpu_want)
+    log(f"[c] 3B resilience checks took {time.perf_counter() - t0:.1f}s")
     del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -954,6 +1156,256 @@ def prefix_tier_run(eng, cache: str, pool_root: str) -> None:
             shutil.rmtree(pool, ignore_errors=True)
 
 
+def ttft_window(reqs, before: dict) -> str:
+    """The registry's ``server_ttft_seconds`` p50 / p99 over the
+    observations since ``before`` (its bucket counts then), beside the same
+    requests' host-clock TTFT."""
+    from llm_sharding_tpu_torch.obs.metrics import REGISTRY, _quantile_from
+
+    child = REGISTRY.get("server_ttft_seconds").labels()
+    counts = [a - b for a, b in zip(child.snap()[0], before)]
+    reg = [_quantile_from(child.bounds, counts, sum(counts), q) for q in (0.5, 0.99)]
+    host = np.array([r.first_token_at - r.submitted_at for r in reqs])
+    return (f"registry TTFT p50 {reg[0] * 1e3:.0f} ms p99 {reg[1] * 1e3:.0f} ms (bucket "
+            f"interpolation, {sum(counts)} requests); host clock p50 "
+            f"{np.percentile(host, 50) * 1e3:.0f} ms p99 {np.percentile(host, 99) * 1e3:.0f} ms")
+
+
+def resilience_serve_run(eng, pool_root: str) -> dict:
+    """[d] the full 3B's ``RESILIENCE`` workload (``smoke_workload``: the 8
+    standard prompts, 64 new tokens, 320 blocks) on ``eng``. In each arena,
+    kill and restore: submit all 8, step until every row holds 8 tokens,
+    ``save_snapshot`` under TMPDIR, drop the server, ``load_snapshot`` and
+    ``restore``, run to idle; every stream must equal the uninterrupted
+    run's, what was streamed before the kill a prefix of it, the restore's
+    peak device memory under the resident bytes plus half an arena, and the
+    run must have launched flash and both paged kernels of the mode. Then
+    migration: 2 greedy and 2 sampled rows extracted mid-decode from one
+    server and adopted on a second on the same engine, which must launch
+    flash and the chunked-prefill kernel for the re-prefills. Then a
+    transient plan at all five sites, a ``max_queue`` burst, a 50 ms
+    deadline and the health states. Returns the launch counts of the bf16
+    kill-and-restore run."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload as sw
+    from llm_sharding_tpu_torch.obs.metrics import REGISTRY
+    from llm_sharding_tpu_torch.ops import kernels as K
+    from llm_sharding_tpu_torch.runtime.faults import FaultPlan, FaultSpec
+    from llm_sharding_tpu_torch.runtime.server import (
+        DeadlineExceeded, PipelineServer, QueueFull, load_snapshot, save_snapshot,
+    )
+
+    model = "llama32_3b"
+    prompts = sw.prompts(eng.cfg.vocab_size, np.random.default_rng(0), sw.RESILIENCE[model].lens)
+
+    def start(srv, sampling=None):
+        reqs = [srv.submit(p, sw.MAX_NEW, **(sampling or {}).get(i, {}))
+                for i, p in enumerate(prompts)]
+        step_until(srv, reqs, 8)
+        return reqs
+
+    def finish(srv, tag):
+        srv.run_until_idle()
+        torch.cuda.synchronize()
+        srv._alloc.check()
+        require(srv._alloc.in_use == 0, f"phase d {tag}: KV blocks still held")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[d] resilience workload (3B bf16 store, 320 blocks) on {smi}")
+    counts = {}
+    for kv in ("bf16", *KV_MODES):
+        tag = f"3B resilience kv {kv}"
+        mode = "" if kv == "bf16" else f"[{kv}]"
+        srv = sw.serve(eng, model, resilience=True, kv_dtype=kv)
+        ttft0 = list(REGISTRY.get("server_ttft_seconds").labels().snap()[0])
+        reqs = start(srv)
+        finish(srv, tag)
+        base = [list(r.tokens) for r in reqs]
+        log(f"[d] {tag}: uninterrupted run, {ttft_window(reqs, ttft0)}")
+        arena = srv.arena_bytes()
+        srv.close()
+        del srv, reqs
+        torch.cuda.empty_cache()
+        srv = sw.serve(eng, model, resilience=True, kv_dtype=kv)
+        K.reset_launch_counts()
+        reqs = start(srv)
+        streamed = {r.id: list(r.tokens) for r in reqs}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = srv.snapshot()
+        capture_s = time.perf_counter() - t0
+        where = tempfile.mkdtemp(prefix="chip_smoke_snap_", dir=pool_root)
+        path = os.path.join(where, "snap")
+        t0 = time.perf_counter()
+        save_snapshot(snap, path)
+        write_s = time.perf_counter() - t0
+        nbytes, held = dir_bytes(path), len(snap["arena"]["blocks"])
+        srv.close()
+        del srv, reqs, snap
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        snap = load_snapshot(path)
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv = PipelineServer.restore(eng, snap)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        peak, resident = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        del snap
+        shutil.rmtree(where)
+        by_id = {r.id: r for r in list(srv._req) + list(srv._queue) if r is not None}
+        reqs = [by_id[i] for i in sorted(streamed)]
+        require([r.tokens for r in reqs] == [streamed[i] for i in sorted(streamed)],
+                f"phase d {tag}: the restored requests do not hold the streamed tokens")
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        first_step_s = time.perf_counter() - t0
+        finish(srv, tag)
+        kv_counts = K.launch_counts()
+        got = [list(r.tokens) for r in reqs]
+        for i, (g, w) in enumerate(zip(got, base)):
+            require(g[: len(streamed[i])] == streamed[i], f"phase d {tag}: tokens lost")
+            require(g == w, f"phase d {tag}: request {i}'s restored stream differs from the "
+                            f"uninterrupted run")
+        for name in ("flash_attention", f"paged_attention{mode}", f"paged_prefill{mode}"):
+            require(kv_counts.get(name, 0) > 0, f"phase d {tag}: kernel {name} never launched")
+        require(peak < resident + arena / 2,
+                f"phase d {tag}: restore peak {peak} >= resident {resident} + half an arena")
+        log(f"[d] {tag}: kill at >= 8 tokens a row, restore: {len(got)} streams identical to the "
+            f"uninterrupted run, none lost or doubled; snapshot {nbytes / 2**30:.3f} GiB "
+            f"({held} held blocks of 320, arena {arena / 2**30:.3f} GiB), capture "
+            f"{capture_s:.3f} s, write {write_s:.3f} s, load {load_s:.3f} s, restore "
+            f"{restore_s:.3f} s, first step after restore {first_step_s * 1e3:.1f} ms; restore "
+            f"peak {peak / 2**30:.3f} GiB, resident {resident / 2**30:.3f} GiB")
+        log(f"[d] {tag}: kernel launches (kill and restore): {kv_counts}")
+        counts.update({k: n for k, n in kv_counts.items() if kv == "bf16" or k.endswith(mode)})
+        if kv == "bf16":
+            bf16_base = base
+        srv.close()
+        del srv, reqs
+        torch.cuda.empty_cache()
+
+    # migration: 4 live rows (2 greedy, 2 sampled) from A to B, one engine
+    sampling = {2: dict(temperature=0.8, seed=21), 3: dict(temperature=0.8, seed=22)}
+    srv = sw.serve(eng, model, resilience=True)
+    tops = {}
+    with recorded_gaps(srv, tops) as gaps:
+        reqs = start(srv, sampling)
+        finish(srv, "3B migration base")
+    sbase = [list(r.tokens) for r in reqs]
+    sgaps = [list(gaps[r.id]) for r in reqs]
+    stops = [tops[r.id] for r in reqs]
+    srv.close()
+    del srv, reqs
+    a = sw.serve(eng, model, resilience=True)
+    b = sw.serve(eng, model, resilience=True)
+    reqs = start(a, sampling)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs[:4]:
+        b.adopt(a.extract(r), r)
+    move_s = time.perf_counter() - t0
+    finish(b, "3B migration target")
+    b_counts = K.launch_counts()
+    finish(a, "3B migration source")
+    for name in ("flash_attention", "paged_prefill", "paged_attention"):
+        require(b_counts.get(name, 0) > 0, f"phase d migration: {name} never launched on B")
+    same = [list(r.tokens) == sbase[i] for i, r in enumerate(reqs)]
+    for i, r in enumerate(reqs):
+        g, w = list(r.tokens), sbase[i]
+        if g == w:
+            continue
+        require(i not in sampling and len(g) == len(w),
+                f"phase d migration: sampled request {i}'s stream differs")
+        # the logits are bf16: a re-prefill (and, for the rows left on A, a
+        # decode batch of 4 rows instead of 8) rounds differently from the
+        # uninterrupted decode, which may break a tie between two logits
+        # that are equal or adjacent bf16 values the other way
+        step = next(j for j in range(len(w)) if g[j] != w[j])
+        gap, top = sgaps[i][step], stops[i][step]
+        ulp = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+        log(f"[d] 3B migration: request {i} ({'moved' if i < 4 else 'stayed'}, greedy) first "
+            f"differs at token {step}: the uninterrupted run's top-2 gap {gap:.4g} at top logit "
+            f"{top:.4g} (one bf16 ulp there: {ulp:.4g})")
+        require(gap <= ulp, f"phase d migration: request {i} differs at a gap of {gap} > one "
+                            f"bf16 ulp ({ulp}) of its top logit")
+    log(f"[d] 3B migration: 4 rows (2 greedy, 2 sampled) extracted and adopted in "
+        f"{move_s * 1e3:.1f} ms; streams identical to the uninterrupted run: {same} (the others "
+        f"first differ at a bf16 tie); B's launches for the re-prefills and decode: {b_counts}")
+    a.close()
+    b.close()
+    del a, b, reqs
+
+    # faults, queue cap, deadline, health
+    plan = FaultPlan([
+        FaultSpec("admit_dispatch", "transient", at=(0, 3)),
+        FaultSpec("chunk_dispatch", "transient", at=(0, 4, 9)),
+        FaultSpec("log_fetch", "transient", at=(2, 7)),
+        FaultSpec("snapshot_write", "transient", at=(0,)),
+        FaultSpec("request_apply", "transient", at=(5,), key=3),
+    ])
+    series = REGISTRY.get("server_retries_total")
+    r0 = {v[0]: c.value for v, c in series.series()}
+    srv = sw.serve(eng, model, resilience=True, fault_plan=plan, fault_backoff_s=0.0)
+    reqs = start(srv)
+    where = tempfile.mkdtemp(prefix="chip_smoke_snap_", dir=pool_root)
+    srv.enable_auto_snapshot(os.path.join(where, "snap"), 0.0)
+    srv.step()  # one auto-snapshot through the snapshot_write site
+    srv.enable_auto_snapshot(None, None)
+    shutil.rmtree(where)
+    finish(srv, "3B transient faults")
+    retries = {v[0]: c.value - r0.get(v[0], 0.0) for v, c in series.series()}
+    require([list(r.tokens) for r in reqs] == bf16_base,
+            "phase d: streams under transient faults differ from the run without faults")
+    require(plan.stats()["total_fires"] == 9 and sum(retries.values()) == 9,
+            f"phase d: faults {plan.stats()}, retries {retries}")
+    require(srv.health == "SERVING", "phase d: transient faults degraded the server")
+    log(f"[d] 3B transient faults at all five sites: streams identical to the run without "
+        f"faults; retries by site {retries}")
+    srv.close()
+    del srv, reqs
+
+    srv = sw.serve(eng, model, resilience=True, max_queue=4)
+    for p in prompts[:4]:
+        srv.submit(p, sw.MAX_NEW)
+    try:
+        srv.submit(prompts[4], sw.MAX_NEW)
+        require(False, "phase d: a fifth submit passed max_queue=4")
+    except QueueFull as e:
+        log(f"[d] 3B max_queue=4: the fifth submit raised QueueFull ({e})")
+    srv.close()
+
+    srv = sw.serve(eng, model, resilience=True, fault_plan=FaultPlan.permanent(
+        "request_apply", key=0), fault_backoff_s=0.0)
+    states = [srv.health]
+    poisoned = srv.submit(prompts[0], sw.MAX_NEW)  # id 0: fails at its first token
+    while not poisoned.done:
+        srv.step()
+    states.append(srv.health)
+    late = srv.submit(prompts[5], sw.MAX_NEW, deadline_s=0.05)  # 2048 tokens: chunked
+    while not late.done:
+        srv.step()
+    require(isinstance(late.error, DeadlineExceeded),
+            f"phase d: the 50 ms request ended with {late.error!r}")
+    require(srv._alloc.in_use == 0, "phase d: the expired request's blocks did not return")
+    clean = srv.submit(prompts[2], sw.MAX_NEW)
+    finish(srv, "3B health")
+    require(clean.error is None and len(clean.tokens) > 0, "phase d: no clean request after")
+    states.append(srv.health)
+    srv.close()
+    states.append(srv.health)
+    require(states == ["SERVING", "DEGRADED", "SERVING", "DRAINING"], f"phase d: health {states}")
+    log(f"[d] 3B deadline_s=0.05: DeadlineExceeded after {len(late.tokens)} tokens, its blocks "
+        f"returned; health {' -> '.join(states)}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def load_store(store: str, tag: str, device, write_s: float):
     """``Engine.from_shards`` of a store, printing its bytes on disk, the
     weight bytes it made resident and the write and load seconds."""
@@ -1029,6 +1481,9 @@ def phase_serve(device, store_root: str) -> dict:
             f"{match_frac(tokens, warm_base):.3f} (random weights: printed, not gated)")
     prefix_tier_run(eng, "host", store_root)
     prefix_tier_run(eng, "disk", store_root)
+    t0 = time.perf_counter()
+    resilience_serve_run(eng, store_root)
+    log(f"[d] 3B resilience workload took {time.perf_counter() - t0:.1f}s")
     del eng
     shutil.rmtree(stores["bf16"])
     torch.cuda.empty_cache()

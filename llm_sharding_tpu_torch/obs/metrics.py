@@ -1,0 +1,561 @@
+"""Process-wide metrics registry: counters, gauges, fixed-bucket histograms.
+The port's own copy of ``llm_sharding_tpu/obs/metrics.py:52-565`` (the
+registry core and the paged-KV / prefix-cache gauges the server's load
+sweep feeds): that module is stdlib only, but importing it pulls jax in
+through ``llm_sharding_tpu/obs/__init__.py``. What differs: the locks are
+plain ``threading.Lock``s where the JAX package takes
+``analysis.lockorder.named_lock`` (the port has no lock-order checker
+yet). The families of later slices (replica state and role, prefill path,
+jit shape keys, ingress, autoscale, disagg) stay with those slices.
+
+One ``Registry`` holds every metric family; families are labeled
+(Prometheus-style), children are created on first use, and every mutation
+is lock-protected so concurrent request/pump threads sum exactly. Two
+read-out formats:
+
+- ``prometheus_text()`` — the text exposition format;
+- ``json_snapshot()`` — a JSON-friendly dict with histogram quantiles
+  (p50/p90/p99, linear interpolation within the fixed buckets).
+
+The port's registry and the JAX package's are separate objects: a process
+that imports both (the parity tests) holds two tallies of the same names.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import threading
+import time
+from typing import Dict, Optional, Sequence, Tuple
+
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+# Latency buckets (seconds): sub-ms host work through minute-scale compiles.
+DEFAULT_LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+# Throughput buckets (tokens/sec): CPU-smoke single digits to chip thousands.
+DEFAULT_RATE_BUCKETS = (
+    1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0,
+    1000.0, 2000.0, 5000.0, 10000.0,
+)
+
+#: How long a bucket's exemplar stays "fresh": within the TTL only a larger
+#: observation replaces it (bucket-max semantics — the slowest recent
+#: request wins); past it any new observation does (recency semantics — a
+#: p99 spike from an hour ago must not shadow today's).
+EXEMPLAR_TTL_S = 60.0
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integers render without the trailing .0.
+    Non-finite values (an inf/NaN observation poisons a histogram sum
+    forever) render as Prometheus spellings instead of crashing the scrape
+    — isfinite must be checked BEFORE floor (floor raises on inf/NaN)."""
+    f = float(v)
+    if not math.isfinite(f):
+        return "+Inf" if f > 0 else ("-Inf" if f < 0 else "NaN")
+    if f == math.floor(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _exemplar_str(ex) -> str:
+    """OpenMetrics exemplar suffix for one bucket line ('' when absent)."""
+    if ex is None:
+        return ""
+    tid, v, ts = ex
+    return (
+        f' # {{trace_id="{_escape_label(tid)}"}} {_fmt(v)} {repr(float(ts))}'
+    )
+
+
+def _label_str(names: Tuple[str, ...], values: Tuple[str, ...]) -> str:
+    if not names:
+        return ""
+    inner = ",".join(
+        f'{n}="{_escape_label(v)}"' for n, v in zip(names, values)
+    )
+    return "{" + inner + "}"
+
+
+class _CounterChild:
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self, lock: threading.Lock):
+        self._lock = lock
+        self._value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counters only go up (inc by {n})")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class _GaugeChild:
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self, lock: threading.Lock):
+        self._lock = lock
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class _HistogramChild:
+    __slots__ = ("_lock", "bounds", "counts", "sum", "count", "exemplars")
+
+    def __init__(self, lock: threading.Lock, bounds: Tuple[float, ...]):
+        self._lock = lock
+        self.bounds = bounds
+        self.counts = [0] * (len(bounds) + 1)  # +1: the +Inf bucket
+        self.sum = 0.0
+        self.count = 0
+        # per-bucket slow-request exemplar: index -> (trace_id, value, ts).
+        # Sparse (most buckets never see a traced observation); see
+        # EXEMPLAR_TTL_S for the replacement policy.
+        self.exemplars: Dict[int, Tuple[str, float, float]] = {}
+
+    def observe(self, v: float, trace_id: Optional[str] = None) -> None:
+        v = float(v)
+        with self._lock:
+            i = 0
+            for i, b in enumerate(self.bounds):  # noqa: B007
+                if v <= b:
+                    break
+            else:
+                i = len(self.bounds)
+            self.counts[i] += 1
+            self.sum += v
+            self.count += 1
+            if trace_id is not None:
+                cur = self.exemplars.get(i)
+                now = time.time()
+                if (
+                    cur is None or v >= cur[1]
+                    or now - cur[2] > EXEMPLAR_TTL_S
+                ):
+                    self.exemplars[i] = (str(trace_id), v, now)
+
+    def snap(self):
+        """Atomic (counts, sum, count) copy — exposition must read under the
+        same lock observe() writes under, or a concurrent scrape can emit a
+        count that disagrees with its own sum/buckets."""
+        with self._lock:
+            return list(self.counts), self.sum, self.count
+
+    def snap_exemplars(self) -> Dict[int, Tuple[str, float, float]]:
+        with self._lock:
+            return dict(self.exemplars)
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Estimated q-quantile (0 < q <= 1) by linear interpolation within
+        the fixed buckets — the standard Prometheus ``histogram_quantile``
+        estimate, computed host-side. ``None`` with no observations; samples
+        landing in the +Inf bucket clamp to the largest finite bound."""
+        counts, _, total = self.snap()
+        return _quantile_from(self.bounds, counts, total, q)
+
+
+def _quantile_from(bounds, counts, total, q: float) -> Optional[float]:
+    if total == 0:
+        return None
+    rank = q * total
+    cum = 0
+    for i, c in enumerate(counts):
+        prev = cum
+        cum += c
+        if cum >= rank and c > 0:
+            if i >= len(bounds):
+                return bounds[-1] if bounds else None
+            lo = bounds[i - 1] if i > 0 else 0.0
+            hi = bounds[i]
+            return lo + (hi - lo) * (rank - prev) / c
+    return bounds[-1] if bounds else None
+
+
+_CHILD_TYPES = {
+    "counter": _CounterChild,
+    "gauge": _GaugeChild,
+    "histogram": _HistogramChild,
+}
+
+
+class _Family:
+    """One named metric family; labeled children created on first use.
+    Unlabeled families proxy ``inc/set/dec/observe/value`` straight to their
+    single child so call sites stay terse."""
+
+    def __init__(
+        self,
+        kind: str,
+        name: str,
+        help: str,
+        label_names: Tuple[str, ...],
+        buckets: Optional[Tuple[float, ...]] = None,
+    ):
+        self.kind = kind
+        self.name = name
+        self.help = help
+        self.label_names = label_names
+        self.buckets = buckets
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[str, ...], object] = {}
+        if not label_names:
+            self._children[()] = self._make_child()
+
+    def _make_child(self):
+        if self.kind == "histogram":
+            return _HistogramChild(self._lock, self.buckets)
+        return _CHILD_TYPES[self.kind](self._lock)
+
+    def labels(self, *values, **kw):
+        if kw:
+            if values:
+                raise ValueError("pass label values positionally OR by name")
+            values = tuple(str(kw[n]) for n in self.label_names)
+        else:
+            values = tuple(str(v) for v in values)
+        if len(values) != len(self.label_names):
+            raise ValueError(
+                f"{self.name} takes labels {self.label_names}, got {values}"
+            )
+        with self._lock:
+            child = self._children.get(values)
+            if child is None:
+                child = self._children[values] = self._make_child()
+            return child
+
+    # unlabeled convenience proxies ------------------------------------
+    def _solo(self):
+        if self.label_names:
+            raise ValueError(f"{self.name} is labeled: use .labels(...)")
+        return self._children[()]
+
+    def inc(self, n: float = 1.0) -> None:
+        self._solo().inc(n)
+
+    def set(self, v: float) -> None:
+        self._solo().set(v)
+
+    def dec(self, n: float = 1.0) -> None:
+        self._solo().dec(n)
+
+    def observe(self, v: float, trace_id: Optional[str] = None) -> None:
+        self._solo().observe(v, trace_id=trace_id)
+
+    @property
+    def value(self) -> float:
+        return self._solo().value
+
+    def series(self):
+        with self._lock:
+            return sorted(self._children.items())
+
+
+class StateGauge:
+    """A one-hot state machine over a labeled gauge family: exactly one
+    ``state`` label holds 1.0 at any time (the Prometheus idiom for enum
+    state — ``server_health_state{state="SERVING"} 1`` — scrapers alert on
+    ``{state="DEGRADED"} == 1`` without string parsing). ``set_state``
+    serializes writers under its own lock, so concurrent transitions can
+    never interleave into two states at 1; a scrape can at worst observe
+    the one-hot mid-flip, never a stale extra state left behind."""
+
+    __slots__ = ("_family", "states", "_state", "_set_lock")
+
+    def __init__(self, family: "_Family", states: Tuple[str, ...]):
+        self._family = family
+        self.states = states
+        self._state: Optional[str] = None
+        self._set_lock = threading.Lock()
+        for s in states:  # materialize every label so scrapes see the 0s
+            family.labels(state=s).set(0.0)
+
+    def set_state(self, state: str) -> None:
+        if state not in self.states:
+            raise ValueError(
+                f"unknown state {state!r}; expected one of {self.states}"
+            )
+        with self._set_lock:
+            for s in self.states:
+                self._family.labels(state=s).set(1.0 if s == state else 0.0)
+            self._state = state
+
+    @property
+    def state(self) -> Optional[str]:
+        return self._state
+
+
+class Registry:
+    """Thread-safe named collection of metric families. Registration is
+    get-or-create: re-registering the same (name, kind, labels) returns the
+    existing family (module reloads and multiple servers share one tally);
+    a conflicting re-registration raises."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._families: Dict[str, _Family] = {}
+
+    def _register(self, kind, name, help, labels, buckets=None) -> _Family:
+        if not _NAME_RE.match(name):
+            raise ValueError(f"invalid metric name {name!r}")
+        labels = tuple(labels)
+        for ln in labels:
+            if not _LABEL_RE.match(ln):
+                raise ValueError(f"invalid label name {ln!r}")
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is not None:
+                if fam.kind != kind or fam.label_names != labels or (
+                    kind == "histogram" and fam.buckets != buckets
+                ):
+                    raise ValueError(
+                        f"metric {name!r} already registered as "
+                        f"{fam.kind}{fam.label_names}"
+                    )
+                return fam
+            fam = _Family(kind, name, help, labels, buckets)
+            self._families[name] = fam
+            return fam
+
+    def counter(self, name: str, help: str = "", labels: Sequence[str] = ()):
+        return self._register("counter", name, help, labels)
+
+    def gauge(self, name: str, help: str = "", labels: Sequence[str] = ()):
+        return self._register("gauge", name, help, labels)
+
+    def histogram(
+        self,
+        name: str,
+        help: str = "",
+        labels: Sequence[str] = (),
+        buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS,
+    ):
+        buckets = tuple(sorted(float(b) for b in buckets))
+        if not buckets:
+            raise ValueError("histogram needs at least one finite bucket")
+        return self._register("histogram", name, help, labels, buckets)
+
+    def state_gauge(
+        self, name: str, help: str = "", states: Sequence[str] = ()
+    ) -> StateGauge:
+        """A one-hot enum gauge (see ``StateGauge``), labeled ``state``."""
+        if not states:
+            raise ValueError("state_gauge needs at least one state")
+        return StateGauge(
+            self._register("gauge", name, help, ("state",)), tuple(states)
+        )
+
+    def get(self, name: str) -> Optional[_Family]:
+        with self._lock:
+            return self._families.get(name)
+
+    def _sorted_families(self):
+        with self._lock:
+            return sorted(self._families.items())
+
+    # ------------------------------------------------------------- readout
+
+    def prometheus_text(self, openmetrics: bool = False) -> str:
+        """Text exposition. Default: pure Prometheus text format 0.0.4 —
+        NO exemplars, because 0.0.4 allows only an optional timestamp after
+        the sample value and a strict parser fails the whole scrape on
+        anything more. ``openmetrics=True`` emits the OpenMetrics flavor
+        instead (what a scraper negotiates via ``Accept:
+        application/openmetrics-text`` — the standard channel for
+        exemplars): slow-request exemplars ride the histogram bucket lines
+        (``… # {trace_id="…"} v ts``), counter metadata drops the
+        ``_total`` suffix as the spec requires, and the body terminates
+        with ``# EOF``."""
+        out = []
+        for name, fam in self._sorted_families():
+            meta_name = (
+                name[: -len("_total")]
+                if openmetrics and fam.kind == "counter"
+                and name.endswith("_total") else name
+            )
+            if fam.help:
+                out.append(f"# HELP {meta_name} {fam.help}")
+            out.append(f"# TYPE {meta_name} {fam.kind}")
+            for values, child in fam.series():
+                ls = _label_str(fam.label_names, values)
+                if fam.kind == "histogram":
+                    counts, total_sum, _ = child.snap()
+                    exem = (
+                        child.snap_exemplars() if openmetrics else {}
+                    )
+                    cum = 0
+                    for i, (b, c) in enumerate(zip(fam.buckets, counts)):
+                        cum += c
+                        le = _label_str(
+                            fam.label_names + ("le",), values + (_fmt(b),)
+                        )
+                        out.append(
+                            f"{name}_bucket{le} {cum}"
+                            + _exemplar_str(exem.get(i))
+                        )
+                    cum += counts[-1]
+                    le = _label_str(
+                        fam.label_names + ("le",), values + ("+Inf",)
+                    )
+                    out.append(
+                        f"{name}_bucket{le} {cum}"
+                        + _exemplar_str(exem.get(len(fam.buckets)))
+                    )
+                    out.append(f"{name}_sum{ls} {_fmt(total_sum)}")
+                    out.append(f"{name}_count{ls} {cum}")
+                else:
+                    out.append(f"{name}{ls} {_fmt(child.value)}")
+        if openmetrics:
+            out.append("# EOF")
+        return "\n".join(out) + "\n"
+
+    def json_snapshot(self) -> dict:
+        """JSON-friendly view: histograms carry count/sum/p50/p90/p99 and the
+        per-bucket cumulative counts; counters/gauges carry the value."""
+        snap: dict = {}
+        for name, fam in self._sorted_families():
+            series = []
+            for values, child in fam.series():
+                entry: dict = {"labels": dict(zip(fam.label_names, values))}
+                if fam.kind == "histogram":
+                    # one atomic snap feeds buckets, count, sum AND the
+                    # quantiles — the whole entry is self-consistent
+                    counts, total_sum, total = child.snap()
+                    cum, buckets = 0, {}
+                    for b, c in zip(fam.buckets, counts):
+                        cum += c
+                        buckets[_fmt(b)] = cum
+                    buckets["+Inf"] = cum + counts[-1]
+                    entry.update(
+                        count=total,
+                        sum=total_sum,
+                        p50=_quantile_from(fam.buckets, counts, total, 0.50),
+                        p90=_quantile_from(fam.buckets, counts, total, 0.90),
+                        p99=_quantile_from(fam.buckets, counts, total, 0.99),
+                        buckets=buckets,
+                    )
+                    exem = child.snap_exemplars()
+                    if exem:
+                        # keyed by bucket upper bound; a p99 spike on /statz
+                        # links straight to its trace_id
+                        entry["exemplars"] = {
+                            (
+                                _fmt(fam.buckets[i])
+                                if i < len(fam.buckets) else "+Inf"
+                            ): {
+                                "trace_id": tid,
+                                "value": v,
+                                "ts": ts,
+                            }
+                            for i, (tid, v, ts) in sorted(exem.items())
+                        }
+                else:
+                    entry["value"] = child.value
+                series.append(entry)
+            snap[name] = {"type": fam.kind, "help": fam.help, "series": series}
+        return snap
+
+    def json_text(self) -> str:
+        return json.dumps(self.json_snapshot(), sort_keys=True)
+
+
+#: The process-wide default registry every subsystem records into. Tests
+#: that need isolation construct their own ``Registry``.
+REGISTRY = Registry()
+
+
+# -- paged KV memory (runtime/blocks.py + runtime/server.py) ----------------
+# Defined here (not in the server module) so the three gauges exist — and
+# show 0 — on /statz and the :stats control line even before the first
+# paged server is constructed; the server's load-gauge sweep keeps them
+# current, summed over live paged servers like server_queue_depth.
+KV_BLOCKS_TOTAL = REGISTRY.gauge(
+    "server_kv_blocks_total",
+    "Allocatable KV arena blocks across live paged servers (the reserved "
+    "trash block excluded)",
+)
+KV_BLOCKS_IN_USE = REGISTRY.gauge(
+    "server_kv_blocks_in_use",
+    "KV arena blocks currently held by live requests or shared prefixes",
+)
+ARENA_BYTES = REGISTRY.gauge(
+    "server_arena_bytes",
+    "Device bytes of the pooled KV arena across live paged servers, by "
+    "storage dtype (K + V codes plus, for quantized int8/fp8 arenas, the "
+    "per-block-per-head f32 scale arenas — computed via "
+    "runtime/blocks.BlockAllocator.bytes_per_block, so HBM savings from "
+    "--kv-dtype are observable, not just asserted)",
+    labels=("dtype",),
+)
+KV_WASTE_FRAC = REGISTRY.gauge(
+    "server_kv_waste_frac",
+    "1 - live tokens / allocated token slots over the in-use blocks: the "
+    "internal fragmentation of the paged KV pool (dense serving's "
+    "equivalent figure is 1 - live/capacity per row). COLD prefix-cache "
+    "blocks (radix-tree-held, no row mapping them) are excluded from the "
+    "slot denominator — they are reusable capacity, not waste. Shared "
+    "prefix tokens count once per mapping row, so heavy sharing can "
+    "drive this to 0",
+)
+
+# -- automatic prefix cache (runtime/radix.py) ------------------------------
+PREFIX_HIT_TOKENS = REGISTRY.counter(
+    "server_prefix_cache_hit_tokens_total",
+    "Prompt tokens served from the radix prefix cache instead of being "
+    "prefilled (summed over admissions on live servers), by the tier the "
+    "tokens lived in when the match was taken: hbm = already arena-"
+    "resident, host = streamed back from the pinned host pool, disk = "
+    "promoted from the memory-mapped disk pool. The saved prefill FLOPs "
+    "scale with the sum",
+    labels=("tier",),
+)
+PREFIX_HIT_RATE = REGISTRY.gauge(
+    "server_prefix_cache_hit_rate",
+    "Cumulative prefix-cache hit rate over live servers: cache-served "
+    "prompt tokens / cache-eligible prompt tokens (requests without an "
+    "explicit PrefixHandle or embeddings entry). 0 with the cache off "
+    "or no eligible traffic yet",
+)
+KV_HOST_TIER_BLOCKS = REGISTRY.gauge(
+    "server_kv_host_tier_blocks",
+    "Prefix-cache blocks currently demoted to the pinned host-RAM pool "
+    "across live servers (streamed back to HBM on a later radix hit)",
+)
+KV_DISK_TIER_BLOCKS = REGISTRY.gauge(
+    "server_kv_disk_tier_blocks",
+    "Prefix-cache blocks currently spilled to the bounded on-disk pool "
+    "across live servers (memory-mapped entry files; promoted "
+    "disk→host→arena on a later radix hit, and the pool survives "
+    "restarts)",
+)

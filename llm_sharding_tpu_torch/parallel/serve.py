@@ -17,7 +17,10 @@ and GPT-2 weights alike, raw or quantized.
 The arena and the per-column key positions live on the device; the small
 per-row bookkeeping (positions, write offsets, lengths, budgets, the token
 buffer) lives on the host, because the host reads every committed token
-anyway to stream it.
+anyway to stream it. A program that samples tokens returns them on the
+device; the server reads them (a read it can issue again) and only then
+applies them with ``commit_tokens``, so a lost read never leaves half an
+update behind.
 
 A quantized arena (``kv_dtype`` int8 / fp8) holds 1-byte codes with
 per-(block, KV head) f32 scales, as in the JAX state. The dense prefill of
@@ -131,31 +134,36 @@ def make_state(
     )
 
 
-def _arm_sampling(state: ServeState, rows, seeds, temps, topks, topps) -> None:
+def _arm_sampling(state: ServeState, rows, seeds, temps, topks, topps, rng_states=None) -> None:
     """Per-row sampling settings; a sampled row gets its own generator
     seeded with the request's seed, so its draws equal ``generate``'s at
-    batch 1."""
+    batch 1. ``rng_states[i]``, where not None, is the generator state a
+    migrated request carries (``torch.Generator.get_state()`` bytes, taken
+    on a server of the same device type): the row resumes the draws of its
+    uninterrupted run instead of restarting them."""
     dev = state.k.device
     for i, r in enumerate(rows):
         state.temp[r] = max(float(temps[i]), 0.0)
         state.topk[r] = int(topks[i])
         state.topp[r] = float(topps[i])
-        state.rng[r] = (
-            torch.Generator(device=dev).manual_seed(int(seeds[i]))
-            if state.temp[r] > 0 else None
-        )
+        state.rng[r] = None
+        if state.temp[r] > 0:
+            state.rng[r] = torch.Generator(device=dev).manual_seed(int(seeds[i]))
+            if rng_states is not None and rng_states[i] is not None:
+                state.rng[r].set_state(torch.from_numpy(np.asarray(rng_states[i], np.uint8)))
 
 
-def _sample_rows(state: ServeState, rows, logits: torch.Tensor) -> np.ndarray:
-    """One token per row: greedy rows by one argmax, sampled rows each
-    from its own generator."""
-    toks = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+def _sample_rows(state: ServeState, rows, logits: torch.Tensor) -> torch.Tensor:
+    """One token per row, left on the device: greedy rows by one argmax,
+    sampled rows each from its own generator. The caller reads the tokens
+    (a read it may issue again) before any host state depends on them."""
+    toks = logits.argmax(dim=-1).to(torch.int32)
     for i, r in enumerate(rows):
         if state.temp[r] > 0:
-            toks[i] = int(sample(
+            toks[i] = sample(
                 logits[i : i + 1], float(state.temp[r]), int(state.topk[r]),
                 float(state.topp[r]), generator=state.rng[r],
-            )[0])
+            )[0]
     return toks
 
 
@@ -303,12 +311,14 @@ def serve_admit(
     prefix_kv: Optional[tuple] = None,  # (k, v, pos) of prefix_prefill / gather_prefix_kv
     prefix_len: int = 0,  # real prefix length (positions resume there)
     prefix_in_arena: bool = False,  # the prefix blocks already hold this KV
-) -> np.ndarray:
+    rng_states=None,  # per row: a migrated request's generator state, or None
+) -> torch.Tensor:
     """One-shot admission: prefill the rows' prompts through the dense
     layer path (the flash kernel), scatter the fresh window into the rows'
     blocks (their tables are on the device already) and sample each row's
-    first token, which is returned. The first decode step then feeds that
-    token at position ``prompt_len`` into column ``Sp``.
+    first token, which is returned on the device. The rows stay parked
+    (done) until ``commit_tokens`` applies those tokens; the first decode
+    step then feeds each at position ``prompt_len`` into column ``Sp``.
 
     With ``prefix_kv`` (``Spx`` columns) each row's dense cache is seeded
     with the prefix, the suffix prefills at positions ``prefix_len + i``
@@ -343,7 +353,7 @@ def serve_admit(
     last = torch.from_numpy(prompt_len - 1).to(dev)
     h_last = h[torch.arange(n, device=dev), last][:, None]
     logits = fns.final_logits(cfg, params, h_last)[:, 0]
-    _arm_sampling(state, rows, seeds, temps, topks, topps)
+    _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
     tok0 = _sample_rows(state, rows, logits)
 
     # a radix hit skips the shared prefix blocks: the scatter covers the
@@ -372,18 +382,14 @@ def serve_admit(
     kpos[:, : Spx + Sp] = cache.pos
     state.kpos[rows_t] = kpos
 
-    stop = _stop_mask(cfg, tok0)
     for i, r in enumerate(rows):
         total = pfx + int(prompt_len[i])
         state.out[r] = 0
         state.out[r, :Sp] = prompts[i]
-        state.out[r, total] = tok0[i]
         state.write_off[r] = Spx + Sp
         state.pos_slots[r] = total
-        state.lengths[r] = total + 1
+        state.lengths[r] = total
         state.budget[r] = total + int(max_new[i])
-        state.done[r] = bool(stop[i]) or int(max_new[i]) <= 1
-        state.tok[r] = tok0[i]
     return tok0
 
 
@@ -458,11 +464,12 @@ def serve_admit_finish(
     temps: np.ndarray,
     topks: np.ndarray,
     topps: np.ndarray,
+    rng_states=None,  # per row: a migrated request's generator state, or None
 ) -> None:
     """Arm chunk-prefilled rows: the final prompt token becomes each row's
     next input at position ``prompt_len - 1``; the first decode step
     computes it and samples the first generated token."""
-    _arm_sampling(state, rows, seeds, temps, topks, topps)
+    _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
     for i, r in enumerate(rows):
         plen = int(prompt_len[i])
         state.pos_slots[r] = plen - 1
@@ -474,11 +481,14 @@ def serve_admit_finish(
 
 def serve_step(
     cfg: ModelConfig, params: dict, state: ServeState, rows: list, backend: str = "auto"
-) -> np.ndarray:
+) -> torch.Tensor:
     """One decode step for the live ``rows``: feed each row's next token,
     write its KV at the row's write column (quantized against the running
     block scale on an int8/fp8 arena), attend the row's blocks through the
-    paged decode kernel, commit the sampled token. Returns the tokens."""
+    paged decode kernel, sample the next token and advance the rows'
+    columns and positions. Returns the tokens on the device:
+    ``commit_tokens`` applies them once they are read. A step must never
+    be dispatched twice: it writes the arena and the positions in place."""
     dev = state.k.device
     n = len(rows)
     rows_t = torch.as_tensor(rows, device=dev)
@@ -499,13 +509,19 @@ def serve_step(
     state.kpos[rows_t] = kv_pos
     state.write_off[rows] += 1
     state.pos_slots[rows] += 1
-    stop = _stop_mask(cfg, nxt)
+    return nxt
+
+
+def commit_tokens(cfg: ModelConfig, state: ServeState, rows: list, toks: np.ndarray) -> None:
+    """Apply the tokens a ``serve_admit`` or ``serve_step`` sampled, read
+    to the host: each row's token enters its ``out`` buffer and becomes
+    its next input, and the row is done at a stop id or its budget."""
+    stop = _stop_mask(cfg, toks)
     for i, r in enumerate(rows):
-        state.out[r, state.lengths[r]] = nxt[i]
+        state.out[r, state.lengths[r]] = toks[i]
         state.lengths[r] += 1
         state.done[r] = bool(stop[i]) or state.lengths[r] >= state.budget[r]
-        state.tok[r] = nxt[i]
-    return nxt
+        state.tok[r] = toks[i]
 
 
 def serve_cancel_rows(state: ServeState, rows: list) -> None:

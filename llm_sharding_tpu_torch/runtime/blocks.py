@@ -88,6 +88,13 @@ class BlockAllocator:
     def in_use(self) -> int:
         return self.capacity_blocks - len(self._free)
 
+    @property
+    def cache_cold(self) -> int:
+        """Cache-held blocks no live row maps (the tree's reference is the
+        only one, ``blocks.py:126``): the KV gauges count them as reusable
+        capacity, not waste."""
+        return int((self._cached & (self._ref == 1)).sum())
+
     def mark_cached(self, blocks) -> None:
         """Tag allocated blocks as cache-owned (``runtime/radix.py`` calls
         this when a node takes a row's blocks or restores a demoted node)."""

@@ -63,6 +63,14 @@ class Engine:
         host_pool_blocks: int = 0,
         disk_pool_dir: Optional[str] = None,
         disk_pool_blocks: int = 0,
+        max_queue: Optional[int] = None,
+        default_deadline_s: Optional[float] = None,
+        fault_plan=None,
+        fault_retries: int = 3,
+        fault_backoff_s: float = 0.01,
+        retryable_exceptions: tuple = (),
+        snapshot_every_s: Optional[float] = None,
+        snapshot_path: Optional[str] = None,
     ):
         """A paged continuous-batching server over ``batch_per_slot`` rows
         (``runtime/server.PipelineServer``). Paged KV is required here:
@@ -72,7 +80,13 @@ class Engine:
         path; ``prefix_cache`` ("off", "hbm", "host", "disk") the automatic
         prefix cache, with the host tier's size in blocks
         (``host_pool_blocks``, default the arena's) and the disk tier's
-        directory and size (``disk_pool_dir``, ``disk_pool_blocks``)."""
+        directory and size (``disk_pool_dir``, ``disk_pool_blocks``).
+        Resilience: ``max_queue`` bounds the queue, ``default_deadline_s``
+        each request's life; ``fault_plan`` (``runtime/faults.FaultPlan``)
+        injects faults, retried ``fault_retries`` times from
+        ``fault_backoff_s`` (``retryable_exceptions``: real errors that may
+        be retried where the operation can be issued again);
+        ``snapshot_every_s`` / ``snapshot_path`` arm auto-snapshots."""
         if kv_block_size is None and kv_blocks is None:
             raise NotPorted(
                 "dense serving (serve() without kv_block_size/kv_blocks) comes with "
@@ -91,5 +105,9 @@ class Engine:
             prefill_chunk=prefill_chunk, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
             kv_dtype=kv_dtype, paged_attn=paged_attn, prefix_cache=prefix_cache,
             host_pool_blocks=host_pool_blocks, disk_pool_dir=disk_pool_dir,
-            disk_pool_blocks=disk_pool_blocks,
+            disk_pool_blocks=disk_pool_blocks, max_queue=max_queue,
+            default_deadline_s=default_deadline_s, fault_plan=fault_plan,
+            fault_retries=fault_retries, fault_backoff_s=fault_backoff_s,
+            retryable_exceptions=retryable_exceptions, snapshot_every_s=snapshot_every_s,
+            snapshot_path=snapshot_path,
         )

@@ -38,15 +38,58 @@ keys), a long one chunked from column ``prefix``. An explicit
 ``PrefixHandle`` (``prefill_prefix`` / ``release_prefix``, ``submit(...,
 prefix=)``) is the manual path and bypasses the tree.
 
-Not in this slice: dense serving, speculation, faults, deadlines,
-snapshots (of the server and of the tree), metrics and traces.
+Resilience (``server.py:38-58``, ``:2941``, ``:3590-3860``):
+
+- **admission control**: ``max_queue=`` bounds the queue (``QueueFull``),
+  ``deadline_s=`` / ``default_deadline_s=`` bound a request's life:
+  expired in the queue, it is shed at admission; expired in flight, its
+  row is cancelled at the next step, one ``serve_cancel_rows`` call per
+  sweep. Either way it fails with ``DeadlineExceeded``.
+- **containment**: a ``runtime/faults.FaultPlan`` injects faults at
+  ``admit_dispatch``, ``chunk_dispatch``, ``log_fetch``, ``request_apply``
+  (keyed by request id) and ``snapshot_write``. Transient faults are
+  retried with bounded backoff; a failure past its retries fails exactly
+  the requests it touched (``RequestFailed`` from ``stream`` / ``result``)
+  while the server drops to DEGRADED and keeps serving. The dispatch sites
+  retry only injected faults, which raise before the dispatch writes
+  anything: the serve programs write the arena and the row state in place,
+  so replaying one after a real mid-call failure would write a token's KV
+  twice and advance its row twice. A program's tokens stay on the device
+  until a read that can be issued again (``log_fetch``) brings them to
+  the host, and only then is the host state updated.
+- **sticky CUDA errors**: a real device fault poisons the process's CUDA
+  context, so every later launch fails too. Containment fails the rows it
+  touched, as on any failure, but the process cannot serve again: restore
+  the last auto-snapshot in a new process (``faults.is_transient`` never
+  retries such an error).
+- **health**: SERVING / DEGRADED / DRAINING (``health``, the one-hot
+  ``server_health_state`` gauge); DEGRADED clears on the next clean step,
+  ``close`` fails every queued and in-flight request and goes DRAINING.
+- **checkpoints**: ``snapshot`` / ``restore`` (and ``save_snapshot`` /
+  ``load_snapshot``, atomic on disk) continue every request of a live
+  server in a fresh one, token-identically; ``snapshot_every_s`` /
+  ``snapshot_path`` write one at the end of a step once per interval.
+- **migration**: ``extract`` takes a live request off this server as
+  host-side ``RequestState`` and ``adopt`` re-admits it on another, the
+  same ``Request`` object streaming on.
+
+Requests and servers feed the port's metrics registry
+(``obs/metrics.REGISTRY``) under the JAX package's names.
+
+Not in this slice: dense serving, speculation, stop strings, embedding
+input, the async executor's ``settle``, spans and traces.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
+import glob
+import json
 import logging
+import os
+import shutil
 import threading
 import time
 import weakref
@@ -56,10 +99,16 @@ import numpy as np
 import torch
 
 from ..models.cache import POS_SENTINEL
+from ..obs.metrics import (
+    ARENA_BYTES, DEFAULT_RATE_BUCKETS, KV_BLOCKS_IN_USE, KV_BLOCKS_TOTAL,
+    KV_DISK_TIER_BLOCKS, KV_HOST_TIER_BLOCKS, KV_WASTE_FRAC, PREFIX_HIT_RATE,
+    PREFIX_HIT_TOKENS, REGISTRY,
+)
 from ..ops.quant import KV_DTYPES, fp8_kv_supported, kv_storage_dtype
 from ..ops.sampling import validate_top_p
 from ..parallel import serve as serve_ops
 from .blocks import BlockAllocator
+from .faults import backoff_delays, is_transient
 from .radix import RadixCache
 
 logger = logging.getLogger(__name__)
@@ -67,11 +116,331 @@ logger = logging.getLogger(__name__)
 # Admission prompt buckets (``server.py:317``).
 ADMIT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 
+#: The port's snapshot format. Its own: neither package reads the other's
+#: snapshots (the arena travels as raw views, the sampling state as torch
+#: generator states).
+SNAPSHOT_FORMAT = 1
+# arena blocks moved per device<->host copy by snapshot and restore: the
+# device holds one such chunk beside the arena, never a second arena
+_ARENA_CHUNK_BLOCKS = 32
+
+# -- health states (``server.py:97-101``) ------------------------------------
+SERVING = "SERVING"  # admitting and decoding normally
+DEGRADED = "DEGRADED"  # a containment event: some requests failed, the rest serve
+DRAINING = "DRAINING"  # closed: no admits, queued and in-flight requests failed
+_HEALTH_SEVERITY = {SERVING: 0, DEGRADED: 1, DRAINING: 2}
+
 
 class NeverFits(ValueError):
     """The request can never be admitted: its prompt bucket plus budget
     exceeds the server's capacity or position limit, or it needs more KV
     blocks than the pool holds."""
+
+
+class QueueFull(RuntimeError):
+    """``submit`` rejected: the bounded queue (``max_queue=``) is full."""
+
+
+class ServerClosed(RuntimeError):
+    """The server was closed: submits are rejected and live requests were
+    failed with this error."""
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's deadline passed: shed from the queue at admission, or
+    cancelled at the next step if it was decoding."""
+
+
+class RequestFailed(RuntimeError):
+    """Raised from ``stream`` / ``result`` for a request that failed (its
+    cause is chained: containment, deadline, shutdown)."""
+
+    def __init__(self, msg: str, request=None):
+        super().__init__(msg)
+        self.request = request
+
+
+# -- serving telemetry (``server.py:130-300``) --------------------------------
+_M_QUEUE_WAIT = REGISTRY.histogram(
+    "server_queue_wait_seconds", "Submission-to-admission wait per request",
+)
+_M_TTFT = REGISTRY.histogram(
+    "server_ttft_seconds",
+    "Submission to first committed token per request (includes queue wait)",
+)
+_M_INTERTOKEN = REGISTRY.histogram(
+    "server_intertoken_seconds",
+    "Host-visible gap between a request's consecutive committed tokens",
+)
+_M_REQUEST = REGISTRY.histogram(
+    "server_request_seconds", "Submission-to-completion wall time per request",
+)
+_M_TOK_S = REGISTRY.histogram(
+    "server_request_tok_s",
+    "Per-request decode rate over its admission-to-finish window",
+    buckets=DEFAULT_RATE_BUCKETS,
+)
+_M_QUEUE_DEPTH = REGISTRY.gauge(
+    "server_queue_depth", "Requests waiting for a free slot, summed over live servers",
+)
+_M_ACTIVE = REGISTRY.gauge(
+    "server_slots_active",
+    "Slot rows holding a live (not done) request, summed over live servers",
+)
+_M_FETCH_FAIL = REGISTRY.counter(
+    "server_fetch_failures_total",
+    "Device-to-host token reads that raised (decode steps, admission tokens)",
+)
+_M_REJECTED = REGISTRY.counter(
+    "server_rejected_total",
+    "Submits rejected at admission control, by reason (queue_full = max_queue "
+    "reached, closed = server shut down)",
+    labels=("reason",),
+)
+_M_DEADLINE = REGISTRY.counter(
+    "server_deadline_expired_total",
+    "Requests whose deadline expired, by where they were caught (queued = shed "
+    "at admit time, in_flight = cancelled at a step boundary)",
+    labels=("where",),
+)
+_M_RETRIES = REGISTRY.counter(
+    "server_retries_total", "Transient-failure retries of a serving operation, by site",
+    labels=("site",),
+)
+_M_CONTAINED = REGISTRY.counter(
+    "server_failures_contained_total",
+    "Persistent failures contained to their affected requests, by site",
+    labels=("site",),
+)
+_M_SNAPSHOTS = REGISTRY.counter(
+    "server_snapshots_total", "Auto-snapshots written successfully (snapshot_every_s=)",
+)
+_M_SNAPSHOT_FAIL = REGISTRY.counter(
+    "server_snapshot_failures_total",
+    "Auto-snapshot attempts that failed (kept serving; retried next interval)",
+)
+_M_HEALTH = REGISTRY.state_gauge(
+    "server_health_state",
+    "Serving health state machine (worst across live servers): exactly one "
+    "state label is 1",
+    states=(SERVING, DEGRADED, DRAINING),
+)
+# every live server in the process: the load gauges are sums over them
+_LIVE_SERVERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _update_load_gauges() -> None:
+    """Recompute the process-wide load and KV gauges from every live server
+    (``server.py:169``): queue depth, active rows, the paged pool's blocks
+    and waste, arena bytes by dtype, the prefix cache's tiers and hit
+    rate."""
+    queued = active = kv_total = kv_used = kv_slots = kv_live = 0
+    host_blocks = disk_blocks = hit_tok = elig_tok = 0
+    arena = dict.fromkeys(KV_DTYPES, 0)
+    for s in list(_LIVE_SERVERS):
+        queued += len(s._queue)
+        live = [i for i, r in enumerate(s._req) if r is not None and not r.done]
+        active += len(live)
+        kv_total += s._alloc.capacity_blocks
+        kv_used += s._alloc.in_use
+        if not s._closed:
+            arena[s.kv_dtype] += s.arena_bytes()
+        kv_slots += (s._alloc.in_use - s._alloc.cache_cold) * s.kv_block_size
+        kv_live += int(sum(s.state.lengths[i] for i in live))
+        if s._radix is not None:
+            host_blocks += s._radix.host_blocks
+            disk_blocks += s._radix.disk_blocks
+            hit_tok += s._radix.hit_tokens
+            elig_tok += s._radix.eligible_tokens
+    _M_QUEUE_DEPTH.set(queued)
+    _M_ACTIVE.set(active)
+    for name, nbytes in arena.items():
+        ARENA_BYTES.labels(dtype=name).set(nbytes)
+    KV_BLOCKS_TOTAL.set(kv_total)
+    KV_BLOCKS_IN_USE.set(kv_used)
+    KV_HOST_TIER_BLOCKS.set(host_blocks)
+    KV_DISK_TIER_BLOCKS.set(disk_blocks)
+    PREFIX_HIT_RATE.set(hit_tok / elig_tok if elig_tok else 0.0)
+    KV_WASTE_FRAC.set(0.0 if kv_slots == 0 else max(0.0, 1.0 - kv_live / kv_slots))
+
+
+def _update_health_gauge() -> None:
+    """The worst state across live, open servers (``server.py:298``);
+    closed servers vote only when every server is closed."""
+    states = [s._health for s in list(_LIVE_SERVERS) if not s._closed]
+    if not states:
+        states = [s._health for s in list(_LIVE_SERVERS)] or [SERVING]
+    _M_HEALTH.set_state(max(states, key=_HEALTH_SEVERITY.__getitem__))
+
+
+@dataclasses.dataclass
+class Counters:
+    """Per-server running totals (``server.py:323``). ``inc`` bumps the field
+    and mirrors it into the process-wide ``server_<field>_total`` counter;
+    direct field writes (restore) do not mirror."""
+
+    requests_submitted: int = 0
+    requests_completed: int = 0
+    requests_cancelled: int = 0
+    requests_failed: int = 0  # deadline expiry, containment, shutdown
+    tokens_generated: int = 0
+    admissions: int = 0
+    chunks: int = 0
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def inc(self, field: str, n: int = 1) -> None:
+        setattr(self, field, getattr(self, field) + n)
+        _FIELD_COUNTERS[field].inc(n)
+
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "Counters":
+        """Unknown keys are ignored, missing fields default to 0."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in snap.items() if k in known})
+
+
+_FIELD_COUNTERS = {
+    f.name: REGISTRY.counter(
+        f"server_{f.name}_total", f"Process total of Counters.{f.name} across live servers",
+    )
+    for f in dataclasses.fields(Counters)
+}
+
+
+# -- serve-state checkpoints on disk (``server.py:475-695``) ------------------
+
+def save_snapshot(snap: dict, path: str) -> None:
+    """Write a ``PipelineServer.snapshot`` to the directory ``path``:
+    ``state.npz`` for every array (the arena's bytes as their raw views,
+    no pickling), ``meta.json`` for the rest.
+
+    Atomic: everything lands in a temporary sibling directory, each file
+    and the directory fsync'd, which is renamed into place. A previous
+    snapshot at ``path`` is first parked at ``path.old.<pid>`` and removed
+    once the new one is in place, so ``path`` or the parked copy holds a
+    complete snapshot at every instant (``load_snapshot`` recovers the
+    parked one)."""
+    path = os.path.normpath(path)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    if os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    arrays: dict = {}
+
+    def enc_reqs(kind: str, reqs) -> list:
+        out = []
+        for i, d in enumerate(reqs):
+            if d is None:
+                out.append(None)
+                continue
+            e = {}
+            for k, v in d.items():
+                if isinstance(v, np.ndarray):
+                    arrays[f"{kind}.{i}.{k}"] = v
+                    e.setdefault("arrays", []).append(k)
+                else:
+                    e[k] = v
+            out.append(e)
+        return out
+
+    for k, v in snap["state"].items():
+        arrays[f"state.{k}"] = v
+    for k, v in snap["arena"].items():
+        arrays[f"arena.{k}"] = v
+    arrays["paged.tables"] = snap["paged"]["tables"]
+    radix_meta = None
+    if snap["radix"] is not None:
+        arrays.update(snap["radix"]["arrays"])
+        radix_meta = {"nodes": snap["radix"]["nodes"], "counters": snap["radix"]["counters"]}
+    meta = {k: snap[k] for k in ("format", "serve_kwargs", "arena_dtype", "rng_device",
+                                 "next_id", "counters")}
+    meta.update(
+        paged={"row_blocks": snap["paged"]["row_blocks"],
+               "row_shared": snap["paged"]["row_shared"]},
+        radix=radix_meta, rows=enc_reqs("rows", snap["rows"]),
+        queue=enc_reqs("queue", snap["queue"]),
+    )
+    np.savez(os.path.join(tmp, "state.npz"), **arrays)
+    with open(os.path.join(tmp, "state.npz"), "rb") as f:
+        os.fsync(f.fileno())  # the data is durable before the rename is
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(tmp)
+    parent = os.path.dirname(os.path.abspath(path))
+    if os.path.isdir(path):
+        old = f"{path}.old.{os.getpid()}"
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+        os.rename(path, old)
+        os.rename(tmp, path)
+        _fsync_dir(parent)
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.rename(tmp, path)
+        _fsync_dir(parent)
+
+
+def _fsync_dir(path: str) -> None:
+    """Best-effort directory fsync (makes renames durable); a filesystem
+    that refuses it is skipped, not an error."""
+    try:
+        fd = os.open(path, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def load_snapshot(path: str) -> dict:
+    """Read a ``save_snapshot`` directory back into ``restore`` input. When
+    ``path`` is missing, the newest parked ``path.old.<pid>`` (a writer
+    that died inside the swap) is read instead."""
+    if not os.path.exists(os.path.join(path, "meta.json")):
+        parked = sorted(glob.glob(f"{os.path.normpath(path)}.old.*"), key=os.path.getmtime)
+        if parked:
+            logger.warning("snapshot %s missing; recovering the parked previous snapshot %s",
+                           path, parked[-1])
+            path = parked[-1]
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(path, "state.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+
+    def dec_reqs(kind: str, reqs) -> list:
+        out = []
+        for i, e in enumerate(reqs):
+            if e is None:
+                out.append(None)
+                continue
+            d = {k: v for k, v in e.items() if k != "arrays"}
+            for k in e.get("arrays", []):
+                d[k] = arrays[f"{kind}.{i}.{k}"]
+            out.append(d)
+        return out
+
+    def section(prefix: str) -> dict:
+        return {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+    radix = None
+    if meta["radix"] is not None:
+        # the tree's own keys ("radix.<i>.key", "radix.<i>.kv<j>") are kept whole
+        radix = dict(meta["radix"],
+                     arrays={k: v for k, v in arrays.items() if k.startswith("radix.")})
+    return dict(
+        {k: meta[k] for k in ("format", "serve_kwargs", "arena_dtype", "rng_device",
+                              "next_id", "counters")},
+        state=section("state."), arena=section("arena."),
+        paged=dict(meta["paged"], tables=arrays["paged.tables"]),
+        radix=radix, rows=dec_reqs("rows", meta["rows"]), queue=dec_reqs("queue", meta["queue"]),
+    )
 
 
 def _validate_prefix_cache(prefix_cache, host_pool_blocks, disk_pool_dir, disk_pool_blocks):
@@ -120,14 +489,6 @@ def _write_arena_blocks(state, blocks, k_host, v_host, *scales) -> None:
         )
 
 
-class ServerClosed(RuntimeError):
-    """The server was closed."""
-
-
-class RequestFailed(RuntimeError):
-    """The request did not finish (its cause is chained)."""
-
-
 class PrefixHandle:
     """The KV of a shared prefix, prefilled once by
     ``PipelineServer.prefill_prefix`` (``server.py:846``). Requests
@@ -140,7 +501,9 @@ class PrefixHandle:
     with the handle's KV, the same bytes each time. ``release_prefix``
     drops the handle's references; rows still mapping the blocks keep them
     until they finish. Block ids index one server's pool, so the handle
-    remembers (weakly) the server that made it."""
+    remembers (weakly) the server that made it. A handle does not outlive
+    its process: a restored row admitted with one holds a released stand-in
+    (``blocks`` None) that records the prefix's layout."""
 
     __slots__ = ("kv", "n", "spx", "blocks", "owner")
 
@@ -159,7 +522,8 @@ class Request:
     """A queued or in-flight generation request."""
 
     def __init__(self, rid: int, prompt: np.ndarray, max_new: int, temperature: float,
-                 seed: int, top_k: int, top_p: float, prefix: Optional[PrefixHandle] = None):
+                 seed: int, top_k: int, top_p: float, prefix: Optional[PrefixHandle] = None,
+                 deadline_s: Optional[float] = None):
         self.id = rid
         self.prompt = prompt  # with a handle: the suffix only
         self.prompt_len = int(prompt.shape[0])
@@ -175,9 +539,41 @@ class Request:
         self.done = False
         self.row: Optional[int] = None
         self.error: Optional[BaseException] = None
+        # migration: leading entries of ``tokens`` already folded into
+        # ``prompt`` by ``adopt``, and the generator state it carried in
+        # (consumed by the next admission)
+        self.baked = 0
+        self.carried_rng: Optional[np.ndarray] = None
         self.submitted_at = time.perf_counter()
+        self.deadline_at = None if deadline_s is None else self.submitted_at + deadline_s
+        self.started_at: Optional[float] = None
         self.first_token_at: Optional[float] = None
+        self.last_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class RequestState:
+    """Portable host-side state of a live request (``server.py:788``):
+    what another server needs to continue it where this one left it
+    (``PipelineServer.extract`` builds it, ``adopt`` re-admits it). It holds
+    no device tensor and takes no device read.
+
+    ``prompt`` is the resumed prompt: the original ids with every token
+    generated so far appended, so the adopter's ordinary admission
+    recomputes the row's KV. ``rng`` is a sampled row's
+    ``torch.Generator`` state after its last draw (a CUDA generator's state
+    lives on the host), ``rng_device`` the device type of that generator:
+    a sampled request migrates only between servers on one device type, a
+    greedy one anywhere. Both are None for greedy and never-admitted
+    requests."""
+
+    prompt: np.ndarray  # resumed ids (with a prefix handle: the suffix + tail)
+    tail: np.ndarray  # generated ids not yet folded into a prompt
+    remaining: int  # new-token budget still unspent
+    rng: Optional[np.ndarray]  # uint8 generator state, or None
+    rng_device: Optional[str]
+    prefix: Optional[PrefixHandle]  # the source server's handle
 
 
 class PipelineServer:
@@ -198,6 +594,14 @@ class PipelineServer:
         host_pool_blocks: int = 0,
         disk_pool_dir: Optional[str] = None,
         disk_pool_blocks: int = 0,
+        max_queue: Optional[int] = None,
+        default_deadline_s: Optional[float] = None,
+        fault_plan=None,
+        fault_retries: int = 3,
+        fault_backoff_s: float = 0.01,
+        retryable_exceptions: tuple = (),
+        snapshot_every_s: Optional[float] = None,
+        snapshot_path: Optional[str] = None,
     ):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
@@ -218,6 +622,12 @@ class PipelineServer:
         if kv_block_size < 1 or kv_block_size & (kv_block_size - 1):
             raise ValueError(f"kv_block_size must be a power of two, got {kv_block_size}")
         _validate_prefix_cache(prefix_cache, host_pool_blocks, disk_pool_dir, disk_pool_blocks)
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if default_deadline_s is not None and default_deadline_s <= 0:
+            raise ValueError(f"default_deadline_s must be > 0, got {default_deadline_s}")
+        if fault_retries < 0:
+            raise ValueError(f"fault_retries must be >= 0, got {fault_retries}")
         self.engine = engine
         self.cfg = engine.cfg
         self.params = engine.params
@@ -229,10 +639,22 @@ class PipelineServer:
         self.kv_dtype = kv_dtype
         #: the arena's storage dtype (engine.cache_dtype stays the compute dtype)
         self.kv_store_dtype = kv_storage_dtype(kv_dtype, engine.cache_dtype)
+        #: the requested paged attention path (a snapshot keeps the request)
+        self.paged_attn = paged_attn
         #: the paged attention backend every serve program runs
         self.attn_backend = (
             "kernel" if paged_attn != "plain" and engine.device.type == "cuda" else "plain"
         )
+        self.max_queue = max_queue
+        self.default_deadline_s = default_deadline_s
+        self._fault_plan = fault_plan
+        self._fault_retries = int(fault_retries)
+        self._fault_backoff_s = float(fault_backoff_s)
+        self._retryable = tuple(retryable_exceptions)
+        self._health = SERVING
+        self._step_contained = False  # a containment event this step
+        self.containment_events = 0
+        self.counters = Counters()
         self._alloc = BlockAllocator(self.kv_blocks, self.kv_block_size)
         # blocks pinned by live prefix handles: only release_prefix frees them
         self._handle_pins = 0
@@ -254,6 +676,14 @@ class PipelineServer:
         self._next_id = 0
         self._closed = False
         self._mutex = threading.RLock()
+        # a lower bound on the earliest live deadline (None: none armed);
+        # the step's sweep scans only once it has passed
+        self._deadline_hint: Optional[float] = None
+        self._snapshot_every_s: Optional[float] = None
+        self._snapshot_path: Optional[str] = None
+        self._last_snapshot_at = time.perf_counter()
+        if snapshot_every_s is not None or snapshot_path is not None:
+            self.enable_auto_snapshot(snapshot_path, snapshot_every_s)
         # automatic prefix cache: the host tier defaults to an arena's worth
         # of blocks, the disk tier below it to another (server.py:1160-1175)
         self.prefix_cache = prefix_cache
@@ -277,6 +707,9 @@ class PipelineServer:
             if self.disk_pool_blocks:
                 # the pool outlives the process: re-index what the last one left
                 self._radix.adopt_pool()
+        # registered last: the gauge sweep reads every field above
+        _LIVE_SERVERS.add(self)
+        _update_health_gauge()
 
     # ---------------------------------------------------------------- API
 
@@ -290,41 +723,30 @@ class PipelineServer:
         top_k: int = 0,
         top_p: float = 1.0,
         prefix: Optional[PrefixHandle] = None,
+        deadline_s: Optional[float] = None,
     ) -> Request:
         """Enqueue a request; it is admitted by a later ``step``. Raises
-        ``NeverFits`` for a request no amount of waiting could admit and
-        ``ServerClosed`` after ``close``. With ``prefix`` (a handle of this
-        server's ``prefill_prefix``) ``prompt_ids`` is the suffix only:
-        generation equals submitting ``prefix + suffix`` whole, and the
-        admission is one-shot."""
+        ``NeverFits`` for a request no amount of waiting could admit,
+        ``QueueFull`` when ``max_queue`` requests wait and ``ServerClosed``
+        after ``close``. With ``prefix`` (a handle of this server's
+        ``prefill_prefix``) ``prompt_ids`` is the suffix only: generation
+        equals submitting ``prefix + suffix`` whole, and the admission is
+        one-shot. ``deadline_s`` (default ``default_deadline_s``) bounds the
+        request's life from now: past it the request fails with
+        ``DeadlineExceeded``."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
-        if max_new_tokens < 1:
-            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         top_p = validate_top_p(top_p)
-        if prefix is None:
-            if prompt.shape[0] < 1:
-                raise ValueError("empty prompt")
-            bucket = self._bucket(prompt.shape[0])
-            chunked = self._chunked(bucket)
-            total = bucket + max_new_tokens + (1 if chunked else 0)
-            if total > self.capacity or total > self.cfg.max_position_embeddings:
-                raise NeverFits(
-                    f"prompt bucket ({bucket}) + max_new ({max_new_tokens}) needs {total} "
-                    f"columns; capacity is {self.capacity}, max positions "
-                    f"{self.cfg.max_position_embeddings}"
-                )
-            spx = 0
-        else:
-            self._validate_prefix_request(prefix, prompt, max_new_tokens)
-            bucket, chunked, spx = self._bucket(prompt.shape[0]), False, prefix.spx
+        deadline_s = self._resolve_deadline(deadline_s)
+        bucket, chunked, spx = self._plan_request(prompt, max_new_tokens, prefix)
         with self._mutex:
-            if self._closed:
-                raise ServerClosed("server is closed; submit rejected")
+            self._check_admission()
             self._check_never_fits(bucket, max_new_tokens, spx, chunked)
-            req = Request(self._next_id, prompt, int(max_new_tokens), float(temperature),
-                          int(seed), int(top_k), top_p, prefix)
-            self._next_id += 1
+            req = Request(self._new_id(), prompt, int(max_new_tokens), float(temperature),
+                          int(seed), int(top_k), top_p, prefix, deadline_s)
             self._queue.append(req)
+            self._arm_deadline(req.deadline_at)
+            self.counters.inc("requests_submitted")
+            _update_load_gauges()
         return req
 
     def prefill_prefix(self, prefix_ids) -> PrefixHandle:
@@ -353,6 +775,7 @@ class PipelineServer:
                 self._radix.ensure_free(need)
             blocks = self._alloc.alloc(need)
             self._handle_pins += len(blocks)
+            _update_load_gauges()
         logger.info("prefill_prefix n=%d bucket=%d blocks=%d", n, spx, len(blocks))
         return PrefixHandle(kv, n, spx, blocks, self)
 
@@ -388,29 +811,49 @@ class PipelineServer:
             return self._radix.stats()
 
     def step(self) -> bool:
-        """Admit what fits, then one decode step over every live row, then
-        take the queue head's radix match ahead of its admission. Returns
-        True if any work was done."""
+        """Shed expired requests, admit what fits, then one decode step over
+        every live row, then take the queue head's radix match ahead of its
+        admission; with auto-snapshot armed, end by checkpointing once per
+        interval. A failure is contained to the requests it touched and the
+        server keeps stepping; a clean step after one restores SERVING. A
+        closed server does nothing. Returns True if any work was done."""
         with self._mutex:
             if self._closed:
                 return False
-            progressed = False
+            self._step_contained = False
+            progressed = self._shed_expired()
             if self._queue and self._free_rows():
-                progressed = self._admit_pending()
+                progressed |= self._admit_pending()
             live = self._live_rows()
             if live:
                 self._decode(live)
                 progressed = True
             if self._radix is not None and self._queue:
                 self._stage_radix_plan()
-            return progressed
+            if progressed:
+                _update_load_gauges()
+            snap_due = self._capture_autosnapshot()
+            if (
+                self._health == DEGRADED and not self._step_contained
+                # idle counts as clean: nothing is left to fail
+                and (progressed or not (self._queue or self._live_rows()))
+            ):
+                self._set_health(SERVING)
+        # the file write runs outside the mutex: consumers on other threads
+        # stay live while it lands
+        if snap_due is not None:
+            self._write_autosnapshot(snap_due)
+        return progressed
 
     def run_until_idle(self) -> None:
         while not self._closed and (self._queue or self._live_rows()):
             self.step()
 
     def stream(self, req: Request) -> Iterator[int]:
-        """Yield ``req``'s tokens as they are produced, pumping the server."""
+        """Yield ``req``'s tokens as they are produced, pumping the server.
+        A failed request raises ``RequestFailed`` (its cause chained) after
+        its partial tokens; so does a request this server can no longer
+        advance (idle or closed with the request unfinished)."""
         idx = 0
         while True:
             with self._mutex:
@@ -419,47 +862,71 @@ class PipelineServer:
             idx += len(batch)
             if done:
                 if error is not None:
-                    raise RequestFailed(f"request {req.id} failed: {error}") from error
+                    raise RequestFailed(f"request {req.id} failed: {error}", req) from error
                 return
-            self.step()
+            if not self.step() and not req.done and not (self._queue or self._live_rows()):
+                raise RequestFailed(
+                    f"request {req.id} cannot finish here: the server is idle or closed", req
+                )
 
     def result(self, req: Request) -> list:
         """Pump until ``req`` finishes; its generated token ids."""
         return list(self.stream(req))
 
     def cancel(self, req: Request) -> bool:
-        """Cancel a queued or in-flight request; True if it was live. A live
-        row's prompt KV is complete, so its blocks go into the prefix cache
-        as on a clean finish."""
+        """Cancel a queued or in-flight request; True if it was live here. A
+        live row's prompt KV is complete, so its blocks go into the prefix
+        cache as on a clean finish."""
         with self._mutex:
             if req.done:
                 return False
             if req.row is None:
-                self._queue.remove(req)
+                try:
+                    self._queue.remove(req)
+                except ValueError:
+                    return False
                 self._release_staged(req)
             else:
+                if self._req[req.row] is not req:
+                    return False
                 serve_ops.serve_cancel_rows(self.state, [req.row])
                 self._release(req.row, insert=True)
             req.done = True
             req.finished_at = time.perf_counter()
+            self.counters.inc("requests_cancelled")
+            _update_load_gauges()
             return True
 
     def close(self) -> None:
-        """Stop accepting work; fail queued and in-flight requests with
-        ``ServerClosed``. Idempotent. Their blocks are freed, not cached."""
+        """Shut down (``server.py:2711``), idempotent: reject submits, fail
+        every queued and in-flight request with ``ServerClosed`` (a
+        ``stream`` on another thread then raises ``RequestFailed``), free
+        their blocks (not cached) and go DRAINING; ``step`` does nothing
+        after."""
         with self._mutex:
             if self._closed:
                 return
             self._closed = True
             err = ServerClosed("server closed")
-            victims = list(self._queue) + [r for r in self._req if r is not None]
+            for r in list(self._queue):
+                self._fail_request(r, err)
             self._queue.clear()
-            for r in victims:
-                self._release_staged(r)
-                if r.row is not None:
-                    serve_ops.serve_cancel_rows(self.state, [r.row])
-                    self._release(r.row)
-                r.error, r.done = err, True
+            victims = [r for r in self._req if r is not None and not r.done]
+            if victims:
+                serve_ops.serve_cancel_rows(self.state, [r.row for r in victims])
+                for r in victims:
+                    self._fail_request(r, err)
+            self._admitting.clear()
+            self._set_health(DRAINING)
+            _update_load_gauges()
+        logger.info("server closed")
+
+    @property
+    def health(self) -> str:
+        """``SERVING``, ``DEGRADED`` (a failure was contained: some requests
+        failed, the rest are served; clears on the next clean step) or
+        ``DRAINING`` (closed)."""
+        return self._health
 
     def arena_bytes(self) -> int:
         """Device bytes of the KV arena and its scale pools."""
@@ -468,16 +935,345 @@ class PipelineServer:
             head_dim=self.cfg.head_dim_, kv_dtype=self.kv_store_dtype,
         )
 
+    def enable_auto_snapshot(self, path: Optional[str], every_s: Optional[float]) -> None:
+        """Arm (or, with two Nones, disarm) periodic crash-recovery
+        checkpoints (``server.py:2664``): at most one atomic
+        ``save_snapshot`` to ``path`` per ``every_s`` seconds, taken at the
+        end of ``step`` (0: every step). Not serving state: a restored
+        server is armed again by its caller."""
+        if (path is None) != (every_s is None):
+            raise ValueError(
+                "snapshot_path and snapshot_every_s go together (got "
+                f"path={path!r}, every_s={every_s!r})"
+            )
+        if every_s is not None and every_s < 0:
+            raise ValueError(f"snapshot_every_s must be >= 0, got {every_s}")
+        self._snapshot_path = path
+        self._snapshot_every_s = every_s
+        self._last_snapshot_at = time.perf_counter()
+
+    # -------------------------------------------------- snapshot / restore
+
+    def snapshot(self) -> dict:
+        """Checkpoint the live server between steps (``server.py:1710``):
+        the arena blocks that rows and the tree hold (codes and scales; a
+        free block's bytes are never read, so they are not kept), the
+        rows' key positions, block tables and host bookkeeping, each
+        sampled row's generator state, block ownership, the prefix tree
+        (disk-tier nodes as references to their pool entries), the
+        requests in rows and queue (deadlines as time remaining), the next
+        request id (read, not consumed), the counters and the serve
+        options (``paged_attn`` as requested). ``restore`` continues every
+        request token-identically.
+
+        Refused on a closed server, mid-chunked-admission and while queued
+        requests hold prefix handles (their KV is bound to this process: let
+        them admit, or resubmit them after restore)."""
+        with self._mutex:
+            if self._closed:
+                raise ServerClosed("cannot snapshot a closed server")
+            if self._admitting:
+                raise RuntimeError(
+                    "snapshot mid-chunked-admission is not supported — call between steps"
+                )
+            if any(r.prefix is not None for r in self._queue):
+                raise ValueError(
+                    "queued requests hold prefix handles (device-bound KV); pump until "
+                    "they admit or resubmit after restore"
+                )
+            self._flush_tables()
+            st = self.state
+            held = set()
+            for b in self._row_blocks + self._row_shared:
+                held.update(b)
+            rsnap = None if self._radix is None else self._radix.snapshot()
+            if rsnap is not None:
+                for m in rsnap["nodes"]:
+                    if m["tier"] == "hbm":
+                        held.update(m["blocks"])
+            return {
+                "format": SNAPSHOT_FORMAT,
+                "serve_kwargs": dict(
+                    capacity=self.capacity, batch_per_slot=self.rows,
+                    prefill_chunk=self.prefill_chunk, kv_block_size=self.kv_block_size,
+                    kv_blocks=self.kv_blocks, kv_dtype=self.kv_dtype,
+                    paged_attn=self.paged_attn, prefix_cache=self.prefix_cache,
+                    host_pool_blocks=self.host_pool_blocks, disk_pool_dir=self.disk_pool_dir,
+                    disk_pool_blocks=self.disk_pool_blocks, max_queue=self.max_queue,
+                    default_deadline_s=self.default_deadline_s,
+                ),
+                "arena_dtype": str(self.kv_store_dtype),
+                "rng_device": self.engine.device.type,
+                "arena": self._capture_arena(sorted(held)),
+                "state": dict(
+                    kpos=serve_ops._raw(st.kpos), pos_slots=st.pos_slots.copy(),
+                    write_off=st.write_off.copy(), out=st.out.copy(),
+                    lengths=st.lengths.copy(), done=st.done.copy(), budget=st.budget.copy(),
+                    tok=st.tok.copy(), temp=st.temp.copy(), topk=st.topk.copy(),
+                    topp=st.topp.copy(),
+                ),
+                "paged": {
+                    "tables": self._tables.copy(),
+                    "row_blocks": [list(map(int, b)) for b in self._row_blocks],
+                    "row_shared": [list(map(int, b)) for b in self._row_shared],
+                },
+                "radix": rsnap,
+                "rows": [self._req_dict(r) for r in self._req],
+                "queue": [self._req_dict(r) for r in self._queue],
+                "next_id": self._next_id,
+                "counters": self.counters.snapshot(),
+            }
+
+    @classmethod
+    def restore(cls, engine, snap: dict) -> "PipelineServer":
+        """A fresh server over ``engine`` (the same model and device type)
+        that continues ``snap``'s requests (``server.py:1874``). The server
+        is built through ``engine.serve`` with the snapshot's options, so
+        restore runs the ordinary constructor's validation; the held blocks
+        are then copied into its (only) arena in chunks. A tree in the
+        snapshot restored with the cache off is dropped: the rows sharing
+        its blocks own them and free them on finish."""
+        if snap.get("format") != SNAPSHOT_FORMAT:
+            raise ValueError(
+                f"unknown snapshot format {snap.get('format')!r} (this package writes "
+                f"{SNAPSHOT_FORMAT}; it does not read the JAX package's snapshots)"
+            )
+        srv = engine.serve(**snap["serve_kwargs"])
+        st = srv.state
+        if snap["arena_dtype"] != str(srv.kv_store_dtype):
+            raise ValueError(
+                f"snapshot arena stores {snap['arena_dtype']}, this server's arena "
+                f"{srv.kv_store_dtype} — restore on an engine of the snapshot's dtype"
+            )
+        host = snap["state"]
+        want = {"kpos": tuple(st.kpos.shape), "tables": srv._tables.shape}
+        want.update({k: getattr(st, k).shape for k in host if k != "kpos"})
+        got = dict({k: np.shape(v) for k, v in host.items()},
+                   tables=np.shape(snap["paged"]["tables"]))
+        for name, shape in want.items():
+            if tuple(got.get(name, ())) != tuple(shape):
+                raise ValueError(
+                    f"snapshot state {name!r} has shape {got.get(name)}, this server "
+                    f"expects {tuple(shape)} — restore needs the model and options the "
+                    "snapshot was taken with"
+                )
+        sampled = [d for d in snap["rows"] + snap["queue"]
+                   if d is not None and (d.get("rng") is not None
+                                         or d.get("carried_rng") is not None)]
+        if sampled and snap["rng_device"] != engine.device.type:
+            raise ValueError(
+                f"snapshot's sampled requests carry {snap['rng_device']} generator states; "
+                f"this engine is on {engine.device.type}: restore on a "
+                f"{snap['rng_device']} device"
+            )
+        srv._restore_arena(snap["arena"])
+        st.kpos.copy_(torch.from_numpy(np.asarray(host["kpos"], np.int32)))
+        for k, v in host.items():
+            if k != "kpos":
+                np.copyto(getattr(st, k), v)
+        srv._tables[:] = np.asarray(snap["paged"]["tables"], np.int32)
+        srv._push_tables()
+        srv._row_blocks = [[int(x) for x in b] for b in snap["paged"]["row_blocks"]]
+        srv._row_shared = [[int(x) for x in b] for b in snap["paged"]["row_shared"]]
+        rsnap = snap.get("radix")
+        tree_owned = []
+        if srv._radix is not None and rsnap is not None:
+            tree_owned = [m["blocks"] for m in rsnap["nodes"] if m["tier"] == "hbm"]
+        elif rsnap is not None:
+            logger.warning(
+                "snapshot carries a prefix-cache tree but this server has prefix_cache=off "
+                "— dropping the cache (row-shared blocks free as their rows finish)"
+            )
+        srv._alloc.restore(srv._row_blocks + tree_owned, srv._row_shared)
+        if srv._radix is not None and rsnap is not None:
+            srv._radix.restore(rsnap, rsnap["arrays"])
+        now = time.perf_counter()
+        for d in snap["rows"]:
+            if d is None:
+                continue
+            r = srv._req_from(d, now)
+            srv._req[r.row] = r
+            if d.get("rng") is not None:
+                g = torch.Generator(device=engine.device)
+                g.set_state(torch.from_numpy(np.asarray(d["rng"], np.uint8)))
+                st.rng[r.row] = g
+            rn = int(d.get("radix_n") or 0)
+            if rn and srv._radix is not None:
+                # pins are live state: every pinned path survived (pinned
+                # nodes are never evicted), so the row takes its match again
+                ref = srv._radix.take(r.prompt[:rn], rn)
+                if ref is not None and ref.n == rn:
+                    srv._row_radix[r.row] = ref
+                elif ref is not None:
+                    srv._radix.release(ref)
+        srv._queue = collections.deque(srv._req_from(d, now) for d in snap["queue"])
+        for r in list(srv._queue) + [r for r in srv._req if r is not None]:
+            srv._arm_deadline(r.deadline_at)
+        srv._next_id = int(snap["next_id"])
+        srv.counters = Counters.from_snapshot(snap["counters"])
+        _update_load_gauges()
+        return srv
+
+    # ------------------------------------------------------------ migration
+
+    def extract(self, req: Request) -> RequestState:
+        """Take a live request off this server as portable host-side state
+        without failing it (``server.py:3338``): it leaves the queue or its
+        row (the row's prompt blocks go into the prefix cache, as on a
+        cancel), and the caller re-admits it elsewhere with ``adopt``. The
+        request object is untouched but for ``row``, so a ``stream`` over it
+        carries on. No device read: the resumed prompt is the applied
+        tokens, the sampling state the row generator's host-side state.
+        Refuses a finished request and one this server does not hold."""
+        with self._mutex:
+            if req.done:
+                raise ValueError(f"request {req.id} is finished; nothing to extract")
+            rng = req.carried_rng
+            if req.row is None:
+                try:
+                    self._queue.remove(req)
+                except ValueError:
+                    raise ValueError(f"request {req.id} is not held by this server") from None
+                self._release_staged(req)
+            else:
+                row = req.row
+                if self._req[row] is not req:
+                    raise ValueError(f"request {req.id} is not held by this server")
+                if row in self._admitting:
+                    raise RuntimeError(
+                        f"request {req.id} is mid-chunked-admission; extract between steps"
+                    )
+                gen = self.state.rng[row]
+                rng = None if gen is None else gen.get_state().numpy().copy()
+                serve_ops.serve_cancel_rows(self.state, [row])
+                self._release(row, insert=True)
+            tail = np.asarray(req.tokens[req.baked:], np.int32)
+            remaining = int(req.max_new) - int(tail.shape[0])
+            prompt = np.concatenate([np.asarray(req.prompt, np.int32), tail])
+            _update_load_gauges()
+        logger.info("extract id=%d tokens=%d remaining=%d rng=%s",
+                    req.id, len(req.tokens), remaining, rng is not None)
+        return RequestState(
+            prompt=prompt, tail=tail, remaining=remaining, rng=rng,
+            rng_device=None if rng is None else self.engine.device.type, prefix=req.prefix,
+        )
+
+    def adopt(self, state: RequestState, req: Request, *,
+              prefix: Optional[PrefixHandle] = None) -> None:
+        """Re-admit an ``extract``ed request here (``server.py:3458``), the
+        same ``Request`` object: its resumed prompt goes through the
+        ordinary admission (one-shot or chunked, by its bucket), new tokens
+        append to the same ``tokens`` list, and a carried generator state
+        is installed at admission, so a sampled row resumes its draws.
+        ``prefix`` is this server's handle for a request submitted with one.
+        It is queued ahead of fresh submissions (it is the oldest work);
+        ``max_queue`` does not gate it (it moves load, adds none).
+
+        Raises ``ServerClosed`` on a closed server, ``ValueError`` (or its
+        ``NeverFits``) for a finished request, a resumed prompt that does
+        not fit this server, a missing handle, or a sampled request's
+        generator of another device type; every check runs before any
+        change, so a refused request stays adoptable elsewhere."""
+        with self._mutex:
+            if self._closed:
+                _M_REJECTED.labels(reason="closed").inc()
+                raise ServerClosed("server is closed; adopt rejected")
+            if req.done:
+                raise ValueError(f"request {req.id} is already finished")
+            remaining = int(state.remaining)
+            if remaining < 1:
+                # at its budget when extracted: complete, nothing to admit
+                req.done = True
+                req.finished_at = time.perf_counter()
+                self.counters.inc("requests_completed")
+                return
+            if state.rng is not None and state.rng_device != self.engine.device.type:
+                raise ValueError(
+                    f"request {req.id} carries a {state.rng_device} generator state; this "
+                    f"server runs on {self.engine.device.type} (a sampled request migrates "
+                    "only between servers on one device type)"
+                )
+            if state.prefix is not None and prefix is None:
+                raise ValueError(
+                    f"request {req.id} was submitted with a prefix handle: adopt it with "
+                    "this server's handle for that prefix (prefix=)"
+                )
+            prompt = np.asarray(state.prompt, np.int32)
+            bucket, chunked, spx = self._plan_request(prompt, remaining, prefix)
+            self._check_never_fits(bucket, remaining, spx, chunked)
+            req.prompt = prompt
+            req.prompt_len = int(prompt.shape[0])
+            req.prefix = prefix
+            req.max_new = remaining
+            req.baked = len(req.tokens)
+            req.carried_rng = None if state.rng is None else np.asarray(state.rng, np.uint8)
+            req.row = None
+            req.staged_radix = None
+            self._queue.appendleft(req)
+            self._arm_deadline(req.deadline_at)
+            _update_load_gauges()
+        logger.info("adopt id=%d resumed_prompt=%d remaining=%d carried_rng=%s",
+                    req.id, req.prompt_len, remaining, req.carried_rng is not None)
+
     # ---------------------------------------------------------- internals
+
+    def _new_id(self) -> int:
+        rid = self._next_id
+        self._next_id += 1
+        return rid
 
     def _bucket(self, n: int) -> int:
         for b in ADMIT_BUCKETS:
             if b >= n and b <= self.capacity:
                 return b
-        raise NeverFits(f"prompt length {n} exceeds admit buckets/capacity")
+        raise NeverFits(f"prompt length {n} exceeds admit buckets/capacity ({self.capacity})")
 
     def _chunked(self, bucket: int) -> bool:
         return self.prefill_chunk is not None and bucket > self.prefill_chunk
+
+    def _resolve_deadline(self, deadline_s: Optional[float]) -> Optional[float]:
+        """Per-request deadline against the server default (``server.py:2877``)."""
+        if deadline_s is None:
+            return self.default_deadline_s
+        deadline_s = float(deadline_s)
+        if deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        return deadline_s
+
+    def _check_admission(self) -> None:
+        """Backpressure gate on submit, under the mutex (``server.py:2941``)."""
+        if self._closed:
+            _M_REJECTED.labels(reason="closed").inc()
+            raise ServerClosed("server is closed; submit rejected")
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            _M_REJECTED.labels(reason="queue_full").inc()
+            raise QueueFull(
+                f"submit queue is full ({len(self._queue)} >= max_queue={self.max_queue}); "
+                "shed load or retry later"
+            )
+
+    def _plan_request(self, prompt: np.ndarray, max_new: int,
+                      prefix: Optional[PrefixHandle]) -> tuple:
+        """``(bucket, chunked, spx)`` of a request this server could ever
+        admit, shared by ``submit`` and ``adopt``; raises ``NeverFits`` past
+        the capacity or position limit."""
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+        if prefix is not None:
+            self._validate_prefix_request(prefix, prompt, max_new)
+            return self._bucket(prompt.shape[0]), False, prefix.spx
+        if prompt.shape[0] < 1:
+            raise ValueError("empty prompt")
+        bucket = self._bucket(prompt.shape[0])
+        chunked = self._chunked(bucket)
+        total = bucket + max_new + (1 if chunked else 0)
+        if total > self.capacity or total > self.cfg.max_position_embeddings:
+            raise NeverFits(
+                f"prompt bucket ({bucket}) + max_new ({max_new}) needs {total} "
+                f"columns; capacity is {self.capacity}, max positions "
+                f"{self.cfg.max_position_embeddings}"
+            )
+        return bucket, chunked, 0
 
     def _blocks_needed(self, bucket: int, max_new: int, spx: int = 0, chunked: bool = False) -> int:
         """PRIVATE blocks a request needs (``server.py:2957``): the columns
@@ -513,13 +1309,13 @@ class PipelineServer:
             )
         bucket = self._bucket(prompt.shape[0])
         if prefix.spx + bucket + max_new > self.capacity:
-            raise ValueError(
+            raise NeverFits(
                 f"prefix rows ({prefix.spx}) + suffix bucket ({bucket}) + max_new "
                 f"({max_new}) exceeds server capacity ({self.capacity})"
             )
         total_pos = prefix.n + bucket + max_new
         if total_pos > self.cfg.max_position_embeddings:
-            raise ValueError(
+            raise NeverFits(
                 f"requested {total_pos} positions > max_position_embeddings "
                 f"({self.cfg.max_position_embeddings})"
             )
@@ -552,6 +1348,271 @@ class PipelineServer:
     def _flush_tables(self) -> None:
         if self._tables_dirty:
             self._push_tables()
+
+    def _set_health(self, state: str) -> None:
+        if state != self._health:
+            logger.warning("health %s -> %s", self._health, state)
+            self._health = state
+        _update_health_gauge()
+
+    # --------------------------------------------- snapshot internals
+
+    def _req_dict(self, r: Optional[Request]) -> Optional[dict]:
+        """One request of a snapshot: host values and numpy arrays only.
+        The deadline is stored as time remaining (a ``perf_counter`` epoch
+        does not survive the process)."""
+        if r is None:
+            return None
+        d = {
+            "id": r.id, "prompt": np.asarray(r.prompt, np.int32), "max_new": r.max_new,
+            "temperature": r.temperature, "seed": r.seed, "top_k": r.top_k, "top_p": r.top_p,
+            "tokens": [int(t) for t in r.tokens], "done": r.done, "row": r.row,
+            "baked": r.baked,
+            "deadline_left": (None if r.deadline_at is None
+                              else max(r.deadline_at - time.perf_counter(), 0.0)),
+        }
+        if r.carried_rng is not None:
+            d["carried_rng"] = np.asarray(r.carried_rng, np.uint8)
+        if r.prefix is not None:
+            d["prefix_n"], d["spx"] = r.prefix.n, r.prefix.spx
+        if r.row is not None:
+            gen = self.state.rng[r.row]
+            if gen is not None:
+                d["rng"] = gen.get_state().numpy().copy()
+            if self._row_radix[r.row] is not None:
+                d["radix_n"] = int(self._row_radix[r.row].n)
+        return d
+
+    def _req_from(self, d: dict, now: float) -> Request:
+        """A request of a snapshot, revived. A row admitted with a handle
+        keeps a released stand-in of it: its blocks are the row's to free,
+        and its prompt (the suffix) is never inserted into the tree."""
+        prefix = None
+        if d.get("spx") is not None:
+            prefix = PrefixHandle(None, int(d["prefix_n"]), int(d["spx"]))
+        r = Request(int(d["id"]), np.asarray(d["prompt"], np.int32), int(d["max_new"]),
+                    float(d["temperature"]), int(d["seed"]), int(d["top_k"]),
+                    float(d["top_p"]), prefix)
+        r.tokens = [int(t) for t in d["tokens"]]
+        r.done = bool(d["done"])
+        r.row = None if d["row"] is None else int(d["row"])
+        r.baked = int(d.get("baked", 0))
+        if d.get("carried_rng") is not None:
+            r.carried_rng = np.asarray(d["carried_rng"], np.uint8)
+        if d.get("deadline_left") is not None:
+            # the downtime between crash and restore does not count
+            r.deadline_at = now + float(d["deadline_left"])
+        if r.row is not None:
+            r.started_at = now
+        if r.tokens:
+            # its first token came in the previous process: no false TTFT
+            r.first_token_at = r.last_token_at = now
+        return r
+
+    def _capture_arena(self, blocks: list) -> dict:
+        """The arena's and scales' bytes of ``blocks`` on the host, copied in
+        chunks: ``k`` / ``v`` ``[L, n, BS, Nkv, D]`` raw views, and for an
+        int8/fp8 arena ``k_scale`` / ``v_scale`` ``[L, n, Nkv]``."""
+        names = ("k", "v", "k_scale", "v_scale")[: 2 if self.state.k_scale is None else 4]
+        out = {"blocks": np.asarray(blocks, np.int32)}
+        for lo in range(0, len(blocks), _ARENA_CHUNK_BLOCKS):
+            chunk = blocks[lo : lo + _ARENA_CHUNK_BLOCKS]
+            got = serve_ops.read_arena_blocks(self.state, chunk)
+            for name, a in zip(names, got):
+                if name not in out:
+                    out[name] = np.empty((a.shape[1], len(blocks)) + a.shape[3:], a.dtype)
+                out[name][:, lo : lo + len(chunk)] = a[0]
+        return out
+
+    def _restore_arena(self, arena: dict) -> None:
+        """``_capture_arena``'s bytes copied into this server's arena, in
+        chunks, in place: the device never holds a second arena."""
+        blocks = [int(b) for b in arena["blocks"]]
+        names = ("k", "v", "k_scale", "v_scale")[: 2 if self.state.k_scale is None else 4]
+        if blocks and tuple(arena["k"].shape[2:]) != tuple(self.state.k.shape[2:]):
+            raise ValueError(
+                f"snapshot arena blocks are {arena['k'].shape[2:]}, this server's "
+                f"{tuple(self.state.k.shape[2:])}"
+            )
+        for lo in range(0, len(blocks), _ARENA_CHUNK_BLOCKS):
+            chunk = blocks[lo : lo + _ARENA_CHUNK_BLOCKS]
+            parts = [arena[n][None, :, lo : lo + len(chunk)] for n in names]
+            _write_arena_blocks(self.state, chunk, *parts)
+
+    def _capture_autosnapshot(self) -> Optional[dict]:
+        """End-of-step checkpoint capture under the mutex, once per armed
+        interval (``server.py:3812``), through the ``snapshot_write`` site
+        with retry. A failure is counted and serving goes on; the interval
+        clock advances either way."""
+        if self._snapshot_every_s is None:
+            return None
+        now = time.perf_counter()
+        if now - self._last_snapshot_at < self._snapshot_every_s:
+            return None
+        self._last_snapshot_at = now
+
+        def capture():
+            self._fault_check("snapshot_write")
+            return self.snapshot()
+
+        try:
+            return self._retry("snapshot_write", capture)
+        except Exception as e:  # noqa: BLE001 — counted; serving goes on
+            _M_SNAPSHOT_FAIL.inc()
+            logger.warning("auto-snapshot capture failed: %r", e)
+            return None
+
+    def _write_autosnapshot(self, snap: dict) -> None:
+        """The disk half of auto-snapshot (``server.py:3839``): a failed
+        write is counted, never fatal."""
+        try:
+            save_snapshot(snap, self._snapshot_path)
+        except Exception as e:  # noqa: BLE001 — counted; serving goes on
+            _M_SNAPSHOT_FAIL.inc()
+            logger.warning("auto-snapshot write failed: %r", e)
+        else:
+            _M_SNAPSHOTS.inc()
+
+    # --------------------------------------------- resilience internals
+
+    def _fault_check(self, site: str, key=None) -> None:
+        if self._fault_plan is not None:
+            self._fault_plan.check(site, key=key)
+
+    def _retry(self, site: str, fn, real_ok: bool = True):
+        """Run ``fn``, absorbing transient failures with bounded exponential
+        backoff (``server.py:3594``); the last failure, or a permanent one,
+        propagates to the caller's containment. ``real_ok=False`` retries
+        only injected faults, which raise before ``fn`` writes anything:
+        the dispatch sites, whose programs write state in place."""
+        delays = backoff_delays(self._fault_retries, self._fault_backoff_s)
+        retryable = self._retryable if real_ok else ()
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except Exception as e:  # noqa: BLE001 — classified right below
+                if attempt >= self._fault_retries or not is_transient(e, retryable):
+                    raise
+                _M_RETRIES.labels(site=site).inc()
+                logger.warning("transient failure at %s (attempt %d/%d): %r",
+                               site, attempt + 1, self._fault_retries, e)
+                if delays[attempt]:
+                    time.sleep(delays[attempt])
+                attempt += 1
+
+    def _read_tokens(self, toks: torch.Tensor, rows: list) -> Optional[np.ndarray]:
+        """The sampled tokens of ``rows`` read to the host through the
+        ``log_fetch`` site with retry: the tensor stays put, so a retry reads
+        it again. A read lost past its retries fails exactly those rows'
+        requests (JAX ``_contain_lost_log``, ``:3722``) and returns None."""
+        def read():
+            self._fault_check("log_fetch")
+            try:
+                return toks.cpu().numpy()
+            except Exception:
+                _M_FETCH_FAIL.inc()
+                raise
+
+        try:
+            return self._retry("log_fetch", read)
+        except Exception as e:  # noqa: BLE001 — contained to these rows
+            self._contain_rows("log_fetch", [(r, self._req[r]) for r in rows], e)
+            return None
+
+    def _fail_request(self, req: Request, err: BaseException) -> None:
+        """Terminal failure (``server.py:3629``): record the cause, free the
+        row's blocks if it holds one (not cached), unblock consumers. The
+        caller has stopped the row. The cause is kept without its traceback
+        (the containment logged it): the traceback's frames hold the server
+        and the request, a cycle that would keep a dropped server's arena and
+        weights on the device until the garbage collector ran."""
+        e, seen = err, set()
+        while e is not None and id(e) not in seen:
+            seen.add(id(e))
+            e.__traceback__ = None
+            e = e.__cause__ or e.__context__
+        req.error = err
+        req.done = True
+        req.finished_at = time.perf_counter()
+        self._release_staged(req)
+        if req.row is not None and self._req[req.row] is req:
+            self._release(req.row)
+        self.counters.inc("requests_failed")
+
+    def _contain_rows(self, site: str, victims: list, err) -> None:
+        """Contain a persistent failure to exactly the ``(row, request)``
+        pairs given (``server.py:3656``): one cancel of their rows, their
+        requests failed, health DEGRADED. Every other row keeps decoding and
+        the freed rows admit from the queue at the next step. The JAX
+        server's admit, dispatch and lost-log variants (``:3686-3738``) are
+        this call here: each failing operation of the port names its rows
+        (no chunk log whose per-row attribution can be lost)."""
+        self._step_contained = True
+        self.containment_events += 1
+        self._set_health(DEGRADED)
+        _M_CONTAINED.labels(site=site).inc()
+        victims = [(row, r) for row, r in victims
+                   if r is not None and self._req[row] is r and not r.done]
+        if victims:
+            serve_ops.serve_cancel_rows(self.state, [row for row, _ in victims])
+        for _, r in victims:
+            self._fail_request(r, err)
+        _update_load_gauges()
+        logger.warning("contained %s failure (%r): failed request(s) %s",
+                       site, err, [r.id for _, r in victims])
+
+    def _arm_deadline(self, deadline_at: Optional[float]) -> None:
+        """Tighten the deadline hint for a request entering the queue
+        (``server.py:3740``): it stays a lower bound on the earliest live
+        deadline, so the step's sweep never misses an expiry."""
+        if deadline_at is not None and (
+            self._deadline_hint is None or deadline_at < self._deadline_hint
+        ):
+            self._deadline_hint = deadline_at
+
+    def _shed_expired(self) -> bool:
+        """Deadline sweep at the start of a step (``server.py:3751``), once
+        the hint has passed: expired queued requests are shed before they
+        cost a prefill; expired in-flight rows are stopped with one
+        ``serve_cancel_rows`` call. Both fail with ``DeadlineExceeded``; the
+        hint is then recomputed exactly."""
+        now = time.perf_counter()
+        if self._deadline_hint is None or now < self._deadline_hint:
+            return False
+        shed = False
+        keep: collections.deque = collections.deque()
+        for r in self._queue:
+            if r.deadline_at is not None and now >= r.deadline_at:
+                _M_DEADLINE.labels(where="queued").inc()
+                self._fail_request(r, DeadlineExceeded(
+                    f"request {r.id} expired after {now - r.submitted_at:.3f}s in queue"
+                ))
+                shed = True
+            else:
+                keep.append(r)
+        self._queue = keep
+        expired = [
+            r for i, r in enumerate(self._req)
+            if r is not None and not r.done and r.deadline_at is not None
+            and now >= r.deadline_at and i not in self._admitting
+        ]
+        if expired:
+            serve_ops.serve_cancel_rows(self.state, [r.row for r in expired])
+            for r in expired:
+                _M_DEADLINE.labels(where="in_flight").inc()
+                self._fail_request(r, DeadlineExceeded(
+                    f"request {r.id} expired mid-decode ({len(r.tokens)}/{r.max_new} tokens)"
+                ))
+            shed = True
+        if shed:
+            _update_load_gauges()
+        hints = [r.deadline_at for r in self._queue if r.deadline_at is not None] + [
+            r.deadline_at for r in self._req
+            if r is not None and not r.done and r.deadline_at is not None
+        ]
+        self._deadline_hint = min(hints) if hints else None
+        return shed
 
     # ------------------------------------------------ prefix cache internals
 
@@ -629,10 +1690,10 @@ class PipelineServer:
     def _release(self, row: int, insert: bool = False) -> None:
         """Remap the row's table to trash, then free its blocks
         (``server.py:3022-3089``). With the cache on and ``insert`` (a clean
-        finish or a cancel: the prompt's KV is complete) the blocks of the
-        block-aligned prompt go into the tree instead; a chunk-admitted
-        row's final prompt token entered by the decode path, past the
-        bucket, so its cacheable run ends one token early."""
+        finish, a cancel or an extract: the prompt's KV is complete) the
+        blocks of the block-aligned prompt go into the tree instead; a
+        chunk-admitted row's final prompt token entered by the decode path,
+        past the bucket, so its cacheable run ends one token early."""
         req = self._req[row]
         priv, shared = self._row_blocks[row], self._row_shared[row]
         rref = self._row_radix[row]
@@ -675,11 +1736,10 @@ class PipelineServer:
             pfx = head.prefix
             if pfx is not None and pfx.blocks is None:
                 self._queue.popleft()
-                head.error = ValueError(
+                self._fail_request(head, ValueError(
                     "prefix handle was released while the request was queued — its "
                     "shared KV blocks are gone; prefill_prefix again and resubmit"
-                )
-                head.done, head.finished_at = True, time.perf_counter()
+                ))
                 continue
             rplan, head.staged_radix = head.staged_radix, None
             if rplan is None:
@@ -725,12 +1785,15 @@ class PipelineServer:
                 batch.append(self._queue.popleft())
             rows = free[: len(batch)]
             free = free[len(batch):]
-            self._admit(batch, rows, bucket, chunked, pfx, rplan)
-            admitted = True
+            admitted |= self._admit(batch, rows, bucket, chunked, pfx, rplan)
         return admitted
 
     def _admit(self, batch: list, rows: list, bucket: int, chunked: bool,
-               pfx: Optional[PrefixHandle], rplan) -> None:
+               pfx: Optional[PrefixHandle], rplan) -> bool:
+        """Map the batch's rows and admit it through the ``admit_dispatch``
+        site (retried for injected faults only); a failure past the retries
+        fails exactly this batch. A one-shot admission's first tokens are
+        then read (``log_fetch``) and committed. True if admitted."""
         n = len(batch)
         spx_n = 0 if rplan is None else rplan.n
         spx = pfx.spx if pfx is not None else spx_n
@@ -742,6 +1805,8 @@ class PipelineServer:
         temps = np.zeros(n, np.float32)
         topks = np.zeros(n, np.int32)
         topps = np.ones(n, np.float32)
+        rng_states = [r.carried_rng for r in batch]
+        now = time.perf_counter()
         for i, (r, row) in enumerate(zip(batch, rows)):
             # with a radix hit the device sees only the suffix
             sfx = r.prompt[spx_n:]
@@ -749,6 +1814,9 @@ class PipelineServer:
             plen[i], max_new[i], seeds[i] = len(sfx), r.max_new, r.seed
             temps[i], topks[i], topps[i] = r.temperature, r.top_k, r.top_p
             r.row = row
+            r.carried_rng = None  # consumed by this admission
+            r.started_at = now
+            _M_QUEUE_WAIT.observe(now - r.submitted_at)
             self._req[row] = r
             self._map_row_blocks(row, bucket, r.max_new, spx, shared, chunked)
             if rplan is not None:
@@ -758,25 +1826,49 @@ class PipelineServer:
             if self._radix is not None and pfx is None:
                 self._radix.eligible_tokens += r.prompt_len
                 self._radix.hit_tokens += spx_n
+                if spx_n:
+                    # the take() recorded where each matched token lived;
+                    # later rows of the batch reuse arena-resident blocks
+                    tiers = rplan.tier_tokens if i == 0 else {"hbm": spx_n}
+                    for tier, tok in tiers.items():
+                        if tok:
+                            PREFIX_HIT_TOKENS.labels(tier=tier).inc(tok)
         self._push_tables()  # the admission writes exactly the blocks just mapped
         sampling = (seeds, temps, topks, topps)
-        if chunked:
-            self._admit_chunked(rows, prompts, plen, max_new, sampling, prefix_off=spx_n)
-            return
-        pkv, pn = None, 0
-        if pfx is not None:
-            pkv, pn = pfx.kv, pfx.n
-        elif rplan is not None:
-            pkv = serve_ops.gather_prefix_kv(self.state, rplan.blocks, self.engine.cache_dtype)
-            pn = spx_n
-        tok0 = serve_ops.serve_admit(
-            self.cfg, self.params, self.state, rows, prompts, plen, max_new, *sampling,
-            prefix_kv=pkv, prefix_len=pn, prefix_in_arena=rplan is not None,
-        )
-        for row, t in zip(rows, tok0):
-            self._commit(row, int(t))
 
-    def _admit_chunked(self, rows, prompts, plen, max_new, sampling, prefix_off: int = 0) -> None:
+        def dispatch():
+            self._fault_check("admit_dispatch")
+            if chunked:
+                self._admit_chunked(rows, prompts, plen, max_new, sampling,
+                                    prefix_off=spx_n, rng_states=rng_states)
+                return None
+            pkv, pn = None, 0
+            if pfx is not None:
+                pkv, pn = pfx.kv, pfx.n
+            elif rplan is not None:
+                pkv = serve_ops.gather_prefix_kv(self.state, rplan.blocks, self.engine.cache_dtype)
+                pn = spx_n
+            return serve_ops.serve_admit(
+                self.cfg, self.params, self.state, rows, prompts, plen, max_new, *sampling,
+                prefix_kv=pkv, prefix_len=pn, prefix_in_arena=rplan is not None,
+                rng_states=rng_states,
+            )
+
+        try:
+            tok0 = self._retry("admit_dispatch", dispatch, real_ok=False)
+        except Exception as e:  # noqa: BLE001 — contained to this batch: its
+            # rows stay parked and admit others later (server.py:3686)
+            self._contain_rows("admit_dispatch", [(r.row, r) for r in batch], e)
+            return False
+        self.counters.inc("admissions")
+        if tok0 is not None:
+            toks = self._read_tokens(tok0, rows)
+            if toks is not None:
+                self._commit_tokens(rows, toks)
+        return True
+
+    def _admit_chunked(self, rows, prompts, plen, max_new, sampling, prefix_off: int = 0,
+                       rng_states=None) -> None:
         """Bounded chunks with one decode step of the OTHER live rows after
         each, so a long admission never stalls live streams. Each row's
         final prompt token is masked out of the prefill and fed by the
@@ -804,23 +1896,62 @@ class PipelineServer:
             self._admitting.difference_update(rows)
         last_tok = prompts[np.arange(n), plen - 1]
         serve_ops.serve_admit_finish(self.state, rows, last_tok, prefix_off + plen, max_new,
-                                     *sampling)
+                                     *sampling, rng_states=rng_states)
 
     def _decode(self, rows: list) -> None:
+        """One decode step of ``rows`` through the ``chunk_dispatch`` site
+        (injected faults retried; a failure past the retries fails these
+        rows), its tokens read through ``log_fetch`` and committed."""
         self._flush_tables()
-        toks = serve_ops.serve_step(self.cfg, self.params, self.state, rows, self.attn_backend)
+
+        def dispatch():
+            self._fault_check("chunk_dispatch")
+            return serve_ops.serve_step(self.cfg, self.params, self.state, rows,
+                                        self.attn_backend)
+
+        try:
+            toks = self._retry("chunk_dispatch", dispatch, real_ok=False)
+        except Exception as e:  # noqa: BLE001 — contained to these rows
+            self._contain_rows("chunk_dispatch", [(r, self._req[r]) for r in rows], e)
+            return
+        self.counters.inc("chunks")
+        host = self._read_tokens(toks, rows)
+        if host is not None:
+            self._commit_tokens(rows, host)
+
+    def _commit_tokens(self, rows: list, toks: np.ndarray) -> None:
+        serve_ops.commit_tokens(self.cfg, self.state, rows, toks)
         for row, t in zip(rows, toks):
             self._commit(row, int(t))
 
     def _commit(self, row: int, t: int) -> None:
-        """One generated token → its request; finish the row when the state
-        says it is done (its prompt blocks go into the prefix cache)."""
+        """One generated token → its request, through the ``request_apply``
+        site keyed by the request id (a permanent fault there fails that
+        request only); the latency histograms; finish the row when the
+        state says it is done (its prompt blocks go into the prefix
+        cache)."""
         req = self._req[row]
+        if self._fault_plan is not None:
+            try:
+                self._retry("request_apply",
+                            lambda: self._fault_check("request_apply", key=req.id))
+            except Exception as e:  # noqa: BLE001 — contained to this request
+                self._contain_rows("request_apply", [(row, req)], e)
+                return
         req.tokens.append(t)
         now = time.perf_counter()
         if req.first_token_at is None:
             req.first_token_at = now
+            _M_TTFT.observe(now - req.submitted_at)
+        else:
+            _M_INTERTOKEN.observe(now - req.last_token_at)
+        req.last_token_at = now
+        self.counters.inc("tokens_generated")
         if self.state.done[row]:
             req.done = True
             req.finished_at = now
             self._release(row, insert=True)
+            self.counters.inc("requests_completed")
+            dur = now - (req.started_at or now)
+            _M_REQUEST.observe(now - req.submitted_at)
+            _M_TOK_S.observe(len(req.tokens) / dur if dur > 0 else 0.0)

@@ -23,6 +23,14 @@ staggered requests, each the prefix and a suffix of 20-1000 tokens. With
 the cache on, the short suffixes admit one-shot (flash with S = the suffix
 bucket over C = 1024 + S keys) and the long ones chunked from column 1024;
 with it off, every request prefills its whole prompt.
+
+The resilience workload (``RESILIENCE``, another entry of its own) is the
+3B's standard 8 prompts over an arena of 320 blocks instead of 1024: a
+daemon that must outlive a sticky CUDA fault (restored from a snapshot in
+a new process) or a drained replica (its live rows migrated) checkpoints
+and moves the arena it holds, so the arena is sized to what the workload
+maps at once (135 blocks: 2.19 GiB in bf16, about 1.09 GiB in int8 or fp8)
+rather than to the card. No admission waits for blocks.
 """
 
 from __future__ import annotations
@@ -64,15 +72,18 @@ SHARED_PREFIX = {
 }
 SHARED_PREFIX["gemma_2b"] = SHARED_PREFIX["llama32_3b"]
 
+RESILIENCE = {"llama32_3b": Workload(WORKLOADS["llama32_3b"].lens, 4096, 320)}
+
 
 def prompts(vocab_size: int, rng: np.random.Generator, lens=LENS) -> list:
     return [rng.integers(0, vocab_size, n).astype(np.int32) for n in lens]
 
 
-def serve(eng, model: str, shared_prefix: bool = False, **kw):
+def serve(eng, model: str, shared_prefix: bool = False, resilience: bool = False, **kw):
     """A server for ``model``'s workload on ``eng`` (``kw``: e.g. kv_dtype,
-    prefix_cache); ``shared_prefix`` picks its ``SHARED_PREFIX`` entry."""
-    w = (SHARED_PREFIX if shared_prefix else WORKLOADS)[model]
+    prefix_cache); ``shared_prefix`` picks its ``SHARED_PREFIX`` entry,
+    ``resilience`` its ``RESILIENCE`` one."""
+    w = (RESILIENCE if resilience else SHARED_PREFIX if shared_prefix else WORKLOADS)[model]
     return eng.serve(capacity=w.capacity, batch_per_slot=ROWS, kv_block_size=BLOCK_SIZE,
                      kv_blocks=w.kv_blocks, prefill_chunk=PREFILL_CHUNK, **kw)
 

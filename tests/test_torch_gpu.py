@@ -830,3 +830,132 @@ def test_served_prefix_cache_goes_through_the_kernels(cuda_device, tmp_path, kv)
             assert srv._alloc.in_use == srv._radix.device_blocks
     want = streams["off", "auto"] if kv == "bf16" else streams["disk", "plain"]
     assert streams["disk", "auto"] == want
+
+
+# ---------------------------------------------- resilience on the card
+
+
+def _tiny_engine(dev, dtype=torch.float32):
+    cfg = tcfg.tiny_llama(head_dim=64, num_attention_heads=6, num_key_value_heads=2)
+    return Engine(cfg, tllama.init_params(cfg, seed=3, dtype=dtype, device=dev))
+
+
+_SERVE = dict(capacity=64, batch_per_slot=3, kv_block_size=8, kv_blocks=40, prefill_chunk=8)
+
+
+def _mid_decode(srv, prompts, max_new=12, steps=4, **kw):
+    reqs = [srv.submit(p, max_new, **kw) for p in prompts]
+    for _ in range(steps):
+        srv.step()
+    return reqs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+def test_snapshot_round_trip_is_byte_exact_on_the_card(cuda_device, kv):
+    """A snapshot of a bf16 engine's server mid-decode restored into a fresh
+    server: the held blocks' codes and scales, the key positions and the
+    tables are byte-identical to the original's on the card."""
+    from llm_sharding_tpu_torch.runtime.server import PipelineServer
+
+    eng = _tiny_engine(cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(5)
+    srv = eng.serve(kv_dtype=kv, **_SERVE)
+    _mid_decode(srv, [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20)])
+    held = sorted({b for lst in srv._row_blocks + srv._row_shared for b in lst})
+    assert held
+    snap = srv.snapshot()
+    srv2 = PipelineServer.restore(eng, snap)
+    before, after = srv._read_arena_blocks(held), srv2._read_arena_blocks(held)
+    assert len(before) == (2 if kv == "bf16" else 4)
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(before, after))
+    assert torch.equal(srv.state.kpos, srv2.state.kpos)
+    assert torch.equal(srv.state.block_tables, srv2.state.block_tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+def test_restore_mid_decode_is_token_identical_through_the_kernels(cuda_device, kv):
+    """Snapshot mid-decode (one-shot and chunked rows), drop the server,
+    restore: the streams equal the uninterrupted run's, and the restored
+    server decodes through the paged kernel."""
+    from llm_sharding_tpu_torch.runtime.server import PipelineServer
+
+    eng = _tiny_engine(cuda_device)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 12)]
+    full = eng.serve(kv_dtype=kv, **_SERVE)
+    want = _mid_decode(full, prompts)
+    full.run_until_idle()
+    srv = eng.serve(kv_dtype=kv, **_SERVE)
+    reqs = _mid_decode(srv, prompts)
+    assert all(r.tokens and not r.done for r in reqs)
+    snap = srv.snapshot()
+    srv.close()
+    del srv
+    torch.cuda.empty_cache()
+    srv2 = PipelineServer.restore(eng, snap)
+    got = {r.id: r for r in srv2._req if r is not None}
+    kernels.reset_launch_counts()
+    srv2.run_until_idle()
+    mode = "" if kv == "bf16" else f"[{kv}]"
+    assert kernels.launch_counts()["paged_attention" + mode] > 0
+    assert [got[r.id].tokens for r in reqs] == [w.tokens for w in want]
+    srv2._alloc.check()
+    assert srv2._alloc.in_use == 0
+
+
+@pytest.mark.cuda
+def test_sampled_extract_adopt_carries_the_cuda_generator(cuda_device):
+    """Sampled rows extracted mid-decode carry their CUDA generator's state
+    (host bytes: seed and offset) to a second server on the card, and
+    finish as the port's ``generate(seed=)`` on the card."""
+    eng = _tiny_engine(cuda_device)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20)]
+    kw = dict(temperature=0.8, top_k=20, seed=11)
+    sa, sb = eng.serve(**_SERVE), eng.serve(**_SERVE)
+    reqs = _mid_decode(sa, prompts, **kw)
+    for r in reqs:
+        assert r.tokens and not r.done
+        st = sa.extract(r)
+        assert st.rng_device == "cuda" and st.rng is not None
+        sb.adopt(st, r)
+    sb.run_until_idle()
+    for r, p in zip(reqs, prompts):
+        want = eng.generate_ids(p, 12, **kw)
+        assert r.tokens == want.tokens[0, len(p) : want.lengths[0]].tolist()
+    for s in (sa, sb):
+        s._alloc.check()
+        assert s._alloc.in_use == 0
+
+
+@pytest.mark.cuda
+def test_transient_faults_at_every_site_are_token_identical_on_the_card(cuda_device, tmp_path):
+    """A transient plan at all five sites gives the streams of the run
+    without faults, through the kernels, with every fault retried."""
+    from llm_sharding_tpu_torch.runtime.faults import FaultPlan, FaultSpec
+
+    eng = _tiny_engine(cuda_device)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 12)]
+    clean = eng.serve(**_SERVE)
+    want = _mid_decode(clean, prompts)
+    clean.run_until_idle()
+    plan = FaultPlan([
+        FaultSpec("admit_dispatch", "transient", at=(0,)),
+        FaultSpec("chunk_dispatch", "transient", at=(0, 2, 5)),
+        FaultSpec("log_fetch", "transient", at=(1, 4)),
+        FaultSpec("snapshot_write", "transient", at=(0,)),
+        FaultSpec("request_apply", "transient", at=(2,), key=0),
+    ])
+    srv = eng.serve(fault_plan=plan, fault_backoff_s=0.0, snapshot_every_s=1e9,
+                    snapshot_path=str(tmp_path / "snap"), **_SERVE)
+    srv._last_snapshot_at = -1e12
+    kernels.reset_launch_counts()
+    got = _mid_decode(srv, prompts)
+    srv.run_until_idle()
+    assert [r.tokens for r in got] == [w.tokens for w in want]
+    assert all(r.error is None for r in got) and srv.health == "SERVING"
+    assert plan.stats()["total_fires"] == 8
+    assert all(n > 0 for n in kernels.launch_counts().values())
