@@ -6,8 +6,8 @@
 
 The second form runs (a) and (b) only, bf16 queries, at the named
 models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
-``gemma_7b``), and prints the rows as one JSON line: run it in two trees
-in one call to compare their kernels.
+``gemma_7b``, ``llama2_7b``), and prints the rows as one JSON line: run
+it in two trees in one call to compare their kernels.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -27,7 +27,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     at S = C = 2048, bf16 only. A prefix-cache hit's shapes: flash at the
     3B's and gemma-2B's with S = 256 queries at positions 1024-1279 over
     C = 1280 keys; the 3B's chunked prefill of two rows at column 1024 over
-    16 shared blocks, in each KV mode. Time kernel, plain version and
+    16 shared blocks, in each KV mode. Llama-2-7B (G = 1, D = 128): decode
+    at 8 rows, chunked prefill at frontiers 256/2048, flash at S = C =
+    2048, bf16 only. Speculative decoding (K = 4): the paged verify's decode
+    at S = 5 over 8 rows of 100-2048 tokens, 3B and Llama-2-7B, in each KV
+    mode; speculative ``generate``'s verify, flash at S = 5 over 2048 + 5
+    columns (3B). Time kernel, plain version and
     (flash only) ``F.scaled_dot_product_attention`` with the equivalent
     boolean mask, a yardstick the port never calls;
 (c) f32 token checks: the served greedy streams, one-shot and chunked,
@@ -56,7 +61,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the card); a transient fault plan at all five sites (identical); a
     permanent ``request_apply`` fault (that request fails, the others hold);
     a snapshot with ``prefix_cache="hbm"`` whose restored tree a new request
-    hits;
+    hits. Speculation, 3B raw (the prompts above and two that repeat a
+    64-token passage): speculative ``generate`` (K = 2, 4; burst 1, 4)
+    against ``generate`` on the card and on the CPU, launching flash for
+    its verify; the speculative server (K = 3) against the non-speculative
+    one-shot server, ``generate`` and CPU ``generate``, and with int8 / fp8
+    arenas its kernels against its plain versions (gap < 1e-3); a stop
+    string (fake tokenizer) completing inside a verify run cuts it there;
+    kill and restore mid-decode and extract / adopt of two rows against the
+    uninterrupted run (gap rule: a revived row drafts afresh); sampled
+    rows reproduce by seed; at Llama-2-7B's width (4 layers, G = 1) the
+    speculative server and ``generate`` against the non-speculative
+    server and ``generate``;
 (d) write shard stores of seeded random full-depth weights with the
     port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
     quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
@@ -94,7 +110,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (``QueueFull``), a 50 ms deadline (``DeadlineExceeded``, blocks
     returned) and the health states SERVING, DEGRADED, SERVING, DRAINING;
     the registry's TTFT p50 / p99 beside the host clock's. gemma-2B serves
-    the shared-prefix workload warm;
+    the shared-prefix workload warm. The 3B and Llama-2-7B (full depth,
+    from a port-written bf16 store of ~13.5 GB, written once the earlier
+    stores are gone; it also serves the standard workload in the bf16
+    arena) serve ``smoke_workload.SPECULATIVE`` (the 8 prompts, each a
+    64-token passage repeated, one-shot admission, K = 4) in each arena,
+    beside the same one-shot server without speculation: every request
+    finishes, flash and the decode kernel launch and chunked prefill does
+    not; acceptance, tokens per verify step, decode tok/s, TTFT, launches
+    and the share of streams identical to the non-speculative run's are
+    printed, and in the bf16 arena a stream may first differ only at a near
+    tie (top-2 gap <= ``TIE_ULPS`` = 4 bf16 ulps of the top logit). The 3B
+    also runs
+    speculative ``generate`` (K = 4, 7 rows up to 1800 tokens, capacity
+    2048) beside ``generate``;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -204,10 +233,11 @@ def code_bytes(kv, dtype_bytes: int) -> int:
     return 1 if kv else dtype_bytes
 
 
-def decode_case(cfg, dtype, device, gen, kv=None, ctx=None, T=64):
+def decode_case(cfg, dtype, device, gen, kv=None, ctx=None, T=64, S=1):
     """Decode rows (default 8, contexts 100-2048), block size 64, table
     width ``T`` (64: capacity 4096) with the tail trash-mapped; trash
-    block 0 holds NaN/Inf (an Inf scale for a code arena)."""
+    block 0 holds NaN/Inf (an Inf scale for a code arena). ``S`` > 1 is a
+    paged verify: each row's last S context positions are its queries."""
     import torch
 
     BS = 64
@@ -227,8 +257,9 @@ def decode_case(cfg, dtype, device, gen, kv=None, ctx=None, T=64):
         tbl[b, : nblk[b]] = perm[j : j + nblk[b]]
         j += nblk[b]
         kvpos[b, :c] = np.arange(c)
-    q = torch.randn((B, 1, Nh, D), generator=gen, device=device).to(dtype)
-    qpos = torch.from_numpy((ctx - 1)[:, None].astype(np.int32)).to(device)
+    q = torch.randn((B, S, Nh, D), generator=gen, device=device).to(dtype)
+    qpos_np = (ctx[:, None] - S + np.arange(S)[None, :]).astype(np.int32)
+    qpos = torch.from_numpy(qpos_np).to(device)
     scales = {}
     if kv:
         k, ks, v, vs = quantize_arena(k, v, kv)
@@ -237,7 +268,7 @@ def decode_case(cfg, dtype, device, gen, kv=None, ctx=None, T=64):
     isz = q.element_size()
     nbytes = (2 * q.numel() * isz + 2 * int(ctx.sum()) * Nkv * D * code_bytes(kv, isz)
               + tbl.nbytes + kvpos.nbytes + (2 * sum(nblk) * Nkv * 4 if kv else 0))
-    flops = 4.0 * Nh * D * float(ctx.sum())
+    flops = 4.0 * Nh * D * float((qpos_np.astype(np.int64) + 1).sum())
     return args, scales, scales, nbytes, flops, None
 
 
@@ -312,6 +343,42 @@ def flash_case(cfg, dtype, device, gen, S, real=None):
     # yardstick: one library call computing the same function
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
     mask = (pos[0][None, :] <= pos[0][:, None])[None, None]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    return args, {}, {}, nbytes, flops, library
+
+
+def flash_verify_case(cfg, dtype, device, gen, K=4, cap=2048, B=8):
+    """Speculative ``generate``'s verify: B rows of S = K + 1 queries at
+    positions pos0 .. pos0 + K (pos0 100-2000) over a dense cache of cap +
+    K + 1 columns: the row's first pos0 columns written, the K + 1 scratch
+    columns at the top holding the in-flight entries, sentinel between.
+    The bound reads each row's visible columns once."""
+    import torch
+
+    Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    S, C = K + 1, cap + K + 1
+    pos0 = np.linspace(100, 2000, B).astype(int)
+    kvpos = np.full((B, C), SENTINEL, np.int32)
+    qpos = np.zeros((B, S), np.int32)
+    for b, p in enumerate(pos0):
+        kvpos[b, :p] = np.arange(p)
+        kvpos[b, cap:] = p + np.arange(S)
+        qpos[b] = p + np.arange(S)
+    q = torch.randn((B, S, Nh, D), generator=gen, device=device).to(dtype)
+    k = torch.randn((B, C, Nkv, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((B, C, Nkv, D), generator=gen, device=device).to(dtype)
+    qp, kp = torch.from_numpy(qpos).to(device), torch.from_numpy(kvpos).to(device)
+    args = (q, k, v, qp, kp)
+    isz = q.element_size()
+    visible = int((pos0 + S).sum())
+    nbytes = 2 * q.numel() * isz + 2 * visible * Nkv * D * isz + qpos.nbytes + kvpos.nbytes
+    flops = 4.0 * Nh * D * float((qpos.astype(np.int64) + 1).sum())  # query at p sees p + 1 keys
+    G = Nh // Nkv
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+    mask = (kp[:, None, :] <= qp[:, :, None])[:, None]
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -410,6 +477,32 @@ def prefix_kernel_cases(model: str) -> list:
     return cases
 
 
+def spec_kernel_cases(model: str) -> list:
+    """The [b] cases of speculative decoding at ``model``'s serving shapes
+    (``smoke_workload.SPECULATIVE``: K = 4, block size 64, capacity 4096):
+    the paged verify's decode at S = K + 1 = 5 over 8 rows of 100-2048
+    tokens in each KV mode, launches from the [d] ``SPECULATIVE`` run; for
+    the 3B also speculative ``generate``'s verify, flash at S = 5 over C =
+    2048 + 5, launches from the [d] speculative ``generate`` run. Each
+    tuple is ``kernel_cases``'s with the [d] workload appended."""
+    from llm_sharding_tpu_torch.ops import attention, flash_attention, paged_attention
+
+    dec = ("llm_sharding_tpu/ops/paged_attention.py:484", "llm_sharding_tpu_torch/csrc/paged_attention.cu")
+    fla = ("llm_sharding_tpu/ops/flash_attention.py:124", "llm_sharding_tpu_torch/csrc/flash_attention.cu")
+    tag = {"llama32_3b": "", "llama2_7b": "llama2-7b "}[model]
+    cases = []
+    for kv in (None, *KV_MODES):
+        mode = f"[{kv}]" if kv else ""
+        cases.append((f"paged_attention{mode}", f"{tag}verify S=5 B=8 ctx 100-2048",
+                      paged_attention.paged_attention, paged_attention.paged_attention_xla,
+                      lambda *a, kv=kv: decode_case(*a, kv=kv, S=5), *dec, "speculative"))
+    if model == "llama32_3b":
+        cases.append(("flash_attention", "verify S=5 B=8 C=2048+5 (spec generate)",
+                      flash_attention.flash_attention, attention.cached_attention,
+                      flash_verify_case, *fla, "spec_generate"))
+    return cases
+
+
 def kernel_cases(model: str) -> list:
     """``(name, shape label, kernel, plain version, case maker, TPU
     function, port source)`` of each [b] case at ``model``'s serving
@@ -422,6 +515,15 @@ def kernel_cases(model: str) -> list:
     pa, pp, xla = paged_attention.paged_attention, paged_attention.paged_prefill, paged_attention.paged_attention_xla
     fa, plain_fa = flash_attention.flash_attention, attention.cached_attention
     cases = []
+    if model == "llama2_7b":
+        # Llama-2-7B: 32 heads over 32 KV heads (G = 1), head dim 128; bf16 only
+        return [
+            ("paged_attention", "llama2-7b decode B=8 ctx 100-2048", pa, xla, decode_case, *dec),
+            ("paged_prefill", "llama2-7b chunk Sc=256 frontiers 256/2048", pp, xla,
+             prefill_case, *pre),
+            ("flash_attention", "llama2-7b S=C=2048 causal", fa, plain_fa,
+             lambda *a: flash_case(*a, S=2048), *fla),
+        ]
     if model == "gemma_7b":
         # gemma-7B: 16 heads over 16 KV heads (G = 1), head dim 256; bf16 only
         return [
@@ -490,20 +592,26 @@ def kernel_cases(model: str) -> list:
     ]
 
 
-def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefix=False) -> list:
+def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefix=False,
+                  spec=False) -> list:
     """Each kernel case of ``model`` against its plain version, with
     queries of each of ``dtypes``, timed; returns the tabled rows (bf16
     queries), tagged with the model and the [d] workload whose run counts
-    their launches. ``prefix``: the prefix-cache hit's cases."""
+    their launches. ``prefix``: the prefix-cache hit's cases; ``spec``:
+    speculative decoding's."""
     import torch
 
     from llm_sharding_tpu_torch.ops import paged_attention
 
     gen = torch.Generator(device=device).manual_seed(1234)
-    cases = prefix_kernel_cases(model) if prefix else kernel_cases(model)
-    workload = "shared_prefix" if prefix else "standard"
+    if spec:
+        cases = spec_kernel_cases(model)
+    else:
+        workload = "shared_prefix" if prefix else "standard"
+        cases = [(*c, workload) for c in (prefix_kernel_cases(model) if prefix
+                                          else kernel_cases(model))]
     rows = []
-    for name, label, fn, plain, make, replaces, source in cases:
+    for name, label, fn, plain, make, replaces, source, workload in cases:
         for dtype in (getattr(torch, d) for d in dtypes):
             dname = str(dtype).split(".")[-1]
             args, kw, plain_kw, nbytes, flops, library = make(cfg, dtype, device, gen)
@@ -571,37 +679,62 @@ def top2_gap(cfg, params, ids: np.ndarray) -> float:
 
 @contextlib.contextmanager
 def recorded_gaps(srv, tops=None):
-    """Record the top-2 logit gap of every token ``srv`` samples, per
+    """Record the top-2 logit gap of every token ``srv`` commits, per
     request id (the served run's own decision margins); with ``tops`` (a
-    dict) also the top logit of each."""
+    dict) also the top logit of each. A sampled token's margin is read
+    where it is sampled; a verify's committed run takes each position's
+    margin from that verify's logits."""
     import torch
 
     from llm_sharding_tpu_torch.parallel import serve as serve_ops
 
     gaps = collections.defaultdict(list)
-    sample = serve_ops._sample_rows
+    sample, fns, commit = serve_ops._sample_rows, serve_ops.model_fns, serve_ops.commit_verify
+    last = {}
+
+    def note(rid, top):
+        gaps[rid].append(float(top[0] - top[1]))
+        if tops is not None:
+            tops.setdefault(rid, []).append(float(top[0]))
 
     def recording(state, rows, logits):
         top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
         for i, r in enumerate(rows):
-            gaps[srv._req[r].id].append(float(top[i, 0] - top[i, 1]))
-            if tops is not None:
-                tops.setdefault(srv._req[r].id, []).append(float(top[i, 0]))
+            note(srv._req[r].id, top[i])
         return sample(state, rows, logits)
 
+    def fns_recording(cfg):
+        f = fns(cfg)
+
+        def final_logits(*a):
+            logits = f.final_logits(*a)
+            last["top"] = torch.topk(logits.float(), 2, dim=-1).values.cpu()
+            return logits
+
+        return f._replace(final_logits=final_logits)
+
+    def commit_recording(cfg, state, rows, log):
+        if state is srv.state:
+            for i, r in enumerate(rows):
+                for j in range(int((log[i] >= 0).sum())):
+                    note(srv._req[r].id, last["top"][i, j])
+        return commit(cfg, state, rows, log)
+
     serve_ops._sample_rows = recording
+    serve_ops.model_fns = fns_recording
+    serve_ops.commit_verify = commit_recording
     try:
         yield gaps
     finally:
-        serve_ops._sample_rows = sample
+        serve_ops._sample_rows, serve_ops.model_fns, serve_ops.commit_verify = sample, fns, commit
 
 
 def served_streams(eng, prompts, max_new: int, capacity: int = 2048, **serve_kw):
     """Staggered submits (the even-indexed prompts, two steps, then the
     odd-indexed ones) on a fresh server; returns each request's tokens and
     sampled-token gaps, in prompt order."""
-    srv = eng.serve(capacity=capacity, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
-                    prefill_chunk=256, **serve_kw)
+    srv = eng.serve(**{**dict(capacity=capacity, batch_per_slot=4, kv_block_size=64,
+                              kv_blocks=160, prefill_chunk=256), **serve_kw})
     order = [*range(0, len(prompts), 2), *range(1, len(prompts), 2)]
     first = (len(prompts) + 1) // 2
     with recorded_gaps(srv) as gaps:
@@ -757,9 +890,10 @@ def check_prefix_cache(tag: str, eng, cpu_eng, rng, pool_root: str) -> None:
 
 
 def resilience_server(eng, **kw):
-    """The [c] resilience checks' server: ``served_streams``'s shape."""
-    return eng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
-                     prefill_chunk=256, **kw)
+    """The [c] resilience checks' server: ``served_streams``'s shape
+    (``kw`` may override its options)."""
+    return eng.serve(**{**dict(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
+                               prefill_chunk=256), **kw})
 
 
 def step_until(srv, reqs, n: int) -> None:
@@ -923,6 +1057,205 @@ def check_resilience(tag: str, eng, cpu_eng, prompts, cpu_want) -> None:
     srv.close()
 
 
+class FakeTok:
+    """Renders id i as "<i>", so a stop string names tokens exactly."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def spec_streams(eng, prompts, max_new: int, speculate: int = 3, **serve_kw):
+    """``served_streams`` on a one-shot server (no ``prefill_chunk``, as
+    speculation requires) with ``speculate``: staggered submits; each
+    request's tokens and committed-token gaps, in prompt order."""
+    return served_streams(eng, prompts, max_new, speculate=speculate, prefill_chunk=None,
+                          **serve_kw)
+
+
+def spec_counters() -> tuple:
+    """The spec_* counters and the tokens-per-step histogram's sum and count."""
+    from llm_sharding_tpu_torch.runtime import spec
+
+    _, tsum, tcount = spec.M_SPEC_TOKENS_PER_STEP.labels().snap()
+    return spec.M_SPEC_DRAFTED.value, spec.M_SPEC_ACCEPTED.value, tsum, tcount
+
+
+def spec_rates(before: tuple) -> tuple:
+    """(acceptance rate, tokens committed per row per verify step) since
+    ``before`` (a ``spec_counters()``)."""
+    d, a, tsum, tcount = (x - y for x, y in zip(spec_counters(), before))
+    return (a / d if d else 0.0), (tsum / tcount if tcount else 0.0)
+
+
+def check_speculation(tag: str, eng, cpu_eng, prompts, cpu_want, rng) -> None:
+    """[c] speculative decoding on the 4-layer f32 3B. Speculative
+    ``generate`` (K = 2, 4; burst 1, 4) equals ``generate`` on the card and
+    on this machine's CPU (top-2 gap rule), and launches flash for its
+    verify; the speculative server's streams equal the non-speculative
+    server's and ``generate``'s (an f32 arena), and with int8 / fp8 arenas
+    the kernels' the plain versions' (gap < 1e-3); a stop string completing
+    inside a verify run cuts it there; kill and restore mid-decode, and
+    extract / adopt of two rows, give the uninterrupted streams; sampled
+    rows reproduce by seed. The prompts: ``prompts`` and two that repeat a
+    64-token passage (the drafter's traffic)."""
+    import torch
+
+    from llm_sharding_tpu_torch.ops import kernels as K
+    from llm_sharding_tpu_torch.parallel import serve as serve_ops
+
+    V = eng.cfg.vocab_size
+    passage = rng.integers(0, V, 64).astype(np.int32)
+    reps = [np.resize(passage, n) for n in (150, 600)]
+    max_new = 16
+    rep_cpu = []
+    for p in reps:
+        r = cpu_eng.generate_ids(p, max_new)
+        rep_cpu.append(r.tokens[0, len(p) : r.lengths[0]].tolist())
+    allp, cpu = list(prompts) + reps, list(cpu_want) + rep_cpu
+    card = []
+    for p in allp:
+        r = eng.generate_ids(p, max_new)
+        card.append(r.tokens[0, len(p) : r.lengths[0]].tolist())
+    hold_streams(f"{tag} generate on the card vs CPU", card, cpu, allp, cpu_eng)
+    for k in (2, 4):
+        for burst in (1, 4):
+            before = spec_counters()
+            K.reset_launch_counts()
+            got = []
+            for p in allp:
+                r = eng.generate_ids(p, max_new, speculate=k, spec_burst=burst)
+                got.append(r.tokens[0, len(p) : r.lengths[0]].tolist())
+            flash = K.launch_counts().get("flash_attention", 0)
+            require(flash > len(allp) * eng.cfg.num_hidden_layers,
+                    f"phase c {tag}: speculative generate's verify did not launch flash")
+            acc, per = spec_rates(before)
+            log(f"[c] {tag} speculative generate K={k} burst={burst}: acceptance {acc:.3f}, "
+                f"{per:.2f} tokens per verify step, flash launches {flash}")
+            hold_streams(f"{tag} spec generate K={k} burst={burst} vs generate", got, card, allp,
+                         eng)
+            hold_streams(f"{tag} spec generate K={k} burst={burst} vs CPU generate", got, cpu,
+                         allp, cpu_eng)
+    before = spec_counters()
+    K.reset_launch_counts()
+    spec, _ = spec_streams(eng, allp, max_new)
+    counts = K.launch_counts()
+    require(counts.get("paged_attention", 0) > 0 and counts.get("flash_attention", 0) > 0,
+            f"phase c {tag}: the speculative server did not launch decode and flash: {counts}")
+    acc, per = spec_rates(before)
+    log(f"[c] {tag} speculative server: acceptance {acc:.3f}, {per:.2f} tokens per verify step")
+    plain_srv, plain_gaps = spec_streams(eng, allp, max_new, speculate=0)
+    hold_streams(f"{tag} spec server vs non-spec server", spec, plain_srv, allp, None,
+                 gaps=plain_gaps)
+    hold_streams(f"{tag} spec server vs generate", spec, card, allp, eng)
+    hold_streams(f"{tag} spec server vs CPU generate", spec, cpu, allp, cpu_eng)
+    for kv in KV_MODES:
+        kernel, _ = spec_streams(eng, allp, max_new, kv_dtype=kv)
+        plain, gaps = spec_streams(eng, allp, max_new, kv_dtype=kv, paged_attn="plain")
+        hold_streams(f"{tag} {kv} spec server, kernels vs plain", kernel, plain, allp, None,
+                     limit=1e-3, gaps=gaps)
+    # a stop string completing inside a verify run, not at its end
+    srv = resilience_server(eng, prefill_chunk=None, speculate=3)
+    runs = []
+    commit = serve_ops.commit_verify
+
+    def recording(cfg, state, rows, lg):
+        runs.append(lg[0][lg[0] >= 0].tolist())
+        return commit(cfg, state, rows, lg)
+
+    serve_ops.commit_verify = recording
+    try:
+        full = srv.result(srv.submit(reps[1], 32))
+    finally:
+        serve_ops.commit_verify = commit
+    text = FakeTok().decode
+    stop, at = None, 1
+    for run in runs:
+        for i in range(at, at + len(run) - 1):
+            cand = next((text(full[max(i - m + 1, 0) : i + 1]) for m in range(1, 5)
+                         if text(full[max(i - m + 1, 0) : i + 1]) not in text(full[:i])), None)
+            if cand is not None:
+                stop, cut = cand, i + 1
+                break
+        if stop is not None:
+            break
+        at += len(run)
+    require(stop is not None, f"phase c {tag}: no multi-token verify run to stop inside")
+    eng.tokenizer = FakeTok()
+    try:
+        r = srv.submit(reps[1], 32, stop=[stop])
+        srv.run_until_idle()
+    finally:
+        eng.tokenizer = None
+    require(r.done and r.error is None and r.tokens == full[:cut],
+            f"phase c {tag}: the stop string did not cut the run at token {cut}")
+    log(f"[c] {tag}: stop string {stop!r} cut a verify run at token {cut} of {len(full)}")
+    srv._alloc.check()
+    require(srv._alloc.in_use == 0, f"phase c {tag}: KV blocks leaked")
+    # kill and restore, migration, sampled rows: the speculative server's.
+    # A revived or adopted row drafts at the full width again (a new
+    # AdaptiveK, as in the JAX package), so its verifies batch other
+    # positions than the uninterrupted run's: held by the gap rule
+    # (four prompts, one per row of the server, both repeated ones among them)
+    kw = dict(prefill_chunk=None, speculate=3)
+    sub = allp[-4:]
+    base, base_gaps = interrupted_run(eng, sub, max_new, gaps=True, **kw)
+    got = interrupted_run(eng, sub, max_new, restore_interrupt(eng), **kw)
+    hold_streams(f"{tag} restored spec server vs uninterrupted", got, base, sub, None,
+                 gaps=base_gaps)
+    got = interrupted_run(eng, sub[2:], max_new, migrate_interrupt(eng, **kw), **kw)
+    hold_streams(f"{tag} spec rows migrated vs uninterrupted", got, base[2:], sub[2:], None,
+                 gaps=base_gaps[2:])
+    sampling = {1: dict(temperature=0.8, seed=5, top_k=50), 3: dict(temperature=0.8, seed=6)}
+    s1 = interrupted_run(eng, sub, max_new, sampling=sampling, **kw)
+    s2 = interrupted_run(eng, sub, max_new, sampling=sampling, **kw)
+    require(s1 == s2, f"phase c {tag}: sampled speculative rows did not reproduce by seed")
+    hold_streams(f"{tag} greedy rows beside sampled ones", [s1[0], s1[2]], [base[0], base[2]],
+                 [sub[0], sub[2]], None, gaps=[base_gaps[0], base_gaps[2]])
+    log(f"[c] {tag}: speculative snapshot / restore and 2 migrated rows held to the "
+        f"uninterrupted run, sampled rows reproduced by seed")
+    torch.cuda.empty_cache()
+
+
+def check_speculation_7b(device) -> None:
+    """[c] the speculative paths at Llama-2-7B's width (G = 1: a verify
+    folds 5 rows per KV head into 2 decode CTAs of 4), 4 of its 32 layers,
+    f32: the speculative server (K = 4) against the non-speculative
+    one-shot server and ``generate`` on the card, speculative ``generate``
+    against ``generate`` (top-2 gap rule, < 1e-4)."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    cfg = dataclasses.replace(config.llama2_7b(), num_hidden_layers=4)
+    eng = Engine(cfg, llama.init_params(cfg, seed=10, dtype=torch.float32, device=device))
+    rng = np.random.default_rng(10)
+    passage = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (40, 700)]
+    prompts += [np.resize(passage, n) for n in (150, 600)]
+    max_new = 16
+    card = []
+    for p in prompts:
+        r = eng.generate_ids(p, max_new)
+        card.append(r.tokens[0, len(p) : r.lengths[0]].tolist())
+    before = spec_counters()
+    spec, _ = spec_streams(eng, prompts, max_new, speculate=4)
+    acc, per = spec_rates(before)
+    log(f"[c] llama2-7b width: speculative server acceptance {acc:.3f}, {per:.2f} tokens per "
+        f"verify step")
+    plain, gaps = spec_streams(eng, prompts, max_new, speculate=0)
+    hold_streams("llama2-7b width, spec server vs non-spec server", spec, plain, prompts, None,
+                 gaps=gaps)
+    hold_streams("llama2-7b width, spec server vs generate", spec, card, prompts, eng)
+    got = []
+    for p in prompts:
+        r = eng.generate_ids(p, max_new, speculate=4)
+        got.append(r.tokens[0, len(p) : r.lengths[0]].tolist())
+    hold_streams("llama2-7b width, spec generate vs generate", got, card, prompts, eng)
+    del eng
+    torch.cuda.empty_cache()
+
+
 def phase_token_check(device, store_root: str) -> None:
     """f32 token checks: Llama-3.2-3B at 4 layers (raw weights, then from
     an int8 store with the head quantized and from an int4 store, both
@@ -959,6 +1292,9 @@ def phase_token_check(device, store_root: str) -> None:
     t0 = time.perf_counter()
     check_resilience("3B", eng, cpu_eng, prompts, cpu_want)
     log(f"[c] 3B resilience checks took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    check_speculation("3B", eng, cpu_eng, prompts, cpu_want, rng)
+    log(f"[c] 3B speculation checks took {time.perf_counter() - t0:.1f}s")
     del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -999,6 +1335,7 @@ def phase_token_check(device, store_root: str) -> None:
     check_kernels_against_plain("gemma2b", meng, mprompts, mlens, max_new)
     del meng, cpu_params
     torch.cuda.empty_cache()
+    check_speculation_7b(device)
 
 
 # --------------------------------------------------------------- phase (d)
@@ -1406,6 +1743,164 @@ def resilience_serve_run(eng, pool_root: str) -> dict:
     return counts
 
 
+# [d] speculative vs non-speculative bf16 streams: the largest top-2 gap, in
+# bf16 ulps of the top logit, at which they may first differ. On an NVIDIA
+# H100 the 3B's first differences sat at 0-1 ulp, Llama-2-7B's (32 layers
+# of width 4096) at up to 3 (0.046875 at 3.83); the f32 checks of [c] hold
+# both models' speculative paths token-exact, so these are rounding, not
+# choices
+TIE_ULPS = 4
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7) if x else 2.0**-133
+
+
+def spec_serve_run(eng, model: str, tag: str, kv: str = "bf16") -> dict:
+    """``model``'s ``SPECULATIVE`` workload (``smoke_workload``): the
+    non-speculative one-shot server (``speculate=0``), then the speculative
+    one, each on a fresh server; in the bf16 arena each runs once more
+    before, with its committed tokens' top-2 gaps recorded (the recording
+    syncs every step, so those runs are not timed). Every request must
+    finish, the blocks drain, and each run launch flash (admissions) and
+    the decode kernel (decode steps, verifies) and no chunked prefill.
+    Prints acceptance, tokens per verify step, decode tok/s, TTFT, the
+    launches and the share of streams identical to the non-speculative
+    run's. In the bf16 arena a stream may first differ only at a near tie
+    of the non-speculative run: a top-2 gap of at most ``TIE_ULPS`` bf16
+    ulps of its top logit (the two runs round differently: a verify's
+    GEMMs take 5 rows a request, a decode step's 1). Returns the
+    speculative run's launch counts."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    cfg = eng.cfg
+    w = smoke_workload.SPECULATIVE[model]
+    prompts = smoke_workload.speculative_prompts(cfg.vocab_size, np.random.default_rng(0), w)
+    out, recorded = {}, {}
+    plan = [(0, False), (w.speculate, False)]
+    if kv == "bf16":
+        plan = [(0, True), (0, False), (w.speculate, True), (w.speculate, False)]
+    for k, record in plan:
+        srv = smoke_workload.serve(eng, model, speculative=True, kv_dtype=kv, speculate=k)
+        tops: dict = {}
+        before = spec_counters()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        ctx = recorded_gaps(srv, tops) if record else contextlib.nullcontext({})
+        t0 = time.perf_counter()
+        with ctx as gaps:
+            reqs = smoke_workload.submit_staggered(srv, prompts)
+            srv.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        for r in reqs:
+            require(r.done and r.error is None, f"phase d {tag}: request {r.id} did not finish")
+            require(len(r.tokens) == smoke_workload.MAX_NEW or r.tokens[-1] in cfg.eos_token_ids,
+                    f"phase d {tag}: request {r.id} produced {len(r.tokens)} tokens")
+            require(all(0 <= t < cfg.vocab_size for t in r.tokens), f"phase d {tag}: bad token")
+        srv._alloc.check()
+        require(srv._alloc.in_use == 0, f"phase d {tag}: {srv._alloc.in_use} KV blocks held")
+        mode = "" if kv == "bf16" else f"[{kv}]"
+        for name in ("flash_attention", f"paged_attention{mode}"):
+            require(counts.get(name, 0) > 0, f"phase d {tag}: {name} never launched (k={k})")
+        require(counts.get(f"paged_prefill{mode}", 0) == 0, f"phase d {tag}: a chunked admission ran")
+        ttft = np.array([r.first_token_at - r.submitted_at for r in reqs])
+        span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+        tok_s = sum(len(r.tokens) - 1 for r in reqs) / span
+        run = dict(tokens=[list(r.tokens) for r in reqs], ids=[r.id for r in reqs],
+                   counts=counts, gaps=gaps, tops=tops)
+        if record:
+            recorded[k] = run
+            del srv, reqs
+            continue
+        out[k] = run
+        name = f"speculate={k}" if k else "non-speculative"
+        extra = ""
+        if k:
+            acc, per = spec_rates(before)
+            extra = f"acceptance {acc:.3f}, {per:.2f} tokens per verify step, "
+        log(f"[d] {tag} {name}: {len(reqs)} requests in {wall:.2f}s, {extra}decode {tok_s:.1f} "
+            f"tok/s, TTFT p50 {np.percentile(ttft, 50) * 1e3:.0f} ms p99 "
+            f"{np.percentile(ttft, 99) * 1e3:.0f} ms; launches flash "
+            f"{counts.get('flash_attention', 0)}, decode {counts.get(f'paged_attention{mode}', 0)}")
+        del srv, reqs
+        torch.cuda.empty_cache()
+    base, spec = out[0], out[w.speculate]
+    same = sum(a == b for a, b in zip(spec["tokens"], base["tokens"]))
+    log(f"[d] {tag}: {same} of {len(prompts)} speculative streams identical to the "
+        f"non-speculative run's (token match {match_frac(spec['tokens'], base['tokens']):.3f})")
+    if kv == "bf16":
+        for k in recorded:
+            require(recorded[k]["tokens"] == out[k]["tokens"],
+                    f"phase d {tag}: the recorded and the timed run (k={k}) gave other streams")
+        rb, rs = recorded[0], recorded[w.speculate]
+        for i, (g, b) in enumerate(zip(spec["tokens"], base["tokens"])):
+            if g == b:
+                continue
+            j = next((j for j in range(min(len(g), len(b))) if g[j] != b[j]), None)
+            require(j is not None, f"phase d {tag}: stream {i} lengths differ at equal tokens")
+            gap, top = rb["gaps"][rb["ids"][i]][j], rb["tops"][rb["ids"][i]][j]
+            sgap, stop = rs["gaps"][rs["ids"][i]][j], rs["tops"][rs["ids"][i]][j]
+            ulp = bf16_ulp(top)
+            log(f"[d] {tag}: stream {i} first differs at token {j}: non-speculative top-2 gap "
+                f"{gap:.4g} ({gap / ulp:.0f} bf16 ulp) at top logit {top:.4g}; the speculative "
+                f"run's gap there {sgap:.4g}, its top logit {stop:.4g}")
+            require(gap <= TIE_ULPS * ulp,
+                    f"phase d {tag}: stream {i} differs at a gap of {gap} > {TIE_ULPS} bf16 ulp")
+    return spec["counts"]
+
+
+def spec_generate_run(eng, tag: str) -> dict:
+    """Speculative ``generate`` at full width: the 3B's ``SPECULATIVE``
+    prompts up to 1800 tokens, right-padded into one batch, capacity 2048,
+    K = 4, 64 new tokens, beside ``generate``; every verify runs flash at
+    S = 5 over 2048 + 5 columns. Prints tok/s and the token match (random
+    weights: printed, not gated; [c] gates the f32 tokens). Returns the
+    speculative run's launch counts."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    w = smoke_workload.SPECULATIVE["llama32_3b"]
+    prompts = [p for p in smoke_workload.speculative_prompts(
+        eng.cfg.vocab_size, np.random.default_rng(0), w) if len(p) <= 1800]
+    S = max(len(p) for p in prompts)
+    batch = np.zeros((len(prompts), S), np.int32)
+    for i, p in enumerate(prompts):
+        batch[i, : len(p)] = p
+    plen = np.array([len(p) for p in prompts])
+    res = {}
+    for k in (0, w.speculate):
+        before = spec_counters()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = eng.generate_ids(batch, smoke_workload.MAX_NEW, prompt_len=plen, capacity=2048,
+                             speculate=k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[k] = (r, K.launch_counts())
+        new = int((r.lengths - plen).sum())
+        extra = ""
+        if k:
+            acc, per = spec_rates(before)
+            extra = f", acceptance {acc:.3f}, {per:.2f} tokens per verify step"
+        log(f"[d] {tag} generate speculate={k}: {len(prompts)} rows, {new} tokens in {wall:.2f}s "
+            f"({new / wall:.1f} tok/s){extra}; flash launches {res[k][1].get('flash_attention', 0)}")
+    a, b = res[0][0], res[w.speculate][0]
+    toks = [b.tokens[i, plen[i] : b.lengths[i]].tolist() for i in range(len(prompts))]
+    ref = [a.tokens[i, plen[i] : a.lengths[i]].tolist() for i in range(len(prompts))]
+    log(f"[d] {tag}: speculative generate token match against generate {match_frac(toks, ref):.3f} "
+        f"(bf16, random weights: printed, not gated)")
+    return res[w.speculate][1]
+
+
 def load_store(store: str, tag: str, device, write_s: float):
     """``Engine.from_shards`` of a store, printing its bytes on disk, the
     weight bytes it made resident and the write and load seconds."""
@@ -1484,6 +1979,14 @@ def phase_serve(device, store_root: str) -> dict:
     t0 = time.perf_counter()
     resilience_serve_run(eng, store_root)
     log(f"[d] 3B resilience workload took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    log(f"[d] speculative workload on {smi}")
+    scounts = spec_serve_run(eng, "llama32_3b", "3B speculative, kv bf16")
+    for kv in KV_MODES:
+        kv_counts = spec_serve_run(eng, "llama32_3b", f"3B speculative, kv {kv}", kv)
+        scounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
+    gcounts_spec = spec_generate_run(eng, "3B")
+    log(f"[d] 3B speculative workloads took {time.perf_counter() - t0:.1f}s")
     del eng
     shutil.rmtree(stores["bf16"])
     torch.cuda.empty_cache()
@@ -1541,13 +2044,36 @@ def phase_serve(device, store_root: str) -> dict:
     del sparams
     torch.cuda.empty_cache()
     eng = load_store(sstore, "gemma7b bf16", device, time.perf_counter() - t0)
-    scounts, _ = serve_run(eng, "gemma_7b", "gemma7b bf16 weights, kv bf16")
+    s7counts, _ = serve_run(eng, "gemma_7b", "gemma7b bf16 weights, kv bf16")
     del eng
     shutil.rmtree(sstore)
     torch.cuda.empty_cache()
+
+    # Llama-2-7B (G = 1, D = 128) at full width and depth; its ~13.5 GB
+    # store is written once every earlier store is gone
+    lcfg = config.llama2_7b()
+    t0 = time.perf_counter()
+    lstore = os.path.join(store_root, "llama2_7b_bf16")
+    lparams = llama.init_params(lcfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(lcfg, lparams, lstore)
+    del lparams
+    torch.cuda.empty_cache()
+    eng = load_store(lstore, "llama2-7b bf16", device, time.perf_counter() - t0)
+    shutil.rmtree(lstore)
+    lcounts, _ = serve_run(eng, "llama2_7b", "llama2-7b bf16 weights, kv bf16")
+    t0 = time.perf_counter()
+    lscounts = spec_serve_run(eng, "llama2_7b", "llama2-7b speculative, kv bf16")
+    for kv in KV_MODES:
+        kv_counts = spec_serve_run(eng, "llama2_7b", f"llama2-7b speculative, kv {kv}", kv)
+        lscounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
+    log(f"[d] llama2-7b speculative workload took {time.perf_counter() - t0:.1f}s")
+    del eng
+    torch.cuda.empty_cache()
     return {"llama32_3b": counts, "gpt2_small": gcounts, "gemma_2b": mcounts,
-            "gemma_7b": scounts, "llama32_3b/shared_prefix": pcounts,
-            "gemma_2b/shared_prefix": mpcounts}
+            "gemma_7b": s7counts, "llama32_3b/shared_prefix": pcounts,
+            "gemma_2b/shared_prefix": mpcounts, "llama32_3b/speculative": scounts,
+            "llama32_3b/spec_generate": gcounts_spec, "llama2_7b": lcounts,
+            "llama2_7b/speculative": lscounts}
 
 
 def match_frac(tokens, base) -> float:
@@ -1589,6 +2115,9 @@ def main(argv: list) -> int:
         rows += [r for m in argv[1:] if m in ("llama32_3b", "gemma_2b")
                  for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",),
                                         prefix=True)]
+        rows += [r for m in argv[1:] if m in ("llama32_3b", "llama2_7b")
+                 for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",),
+                                        spec=True)]
         print(json.dumps({"kernels": rows}))
         return 0
 
@@ -1598,6 +2127,11 @@ def main(argv: list) -> int:
     rows += phase_kernels(config.gemma_7b(), device, "gemma_7b", dtypes=("bfloat16",))
     rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", prefix=True)
     rows += phase_kernels(config.gemma_2b(), device, "gemma_2b", prefix=True)
+    rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",))
+    rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=("bfloat16",),
+                          spec=True)
+    rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),
+                          spec=True)
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         phase_token_check(device, store)

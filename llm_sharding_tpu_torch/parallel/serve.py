@@ -3,7 +3,8 @@ of ``llm_sharding_tpu/parallel/serve.py`` (``ServeState`` ``:71-111``,
 ``prefix_prefill`` ``:345``, ``gather_prefix_kv`` ``:408``,
 ``write_arena_blocks`` / ``write_arena_blocks_q`` ``:465`` / ``:483``,
 ``serve_admit`` ``:542``, ``serve_prefill_chunk`` ``:861``,
-``serve_admit_finish`` ``:1074``, ``serve_chunk`` ``:1198``).
+``serve_admit_finish`` ``:1074``, ``serve_chunk`` ``:1198``, the paged
+branch of ``serve_verify`` ``:1490``).
 
 There is no mesh: with one stage the JAX package's ring degenerates to a
 plain pass over the layers, so the in-flight ring block, its validity bit
@@ -49,7 +50,7 @@ from ..models.cache import POS_SENTINEL, block_pool_shape, block_scale_shape, in
 from ..models.config import ModelConfig
 from ..ops.paged_attention import _bytes, _take, write_block_kv
 from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
-from ..ops.sampling import sample
+from ..ops.sampling import filter_rows, gumbel, sample
 from .pipeline import model_fns
 
 
@@ -522,6 +523,113 @@ def commit_tokens(cfg: ModelConfig, state: ServeState, rows: list, toks: np.ndar
         state.lengths[r] += 1
         state.done[r] = bool(stop[i]) or state.lengths[r] >= state.budget[r]
         state.tok[r] = toks[i]
+
+
+def serve_verify(
+    cfg: ModelConfig,
+    params: dict,
+    state: ServeState,
+    rows: list,
+    draft: np.ndarray,  # [n, K] right-padded n-gram drafts
+    draft_len: np.ndarray,  # [n] valid drafts per row
+    backend: str = "auto",  # ops/paged_attention.BACKENDS
+) -> torch.Tensor:
+    """Speculative verify of the live ``rows`` (the paged branch of JAX
+    ``serve_verify``, ``serve.py:1490``): one forward over each row's
+    pending token and its K drafts at positions ``pos_slots + i``, logits
+    at every position, a variable number of tokens committed per row.
+    Returns the ``[n, K+1]`` int32 commit log (-1 padded) on the device;
+    ``commit_verify`` applies it once it is read.
+
+    The K + 1 fresh entries are written by ``write_block_kv`` straight into
+    each row's columns ``write_off + i`` (no scratch: per-row columns suit
+    the block-indexed scatter); columns past the row's mapped blocks land
+    in trash block 0. Only positions the row can never commit go there
+    (``cap_commits`` bounds a run by the remaining budget), and no query
+    that can commit attends them. The queries see the in-flight entries
+    through a temporary ``kv_pos`` window, and the decode kernel runs at S =
+    K + 1 (``paged_attn_fn(prefill=False)``). Greedy rows accept by leading
+    match against the argmax, sampled rows by ``rejection_commit`` with
+    draws from the row's own generator, filtered per row by
+    ``filter_rows``. Rollback is a position rewind: ``kpos`` keeps each
+    row's accepted prefix and the sentinel past it, never a copy. Like
+    ``serve_step`` it writes the arena in place, so it must never be
+    dispatched twice."""
+    from ..runtime.spec import _leading_true_count, cap_commits, rejection_commit
+
+    dev = state.k.device
+    n, K = draft.shape
+    rows_t = torch.as_tensor(rows, device=dev)
+    iota = np.arange(K + 1)
+    pos = (state.pos_slots[rows][:, None] + iota).astype(np.int32)
+    W = state.kpos.shape[1]
+    cols = np.clip(state.write_off[rows][:, None] + iota, 0, W - 1)
+    pos_t = torch.from_numpy(pos).to(dev)
+    cols_t = torch.from_numpy(cols).to(dev)
+    toks = np.concatenate([state.tok[rows][:, None], draft], axis=1).astype(np.int32)
+    rowsel = torch.arange(n, device=dev)[:, None]
+    kv_pos = state.kpos[rows_t]
+    kv_pos[rowsel, cols_t] = pos_t  # the in-flight entries, this step only
+    fns = model_fns(cfg)
+    h = fns.embed(cfg, params, torch.from_numpy(toks).to(dev), pos_t)
+    h = fns.stage_paged(
+        cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
+        kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
+    )
+    logits = fns.final_logits(cfg, params, h).float()  # [n, K+1, V]
+
+    draft_t = torch.from_numpy(np.asarray(draft, np.int32)).to(dev)
+    valid = torch.from_numpy(iota[None, :K] < np.asarray(draft_len)[:, None]).to(dev)
+    choices = logits.argmax(dim=-1).to(torch.int32)
+    a = _leading_true_count((choices[:, :K] == draft_t) & valid)
+    commit = choices
+    samp = [i for i, r in enumerate(rows) if state.temp[r] > 0]
+    if samp:
+        sel = torch.as_tensor(samp, device=dev)
+        rs = [rows[i] for i in samp]
+        temp = torch.from_numpy(state.temp[rs]).to(dev)
+        scaled = filter_rows(
+            logits[sel] / temp[:, None, None], torch.from_numpy(state.topk[rs]),
+            torch.from_numpy(state.topp[rs]),
+        )
+        V = logits.shape[-1]
+        u = torch.stack([torch.rand(K, generator=state.rng[r], device=dev) for r in rs])
+        g = torch.stack([gumbel((K + 1, V), state.rng[r], dev) for r in rs])
+        a_s, commit_s = rejection_commit(scaled, draft_t[sel], valid[sel], u, g)
+        a = a.clone()
+        a[sel] = a_s.to(a.dtype)
+        commit = commit.clone()
+        commit[sel] = commit_s
+    budget_rem = torch.from_numpy(state.budget[rows] - state.lengths[rows]).to(dev)
+    done = torch.from_numpy(state.done[rows]).to(dev)
+    c, log, _ = cap_commits(cfg, commit, a, budget_rem, done)
+    iota_t = torch.arange(K + 1, device=dev)
+    kept = torch.where(iota_t[None, :] < c[:, None], pos_t, torch.full((), POS_SENTINEL,
+                                                                          dtype=torch.int32,
+                                                                          device=dev))
+    kv_pos[rowsel, cols_t] = kept
+    state.kpos[rows_t] = kv_pos
+    return log
+
+
+def commit_verify(cfg: ModelConfig, state: ServeState, rows: list, log: np.ndarray) -> None:
+    """Apply a ``serve_verify`` log read to the host: each row's committed
+    run (``c`` tokens) enters its ``out`` buffer, ``lengths``,
+    ``pos_slots`` and ``write_off`` advance by ``c``, the run's last token
+    becomes the row's pending token, and the row is done at a stop id in
+    the run or at its budget (``serve.py:1707-1802``)."""
+    for i, r in enumerate(rows):
+        run = log[i][log[i] >= 0]
+        c = int(run.shape[0])
+        if c == 0:
+            continue
+        n = int(state.lengths[r])
+        state.out[r, n : n + c] = run
+        state.lengths[r] += c
+        state.pos_slots[r] += c
+        state.write_off[r] += c
+        state.tok[r] = run[-1]
+        state.done[r] = bool(_stop_mask(cfg, run).any()) or state.lengths[r] >= state.budget[r]
 
 
 def serve_cancel_rows(state: ServeState, rows: list) -> None:

@@ -33,6 +33,10 @@ class Engine:
         # a quantized table's codes are int8: its scale carries the dtype
         self.device = base(params["embed"]).device
         self.cache_dtype = act_dtype(params["embed"])
+        #: decodes ids for a server's stop strings (``decode(ids,
+        #: skip_special_tokens=True)``, as a Hugging Face tokenizer); None: no
+        #: stop strings
+        self.tokenizer = None
 
     @classmethod
     def from_shards(
@@ -71,6 +75,8 @@ class Engine:
         retryable_exceptions: tuple = (),
         snapshot_every_s: Optional[float] = None,
         snapshot_path: Optional[str] = None,
+        speculate: int = 0,
+        spec_ngram: int = 3,
     ):
         """A paged continuous-batching server over ``batch_per_slot`` rows
         (``runtime/server.PipelineServer``). Paged KV is required here:
@@ -86,7 +92,10 @@ class Engine:
         injects faults, retried ``fault_retries`` times from
         ``fault_backoff_s`` (``retryable_exceptions``: real errors that may
         be retried where the operation can be issued again);
-        ``snapshot_every_s`` / ``snapshot_path`` arm auto-snapshots."""
+        ``snapshot_every_s`` / ``snapshot_path`` arm auto-snapshots.
+        ``speculate=K`` verifies up to K n-gram drafts per row per step
+        (``spec_ngram``: the longest suffix matched; not with
+        ``prefill_chunk``), as JAX ``runtime/engine.py:501-612``."""
         if kv_block_size is None and kv_blocks is None:
             raise NotPorted(
                 "dense serving (serve() without kv_block_size/kv_blocks) comes with "
@@ -109,5 +118,5 @@ class Engine:
             default_deadline_s=default_deadline_s, fault_plan=fault_plan,
             fault_retries=fault_retries, fault_backoff_s=fault_backoff_s,
             retryable_exceptions=retryable_exceptions, snapshot_every_s=snapshot_every_s,
-            snapshot_path=snapshot_path,
+            snapshot_path=snapshot_path, speculate=speculate, spec_ngram=spec_ngram,
         )

@@ -11,6 +11,9 @@ package's: ``tokens [B, S + max_new]`` (zeros after a row stops) and
 
 ``prompt_len + max_new_tokens`` must fit the cache capacity and the model's
 position limit; that is checked before any work (``generate.py:12-15``).
+
+``speculate=K`` switches to speculative decoding (``runtime/spec.py``,
+``generate.py:293-312``); ``speculate=0`` is the loop below, unchanged.
 """
 
 from __future__ import annotations
@@ -47,6 +50,23 @@ def validate_totals(cfg: ModelConfig, S: int, max_new_tokens: int, capacity: int
         )
 
 
+def prefill(cfg: ModelConfig, params: dict, prompt: np.ndarray, plen: np.ndarray,
+            cache: KVCache) -> tuple:
+    """Prefill the right-padded ``prompt [B, S]`` (real lengths ``plen``)
+    into ``cache`` from column 0, padding at the sentinel position; returns
+    the logits of each row's last real token ``[B, V]`` and the cache."""
+    device = cache.k.device
+    B, S = prompt.shape
+    idx = np.arange(S)[None, :]
+    positions = np.where(idx < plen[:, None], idx, POS_SENTINEL).astype(np.int32)
+    ids = torch.from_numpy(prompt).to(device)
+    logits, cache = model_fns(cfg).forward(
+        cfg, params, ids, cache, torch.from_numpy(positions).to(device)
+    )
+    rows = torch.arange(B, device=device)
+    return logits[rows, torch.from_numpy(plen - 1).to(device)], cache
+
+
 def generate(
     cfg: ModelConfig,
     params: dict,
@@ -59,9 +79,25 @@ def generate(
     top_k: int = 0,
     top_p: float = 1.0,
     seed: int = 0,
+    speculate: int = 0,
+    spec_ngram: int = 3,
+    spec_burst: int = 4,
 ) -> GenerateResult:
     """Runs on the device the weights live on; the KV cache takes the
-    weights' compute dtype (a quantized table's scale dtype)."""
+    weights' compute dtype (a quantized table's scale dtype).
+
+    ``speculate=K`` (K >= 1) verifies n-gram self-drafted tokens K + 1 at a
+    time per forward pass (``runtime/spec.spec_generate``); greedy output
+    equals this loop's. ``spec_ngram`` is the longest suffix the drafter
+    matches, ``spec_burst`` the verify steps dispatched per host read."""
+    if speculate:
+        from .spec import spec_generate
+
+        return spec_generate(
+            cfg, params, prompt_ids, max_new_tokens, speculate=speculate,
+            spec_ngram=spec_ngram, spec_burst=spec_burst, prompt_len=prompt_len,
+            capacity=capacity, temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+        )
     device = base(params["embed"]).device
     forward = model_fns(cfg).forward
     prompt = np.asarray(prompt_ids, np.int32)
@@ -81,12 +117,7 @@ def generate(
         return sample(logits, temperature, int(top_k), top_p, generator=gen)
 
     cache = init_cache(cfg, B, capacity, dtype=act_dtype(params["embed"]), device=device)
-    idx = np.arange(S)[None, :]
-    positions = np.where(idx < plen[:, None], idx, POS_SENTINEL).astype(np.int32)
-    ids = torch.from_numpy(prompt).to(device)
-    logits, cache = forward(cfg, params, ids, cache, torch.from_numpy(positions).to(device))
-    rows = torch.arange(B, device=device)
-    last = logits[rows, torch.from_numpy(plen - 1).to(device)]
+    last, cache = prefill(cfg, params, prompt, plen, cache)
     tok = pick(last)
 
     out = np.zeros((B, S + max_new_tokens), np.int32)

@@ -73,11 +73,28 @@ Resilience (``server.py:38-58``, ``:2941``, ``:3590-3860``):
   host-side ``RequestState`` and ``adopt`` re-admits it on another, the
   same ``Request`` object streaming on.
 
+Speculative decoding (``server.py:906-1006``, ``:4473-4607``):
+``speculate=K`` replaces each decode step by a verify of every live row
+(``_spec_step``): the host drafts up to K tokens per row by n-gram lookup
+over the row's prompt and generated ids (``runtime/spec.ngram_draft``,
+the width set by the request's ``AdaptiveK``), one forward verifies the
+pending token and the drafts through the decode kernel at S = K + 1
+(``parallel/serve.serve_verify``), and a variable number of tokens
+commits per row. Greedy rows stay token-identical to the non-speculative
+server. It is refused together with ``prefill_chunk``, so every admission
+is one-shot. The arena's block table covers ``capacity + K + 1`` columns.
+
+Stop strings (``server.py:3870-3910``): ``submit(stop=)`` takes strings,
+and needs the engine's ``tokenizer``; every committed token (admission,
+decode, each token of a verify run) decodes the generation and, on a hit,
+truncates it to the shortest prefix holding the stop and finishes the
+request.
+
 Requests and servers feed the port's metrics registry
 (``obs/metrics.REGISTRY``) under the JAX package's names.
 
-Not in this slice: dense serving, speculation, stop strings, embedding
-input, the async executor's ``settle``, spans and traces.
+Not in this slice: dense serving, embedding input, the async executor's
+``settle``, spans and traces.
 """
 
 from __future__ import annotations
@@ -110,6 +127,7 @@ from ..parallel import serve as serve_ops
 from .blocks import BlockAllocator
 from .faults import backoff_delays, is_transient
 from .radix import RadixCache
+from .spec import AdaptiveK, count_accepted, ngram_draft, observe
 
 logger = logging.getLogger(__name__)
 
@@ -523,7 +541,7 @@ class Request:
 
     def __init__(self, rid: int, prompt: np.ndarray, max_new: int, temperature: float,
                  seed: int, top_k: int, top_p: float, prefix: Optional[PrefixHandle] = None,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None, stop: tuple = ()):
         self.id = rid
         self.prompt = prompt  # with a handle: the suffix only
         self.prompt_len = int(prompt.shape[0])
@@ -533,6 +551,9 @@ class Request:
         self.top_k = top_k
         self.top_p = top_p
         self.prefix = prefix
+        self.stop = stop  # stop strings, checked on the decoded text
+        self.stop_checked = 0  # tokens already scanned for them
+        self.spec_k: Optional[AdaptiveK] = None  # set by a speculative server
         # a radix match taken (pinned) one step ahead of admission
         self.staged_radix = None
         self.tokens: list[int] = []
@@ -574,6 +595,7 @@ class RequestState:
     rng: Optional[np.ndarray]  # uint8 generator state, or None
     rng_device: Optional[str]
     prefix: Optional[PrefixHandle]  # the source server's handle
+    stop: tuple = ()  # the request's stop strings
 
 
 class PipelineServer:
@@ -602,6 +624,8 @@ class PipelineServer:
         retryable_exceptions: tuple = (),
         snapshot_every_s: Optional[float] = None,
         snapshot_path: Optional[str] = None,
+        speculate: int = 0,
+        spec_ngram: int = 3,
     ):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
@@ -628,6 +652,13 @@ class PipelineServer:
             raise ValueError(f"default_deadline_s must be > 0, got {default_deadline_s}")
         if fault_retries < 0:
             raise ValueError(f"fault_retries must be >= 0, got {fault_retries}")
+        if speculate < 0:
+            raise ValueError(f"speculate must be >= 0, got {speculate}")
+        if speculate and prefill_chunk is not None:
+            raise ValueError(
+                "speculate is incompatible with prefill_chunk (chunked admission "
+                "interleaves decode steps; the speculative step replaces them)"
+            )
         self.engine = engine
         self.cfg = engine.cfg
         self.params = engine.params
@@ -637,6 +668,11 @@ class PipelineServer:
         self.kv_block_size = int(kv_block_size)
         self.kv_blocks = int(kv_blocks)
         self.kv_dtype = kv_dtype
+        self.speculate = int(speculate)
+        self.spec_ngram = int(spec_ngram)
+        # K + 1 columns over the usable capacity: a verify's entries past a
+        # row's budget land in trash block 0 through these table entries
+        self._spec_cols = self.speculate + 1 if self.speculate else 0
         #: the arena's storage dtype (engine.cache_dtype stays the compute dtype)
         self.kv_store_dtype = kv_storage_dtype(kv_dtype, engine.cache_dtype)
         #: the requested paged attention path (a snapshot keeps the request)
@@ -659,7 +695,7 @@ class PipelineServer:
         # blocks pinned by live prefix handles: only release_prefix frees them
         self._handle_pins = 0
         self.state = serve_ops.make_state(
-            self.cfg, self.rows, capacity=self.capacity, kv_blocks=self.kv_blocks,
+            self.cfg, self.rows, capacity=self.capacity + self._spec_cols, kv_blocks=self.kv_blocks,
             kv_block_size=self.kv_block_size, dtype=engine.cache_dtype, device=engine.device,
             kv_dtype=kv_dtype,
         )
@@ -672,6 +708,8 @@ class PipelineServer:
         self._row_radix: list = [None] * self.rows  # each row's pinned RadixRef
         self._req: list[Optional[Request]] = [None] * self.rows
         self._admitting: set[int] = set()
+        # rows admitted one-shot in the current step (see _spec_step)
+        self._admitted_now: set[int] = set()
         self._queue: collections.deque[Request] = collections.deque()
         self._next_id = 0
         self._closed = False
@@ -724,6 +762,7 @@ class PipelineServer:
         top_p: float = 1.0,
         prefix: Optional[PrefixHandle] = None,
         deadline_s: Optional[float] = None,
+        stop=None,
     ) -> Request:
         """Enqueue a request; it is admitted by a later ``step``. Raises
         ``NeverFits`` for a request no amount of waiting could admit,
@@ -733,16 +772,21 @@ class PipelineServer:
         equals submitting ``prefix + suffix`` whole, and the admission is
         one-shot. ``deadline_s`` (default ``default_deadline_s``) bounds the
         request's life from now: past it the request fails with
-        ``DeadlineExceeded``."""
+        ``DeadlineExceeded``. ``stop`` (strings; the engine needs a
+        ``tokenizer``) finishes the request once its decoded text holds one
+        of them, the tokens cut to the shortest prefix that does."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         top_p = validate_top_p(top_p)
         deadline_s = self._resolve_deadline(deadline_s)
         bucket, chunked, spx = self._plan_request(prompt, max_new_tokens, prefix)
+        stop = self._validate_stop(stop)
         with self._mutex:
             self._check_admission()
             self._check_never_fits(bucket, max_new_tokens, spx, chunked)
             req = Request(self._new_id(), prompt, int(max_new_tokens), float(temperature),
-                          int(seed), int(top_k), top_p, prefix, deadline_s)
+                          int(seed), int(top_k), top_p, prefix, deadline_s, stop)
+            if self.speculate:
+                req.spec_k = AdaptiveK(self.speculate)
             self._queue.append(req)
             self._arm_deadline(req.deadline_at)
             self.counters.inc("requests_submitted")
@@ -821,12 +865,16 @@ class PipelineServer:
             if self._closed:
                 return False
             self._step_contained = False
+            self._admitted_now.clear()
             progressed = self._shed_expired()
             if self._queue and self._free_rows():
                 progressed |= self._admit_pending()
             live = self._live_rows()
             if live:
-                self._decode(live)
+                if self.speculate:
+                    self._spec_step(live)
+                else:
+                    self._decode(live)
                 progressed = True
             if self._radix is not None and self._queue:
                 self._stage_radix_plan()
@@ -1001,6 +1049,7 @@ class PipelineServer:
                     host_pool_blocks=self.host_pool_blocks, disk_pool_dir=self.disk_pool_dir,
                     disk_pool_blocks=self.disk_pool_blocks, max_queue=self.max_queue,
                     default_deadline_s=self.default_deadline_s,
+                    speculate=self.speculate, spec_ngram=self.spec_ngram,
                 ),
                 "arena_dtype": str(self.kv_store_dtype),
                 "rng_device": self.engine.device.type,
@@ -1037,6 +1086,13 @@ class PipelineServer:
             raise ValueError(
                 f"unknown snapshot format {snap.get('format')!r} (this package writes "
                 f"{SNAPSHOT_FORMAT}; it does not read the JAX package's snapshots)"
+            )
+        if engine.tokenizer is None and any(
+            d is not None and d.get("stop") for d in snap["rows"] + snap["queue"]
+        ):
+            # every committed token of such a request decodes its text
+            raise ValueError(
+                "snapshot carries requests with stop strings but the engine has no tokenizer"
             )
         srv = engine.serve(**snap["serve_kwargs"])
         st = srv.state
@@ -1156,6 +1212,7 @@ class PipelineServer:
         return RequestState(
             prompt=prompt, tail=tail, remaining=remaining, rng=rng,
             rng_device=None if rng is None else self.engine.device.type, prefix=req.prefix,
+            stop=tuple(req.stop),
         )
 
     def adopt(self, state: RequestState, req: Request, *,
@@ -1180,6 +1237,11 @@ class PipelineServer:
                 raise ServerClosed("server is closed; adopt rejected")
             if req.done:
                 raise ValueError(f"request {req.id} is already finished")
+            stop = tuple(state.stop)
+            if stop and self.engine.tokenizer is None:
+                raise ValueError(
+                    "request carries stop strings but this server's engine has no tokenizer"
+                )
             remaining = int(state.remaining)
             if remaining < 1:
                 # at its budget when extracted: complete, nothing to admit
@@ -1209,6 +1271,8 @@ class PipelineServer:
             req.carried_rng = None if state.rng is None else np.asarray(state.rng, np.uint8)
             req.row = None
             req.staged_radix = None
+            req.stop = stop
+            req.spec_k = AdaptiveK(self.speculate) if self.speculate else None
             self._queue.appendleft(req)
             self._arm_deadline(req.deadline_at)
             _update_load_gauges()
@@ -1227,6 +1291,39 @@ class PipelineServer:
             if b >= n and b <= self.capacity:
                 return b
         raise NeverFits(f"prompt length {n} exceeds admit buckets/capacity ({self.capacity})")
+
+    def _validate_stop(self, stop) -> tuple:
+        """Stop strings of a submit (``server.py:3870``): non-empty strings,
+        and an engine with a tokenizer to decode the generation."""
+        stop = tuple(stop or ())
+        if stop:
+            if any(not isinstance(x, str) or not x for x in stop):
+                raise ValueError("stop must be non-empty strings")
+            if self.engine.tokenizer is None:
+                raise ValueError(
+                    "stop sequences need a tokenizer (engine.tokenizer is None — set "
+                    "it on the engine)"
+                )
+        return stop
+
+    def _hit_stop(self, req: Request) -> bool:
+        """True if a stop string appears in the decoded generation
+        (``server.py:3883``); on a hit, ``req.tokens`` is cut to the shortest
+        prefix whose decoded text holds it (the triggering token kept, as
+        an EOS is). The whole generation is decoded each time, so a stop
+        spanning token boundaries is caught; ``stop_checked`` starts the
+        shortest-prefix scan past the prefixes already found clean."""
+        tok = self.engine.tokenizer
+        text = tok.decode(req.tokens, skip_special_tokens=True)
+        if not any(s in text for s in req.stop):
+            req.stop_checked = len(req.tokens)
+            return False
+        for n in range(req.stop_checked + 1, len(req.tokens) + 1):
+            t = tok.decode(req.tokens[:n], skip_special_tokens=True)
+            if any(s in t for s in req.stop):
+                del req.tokens[n:]
+                return True
+        return True
 
     def _chunked(self, bucket: int) -> bool:
         return self.prefill_chunk is not None and bucket > self.prefill_chunk
@@ -1367,7 +1464,7 @@ class PipelineServer:
             "id": r.id, "prompt": np.asarray(r.prompt, np.int32), "max_new": r.max_new,
             "temperature": r.temperature, "seed": r.seed, "top_k": r.top_k, "top_p": r.top_p,
             "tokens": [int(t) for t in r.tokens], "done": r.done, "row": r.row,
-            "baked": r.baked,
+            "baked": r.baked, "stop": list(r.stop), "stop_checked": r.stop_checked,
             "deadline_left": (None if r.deadline_at is None
                               else max(r.deadline_at - time.perf_counter(), 0.0)),
         }
@@ -1392,7 +1489,10 @@ class PipelineServer:
             prefix = PrefixHandle(None, int(d["prefix_n"]), int(d["spx"]))
         r = Request(int(d["id"]), np.asarray(d["prompt"], np.int32), int(d["max_new"]),
                     float(d["temperature"]), int(d["seed"]), int(d["top_k"]),
-                    float(d["top_p"]), prefix)
+                    float(d["top_p"]), prefix, stop=tuple(d.get("stop", ())))
+        r.stop_checked = int(d.get("stop_checked", 0))
+        if self.speculate:
+            r.spec_k = AdaptiveK(self.speculate)
         r.tokens = [int(t) for t in d["tokens"]]
         r.done = bool(d["done"])
         r.row = None if d["row"] is None else int(d["row"])
@@ -1865,6 +1965,7 @@ class PipelineServer:
             toks = self._read_tokens(tok0, rows)
             if toks is not None:
                 self._commit_tokens(rows, toks)
+                self._admitted_now.update(rows)
         return True
 
     def _admit_chunked(self, rows, prompts, plen, max_new, sampling, prefix_off: int = 0,
@@ -1899,37 +2000,97 @@ class PipelineServer:
                                      *sampling, rng_states=rng_states)
 
     def _decode(self, rows: list) -> None:
-        """One decode step of ``rows`` through the ``chunk_dispatch`` site
-        (injected faults retried; a failure past the retries fails these
-        rows), its tokens read through ``log_fetch`` and committed."""
+        """One decode step of ``rows``, its tokens committed."""
+        toks = self._step_rows(rows, lambda: serve_ops.serve_step(
+            self.cfg, self.params, self.state, rows, self.attn_backend))
+        if toks is not None:
+            self._commit_tokens(rows, toks)
+
+    def _step_rows(self, rows: list, program) -> Optional[np.ndarray]:
+        """Dispatch a step ``program`` of ``rows`` (a decode step or a
+        verify) through the ``chunk_dispatch`` site (injected faults
+        retried; a failure past the retries fails these rows) and read its
+        tokens through ``log_fetch``; None when either failed."""
         self._flush_tables()
 
         def dispatch():
             self._fault_check("chunk_dispatch")
-            return serve_ops.serve_step(self.cfg, self.params, self.state, rows,
-                                        self.attn_backend)
+            return program()
 
         try:
-            toks = self._retry("chunk_dispatch", dispatch, real_ok=False)
+            out = self._retry("chunk_dispatch", dispatch, real_ok=False)
         except Exception as e:  # noqa: BLE001 — contained to these rows
             self._contain_rows("chunk_dispatch", [(r, self._req[r]) for r in rows], e)
-            return
+            return None
         self.counters.inc("chunks")
-        host = self._read_tokens(toks, rows)
-        if host is not None:
-            self._commit_tokens(rows, host)
+        return self._read_tokens(out, rows)
+
+    def _spec_step(self, rows: list) -> None:
+        """One speculative round (``server.py:4473``): draft up to each
+        row's ``AdaptiveK`` width from its own ids (the prompt, with a
+        handle the suffix only, and the tokens not yet folded into it by a
+        migration), verify every live row in one ``serve_verify`` through
+        the ``chunk_dispatch`` site (injected faults retried; a failure past
+        the retries fails these rows), read the commit log through
+        ``log_fetch`` and replay it.
+
+        A row admitted in this step drafts from its prompt alone, without
+        the first token its admission just committed: the JAX server drafts
+        it in the same step while that token's read is still in flight
+        (``server.py:2253-2270``), and the port proposes the same drafts, so
+        both packages' ``spec_*`` counters agree. The verify itself feeds
+        that token, read from the row state."""
+        K = self.speculate
+        n = len(rows)
+        draft = np.zeros((n, K), np.int32)
+        draft_len = np.zeros(n, np.int32)
+        for i, row in enumerate(rows):
+            req = self._req[row]
+            seen = len(req.tokens) - (1 if row in self._admitted_now else 0)
+            ids = np.concatenate([np.asarray(req.prompt, np.int64),
+                                  np.asarray(req.tokens[req.baked : seen], np.int64)])
+            d = ngram_draft(ids, req.spec_k.k, self.spec_ngram)
+            draft[i, : d.shape[0]] = d
+            draft_len[i] = d.shape[0]
+        log = self._step_rows(rows, lambda: serve_ops.serve_verify(
+            self.cfg, self.params, self.state, rows, draft, draft_len, self.attn_backend))
+        if log is not None:
+            self._apply_spec(rows, log, draft, draft_len)
+
+    def _apply_spec(self, rows: list, log: np.ndarray, draft: np.ndarray,
+                    draft_len: np.ndarray) -> None:
+        """Replay one verify's ``[n, K+1]`` log (``server.py:4574``): the
+        state takes each row's whole run, then every token goes through the
+        same per-token commit as a decode step's, so a stop string that
+        hits mid-run cuts the run there. The row's ``AdaptiveK`` and the
+        spec metrics update from (drafted, accepted)."""
+        serve_ops.commit_verify(self.cfg, self.state, rows, log)
+        for i, row in enumerate(rows):
+            req = self._req[row]
+            committed = [int(t) for t in log[i] if t >= 0]
+            drafted = int(draft_len[i])
+            # the leading match, not len - 1: a run cut by an accepted stop
+            # id or the budget has no bonus token
+            accepted = count_accepted(committed, draft[i], drafted)
+            req.spec_k.update(drafted, accepted)
+            observe(drafted, accepted, len(committed))
+            for j, t in enumerate(committed):
+                if req.done or self._req[row] is not req:
+                    break  # a stop string or a containment ended it mid-run
+                self._commit(row, t, last=j == len(committed) - 1)
 
     def _commit_tokens(self, rows: list, toks: np.ndarray) -> None:
         serve_ops.commit_tokens(self.cfg, self.state, rows, toks)
         for row, t in zip(rows, toks):
             self._commit(row, int(t))
 
-    def _commit(self, row: int, t: int) -> None:
+    def _commit(self, row: int, t: int, last: bool = True) -> None:
         """One generated token → its request, through the ``request_apply``
         site keyed by the request id (a permanent fault there fails that
-        request only); the latency histograms; finish the row when the
-        state says it is done (its prompt blocks go into the prefix
-        cache)."""
+        request only); the latency histograms; the stop-string scan; finish
+        the row when the state says it is done at the ``last`` token of
+        the step's run, or at a stop string (its prompt blocks go into the
+        prefix cache)."""
         req = self._req[row]
         if self._fault_plan is not None:
             try:
@@ -1947,7 +2108,13 @@ class PipelineServer:
             _M_INTERTOKEN.observe(now - req.last_token_at)
         req.last_token_at = now
         self.counters.inc("tokens_generated")
-        if self.state.done[row]:
+        finished = last and bool(self.state.done[row])
+        if req.stop and self._hit_stop(req):
+            # the decoded text holds a stop string: the tokens are cut to it
+            # and the row stops
+            serve_ops.serve_cancel_rows(self.state, [row])
+            finished = True
+        if finished:
             req.done = True
             req.finished_at = now
             self._release(row, insert=True)

@@ -1,7 +1,8 @@
 """Where the time of the paged server goes on one GPU.
 
-    python -m llm_sharding_tpu_torch.serve_profile [--model llama32_3b|gemma_2b|gpt2_small]
+    python -m llm_sharding_tpu_torch.serve_profile [--model llama32_3b|gemma_2b|gpt2_small|...]
         [--weights bf16|int8|int4] [--kv-dtype bf16|int8|fp8] [--shared-prefix]
+        [--speculative K]
 
 Serves a workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8
 staggered requests, 4 short prompts and 4 long ones, 64 new tokens each)
@@ -22,7 +23,11 @@ whose instantiations name the code type, so the table splits by mode).
 (``smoke_workload.SHARED_PREFIX``) warm, with ``prefix_cache="hbm"``:
 before each of the two runs, outside its window, the tree is emptied and
 the primer run to idle, so only the prefix is cached and both runs admit
-alike.
+alike. ``--speculative K`` serves the model's speculative workload
+(``smoke_workload.SPECULATIVE``: one-shot admissions, every decode step a
+verify) with ``speculate=K``; K = 0 is the same one-shot server without
+speculation. Its decode-only steps are verifies. Every mode also prints
+the host operations that took the most CPU time in the profiled window.
 Needs a GPU; exits non-zero without one.
 """
 
@@ -103,9 +108,12 @@ def main(argv=None) -> int:
     ap.add_argument("--weights", choices=("bf16", "int8", "int4"), default="bf16")
     ap.add_argument("--kv-dtype", choices=KV_DTYPES, default="bf16")
     ap.add_argument("--shared-prefix", action="store_true")
+    ap.add_argument("--speculative", type=int, default=None, metavar="K")
     args = ap.parse_args(argv)
     if args.shared_prefix and args.model not in smoke_workload.SHARED_PREFIX:
         ap.error(f"--shared-prefix: no shared-prefix workload for {args.model}")
+    if args.speculative is not None and args.model not in smoke_workload.SPECULATIVE:
+        ap.error(f"--speculative: no speculative workload for {args.model}")
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
@@ -123,6 +131,8 @@ def main(argv=None) -> int:
         params = quantize_params(params, bits=8 if args.weights == "int8" else 4)
     eng = Engine(cfg, params)
     extra = dict(prefix_cache="hbm", shared_prefix=True) if args.shared_prefix else {}
+    if args.speculative is not None:
+        extra = dict(speculative=True, speculate=args.speculative)
     srv = smoke_workload.serve(eng, args.model, kv_dtype=args.kv_dtype, **extra)
     rng = np.random.default_rng(0)
     srv.result(srv.submit(rng.integers(0, cfg.vocab_size, 300).astype(np.int32), 8))
@@ -132,6 +142,9 @@ def main(argv=None) -> int:
         w = smoke_workload.SHARED_PREFIX[args.model]
         primer, prompts = smoke_workload.shared_prefix_prompts(cfg.vocab_size, rng, w)
         lens, prefix = w.suffixes, w.prefix
+    elif args.speculative is not None:
+        w = smoke_workload.SPECULATIVE[args.model]
+        prompts, lens = smoke_workload.speculative_prompts(cfg.vocab_size, rng, w), ()
     else:
         lens = smoke_workload.WORKLOADS[args.model].lens
         prompts = smoke_workload.prompts(cfg.vocab_size, rng, lens)
@@ -166,12 +179,15 @@ def main(argv=None) -> int:
 
     per_kernel = collections.Counter()
     calls = collections.Counter()
+    host = collections.Counter()
     for evt in prof.key_averages():
         # kernel events only: an aten op's device time repeats its kernels'
         us = _device_us(evt) if str(evt.device_type).endswith("CUDA") else 0.0
         if us > 0:
             per_kernel[evt.key] += us
             calls[evt.key] += evt.count
+        elif not str(evt.device_type).endswith("CUDA"):
+            host[evt.key] += evt.self_cpu_time_total
     busy_ms = sum(per_kernel.values()) / 1e3
     stats = srv.prefix_cache_stats()
     if stats is not None:
@@ -192,15 +208,20 @@ def main(argv=None) -> int:
     print("port kernels (all launches in the window):")
     for name, kv, ms, n in port:
         print(f"  {ms:9.2f} ms {n:7d}x  {name} [{kv}]")
+    print("host operations by self CPU time in the profiled window (top 10):")
+    for key, us in host.most_common(10):
+        print(f"  {us / 1e3:9.2f} ms  {key[:90]}")
     if decode_ms:
-        print(f"decode-only steps at {smoke_workload.ROWS} live rows: {len(decode_ms)}, wall ms p50 "
+        kind = "verify" if args.speculative else "decode-only"
+        print(f"{kind} steps at {smoke_workload.ROWS} live rows: {len(decode_ms)}, wall ms p50 "
               f"{np.percentile(decode_ms, 50):.2f} min {min(decode_ms):.2f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
     print(json.dumps({
         "model": args.model, "weights": args.weights, "kv_dtype": args.kv_dtype,
-        "shared_prefix": args.shared_prefix, "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms,
+        "shared_prefix": args.shared_prefix, "speculative": args.speculative,
+        "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "decode_step_ms_p50": float(np.percentile(decode_ms, 50)) if decode_ms else None,
         "top": [[k, us / 1e3, calls[k]] for k, us in per_kernel.most_common(15)],

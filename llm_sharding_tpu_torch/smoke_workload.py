@@ -31,6 +31,19 @@ a new process) or a drained replica (its live rows migrated) checkpoints
 and moves the arena it holds, so the arena is sized to what the workload
 maps at once (135 blocks: 2.19 GiB in bf16, about 1.09 GiB in int8 or fp8)
 rather than to the card. No admission waits for blocks.
+
+Llama-2-7B (``llama2_7b``) serves the 3B's 8 prompts over 320 blocks
+(10.7 GB in bf16: 32 KV heads of 128 over 32 layers take 33.5 MB a block),
+the blocks the workload maps at once (135) with room to spare.
+
+The speculative workload (``SPECULATIVE``, another entry of its own) is
+the traffic prompt-lookup drafting exists for: code edits and document
+QA, where the answer quotes the prompt. Each of the 3B's 8 standard prompt
+lengths is one seeded 64-token passage repeated up to that length. The
+server runs ``speculate=4``, ``spec_ngram=3`` and no ``prefill_chunk``
+(speculation refuses chunked admission), so every admission is one-shot
+through flash, up to S = 2048, and every decode step is a verify through
+the decode kernel at S = 5.
 """
 
 from __future__ import annotations
@@ -56,6 +69,7 @@ WORKLOADS = {
     "gpt2_small": Workload((20, 512, 90, 384, 150, 448, 200, 320), 1024, 256),
 }
 WORKLOADS["gemma_2b"] = WORKLOADS["gemma_7b"] = WORKLOADS["llama32_3b"]
+WORKLOADS["llama2_7b"] = Workload(WORKLOADS["llama32_3b"].lens, 4096, 320)
 LENS = WORKLOADS["llama32_3b"].lens
 
 
@@ -75,14 +89,37 @@ SHARED_PREFIX["gemma_2b"] = SHARED_PREFIX["llama32_3b"]
 RESILIENCE = {"llama32_3b": Workload(WORKLOADS["llama32_3b"].lens, 4096, 320)}
 
 
+class Speculative(NamedTuple):
+    lens: tuple  # prompt lengths, in submit order
+    passage: int  # tokens of the seeded passage each prompt repeats
+    capacity: int
+    kv_blocks: int
+    speculate: int  # K: drafts verified per row per step
+    spec_ngram: int  # the longest suffix the drafter matches
+
+
+SPECULATIVE = {
+    "llama32_3b": Speculative(LENS, 64, 4096, 1024, 4, 3),
+    "llama2_7b": Speculative(LENS, 64, 4096, 320, 4, 3),
+}
+
+
 def prompts(vocab_size: int, rng: np.random.Generator, lens=LENS) -> list:
     return [rng.integers(0, vocab_size, n).astype(np.int32) for n in lens]
 
 
-def serve(eng, model: str, shared_prefix: bool = False, resilience: bool = False, **kw):
+def serve(eng, model: str, shared_prefix: bool = False, resilience: bool = False,
+          speculative: bool = False, **kw):
     """A server for ``model``'s workload on ``eng`` (``kw``: e.g. kv_dtype,
     prefix_cache); ``shared_prefix`` picks its ``SHARED_PREFIX`` entry,
-    ``resilience`` its ``RESILIENCE`` one."""
+    ``resilience`` its ``RESILIENCE`` one, ``speculative`` its
+    ``SPECULATIVE`` one (``kw`` may set ``speculate=0``: the same one-shot
+    server without speculation)."""
+    if speculative:
+        w = SPECULATIVE[model]
+        kw = dict(dict(speculate=w.speculate, spec_ngram=w.spec_ngram), **kw)
+        return eng.serve(capacity=w.capacity, batch_per_slot=ROWS, kv_block_size=BLOCK_SIZE,
+                         kv_blocks=w.kv_blocks, **kw)
     w = (RESILIENCE if resilience else SHARED_PREFIX if shared_prefix else WORKLOADS)[model]
     return eng.serve(capacity=w.capacity, batch_per_slot=ROWS, kv_block_size=BLOCK_SIZE,
                      kv_blocks=w.kv_blocks, prefill_chunk=PREFILL_CHUNK, **kw)
@@ -97,6 +134,12 @@ def shared_prefix_prompts(vocab_size: int, rng: np.random.Generator, w: SharedPr
         return np.concatenate([prefix, rng.integers(0, vocab_size, n).astype(np.int32)])
 
     return tail(w.primer_tail), [tail(n) for n in w.suffixes]
+
+
+def speculative_prompts(vocab_size: int, rng: np.random.Generator, w: Speculative) -> list:
+    """One seeded ``w.passage``-token passage, repeated up to each length."""
+    passage = rng.integers(0, vocab_size, w.passage).astype(np.int32)
+    return [np.resize(passage, n) for n in w.lens]
 
 
 def submit_staggered(srv, prompts) -> list:

@@ -959,3 +959,109 @@ def test_transient_faults_at_every_site_are_token_identical_on_the_card(cuda_dev
     assert all(r.error is None for r in got) and srv.health == "SERVING"
     assert plan.stats()["total_fires"] == 8
     assert all(n > 0 for n in kernels.launch_counts().values())
+
+
+# ---------------------------------------- speculative decoding on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("K", [1, 4, 7])
+def test_decode_at_verify_width_matches_plain(cuda_device, K, G, kv):
+    """The decode kernel at a paged verify's S = K + 1 causal queries per
+    row (G·(K+1) folded rows per KV head: 2 to 64), 8 rows of 16-640
+    tokens, one row of exactly K + 1, against the plain version."""
+    S = K + 1
+    name = "paged_attention" + (f"[{kv}]" if kv else "")
+    args, sc = _decode_case(cuda_device, torch.bfloat16, 8, S, [16, 48, 640, S, 300, 16, 64, 640],
+                            kv, Nkv=2, G=G)
+    kernels.reset_launch_counts()
+    got = tpa.paged_attention(*args, **sc)
+    want = tpa.paged_attention_xla(*args, **sc)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == 1
+    _assert_close_rows(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("K", [1, 4, 7])
+def test_flash_at_verify_width_over_scratch_columns(cuda_device, K, D):
+    """bf16 flash at speculative ``generate``'s verify: S = K + 1 queries
+    per row at that row's own positions over a dense cache of capacity + K
+    + 1 columns, the scratch columns at the top holding the in-flight
+    entries and sentinel columns below them. The K + 1 real rows ride one
+    64-row tensor-core tile whose other rows the TMA fills with zeros and
+    the kernel never stores: with B = 3 rows back to back in ``out``, a
+    stored padding row of batch row b would land on row b + 1's outputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(50 + K)
+    B, cap, Nkv, G = 3, 300, 2, 3
+    S, C = K + 1, cap + K + 1
+    pos0 = [280, 17, 150]
+    kvpos = torch.full((B, C), POS_SENTINEL, dtype=torch.int32, device=cuda_device)
+    qpos = torch.zeros((B, S), dtype=torch.int32, device=cuda_device)
+    for b, p in enumerate(pos0):
+        kvpos[b, :p] = torch.arange(p)
+        kvpos[b, cap:] = p + torch.arange(S)
+        qpos[b] = p + torch.arange(S)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    args = (t(B, S, Nkv * G, D), t(B, C, Nkv, D), t(B, C, Nkv, D), qpos, kvpos)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention(*args)
+    want = tfa.cached_attention(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    _assert_close_rows(got, want, torch.bfloat16, step=D == 256)
+
+
+def _spec_prompts(eng):
+    rng = np.random.default_rng(9)
+    return [np.tile(rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32), r)
+            for n, r in ((3, 4), (5, 3), (20, 1))]
+
+
+@pytest.mark.cuda
+def test_speculative_server_equals_generate_on_the_card(cuda_device):
+    """An f32 engine's speculative server (K = 3, three rows) on the card:
+    every greedy stream equals ``generate``'s, the verify launches the
+    decode kernel and the admissions flash; speculative ``generate``
+    launches flash for its verify and gives the same tokens."""
+    eng = _tiny_engine(cuda_device)
+    prompts = _spec_prompts(eng)
+    srv = eng.serve(capacity=64, batch_per_slot=3, kv_block_size=8, kv_blocks=40, speculate=3)
+    kernels.reset_launch_counts()
+    reqs = [srv.submit(p, 16) for p in prompts]
+    srv.run_until_idle()
+    counts = kernels.launch_counts()
+    assert counts["paged_attention"] > 0 and counts["flash_attention"] > 0
+    assert counts.get("paged_prefill", 0) == 0  # speculation admits one-shot only
+    for r, p in zip(reqs, prompts):
+        want = eng.generate_ids(p, 16)
+        assert r.tokens == want.tokens[0, len(p) : want.lengths[0]].tolist()
+        kernels.reset_launch_counts()
+        spec = eng.generate_ids(p, 16, speculate=3)
+        assert kernels.launch_counts()["flash_attention"] > 0
+        np.testing.assert_array_equal(spec.tokens, want.tokens)
+    srv._alloc.check()
+    assert srv._alloc.in_use == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_speculative_server_verifies_through_the_quantized_kernel(cuda_device, kv):
+    """With an int8 / fp8 arena the verify runs the decode kernel's code
+    mode (the quantizing write included) and every request finishes."""
+    eng = _tiny_engine(cuda_device)
+    srv = eng.serve(capacity=64, batch_per_slot=3, kv_block_size=8, kv_blocks=40, speculate=3,
+                    kv_dtype=kv)
+    kernels.reset_launch_counts()
+    reqs = [srv.submit(p, 16) for p in _spec_prompts(eng)]
+    srv.run_until_idle()
+    assert kernels.launch_counts()[f"paged_attention[{kv}]"] > 0
+    assert all(r.done and r.error is None and r.tokens for r in reqs)
+    srv._alloc.check()
+    assert srv._alloc.in_use == 0
