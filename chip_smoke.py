@@ -72,7 +72,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     uninterrupted run (gap rule: a revived row drafts afresh); sampled
     rows reproduce by seed; at Llama-2-7B's width (4 layers, G = 1) the
     speculative server and ``generate`` against the non-speculative
-    server and ``generate``;
+    server and ``generate``. Observability, 3B raw: the served streams
+    with a ``trace_path`` and a 4-step ``stepline_capture(trace_dir=)``
+    armed (``torch.profiler`` with CUDA activity brackets the window)
+    must be identical to the streams without, the capture's Chrome trace
+    must hold kernels, every request one span tree without orphans, and
+    every step must account (``sum(phases) + blocked + unattributed ==
+    wall``, a device wait on each step that read tokens);
 (d) write shard stores of seeded random full-depth weights with the
     port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
     quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
@@ -123,7 +129,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     tie (top-2 gap <= ``TIE_ULPS`` = 4 bf16 ulps of the top logit). The 3B
     also runs
     speculative ``generate`` (K = 4, 7 rows up to 1800 tokens, capacity
-    2048) beside ``generate``;
+    2048) beside ``generate``. Observability, full 3B, bf16 arena: the
+    standard workload traced, stepped by a pump thread, with a
+    ``MetricsServer`` on 127.0.0.1 scraped during the run (``/metrics``
+    with the step families, ``/statz``, ``/debugz``, ``/healthz``,
+    ``/profilez`` and an 8-step ``/profilez`` capture); ``trace-report``
+    over its span file must give 8 trees without orphans, each root
+    holding ``prefill`` and ``decode``; every step must account as in
+    [c], all three kernels launch, and the step-phase table is printed;
+    then the workload served with tracing off, on, on, off (the flight
+    recorder disabled and no span file when off), the on / off decode
+    tok/s ratio printed;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -797,6 +813,141 @@ def check_kernels_against_plain(tag: str, eng, prompts, lens, max_new: int) -> N
             require(gap < 1e-3, f"phase c {tag} {kv}: kernel tokens differ from plain (gap {gap})")
 
 
+# ------------------------------------------------- observability ([c], [d])
+
+class Pump:
+    """A step pump on a thread of its own, as a daemon runs one: steps the
+    server until stopped, sleeping a millisecond when it is idle."""
+
+    def __init__(self, srv):
+        import threading
+
+        self.srv, self.stop = srv, threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.error = None
+
+    def _run(self):
+        try:
+            while not self.stop.is_set():
+                if not self.srv.step():
+                    time.sleep(0.001)
+        except BaseException as e:  # noqa: BLE001 — re-raised by __exit__
+            self.error = e
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=120)
+        require(not self.thread.is_alive(), "the step pump did not stop")
+        if self.error is not None:
+            raise self.error
+
+
+def wait_done(reqs, tag: str, timeout_s: float = 300.0) -> None:
+    t0 = time.perf_counter()
+    while not all(r.done for r in reqs):
+        require(time.perf_counter() - t0 < timeout_s, f"{tag}: requests did not finish")
+        time.sleep(0.005)
+    for r in reqs:
+        require(r.error is None, f"{tag}: request {r.id} failed: {r.error!r}")
+
+
+def check_step_records(tag: str, recs: list) -> None:
+    """The stepline invariant on every card step (``sum(phases) + blocked
+    + unattributed == wall``), a device wait (``blocked_s > 0``: the
+    program's CUDA event) on every step that read tokens, and the
+    unattributed share under 5 % of the wall."""
+    require(bool(recs), f"{tag}: no step records")
+    for r in recs:
+        host = sum(r["phases"].values())
+        resid = abs(r["wall_s"] - (host + r["blocked_s"] + r["unattributed_s"]))
+        require(resid < 1e-9, f"{tag}: step accounting off by {resid} s")
+        require("fetch" not in r["phases"] or r["blocked_s"] > 0.0,
+                f"{tag}: a step read tokens without a device wait: {r}")
+    wall = sum(r["wall_s"] for r in recs)
+    unatt = sum(r["unattributed_s"] for r in recs)
+    require(unatt < 0.05 * wall, f"{tag}: unattributed {unatt / wall:.1%} of the step wall")
+
+
+def check_trace_trees(tag: str, paths: list, reqs: list, children=("prefill", "decode")) -> int:
+    """One tree per request in the merged span files: its ``request`` root
+    (the request's own span id), no orphan, ``children`` under the root.
+    Returns the number of traces in the files."""
+    from llm_sharding_tpu_torch.obs.report import build_traces, load_events
+
+    traces = build_traces(load_events(paths))
+    for r in reqs:
+        tr = traces.get(r.trace.trace_id)
+        require(tr is not None, f"{tag}: request {r.id} left no trace")
+        require(tr.root["span"] == "request" and tr.root["span_id"] == r.trace.span_id,
+                f"{tag}: request {r.id}'s tree has root {tr.root}")
+        require(tr.orphans() == [], f"{tag}: request {r.id} has orphan spans {tr.orphans()}")
+        kids = {e["span"] for e in tr.children_of(r.trace.span_id)}
+        require(set(children) <= kids, f"{tag}: request {r.id}'s root holds only {sorted(kids)}")
+    return len(traces)
+
+
+def check_observability(tag: str, eng, prompts, lens, max_new: int, trace_root: str) -> None:
+    """[c] The served streams of ``served_streams``' schedule with a
+    ``trace_path`` and a deep capture armed (``stepline_capture(4,
+    trace_dir=)`` on a second thread: ``torch.profiler`` with CUDA
+    activity brackets the window) must be identical to the streams
+    without; the capture is complete and its Chrome trace holds kernels;
+    each request gives one tree; every step accounts."""
+    import threading
+
+    base, _ = served_streams(eng, prompts, max_new)
+    path = os.path.join(trace_root, "c_trace.jsonl")
+    srv = eng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
+                    prefill_chunk=256, trace_path=path)
+    order = [*range(0, len(prompts), 2), *range(1, len(prompts), 2)]
+    first = (len(prompts) + 1) // 2
+    out = {}
+
+    def drive():
+        """``served_streams``' schedule, once the capture is armed: the
+        window is steps 1-4."""
+        try:
+            t0 = time.perf_counter()
+            while not srv.stepline.armed:
+                require(time.perf_counter() - t0 < 60, f"phase c {tag}: capture not armed")
+                time.sleep(0.001)
+            reqs = [srv.submit(prompts[i], max_new) for i in order[:first]]
+            srv.step()
+            srv.step()
+            reqs += [srv.submit(prompts[i], max_new) for i in order[first:]]
+            srv.run_until_idle()
+            out["reqs"] = reqs
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=drive)
+    t.start()
+    # the profiler starts and stops on this thread; the steps run on the other
+    bundle = srv.stepline_capture(4, wait_s=300, trace_dir=os.path.join(trace_root, "c_prof"))
+    t.join(timeout=600)
+    require(not t.is_alive(), f"phase c {tag}: the serving thread did not return")
+    if "error" in out:
+        raise out["error"]
+    srv.close()
+    reqs = out["reqs"]
+    by_prompt = dict(zip(order, reqs))
+    got = [by_prompt[i].tokens for i in range(len(prompts))]
+    require(got == base, f"phase c {tag}: traced and captured streams differ from the plain run")
+    require(bundle["complete"] and bundle["steps_captured"] == 4,
+            f"phase c {tag}: capture incomplete: {bundle['steps_captured']} steps")
+    with open(bundle["device_trace"]) as fh:
+        kernels = sum(1 for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel")
+    require(kernels > 0, f"phase c {tag}: the capture's trace holds no CUDA kernel")
+    check_step_records(f"phase c {tag}", srv.stepline_snapshot())
+    check_trace_trees(f"phase c {tag}", [path], reqs)
+    log(f"[c] {tag}: traced streams with a 4-step capture armed identical to the plain run's; "
+        f"the capture's trace holds {kernels} kernel events; {len(reqs)} trees, no orphans")
+
+
 def to_device(tree, device):
     """A params tree (dicts, lists, tensors) copied to ``device``."""
     if isinstance(tree, dict):
@@ -1283,6 +1434,9 @@ def phase_token_check(device, store_root: str) -> None:
     max_new = 16
     check_against_generate("3B", eng, prompts, lens, max_new)
     t0 = time.perf_counter()
+    check_observability("3B", eng, prompts, lens, max_new, store_root)
+    log(f"[c] 3B observability checks took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     cpu_want = check_against_generate("3B vs CPU", eng, prompts, lens, max_new, oracle=cpu_eng)
     log(f"[c] 3B: CPU generate reference took {time.perf_counter() - t0:.1f}s")
     check_kernels_against_plain("3B", eng, prompts, lens, max_new)
@@ -1390,6 +1544,136 @@ def serve_run(eng, model: str, tag: str, kv: str = "bf16") -> tuple[dict, list]:
     del srv, reqs
     torch.cuda.empty_cache()
     return counts, tokens
+
+
+def http_get(port: int, path: str) -> tuple:
+    """``(status, body)`` of a GET on the local exposition; an HTTP error
+    status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def obs_serve_run(eng, trace_root: str, smi: str) -> dict:
+    """[d] The 3B standard workload (bf16 arena) traced, with a step pump
+    thread and a ``MetricsServer`` on 127.0.0.1 scraped during the run:
+    every endpoint answers, ``/metrics`` carries the step families, an
+    8-step ``/profilez`` capture completes; ``trace-report`` over the
+    span file gives 8 trees without orphans, each root holding
+    ``prefill`` and ``decode``; every step accounts and waited on the
+    device where it read tokens; all three kernels launched. Prints the
+    step-phase table."""
+    import contextlib
+    import io
+
+    import torch
+
+    from llm_sharding_tpu_torch import cli, smoke_workload
+    from llm_sharding_tpu_torch.obs import MetricsServer
+    from llm_sharding_tpu_torch.obs.report import step_phase_table, step_summary
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    tag = "phase d 3B observability"
+    path = os.path.join(trace_root, "d_trace.jsonl")
+    srv = smoke_workload.serve(eng, "llama32_3b", trace_path=path)
+    ms = MetricsServer(port=0, statz_extra={"counters": srv.counters.snapshot},
+                       health_provider=lambda: srv.health)
+    ms.set_profilez_provider(lambda steps, wait_s: (
+        srv.stepline_capture(steps, wait_s) if steps is not None
+        else {"stepline": srv.stepline_stats(), "steps": srv.stepline_snapshot(64)}))
+    port = ms.start()
+    prompts = smoke_workload.prompts(eng.cfg.vocab_size, np.random.default_rng(0),
+                                     smoke_workload.WORKLOADS["llama32_3b"].lens)
+    answers = {}
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with Pump(srv):
+            reqs = [srv.submit(p, smoke_workload.MAX_NEW) for p in prompts[:2]]
+            code, body = http_get(port, "/profilez?steps=8&wait_s=120")
+            bundle = json.loads(body)
+            require(code == 200 and bundle["complete"] and bundle["steps_captured"] == 8,
+                    f"{tag}: /profilez capture {code} {body[:300]!r}")
+            reqs += [srv.submit(p, smoke_workload.MAX_NEW) for p in prompts[2:]]
+            for ep in ("/metrics", "/statz", "/debugz", "/healthz", "/profilez"):
+                answers[ep] = http_get(port, ep)
+            wait_done(reqs, tag)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        for ep, (code, body) in answers.items():
+            require(code == 200, f"{tag}: {ep} answered {code}")
+        text = answers["/metrics"][1].decode()
+        for fam in ("server_step_phase_seconds", "server_host_occupancy"):
+            require(f"# TYPE {fam}" in text, f"{tag}: /metrics lacks {fam}")
+        require(answers["/healthz"][1] == b"ok\n", f"{tag}: /healthz {answers['/healthz']}")
+        dbg = json.loads(answers["/debugz"][1])
+        require(dbg["recent_spans"] and dbg["recent_steps"], f"{tag}: /debugz bundle empty")
+    finally:
+        ms.stop()
+        srv.close()
+    check_step_records(tag, bundle["steps"])
+    recs = srv.stepline_snapshot()
+    check_step_records(tag, recs)
+    require(any("fetch" in r["phases"] for r in recs), f"{tag}: no step read tokens")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        require(cli.main(["trace-report", "--json", path]) == 0, f"{tag}: trace-report failed")
+    report = json.loads(out.getvalue())
+    require(report["traces"] == len(reqs) == 8, f"{tag}: trace-report found {report['traces']}")
+    require(all(t["orphans"] == 0 for t in report["slowest"]), f"{tag}: orphans {report}")
+    check_trace_trees(tag, [path], reqs)
+    for name in ("flash_attention", "paged_attention", "paged_prefill"):
+        require(counts.get(name, 0) > 0, f"{tag}: kernel {name} never launched")
+    summ = step_summary(recs)
+    log(f"[d] 3B observability: {len(reqs)} requests in {wall:.2f}s through a pump thread, "
+        f"5 endpoints answered, an 8-step /profilez capture, {report['traces']} trees without "
+        f"orphans; launches {counts}; on {smi}")
+    log(f"[d] 3B standard step profile ({summ['steps']} steps, {summ['wall_s']:.3f}s wall): "
+        f"host occupancy {summ['host_occupancy']:.3f}, blocked {summ['blocked_frac']:.3f}, "
+        f"device idle {summ['device_idle_frac']:.3f}, unattributed "
+        f"{summ['unattributed_frac']:.4f}")
+    for r in step_phase_table(recs):
+        log(f"[d]   {r['phase']:<13} {r['count']:5d} steps  p50 {r['p50_ms']:8.3f} ms  "
+            f"p99 {r['p99_ms']:8.3f} ms  total {r['total_s']:7.3f} s  {r['wall_pct']:5.1f}% of wall")
+
+
+def trace_overhead_run(eng, trace_root: str, smi: str) -> None:
+    """[d] The 3B standard workload served four times in turns, tracing
+    off (the flight recorder disabled, no ``trace_path``), on (the
+    recorder and a span file), on, off; prints each run's decode tok/s and
+    the on / off ratio of their sums (printed, not gated: the served host
+    wall moves tens of percent between runs)."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.obs import FLIGHT_RECORDER
+
+    prompts = smoke_workload.prompts(eng.cfg.vocab_size, np.random.default_rng(0),
+                                     smoke_workload.WORKLOADS["llama32_3b"].lens)
+    rates = {"on": [], "off": []}
+    try:
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            FLIGHT_RECORDER.set_enabled(mode == "on")
+            path = os.path.join(trace_root, f"overhead_{i}.jsonl") if mode == "on" else None
+            srv = smoke_workload.serve(eng, "llama32_3b", trace_path=path)
+            torch.cuda.synchronize()
+            reqs = smoke_workload.submit_staggered(srv, prompts)
+            srv.run_until_idle()
+            torch.cuda.synchronize()
+            srv.close()
+            span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+            rates[mode].append(sum(len(r.tokens) - 1 for r in reqs) / span)
+    finally:
+        FLIGHT_RECORDER.set_enabled(True)
+    log(f"[d] 3B tracing overhead on {smi}: decode tok/s off {rates['off'][0]:.1f} / "
+        f"{rates['off'][1]:.1f}, on {rates['on'][0]:.1f} / {rates['on'][1]:.1f}; on / off "
+        f"{sum(rates['on']) / sum(rates['off']):.4f} (printed, not gated)")
 
 
 def prefix_serve_run(eng, model: str, tag: str, cache: str = "hbm", kv: str = "bf16"):
@@ -1953,6 +2237,12 @@ def phase_serve(device, store_root: str) -> dict:
 
     eng = load_store(stores["bf16"], "3B bf16", device, write_s["bf16"])
     counts, base = serve_run(eng, "llama32_3b", "3B bf16 weights, kv bf16")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    t0 = time.perf_counter()
+    obs_serve_run(eng, store_root, smi)
+    trace_overhead_run(eng, store_root, smi)
+    log(f"[d] 3B observability workloads took {time.perf_counter() - t0:.1f}s")
     for kv in KV_MODES:
         kv_counts, tokens = serve_run(eng, "llama32_3b", f"3B bf16 weights, kv {kv}", kv)
         counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
@@ -1960,8 +2250,6 @@ def phase_serve(device, store_root: str) -> dict:
             f"(random weights: printed, not gated)")
     # the shared-prefix workload, cold (cache off) and warm in each arena,
     # then the host and disk tiers under pressure
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
     log(f"[d] shared-prefix workload on {smi}")
     _, cold_tokens, cold = prefix_serve_run(eng, "llama32_3b", "3B shared prefix, cold", "off")
     pcounts, warm_base, warm = prefix_serve_run(eng, "llama32_3b", "3B shared prefix, warm")

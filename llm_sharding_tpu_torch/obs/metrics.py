@@ -2,11 +2,11 @@
 The port's own copy of ``llm_sharding_tpu/obs/metrics.py:52-565`` (the
 registry core and the paged-KV / prefix-cache gauges the server's load
 sweep feeds): that module is stdlib only, but importing it pulls jax in
-through ``llm_sharding_tpu/obs/__init__.py``. What differs: the locks are
-plain ``threading.Lock``s where the JAX package takes
-``analysis.lockorder.named_lock`` (the port has no lock-order checker
-yet). The families of later slices (replica state and role, prefill path,
-jit shape keys, ingress, autoscale, disagg) stay with those slices.
+through ``llm_sharding_tpu/obs/__init__.py``. Its locks are built by the
+port's ``analysis.lockorder.named_lock`` under the JAX names
+(``obs.metrics.*``). The families of later slices (replica state and role,
+prefill path, jit shape keys, ingress, autoscale, disagg) stay with those
+slices.
 
 One ``Registry`` holds every metric family; families are labeled
 (Prometheus-style), children are created on first use, and every mutation
@@ -26,9 +26,10 @@ from __future__ import annotations
 import json
 import math
 import re
-import threading
 import time
 from typing import Dict, Optional, Sequence, Tuple
+
+from ..analysis.lockorder import named_lock
 
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -91,7 +92,7 @@ def _label_str(names: Tuple[str, ...], values: Tuple[str, ...]) -> str:
 class _CounterChild:
     __slots__ = ("_lock", "_value")
 
-    def __init__(self, lock: threading.Lock):
+    def __init__(self, lock):
         self._lock = lock
         self._value = 0.0
 
@@ -110,7 +111,7 @@ class _CounterChild:
 class _GaugeChild:
     __slots__ = ("_lock", "_value")
 
-    def __init__(self, lock: threading.Lock):
+    def __init__(self, lock):
         self._lock = lock
         self._value = 0.0
 
@@ -134,7 +135,7 @@ class _GaugeChild:
 class _HistogramChild:
     __slots__ = ("_lock", "bounds", "counts", "sum", "count", "exemplars")
 
-    def __init__(self, lock: threading.Lock, bounds: Tuple[float, ...]):
+    def __init__(self, lock, bounds: Tuple[float, ...]):
         self._lock = lock
         self.bounds = bounds
         self.counts = [0] * (len(bounds) + 1)  # +1: the +Inf bucket
@@ -228,7 +229,7 @@ class _Family:
         self.help = help
         self.label_names = label_names
         self.buckets = buckets
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.metrics.family")
         self._children: Dict[Tuple[str, ...], object] = {}
         if not label_names:
             self._children[()] = self._make_child()
@@ -297,7 +298,7 @@ class StateGauge:
         self._family = family
         self.states = states
         self._state: Optional[str] = None
-        self._set_lock = threading.Lock()
+        self._set_lock = named_lock("obs.metrics.stategauge")
         for s in states:  # materialize every label so scrapes see the 0s
             family.labels(state=s).set(0.0)
 
@@ -323,7 +324,7 @@ class Registry:
     a conflicting re-registration raises."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.metrics.registry")
         self._families: Dict[str, _Family] = {}
 
     def _register(self, kind, name, help, labels, buckets=None) -> _Family:

@@ -77,6 +77,8 @@ class Engine:
         snapshot_path: Optional[str] = None,
         speculate: int = 0,
         spec_ngram: int = 3,
+        trace_path: Optional[str] = None,
+        gauge_sweep_every_s: float = 0.0,
     ):
         """A paged continuous-batching server over ``batch_per_slot`` rows
         (``runtime/server.PipelineServer``). Paged KV is required here:
@@ -95,7 +97,11 @@ class Engine:
         ``snapshot_every_s`` / ``snapshot_path`` arm auto-snapshots.
         ``speculate=K`` verifies up to K n-gram drafts per row per step
         (``spec_ngram``: the longest suffix matched; not with
-        ``prefill_chunk``), as JAX ``runtime/engine.py:501-612``."""
+        ``prefill_chunk``), as JAX ``runtime/engine.py:501-612``.
+        Observability: ``trace_path`` streams the server's spans to a
+        rotating JSONL file (they always reach the in-memory flight
+        recorder), ``gauge_sweep_every_s`` paces the per-step load-gauge
+        sweep (0: every step), as JAX ``server.py:905``, ``:924``."""
         if kv_block_size is None and kv_blocks is None:
             raise NotPorted(
                 "dense serving (serve() without kv_block_size/kv_blocks) comes with "
@@ -119,4 +125,5 @@ class Engine:
             fault_retries=fault_retries, fault_backoff_s=fault_backoff_s,
             retryable_exceptions=retryable_exceptions, snapshot_every_s=snapshot_every_s,
             snapshot_path=snapshot_path, speculate=speculate, spec_ngram=spec_ngram,
+            trace_path=trace_path, gauge_sweep_every_s=gauge_sweep_every_s,
         )

@@ -3,10 +3,10 @@ the port's own copy of ``llm_sharding_tpu/runtime/faults.py`` (whole:
 every site name, ``FaultSpec``, ``FaultPlan``, the fault types,
 ``is_transient`` and ``backoff_delays``). That module is stdlib + numpy,
 but importing it pulls jax in through ``llm_sharding_tpu/runtime/__init__.py``.
-What differs: the plan's lock is a plain ``threading.Lock`` (the JAX
-package's ``named_lock``: no lock-order checker in the port yet), the
-``server_faults_injected_total`` family lives in the port's registry, and
-``is_transient`` never classes a sticky CUDA error as transient.
+What differs: the plan's lock comes from the port's ``named_lock``
+(``faults.plan``), the ``server_faults_injected_total`` family lives in
+the port's registry, and ``is_transient`` never classes a sticky CUDA
+error as transient.
 
 ``PipelineServer(fault_plan=plan)`` calls ``plan.check(site)`` (optionally
 keyed, e.g. by request id) on every pass through a named site, and the
@@ -29,11 +29,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..analysis.lockorder import named_lock
 from ..obs.metrics import REGISTRY
 
 M_FAULTS_INJECTED = REGISTRY.counter(
@@ -195,7 +195,7 @@ class FaultPlan:
         ]
         self._calls: collections.Counter = collections.Counter()
         self._fires: collections.Counter = collections.Counter()
-        self._lock = threading.Lock()
+        self._lock = named_lock("faults.plan")
 
     # ------------------------------------------------------------ builders
 

@@ -93,8 +93,31 @@ request.
 Requests and servers feed the port's metrics registry
 (``obs/metrics.REGISTRY``) under the JAX package's names.
 
-Not in this slice: dense serving, embedding input, the async executor's
-``settle``, spans and traces.
+Observability (``server.py:2197-2330``, ``:2525-2646``, ``:2849``,
+``:4612-4830``):
+
+- **spans**: every request carries a ``TraceContext`` (a new root, or a
+  child of ``submit(trace=)``) that rides snapshots and ``RequestState``;
+  the server emits ``request`` (the root, at finish, cancel or failure),
+  ``radix``, ``prefill`` (per request) and ``admit`` (per batch),
+  ``decode`` (runs of ``DECODE_SPAN_TOKENS`` committed tokens),
+  ``chunk`` / ``apply`` (per step) and ``extract`` / ``adopt`` into the
+  process-wide flight recorder and, with ``trace_path=``, a rotating JSONL
+  file (``obs/trace.py``);
+- **step profiler**: every ``step`` records one ``StepRecord`` into
+  ``self.stepline`` (``obs/stepline.py``): the disjoint host phases
+  ``admit``, ``radix_plan``, ``table_push``, ``dispatch``, ``fetch``,
+  ``apply`` and ``gauge_sweep``, and the time blocked on the device. A
+  program's tokens are read after a wait on a CUDA event recorded right
+  after its last launch; that wait is the step's ``blocked_s``, and the
+  gap from its end to the next program's dispatch the ``idle_s``
+  estimate. On the CPU there is no event: the program ran inside
+  ``dispatch`` and nothing is blocked. ``gauge_sweep_every_s`` paces the
+  load-gauge sweep; ``stepline_capture`` arms a deep capture, bracketed
+  by ``torch.profiler`` when given ``trace_dir``.
+
+Not in this slice: dense serving, embedding input and the async
+executor's ``settle``.
 """
 
 from __future__ import annotations
@@ -107,7 +130,6 @@ import json
 import logging
 import os
 import shutil
-import threading
 import time
 import weakref
 from typing import Iterator, Optional
@@ -115,12 +137,15 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..analysis.lockorder import named_lock
 from ..models.cache import POS_SENTINEL
 from ..obs.metrics import (
     ARENA_BYTES, DEFAULT_RATE_BUCKETS, KV_BLOCKS_IN_USE, KV_BLOCKS_TOTAL,
     KV_DISK_TIER_BLOCKS, KV_HOST_TIER_BLOCKS, KV_WASTE_FRAC, PREFIX_HIT_RATE,
     PREFIX_HIT_TOKENS, REGISTRY,
 )
+from ..obs.stepline import StepProfiler
+from ..obs.trace import TraceContext, TraceWriter, emit_span
 from ..ops.quant import KV_DTYPES, fp8_kv_supported, kv_storage_dtype
 from ..ops.sampling import validate_top_p
 from ..parallel import serve as serve_ops
@@ -141,6 +166,9 @@ SNAPSHOT_FORMAT = 1
 # arena blocks moved per device<->host copy by snapshot and restore: the
 # device holds one such chunk beside the arena, never a second arena
 _ARENA_CHUNK_BLOCKS = 32
+#: committed tokens per ``decode`` span (``server.py:312``): a span per run
+#: of this many tokens, the remainder flushed at the request's finish
+DECODE_SPAN_TOKENS = 32
 
 # -- health states (``server.py:97-101``) ------------------------------------
 SERVING = "SERVING"  # admitting and decoding normally
@@ -541,7 +569,8 @@ class Request:
 
     def __init__(self, rid: int, prompt: np.ndarray, max_new: int, temperature: float,
                  seed: int, top_k: int, top_p: float, prefix: Optional[PrefixHandle] = None,
-                 deadline_s: Optional[float] = None, stop: tuple = ()):
+                 deadline_s: Optional[float] = None, stop: tuple = (),
+                 trace: Optional[TraceContext] = None):
         self.id = rid
         self.prompt = prompt  # with a handle: the suffix only
         self.prompt_len = int(prompt.shape[0])
@@ -565,6 +594,12 @@ class Request:
         # (consumed by the next admission)
         self.baked = 0
         self.carried_rng: Optional[np.ndarray] = None
+        # the request's span identity: a child of the caller's context, or
+        # a fresh root trace
+        self.trace = trace.child() if trace is not None else TraceContext.new()
+        # (tokens at the last decode span, its perf_counter): the bucketed
+        # decode-span cursor
+        self.decode_mark: Optional[tuple] = None
         self.submitted_at = time.perf_counter()
         self.deadline_at = None if deadline_s is None else self.submitted_at + deadline_s
         self.started_at: Optional[float] = None
@@ -587,7 +622,8 @@ class RequestState:
     lives on the host), ``rng_device`` the device type of that generator:
     a sampled request migrates only between servers on one device type, a
     greedy one anywhere. Both are None for greedy and never-admitted
-    requests."""
+    requests. ``trace`` is the request's span identity: the adopter's spans
+    join the same tree."""
 
     prompt: np.ndarray  # resumed ids (with a prefix handle: the suffix + tail)
     tail: np.ndarray  # generated ids not yet folded into a prompt
@@ -596,6 +632,7 @@ class RequestState:
     rng_device: Optional[str]
     prefix: Optional[PrefixHandle]  # the source server's handle
     stop: tuple = ()  # the request's stop strings
+    trace: Optional[TraceContext] = None
 
 
 class PipelineServer:
@@ -626,6 +663,8 @@ class PipelineServer:
         snapshot_path: Optional[str] = None,
         speculate: int = 0,
         spec_ngram: int = 3,
+        trace_path: Optional[str] = None,
+        gauge_sweep_every_s: float = 0.0,
     ):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
@@ -654,6 +693,8 @@ class PipelineServer:
             raise ValueError(f"fault_retries must be >= 0, got {fault_retries}")
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
+        if gauge_sweep_every_s < 0:
+            raise ValueError(f"gauge_sweep_every_s must be >= 0, got {gauge_sweep_every_s}")
         if speculate and prefill_chunk is not None:
             raise ValueError(
                 "speculate is incompatible with prefill_chunk (chunked admission "
@@ -713,7 +754,22 @@ class PipelineServer:
         self._queue: collections.deque[Request] = collections.deque()
         self._next_id = 0
         self._closed = False
-        self._mutex = threading.RLock()
+        self._mutex = named_lock("server.mutex", "rlock")
+        # the JSONL span file (None: spans reach only the flight recorder).
+        # An observability knob, not serving state: snapshots leave it out
+        self._trace = TraceWriter(trace_path) if trace_path else None
+        self._span_src = "s0"
+        #: the step profiler: one StepRecord per step
+        self.stepline = StepProfiler(name="server")
+        self.gauge_sweep_every_s = float(gauge_sweep_every_s)
+        self._last_gauge_sweep = 0.0
+        # when the last program's tokens were known on the host (its event
+        # waited on): the next dispatch charges the gap as device idle
+        self._done_at: Optional[float] = None
+        # token reads applied in the current step and their fetch + apply
+        # seconds (the step's ``apply`` span)
+        self._applied = 0
+        self._apply_s = 0.0
         # a lower bound on the earliest live deadline (None: none armed);
         # the step's sweep scans only once it has passed
         self._deadline_hint: Optional[float] = None
@@ -763,6 +819,7 @@ class PipelineServer:
         prefix: Optional[PrefixHandle] = None,
         deadline_s: Optional[float] = None,
         stop=None,
+        trace: Optional[TraceContext] = None,
     ) -> Request:
         """Enqueue a request; it is admitted by a later ``step``. Raises
         ``NeverFits`` for a request no amount of waiting could admit,
@@ -774,7 +831,9 @@ class PipelineServer:
         request's life from now: past it the request fails with
         ``DeadlineExceeded``. ``stop`` (strings; the engine needs a
         ``tokenizer``) finishes the request once its decoded text holds one
-        of them, the tokens cut to the shortest prefix that does."""
+        of them, the tokens cut to the shortest prefix that does. ``trace``
+        (a caller's ``TraceContext``) parents the request's spans; without
+        it the request starts a trace of its own."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         top_p = validate_top_p(top_p)
         deadline_s = self._resolve_deadline(deadline_s)
@@ -784,7 +843,7 @@ class PipelineServer:
             self._check_admission()
             self._check_never_fits(bucket, max_new_tokens, spx, chunked)
             req = Request(self._new_id(), prompt, int(max_new_tokens), float(temperature),
-                          int(seed), int(top_k), top_p, prefix, deadline_s, stop)
+                          int(seed), int(top_k), top_p, prefix, deadline_s, stop, trace)
             if self.speculate:
                 req.spec_k = AdaptiveK(self.speculate)
             self._queue.append(req)
@@ -860,15 +919,25 @@ class PipelineServer:
         admission; with auto-snapshot armed, end by checkpointing once per
         interval. A failure is contained to the requests it touched and the
         server keeps stepping; a clean step after one restores SERVING. A
-        closed server does nothing. Returns True if any work was done."""
+        closed server does nothing. Returns True if any work was done.
+
+        The step is one ``StepRecord`` of ``self.stepline`` (phases as in
+        JAX ``_step_serial``, ``server.py:2240-2330``); admission's
+        dispatch, token read and commit nest in its ``admit`` phase."""
         with self._mutex:
             if self._closed:
                 return False
+            sl = self.stepline
+            sl.begin_step()
+            tok0 = self.counters.tokens_generated
+            self._applied, self._apply_s = 0, 0.0
             self._step_contained = False
             self._admitted_now.clear()
+            sl.push("admit")
             progressed = self._shed_expired()
             if self._queue and self._free_rows():
                 progressed |= self._admit_pending()
+            sl.pop()
             live = self._live_rows()
             if live:
                 if self.speculate:
@@ -876,10 +945,22 @@ class PipelineServer:
                 else:
                     self._decode(live)
                 progressed = True
+            if progressed or self._applied:
+                # the span write is host work of the apply it reports on
+                sl.push("apply")
+                self._span("apply", dur_s=self._apply_s, applied=self._applied)
+                sl.pop()
+                now = time.perf_counter()
+                if (self.gauge_sweep_every_s <= 0.0
+                        or now - self._last_gauge_sweep >= self.gauge_sweep_every_s):
+                    sl.push("gauge_sweep")
+                    _update_load_gauges()
+                    sl.pop()
+                    self._last_gauge_sweep = now
             if self._radix is not None and self._queue:
+                sl.push("radix_plan")
                 self._stage_radix_plan()
-            if progressed:
-                _update_load_gauges()
+                sl.pop()
             snap_due = self._capture_autosnapshot()
             if (
                 self._health == DEGRADED and not self._step_contained
@@ -887,6 +968,10 @@ class PipelineServer:
                 and (progressed or not (self._queue or self._live_rows()))
             ):
                 self._set_health(SERVING)
+            sl.end_step(
+                rows=sum(1 for r in self._req if r is not None and not r.done),
+                tokens=self.counters.tokens_generated - tok0, queued=len(self._queue),
+            )
         # the file write runs outside the mutex: consumers on other threads
         # stay live while it lands
         if snap_due is not None:
@@ -921,6 +1006,57 @@ class PipelineServer:
         """Pump until ``req`` finishes; its generated token ids."""
         return list(self.stream(req))
 
+    def stepline_stats(self, last_n: int = 64) -> dict:
+        """Step-profiler aggregates over the ring tail (``server.py:2607``):
+        host occupancy, device-idle fraction, p50 step wall."""
+        return self.stepline.stats(last_n)
+
+    def stepline_snapshot(self, last_n: Optional[int] = None) -> list:
+        """The step ring's records oldest-first (JSON-ready dicts)."""
+        return self.stepline.snapshot(last_n)
+
+    def stepline_capture(self, steps: int, wait_s: float = 5.0,
+                         trace_dir: Optional[str] = None) -> dict:
+        """Arm an N-step deep capture (full sub-phase timeline, lock-wait
+        deltas, applied-row trace_id exemplars) and wait up to ``wait_s``
+        for the step pump to fill it (``server.py:2617``); the bundle says
+        ``complete: false`` if the loop idled first. The wait holds no
+        lock: call it from another thread while the pump steps (or arm
+        ``self.stepline`` and drive ``step`` yourself).
+
+        With ``trace_dir``, ``torch.profiler`` brackets the window and its
+        Chrome trace is written there (``device_trace`` in the bundle):
+        host and CUDA activity on a CUDA server, host activity on a CPU
+        one. On the card a trace that recorded no device activity while
+        the window dispatched programs raises: there is no host-only
+        fallback."""
+        if not trace_dir:
+            return self.stepline.capture(steps, wait_s)
+        cuda = self.engine.device.type == "cuda"
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        try:
+            bundle = self.stepline.capture(steps, wait_s)
+        finally:
+            prof.stop()
+        dispatched = any("dispatch" in s["phases"] for s in bundle["steps"])
+        if cuda and dispatched and not any(
+            str(e.device_type).endswith("CUDA") for e in prof.events()
+        ):
+            raise RuntimeError(
+                "stepline_capture: torch.profiler recorded no CUDA activity while the "
+                "captured steps dispatched programs (CUPTI unavailable?)"
+            )
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"stepline_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        bundle["device_trace"] = path
+        bundle["device_trace_dir"] = trace_dir
+        return bundle
+
     def cancel(self, req: Request) -> bool:
         """Cancel a queued or in-flight request; True if it was live here. A
         live row's prompt KV is complete, so its blocks go into the prefix
@@ -942,6 +1078,11 @@ class PipelineServer:
             req.done = True
             req.finished_at = time.perf_counter()
             self.counters.inc("requests_cancelled")
+            emit_span(
+                self._trace, "request", dur_s=req.finished_at - req.submitted_at,
+                trace=req.trace, src=self._span_src, id=req.id, tokens=len(req.tokens),
+                outcome="cancelled",
+            )
             _update_load_gauges()
             return True
 
@@ -967,6 +1108,8 @@ class PipelineServer:
             self._admitting.clear()
             self._set_health(DRAINING)
             _update_load_gauges()
+            if self._trace is not None:
+                self._trace.close()
         logger.info("server closed")
 
     @property
@@ -1206,19 +1349,21 @@ class PipelineServer:
             tail = np.asarray(req.tokens[req.baked:], np.int32)
             remaining = int(req.max_new) - int(tail.shape[0])
             prompt = np.concatenate([np.asarray(req.prompt, np.int32), tail])
+            self._span("extract", req=req, tokens=len(req.tokens), remaining=remaining)
             _update_load_gauges()
         logger.info("extract id=%d tokens=%d remaining=%d rng=%s",
                     req.id, len(req.tokens), remaining, rng is not None)
         return RequestState(
             prompt=prompt, tail=tail, remaining=remaining, rng=rng,
             rng_device=None if rng is None else self.engine.device.type, prefix=req.prefix,
-            stop=tuple(req.stop),
+            stop=tuple(req.stop), trace=req.trace,
         )
 
     def adopt(self, state: RequestState, req: Request, *,
               prefix: Optional[PrefixHandle] = None) -> None:
         """Re-admit an ``extract``ed request here (``server.py:3458``), the
-        same ``Request`` object: its resumed prompt goes through the
+        same ``Request`` object (taking the state's trace context, so its
+        spans join one tree): its resumed prompt goes through the
         ordinary admission (one-shot or chunked, by its bucket), new tokens
         append to the same ``tokens`` list, and a carried generator state
         is installed at admission, so a sampled row resumes its draws.
@@ -1243,11 +1388,18 @@ class PipelineServer:
                     "request carries stop strings but this server's engine has no tokenizer"
                 )
             remaining = int(state.remaining)
+            if state.trace is not None:
+                req.trace = state.trace
             if remaining < 1:
-                # at its budget when extracted: complete, nothing to admit
+                # at its budget when extracted: complete, nothing to admit;
+                # the request span closes its tree
                 req.done = True
                 req.finished_at = time.perf_counter()
                 self.counters.inc("requests_completed")
+                emit_span(
+                    self._trace, "request", dur_s=req.finished_at - req.submitted_at,
+                    trace=req.trace, src=self._span_src, id=req.id, tokens=len(req.tokens),
+                )
                 return
             if state.rng is not None and state.rng_device != self.engine.device.type:
                 raise ValueError(
@@ -1275,11 +1427,22 @@ class PipelineServer:
             req.spec_k = AdaptiveK(self.speculate) if self.speculate else None
             self._queue.appendleft(req)
             self._arm_deadline(req.deadline_at)
+            self._span("adopt", req=req, resumed_prompt=req.prompt_len, remaining=remaining,
+                       carried_rng=req.carried_rng is not None)
             _update_load_gauges()
         logger.info("adopt id=%d resumed_prompt=%d remaining=%d carried_rng=%s",
                     req.id, req.prompt_len, remaining, req.carried_rng is not None)
 
     # ---------------------------------------------------------- internals
+
+    def _span(self, name, dur_s=None, req: Optional[Request] = None, **fields):
+        """One span to the flight recorder and this server's JSONL trace
+        (``server.py:2849``). With ``req``, a CHILD of the request's
+        ``request`` span, with its id."""
+        if req is not None:
+            fields.setdefault("id", req.id)
+        emit_span(self._trace, name, dur_s=dur_s, parent_of=None if req is None else req.trace,
+                  src=self._span_src, **fields)
 
     def _new_id(self) -> int:
         rid = self._next_id
@@ -1439,8 +1602,10 @@ class PipelineServer:
         ]
 
     def _push_tables(self) -> None:
+        self.stepline.push("table_push")
         self.state.block_tables.copy_(torch.from_numpy(self._tables))
         self._tables_dirty = False
+        self.stepline.pop()
 
     def _flush_tables(self) -> None:
         if self._tables_dirty:
@@ -1465,6 +1630,7 @@ class PipelineServer:
             "temperature": r.temperature, "seed": r.seed, "top_k": r.top_k, "top_p": r.top_p,
             "tokens": [int(t) for t in r.tokens], "done": r.done, "row": r.row,
             "baked": r.baked, "stop": list(r.stop), "stop_checked": r.stop_checked,
+            "trace": r.trace.to_json(),
             "deadline_left": (None if r.deadline_at is None
                               else max(r.deadline_at - time.perf_counter(), 0.0)),
         }
@@ -1491,6 +1657,9 @@ class PipelineServer:
                     float(d["temperature"]), int(d["seed"]), int(d["top_k"]),
                     float(d["top_p"]), prefix, stop=tuple(d.get("stop", ())))
         r.stop_checked = int(d.get("stop_checked", 0))
+        tr = TraceContext.from_json(d.get("trace"))
+        if tr is not None:
+            r.trace = tr
         if self.speculate:
             r.spec_k = AdaptiveK(self.speculate)
         r.tokens = [int(t) for t in d["tokens"]]
@@ -1601,11 +1770,31 @@ class PipelineServer:
                     time.sleep(delays[attempt])
                 attempt += 1
 
-    def _read_tokens(self, toks: torch.Tensor, rows: list) -> Optional[np.ndarray]:
-        """The sampled tokens of ``rows`` read to the host through the
+    def _record_done(self) -> Optional[torch.cuda.Event]:
+        """A CUDA event after the program just dispatched (its last launch),
+        or None on the CPU, where the program ran inside the dispatch."""
+        if self.engine.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _charge_idle(self, t0: float) -> None:
+        """A program is dispatched at ``t0``: the device sat idle since the
+        last read's wait returned (JAX ``_dispatch_chunk``, ``:2529-2537``)."""
+        if self._done_at is not None:
+            self.stepline.idle(t0 - self._done_at)
+            self._done_at = None
+
+    def _read_tokens(self, toks: torch.Tensor, rows: list,
+                     done: Optional[torch.cuda.Event]) -> Optional[np.ndarray]:
+        """The sampled tokens of ``rows`` read to the host (the ``fetch``
+        phase). First the wait on ``done``, the program's event: blocked
+        time, timed once, outside the retry. Then the read through the
         ``log_fetch`` site with retry: the tensor stays put, so a retry reads
-        it again. A read lost past its retries fails exactly those rows'
-        requests (JAX ``_contain_lost_log``, ``:3722``) and returns None."""
+        it again. A read lost past its retries, or a wait that raised, fails
+        exactly those rows' requests (JAX ``_contain_lost_log``, ``:3722``)
+        and returns None."""
         def read():
             self._fault_check("log_fetch")
             try:
@@ -1614,11 +1803,35 @@ class PipelineServer:
                 _M_FETCH_FAIL.inc()
                 raise
 
+        sl = self.stepline
+        sl.push("fetch")
         try:
+            if done is not None:
+                tb = time.perf_counter()
+                try:
+                    done.synchronize()
+                except Exception:
+                    _M_FETCH_FAIL.inc()
+                    raise
+                self._done_at = time.perf_counter()
+                sl.blocked(self._done_at - tb)
+            else:
+                self._done_at = time.perf_counter()
             return self._retry("log_fetch", read)
         except Exception as e:  # noqa: BLE001 — contained to these rows
             self._contain_rows("log_fetch", [(r, self._req[r]) for r in rows], e)
             return None
+        finally:
+            sl.pop()
+
+    def _apply_tokens(self, toks: np.ndarray, t_fetch: float, apply) -> None:
+        """``apply(toks)`` as the step's ``apply`` phase; the read and the
+        apply since ``t_fetch`` count into the step's ``apply`` span."""
+        self.stepline.push("apply")
+        apply(toks)
+        self.stepline.pop()
+        self._applied += 1
+        self._apply_s += time.perf_counter() - t_fetch
 
     def _fail_request(self, req: Request, err: BaseException) -> None:
         """Terminal failure (``server.py:3629``): record the cause, free the
@@ -1639,6 +1852,12 @@ class PipelineServer:
         if req.row is not None and self._req[req.row] is req:
             self._release(req.row)
         self.counters.inc("requests_failed")
+        # the tree closes for a failed request too: its postmortem
+        emit_span(
+            self._trace, "request", dur_s=req.finished_at - req.submitted_at, trace=req.trace,
+            src=self._span_src, id=req.id, tokens=len(req.tokens), outcome="failed",
+            error=repr(err)[:200],
+        )
 
     def _contain_rows(self, site: str, victims: list, err) -> None:
         """Contain a persistent failure to exactly the ``(row, request)``
@@ -1842,8 +2061,10 @@ class PipelineServer:
                 ))
                 continue
             rplan, head.staged_radix = head.staged_radix, None
-            if rplan is None:
+            if rplan is None and self._radix is not None and pfx is None:
+                self.stepline.push("radix_plan")
                 rplan = self._radix_plan(head)
+                self.stepline.pop()
             spx_n = 0 if rplan is None else rplan.n
             bucket = self._bucket(head.prompt_len - spx_n)
             # the suffix bucket picks the path (server.py:3921 forces a hit
@@ -1895,6 +2116,7 @@ class PipelineServer:
         fails exactly this batch. A one-shot admission's first tokens are
         then read (``log_fetch``) and committed. True if admitted."""
         n = len(batch)
+        t_admit0 = time.perf_counter()
         spx_n = 0 if rplan is None else rplan.n
         spx = pfx.spx if pfx is not None else spx_n
         shared = pfx.blocks if pfx is not None else (rplan.blocks if rplan is not None else None)
@@ -1916,7 +2138,7 @@ class PipelineServer:
             r.row = row
             r.carried_rng = None  # consumed by this admission
             r.started_at = now
-            _M_QUEUE_WAIT.observe(now - r.submitted_at)
+            _M_QUEUE_WAIT.observe(now - r.submitted_at, trace_id=r.trace.trace_id)
             self._req[row] = r
             self._map_row_blocks(row, bucket, r.max_new, spx, shared, chunked)
             if rplan is not None:
@@ -1954,17 +2176,34 @@ class PipelineServer:
                 rng_states=rng_states,
             )
 
+        sl = self.stepline
+        self._charge_idle(time.perf_counter())
+        sl.push("dispatch")
         try:
             tok0 = self._retry("admit_dispatch", dispatch, real_ok=False)
         except Exception as e:  # noqa: BLE001 — contained to this batch: its
             # rows stay parked and admit others later (server.py:3686)
+            sl.pop()
             self._contain_rows("admit_dispatch", [(r.row, r) for r in batch], e)
             return False
+        done = None if tok0 is None else self._record_done()
+        sl.pop()
         self.counters.inc("admissions")
+        dt_admit = time.perf_counter() - t_admit0
+        self._span("admit", dur_s=dt_admit, rows=list(rows), ids=[r.id for r in batch],
+                   bucket=bucket, chunked=chunked, n=n)
+        for r in batch:
+            if self._radix is not None and pfx is None:
+                # the cache consult's outcome: was a slow request a miss?
+                self._span("radix", req=r, hit=spx_n, prompt=r.prompt_len)
+            self._span("prefill", dur_s=dt_admit, req=r, row=r.row, bucket=bucket,
+                       chunked=chunked, n=n,
+                       queue_wait_s=round(r.started_at - r.submitted_at, 6))
         if tok0 is not None:
-            toks = self._read_tokens(tok0, rows)
+            t_fetch = time.perf_counter()
+            toks = self._read_tokens(tok0, rows, done)
             if toks is not None:
-                self._commit_tokens(rows, toks)
+                self._apply_tokens(toks, t_fetch, functools.partial(self._commit_tokens, rows))
                 self._admitted_now.update(rows)
         return True
 
@@ -1985,6 +2224,7 @@ class PipelineServer:
         try:
             for ci, off in enumerate(range(0, bucket, Sc)):
                 self._flush_tables()
+                self._charge_idle(time.perf_counter())
                 serve_ops.serve_prefill_chunk(
                     self.cfg, self.params, self.state, rows, prompts[:, off : off + Sc],
                     positions[:, off : off + Sc], off, ci == 0, self.attn_backend,
@@ -2001,16 +2241,22 @@ class PipelineServer:
 
     def _decode(self, rows: list) -> None:
         """One decode step of ``rows``, its tokens committed."""
-        toks = self._step_rows(rows, lambda: serve_ops.serve_step(
-            self.cfg, self.params, self.state, rows, self.attn_backend))
-        if toks is not None:
-            self._commit_tokens(rows, toks)
+        self._step_rows(rows, lambda: serve_ops.serve_step(
+            self.cfg, self.params, self.state, rows, self.attn_backend),
+            functools.partial(self._commit_tokens, rows))
 
-    def _step_rows(self, rows: list, program) -> Optional[np.ndarray]:
+    def _step_rows(self, rows: list, program, apply) -> None:
         """Dispatch a step ``program`` of ``rows`` (a decode step or a
         verify) through the ``chunk_dispatch`` site (injected faults
-        retried; a failure past the retries fails these rows) and read its
-        tokens through ``log_fetch``; None when either failed."""
+        retried; a failure past the retries fails these rows), read its
+        tokens through ``log_fetch`` and ``apply`` them; nothing is applied
+        when either failed. Phases ``dispatch`` (with the ``chunk`` span),
+        ``fetch`` and ``apply``, as JAX ``_dispatch_chunk`` and ``_drain``
+        (``server.py:2525-2595``, ``:4612-4640``)."""
+        sl = self.stepline
+        t0 = time.perf_counter()
+        self._charge_idle(t0)
+        sl.push("dispatch")
         self._flush_tables()
 
         def dispatch():
@@ -2020,10 +2266,17 @@ class PipelineServer:
         try:
             out = self._retry("chunk_dispatch", dispatch, real_ok=False)
         except Exception as e:  # noqa: BLE001 — contained to these rows
+            sl.pop()
             self._contain_rows("chunk_dispatch", [(r, self._req[r]) for r in rows], e)
-            return None
+            return
+        done = self._record_done()
         self.counters.inc("chunks")
-        return self._read_tokens(out, rows)
+        self._span("chunk", dur_s=time.perf_counter() - t0, rows=len(rows))
+        sl.pop()
+        t_fetch = time.perf_counter()
+        toks = self._read_tokens(out, rows, done)
+        if toks is not None:
+            self._apply_tokens(toks, t_fetch, apply)
 
     def _spec_step(self, rows: list) -> None:
         """One speculative round (``server.py:4473``): draft up to each
@@ -2042,6 +2295,7 @@ class PipelineServer:
         that token, read from the row state."""
         K = self.speculate
         n = len(rows)
+        self.stepline.push("dispatch")  # drafting is dispatch work (JAX _step_serial)
         draft = np.zeros((n, K), np.int32)
         draft_len = np.zeros(n, np.int32)
         for i, row in enumerate(rows):
@@ -2052,10 +2306,10 @@ class PipelineServer:
             d = ngram_draft(ids, req.spec_k.k, self.spec_ngram)
             draft[i, : d.shape[0]] = d
             draft_len[i] = d.shape[0]
-        log = self._step_rows(rows, lambda: serve_ops.serve_verify(
-            self.cfg, self.params, self.state, rows, draft, draft_len, self.attn_backend))
-        if log is not None:
-            self._apply_spec(rows, log, draft, draft_len)
+        self.stepline.pop()
+        self._step_rows(rows, lambda: serve_ops.serve_verify(
+            self.cfg, self.params, self.state, rows, draft, draft_len, self.attn_backend),
+            lambda log: self._apply_spec(rows, log, draft, draft_len))
 
     def _apply_spec(self, rows: list, log: np.ndarray, draft: np.ndarray,
                     draft_len: np.ndarray) -> None:
@@ -2100,14 +2354,26 @@ class PipelineServer:
                 self._contain_rows("request_apply", [(row, req)], e)
                 return
         req.tokens.append(t)
+        # a deep-capture exemplar: a no-op unless a capture is armed
+        self.stepline.note_exemplar(req.trace.trace_id)
         now = time.perf_counter()
+        tid = req.trace.trace_id
         if req.first_token_at is None:
             req.first_token_at = now
-            _M_TTFT.observe(now - req.submitted_at)
+            req.decode_mark = (0, now)
+            _M_TTFT.observe(now - req.submitted_at, trace_id=tid)
         else:
-            _M_INTERTOKEN.observe(now - req.last_token_at)
+            _M_INTERTOKEN.observe(now - req.last_token_at, trace_id=tid)
         req.last_token_at = now
         self.counters.inc("tokens_generated")
+        if req.decode_mark is None:
+            # revived mid-decode (restore sets first_token_at): a fresh bucket
+            req.decode_mark = (len(req.tokens) - 1, now)
+        mark_n, mark_t = req.decode_mark
+        if len(req.tokens) - mark_n >= DECODE_SPAN_TOKENS:
+            self._span("decode", dur_s=now - mark_t, req=req, tokens=len(req.tokens) - mark_n,
+                       row=row)
+            req.decode_mark = (len(req.tokens), now)
         finished = last and bool(self.state.done[row])
         if req.stop and self._hit_stop(req):
             # the decoded text holds a stop string: the tokens are cut to it
@@ -2120,5 +2386,17 @@ class PipelineServer:
             self._release(row, insert=True)
             self.counters.inc("requests_completed")
             dur = now - (req.started_at or now)
-            _M_REQUEST.observe(now - req.submitted_at)
-            _M_TOK_S.observe(len(req.tokens) / dur if dur > 0 else 0.0)
+            ntok = len(req.tokens)
+            tok_s = ntok / dur if dur > 0 else 0.0
+            _M_REQUEST.observe(now - req.submitted_at, trace_id=tid)
+            _M_TOK_S.observe(tok_s)
+            # the final partial decode bucket, then the request's root span
+            mark_n, mark_t = req.decode_mark
+            if ntok > mark_n:
+                self._span("decode", dur_s=now - mark_t, req=req, tokens=ntok - mark_n, row=row)
+            queue_wait = req.started_at - req.submitted_at if req.started_at is not None else 0.0
+            emit_span(
+                self._trace, "request", dur_s=now - req.submitted_at, trace=req.trace,
+                src=self._span_src, id=req.id, tokens=ntok, queue_wait_s=round(queue_wait, 6),
+                ttft_s=round(req.first_token_at - req.submitted_at, 6), tok_s=round(tok_s, 2),
+            )

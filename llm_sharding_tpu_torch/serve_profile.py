@@ -27,8 +27,14 @@ alike. ``--speculative K`` serves the model's speculative workload
 (``smoke_workload.SPECULATIVE``: one-shot admissions, every decode step a
 verify) with ``speculate=K``; K = 0 is the same one-shot server without
 speculation. Its decode-only steps are verifies. Every mode also prints
-the host operations that took the most CPU time in the profiled window.
-Needs a GPU; exits non-zero without one.
+the host operations that took the most CPU time in the profiled window,
+and the server's own step profiler (``obs/stepline``) over the
+unprofiled run: each host phase's share of the step wall, the share
+blocked on the device (the wait on each program's CUDA event), the
+estimated device-idle fraction, host occupancy and the unattributed
+share, beside the device-busy share of the same workload (kernel time
+from the profiled run over the unprofiled wall). Needs a GPU; exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -118,6 +124,7 @@ def main(argv=None) -> int:
         print("serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
     from .models import config, gpt2, llama
+    from .obs.report import step_phase_table, step_summary
     from .ops import kernels
     from .ops.quant import quantize_params
     from .runtime.engine import Engine
@@ -171,7 +178,10 @@ def main(argv=None) -> int:
         return reqs, (time.perf_counter() - t0) * 1e3, steps
 
     prime()
+    steps0 = srv.stepline.steps_total
     reqs, plain_wall_ms, decode_ms = workload()
+    n_steps = srv.stepline.steps_total - steps0
+    recs = srv.stepline_snapshot()[-n_steps:]
     prime()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -211,6 +221,16 @@ def main(argv=None) -> int:
     print("host operations by self CPU time in the profiled window (top 10):")
     for key, us in host.most_common(10):
         print(f"  {us / 1e3:9.2f} ms  {key[:90]}")
+    summary, table = step_summary(recs), step_phase_table(recs)
+    print(f"step profile of the unprofiled run ({len(recs)} of its {n_steps} steps, "
+          f"{summary['wall_s'] * 1e3:.1f} ms of step wall): host occupancy "
+          f"{summary['host_occupancy']:.1%}, blocked on the device {summary['blocked_frac']:.1%}, "
+          f"device idle (estimate) {summary['device_idle_frac']:.1%}, unattributed "
+          f"{summary['unattributed_frac']:.2%}; device busy {busy_ms / plain_wall_ms:.1%} of "
+          f"the unprofiled wall")
+    for r in table:
+        print(f"  {r['phase']:<13} {r['wall_pct']:6.2f}% of step wall  {r['total_s'] * 1e3:9.2f} ms "
+              f"in {r['count']:4d} steps, p50 {r['p50_ms']:.3f} ms")
     if decode_ms:
         kind = "verify" if args.speculative else "decode-only"
         print(f"{kind} steps at {smoke_workload.ROWS} live rows: {len(decode_ms)}, wall ms p50 "
@@ -224,6 +244,7 @@ def main(argv=None) -> int:
         "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "decode_step_ms_p50": float(np.percentile(decode_ms, 50)) if decode_ms else None,
+        "stepline": {"summary": summary, "phases": table},
         "top": [[k, us / 1e3, calls[k]] for k, us in per_kernel.most_common(15)],
         "port_kernels": port,
     }))

@@ -1065,3 +1065,83 @@ def test_speculative_server_verifies_through_the_quantized_kernel(cuda_device, k
     assert all(r.done and r.error is None and r.tokens for r in reqs)
     srv._alloc.check()
     assert srv._alloc.in_use == 0
+
+
+# ---------------------------------------------- observability on the card
+
+
+def _check_step_accounting(recs):
+    """The stepline invariant on every card step, and a device wait on
+    every step that read tokens: the CUDA event recorded after the
+    program's last launch was waited on, so ``blocked_s`` > 0."""
+    assert recs
+    for r in recs:
+        host = sum(r["phases"].values())
+        assert abs(r["wall_s"] - (host + r["blocked_s"] + r["unattributed_s"])) < 1e-9
+        if "fetch" in r["phases"]:
+            assert r["blocked_s"] > 0.0, r
+        assert r["idle_s"] >= 0.0
+    wall = sum(r["wall_s"] for r in recs)
+    assert sum(r["unattributed_s"] for r in recs) < 0.05 * wall
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speculate", [0, 3])
+def test_stepline_blocks_on_the_cuda_event(cuda_device, tmp_path, speculate):
+    """A traced server on the card (one-shot and chunked admissions, or
+    verifies): every step's phases + blocked + unattributed sum to its
+    wall, each step that read tokens waited on the device, and the traced
+    streams equal the untraced ones."""
+    eng = _tiny_engine(cuda_device)
+    kw = dict(_SERVE, prefill_chunk=None, speculate=speculate) if speculate else _SERVE
+    prompts = _spec_prompts(eng)
+    plain = eng.serve(**kw)
+    base = [plain.submit(p, 16) for p in prompts]
+    plain.run_until_idle()
+    srv = eng.serve(trace_path=str(tmp_path / "t.jsonl"), **kw)
+    reqs = [srv.submit(p, 16) for p in prompts]
+    srv.run_until_idle()
+    srv.close()
+    assert [r.tokens for r in reqs] == [r.tokens for r in base]
+    recs = srv.stepline_snapshot()
+    _check_step_accounting(recs)
+    assert any(r["blocked_s"] > 0.0 for r in recs)
+
+
+@pytest.mark.cuda
+def test_stepline_capture_brackets_a_cuda_trace(cuda_device, tmp_path):
+    """``stepline_capture(trace_dir=)`` while a pump thread steps (from
+    the capture's arming on, so the window holds the requests' first
+    steps): the bundle is complete and its Chrome trace holds the
+    window's CUDA kernels."""
+    import json
+    import threading
+    import time
+
+    eng = _tiny_engine(cuda_device)
+    srv = eng.serve(**_SERVE)
+    for p in _spec_prompts(eng):
+        srv.submit(p, 24)
+    stop = threading.Event()
+
+    def pump():
+        while not srv.stepline.armed and not stop.is_set():
+            time.sleep(0.001)
+        while not stop.is_set():
+            if not srv.step():
+                time.sleep(0.001)
+
+    t = threading.Thread(target=pump, daemon=True)
+    t.start()
+    try:
+        bundle = srv.stepline_capture(3, wait_s=60, trace_dir=str(tmp_path / "prof"))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    assert bundle["complete"] and bundle["steps_captured"] == 3
+    _check_step_accounting(bundle["steps"])
+    with open(bundle["device_trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    srv.close()
