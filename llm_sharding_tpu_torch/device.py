@@ -7,8 +7,10 @@ missing GPU is an error, never a silent fallback.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -27,3 +29,27 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "plain PyTorch path on the CPU"
         )
     return dev
+
+
+def to_device(a, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host array (numpy, list or scalar) as a tensor on ``device``
+    without a stream sync. On the card the values go through a pinned
+    staging copy taken now and a ``non_blocking`` copy: ``a`` may change
+    as soon as this returns, and the copy is ordered behind the work
+    already queued instead of waiting for it (a pageable copy would drain
+    the stream first). On the CPU it is a plain copy."""
+    t = torch.tensor(np.asarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=None)
+def device_const(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A constant (a scalar or a tuple of values) as a cached tensor on
+    ``device``: the programs of a decode step read such constants (stop
+    ids, RoPE frequencies) every step, and building them anew would copy
+    host memory to the card each time. Do not write to the result."""
+    return to_device(values, device, dtype)

@@ -25,7 +25,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import device_const, resolve_device
 from ..ops.flash_attention import attention_step
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention, paged_prefill, write_block_kv
@@ -291,7 +291,7 @@ def embed(
     row-quantized (``ops/quant.embed_rows``)."""
     h = embed_rows(params["embed"], token_ids)
     if cfg.embed_multiplier != 1.0:
-        h = h * torch.tensor(cfg.embed_multiplier, dtype=h.dtype, device=h.device)
+        h = h * device_const(float(cfg.embed_multiplier), h.dtype, h.device)
     return h
 
 

@@ -4,7 +4,7 @@ and the chunked-prefill kernel (kernel 2), unquantized and quantized.
 Counterpart of ``llm_sharding_tpu/ops/paged_attention.py``:
 
 - ``gather_block_kv`` (``:133``) and ``write_block_kv`` (``:172``, both
-  branches, with entry-granular ``valid``);
+  branches, with entry-granular ``valid`` that never reads the device);
 - ``paged_attention_xla`` (``:264``), the plain version of both kernels
   in both modes: gather (dequantizing a quantized arena into the query
   dtype), then ``cached_attention``;
@@ -105,10 +105,11 @@ def gather_block_kv(
     return k.reshape(B, T * BS, *k.shape[3:]), v.reshape(B, T * BS, *v.shape[3:])
 
 
-def _write_quantized(arena, scale, blk, slot, touched, new, keep):
+def _write_quantized(arena, scale, blk, slot, touched, inverse, new, keep):
     """The quantized branch of ``write_block_kv`` for one of K/V, in place.
     Reads every ``touched`` block before writing any and requantizes each
-    once."""
+    once; ``inverse`` maps each entry to its row of ``touched``. A gated
+    entry writes back its slot's requantized old code."""
     qmax = kv_qmax(arena.dtype)
     Nkv = new.shape[2]
     # candidate scale of each fresh entry; gated entries must not grow it
@@ -130,7 +131,8 @@ def _write_quantized(arena, scale, blk, slot, touched, new, keep):
     codes[touched] = req.view(torch.uint8)
     qn = kv_quantize(new, scale[blk][..., None], arena.dtype)
     if keep is not None:
-        blk, slot, qn = blk[keep], slot[keep], qn[keep]
+        old_entry = req[inverse, slot]  # [B, S, Nkv, D]
+        qn = torch.where(keep[..., None, None], qn, old_entry)
     codes[blk, slot] = qn.view(torch.uint8)
 
 
@@ -158,7 +160,13 @@ def write_block_kv(
     per-head absmax: each entry's candidate scale is ``max|x| / qmax``,
     scales grow order-free (``amax``), every touched block's codes are
     requantized from its old scale to its final one, then the entries
-    land quantized. The bytes equal the JAX function's."""
+    land quantized. The bytes equal the JAX function's.
+
+    ``valid`` gates per entry as the JAX function does, without a host
+    read (a boolean-mask index would be a ``nonzero``, one device→host
+    sync per layer): a gated entry writes back the contents of its slot (a
+    quantized arena's requantized code), and its candidate scale is zero,
+    so the arena ends with the JAX function's bytes."""
     BS = k_arena.shape[1]
     W = block_table.shape[1] * BS
     cols = cols.long().clamp(0, W - 1)
@@ -171,15 +179,20 @@ def write_block_kv(
         # the distinct blocks the entries touch: a one-entry-per-row decode
         # step's are distinct already (trash aside, whose identical
         # rewrites are harmless); a chunk of 256 entries hits ~4 blocks 64
-        # times each
-        touched = blk.reshape(-1) if blk.shape[1] == 1 else torch.unique(blk)
-        _write_quantized(k_arena, k_scale, blk, slot, touched, k_new, keep)
-        _write_quantized(v_arena, v_scale, blk, slot, touched, v_new, keep)
+        # times each (``torch.unique`` reads the device: never in decode)
+        if blk.shape[1] == 1:
+            touched = blk.reshape(-1)
+            inverse = torch.arange(blk.shape[0], device=blk.device)[:, None]
+        else:
+            touched, inverse = torch.unique(blk, return_inverse=True)
+        _write_quantized(k_arena, k_scale, blk, slot, touched, inverse, k_new, keep)
+        _write_quantized(v_arena, v_scale, blk, slot, touched, inverse, v_new, keep)
         return k_arena, v_arena, k_scale, v_scale
     kn = k_new.to(k_arena.dtype)
     vn = v_new.to(v_arena.dtype)
     if keep is not None:
-        blk, slot, kn, vn = blk[keep], slot[keep], kn[keep], vn[keep]
+        kn = torch.where(keep[..., None, None], kn, k_arena[blk, slot])
+        vn = torch.where(keep[..., None, None], vn, v_arena[blk, slot])
     k_arena[blk, slot] = kn
     v_arena[blk, slot] = vn
     return k_arena, v_arena

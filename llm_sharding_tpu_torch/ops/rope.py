@@ -5,9 +5,12 @@ Llama-3 frequency scaling, recomputed from positions on every call.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..device import device_const
 from ..models.config import ModelConfig, RopeScaling
 
 
@@ -27,18 +30,26 @@ def _llama3_scale_inv_freq(inv_freq: np.ndarray, rs: RopeScaling) -> np.ndarray:
 
 def inv_frequencies(cfg: ModelConfig) -> np.ndarray:
     """Inverse frequencies ``[head_dim / 2]``, fp32 (computed in fp64)."""
-    d = cfg.head_dim_
-    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
-    if cfg.rope_scaling is not None and cfg.rope_scaling.rope_type == "llama3":
-        inv_freq = _llama3_scale_inv_freq(inv_freq, cfg.rope_scaling)
-    return inv_freq.astype(np.float32)
+    return np.asarray(_inv_freq(cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling), np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(d: int, theta: float, scaling) -> tuple:
+    inv_freq = 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
+    if scaling is not None and scaling.rope_type == "llama3":
+        inv_freq = _llama3_scale_inv_freq(inv_freq, scaling)
+    return tuple(float(x) for x in inv_freq.astype(np.float32))
 
 
 def rope_cos_sin(
     positions: torch.Tensor, cfg: ModelConfig, dtype=torch.float32
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin for absolute ``positions [...]`` → two ``[..., head_dim]``."""
-    inv_freq = torch.from_numpy(inv_frequencies(cfg)).to(positions.device)
+    # cached on the device: a decode step copies nothing from the host
+    inv_freq = device_const(
+        _inv_freq(cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling), torch.float32,
+        positions.device,
+    )
     freqs = positions.float()[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)

@@ -13,12 +13,13 @@ from typing import Optional
 
 import torch
 
+from ..device import device_const
 from ..models.config import ModelConfig
 
 
 def is_stop(cfg: ModelConfig, token: torch.Tensor) -> torch.Tensor:
     """``token [B]`` → bool ``[B]``: the token is any of the stop ids."""
-    stops = torch.tensor(cfg.eos_token_ids, dtype=token.dtype, device=token.device)
+    stops = device_const(tuple(cfg.eos_token_ids), token.dtype, token.device)
     return (token[:, None] == stops[None, :]).any(dim=-1)
 
 

@@ -2,9 +2,9 @@
 of ``llm_sharding_tpu/parallel/serve.py`` (``ServeState`` ``:71-111``,
 ``prefix_prefill`` ``:345``, ``gather_prefix_kv`` ``:408``,
 ``write_arena_blocks`` / ``write_arena_blocks_q`` ``:465`` / ``:483``,
-``serve_admit`` ``:542``, ``serve_prefill_chunk`` ``:861``,
-``serve_admit_finish`` ``:1074``, ``serve_chunk`` ``:1198``, the paged
-branch of ``serve_verify`` ``:1490``).
+``serve_cancel_rows`` ``:500``, ``serve_admit`` ``:542``,
+``serve_prefill_chunk`` ``:861``, ``serve_admit_finish`` ``:1074``,
+``serve_chunk`` ``:1198``, the paged branch of ``serve_verify`` ``:1490``).
 
 There is no mesh: with one stage the JAX package's ring degenerates to a
 plain pass over the layers, so the in-flight ring block, its validity bit
@@ -15,13 +15,18 @@ later slice. The model family's functions come from one table
 (``parallel/pipeline.model_fns``), so every program serves llama-family
 and GPT-2 weights alike, raw or quantized.
 
-The arena and the per-column key positions live on the device; the small
-per-row bookkeeping (positions, write offsets, lengths, budgets, the token
-buffer) lives on the host, because the host reads every committed token
-anyway to stream it. A program that samples tokens returns them on the
-device; the server reads them (a read it can issue again) and only then
-applies them with ``commit_tokens``, so a lost read never leaves half an
-update behind.
+The arena, the per-column key positions and the per-row state (``tok``,
+``pos_slots``, ``write_off``, ``lengths``, ``done``, ``budget``, under the
+JAX names) live on the device, and every program reads and advances them
+there. ``serve_chunk`` runs ``cycles`` decode steps over all ``M`` rows at
+one fixed shape with no host read and no host copy, so a server may
+dispatch the next step before it has read the last one's tokens: the
+steps chain on the device as one deterministic sequence. Each program
+that commits tokens returns them as a log on the device; the host keeps
+mirrors (``out``, ``mirror_len``, ``mirror_budget``) that follow as it
+applies those logs (``commit_log``, ``commit_verify``), as the JAX server
+replays its chunk logs. The sampling settings and each sampled row's
+``torch.Generator`` stay on the host: a generator draws at launch.
 
 A quantized arena (``kv_dtype`` int8 / fp8) holds 1-byte codes with
 per-(block, KV head) f32 scales, as in the JAX state. The dense prefill of
@@ -46,17 +51,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import to_device
 from ..models.cache import POS_SENTINEL, block_pool_shape, block_scale_shape, init_cache
 from ..models.config import ModelConfig
 from ..ops.paged_attention import _bytes, _take, write_block_kv
 from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
-from ..ops.sampling import filter_rows, gumbel, sample
+from ..ops.sampling import filter_rows, gumbel, is_stop, sample
 from .pipeline import model_fns
 
 
 @dataclasses.dataclass
 class ServeState:
-    """The fields of the JAX ``ServeState`` that one stage needs."""
+    """The fields of the JAX ``ServeState`` that one stage needs, plus the
+    host's mirrors and sampling settings."""
 
     k: torch.Tensor  # [L, NB, BS, Nkv, D] pooled arena; block 0 = trash
     v: torch.Tensor
@@ -65,13 +72,18 @@ class ServeState:
     cache_dtype: torch.dtype  # the engine's dtype: dense prefill cache, attention queries
     kpos: torch.Tensor  # [M, W] int32 key position per LOGICAL column
     block_tables: torch.Tensor  # [M, T] int32 (the server owns the host mirror)
-    pos_slots: np.ndarray  # [M] position of each row's next input token
-    write_off: np.ndarray  # [M] logical column that token's KV lands in
+    # row state on the device, read and advanced by the programs
+    tok: torch.Tensor  # [M] int32 next input token of each row
+    pos_slots: torch.Tensor  # [M] int32 position of that token
+    write_off: torch.Tensor  # [M] int32 logical column its KV lands in
+    lengths: torch.Tensor  # [M] int32 valid length (prompt + generated)
+    done: torch.Tensor  # [M] bool; free and parked rows are done
+    budget: torch.Tensor  # [M] int32 max total length (prompt + max_new)
+    row_ids: torch.Tensor  # [M] int64 arange: the programs' row index
+    # on the host: what the applied logs say
     out: np.ndarray  # [M, W] int32 prompt + generated tokens
-    lengths: np.ndarray  # [M] valid length (prompt + generated)
-    done: np.ndarray  # [M] bool; free and parked rows are done
-    budget: np.ndarray  # [M] max total length (prompt + max_new)
-    tok: np.ndarray  # [M] next input token of each row
+    mirror_len: np.ndarray  # [M] lengths as of the last applied log
+    mirror_budget: np.ndarray  # [M] budget as the host armed it
     temp: np.ndarray  # [M] f32 sampling temperature (<= 0 greedy)
     topk: np.ndarray  # [M] int32 (0 off)
     topp: np.ndarray  # [M] f32 (1.0 off)
@@ -80,6 +92,10 @@ class ServeState:
     @property
     def block_size(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def rows(self) -> int:
+        return self.kpos.shape[0]
 
 
 def make_state(
@@ -113,6 +129,9 @@ def make_state(
             return None
         return torch.zeros(block_scale_shape(cfg, kv_blocks), dtype=torch.float32, device=device)
 
+    def row_i32():
+        return torch.zeros(rows, dtype=torch.int32, device=device)
+
     return ServeState(
         k=arena(),
         v=arena(),
@@ -121,13 +140,16 @@ def make_state(
         cache_dtype=dtype,
         kpos=torch.full((rows, W), POS_SENTINEL, dtype=torch.int32, device=device),
         block_tables=torch.zeros((rows, T), dtype=torch.int32, device=device),
-        pos_slots=np.zeros(rows, np.int64),
-        write_off=np.zeros(rows, np.int64),
+        tok=row_i32(),
+        pos_slots=row_i32(),
+        write_off=row_i32(),
+        lengths=row_i32(),
+        done=torch.ones(rows, dtype=torch.bool, device=device),
+        budget=row_i32(),
+        row_ids=torch.arange(rows, device=device),
         out=np.zeros((rows, W), np.int32),
-        lengths=np.zeros(rows, np.int64),
-        done=np.ones(rows, bool),
-        budget=np.zeros(rows, np.int64),
-        tok=np.zeros(rows, np.int32),
+        mirror_len=np.zeros(rows, np.int64),
+        mirror_budget=np.zeros(rows, np.int64),
         temp=np.zeros(rows, np.float32),
         topk=np.zeros(rows, np.int32),
         topp=np.ones(rows, np.float32),
@@ -156,21 +178,18 @@ def _arm_sampling(state: ServeState, rows, seeds, temps, topks, topps, rng_state
 
 def _sample_rows(state: ServeState, rows, logits: torch.Tensor) -> torch.Tensor:
     """One token per row, left on the device: greedy rows by one argmax,
-    sampled rows each from its own generator. The caller reads the tokens
-    (a read it may issue again) before any host state depends on them."""
+    each row that holds a generator from its own (``logits[i]`` is row
+    ``rows[i]``'s). A finished row's generator is dropped, so a row that
+    is done draws nothing; one that finished on the device but not yet on
+    the host may draw, and its generator no longer matters."""
     toks = logits.argmax(dim=-1).to(torch.int32)
     for i, r in enumerate(rows):
-        if state.temp[r] > 0:
+        if state.rng[r] is not None:
             toks[i] = sample(
                 logits[i : i + 1], float(state.temp[r]), int(state.topk[r]),
                 float(state.topp[r]), generator=state.rng[r],
             )[0]
     return toks
-
-
-def _stop_mask(cfg: ModelConfig, toks: np.ndarray) -> np.ndarray:
-    """``ops/sampling.is_stop`` on host token ids."""
-    return np.isin(toks, cfg.eos_token_ids)
 
 
 def scatter_pages_q(
@@ -201,7 +220,9 @@ def scatter_pages_q(
 def _raw(t: torch.Tensor) -> np.ndarray:
     """A tensor's bytes as numpy (on the host): bfloat16 as its ``uint16``
     view, float8_e4m3fn as ``uint8`` (numpy has neither dtype)."""
-    t = t.cpu()  # synchronous: the bytes are final when numpy sees them
+    # a copy, synchronous: the bytes are final when numpy sees them, and a
+    # CPU tensor's later writes do not reach them
+    t = t.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     if t.dtype == torch.float8_e4m3fn:
@@ -316,10 +337,13 @@ def serve_admit(
 ) -> torch.Tensor:
     """One-shot admission: prefill the rows' prompts through the dense
     layer path (the flash kernel), scatter the fresh window into the rows'
-    blocks (their tables are on the device already) and sample each row's
-    first token, which is returned on the device. The rows stay parked
-    (done) until ``commit_tokens`` applies those tokens; the first decode
-    step then feeds each at position ``prompt_len`` into column ``Sp``.
+    blocks (their tables are on the device already), sample each row's
+    first token and arm the rows on the device: the token is committed
+    there (``lengths`` counts it, ``done`` is set at a stop id or the
+    budget) and becomes the row's next input, which the first decode step
+    feeds at position ``prompt_len`` into column ``Sp``. Returns those
+    tokens ``[n]`` on the device: the host applies them with
+    ``commit_log`` once it has read them, whenever that is.
 
     With ``prefix_kv`` (``Spx`` columns) each row's dense cache is seeded
     with the prefix, the suffix prefills at positions ``prefix_len + i``
@@ -335,12 +359,12 @@ def serve_admit(
     dev = state.k.device
     n, Sp = prompts.shape
     BS = state.block_size
-    rows_t = torch.as_tensor(rows, device=dev)
+    rows_t = to_device(np.asarray(rows, np.int64), dev)
     Spx = 0 if prefix_kv is None else prefix_kv[0].shape[2]
     pfx = 0 if prefix_kv is None else int(prefix_len)
     idx = np.arange(Sp)[None, :]
     positions = np.where(idx < prompt_len[:, None], pfx + idx, POS_SENTINEL).astype(np.int32)
-    pos_t = torch.from_numpy(positions).to(dev)
+    pos_t = to_device(positions, dev)
     cache = init_cache(cfg, n, Spx + Sp, dtype=state.cache_dtype, device=dev)
     if prefix_kv is not None:
         pk, pv, ppos = prefix_kv
@@ -349,9 +373,9 @@ def serve_admit(
         cache.pos[:, :Spx] = ppos
         cache.length = Spx
     fns = model_fns(cfg)
-    h = fns.embed(cfg, params, torch.from_numpy(prompts).to(dev), pos_t)
+    h = fns.embed(cfg, params, to_device(prompts, dev), pos_t)
     h, cache = fns.stage(cfg, params["layers"], h, cache, pos_t)
-    last = torch.from_numpy(prompt_len - 1).to(dev)
+    last = to_device(np.asarray(prompt_len, np.int64) - 1, dev)
     h_last = h[torch.arange(n, device=dev), last][:, None]
     logits = fns.final_logits(cfg, params, h_last)[:, 0]
     _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
@@ -383,14 +407,21 @@ def serve_admit(
     kpos[:, : Spx + Sp] = cache.pos
     state.kpos[rows_t] = kpos
 
+    # the rows' state on the device, the first token committed
+    total = pfx + np.asarray(prompt_len, np.int64)
+    budget = total + np.asarray(max_new, np.int64)
+    rs = to_device(np.stack([total, budget]).astype(np.int32), dev)
+    state.tok[rows_t] = tok0
+    state.pos_slots[rows_t] = rs[0]
+    state.write_off[rows_t] = Spx + Sp
+    state.lengths[rows_t] = rs[0] + 1
+    state.budget[rows_t] = rs[1]
+    state.done[rows_t] = is_stop(cfg, tok0) | (rs[0] + 1 >= rs[1])
     for i, r in enumerate(rows):
-        total = pfx + int(prompt_len[i])
         state.out[r] = 0
         state.out[r, :Sp] = prompts[i]
-        state.write_off[r] = Spx + Sp
-        state.pos_slots[r] = total
-        state.lengths[r] = total
-        state.budget[r] = total + int(max_new[i])
+        state.mirror_len[r] = total[i]
+        state.mirror_budget[r] = budget[i]
     return tok0
 
 
@@ -414,7 +445,8 @@ def serve_prefill_chunk(
     written block in place through the chunked-prefill kernel, each row
     bounded by its written frontier, resident prefix included (``nlive``
     blocks cover columns ``[0, prefix_off + chunk_off + Sc)``). The rows
-    stay parked (done) until ``serve_admit_finish``.
+    stay parked (done on the device: decode steps over all rows skip them)
+    until ``serve_admit_finish``.
 
     The first chunk gives the prefix columns their positions (a radix
     match is gap-free, so position = column) and every later column the
@@ -426,7 +458,7 @@ def serve_prefill_chunk(
     dev = state.k.device
     n, Sc = tokens.shape
     BS = state.block_size
-    rows_t = torch.as_tensor(rows, device=dev)
+    rows_t = to_device(np.asarray(rows, np.int64), dev)
     tbl = state.block_tables[rows_t]
     col0 = prefix_off + chunk_off
     if reset:
@@ -438,20 +470,20 @@ def serve_prefill_chunk(
             priv[:, : prefix_off // BS] = 0  # shared prefix blocks keep their scales
             state.k_scale[:, priv] = 0.0
             state.v_scale[:, priv] = 0.0
-    pos_t = torch.from_numpy(np.asarray(positions, np.int32)).to(dev)
+    pos_t = to_device(np.asarray(positions, np.int32), dev)
     kv_pos = state.kpos[rows_t]
     kv_pos[:, col0 : col0 + Sc] = pos_t
     cols = (col0 + torch.arange(Sc, device=dev)).expand(n, Sc)
     nlive = torch.full((n,), -(-(col0 + Sc) // BS), dtype=torch.int32, device=dev)
     fns = model_fns(cfg)
-    h = fns.embed(cfg, params, torch.from_numpy(tokens).to(dev), pos_t)
+    h = fns.embed(cfg, params, to_device(tokens, dev), pos_t)
     fns.stage_paged(
         cfg, params["layers"], h, state.k, state.v, tbl, cols, kv_pos, pos_t,
         prefill=True, nlive=nlive, k_scale=state.k_scale, v_scale=state.v_scale,
         backend=backend,
     )
     state.kpos[rows_t] = kv_pos
-    state.write_off[rows] = col0 + Sc
+    state.write_off[rows_t] = col0 + Sc
     state.out[rows, chunk_off : chunk_off + Sc] = tokens
 
 
@@ -467,62 +499,83 @@ def serve_admit_finish(
     topps: np.ndarray,
     rng_states=None,  # per row: a migrated request's generator state, or None
 ) -> None:
-    """Arm chunk-prefilled rows: the final prompt token becomes each row's
-    next input at position ``prompt_len - 1``; the first decode step
-    computes it and samples the first generated token."""
-    _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
-    for i, r in enumerate(rows):
-        plen = int(prompt_len[i])
-        state.pos_slots[r] = plen - 1
-        state.lengths[r] = plen
-        state.budget[r] = plen + int(max_new[i])
-        state.done[r] = int(max_new[i]) < 1
-        state.tok[r] = last_tok[i]
-
-
-def serve_step(
-    cfg: ModelConfig, params: dict, state: ServeState, rows: list, backend: str = "auto"
-) -> torch.Tensor:
-    """One decode step for the live ``rows``: feed each row's next token,
-    write its KV at the row's write column (quantized against the running
-    block scale on an int8/fp8 arena), attend the row's blocks through the
-    paged decode kernel, sample the next token and advance the rows'
-    columns and positions. Returns the tokens on the device:
-    ``commit_tokens`` applies them once they are read. A step must never
-    be dispatched twice: it writes the arena and the positions in place."""
+    """Arm chunk-prefilled rows on the device: the final prompt token
+    becomes each row's next input at position ``prompt_len - 1``; the
+    first decode step computes it and samples the first generated token."""
     dev = state.k.device
-    n = len(rows)
-    rows_t = torch.as_tensor(rows, device=dev)
-    pos = state.pos_slots[rows].astype(np.int32)
-    cols = state.write_off[rows]
-    pos_t = torch.from_numpy(pos[:, None]).to(dev)
-    cols_t = torch.from_numpy(cols[:, None]).to(dev)
-    kv_pos = state.kpos[rows_t]
-    kv_pos[torch.arange(n, device=dev), cols_t[:, 0]] = pos_t[:, 0]
+    _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
+    plen = np.asarray(prompt_len, np.int64)
+    budget = plen + np.asarray(max_new, np.int64)
+    rs = to_device(np.stack([plen, budget, np.asarray(last_tok, np.int64)]).astype(np.int32), dev)
+    rows_t = to_device(np.asarray(rows, np.int64), dev)
+    state.pos_slots[rows_t] = rs[0] - 1
+    state.lengths[rows_t] = rs[0]
+    state.budget[rows_t] = rs[1]
+    state.tok[rows_t] = rs[2]
+    state.done[rows_t] = rs[0] >= rs[1]
+    state.mirror_len[rows] = plen
+    state.mirror_budget[rows] = budget
+
+
+def serve_chunk(
+    cfg: ModelConfig, params: dict, state: ServeState, cycles: int = 1, backend: str = "auto"
+) -> torch.Tensor:
+    """``cycles`` decode steps over all ``M`` rows at one fixed shape (JAX
+    ``serve_chunk``, ``serve.py:1198``). Each step feeds every row's next
+    token, writes its KV at the row's write column (quantized against the
+    running block scale on an int8/fp8 arena), attends the row's blocks
+    through the paged decode kernel and samples the next token. A row
+    that is ``done`` on the device writes no key position and does not
+    advance, and its table reads as all trash for the step: its KV entry
+    lands in the trash block, which no reader sees (one select per step
+    gates every layer's write, where JAX gates each layer's with
+    ``write_valid=advance``, ``serve.py:1330-1337``). A row commits when
+    it is not done and under its budget, and is done at a stop id or at its
+    budget (the JAX commit rule, ``serve.py:1394-1413``).
+
+    Returns the ``[cycles, M]`` int32 log of committed tokens, -1 where a
+    row committed nothing, left on the device. The program reads nothing
+    from the host and copies nothing to the device, so the next chunk may
+    be dispatched before this one's log is read: chunks chain on the
+    device in dispatch order. It writes the arena and the row state in
+    place, so it must never be dispatched twice."""
+    dev = state.k.device
+    M, W = state.kpos.shape
     fns = model_fns(cfg)
-    h = fns.embed(cfg, params, torch.from_numpy(state.tok[rows][:, None]).to(dev), pos_t)
-    h = fns.stage_paged(
-        cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
-        kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
-    )
-    logits = fns.final_logits(cfg, params, h)[:, 0]
-    nxt = _sample_rows(state, rows, logits)
-    state.kpos[rows_t] = kv_pos
-    state.write_off[rows] += 1
-    state.pos_slots[rows] += 1
-    return nxt
+    ar = state.row_ids
+    log = torch.empty((cycles, M), dtype=torch.int32, device=dev)
+    for c in range(cycles):
+        live = ~state.done
+        pos = state.pos_slots
+        cols = state.write_off.clamp(max=W - 1)  # a done row may sit at W
+        state.kpos[ar, cols] = torch.where(live, pos, state.kpos[ar, cols])
+        tables = torch.where(live[:, None], state.block_tables, 0)
+        h = fns.embed(cfg, params, state.tok[:, None], pos[:, None])
+        h = fns.stage_paged(
+            cfg, params["layers"], h, state.k, state.v, tables, cols[:, None], state.kpos,
+            pos[:, None], k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
+        )
+        logits = fns.final_logits(cfg, params, h)[:, 0]
+        nxt = _sample_rows(state, range(M), logits)
+        commit = live & (state.lengths < state.budget)
+        step = commit.to(torch.int32)
+        state.tok.copy_(torch.where(commit, nxt, state.tok))
+        state.lengths.add_(step)
+        state.done.copy_(state.done | (commit & (is_stop(cfg, nxt) | (state.lengths >= state.budget))))
+        adv = live.to(torch.int32)
+        state.write_off.add_(adv)
+        state.pos_slots.add_(adv)
+        log[c] = torch.where(commit, nxt, -1)
+    return log
 
 
-def commit_tokens(cfg: ModelConfig, state: ServeState, rows: list, toks: np.ndarray) -> None:
-    """Apply the tokens a ``serve_admit`` or ``serve_step`` sampled, read
-    to the host: each row's token enters its ``out`` buffer and becomes
-    its next input, and the row is done at a stop id or its budget."""
-    stop = _stop_mask(cfg, toks)
-    for i, r in enumerate(rows):
-        state.out[r, state.lengths[r]] = toks[i]
-        state.lengths[r] += 1
-        state.done[r] = bool(stop[i]) or state.lengths[r] >= state.budget[r]
-        state.tok[r] = toks[i]
+def commit_log(state: ServeState, row: int, run) -> None:
+    """The host mirror of tokens a program committed for ``row``, read from
+    its log: they enter ``out`` at the mirrored length, which advances.
+    The device took the same step when the program ran."""
+    n, c = int(state.mirror_len[row]), len(run)
+    state.out[row, n : n + c] = run
+    state.mirror_len[row] += c
 
 
 def serve_verify(
@@ -539,7 +592,8 @@ def serve_verify(
     pending token and its K drafts at positions ``pos_slots + i``, logits
     at every position, a variable number of tokens committed per row.
     Returns the ``[n, K+1]`` int32 commit log (-1 padded) on the device;
-    ``commit_verify`` applies it once it is read.
+    the row state advances on the device by each row's run, and
+    ``commit_verify`` applies the log to the host mirrors once it is read.
 
     The K + 1 fresh entries are written by ``write_block_kv`` straight into
     each row's columns ``write_off + i`` (no scratch: per-row columns suit
@@ -553,44 +607,41 @@ def serve_verify(
     draws from the row's own generator, filtered per row by
     ``filter_rows``. Rollback is a position rewind: ``kpos`` keeps each
     row's accepted prefix and the sentinel past it, never a copy. Like
-    ``serve_step`` it writes the arena in place, so it must never be
-    dispatched twice."""
+    ``serve_chunk`` it writes the arena and the row state in place, so it
+    must never be dispatched twice."""
     from ..runtime.spec import _leading_true_count, cap_commits, rejection_commit
 
     dev = state.k.device
     n, K = draft.shape
-    rows_t = torch.as_tensor(rows, device=dev)
-    iota = np.arange(K + 1)
-    pos = (state.pos_slots[rows][:, None] + iota).astype(np.int32)
+    rows_t = to_device(np.asarray(rows, np.int64), dev)
+    iota_t = torch.arange(K + 1, dtype=torch.int32, device=dev)
     W = state.kpos.shape[1]
-    cols = np.clip(state.write_off[rows][:, None] + iota, 0, W - 1)
-    pos_t = torch.from_numpy(pos).to(dev)
-    cols_t = torch.from_numpy(cols).to(dev)
-    toks = np.concatenate([state.tok[rows][:, None], draft], axis=1).astype(np.int32)
+    pos_t = state.pos_slots[rows_t][:, None] + iota_t
+    cols_t = (state.write_off[rows_t][:, None] + iota_t).clamp(0, W - 1)
+    draft_t = to_device(np.asarray(draft, np.int32), dev)
+    toks = torch.cat([state.tok[rows_t][:, None], draft_t], dim=1)
     rowsel = torch.arange(n, device=dev)[:, None]
     kv_pos = state.kpos[rows_t]
     kv_pos[rowsel, cols_t] = pos_t  # the in-flight entries, this step only
     fns = model_fns(cfg)
-    h = fns.embed(cfg, params, torch.from_numpy(toks).to(dev), pos_t)
+    h = fns.embed(cfg, params, toks, pos_t)
     h = fns.stage_paged(
         cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
         kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
     )
     logits = fns.final_logits(cfg, params, h).float()  # [n, K+1, V]
 
-    draft_t = torch.from_numpy(np.asarray(draft, np.int32)).to(dev)
-    valid = torch.from_numpy(iota[None, :K] < np.asarray(draft_len)[:, None]).to(dev)
+    valid = to_device(np.arange(K)[None, :] < np.asarray(draft_len)[:, None], dev)
     choices = logits.argmax(dim=-1).to(torch.int32)
     a = _leading_true_count((choices[:, :K] == draft_t) & valid)
     commit = choices
-    samp = [i for i, r in enumerate(rows) if state.temp[r] > 0]
+    samp = [i for i, r in enumerate(rows) if state.rng[r] is not None]
     if samp:
-        sel = torch.as_tensor(samp, device=dev)
+        sel = to_device(np.asarray(samp, np.int64), dev)
         rs = [rows[i] for i in samp]
-        temp = torch.from_numpy(state.temp[rs]).to(dev)
+        knobs = to_device(np.stack([state.temp[rs], state.topp[rs]]).astype(np.float32), dev)
         scaled = filter_rows(
-            logits[sel] / temp[:, None, None], torch.from_numpy(state.topk[rs]),
-            torch.from_numpy(state.topp[rs]),
+            logits[sel] / knobs[0][:, None, None], to_device(state.topk[rs], dev), knobs[1],
         )
         V = logits.shape[-1]
         u = torch.stack([torch.rand(K, generator=state.rng[r], device=dev) for r in rs])
@@ -600,41 +651,39 @@ def serve_verify(
         a[sel] = a_s.to(a.dtype)
         commit = commit.clone()
         commit[sel] = commit_s
-    budget_rem = torch.from_numpy(state.budget[rows] - state.lengths[rows]).to(dev)
-    done = torch.from_numpy(state.done[rows]).to(dev)
-    c, log, _ = cap_commits(cfg, commit, a, budget_rem, done)
-    iota_t = torch.arange(K + 1, device=dev)
-    kept = torch.where(iota_t[None, :] < c[:, None], pos_t, torch.full((), POS_SENTINEL,
-                                                                          dtype=torch.int32,
-                                                                          device=dev))
+    lengths, budget, done = state.lengths[rows_t], state.budget[rows_t], state.done[rows_t]
+    c, log, eos = cap_commits(cfg, commit, a, budget - lengths, done)
+    c = c.to(torch.int32)
+    kept = torch.where(iota_t[None, :] < c[:, None], pos_t, POS_SENTINEL)
     kv_pos[rowsel, cols_t] = kept
     state.kpos[rows_t] = kv_pos
+    # the rows advance by their runs; the run's last token is the next input
+    last = torch.gather(log, 1, (c - 1).clamp(min=0).long()[:, None])[:, 0]
+    state.tok[rows_t] = torch.where(c > 0, last, state.tok[rows_t])
+    state.pos_slots[rows_t] = state.pos_slots[rows_t] + c
+    state.write_off[rows_t] = state.write_off[rows_t] + c
+    state.lengths[rows_t] = lengths + c
+    state.done[rows_t] = done | eos | (lengths + c >= budget)
     return log
 
 
 def commit_verify(cfg: ModelConfig, state: ServeState, rows: list, log: np.ndarray) -> None:
     """Apply a ``serve_verify`` log read to the host: each row's committed
-    run (``c`` tokens) enters its ``out`` buffer, ``lengths``,
-    ``pos_slots`` and ``write_off`` advance by ``c``, the run's last token
-    becomes the row's pending token, and the row is done at a stop id in
-    the run or at its budget (``serve.py:1707-1802``)."""
+    run (``c`` tokens) enters its ``out`` buffer and advances its mirrored
+    length (``serve.py:1707-1802``); the device advanced the row when the
+    verify ran."""
     for i, r in enumerate(rows):
         run = log[i][log[i] >= 0]
-        c = int(run.shape[0])
-        if c == 0:
-            continue
-        n = int(state.lengths[r])
-        state.out[r, n : n + c] = run
-        state.lengths[r] += c
-        state.pos_slots[r] += c
-        state.write_off[r] += c
-        state.tok[r] = run[-1]
-        state.done[r] = bool(_stop_mask(cfg, run).any()) or state.lengths[r] >= state.budget[r]
+        if run.shape[0]:
+            commit_log(state, r, run)
 
 
 def serve_cancel_rows(state: ServeState, rows: list) -> None:
-    """Stop rows: they take no further decode steps."""
-    state.done[rows] = True
+    """Stop rows (``serve.py:500``): they are done on the device before the
+    next program runs, so they take no further decode steps and commit
+    nothing; their generators are dropped."""
+    mask = np.zeros(state.rows, bool)
+    mask[list(rows)] = True
+    state.done |= to_device(mask, state.done.device)
     for r in rows:
         state.rng[r] = None
-

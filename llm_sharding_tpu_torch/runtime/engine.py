@@ -58,7 +58,12 @@ class Engine:
         *,
         capacity: int = 1024,
         batch_per_slot: int = 1,
+        chunk_cycles: int = 1,
+        top_k: int = 0,
+        top_p: float = 1.0,
         prefill_chunk: Optional[int] = None,
+        pipeline_depth: int = 1,
+        inflight_steps: int = 1,
         kv_block_size: Optional[int] = None,
         kv_blocks: Optional[int] = None,
         kv_dtype: str = "bf16",
@@ -101,7 +106,12 @@ class Engine:
         Observability: ``trace_path`` streams the server's spans to a
         rotating JSONL file (they always reach the in-memory flight
         recorder), ``gauge_sweep_every_s`` paces the per-step load-gauge
-        sweep (0: every step), as JAX ``server.py:905``, ``:924``."""
+        sweep (0: every step), as JAX ``server.py:905``, ``:924``. The step
+        loop: ``chunk_cycles`` decode steps per dispatch, ``pipeline_depth``
+        logs left in flight by the serial loop, ``inflight_steps`` > 1 the
+        async executor (``runtime/async_exec.py``); ``top_k`` / ``top_p``
+        are the defaults of requests that give none (JAX
+        ``runtime/engine.py:488-612``)."""
         if kv_block_size is None and kv_blocks is None:
             raise NotPorted(
                 "dense serving (serve() without kv_block_size/kv_blocks) comes with "
@@ -116,8 +126,10 @@ class Engine:
         from .server import PipelineServer
 
         return PipelineServer(
-            self, capacity=capacity, batch_per_slot=batch_per_slot,
-            prefill_chunk=prefill_chunk, kv_block_size=kv_block_size, kv_blocks=kv_blocks,
+            self, capacity=capacity, batch_per_slot=batch_per_slot, chunk_cycles=chunk_cycles,
+            top_k=top_k, top_p=top_p, prefill_chunk=prefill_chunk,
+            pipeline_depth=pipeline_depth, inflight_steps=inflight_steps,
+            kv_block_size=kv_block_size, kv_blocks=kv_blocks,
             kv_dtype=kv_dtype, paged_attn=paged_attn, prefix_cache=prefix_cache,
             host_pool_blocks=host_pool_blocks, disk_pool_dir=disk_pool_dir,
             disk_pool_blocks=disk_pool_blocks, max_queue=max_queue,

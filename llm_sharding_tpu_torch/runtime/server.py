@@ -56,7 +56,8 @@ Resilience (``server.py:38-58``, ``:2941``, ``:3590-3860``):
   so replaying one after a real mid-call failure would write a token's KV
   twice and advance its row twice. A program's tokens stay on the device
   until a read that can be issued again (``log_fetch``) brings them to
-  the host, and only then is the host state updated.
+  the host, and only then do the host's mirrors follow; a log lost past
+  its retries fails the rows it carried, which are stopped on the device.
 - **sticky CUDA errors**: a real device fault poisons the process's CUDA
   context, so every later launch fails too. Containment fails the rows it
   touched, as on any failure, but the process cannot serve again: restore
@@ -107,17 +108,48 @@ Observability (``server.py:2197-2330``, ``:2525-2646``, ``:2849``,
 - **step profiler**: every ``step`` records one ``StepRecord`` into
   ``self.stepline`` (``obs/stepline.py``): the disjoint host phases
   ``admit``, ``radix_plan``, ``table_push``, ``dispatch``, ``fetch``,
-  ``apply`` and ``gauge_sweep``, and the time blocked on the device. A
-  program's tokens are read after a wait on a CUDA event recorded right
-  after its last launch; that wait is the step's ``blocked_s``, and the
-  gap from its end to the next program's dispatch the ``idle_s``
-  estimate. On the CPU there is no event: the program ran inside
-  ``dispatch`` and nothing is blocked. ``gauge_sweep_every_s`` paces the
-  load-gauge sweep; ``stepline_capture`` arms a deep capture, bracketed
-  by ``torch.profiler`` when given ``trace_dir``.
+  ``apply`` and ``gauge_sweep`` (and the async executor's ``publish`` and
+  ``drain``), and the time blocked on the device: the waits on the CUDA
+  events of the logs in flight. The gap from the newest log's landing to
+  the next program's dispatch is the ``idle_s`` estimate. On the CPU there
+  is no event: the program ran inside ``dispatch`` and nothing is blocked.
+  ``gauge_sweep_every_s`` paces the load-gauge sweep; ``stepline_capture``
+  arms a deep capture, bracketed by ``torch.profiler`` when given
+  ``trace_dir``.
 
-Not in this slice: dense serving, embedding input and the async
-executor's ``settle``.
+The step loop (``server.py:2197-2605``, ``runtime/async_exec.py``). The
+row state lives on the device and every program advances it there, so a
+decode chunk (``serve_chunk``: ``chunk_cycles`` steps over all rows) is
+dispatched without waiting for the previous chunk's tokens. Each program
+that commits tokens leaves an entry in ``_pending``: its log, a pinned
+host buffer the log is copied into without blocking, and a CUDA event
+after that copy. The host applies the entries oldest first (``_drain``),
+and its mirrors follow.
+
+- ``pipeline_depth`` (default 1): the serial loop (``inflight_steps=1``)
+  leaves that many logs in flight when ``step`` returns, so a step's
+  tokens surface one step later and the device computes the next chunk
+  while the host reads the last one.
+- ``inflight_steps`` (default 1) > 1 splits the step into the executor
+  (``step``: publish, admit, dispatch, and a drain only when the window of
+  ``inflight_steps`` dispatches is full), a scheduler thread (deadline
+  candidates, radix staging, gauge sweep) and a completion sidecar (applies
+  logs as they land). ``close`` stops and joins both threads.
+- Speculation keeps an effective depth of 1 (the next drafts need the
+  committed ids); admission drains every entry first (it needs the
+  mirrors), and so do ``snapshot`` and ``extract``.
+- ``extract`` settles (drains) whenever logs are pending, at every depth,
+  and not only with the async executor as the JAX server does: a sampled
+  row's ``torch.Generator`` advances when a program is launched, so an
+  unsettled extract would carry draws of steps whose tokens it drops.
+- A finish the host decides (stop string, cancel, deadline, containment)
+  stops the row on the device before the next dispatch; tokens already in
+  flight for it are skipped. A log lost past its retries fails the rows it
+  carried, which are stopped on the device (``_contain_lost_log``).
+
+``top_k`` / ``top_p`` are server defaults for requests that give none.
+
+Not in this slice: dense serving and embedding input.
 """
 
 from __future__ import annotations
@@ -132,7 +164,7 @@ import os
 import shutil
 import time
 import weakref
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,6 +181,7 @@ from ..obs.trace import TraceContext, TraceWriter, emit_span
 from ..ops.quant import KV_DTYPES, fp8_kv_supported, kv_storage_dtype
 from ..ops.sampling import validate_top_p
 from ..parallel import serve as serve_ops
+from .async_exec import INFLIGHT_STEPS, SCHEDULER_LAG, _CompletionSidecar, _StepScheduler
 from .blocks import BlockAllocator
 from .faults import backoff_delays, is_transient
 from .radix import RadixCache
@@ -166,9 +199,13 @@ SNAPSHOT_FORMAT = 1
 # arena blocks moved per device<->host copy by snapshot and restore: the
 # device holds one such chunk beside the arena, never a second arena
 _ARENA_CHUNK_BLOCKS = 32
+# the row state the programs keep on the device (a snapshot reads it)
+_DEVICE_ROW_STATE = ("tok", "pos_slots", "write_off", "lengths", "done", "budget")
 #: committed tokens per ``decode`` span (``server.py:312``): a span per run
 #: of this many tokens, the remainder flushed at the request's finish
 DECODE_SPAN_TOKENS = 32
+# seconds a bounded wait on a log's CUDA event sleeps between polls
+_POLL_S = 5e-4
 
 # -- health states (``server.py:97-101``) ------------------------------------
 SERVING = "SERVING"  # admitting and decoding normally
@@ -292,7 +329,7 @@ def _update_load_gauges() -> None:
         if not s._closed:
             arena[s.kv_dtype] += s.arena_bytes()
         kv_slots += (s._alloc.in_use - s._alloc.cache_cold) * s.kv_block_size
-        kv_live += int(sum(s.state.lengths[i] for i in live))
+        kv_live += int(sum(s.state.mirror_len[i] for i in live))
         if s._radix is not None:
             host_blocks += s._radix.host_blocks
             disk_blocks += s._radix.disk_blocks
@@ -535,6 +572,65 @@ def _write_arena_blocks(state, blocks, k_host, v_host, *scales) -> None:
         )
 
 
+class _InFlight:
+    """One dispatched program's log on its way to the host: an entry of
+    ``PipelineServer._pending`` (the JAX server's ``(kind, _Prefetched,
+    meta)``, ``server.py:368``). On the card the log is copied into a
+    pinned host buffer by a ``non_blocking`` copy queued right behind the
+    program, and a CUDA event recorded after that copy says when its bytes
+    have landed: nothing waits at dispatch. On the CPU the program ran
+    inside the dispatch and its log is on the host already."""
+
+    __slots__ = ("kind", "log", "host", "event", "meta", "done_at")
+
+    def __init__(self, kind: str, log: torch.Tensor, meta):
+        self.kind = kind  # "admit", "chunk" or "spec"
+        self.log = log
+        self.meta = meta  # admit, chunk: [(row, req)]; spec: [(row, req, k, draft)]
+        # perf_counter when the host first saw the log landed: the
+        # device-idle estimate's start
+        self.done_at: Optional[float] = None
+        if log.device.type == "cuda":
+            self.host = torch.empty(log.shape, dtype=log.dtype, pin_memory=True)
+            self.host.copy_(log, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = log, None
+
+    def landed(self) -> bool:
+        """Whether the log is on the host, without waiting."""
+        if self.done_at is None:
+            if self.event is not None and not self.event.query():
+                return False
+            self.done_at = time.perf_counter()
+        return True
+
+    def wait_landed(self, timeout: Optional[float] = None) -> bool:
+        """Wait until the log is on the host; True once it has landed.
+        Without ``timeout``: the CUDA event's wait, which releases the
+        interpreter lock (bounded by the programs queued ahead of the copy,
+        which the device always finishes). With one: poll the event, asleep
+        between polls, for at most ``timeout`` seconds (the sidecar's wait,
+        which ``close()`` must not queue behind)."""
+        if self.event is not None and self.done_at is None:
+            if timeout is None:
+                self.event.synchronize()
+            else:
+                end = time.perf_counter() + timeout
+                while not self.event.query():
+                    if time.perf_counter() >= end:
+                        return False
+                    time.sleep(_POLL_S)
+        if self.done_at is None:
+            self.done_at = time.perf_counter()
+        return True
+
+    def read(self) -> np.ndarray:
+        """The log on the host, once landed."""
+        return self.host.numpy()
+
+
 class PrefixHandle:
     """The KV of a shared prefix, prefilled once by
     ``PipelineServer.prefill_prefix`` (``server.py:846``). Requests
@@ -644,7 +740,12 @@ class PipelineServer:
         *,
         capacity: int = 1024,
         batch_per_slot: int = 1,
+        chunk_cycles: int = 1,
+        top_k: int = 0,
+        top_p: float = 1.0,
         prefill_chunk: Optional[int] = None,
+        pipeline_depth: int = 1,
+        inflight_steps: int = 1,
         kv_block_size: int,
         kv_blocks: int,
         kv_dtype: str = "bf16",
@@ -700,11 +801,29 @@ class PipelineServer:
                 "speculate is incompatible with prefill_chunk (chunked admission "
                 "interleaves decode steps; the speculative step replaces them)"
             )
+        # the step-loop knobs, with the JAX server's checks and messages
+        # (server.py:968-988); chunk_cycles is checked here too (the JAX
+        # server takes 0, which dispatches empty chunks forever)
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if inflight_steps < 1:
+            raise ValueError(f"inflight_steps must be >= 1, got {inflight_steps}")
+        if chunk_cycles < 1:
+            raise ValueError(f"chunk_cycles must be >= 1, got {chunk_cycles}")
         self.engine = engine
         self.cfg = engine.cfg
         self.params = engine.params
         self.capacity = int(capacity)
         self.rows = int(batch_per_slot)
+        #: decode steps per dispatched chunk
+        self.chunk_cycles = int(chunk_cycles)
+        #: logs the serial loop leaves in flight when a step returns
+        self.pipeline_depth = int(pipeline_depth)
+        #: decode dispatches the async executor keeps enqueued (1: the serial loop)
+        self.inflight_steps = int(inflight_steps)
+        # the defaults of requests that give no top_k / top_p
+        self.top_k = int(top_k)
+        self.top_p = validate_top_p(top_p)
         self.prefill_chunk = prefill_chunk
         self.kv_block_size = int(kv_block_size)
         self.kv_blocks = int(kv_blocks)
@@ -749,8 +868,12 @@ class PipelineServer:
         self._row_radix: list = [None] * self.rows  # each row's pinned RadixRef
         self._req: list[Optional[Request]] = [None] * self.rows
         self._admitting: set[int] = set()
-        # rows admitted one-shot in the current step (see _spec_step)
-        self._admitted_now: set[int] = set()
+        # the logs of dispatched programs not yet applied, oldest first
+        self._pending: collections.deque[_InFlight] = collections.deque()
+        # the newest program's entry while its landing is not yet charged
+        # as device idle (None: the newest program returned no log)
+        self._newest: Optional[_InFlight] = None
+        self._stop_ids = frozenset(int(t) for t in self.cfg.eos_token_ids)
         self._queue: collections.deque[Request] = collections.deque()
         self._next_id = 0
         self._closed = False
@@ -763,13 +886,6 @@ class PipelineServer:
         self.stepline = StepProfiler(name="server")
         self.gauge_sweep_every_s = float(gauge_sweep_every_s)
         self._last_gauge_sweep = 0.0
-        # when the last program's tokens were known on the host (its event
-        # waited on): the next dispatch charges the gap as device idle
-        self._done_at: Optional[float] = None
-        # token reads applied in the current step and their fetch + apply
-        # seconds (the step's ``apply`` span)
-        self._applied = 0
-        self._apply_s = 0.0
         # a lower bound on the earliest live deadline (None: none armed);
         # the step's sweep scans only once it has passed
         self._deadline_hint: Optional[float] = None
@@ -804,6 +920,16 @@ class PipelineServer:
         # registered last: the gauge sweep reads every field above
         _LIVE_SERVERS.add(self)
         _update_health_gauge()
+        # the async executor's helper threads (none at depth 1: the serial
+        # loop). A thread that cannot start raises here
+        self._scheduler: Optional[_StepScheduler] = None
+        self._sidecar: Optional[_CompletionSidecar] = None
+        if self.inflight_steps > 1:
+            self._scheduler = _StepScheduler(self)
+            self._sidecar = _CompletionSidecar(self)
+            self._scheduler.start()
+            self._sidecar.start()
+        INFLIGHT_STEPS.set(float(self.inflight_steps))
 
     # ---------------------------------------------------------------- API
 
@@ -814,8 +940,8 @@ class PipelineServer:
         *,
         temperature: float = 0.0,
         seed: int = 0,
-        top_k: int = 0,
-        top_p: float = 1.0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
         prefix: Optional[PrefixHandle] = None,
         deadline_s: Optional[float] = None,
         stop=None,
@@ -833,9 +959,10 @@ class PipelineServer:
         ``tokenizer``) finishes the request once its decoded text holds one
         of them, the tokens cut to the shortest prefix that does. ``trace``
         (a caller's ``TraceContext``) parents the request's spans; without
-        it the request starts a trace of its own."""
+        it the request starts a trace of its own. ``top_k`` / ``top_p``
+        default to the server's."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
-        top_p = validate_top_p(top_p)
+        top_k, top_p = self._resolve_filters(top_k, top_p)
         deadline_s = self._resolve_deadline(deadline_s)
         bucket, chunked, spx = self._plan_request(prompt, max_new_tokens, prefix)
         stop = self._validate_stop(stop)
@@ -843,7 +970,7 @@ class PipelineServer:
             self._check_admission()
             self._check_never_fits(bucket, max_new_tokens, spx, chunked)
             req = Request(self._new_id(), prompt, int(max_new_tokens), float(temperature),
-                          int(seed), int(top_k), top_p, prefix, deadline_s, stop, trace)
+                          int(seed), top_k, top_p, prefix, deadline_s, stop, trace)
             if self.speculate:
                 req.spec_k = AdaptiveK(self.speculate)
             self._queue.append(req)
@@ -914,42 +1041,51 @@ class PipelineServer:
             return self._radix.stats()
 
     def step(self) -> bool:
-        """Shed expired requests, admit what fits, then one decode step over
-        every live row, then take the queue head's radix match ahead of its
-        admission; with auto-snapshot armed, end by checkpointing once per
-        interval. A failure is contained to the requests it touched and the
-        server keeps stepping; a clean step after one restores SERVING. A
-        closed server does nothing. Returns True if any work was done.
+        """Shed expired requests, admit what fits, dispatch one decode chunk
+        over every row (or, with ``speculate``, one verify), then apply
+        logs down to the loop's depth and take the queue head's radix match
+        ahead of its admission; with auto-snapshot armed, end by
+        checkpointing once per interval. A failure is contained to the
+        requests it touched and the server keeps stepping; a clean step
+        after one restores SERVING. A closed server does nothing. Returns
+        True if any work was done.
 
-        The step is one ``StepRecord`` of ``self.stepline`` (phases as in
-        JAX ``_step_serial``, ``server.py:2240-2330``); admission's
-        dispatch, token read and commit nest in its ``admit`` phase."""
+        The serial loop (``inflight_steps=1``, ``_step_serial``) leaves the
+        newest ``pipeline_depth`` logs in flight, so tokens surface that
+        many steps late and ``run_until_idle`` drains the tail; with
+        ``inflight_steps`` > 1 the async executor's body (``_step_async``)
+        runs instead. Greedy output is token-identical at every depth. The
+        step is one ``StepRecord`` of ``self.stepline`` (phases as in JAX
+        ``server.py:2240-2461``)."""
+        if self.inflight_steps > 1:
+            return self._step_async()
+        return self._step_serial()
+
+    def _step_serial(self) -> bool:
+        """The single-threaded step body (``server.py:2240-2336``): it
+        drains AFTER its dispatch, down to ``pipeline_depth``, and sweeps
+        the gauges and stages the radix plan itself."""
         with self._mutex:
             if self._closed:
                 return False
             sl = self.stepline
-            sl.begin_step()
-            tok0 = self.counters.tokens_generated
-            self._applied, self._apply_s = 0, 0.0
+            tok0 = self._begin_boundary()
             self._step_contained = False
-            self._admitted_now.clear()
             sl.push("admit")
             progressed = self._shed_expired()
-            if self._queue and self._free_rows():
-                progressed |= self._admit_pending()
+            progressed |= self._admit_if_free()
             sl.pop()
-            live = self._live_rows()
-            if live:
-                if self.speculate:
-                    self._spec_step(live)
-                else:
-                    self._decode(live)
+            if self.speculate and self._any_active():
                 progressed = True
-            if progressed or self._applied:
-                # the span write is host work of the apply it reports on
-                sl.push("apply")
-                self._span("apply", dur_s=self._apply_s, applied=self._applied)
-                sl.pop()
+                applied, dt_apply = self._spec_boundary(None)
+            elif self._any_active():
+                self._dispatch_chunk()
+                progressed = True
+                applied, dt_apply = self._timed_drain(self.pipeline_depth, None)
+            else:
+                applied, dt_apply = self._timed_drain(0, None)
+            if progressed or applied:
+                self._report_apply(dt_apply, applied)
                 now = time.perf_counter()
                 if (self.gauge_sweep_every_s <= 0.0
                         or now - self._last_gauge_sweep >= self.gauge_sweep_every_s):
@@ -958,28 +1094,155 @@ class PipelineServer:
                     sl.pop()
                     self._last_gauge_sweep = now
             if self._radix is not None and self._queue:
+                # after this step's dispatch: a host-tier restore it starts
+                # queues behind the chunk in flight
                 sl.push("radix_plan")
                 self._stage_radix_plan()
                 sl.pop()
-            snap_due = self._capture_autosnapshot()
-            if (
-                self._health == DEGRADED and not self._step_contained
-                # idle counts as clean: nothing is left to fail
-                and (progressed or not (self._queue or self._live_rows()))
-            ):
-                self._set_health(SERVING)
-            sl.end_step(
-                rows=sum(1 for r in self._req if r is not None and not r.done),
-                tokens=self.counters.tokens_generated - tok0, queued=len(self._queue),
-            )
+            snap_due = self._end_boundary(progressed, applied, tok0)
         # the file write runs outside the mutex: consumers on other threads
         # stay live while it lands
         if snap_due is not None:
             self._write_autosnapshot(snap_due)
         return progressed
 
+    def _step_async(self) -> bool:
+        """The async executor's body (``inflight_steps`` > 1,
+        ``server.py:2338-2461``): apply the scheduler's published delta
+        (``publish``; the inline sweep when none is published), admit,
+        drain inline only as far as the window of ``inflight_steps``
+        dispatches requires (``drain``, with ``fetch`` / ``apply`` nested),
+        THEN dispatch. The gauge sweep and the radix staging run on the
+        scheduler, whose overlapped ``plan`` time reaches the phase
+        histogram off-thread and never a StepRecord. The step ends by
+        kicking the scheduler and waking the sidecar, under the mutex
+        (their conditions rank after it). A helper thread that died makes
+        the step raise its exception."""
+        sched, sidecar = self._scheduler, self._sidecar
+        with self._mutex:
+            if self._closed:
+                return False
+            self._check_helpers()
+            sl = self.stepline
+            tok0 = self._begin_boundary()
+            # _step_contained is not reset here: a containment the sidecar
+            # made between steps suppresses this step's recovery, as an
+            # in-step one would
+            sl.push("publish")
+            delta = sched.take() if sched is not None else None
+            if delta is not None:
+                progressed = self._apply_delta(delta)
+                if self._deadline_hint is not None and time.perf_counter() >= self._deadline_hint:
+                    # a deadline passed after the delta was planned: sweep
+                    # inline so the expiry lands at this boundary
+                    progressed |= self._shed_expired()
+            else:
+                progressed = self._shed_expired()
+            sl.pop()
+            sl.push("admit")
+            progressed |= self._admit_if_free()
+            sl.pop()
+            if self.speculate and self._any_active():
+                progressed = True
+                applied, dt_apply = self._spec_boundary("drain")
+            elif self._any_active():
+                # backpressure BEFORE the dispatch: at most inflight_steps - 1
+                # unapplied logs, so the dispatch below fills the window
+                applied, dt_apply = self._timed_drain(self.inflight_steps - 1, "drain")
+                self._dispatch_chunk()
+                progressed = True
+            else:
+                applied, dt_apply = self._timed_drain(0, "drain")
+            if progressed or applied:
+                self._report_apply(dt_apply, applied)
+            snap_due = self._end_boundary(progressed, applied, tok0)
+            self._step_contained = False  # consumed: the next boundary may recover
+            if sched is not None:
+                sched.kick()
+            if sidecar is not None and self._pending:
+                sidecar.notify()
+        if snap_due is not None:
+            self._write_autosnapshot(snap_due)
+        return progressed
+
+    # -- the parts both step bodies share (mutex held) ----------------------
+
+    def _check_helpers(self) -> None:
+        """Raise the exception a helper thread of the async executor died
+        of (at every step from then on: the server cannot keep its
+        threaded contract without it)."""
+        for t in (self._scheduler, self._sidecar):
+            if t is not None and t.error is not None:
+                raise RuntimeError(
+                    f"the async executor's {t.name} thread failed: {t.error!r}"
+                ) from t.error
+
+    def _begin_boundary(self) -> int:
+        """Open the step's record; the tokens generated so far."""
+        self.stepline.begin_step()
+        return self.counters.tokens_generated
+
+    def _admit_if_free(self) -> bool:
+        """Admit from the queue when the mirror shows a free row. Admission
+        needs current mirrors, so every log is applied first; gated on the
+        free row so a full server does not wait on its newest chunk every
+        step (a row freed inside an unapplied log is seen one step later)."""
+        if not (self._queue and self._free_rows()):
+            return False
+        self._drain(0)
+        return self._admit_pending()
+
+    def _timed_drain(self, max_pending: int, phase: Optional[str]) -> Tuple[int, float]:
+        """``_drain(max_pending)``, inside ``phase`` when given; the entries
+        applied and the seconds it took."""
+        sl = self.stepline
+        t0 = time.perf_counter()
+        if phase:
+            sl.push(phase)
+        applied = self._drain(max_pending)
+        if phase:
+            sl.pop()
+        return applied, time.perf_counter() - t0
+
+    def _spec_boundary(self, phase: Optional[str]) -> Tuple[int, float]:
+        """One verify, then every log applied: speculation keeps an
+        effective depth of 1 at every setting, since the next drafts need
+        this verify's commits (``server.py:2393-2404``)."""
+        sl = self.stepline
+        sl.push("dispatch")
+        self._spec_step()
+        sl.pop()
+        return self._timed_drain(0, phase)
+
+    def _report_apply(self, dt_apply: float, applied: int) -> None:
+        """The ``apply`` span; writing it is host work of the apply it
+        reports on."""
+        sl = self.stepline
+        sl.push("apply")
+        self._span("apply", dur_s=dt_apply, applied=applied)
+        sl.pop()
+
+    def _end_boundary(self, progressed: bool, applied: int, tok0: int):
+        """Capture a due auto-snapshot, restore SERVING after a clean step,
+        close the step's record. Returns the snapshot to write outside the
+        mutex, or None."""
+        snap_due = self._capture_autosnapshot()
+        if (
+            self._health == DEGRADED and not self._step_contained
+            # idle counts as clean: nothing is left to fail
+            and (progressed or applied
+                 or not (self._queue or self._any_active() or self._pending))
+        ):
+            self._set_health(SERVING)
+        self.stepline.end_step(
+            rows=sum(1 for r in self._req if r is not None and not r.done),
+            tokens=self.counters.tokens_generated - tok0, queued=len(self._queue),
+            pending=len(self._pending),
+        )
+        return snap_due
+
     def run_until_idle(self) -> None:
-        while not self._closed and (self._queue or self._live_rows()):
+        while not self._closed and (self._queue or self._any_active() or self._pending):
             self.step()
 
     def stream(self, req: Request) -> Iterator[int]:
@@ -997,7 +1260,9 @@ class PipelineServer:
                 if error is not None:
                     raise RequestFailed(f"request {req.id} failed: {error}", req) from error
                 return
-            if not self.step() and not req.done and not (self._queue or self._live_rows()):
+            if not self.step() and not req.done and not (
+                self._queue or self._any_active() or self._pending
+            ):
                 raise RequestFailed(
                     f"request {req.id} cannot finish here: the server is idle or closed", req
                 )
@@ -1091,7 +1356,7 @@ class PipelineServer:
         every queued and in-flight request with ``ServerClosed`` (a
         ``stream`` on another thread then raises ``RequestFailed``), free
         their blocks (not cached) and go DRAINING; ``step`` does nothing
-        after."""
+        after; the async executor's threads are stopped and joined."""
         with self._mutex:
             if self._closed:
                 return
@@ -1106,10 +1371,17 @@ class PipelineServer:
                 for r in victims:
                     self._fail_request(r, err)
             self._admitting.clear()
+            self._pending.clear()
             self._set_health(DRAINING)
             _update_load_gauges()
             if self._trace is not None:
                 self._trace.close()
+        # the helper threads: signalled outside the mutex (their loops check
+        # _closed under it) and joined
+        for t in (self._scheduler, self._sidecar):
+            if t is not None:
+                t.stop()
+                t.join(timeout=5.0)
         logger.info("server closed")
 
     @property
@@ -1154,8 +1426,9 @@ class PipelineServer:
         (disk-tier nodes as references to their pool entries), the
         requests in rows and queue (deadlines as time remaining), the next
         request id (read, not consumed), the counters and the serve
-        options (``paged_attn`` as requested). ``restore`` continues every
-        request token-identically.
+        options (``paged_attn`` as requested). It applies every log in
+        flight first (``server.py:1740``), so it is taken at a settled
+        boundary. ``restore`` continues every request token-identically.
 
         Refused on a closed server, mid-chunked-admission and while queued
         requests hold prefix handles (their KV is bound to this process: let
@@ -1172,6 +1445,7 @@ class PipelineServer:
                     "queued requests hold prefix handles (device-bound KV); pump until "
                     "they admit or resubmit after restore"
                 )
+            self._drain(0)  # the mirrors and the requests are current
             self._flush_tables()
             st = self.state
             held = set()
@@ -1186,6 +1460,8 @@ class PipelineServer:
                 "format": SNAPSHOT_FORMAT,
                 "serve_kwargs": dict(
                     capacity=self.capacity, batch_per_slot=self.rows,
+                    chunk_cycles=self.chunk_cycles, top_k=self.top_k, top_p=self.top_p,
+                    pipeline_depth=self.pipeline_depth, inflight_steps=self.inflight_steps,
                     prefill_chunk=self.prefill_chunk, kv_block_size=self.kv_block_size,
                     kv_blocks=self.kv_blocks, kv_dtype=self.kv_dtype,
                     paged_attn=self.paged_attn, prefix_cache=self.prefix_cache,
@@ -1198,11 +1474,9 @@ class PipelineServer:
                 "rng_device": self.engine.device.type,
                 "arena": self._capture_arena(sorted(held)),
                 "state": dict(
-                    kpos=serve_ops._raw(st.kpos), pos_slots=st.pos_slots.copy(),
-                    write_off=st.write_off.copy(), out=st.out.copy(),
-                    lengths=st.lengths.copy(), done=st.done.copy(), budget=st.budget.copy(),
-                    tok=st.tok.copy(), temp=st.temp.copy(), topk=st.topk.copy(),
-                    topp=st.topp.copy(),
+                    {k: serve_ops._raw(getattr(st, k)) for k in _DEVICE_ROW_STATE},
+                    kpos=serve_ops._raw(st.kpos), out=st.out.copy(), temp=st.temp.copy(),
+                    topk=st.topk.copy(), topp=st.topp.copy(),
                 ),
                 "paged": {
                     "tables": self._tables.copy(),
@@ -1224,7 +1498,10 @@ class PipelineServer:
         restore runs the ordinary constructor's validation; the held blocks
         are then copied into its (only) arena in chunks. A tree in the
         snapshot restored with the cache off is dropped: the rows sharing
-        its blocks own them and free them on finish."""
+        its blocks own them and free them on finish. A snapshot without the
+        step-loop options (``chunk_cycles``, ``pipeline_depth``,
+        ``inflight_steps``, ``top_k``, ``top_p``) restores with their
+        defaults."""
         if snap.get("format") != SNAPSHOT_FORMAT:
             raise ValueError(
                 f"unknown snapshot format {snap.get('format')!r} (this package writes "
@@ -1268,8 +1545,14 @@ class PipelineServer:
         srv._restore_arena(snap["arena"])
         st.kpos.copy_(torch.from_numpy(np.asarray(host["kpos"], np.int32)))
         for k, v in host.items():
-            if k != "kpos":
+            if k in _DEVICE_ROW_STATE:
+                dst = getattr(st, k)
+                dst.copy_(torch.from_numpy(np.asarray(v)).to(dst.dtype))
+            elif k != "kpos":
                 np.copyto(getattr(st, k), v)
+        # taken at a settled boundary: the mirrors equal the device's rows
+        st.mirror_len[:] = np.asarray(host["lengths"], np.int64)
+        st.mirror_budget[:] = np.asarray(host["budget"], np.int64)
         srv._tables[:] = np.asarray(snap["paged"]["tables"], np.int32)
         srv._push_tables()
         srv._row_blocks = [[int(x) for x in b] for b in snap["paged"]["row_blocks"]]
@@ -1315,16 +1598,31 @@ class PipelineServer:
 
     # ------------------------------------------------------------ migration
 
-    def extract(self, req: Request) -> RequestState:
+    def extract(self, req: Request, *, settle: Optional[bool] = None) -> RequestState:
         """Take a live request off this server as portable host-side state
         without failing it (``server.py:3338``): it leaves the queue or its
         row (the row's prompt blocks go into the prefix cache, as on a
         cancel), and the caller re-admits it elsewhere with ``adopt``. The
         request object is untouched but for ``row``, so a ``stream`` over it
-        carries on. No device read: the resumed prompt is the applied
-        tokens, the sampling state the row generator's host-side state.
-        Refuses a finished request and one this server does not hold."""
+        carries on. The resumed prompt is the applied tokens, the sampling
+        state the row generator's host-side state.
+
+        ``settle`` applies every log in flight first (``_drain(0)``), so the
+        state carries every token the device computed. ``None`` (the
+        default) settles whenever logs are pending on an open server, at
+        every depth: unlike the JAX server, whose sampling chain is
+        recomputed from the applied tokens, a row's ``torch.Generator``
+        advances when a program is launched, and an unsettled extract of a
+        sampled row would carry draws of steps whose tokens it drops (the
+        continuation is then another seeded stream). ``settle=False`` skips
+        it (a replica that cannot read its logs): the tokens in flight are
+        regenerated by the adopter. Refuses a finished request and one this
+        server does not hold."""
         with self._mutex:
+            if settle is None:
+                settle = not self._closed
+            if settle and self._pending and not req.done:
+                self._drain(0)
             if req.done:
                 raise ValueError(f"request {req.id} is finished; nothing to extract")
             rng = req.carried_rng
@@ -1443,6 +1741,15 @@ class PipelineServer:
             fields.setdefault("id", req.id)
         emit_span(self._trace, name, dur_s=dur_s, parent_of=None if req is None else req.trace,
                   src=self._span_src, **fields)
+
+    def _resolve_filters(self, top_k, top_p) -> tuple:
+        """A request's top-k / top-p against the server's defaults
+        (``server.py:2866``)."""
+        top_k = self.top_k if top_k is None else int(top_k)
+        top_p = self.top_p if top_p is None else validate_top_p(top_p)
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        return top_k, top_p
 
     def _new_id(self) -> int:
         rid = self._next_id
@@ -1596,14 +1903,24 @@ class PipelineServer:
         return [i for i, r in enumerate(self._req) if r is None]
 
     def _live_rows(self, exclude=frozenset()) -> list[int]:
+        """Rows whose request is live on the host's mirror (its device row
+        may have finished in a log not yet applied)."""
         return [
-            i for i, r in enumerate(self._req)
-            if r is not None and not self.state.done[i] and i not in exclude
+            i for i, r in enumerate(self._req) if r is not None and not r.done and i not in exclude
         ]
 
+    def _any_active(self, exclude=frozenset()) -> bool:
+        return bool(self._live_rows(exclude))
+
     def _push_tables(self) -> None:
+        """The host's tables onto the device, ordered behind the programs in
+        flight without waiting for them: on the card from a pinned copy
+        taken now, so later edits of the mirror never race the copy."""
         self.stepline.push("table_push")
-        self.state.block_tables.copy_(torch.from_numpy(self._tables))
+        src = torch.from_numpy(self._tables)
+        if self.state.block_tables.device.type == "cuda":
+            src = src.pin_memory()
+        self.state.block_tables.copy_(src, non_blocking=True)
         self._tables_dirty = False
         self.stepline.pop()
 
@@ -1770,68 +2087,115 @@ class PipelineServer:
                     time.sleep(delays[attempt])
                 attempt += 1
 
-    def _record_done(self) -> Optional[torch.cuda.Event]:
-        """A CUDA event after the program just dispatched (its last launch),
-        or None on the CPU, where the program ran inside the dispatch."""
-        if self.engine.device.type != "cuda":
-            return None
-        ev = torch.cuda.Event()
-        ev.record()
-        return ev
-
     def _charge_idle(self, t0: float) -> None:
         """A program is dispatched at ``t0``: the device sat idle since the
-        last read's wait returned (JAX ``_dispatch_chunk``, ``:2529-2537``)."""
-        if self._done_at is not None:
-            self.stepline.idle(t0 - self._done_at)
-            self._done_at = None
+        newest program's log was seen landing (JAX ``_dispatch_chunk``,
+        ``server.py:2529-2537``), charged once. A landing nobody has seen
+        yet, or a newest program without a log, charges nothing."""
+        e, self._newest = self._newest, None
+        if e is not None and e.done_at is not None:
+            self.stepline.idle(t0 - e.done_at)
 
-    def _read_tokens(self, toks: torch.Tensor, rows: list,
-                     done: Optional[torch.cuda.Event]) -> Optional[np.ndarray]:
-        """The sampled tokens of ``rows`` read to the host (the ``fetch``
-        phase). First the wait on ``done``, the program's event: blocked
-        time, timed once, outside the retry. Then the read through the
-        ``log_fetch`` site with retry: the tensor stays put, so a retry reads
-        it again. A read lost past its retries, or a wait that raised, fails
-        exactly those rows' requests (JAX ``_contain_lost_log``, ``:3722``)
-        and returns None."""
-        def read():
-            self._fault_check("log_fetch")
-            try:
-                return toks.cpu().numpy()
-            except Exception:
-                _M_FETCH_FAIL.inc()
-                raise
+    def _push_pending(self, kind: str, log: torch.Tensor, meta) -> None:
+        """A dispatched program's log joins ``_pending``; its copy to the
+        host is queued now and read later."""
+        e = _InFlight(kind, log, meta)
+        self._pending.append(e)
+        self._newest = e
 
+    def _drain(self, max_pending: int) -> int:
+        """Apply logs in flight, oldest first, until at most ``max_pending``
+        remain (``server.py:4608``). Returns the entries applied. On the
+        card each entry's CUDA event is waited on, and the wait is the
+        step's blocked time, measured apart from the ``fetch`` phase (a few
+        microseconds when the log has landed already); a wait that raises,
+        or a read lost past its retries, fails the requests the log carried
+        (``_contain_lost_log``) and draining goes on."""
+        if len(self._pending) <= max_pending:
+            return 0
+        applied = 0
         sl = self.stepline
         sl.push("fetch")
-        try:
-            if done is not None:
-                tb = time.perf_counter()
-                try:
-                    done.synchronize()
-                except Exception:
-                    _M_FETCH_FAIL.inc()
-                    raise
-                self._done_at = time.perf_counter()
-                sl.blocked(self._done_at - tb)
-            else:
-                self._done_at = time.perf_counter()
-            return self._retry("log_fetch", read)
-        except Exception as e:  # noqa: BLE001 — contained to these rows
-            self._contain_rows("log_fetch", [(r, self._req[r]) for r in rows], e)
-            return None
-        finally:
-            sl.pop()
+        while len(self._pending) > max_pending:
+            entry = self._pending.popleft()
+            applied += 1
+            tb = time.perf_counter()
+            try:
+                entry.wait_landed()
+            except Exception as e:  # noqa: BLE001 — a lost log
+                _M_FETCH_FAIL.inc()
+                self._contain_lost_log(entry, e)
+                continue
+            finally:
+                if entry.event is not None:
+                    sl.blocked(time.perf_counter() - tb)
+            self._apply_entry(entry)
+        sl.pop()
+        return applied
 
-    def _apply_tokens(self, toks: np.ndarray, t_fetch: float, apply) -> None:
-        """``apply(toks)`` as the step's ``apply`` phase; the read and the
-        apply since ``t_fetch`` count into the step's ``apply`` span."""
-        self.stepline.push("apply")
-        apply(toks)
-        self.stepline.pop()
-        self._applied += 1
-        self._apply_s += time.perf_counter() - t_fetch
+    def _drain_landed(self) -> int:
+        """The sidecar's drain (mutex held, ``server.py:4637``): apply every
+        entry whose log has landed, oldest first, stopping at the first
+        still in flight. Never waits. The stepline calls inside are no-ops
+        here: the mutex means the pump is between steps."""
+        applied = 0
+        while self._pending:
+            entry = self._pending[0]
+            try:
+                if not entry.landed():
+                    break
+            except Exception as e:  # noqa: BLE001 — a lost log
+                self._pending.popleft()
+                _M_FETCH_FAIL.inc()
+                self._contain_lost_log(entry, e)
+                continue
+            self._apply_entry(self._pending.popleft())
+            applied += 1
+        return applied
+
+    def _apply_entry(self, entry: _InFlight) -> bool:
+        """Read (``log_fetch``, retried) and apply ONE landed entry
+        (``server.py:4650``). False when the read was lost and its requests
+        failed."""
+        def read():
+            self._fault_check("log_fetch")
+            return entry.read()
+
+        try:
+            value = self._retry("log_fetch", read)
+        except Exception as err:  # noqa: BLE001 — the log is lost
+            self._contain_lost_log(entry, err)
+            return False
+        sl = self.stepline
+        sl.push("apply")
+        if entry.kind == "chunk":
+            self._apply_log(value)
+        elif entry.kind == "spec":
+            self._apply_spec(value, entry.meta)
+        else:  # "admit": each row's first token
+            for i, (row, req) in enumerate(entry.meta):
+                if req.done or self._req[row] is not req:
+                    continue  # cancelled between dispatch and apply
+                self._apply_token(row, req, int(value[i]))
+        sl.pop()
+        return True
+
+    def _apply_log(self, log: np.ndarray) -> None:
+        """Replay one chunk's ``[cycles, M]`` log into the requests and the
+        host mirrors (``server.py:4675``); a row that finished or was
+        cancelled after the dispatch is skipped."""
+        for step in log:
+            for row in np.flatnonzero(step >= 0):
+                req = self._req[row]
+                if req is None or req.done:
+                    continue
+                self._apply_token(int(row), req, int(step[row]))
+
+    def _apply_token(self, row: int, req: "Request", t: int) -> None:
+        """One token of a chunk or admission log: the host mirror, then the
+        request (``_commit``)."""
+        serve_ops.commit_log(self.state, row, [t])
+        self._commit(row, t)
 
     def _fail_request(self, req: Request, err: BaseException) -> None:
         """Terminal failure (``server.py:3629``): record the cause, free the
@@ -1864,9 +2228,8 @@ class PipelineServer:
         pairs given (``server.py:3656``): one cancel of their rows, their
         requests failed, health DEGRADED. Every other row keeps decoding and
         the freed rows admit from the queue at the next step. The JAX
-        server's admit, dispatch and lost-log variants (``:3686-3738``) are
-        this call here: each failing operation of the port names its rows
-        (no chunk log whose per-row attribution can be lost)."""
+        server's admit variant (``:3686``) is this call here; the dispatch
+        and lost-log variants name their rows and call it."""
         self._step_contained = True
         self.containment_events += 1
         self._set_health(DEGRADED)
@@ -1880,6 +2243,70 @@ class PipelineServer:
         _update_load_gauges()
         logger.warning("contained %s failure (%r): failed request(s) %s",
                        site, err, [r.id for _, r in victims])
+
+    def _contain_dispatch_failure(self, site: str, err) -> None:
+        """A decode chunk's dispatch failed past retries (``server.py:3709``):
+        apply every log already in flight (the last applied state is the
+        truth), then fail the rows the chunk was driving."""
+        self._drain(0)
+        self._contain_rows(site, [(i, self._req[i]) for i in self._live_rows(self._admitting)],
+                           err)
+
+    def _contain_lost_log(self, entry: _InFlight, err) -> None:
+        """A log was lost past its retries (``server.py:3722``): the device
+        has advanced its rows and the host has not, so the requests whose
+        tokens it carried fail and their rows are stopped on the device.
+        Every entry names the rows it carried at dispatch (a row admitted
+        since is not among them)."""
+        if entry.kind == "spec":
+            victims = [(row, req) for row, req, _, _ in entry.meta]
+        else:
+            victims = list(entry.meta)
+        self._contain_rows("log_fetch", victims, err)
+
+    def _apply_delta(self, delta) -> bool:
+        """Act on the scheduler's published delta at a step boundary (mutex
+        held, ``server.py:2463``). Every candidate is re-validated against
+        live state: the plan may be a boundary old."""
+        now = time.perf_counter()
+        SCHEDULER_LAG.observe(now - delta.planned_at)
+        shed = False
+        doomed = {
+            id(r) for r in delta.expire_queued
+            if not r.done and r.deadline_at is not None and now >= r.deadline_at
+        }
+        if doomed:
+            keep: collections.deque = collections.deque()
+            for r in self._queue:
+                if id(r) in doomed:
+                    _M_DEADLINE.labels(where="queued").inc()
+                    self._fail_request(r, DeadlineExceeded(
+                        f"request {r.id} expired after {now - r.submitted_at:.3f}s in queue"
+                    ))
+                    shed = True
+                else:
+                    keep.append(r)
+            self._queue = keep
+        expired = [
+            (i, r) for i, r in delta.expire_rows
+            if self._req[i] is r and not r.done and r.deadline_at is not None
+            and now >= r.deadline_at and i not in self._admitting
+        ]
+        if expired:
+            serve_ops.serve_cancel_rows(self.state, [i for i, _ in expired])
+            for _, r in expired:
+                _M_DEADLINE.labels(where="in_flight").inc()
+                self._fail_request(r, DeadlineExceeded(
+                    f"request {r.id} expired mid-decode ({len(r.tokens)}/{r.max_new} tokens)"
+                ))
+            shed = True
+        if shed:
+            _update_load_gauges()
+        return shed
+
+    def _sweep_gauges(self) -> None:
+        """The scheduler thread's paced load-gauge sweep."""
+        _update_load_gauges()
 
     def _arm_deadline(self, deadline_at: Optional[float]) -> None:
         """Tighten the deadline hint for a request entering the queue
@@ -2028,6 +2455,7 @@ class PipelineServer:
                 consumed = self._radix.insert(np.asarray(req.prompt[: nb * bs], np.int32), cand)
         self._tables[row] = 0
         self._tables_dirty = True
+        self.state.rng[row] = None  # the row's generator stops drawing
         self._alloc.free([b for b in priv if b not in consumed])
         if shared:
             self._alloc.free(shared)
@@ -2113,8 +2541,9 @@ class PipelineServer:
                pfx: Optional[PrefixHandle], rplan) -> bool:
         """Map the batch's rows and admit it through the ``admit_dispatch``
         site (retried for injected faults only); a failure past the retries
-        fails exactly this batch. A one-shot admission's first tokens are
-        then read (``log_fetch``) and committed. True if admitted."""
+        fails exactly this batch. A one-shot admission's first tokens join
+        ``_pending`` as an ``"admit"`` entry, applied like a chunk log.
+        True if admitted."""
         n = len(batch)
         t_admit0 = time.perf_counter()
         spx_n = 0 if rplan is None else rplan.n
@@ -2186,7 +2615,8 @@ class PipelineServer:
             sl.pop()
             self._contain_rows("admit_dispatch", [(r.row, r) for r in batch], e)
             return False
-        done = None if tok0 is None else self._record_done()
+        if tok0 is not None:
+            self._push_pending("admit", tok0, [(r.row, r) for r in batch])
         sl.pop()
         self.counters.inc("admissions")
         dt_admit = time.perf_counter() - t_admit0
@@ -2199,22 +2629,18 @@ class PipelineServer:
             self._span("prefill", dur_s=dt_admit, req=r, row=r.row, bucket=bucket,
                        chunked=chunked, n=n,
                        queue_wait_s=round(r.started_at - r.submitted_at, 6))
-        if tok0 is not None:
-            t_fetch = time.perf_counter()
-            toks = self._read_tokens(tok0, rows, done)
-            if toks is not None:
-                self._apply_tokens(toks, t_fetch, functools.partial(self._commit_tokens, rows))
-                self._admitted_now.update(rows)
         return True
 
     def _admit_chunked(self, rows, prompts, plen, max_new, sampling, prefix_off: int = 0,
                        rng_states=None) -> None:
         """Bounded chunks with one decode step of the OTHER live rows after
-        each, so a long admission never stalls live streams. Each row's
-        final prompt token is masked out of the prefill and fed by the
-        first decode step instead. ``prefix_off`` > 0 is a radix hit: the
-        suffix starts at that position and column, over the matched blocks
-        already resident (``server.py:4323-4470``)."""
+        each, so a long admission never stalls live streams: the decode
+        chunk joins ``_pending`` and the logs drain to ``pipeline_depth``
+        (``server.py:4432-4439``). Each row's final prompt token is masked
+        out of the prefill and fed by the first decode step instead.
+        ``prefix_off`` > 0 is a radix hit: the suffix starts at that
+        position and column, over the matched blocks already resident
+        (``server.py:4323-4470``)."""
         n, bucket = prompts.shape
         Sc = self.prefill_chunk
         idx = np.arange(bucket)[None, :]
@@ -2230,102 +2656,114 @@ class PipelineServer:
                     positions[:, off : off + Sc], off, ci == 0, self.attn_backend,
                     prefix_off=prefix_off,
                 )
-                others = self._live_rows(exclude=self._admitting)
-                if others:
-                    self._decode(others)
+                # the admitting rows are parked (done) on the device: the
+                # chunk over every row leaves them alone
+                if self._any_active(exclude=self._admitting):
+                    self._dispatch_chunk(cycles=1)
+                    self._drain(self.pipeline_depth)
         finally:
             self._admitting.difference_update(rows)
         last_tok = prompts[np.arange(n), plen - 1]
         serve_ops.serve_admit_finish(self.state, rows, last_tok, prefix_off + plen, max_new,
                                      *sampling, rng_states=rng_states)
 
-    def _decode(self, rows: list) -> None:
-        """One decode step of ``rows``, its tokens committed."""
-        self._step_rows(rows, lambda: serve_ops.serve_step(
-            self.cfg, self.params, self.state, rows, self.attn_backend),
-            functools.partial(self._commit_tokens, rows))
-
-    def _step_rows(self, rows: list, program, apply) -> None:
-        """Dispatch a step ``program`` of ``rows`` (a decode step or a
-        verify) through the ``chunk_dispatch`` site (injected faults
-        retried; a failure past the retries fails these rows), read its
-        tokens through ``log_fetch`` and ``apply`` them; nothing is applied
-        when either failed. Phases ``dispatch`` (with the ``chunk`` span),
-        ``fetch`` and ``apply``, as JAX ``_dispatch_chunk`` and ``_drain``
-        (``server.py:2525-2595``, ``:4612-4640``)."""
-        sl = self.stepline
+    def _dispatch_chunk(self, cycles: Optional[int] = None) -> None:
+        """Dispatch one decode chunk over every row (``serve_chunk``,
+        ``cycles`` steps, default ``chunk_cycles``) through the
+        ``chunk_dispatch`` site, injected faults retried; a failure past the
+        retries fails the live rows (``_contain_dispatch_failure``). Its log
+        joins ``_pending``: nothing waits for the device here (JAX
+        ``_dispatch_chunk``, ``server.py:2525-2597``)."""
         t0 = time.perf_counter()
         self._charge_idle(t0)
+        sl = self.stepline
         sl.push("dispatch")
-        self._flush_tables()
+        cycles = self.chunk_cycles if cycles is None else cycles
 
-        def dispatch():
+        def do_chunk():
             self._fault_check("chunk_dispatch")
-            return program()
+            return serve_ops.serve_chunk(
+                self.cfg, self.params, self.state, cycles, self.attn_backend
+            )
 
+        self._flush_tables()
         try:
-            out = self._retry("chunk_dispatch", dispatch, real_ok=False)
-        except Exception as e:  # noqa: BLE001 — contained to these rows
+            log = self._retry("chunk_dispatch", do_chunk, real_ok=False)
+        except Exception as e:  # noqa: BLE001 — contained to the live rows
             sl.pop()
-            self._contain_rows("chunk_dispatch", [(r, self._req[r]) for r in rows], e)
+            self._contain_dispatch_failure("chunk_dispatch", e)
             return
-        done = self._record_done()
+        # the rows the chunk drives on the device: the ones a lost log fails
+        live = [(i, self._req[i]) for i in self._live_rows(exclude=self._admitting)]
+        self._push_pending("chunk", log, live)
         self.counters.inc("chunks")
-        self._span("chunk", dur_s=time.perf_counter() - t0, rows=len(rows))
+        self._span("chunk", dur_s=time.perf_counter() - t0, cycles=cycles, rows=len(live))
         sl.pop()
-        t_fetch = time.perf_counter()
-        toks = self._read_tokens(out, rows, done)
-        if toks is not None:
-            self._apply_tokens(toks, t_fetch, apply)
 
-    def _spec_step(self, rows: list) -> None:
-        """One speculative round (``server.py:4473``): draft up to each
+    def _spec_step(self) -> None:
+        """One speculative round (``server.py:4473``): draft up to each live
         row's ``AdaptiveK`` width from its own ids (the prompt, with a
-        handle the suffix only, and the tokens not yet folded into it by a
-        migration), verify every live row in one ``serve_verify`` through
-        the ``chunk_dispatch`` site (injected faults retried; a failure past
-        the retries fails these rows), read the commit log through
-        ``log_fetch`` and replay it.
+        handle the suffix only, and the applied tokens not yet folded into
+        it by a migration), verify every live row in one ``serve_verify``
+        through the ``chunk_dispatch`` site (injected faults retried; a
+        failure past the retries fails these rows), and queue its commit
+        log as a ``"spec"`` entry; the step drains it at once.
 
-        A row admitted in this step drafts from its prompt alone, without
-        the first token its admission just committed: the JAX server drafts
-        it in the same step while that token's read is still in flight
-        (``server.py:2253-2270``), and the port proposes the same drafts, so
-        both packages' ``spec_*`` counters agree. The verify itself feeds
-        that token, read from the row state."""
+        A row admitted in this step drafts from its prompt alone: its first
+        token's ``"admit"`` entry is still in flight, as in the JAX server
+        (``server.py:2253-2270``), so both packages propose the same drafts
+        and their ``spec_*`` counters agree. The verify itself feeds that
+        token from the row state on the device."""
         K = self.speculate
+        rows = self._live_rows()
         n = len(rows)
-        self.stepline.push("dispatch")  # drafting is dispatch work (JAX _step_serial)
         draft = np.zeros((n, K), np.int32)
         draft_len = np.zeros(n, np.int32)
         for i, row in enumerate(rows):
             req = self._req[row]
-            seen = len(req.tokens) - (1 if row in self._admitted_now else 0)
             ids = np.concatenate([np.asarray(req.prompt, np.int64),
-                                  np.asarray(req.tokens[req.baked : seen], np.int64)])
+                                  np.asarray(req.tokens[req.baked :], np.int64)])
             d = ngram_draft(ids, req.spec_k.k, self.spec_ngram)
             draft[i, : d.shape[0]] = d
             draft_len[i] = d.shape[0]
-        self.stepline.pop()
-        self._step_rows(rows, lambda: serve_ops.serve_verify(
-            self.cfg, self.params, self.state, rows, draft, draft_len, self.attn_backend),
-            lambda log: self._apply_spec(rows, log, draft, draft_len))
+        t0 = time.perf_counter()
+        self._charge_idle(t0)
 
-    def _apply_spec(self, rows: list, log: np.ndarray, draft: np.ndarray,
-                    draft_len: np.ndarray) -> None:
+        def do_verify():
+            self._fault_check("chunk_dispatch")
+            return serve_ops.serve_verify(
+                self.cfg, self.params, self.state, rows, draft, draft_len, self.attn_backend
+            )
+
+        self._flush_tables()
+        try:
+            log = self._retry("chunk_dispatch", do_verify, real_ok=False)
+        except Exception as e:  # noqa: BLE001 — contained to these rows
+            self._contain_rows("chunk_dispatch", [(r, self._req[r]) for r in rows], e)
+            return
+        self._push_pending("spec", log, [
+            (row, self._req[row], int(draft_len[i]), draft[i].copy())
+            for i, row in enumerate(rows)
+        ])
+        self.counters.inc("chunks")
+        self._span("chunk", dur_s=time.perf_counter() - t0, rows=n)
+
+    def _apply_spec(self, log: np.ndarray, entries: list) -> None:
         """Replay one verify's ``[n, K+1]`` log (``server.py:4574``): the
-        state takes each row's whole run, then every token goes through the
-        same per-token commit as a decode step's, so a stop string that
-        hits mid-run cuts the run there. The row's ``AdaptiveK`` and the
-        spec metrics update from (drafted, accepted)."""
-        serve_ops.commit_verify(self.cfg, self.state, rows, log)
-        for i, row in enumerate(rows):
-            req = self._req[row]
+        host mirrors take each row's whole run (``commit_verify``), then
+        every token goes through the same per-token commit as a chunk's, so
+        a stop string that hits mid-run cuts the run there. The row's
+        ``AdaptiveK`` and the spec metrics update from (drafted, accepted).
+        A row whose request finished or left since the dispatch is
+        skipped."""
+        serve_ops.commit_verify(self.cfg, self.state, [e[0] for e in entries], log)
+        for i, (row, req, drafted, draft_row) in enumerate(entries):
+            if self._req[row] is not req or req.done:
+                continue
             committed = [int(t) for t in log[i] if t >= 0]
-            drafted = int(draft_len[i])
             # the leading match, not len - 1: a run cut by an accepted stop
             # id or the budget has no bonus token
-            accepted = count_accepted(committed, draft[i], drafted)
+            accepted = count_accepted(committed, draft_row, drafted)
             req.spec_k.update(drafted, accepted)
             observe(drafted, accepted, len(committed))
             for j, t in enumerate(committed):
@@ -2333,18 +2771,15 @@ class PipelineServer:
                     break  # a stop string or a containment ended it mid-run
                 self._commit(row, t, last=j == len(committed) - 1)
 
-    def _commit_tokens(self, rows: list, toks: np.ndarray) -> None:
-        serve_ops.commit_tokens(self.cfg, self.state, rows, toks)
-        for row, t in zip(rows, toks):
-            self._commit(row, int(t))
-
     def _commit(self, row: int, t: int, last: bool = True) -> None:
         """One generated token → its request, through the ``request_apply``
         site keyed by the request id (a permanent fault there fails that
-        request only); the latency histograms; the stop-string scan; finish
-        the row when the state says it is done at the ``last`` token of
-        the step's run, or at a stop string (its prompt blocks go into the
-        prefix cache)."""
+        request only); the latency histograms; the stop-string scan. The
+        host mirror has taken the token already. The row finishes at the
+        ``last`` token of the program's run when that is a stop id or the
+        mirror reaches its budget (the device finished the row at the same
+        token), or at a stop string (the row is then stopped on the device);
+        its prompt blocks go into the prefix cache."""
         req = self._req[row]
         if self._fault_plan is not None:
             try:
@@ -2374,7 +2809,8 @@ class PipelineServer:
             self._span("decode", dur_s=now - mark_t, req=req, tokens=len(req.tokens) - mark_n,
                        row=row)
             req.decode_mark = (len(req.tokens), now)
-        finished = last and bool(self.state.done[row])
+        st = self.state
+        finished = last and (t in self._stop_ids or st.mirror_len[row] >= st.mirror_budget[row])
         if req.stop and self._hit_stop(req):
             # the decoded text holds a stop string: the tokens are cut to it
             # and the row stops

@@ -2,7 +2,7 @@
 
     python -m llm_sharding_tpu_torch.serve_profile [--model llama32_3b|gemma_2b|gpt2_small|...]
         [--weights bf16|int8|int4] [--kv-dtype bf16|int8|fp8] [--shared-prefix]
-        [--speculative K]
+        [--speculative K] [--pipeline-depth N] [--inflight-steps N] [--chunk-cycles N]
 
 Serves a workload of ``chip_smoke.py`` phase (d) (``smoke_workload``: 8
 staggered requests, 4 short prompts and 4 long ones, 64 new tokens each)
@@ -26,7 +26,10 @@ the primer run to idle, so only the prefix is cached and both runs admit
 alike. ``--speculative K`` serves the model's speculative workload
 (``smoke_workload.SPECULATIVE``: one-shot admissions, every decode step a
 verify) with ``speculate=K``; K = 0 is the same one-shot server without
-speculation. Its decode-only steps are verifies. Every mode also prints
+speculation. Its decode-only steps are verifies. ``--pipeline-depth``,
+``--inflight-steps`` and ``--chunk-cycles`` set the server's step loop
+(logs the serial loop leaves in flight, the async executor's depth, decode
+steps per dispatch). Every mode also prints
 the host operations that took the most CPU time in the profiled window,
 and the server's own step profiler (``obs/stepline``) over the
 unprofiled run: each host phase's share of the step wall, the share
@@ -115,6 +118,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-dtype", choices=KV_DTYPES, default="bf16")
     ap.add_argument("--shared-prefix", action="store_true")
     ap.add_argument("--speculative", type=int, default=None, metavar="K")
+    ap.add_argument("--pipeline-depth", type=int, default=1, metavar="N")
+    ap.add_argument("--inflight-steps", type=int, default=1, metavar="N")
+    ap.add_argument("--chunk-cycles", type=int, default=1, metavar="N")
     args = ap.parse_args(argv)
     if args.shared_prefix and args.model not in smoke_workload.SHARED_PREFIX:
         ap.error(f"--shared-prefix: no shared-prefix workload for {args.model}")
@@ -140,7 +146,10 @@ def main(argv=None) -> int:
     extra = dict(prefix_cache="hbm", shared_prefix=True) if args.shared_prefix else {}
     if args.speculative is not None:
         extra = dict(speculative=True, speculate=args.speculative)
-    srv = smoke_workload.serve(eng, args.model, kv_dtype=args.kv_dtype, **extra)
+    srv = smoke_workload.serve(
+        eng, args.model, kv_dtype=args.kv_dtype, pipeline_depth=args.pipeline_depth,
+        inflight_steps=args.inflight_steps, chunk_cycles=args.chunk_cycles, **extra,
+    )
     rng = np.random.default_rng(0)
     srv.result(srv.submit(rng.integers(0, cfg.vocab_size, 300).astype(np.int32), 8))
 
@@ -168,7 +177,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reqs, steps = smoke_workload.submit_staggered(srv, prompts), []
-        while srv._queue or srv._live_rows():
+        while srv._queue or srv._live_rows() or srv._pending:
             decode_only = not srv._queue and len(srv._live_rows()) == smoke_workload.ROWS
             ts = time.perf_counter()
             srv.step()
@@ -203,7 +212,9 @@ def main(argv=None) -> int:
     if stats is not None:
         print(f"prefix cache after both runs: {stats}")
     print(f"{torch.cuda.get_device_name(0)}, {args.model}, weights {args.weights}, kv {args.kv_dtype}"
-          f"{', shared prefix' if args.shared_prefix else ''}: "
+          f"{', shared prefix' if args.shared_prefix else ''}, pipeline_depth "
+          f"{args.pipeline_depth}, inflight_steps {args.inflight_steps}, chunk_cycles "
+          f"{args.chunk_cycles}: "
           f"unprofiled wall {plain_wall_ms:.1f} ms; "
           f"profiled wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), tokens {sum(len(r.tokens) for r in reqs)}")
@@ -241,11 +252,14 @@ def main(argv=None) -> int:
     print(json.dumps({
         "model": args.model, "weights": args.weights, "kv_dtype": args.kv_dtype,
         "shared_prefix": args.shared_prefix, "speculative": args.speculative,
+        "pipeline_depth": args.pipeline_depth, "inflight_steps": args.inflight_steps,
+        "chunk_cycles": args.chunk_cycles,
         "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "decode_step_ms_p50": float(np.percentile(decode_ms, 50)) if decode_ms else None,
         "stepline": {"summary": summary, "phases": table},
         "top": [[k, us / 1e3, calls[k]] for k, us in per_kernel.most_common(15)],
+        "host_top": [[k, us / 1e3] for k, us in host.most_common(10)],
         "port_kernels": port,
     }))
     return 0

@@ -112,7 +112,12 @@ class Gaps:
         def recording(state, rows, logits):
             if self.srv is not None and state is self.srv.state:
                 top = torch.topk(logits.float(), 2, dim=-1).values
+                # a decode chunk samples every row (``rows`` is a range):
+                # only the rows live on the device commit
+                live = ~state.done if isinstance(rows, range) else None
                 for i, r in enumerate(rows):
+                    if live is not None and (not live[r] or self.srv._req[r] is None):
+                        continue
                     self.by[self.srv._req[r].id].append(float(top[i, 0] - top[i, 1]))
             return sample(state, rows, logits)
 
@@ -709,9 +714,10 @@ def test_migrated_request_snapshot_roundtrip(two_servers, tmp_path):
     r = sa.submit(p, 12, temperature=1.1, seed=9)
     for _ in range(4):
         sa.step()
+    assert len(r.tokens) > 0 and not r.done
+    st = sa.extract(r)  # settles first: the logs in flight are applied
     pre = len(r.tokens)
-    assert pre > 0 and not r.done
-    sb.adopt(sa.extract(r), r)
+    sb.adopt(st, r)
     for _ in range(3):
         sb.step()
     assert r.baked == pre and not r.done

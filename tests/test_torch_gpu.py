@@ -1072,8 +1072,8 @@ def test_speculative_server_verifies_through_the_quantized_kernel(cuda_device, k
 
 def _check_step_accounting(recs):
     """The stepline invariant on every card step, and a device wait on
-    every step that read tokens: the CUDA event recorded after the
-    program's last launch was waited on, so ``blocked_s`` > 0."""
+    every step that read tokens: the CUDA event recorded after the copy of
+    each log it read was waited on, so ``blocked_s`` > 0."""
     assert recs
     for r in recs:
         host = sum(r["phases"].values())
@@ -1145,3 +1145,110 @@ def test_stepline_capture_brackets_a_cuda_trace(cuda_device, tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
     srv.close()
+
+
+# ------------------------------------------------------------ the step loop
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+def test_chained_decode_dispatches_make_no_host_sync(cuda_device, kv, sampled):
+    """Three decode chunks dispatched back to back through the server's own
+    dispatch (``serve_chunk``, the pinned log copy and its event), with a
+    block-table push between them, under ``set_sync_debug_mode("error")``:
+    no operation waits for the device. Their logs then read as the
+    tokens of the rows."""
+    eng = _tiny_engine(cuda_device)
+    srv = eng.serve(kv_dtype=kv, **dict(_SERVE, prefill_chunk=None))
+    rng = np.random.default_rng(9)
+    kw = dict(temperature=0.8, top_k=20, seed=4) if sampled else {}
+    reqs = [srv.submit(rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32), 20, **kw)
+            for n in (5, 20, 12)]
+    srv.step()
+    srv._drain(0)
+    assert all(not r.done for r in reqs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            srv._dispatch_chunk()
+            if i == 0:
+                srv._tables_dirty = True  # pushed before the next dispatch
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(srv._pending) == 3 and all(e.kind == "chunk" for e in srv._pending)
+    logs = [e.log.cpu() for e in srv._pending]
+    assert all(tuple(lg.shape) == (1, srv.rows) for lg in logs)
+    assert all(int(logs[0][0, r.row]) >= 0 for r in reqs)  # live at the first chunk
+    srv.run_until_idle()
+    assert all(r.done and r.error is None for r in reqs)
+    srv._alloc.check()
+    assert srv._alloc.in_use == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [dict(inflight_steps=2), dict(inflight_steps=4, chunk_cycles=3),
+                                   dict(pipeline_depth=2)], ids=["inflight2", "inflight4-cycles3",
+                                                                 "depth2"])
+def test_chained_streams_equal_serial_on_the_card(cuda_device, knobs):
+    """Every request submitted at once (one-shot and chunked admissions):
+    the streams with logs in flight, or the async executor's threads, equal
+    the serial run's, through the kernels."""
+    eng = _tiny_engine(cuda_device)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 12)]
+    out = []
+    for kw in ({}, knobs):
+        srv = eng.serve(**_SERVE, **kw)
+        kernels.reset_launch_counts()
+        reqs = [srv.submit(p, 16) for p in prompts]
+        srv.run_until_idle()
+        counts = kernels.launch_counts()
+        assert all(counts[n] > 0 for n in ("flash_attention", "paged_attention", "paged_prefill"))
+        assert all(r.error is None for r in reqs)
+        if srv._sidecar is not None:
+            assert srv._sidecar.is_alive() and srv._sidecar.error is None
+        out.append([r.tokens for r in reqs])
+        srv.close()
+        srv._alloc.check()
+        assert srv._alloc.in_use == 0
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_sidecar_applies_a_log_in_flight_on_the_card(cuda_device):
+    """At ``inflight_steps=2`` the completion sidecar meets a log the card
+    has not landed yet (its chunk queued behind a device sleep), waits on
+    its CUDA event, and applies it; it is alive and unfailed after the
+    run, and the streams equal the serial run's."""
+    import time
+
+    eng = _tiny_engine(cuda_device)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 12)]
+    base = eng.serve(**_SERVE)
+    breqs = [base.submit(p, 16) for p in prompts]
+    base.run_until_idle()
+    want = [r.tokens for r in breqs]
+    base.close()
+    srv = eng.serve(inflight_steps=2, **_SERVE)
+    reqs = [srv.submit(p, 16) for p in prompts]
+    srv.step()  # every request admitted
+    with srv._mutex:  # the sidecar pops the same queue under it
+        srv._drain(0)
+    assert all(r.row is not None and not r.done for r in reqs)
+    torch.cuda.synchronize()
+    applied0 = srv._sidecar.applied
+    torch.cuda._sleep(200_000_000)  # the next chunk waits behind ~0.1 s of sleep
+    srv.step()
+    assert srv._pending and not srv._pending[-1].landed()
+    end = time.perf_counter() + 30.0
+    while srv._sidecar.applied == applied0 and time.perf_counter() < end:
+        time.sleep(0.001)
+    assert srv._sidecar.applied > applied0
+    srv.run_until_idle()
+    assert srv._sidecar.is_alive() and srv._sidecar.error is None
+    assert [r.tokens for r in reqs] == want
+    srv.close()
+    srv._alloc.check()
+    assert srv._alloc.in_use == 0

@@ -34,6 +34,7 @@ SERVER_FAMILIES = (
     "server_kv_waste_frac", "server_prefix_cache_hit_tokens_total",
     "server_prefix_cache_hit_rate", "server_kv_host_tier_blocks",
     "server_kv_disk_tier_blocks", "server_faults_injected_total",
+    "server_inflight_steps", "server_scheduler_lag_seconds",
     *(f"server_{f}_total" for f in (
         "requests_submitted", "requests_completed", "requests_cancelled",
         "requests_failed", "tokens_generated", "admissions", "chunks")),
@@ -238,7 +239,8 @@ def test_counters_inc_mirrors_the_port_registry():
 def test_server_families_match_the_jax_registrations(name):
     """Each family the port's server and fault plan feed is registered in
     the port's registry with the JAX family's kind, labels and buckets."""
-    from llm_sharding_tpu.runtime import faults  # noqa: F401  registers its family
+    from llm_sharding_tpu.runtime import async_exec, faults  # noqa: F401  register families
+    from llm_sharding_tpu_torch.runtime import async_exec as tasync  # noqa: F401
     from llm_sharding_tpu_torch.runtime import faults as tfaults  # noqa: F401
 
     got, want = tmetrics.REGISTRY.get(name), jmetrics.REGISTRY.get(name)

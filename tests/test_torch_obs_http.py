@@ -234,6 +234,16 @@ def test_served_workload_under_tracked_locks(tmp_path):
     """Every lock of the process built tracked: a served workload (traced,
     faults injected, a snapshot, a capture) while a ``MetricsServer``
     thread scrapes, with no ``LockOrderViolation``."""
+    tracked_served_run(tmp_path, inflight=1)
+
+
+def test_served_workload_under_tracked_locks_async_executor(tmp_path):
+    """The same at ``inflight_steps=2``: the scheduler and sidecar threads
+    take their conditions and the server mutex too."""
+    tracked_served_run(tmp_path, inflight=2)
+
+
+def tracked_served_run(tmp_path, inflight: int):
     code = textwrap.dedent(f"""
         import json, threading, time, urllib.request
         import numpy as np, torch
@@ -248,8 +258,9 @@ def test_served_workload_under_tracked_locks(tmp_path):
         eng = Engine(cfg, llama.init_params(cfg, seed=7, dtype=torch.float32, device="cpu"))
         plan = FaultPlan.transient_at("chunk_dispatch", 2, 5)
         srv = eng.serve(trace_path={str(tmp_path / "t.jsonl")!r}, fault_plan=plan,
-                        fault_backoff_s=0, **{KW!r})
+                        fault_backoff_s=0, inflight_steps={inflight}, **{KW!r})
         assert isinstance(srv._mutex, lockorder._TrackedBase)
+        assert (srv._sidecar is not None) == ({inflight} > 1)
         ms = MetricsServer(port=0, health_provider=lambda: srv.health)
         ms.set_profilez_provider(lambda s, w: srv.stepline_capture(s, w))
         port = ms.start()

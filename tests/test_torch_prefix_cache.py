@@ -92,7 +92,12 @@ class Gaps:
 
         def recording(state, rows, logits):
             top = torch.topk(logits.float(), 2, dim=-1).values
+            # a decode chunk samples every row (``rows`` is a range): only
+            # the rows live on the device commit
+            live = ~state.done if isinstance(rows, range) else None
             for i, r in enumerate(rows):
+                if live is not None and (not live[r] or self.srv._req[r] is None):
+                    continue
                 self.by_id[(id(self.srv), self.srv._req[r].id)].append(
                     float(top[i, 0] - top[i, 1]))
             return sample(state, rows, logits)
