@@ -387,12 +387,14 @@ def flash_case(cfg, dtype, device, gen, S, real=None):
     return args, {}, {}, nbytes, flops, library
 
 
-def flash_verify_case(cfg, dtype, device, gen, K=4, cap=2048, B=8):
+def flash_verify_case(cfg, dtype, device, gen, K=4, cap=2048, B=8, canonical=False):
     """Speculative ``generate``'s verify: B rows of S = K + 1 queries at
     positions pos0 .. pos0 + K (pos0 100-2000) over a dense cache of cap +
     K + 1 columns: the row's first pos0 columns written, the K + 1 scratch
     columns at the top holding the in-flight entries, sentinel between.
-    The bound reads each row's visible columns once."""
+    With ``canonical`` (a dense server's verify) the in-flight entries sit
+    at their own columns pos0 .. pos0 + K instead. The bound reads each
+    row's visible columns once."""
     import torch
 
     Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -402,7 +404,10 @@ def flash_verify_case(cfg, dtype, device, gen, K=4, cap=2048, B=8):
     qpos = np.zeros((B, S), np.int32)
     for b, p in enumerate(pos0):
         kvpos[b, :p] = np.arange(p)
-        kvpos[b, cap:] = p + np.arange(S)
+        if canonical:
+            kvpos[b, p : p + S] = p + np.arange(S)
+        else:
+            kvpos[b, cap:] = p + np.arange(S)
         qpos[b] = p + np.arange(S)
     q = torch.randn((B, S, Nh, D), generator=gen, device=device).to(dtype)
     k = torch.randn((B, C, Nkv, D), generator=gen, device=device).to(dtype)
@@ -416,6 +421,38 @@ def flash_verify_case(cfg, dtype, device, gen, K=4, cap=2048, B=8):
     G = Nh // Nkv
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
     mask = (kp[:, None, :] <= qp[:, :, None])[:, None]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    return args, {}, {}, nbytes, flops, library
+
+
+def flash_dense_case(cfg, dtype, device, gen, S=256, real=256, start=0, C=4096):
+    """A dense server's prefill flash: one row's S queries at positions
+    ``start`` .. ``start + real - 1`` (the rest of the bucket at the
+    sentinel) over its whole C-column cache, of which the first ``start +
+    real`` columns are written and the rest hold the sentinel: a one-shot
+    admission (``start`` 0, ``real`` < S) or a chunk of a chunked one. A
+    sentinel query sees every column, so with one the bound reads all C."""
+    import torch
+
+    Nh, Nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    q = torch.randn((1, S, Nh, D), generator=gen, device=device).to(dtype)
+    k = torch.randn((1, C, Nkv, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((1, C, Nkv, D), generator=gen, device=device).to(dtype)
+    qpos = torch.full((1, S), SENTINEL, dtype=torch.int32, device=device)
+    qpos[0, :real] = start + torch.arange(real, dtype=torch.int32, device=device)
+    kvpos = torch.full((1, C), SENTINEL, dtype=torch.int32, device=device)
+    kvpos[0, : start + real] = torch.arange(start + real, dtype=torch.int32, device=device)
+    args = (q, k, v, qpos, kvpos)
+    isz = q.element_size()
+    cols = C if real < S else start + real
+    nbytes = 2 * q.numel() * isz + 2 * cols * Nkv * D * isz + (qpos.numel() + C) * 4
+    flops = 4.0 * Nh * D * ((start + 1) * real + real * (real - 1) / 2 + (S - real) * C)
+    G = Nh // Nkv
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+    mask = (kvpos[0][None, :] <= qpos[0][:, None])[None, None]
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -540,6 +577,28 @@ def spec_kernel_cases(model: str) -> list:
     return cases
 
 
+def dense_kernel_cases(model: str) -> list:
+    """The [b] cases of dense serving at the 3B's shapes (capacity 4096, 8
+    rows, chunks of 256; ``smoke_workload.serve(dense=True)``): flash at a
+    one-shot admission's bucket (S = 256, 200 real) over a row's C = 4096
+    columns, at a chunk (positions 1024-1279) over C = 4096, and at a dense
+    verify (S = 5, B = 8) over C = 4096 + 5 with the in-flight entries at
+    their own columns. Launches from the [d] dense run. Same tuple as
+    ``spec_kernel_cases``."""
+    from llm_sharding_tpu_torch.ops import attention, flash_attention
+
+    fla = ("llm_sharding_tpu/ops/flash_attention.py:124", "llm_sharding_tpu_torch/csrc/flash_attention.cu")
+    fa, plain = flash_attention.flash_attention, attention.cached_attention
+    return [
+        ("flash_attention", "dense S=256 200 real over C=4096 (admit)", fa, plain,
+         lambda *a: flash_dense_case(*a, S=256, real=200), *fla, "dense"),
+        ("flash_attention", "dense S=256 at 1024-1279 over C=4096", fa, plain,
+         lambda *a: flash_dense_case(*a, S=256, real=256, start=1024), *fla, "dense"),
+        ("flash_attention", "dense verify S=5 B=8 C=4096+5", fa, plain,
+         lambda *a: flash_verify_case(*a, cap=4096, canonical=True), *fla, "dense"),
+    ]
+
+
 def kernel_cases(model: str) -> list:
     """``(name, shape label, kernel, plain version, case maker, TPU
     function, port source)`` of each [b] case at ``model``'s serving
@@ -630,18 +689,20 @@ def kernel_cases(model: str) -> list:
 
 
 def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefix=False,
-                  spec=False) -> list:
+                  spec=False, dense=False) -> list:
     """Each kernel case of ``model`` against its plain version, with
     queries of each of ``dtypes``, timed; returns the tabled rows (bf16
     queries), tagged with the model and the [d] workload whose run counts
     their launches. ``prefix``: the prefix-cache hit's cases; ``spec``:
-    speculative decoding's."""
+    speculative decoding's; ``dense``: dense serving's."""
     import torch
 
     from llm_sharding_tpu_torch.ops import paged_attention
 
     gen = torch.Generator(device=device).manual_seed(1234)
-    if spec:
+    if dense:
+        cases = dense_kernel_cases(model)
+    elif spec:
         cases = spec_kernel_cases(model)
     else:
         workload = "shared_prefix" if prefix else "standard"
@@ -787,41 +848,52 @@ def recorded_gaps(srv, tops=None, noised=None):
         serve_ops._sample_rows, serve_ops.model_fns, serve_ops.commit_verify = sample, fns, commit
 
 
-def served_streams(eng, prompts, max_new: int, capacity: int = 2048, **serve_kw):
+def served_streams(eng, prompts, max_new: int, capacity: int = 2048, embed: bool = False,
+                   **serve_kw):
     """Staggered submits (the even-indexed prompts, two steps, then the
-    odd-indexed ones) on a fresh server; returns each request's tokens and
-    sampled-token gaps, in prompt order."""
+    odd-indexed ones) on a fresh server (paged unless ``serve_kw`` sets
+    ``kv_block_size=None, kv_blocks=None``), as ids or, with ``embed``, as
+    ``submit_embedding`` of ``eng.embed_prompt``; returns each request's
+    tokens and sampled-token gaps, in prompt order."""
     srv = eng.serve(**{**dict(capacity=capacity, batch_per_slot=4, kv_block_size=64,
                               kv_blocks=160, prefill_chunk=256), **serve_kw})
     order = [*range(0, len(prompts), 2), *range(1, len(prompts), 2)]
     first = (len(prompts) + 1) // 2
+
+    def submit(p):
+        if embed:  # the privacy entry: the prompt's hidden states
+            return srv.submit_embedding(eng.embed_prompt(p)[0], max_new)
+        return srv.submit(p, max_new)
+
     with recorded_gaps(srv) as gaps:
-        reqs = [srv.submit(prompts[i], max_new) for i in order[:first]]
+        reqs = [submit(prompts[i]) for i in order[:first]]
         srv.step()
         srv.step()
-        reqs += [srv.submit(prompts[i], max_new) for i in order[first:]]
+        reqs += [submit(prompts[i]) for i in order[first:]]
         srv.run_until_idle()
-    srv._alloc.check()
-    require(srv._alloc.in_use == 0, "phase c: KV blocks leaked")
+    if srv.paged:
+        srv._alloc.check()
+        require(srv._alloc.in_use == 0, "phase c: KV blocks leaked")
     by_prompt = dict(zip(order, reqs))
     n = len(prompts)
     return [by_prompt[i].tokens for i in range(n)], [gaps[by_prompt[i].id] for i in range(n)]
 
 
 def check_against_generate(tag: str, eng, prompts, lens, max_new: int, capacity: int = 2048,
-                           oracle=None) -> list:
-    """The served greedy streams (one-shot and chunked admissions) must be
-    the ``generate`` tokens of ``oracle`` (default: the same engine); a
-    mismatch passes only where the oracle's top-2 logit gap is < 1e-4.
-    Returns the oracle's streams."""
+                           oracle=None, **serve_kw) -> list:
+    """The served greedy streams (one-shot and chunked admissions; the
+    server's options ``serve_kw``) must be the ``generate`` tokens of
+    ``oracle`` (default: the same engine); a mismatch passes only where the
+    oracle's top-2 logit gap is < 1e-4. Returns the oracle's streams."""
     oracle = oracle or eng
-    served, _ = served_streams(eng, prompts, max_new, capacity=capacity)
+    served, _ = served_streams(eng, prompts, max_new, capacity=capacity, **serve_kw)
     wants = []
     for i, got in enumerate(served):
         want = oracle.generate_ids(prompts[i], max_new)
         w = want.tokens[0, lens[i] : want.lengths[0]].tolist()
         wants.append(w)
-        path = "chunked" if lens[i] > 256 else "one-shot"
+        chunk = serve_kw.get("prefill_chunk", 256)
+        path = "chunked" if chunk and lens[i] > chunk else "one-shot"
         if w == got:
             log(f"[c] {tag} prompt {lens[i]:5d} ({path}): {len(w)} tokens identical to generate")
             continue
@@ -853,6 +925,102 @@ def check_kernels_against_plain(tag: str, eng, prompts, lens, max_new: int) -> N
             log(f"[c] {tag} {kv} prompt {lens[i]:5d} ({path}): first mismatch at step {step}, "
                 f"plain run's top-2 gap {gap:.3g}")
             require(gap < 1e-3, f"phase c {tag} {kv}: kernel tokens differ from plain (gap {gap})")
+
+
+# ------------------------------------------------- the front door ([c], [d])
+
+DENSE = dict(kv_block_size=None, kv_blocks=None)
+
+
+def http_post(port: int, path: str, body: dict, headers=None, timeout: float = 600.0):
+    """A JSON POST to the local ingress: ``(status, events or body,
+    first_token_s, done_s)`` with the client's perf_counter times; with
+    ``"stream": true`` in ``body`` the SSE events up to ``[DONE]``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        if not body.get("stream") or resp.status != 200:
+            data = resp.read()
+            return resp.status, json.loads(data) if data else None, None, time.perf_counter()
+        events, first = [], None
+        while True:
+            line = resp.readline()
+            if not line or line.strip() == b"data: [DONE]":
+                break
+            if line.strip():
+                ev = json.loads(line.strip()[len(b"data: "):])
+                if first is None and ev["choices"][0]["token_ids"]:
+                    first = time.perf_counter()
+                events.append(ev)
+        return resp.status, events, first, time.perf_counter()
+    finally:
+        conn.close()
+
+
+def response_tokens(tag: str, status: int, got) -> list:
+    """The token ids of a whole response or an SSE event list; anything but
+    200 and a clean finish fails the phase."""
+    require(status == 200, f"{tag}: HTTP {status}: {got}")
+    if isinstance(got, dict):
+        return got["choices"][0]["token_ids"]
+    require(got and got[-1]["choices"][0]["finish_reason"] in ("length", "stop"),
+            f"{tag}: the stream ended without a clean finish: {got[-1:]}")
+    return [t for ev in got for t in ev["choices"][0]["token_ids"]]
+
+
+def check_frontdoor(tag: str, eng, prompts, lens, max_new: int) -> None:
+    """[c] Dense serving against ``generate`` (one-shot and chunked, then
+    ``speculate=4`` one-shot), ``submit_embedding`` of ``embed_prompt``
+    against ``submit`` on dense and paged one-shot servers (identical), and
+    an in-process ingress on 127.0.0.1 over a dense and a paged server:
+    completions whole and streamed, and an embeddings request, each sent
+    alone, identical to the same server's ``submit`` stream sent alone."""
+    from llm_sharding_tpu_torch.ops import kernels as K
+    from llm_sharding_tpu_torch.runtime.ingress import start_ingress
+
+    K.reset_launch_counts()
+    check_against_generate(f"{tag} dense", eng, prompts, lens, max_new, **DENSE)
+    check_against_generate(f"{tag} dense speculate=4", eng, prompts, lens, max_new,
+                           prefill_chunk=None, speculate=4, **DENSE)
+    counts = K.launch_counts()
+    require(counts["flash_attention"] > 0, f"phase c {tag} dense: flash was never launched")
+    require(counts["paged_attention"] == counts["paged_prefill"] == 0,
+            f"phase c {tag} dense: a paged kernel launched on a dense server: {counts}")
+    for layout, kw in (("dense", DENSE), ("paged", {})):
+        ids, _ = served_streams(eng, prompts, max_new, prefill_chunk=None, **kw)
+        emb, _ = served_streams(eng, prompts, max_new, embed=True, prefill_chunk=None, **kw)
+        require(emb == ids, f"phase c {tag} {layout}: submit_embedding streams differ from submit")
+        log(f"[c] {tag} {layout}: submit_embedding(embed_prompt(p)) streams identical to "
+            f"submit(p) for {len(prompts)} prompts")
+        srv = eng.serve(capacity=2048, batch_per_slot=4, prefill_chunk=256, **kw)
+        want = [srv.result(srv.submit(p, max_new)) for p in prompts]
+        ing = start_ingress(srv, port=0, poll_interval_s=0.0005)
+        try:
+            for i, p in enumerate(prompts):
+                for stream in (False, True):
+                    got = response_tokens(f"phase c {tag} {layout} http", *http_post(
+                        ing.port, "/v1/completions",
+                        {"prompt": [int(t) for t in p], "max_tokens": max_new,
+                         "stream": stream})[:2])
+                    require(got == want[i], f"phase c {tag} {layout}: HTTP stream {i} "
+                            f"(stream={stream}) differs from submit's")
+                    log(f"[c] {tag} {layout} ingress prompt {lens[i]:5d} "
+                        f"{'SSE' if stream else 'whole'}: {len(got)} tokens identical to submit")
+            emb = eng.embed_prompt(prompts[0])[0].float().cpu().numpy().tolist()
+            for stream in (False, True):
+                got = response_tokens(f"phase c {tag} {layout} embeddings", *http_post(
+                    ing.port, "/v1/embeddings",
+                    {"input": emb, "max_tokens": max_new, "stream": stream})[:2])
+                require(got == want[0], f"phase c {tag} {layout}: /v1/embeddings (stream="
+                        f"{stream}) differs from submit's")
+            log(f"[c] {tag} {layout} ingress /v1/embeddings whole and SSE: identical to submit")
+        finally:
+            ing.stop()
+            srv.close()
 
 
 # ------------------------------------------------- observability ([c], [d])
@@ -1091,9 +1259,15 @@ def resilience_server(eng, **kw):
 
 
 def step_until(srv, reqs, n: int) -> None:
-    """Step ``srv`` until every request of ``reqs`` holds ``n`` tokens or is done."""
+    """Step ``srv`` until every request of ``reqs`` holds ``n`` tokens or is
+    done. A step without progress fails the phase unless the requests got
+    there meanwhile: with ``inflight_steps`` > 1 the completion sidecar
+    applies logs between the loop's test and the step, and may finish every
+    request (the step then finds nothing to do)."""
     while any(not r.done and len(r.tokens) < n for r in reqs):
-        require(srv.step(), "a step made no progress")
+        if not srv.step():
+            require(all(r.done or len(r.tokens) >= n for r in reqs),
+                    "a step made no progress")
 
 
 def interrupted_run(eng, prompts, max_new: int, interrupt=None, sampling=None, gaps=False,
@@ -1549,6 +1723,9 @@ def phase_token_check(device, store_root: str) -> None:
     t0 = time.perf_counter()
     check_async_exec("3B", eng, cpu_eng, prompts, cpu_want)
     log(f"[c] 3B async executor checks took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    check_frontdoor("3B", eng, prompts, lens, max_new)
+    log(f"[c] 3B front door checks took {time.perf_counter() - t0:.1f}s")
     del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -1598,9 +1775,11 @@ def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def serve_run(eng, model: str, tag: str, kv: str = "bf16") -> tuple[dict, list]:
+def serve_run(eng, model: str, tag: str, kv: str = "bf16", twin=None) -> tuple[dict, list]:
     """``model``'s workload on a fresh server with a ``kv`` arena: checks
-    it, prints its numbers; returns the run's launch counts and tokens."""
+    it, prints its numbers; returns the run's launch counts and tokens.
+    ``twin`` (a dict) receives what ``inprocess_run`` returns, for the
+    front door's paged daemon to be held to."""
     import torch
 
     from llm_sharding_tpu_torch import smoke_workload
@@ -1641,6 +1820,9 @@ def serve_run(eng, model: str, tag: str, kv: str = "bf16") -> tuple[dict, list]:
         f"({srv.kv_store_dtype}), peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log(f"[d] {tag}: kernel launches on the main path: {counts}")
     tokens = [list(r.tokens) for r in reqs]
+    if twin is not None:
+        twin.update(tokens=tokens, ids=[r.id for r in reqs], counts=counts, prompts=prompts,
+                    ttft=list(ttft), tok_s=decode_tok_s)
     del srv, reqs
     torch.cuda.empty_cache()
     return counts, tokens
@@ -1905,30 +2087,19 @@ def async_serve_runs(eng, smi: str) -> None:
     (its streams must equal the timed (1, 1) run's)."""
     log(f"[d] step-loop configurations on {smi}")
     for kv, configs in (("bf16", ASYNC_CONFIGS), ("int8", (("(2, 1)", dict(inflight_steps=2)),))):
-        base, rec = None, None
+        base, rec = None, []
         if configs[0][1]:
             base = async_serve_run(eng, f"3B kv {kv} (1, 1)", kv=kv)
+
+        def recorded(kv=kv, rec=rec):  # one recorded (1, 1) run per arena, made when needed
+            if not rec:
+                rec.append(async_serve_run(eng, f"3B kv {kv} (1, 1) recorded", kv=kv, record=True))
+            return rec[0]
+
         for name, knobs in configs:
-            tag = f"3B kv {kv} {name}"
-            run = async_serve_run(eng, tag, kv=kv, **knobs)
+            run = async_serve_run(eng, f"3B kv {kv} {name}", kv=kv, **knobs)
             base = base or run
-            if run["tokens"] != base["tokens"] and rec is None:
-                rec = async_serve_run(eng, f"3B kv {kv} (1, 1) recorded", kv=kv, record=True)
-                require(rec["tokens"] == base["tokens"],
-                        f"phase d {tag}: the recorded (1, 1) run gave other streams")
-            for i, (g, b) in enumerate(zip(run["tokens"], base["tokens"])):
-                if g == b:
-                    continue
-                j = next((j for j in range(min(len(g), len(b))) if g[j] != b[j]), None)
-                require(j is not None, f"phase d {tag}: stream {i} lengths differ at equal tokens")
-                gap, top = rec["gaps"][rec["ids"][i]][j], rec["tops"][rec["ids"][i]][j]
-                ulp = bf16_ulp(top)
-                log(f"[d] {tag}: stream {i} first differs from (1, 1) at token {j}: top-2 gap "
-                    f"{gap:.4g} ({gap / ulp:.1f} bf16 ulp)")
-                require(gap <= TIE_ULPS * ulp,
-                        f"phase d {tag}: stream {i} differs at a gap of {gap} > {TIE_ULPS} ulp")
-            same = sum(a == b for a, b in zip(run["tokens"], base["tokens"]))
-            log(f"[d] {tag}: {same} of {len(base['tokens'])} streams identical to (1, 1)")
+            hold_to(f"3B kv {kv} {name} vs (1, 1)", run["tokens"], base["tokens"], recorded)
 
 
 def prefix_serve_run(eng, model: str, tag: str, cache: str = "hbm", kv: str = "bf16"):
@@ -2511,7 +2682,8 @@ def phase_serve(device, store_root: str) -> dict:
     torch.cuda.empty_cache()
 
     eng = load_store(stores["bf16"], "3B bf16", device, write_s["bf16"])
-    counts, base = serve_run(eng, "llama32_3b", "3B bf16 weights, kv bf16")
+    paged_twin: dict = {}
+    counts, base = serve_run(eng, "llama32_3b", "3B bf16 weights, kv bf16", twin=paged_twin)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
@@ -2521,6 +2693,7 @@ def phase_serve(device, store_root: str) -> dict:
     t0 = time.perf_counter()
     async_serve_runs(eng, smi)
     log(f"[d] 3B step-loop configurations took {time.perf_counter() - t0:.1f}s")
+    dcounts = frontdoor_runs(eng, stores["bf16"], smi, paged_twin)
     for kv in KV_MODES:
         kv_counts, tokens = serve_run(eng, "llama32_3b", f"3B bf16 weights, kv {kv}", kv)
         counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
@@ -2639,7 +2812,272 @@ def phase_serve(device, store_root: str) -> dict:
             "gemma_7b": s7counts, "llama32_3b/shared_prefix": pcounts,
             "gemma_2b/shared_prefix": mpcounts, "llama32_3b/speculative": scounts,
             "llama32_3b/spec_generate": gcounts_spec, "llama2_7b": lcounts,
-            "llama2_7b/speculative": lscounts}
+            "llama2_7b/speculative": lscounts, "llama32_3b/dense": dcounts}
+
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+class Daemon:
+    """``python -m llm_sharding_tpu_torch serve STORE`` as users start it:
+    a subprocess with the HTTP ingress and the metrics exposition on free
+    local ports and the tenants file, its stdin held open (the daemon reads
+    prompts from it) and its stderr collected by a thread. Ready once the
+    ingress banner is printed."""
+
+    def __init__(self, store: str, args: list, tenants: str, timeout_s: float = 300.0):
+        import socket
+        import threading
+
+        ports = []
+        for _ in range(2):
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                ports.append(sk.getsockname()[1])
+        self.port, self.metrics_port = ports
+        self.lines: list = []
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "llm_sharding_tpu_torch", "serve", store, *args,
+             "--http-port", str(self.port), "--metrics-port", str(self.metrics_port),
+             "--tenants-config", tenants],
+            cwd=REPO_ROOT, stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True,
+        )
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        while not any(ln.startswith("ingress: http://") for ln in self.lines):
+            if self.proc.poll() is not None or time.perf_counter() - t0 > timeout_s:
+                self.kill()
+                raise RuntimeError("the serve daemon did not come up:\n" + self.tail())
+            time.sleep(0.05)
+        self.startup_s = time.perf_counter() - t0
+
+    def _read(self) -> None:
+        for line in self.proc.stderr:
+            self.lines.append(line)
+
+    def tail(self, n: int = 30) -> str:
+        return "".join(self.lines[-n:])
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def http_workload(port: int, prompts, max_new: int) -> list:
+    """The standard workload as clients send it: requests in pairs 50 ms
+    apart, alternately from the two ``smoke_workload.TENANTS``, the pairs
+    alternately streamed (``smoke_workload.streamed``: each tenant streams a
+    short and a long prompt); each ``(tokens, sent_s, first_token_s or
+    None, done_s)``."""
+    import threading
+
+    from llm_sharding_tpu_torch import smoke_workload
+
+    keys = [t["key"] for t in smoke_workload.TENANTS["tenants"].values()]
+    out: list = [None] * len(prompts)
+
+    def client(i):
+        sent = time.perf_counter()
+        try:
+            status, got, first, done = http_post(
+                port, "/v1/completions",
+                {"prompt": [int(t) for t in prompts[i]], "max_tokens": max_new,
+                 "stream": smoke_workload.streamed(i)},
+                {"Authorization": f"Bearer {keys[i % 2]}"})
+            out[i] = (response_tokens(f"phase d http request {i}", status, got), sent, first, done)
+        except Exception as e:  # noqa: BLE001 — the phase fails on it below
+            out[i] = e
+
+    threads = []
+    for i in range(len(prompts)):
+        threads.append(threading.Thread(target=client, args=(i,)))
+        threads[-1].start()
+        if i % 2:
+            time.sleep(0.05)
+    for t in threads:
+        t.join(timeout=600)
+    for i, r in enumerate(out):
+        require(isinstance(r, tuple), f"phase d: HTTP request {i} failed: {r!r}")
+    return out
+
+
+def hold_to(tag: str, got: list, want: list, rec) -> None:
+    """Each stream of ``got`` equals ``want``'s or first differs at a near
+    tie of the run ``rec()`` records (made only then; its streams must be
+    ``want``): a top-2 gap of at most ``TIE_ULPS`` bf16 ulps of its top
+    logit."""
+    rec_run = None
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        if rec_run is None:
+            rec_run = rec()
+            require(rec_run["tokens"] == want, f"phase d {tag}: the recorded run gave other streams")
+        j = next((j for j in range(min(len(g), len(w))) if g[j] != w[j]), None)
+        require(j is not None, f"phase d {tag}: stream {i} lengths differ at equal tokens")
+        rid = rec_run["ids"][i]
+        gap, top = rec_run["gaps"][rid][j], rec_run["tops"][rid][j]
+        ulp = bf16_ulp(top)
+        log(f"[d] {tag}: stream {i} first differs at token {j}: top-2 gap {gap:.4g} "
+            f"({gap / ulp:.1f} bf16 ulp)")
+        require(gap <= TIE_ULPS * ulp, f"phase d {tag}: stream {i} differs at a gap of {gap} "
+                f"> {TIE_ULPS} ulp")
+    same = sum(g == w for g, w in zip(got, want))
+    log(f"[d] {tag}: {same} of {len(want)} streams identical")
+
+
+def inprocess_run(eng, dense: bool, record: bool = False) -> dict:
+    """The standard workload on the in-process twin of a daemon
+    (``smoke_workload.serve``, dense or paged bf16), staggered: its streams,
+    request ids, launch counts and, unless ``record``, decode tok/s and TTFT
+    p50 / p99 (with ``record`` each token's top-2 gap and top logit)."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    cfg = eng.cfg
+    srv = smoke_workload.serve(eng, "llama32_3b", dense=dense)
+    prompts = smoke_workload.prompts(cfg.vocab_size, np.random.default_rng(0),
+                                     smoke_workload.WORKLOADS["llama32_3b"].lens)
+    tops: dict = {}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with (recorded_gaps(srv, tops) if record else contextlib.nullcontext({})) as gaps:
+        reqs = smoke_workload.submit_staggered(srv, prompts)
+        srv.run_until_idle()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for r in reqs:
+        require(r.done and r.error is None, f"phase d in-process run: request {r.id} failed")
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+    srv.close()
+    return dict(tokens=[list(r.tokens) for r in reqs], ids=[r.id for r in reqs], gaps=gaps,
+                tops=tops, counts=counts, prompts=prompts, ttft=ttft,
+                tok_s=sum(len(r.tokens) - 1 for r in reqs) / span)
+
+
+def frontdoor_runs(eng, store: str, smi: str, paged_twin: dict) -> dict:
+    """[d] The ``serve`` daemon on the port-written 3B store, dense (the
+    command's default, capacity 4096) and paged (64 x 1024 blocks): the
+    standard workload over HTTP as token ids from two tenants, half
+    streamed. Each stream equals the in-process twin's or first differs at
+    a near tie; ``/healthz`` answers 200, ``/metrics`` holds the ingress
+    and tenant families and ``/statz`` the daemon's own kernel launches
+    (flash > 0 in the dense run); the client's decode tok/s and TTFT
+    p50 / p99 print beside the twin's (the paged twin is the standard bf16
+    run ``serve_run`` made, ``paged_twin``). The paged daemon then gets
+    SIGTERM with a stream live: the stream completes and the daemon exits
+    0. Returns the dense twin's launch counts."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+
+    t_all = time.perf_counter()
+    tenants = os.path.join(os.path.dirname(store), "tenants.json")
+    with open(tenants, "w") as f:
+        json.dump(smoke_workload.TENANTS, f)
+    dense_counts = None
+    for dense in (True, False):
+        layout = "dense" if dense else "paged"
+        tag = f"3B daemon {layout}"
+        twin = inprocess_run(eng, dense) if dense else paged_twin
+        if dense:
+            dense_counts = twin["counts"]
+            require(twin["counts"]["flash_attention"] > 0, f"phase d {tag}: flash never launched")
+        torch.cuda.empty_cache()
+        d = Daemon(store, smoke_workload.daemon_args("llama32_3b", dense), tenants)
+        try:
+            # two requests first, one-shot and chunked: the fresh process loads
+            # the kernels and warms its libraries, as the twin's did long before
+            key = smoke_workload.TENANTS["tenants"]["alice"]["key"]
+            for n in (20, 300):
+                response_tokens(f"phase d {tag} warm-up", *http_post(
+                    d.port, "/v1/completions",
+                    {"prompt": [int(t) for t in twin["prompts"][1][:n]], "max_tokens": 2},
+                    {"Authorization": f"Bearer {key}"})[:2])
+            t0 = time.perf_counter()
+            runs = http_workload(d.port, twin["prompts"], smoke_workload.MAX_NEW)
+            wall = time.perf_counter() - t0
+            got = [r[0] for r in runs]
+            hold_to(f"{tag} vs in-process", got, twin["tokens"],
+                    lambda: inprocess_run(eng, dense, record=True))
+            # TTFT where the client sees it (the streamed requests), beside
+            # the twin's for the same requests; decode from the first token
+            # a client saw to the last finish
+            firsts = [r[2] - r[1] for r in runs if r[2] is not None]
+            twin_firsts = [t for i, t in enumerate(twin["ttft"]) if smoke_workload.streamed(i)]
+            span = max(r[3] for r in runs) - min(r[2] for r in runs if r[2] is not None)
+            tok_s = sum(len(g) - 1 for g in got) / span
+            status, body = http_get(d.port, "/healthz")
+            require(status == 200, f"phase d {tag}: /healthz answered {status}")
+            status, body = http_get(d.metrics_port, "/metrics")
+            text = body.decode()
+            for fam in ("server_ingress_requests_total", "server_ingress_ttft_seconds",
+                        "server_tenant_service_tokens_total", "server_tenant_queued"):
+                require(fam in text, f"phase d {tag}: /metrics lacks {fam}")
+            require('tenant="alice"' in text and 'tenant="bob"' in text,
+                    f"phase d {tag}: /metrics lacks the tenants' series")
+            statz = json.loads(http_get(d.metrics_port, "/statz")[1])
+            launches = statz["kernels"]
+            require(launches["flash_attention"] > 0, f"phase d {tag}: the daemon never launched flash")
+            if dense:
+                require(launches["paged_attention"] == launches["paged_prefill"] == 0,
+                        f"phase d {tag}: a paged kernel launched in the dense daemon: {launches}")
+            # the clients send all 8 within 150 ms; the twin submits each pair
+            # two steps after the last, so only request 0 meets the same queue
+            log(f"[d] {tag} on {smi}: up in {d.startup_s:.1f}s; {len(got)} HTTP requests in "
+                f"{wall:.2f}s: decode {tok_s:.1f} tok/s, TTFT of the {len(firsts)} streamed "
+                f"requests p50 {np.percentile(firsts, 50) * 1e3:.0f} ms p99 "
+                f"{np.percentile(firsts, 99) * 1e3:.0f} ms (each: "
+                f"{', '.join(f'{t * 1e3:.0f}' for t in firsts)} ms); in-process twin: decode "
+                f"{twin['tok_s']:.1f} tok/s, TTFT of the same requests p50 "
+                f"{np.percentile(twin_firsts, 50) * 1e3:.0f} ms p99 "
+                f"{np.percentile(twin_firsts, 99) * 1e3:.0f} ms (each: "
+                f"{', '.join(f'{t * 1e3:.0f}' for t in twin_firsts)} ms; all 8: p50 "
+                f"{np.percentile(twin['ttft'], 50) * 1e3:.0f} ms p99 "
+                f"{np.percentile(twin['ttft'], 99) * 1e3:.0f} ms); the daemon's launches {launches}")
+            if not dense:
+                # SIGTERM with a stream live: it finishes, the daemon drains and exits 0
+                import http.client
+
+                conn = http.client.HTTPConnection("127.0.0.1", d.port, timeout=300)
+                conn.request("POST", "/v1/completions", json.dumps(
+                    {"prompt": [int(t) for t in twin["prompts"][0]],
+                     "max_tokens": smoke_workload.MAX_NEW, "stream": True}),
+                    {"Content-Type": "application/json", "Authorization": f"Bearer {key}"})
+                resp = conn.getresponse()
+                first = resp.readline()
+                d.proc.send_signal(15)  # SIGTERM
+                rest = resp.read().decode()
+                conn.close()
+                events = [json.loads(first[6:])] + [json.loads(ln[6:]) for ln in rest.splitlines()
+                                                    if ln.startswith("data: {")]
+                toks = response_tokens(f"phase d {tag} drain", 200, events)
+                require(rest.rstrip().endswith("data: [DONE]"), f"phase d {tag}: no [DONE]")
+                require(len(toks) == len(got[0]), f"phase d {tag}: the drained stream is cut")
+                rc = d.proc.wait(timeout=120)
+                d._reader.join(timeout=10)
+                require(rc == 0 and "drained; exiting 0" in "".join(d.lines),
+                        f"phase d {tag}: SIGTERM exit {rc}:\n{d.tail()}")
+                log(f"[d] {tag}: SIGTERM during a streamed request: {len(toks)} tokens delivered, "
+                    f"[DONE], exit 0")
+        except Exception:
+            log(f"[d] {tag}: daemon stderr tail:\n{d.tail()}")
+            raise
+        finally:
+            if d.proc.poll() is None:
+                d.proc.send_signal(15)
+                try:
+                    d.proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    d.kill()
+    log(f"[d] 3B front door took {time.perf_counter() - t_all:.1f}s")
+    return dense_counts
 
 
 def match_frac(tokens, base) -> float:
@@ -2684,6 +3122,9 @@ def main(argv: list) -> int:
         rows += [r for m in argv[1:] if m in ("llama32_3b", "llama2_7b")
                  for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",),
                                         spec=True)]
+        rows += [r for m in argv[1:] if m == "llama32_3b"
+                 for r in phase_kernels(config.llama32_3b(), device, m, dtypes=("bfloat16",),
+                                        dense=True)]
         print(json.dumps({"kernels": rows}))
         return 0
 
@@ -2698,6 +3139,7 @@ def main(argv: list) -> int:
                           spec=True)
     rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),
                           spec=True)
+    rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dense=True)
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         phase_token_check(device, store)

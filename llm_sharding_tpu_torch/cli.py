@@ -1,9 +1,26 @@
 """Operator commands of the port (counterpart of ``llm_sharding_tpu/cli.py``).
 
+    python -m llm_sharding_tpu_torch generate STORE --prompt TEXT [--max-new N] [--stream]
+    python -m llm_sharding_tpu_torch serve STORE [--capacity C] [--batch-per-slot M] \
+        [--kv-block-size BS --kv-blocks NB] [--http-port P] [--metrics-port Q] ...
     python -m llm_sharding_tpu_torch convert MODEL_DIR OUT_DIR \
         [--dtype bf16|f32|int8|int4] [--quantize-head]
     python -m llm_sharding_tpu_torch trace-report FILES... [--top N] [--trace ID] [--json]
     python -m llm_sharding_tpu_torch step-report FILES... [--top N] [--json]
+
+``generate`` runs one text prompt (``cli.py:157``; ``--stream`` through a
+shared server). ``serve`` is the daemon (``cli.py:433-1094``, the one-GPU
+subset): one text prompt per stdin line, its completion streamed to
+stdout; the control lines ``:counters``, ``:stats``, ``:snapshot DIR`` and
+``:profile N [DIR]``; ``--http-port`` starts the HTTP/SSE ingress with
+tenant fairness (``runtime/ingress.py``; ``--tenants-config``),
+``--metrics-port`` the ``/metrics`` exposition, and SIGTERM drains: new
+HTTP requests are shed with 503, live ones finish, the daemon exits 0. A
+store without a tokenizer still serves: HTTP takes token-id prompts and
+stdin lines are refused one by one. Both commands run on the GPU unless
+``--device cpu`` is given (the one flag the JAX parser lacks). Flags of
+later slices keep the JAX names and exit 2 before the model loads, naming
+the ``ROADMAP.md`` item that ports them.
 
 ``convert`` turns an HF checkpoint directory into a shard store either
 package serves (``cli.py:129-154``, ``:1468-1478``): ``--dtype int8`` /
@@ -12,8 +29,7 @@ package serves (``cli.py:129-154``, ``:1468-1478``): ``--dtype int8`` /
 tables too. ``trace-report`` and ``step-report`` (``cli.py:1364``,
 ``:1402``, parser ``:1899-1944``: the same flags and output) render span
 files and step-profiler captures of either package; they need no GPU, no
-model and no torch (``obs/report.py``). ``generate`` and ``serve`` need a
-tokenizer and come with a later slice.
+model and no torch (``obs/report.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +39,11 @@ import glob
 import json
 import logging
 import os
+import signal
 import sys
+import threading
+
+import numpy as np
 
 # names of torch dtypes: torch is imported by the commands that need it,
 # so the report commands run where it is not installed
@@ -45,6 +65,422 @@ def _dtype(name: str):
         )
         raise SystemExit(f"unknown dtype {name!r}; choose from {sorted(set(DTYPES))}{hint}")
     return getattr(torch, DTYPES[name])
+
+
+def _stdin_lines(stop_evt):
+    """Prompt lines from stdin, waking every 200 ms to honor a SIGTERM
+    (``stop_evt``) while blocked on input (JAX ``cli.py:42``). Stdin that is
+    not selectable (a test's ``StringIO``) is iterated plainly. The select
+    path reads the fd raw and splits lines itself: a buffered
+    ``readline`` would strand the second line of a burst in Python's
+    read-ahead buffer, which select never sees."""
+    try:
+        fd = sys.stdin.fileno()
+        import select as _select
+
+        _select.select([fd], [], [], 0)
+    except Exception:  # noqa: BLE001 — no real fd / select unsupported
+        yield from sys.stdin
+        return
+    buf = ""
+    while not stop_evt.is_set():
+        r, _, _ = _select.select([fd], [], [], 0.2)
+        if not r:
+            continue
+        chunk = os.read(fd, 65536)
+        if not chunk:  # EOF (^D / closed pipe)
+            if buf:
+                yield buf
+            return
+        buf += chunk.decode("utf-8", errors="replace")
+        while "\n" in buf:
+            line, buf = buf.split("\n", 1)
+            yield line + "\n"
+
+
+def _engine(args):
+    from .runtime.engine import Engine
+
+    return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), device=args.device)
+
+
+def cmd_generate(args) -> int:
+    """One prompt (JAX ``cli.py:157``): the completion, or with ``--stream``
+    its deltas as they commit through a shared server."""
+    bad = _later_slice_flag(args)
+    if bad:
+        print(f"error: {bad}", file=sys.stderr)
+        return 2
+    eng = _engine(args)
+    if args.stream:
+        for delta in eng.generate_text_stream(
+            args.prompt, args.max_new, temperature=args.temperature, seed=args.seed,
+            top_k=args.top_k, top_p=args.top_p,
+        ):
+            print(delta, end="", flush=True)
+        print()
+    else:
+        print(eng.generate_text(
+            args.prompt, args.max_new, temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, seed=args.seed,
+        ))
+    return 0
+
+
+# flags the JAX parser has and a later slice ports: (dest, default, flag, item)
+_LATER_SLICE_FLAGS = (
+    ("data_parallel", 1, "--data-parallel", "§A 14 (fleet)"),
+    ("min_replicas", 1, "--min-replicas", "§A 14 (fleet)"),
+    ("disagg", False, "--disagg", "§A 14 (fleet)"),
+    ("prefill_replicas", 0, "--prefill-replicas", "§A 14 (fleet)"),
+    ("roles", None, "--roles", "§A 14 (fleet)"),
+    ("profile_json", None, "--profile-json", "§A 14 (fleet)"),
+    ("autoscale", False, "--autoscale", "§A 14 (fleet)"),
+    ("autoscale_up_load", 0.8, "--autoscale-up-load", "§A 14 (fleet)"),
+    ("autoscale_down_load", 0.3, "--autoscale-down-load", "§A 14 (fleet)"),
+    ("autoscale_up_after", 1.0, "--autoscale-up-after", "§A 14 (fleet)"),
+    ("autoscale_down_after", 5.0, "--autoscale-down-after", "§A 14 (fleet)"),
+    ("autoscale_cooldown", 3.0, "--autoscale-cooldown", "§A 14 (fleet)"),
+    ("rebalance_every", 30.0, "--rebalance-every", "§A 14 (fleet)"),
+    ("ranges", None, "--ranges", "§A 15 (pipeline parallelism)"),
+    ("tensor_parallel", 1, "--tensor-parallel", "§A 16 (tensor, context and multi-host)"),
+    ("cp", 1, "--cp", "§A 16 (tensor, context and multi-host)"),
+)
+
+
+def _later_slice_flag(args) -> str:
+    """The refusal of a flag a later slice of the port carries, or ''."""
+    stages = getattr(args, "stages", None)
+    if stages is not None and stages > 1:
+        return ("--stages > 1 (pipeline stages) comes with a later slice of the port: "
+                "ROADMAP.md §A 15 (pipeline parallelism); this port serves on one GPU")
+    for dest, default, flag, item in _LATER_SLICE_FLAGS:
+        if getattr(args, dest, default) != default:
+            return (f"{flag} comes with a later slice of the port: ROADMAP.md {item}; "
+                    "this port serves on one GPU")
+    return ""
+
+
+def _serve_control(srv, line: str) -> None:
+    """The daemon's control lines (JAX ``cli.py:207-252``): ``:counters``,
+    ``:stats`` (counters, every registry metric and the step profiler's
+    aggregates as one JSON line), ``:snapshot DIR`` (``serve --restore
+    DIR`` resumes it) and ``:profile N [DIR]`` (an N-step deep capture;
+    with DIR a ``torch.profiler`` trace as well), each printed to stderr.
+    ``:placement`` comes with the pipeline slice."""
+    from .obs.metrics import REGISTRY
+
+    parts = line.split(None, 1)
+    cmd = parts[0]
+    if cmd == ":counters":
+        print(json.dumps(srv.counters.snapshot()), file=sys.stderr)
+    elif cmd == ":stats":
+        stats = {
+            "counters": srv.counters.snapshot(),
+            "metrics": REGISTRY.json_snapshot(),
+            "stepline": srv.stepline_stats(),
+        }
+        pc = srv.prefix_cache_stats()
+        if pc is not None:
+            stats["prefix_cache"] = pc
+        print(json.dumps(stats, sort_keys=True), file=sys.stderr)
+    elif cmd == ":profile":
+        sub = parts[1].split() if len(parts) > 1 else []
+        if not sub:
+            print("usage: :profile N [TRACE_DIR]", file=sys.stderr)
+            return
+        try:
+            bundle = srv.stepline_capture(int(sub[0]), trace_dir=sub[1] if len(sub) > 1 else None)
+        except ValueError as e:
+            print(f"profile failed: {e}", file=sys.stderr)
+            return
+        print(json.dumps(bundle, sort_keys=True), file=sys.stderr)
+    elif cmd == ":snapshot":
+        if len(parts) < 2:
+            print("usage: :snapshot DIR", file=sys.stderr)
+            return
+        from .runtime.server import save_snapshot
+
+        try:
+            save_snapshot(srv.snapshot(), parts[1])
+            print(f"snapshot written to {parts[1]}", file=sys.stderr)
+        except (ValueError, RuntimeError, OSError) as e:
+            print(f"snapshot failed: {e}", file=sys.stderr)
+    elif cmd == ":placement":
+        print(":placement (hot repartition) comes with a later slice of the port: "
+              "ROADMAP.md §A 15 (pipeline parallelism)", file=sys.stderr)
+    else:
+        print(f"unknown control line {cmd!r} (try :counters, :stats, :snapshot, :profile)",
+              file=sys.stderr)
+
+
+def _fast_fail(args) -> str:
+    """The JAX daemon's checks that need no model (``cli.py:439-642``), with
+    its messages; '' when the flags hold together."""
+    if bool(args.snapshot_every) != bool(args.snapshot_dir):
+        return ("--snapshot-every and --snapshot-dir go together "
+                f"(got --snapshot-every {args.snapshot_every or 0}, "
+                f"--snapshot-dir {args.snapshot_dir!r})")
+    if bool(args.kv_block_size) != bool(args.kv_blocks):
+        return ("--kv-block-size and --kv-blocks go together "
+                f"(got --kv-block-size {args.kv_block_size or 0}, "
+                f"--kv-blocks {args.kv_blocks or 0})")
+    if args.inflight_steps < 1:
+        return f"--inflight-steps must be >= 1, got {args.inflight_steps}"
+    if args.paged_attn != "auto" and not args.kv_block_size:
+        return (f"--paged-attn {args.paged_attn} needs paged KV serving "
+                "(--kv-block-size/--kv-blocks); dense decode has no block "
+                "tables to stream")
+    if args.kv_dtype != "bf16" and not args.kv_block_size:
+        return (f"--kv-dtype {args.kv_dtype} needs paged KV serving "
+                "(--kv-block-size/--kv-blocks); quantization scales live per "
+                "arena block")
+    if args.prefix_cache != "off" and not args.kv_block_size:
+        return (f"--prefix-cache {args.prefix_cache} needs paged KV "
+                "serving (--kv-block-size/--kv-blocks); the cache shares "
+                "refcounted arena blocks")
+    if args.host_pool_blocks and args.prefix_cache not in ("host", "disk"):
+        return ("--host-pool-blocks sizes the host-RAM tier — it needs "
+                f"--prefix-cache host or disk (got --prefix-cache {args.prefix_cache})")
+    if args.prefix_cache == "disk" and not args.disk_pool_dir:
+        return ("--prefix-cache disk needs --disk-pool-dir (the on-disk "
+                "KV pool is the persistent artifact — it must have a home)")
+    if (args.disk_pool_dir or args.disk_pool_blocks) and args.prefix_cache != "disk":
+        return ("--disk-pool-dir/--disk-pool-blocks configure the disk "
+                "KV tier — they need --prefix-cache disk (got --prefix-cache "
+                f"{args.prefix_cache})")
+    if args.tenants_config and not args.http_port:
+        return ("--tenants-config needs --http-port (tenant policy is "
+                "enforced at the HTTP ingress; stdin prompts have no tenant)")
+    if args.tenants_config:
+        from .runtime.fairness import load_tenants_config
+
+        try:
+            load_tenants_config(args.tenants_config)
+        except (OSError, ValueError, TypeError, KeyError) as e:
+            return f"bad --tenants-config: {e}"
+    return _later_slice_flag(args)
+
+
+def _serve_kwargs(args) -> dict:
+    return dict(
+        capacity=args.capacity, batch_per_slot=args.batch_per_slot,
+        prefill_chunk=args.prefill_chunk, top_k=args.top_k, top_p=args.top_p,
+        trace_path=args.trace_path, speculate=args.speculate, spec_ngram=args.spec_ngram,
+        inflight_steps=args.inflight_steps, max_queue=args.max_queue or None,
+        default_deadline_s=args.default_deadline or None,
+        snapshot_every_s=args.snapshot_every or None, snapshot_path=args.snapshot_dir,
+        kv_block_size=args.kv_block_size or None, kv_blocks=args.kv_blocks or None,
+        kv_dtype=args.kv_dtype, paged_attn="plain" if args.paged_attn == "xla" else args.paged_attn,
+        prefix_cache=args.prefix_cache, host_pool_blocks=args.host_pool_blocks,
+        disk_pool_dir=args.disk_pool_dir, disk_pool_blocks=args.disk_pool_blocks,
+        gauge_sweep_every_s=args.gauge_sweep_every,
+    )
+
+
+def _restore(eng, args):
+    """``--restore DIR``: the snapshot's daemon, its requests finished
+    first (their clients are gone: the completions go to stdout, one per
+    line). The snapshot's serve options win over the flags, and the flags
+    that differ are named."""
+    from .obs.trace import TraceWriter
+    from .runtime.server import PipelineServer, load_snapshot
+
+    srv = PipelineServer.restore(eng, load_snapshot(args.restore))
+    if args.snapshot_every or args.snapshot_dir:
+        srv.enable_auto_snapshot(args.snapshot_dir, args.snapshot_every or None)
+    if args.trace_path:
+        srv._trace = TraceWriter(args.trace_path)
+    revived = [r for r in srv._req if r is not None and not r.done] + list(srv._queue)
+    print(f"restored snapshot from {args.restore}: {len(revived)} live request(s) resume",
+          file=sys.stderr)
+    kw = _serve_kwargs(args)
+    ignored = [
+        f"--{flag.replace('_', '-')} {got} (snapshot: {used})"
+        for flag, got, used in (
+            ("capacity", args.capacity, srv.capacity),
+            ("batch_per_slot", args.batch_per_slot, srv.rows),
+            ("prefill_chunk", args.prefill_chunk, srv.prefill_chunk),
+            ("top_k", args.top_k, srv.top_k),
+            ("top_p", args.top_p, srv.top_p),
+            ("speculate", args.speculate, srv.speculate),
+            ("spec_ngram", args.spec_ngram, srv.spec_ngram),
+            ("inflight_steps", args.inflight_steps, srv.inflight_steps),
+            ("max_queue", kw["max_queue"], srv.max_queue),
+            ("default_deadline", kw["default_deadline_s"], srv.default_deadline_s),
+            ("kv_block_size", kw["kv_block_size"], srv.kv_block_size),
+            ("kv_blocks", kw["kv_blocks"], srv.kv_blocks),
+            ("kv_dtype", args.kv_dtype, srv.kv_dtype),
+            ("paged_attn", kw["paged_attn"], srv.paged_attn),
+            ("prefix_cache", args.prefix_cache, srv.prefix_cache),
+            ("host_pool_blocks", args.host_pool_blocks or None, srv.host_pool_blocks or None),
+            ("disk_pool_dir", args.disk_pool_dir, srv.disk_pool_dir),
+            ("disk_pool_blocks", args.disk_pool_blocks or None, srv.disk_pool_blocks or None),
+        )
+        if got != used
+    ]
+    if ignored:
+        print("warning: serve flags differ from the snapshot and are ignored (a restored "
+              "daemon keeps its snapshot's serve_kwargs): " + ", ".join(ignored),
+              file=sys.stderr)
+    if revived:
+        srv.run_until_idle()
+        t = eng._require_tokenizer()
+        for r in revived:
+            print(t.decode(r.tokens, skip_special_tokens=True), flush=True)
+    return srv
+
+
+def cmd_serve(args) -> int:
+    """The daemon (JAX ``cli.py:433``): one prompt per stdin line, its
+    completion streamed per line; ``:`` lines are control lines
+    (``_serve_control``). The checks that need no model run first and exit
+    2, the SIGTERM handler is installed before the model loads (and the
+    caller's handler restored when the daemon returns)."""
+    bad = _fast_fail(args)
+    if bad:
+        print(f"error: {bad}", file=sys.stderr)
+        return 2
+    # SIGTERM drains: installed before the model loads, so the contract
+    # holds from the first moment a supervisor can see the daemon
+    term = threading.Event()
+    prev = None
+    if threading.current_thread() is threading.main_thread():
+        try:
+            prev = signal.signal(signal.SIGTERM, lambda *_: term.set())
+        except (ValueError, OSError):
+            pass  # an embedded interpreter without signals
+    try:
+        return _serve(args, term)
+    finally:
+        if prev is not None:  # a caller in this process gets its handler back
+            signal.signal(signal.SIGTERM, prev)
+
+
+def _serve(args, term: threading.Event) -> int:
+    """The daemon's body once its flags hold together (``cmd_serve``)."""
+    from .runtime.server import QueueFull, RequestFailed, ServerClosed
+
+    from .ops.kernels import launch_counts as kernel_launches
+    from .runtime.engine import text_deltas
+
+    eng = _engine(args)
+    srv = _restore(eng, args) if args.restore else eng.serve(**_serve_kwargs(args))
+    mode = ("dense" if srv.kv_block_size is None
+            else f"paged {srv.kv_blocks} x {srv.kv_block_size}")
+    print(f"serving {eng.cfg.model_type} on {eng.device} (capacity={srv.capacity}, "
+          f"rows={srv.rows}, {mode}); enter a prompt, ^D to exit", file=sys.stderr)
+    ingress = None
+    metrics_srv = _start_metrics(
+        args.metrics_port,
+        statz_extra={
+            "counters": lambda: srv.counters.snapshot(),
+            "stepline": lambda: srv.stepline_stats(),
+            # each CUDA kernel's launches in this process (0 on the CPU)
+            "kernels": kernel_launches,
+        },
+        health=lambda: ingress.health if ingress is not None else srv.health,
+        profilez=lambda steps, wait_s: (
+            srv.stepline_capture(steps, wait_s) if steps is not None
+            else {"stepline": srv.stepline_stats(), "steps": srv.stepline_snapshot(64)}
+        ),
+    )
+    # a store without a tokenizer still serves: HTTP takes token ids and
+    # stdin prompts are refused one by one
+    try:
+        tok = eng._require_tokenizer()
+    except ValueError:
+        tok = None
+    if args.http_port:
+        from .runtime.ingress import start_ingress
+
+        ingress = start_ingress(
+            srv, port=args.http_port, tokenizer=tok, tenants=args.tenants_config,
+            max_queue=args.max_queue or None, model_name=eng.cfg.model_type,
+            trace_path=args.trace_path, on_error=lambda msg: print(msg, file=sys.stderr),
+        )
+        if ingress is not None:
+            print(f"ingress: http://127.0.0.1:{ingress.port}/v1/completions "
+                  f"(tenants: {', '.join(ingress.fair.tenants())})", file=sys.stderr)
+    n_prompt = 0
+    for line in _stdin_lines(term):
+        prompt = line.rstrip("\n")
+        if not prompt:
+            continue
+        if prompt.startswith(":"):
+            _serve_control(srv, prompt)
+            continue
+        if tok is None:
+            print("rejected: this store has no tokenizer — text prompts need one (the "
+                  "HTTP ingress still accepts token-id prompts)", file=sys.stderr)
+            continue
+        ids = np.asarray(tok(prompt)["input_ids"], np.int32)
+        try:
+            # each prompt's seed advances from --seed
+            req = srv.submit(ids, args.max_new, temperature=args.temperature,
+                             seed=args.seed + n_prompt, stop=args.stop)
+        except (QueueFull, ServerClosed, ValueError) as e:
+            print(f"rejected: {e}", file=sys.stderr)
+            continue
+        n_prompt += 1
+        try:
+            for delta in text_deltas(tok, srv.stream(req)):
+                print(delta, end="", flush=True)
+        except RequestFailed as e:
+            print(f"\n[request failed: {e.__cause__ or e}]", file=sys.stderr)
+        print(flush=True)
+    if term.is_set():
+        # SIGTERM drains (JAX cli.py:1045-1062): new HTTP requests are shed
+        # with 503, live ones finish, an armed snapshot dir gets a final
+        # checkpoint, and the exit code is 0
+        print("SIGTERM: draining (new requests shed with 503)", file=sys.stderr)
+        if ingress is not None:
+            ingress.begin_drain()
+        try:
+            srv.run_until_idle()  # finish the requests in flight
+        except Exception as e:  # noqa: BLE001 — drain anyway
+            print(f"drain pump failed: {e}", file=sys.stderr)
+        if ingress is not None and not ingress.wait_idle(timeout_s=args.drain_grace):
+            print("warning: drain grace expired with streams still live — raise "
+                  "--drain-grace to let long completions finish", file=sys.stderr)
+        if args.snapshot_dir:
+            from .runtime.server import save_snapshot
+
+            try:
+                save_snapshot(srv.snapshot(), args.snapshot_dir)
+                print(f"final snapshot written to {args.snapshot_dir}", file=sys.stderr)
+            except Exception as e:  # noqa: BLE001 — a failed final snapshot
+                # must not turn a graceful drain into rc != 0
+                print(f"final snapshot failed: {e}", file=sys.stderr)
+        print("drained; exiting 0", file=sys.stderr)
+    print(json.dumps(srv.counters.snapshot()), file=sys.stderr)
+    if ingress is not None:
+        ingress.stop()
+    if metrics_srv is not None:
+        metrics_srv.stop()
+    srv.close()
+    return 0
+
+
+def _start_metrics(port, statz_extra=None, health=None, profilez=None):
+    """The ``/metrics``, ``/statz``, ``/profilez`` and ``/healthz`` thread
+    when a port is given (JAX ``cli.py:1095``); a bind failure is reported
+    and the daemon serves without it."""
+    if not port:
+        return None
+    from .obs.http import MetricsServer
+
+    try:
+        ms = MetricsServer(port=port, statz_extra=statz_extra, health_provider=health)
+        if profilez is not None:
+            ms.set_profilez_provider(profilez)
+        ms.start()
+    except OSError as e:
+        print(f"metrics endpoint disabled: {e}", file=sys.stderr)
+        return None
+    print(f"metrics: http://127.0.0.1:{ms.port}/metrics (Prometheus), /statz (JSON), "
+          "/profilez (step capture)", file=sys.stderr)
+    return ms
 
 
 def cmd_convert(args) -> int:
@@ -128,6 +564,121 @@ def cmd_step_report(args) -> int:
     return 0
 
 
+def _add_device(p) -> None:
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; cpu runs the plain PyTorch "
+        "path, as the tests do). Without a GPU the default raises",
+    )
+
+
+def _add_generate(sub) -> None:
+    g = sub.add_parser("generate", help="run one prompt")
+    g.add_argument("shards")
+    g.add_argument("--prompt", required=True)
+    g.add_argument("--max-new", type=int, default=128, dest="max_new")
+    g.add_argument("--stages", type=int)
+    g.add_argument("--ranges", help="ragged layer ranges (ROADMAP.md §A 15)")
+    g.add_argument("--dtype", default="bf16")
+    g.add_argument("--stream", action="store_true")
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top-k", type=int, default=0, dest="top_k")
+    g.add_argument("--top-p", type=float, default=1.0, dest="top_p")
+    g.add_argument("--seed", type=int, default=0)
+    _add_device(g)
+    g.set_defaults(fn=cmd_generate)
+
+
+def _add_serve(sub) -> None:
+    """The JAX ``serve`` parser (``cli.py:1494-1814``): the same names and
+    defaults; the flags of later slices are parsed and refused."""
+    s = sub.add_parser("serve", help="persistent stdin daemon (streaming), HTTP ingress")
+    s.add_argument("shards")
+    s.add_argument("--max-new", type=int, default=256, dest="max_new")
+    s.add_argument("--capacity", type=int, default=1024)
+    s.add_argument("--batch-per-slot", type=int, default=1, dest="batch_per_slot",
+                   help="rows served at once")
+    s.add_argument("--prefill-chunk", type=int, default=None, dest="prefill_chunk",
+                   help="prefill prompts longer than this in chunks (power of two)")
+    s.add_argument("--speculate", type=int, default=0,
+                   help="verify up to K n-gram drafts per row per step (0 = off)")
+    s.add_argument("--spec-ngram", type=int, default=3, dest="spec_ngram")
+    s.add_argument("--inflight-steps", type=int, default=1, dest="inflight_steps",
+                   help="decode dispatches the async executor keeps in flight (1: serial)")
+    s.add_argument("--dtype", default="bf16")
+    s.add_argument("--temperature", type=float, default=0.0)
+    s.add_argument("--seed", type=int, default=0,
+                   help="base sampling seed; each submitted prompt advances it by one")
+    s.add_argument("--top-k", type=int, default=0, dest="top_k")
+    s.add_argument("--top-p", type=float, default=1.0, dest="top_p")
+    s.add_argument("--stop", action="append", default=None,
+                   help="stop string (repeatable; needs a tokenizer)")
+    s.add_argument("--max-queue", type=int, default=0, dest="max_queue",
+                   help="reject submits once this many wait (0 = unbounded)")
+    s.add_argument("--default-deadline", type=float, default=0.0, dest="default_deadline",
+                   help="default per-request deadline in seconds (0 = none)")
+    s.add_argument("--kv-block-size", type=int, default=0, dest="kv_block_size",
+                   help="paged KV: tokens per arena block (0 = dense, the default)")
+    s.add_argument("--kv-blocks", type=int, default=0, dest="kv_blocks",
+                   help="paged KV: arena blocks (>= 2; block 0 is the trash sink)")
+    s.add_argument("--kv-dtype", choices=("bf16", "int8", "fp8"), default="bf16",
+                   dest="kv_dtype", help="paged arena storage")
+    s.add_argument("--paged-attn", choices=("auto", "kernel", "plain", "xla"), default="auto",
+                   dest="paged_attn",
+                   help="paged attention path: the CUDA kernels, or plain (xla: the JAX "
+                   "name of the plain path)")
+    s.add_argument("--prefix-cache", choices=("off", "hbm", "host", "disk"), default="off",
+                   dest="prefix_cache", help="automatic prefix cache (paged only)")
+    s.add_argument("--host-pool-blocks", type=int, default=0, dest="host_pool_blocks")
+    s.add_argument("--disk-pool-dir", default=None, dest="disk_pool_dir")
+    s.add_argument("--disk-pool-blocks", type=int, default=0, dest="disk_pool_blocks")
+    s.add_argument("--snapshot-every", type=float, default=0.0, dest="snapshot_every",
+                   help="auto-checkpoint at most every N seconds into --snapshot-dir")
+    s.add_argument("--snapshot-dir", default=None, dest="snapshot_dir")
+    s.add_argument("--restore", default=None, help="resume a ':snapshot DIR' checkpoint")
+    s.add_argument("--metrics-port", type=int, default=0, dest="metrics_port",
+                   help="/metrics, /statz, /profilez, /healthz on 127.0.0.1:PORT (0 = off)")
+    s.add_argument("--http-port", type=int, default=0, dest="http_port",
+                   help="the HTTP/SSE ingress on 127.0.0.1:PORT: POST /v1/completions and "
+                   "/v1/embeddings, tenant fairness, typed 429/503/504 (0 = off)")
+    s.add_argument("--tenants-config", default=None, dest="tenants_config",
+                   help="JSON tenant policy for --http-port: {\"tenants\": {NAME: {\"key\": "
+                   "BEARER, \"weight\": W, \"rate_rps\": R, \"burst\": B, \"max_queued\": "
+                   "Q}}, \"allow_anonymous\": bool}")
+    s.add_argument("--drain-grace", type=float, default=60.0, dest="drain_grace",
+                   help="seconds a SIGTERM drain waits for live HTTP streams")
+    s.add_argument("--trace-path", default=None, dest="trace_path",
+                   help="JSONL span file (PATH.ingress gets the HTTP root spans)")
+    s.add_argument("--gauge-sweep-every", type=float, default=0.0, dest="gauge_sweep_every",
+                   help="pace the per-step load-gauge sweep (seconds; 0 = every step)")
+    # later slices: parsed under the JAX names, refused before the model loads
+    s.add_argument("--stages", type=int)
+    s.add_argument("--ranges")
+    for flag, dest, kind, default in (
+        ("--data-parallel", "data_parallel", int, 1),
+        ("--tensor-parallel", "tensor_parallel", int, 1),
+        ("--cp", "cp", int, 1),
+        ("--min-replicas", "min_replicas", int, 1),
+        ("--autoscale-up-load", "autoscale_up_load", float, 0.8),
+        ("--autoscale-down-load", "autoscale_down_load", float, 0.3),
+        ("--autoscale-up-after", "autoscale_up_after", float, 1.0),
+        ("--autoscale-down-after", "autoscale_down_after", float, 5.0),
+        ("--autoscale-cooldown", "autoscale_cooldown", float, 3.0),
+        ("--rebalance-every", "rebalance_every", float, 30.0),
+        ("--prefill-replicas", "prefill_replicas", int, 0),
+        ("--roles", "roles", str, None),
+        ("--profile-json", "profile_json", str, None),
+    ):
+        s.add_argument(flag, dest=dest, type=kind, default=default,
+                       help="a later slice of the port (ROADMAP.md §A 14-16)")
+    s.add_argument("--autoscale", action="store_true",
+                   help="a later slice of the port (ROADMAP.md §A 14)")
+    s.add_argument("--disagg", action="store_true",
+                   help="a later slice of the port (ROADMAP.md §A 14)")
+    _add_device(s)
+    s.set_defaults(fn=cmd_serve)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m llm_sharding_tpu_torch",
@@ -135,6 +686,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("-v", "--verbose", action="store_true")
     sub = p.add_subparsers(dest="command", required=True)
+    _add_generate(sub)
+    _add_serve(sub)
     c = sub.add_parser("convert", help="HF checkpoint dir -> shard store")
     c.add_argument("model_dir")
     c.add_argument("out_dir")

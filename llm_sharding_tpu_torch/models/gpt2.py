@@ -29,7 +29,7 @@ from ..ops.quant import embed_rows, head_logits, out_dim, qmatmul, tied_logits
 from ..utils.convert import params_from_numpy  # noqa: F401 - the JAX tree → port params
 from .cache import KVCache
 from .config import ModelConfig
-from .llama import paged_attn_fn
+from .llama import paged_attn_fn, rows_attn_fn
 from .stack import scan_layers, scan_layers_paged
 
 Params = dict[str, Any]
@@ -176,6 +176,27 @@ def forward_layers_paged(
         ))
 
     return scan_layers_paged(layers, h, k_arena, v_arena, apply, layer_mask, k_scale, v_scale)
+
+
+def forward_layers_rows(
+    cfg: ModelConfig,
+    layers: list,
+    h: torch.Tensor,
+    k_cache: torch.Tensor,  # [L, M, C, Nh, D]
+    v_cache: torch.Tensor,
+    rowsel: torch.Tensor,  # [M, 1]
+    cols: torch.Tensor,  # [M, S]
+    kv_positions: torch.Tensor,  # [M, C]
+    positions: torch.Tensor,  # [M, S]
+    live: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dense serve-step layers: the contract of
+    ``llama.forward_layers_rows``."""
+    for i, p in enumerate(layers):
+        h = attn_mlp_block(cfg, p, h, rows_attn_fn(
+            k_cache[i], v_cache[i], rowsel, cols, positions, kv_positions, live,
+        ))
+    return h
 
 
 def final_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:

@@ -223,6 +223,30 @@ def paged_attn_fn(
     return attn_fn
 
 
+def rows_attn_fn(k_row, v_row, rowsel, cols, positions, kv_positions, live):
+    """The attention of a dense serving layer whose rows write at their own
+    columns (a serve step: each row's write offset differs), shared by the
+    model families. ``k_row`` / ``v_row`` ``[M, C, Nkv, D]`` are the
+    layer's slices of the server's dense cache, written in place at
+    ``[rowsel, cols]`` (``rowsel`` ``[M, 1]``, ``cols`` ``[M, S]``). A row
+    that is not ``live`` writes back the bytes it read, a select with no
+    boolean-mask index, so the step keeps one shape and no host read. Then
+    the dense dispatch: the flash kernel for S > 1, the plain path at S =
+    1, as in JAX (``ops/flash_attention.py:241-244``)."""
+
+    def attn_fn(q, k, v):
+        new_k, new_v = k.to(k_row.dtype), v.to(v_row.dtype)
+        if live is not None:
+            gate = live[:, None, None, None]
+            new_k = torch.where(gate, new_k, k_row[rowsel, cols])
+            new_v = torch.where(gate, new_v, v_row[rowsel, cols])
+        k_row[rowsel, cols] = new_k
+        v_row[rowsel, cols] = new_v
+        return attention_step(q, k_row, v_row, positions, kv_positions)
+
+    return attn_fn
+
+
 def forward_layers(
     cfg: ModelConfig,
     layers: list,
@@ -269,6 +293,30 @@ def forward_layers_paged(
         )
 
     return scan_layers_paged(layers, h, k_arena, v_arena, apply, layer_mask, k_scale, v_scale)
+
+
+def forward_layers_rows(
+    cfg: ModelConfig,
+    layers: list,
+    h: torch.Tensor,  # [M, S, H]
+    k_cache: torch.Tensor,  # [L, M, C, Nkv, D] the server's dense cache, in place
+    v_cache: torch.Tensor,
+    rowsel: torch.Tensor,  # [M, 1] int64 row index
+    cols: torch.Tensor,  # [M, S] each row's write columns
+    kv_positions: torch.Tensor,  # [M, C], this step's positions already recorded
+    positions: torch.Tensor,  # [M, S]
+    live: Optional[torch.Tensor] = None,  # [M] bool: False rows write nothing
+) -> torch.Tensor:
+    """Dense counterpart of ``forward_layers_paged`` for the serve steps
+    (decode and verify over every row of a dense server): each row writes
+    its fresh KV at its own columns, then attends its whole cache row.
+    Key-position bookkeeping stays with the caller."""
+    cos, sin = rope_cos_sin(positions, cfg)
+    for i, p in enumerate(layers):
+        h = attn_mlp_block(cfg, p, h, cos, sin, rows_attn_fn(
+            k_cache[i], v_cache[i], rowsel, cols, positions, kv_positions, live,
+        ))
+    return h
 
 
 def final_logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:

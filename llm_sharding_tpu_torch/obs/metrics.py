@@ -560,3 +560,58 @@ KV_DISK_TIER_BLOCKS = REGISTRY.gauge(
     "disk→host→arena on a later radix hit, and the pool survives "
     "restarts)",
 )
+
+
+# -- production ingress (runtime/ingress.py + runtime/fairness.py) ---------
+# The JAX names, kinds, labels and buckets (JAX ``obs/metrics.py:760-810``):
+# the families exist, and show 0, before the first IngressServer is built.
+INGRESS_REQUESTS = REGISTRY.counter(
+    "server_ingress_requests_total",
+    "HTTP requests through the ingress, by tenant and outcome (ok = "
+    "completed, rejected_rate / rejected_tenant_queue = per-tenant "
+    "early shed with 429, rejected_overload / rejected_draining = global "
+    "shed with 503, deadline = budget expired (shed in queue or "
+    "mid-decode), disconnect = client went away mid-stream (row "
+    "cancelled, KV freed), failed = backend containment or a shutdown "
+    "that interrupted the stream (finish_reason \"cancelled\"), "
+    "bad_request, unauthorized = no tenant matched the credentials "
+    "(tenant label \"unknown\"), fault = injected http_request fault)",
+    labels=("tenant", "outcome"),
+)
+INGRESS_ACTIVE = REGISTRY.gauge(
+    "server_ingress_active_streams",
+    "HTTP requests currently dispatched to the backend with a live "
+    "client attached (queued-in-ingress requests are not active yet)",
+)
+INGRESS_QUEUED = REGISTRY.gauge(
+    "server_ingress_queued",
+    "Requests waiting in the ingress fair queue for backend dispatch, "
+    "summed over tenants",
+)
+INGRESS_TTFT = REGISTRY.histogram(
+    "server_ingress_ttft_seconds",
+    "HTTP arrival to first committed token, by tenant (includes the "
+    "fair-queue wait — the figure the flood-isolation chaos test bounds "
+    "for the well-behaved tenant)",
+    labels=("tenant",),
+)
+TENANT_QUEUED = REGISTRY.gauge(
+    "server_tenant_queued",
+    "Requests waiting in the ingress fair queue, per tenant",
+    labels=("tenant",),
+)
+TENANT_SERVICE = REGISTRY.counter(
+    "server_tenant_service_tokens_total",
+    "Accumulated service per tenant in tokens, by kind (prefill = prompt "
+    "tokens charged at backend dispatch, decode = committed tokens "
+    "charged as they stream): the quantity the weighted fair queue "
+    "schedules on",
+    labels=("tenant", "kind"),
+)
+TENANT_THROTTLED = REGISTRY.counter(
+    "server_tenant_throttled_total",
+    "Per-tenant early sheds at the ingress door, by reason (rate = "
+    "token-bucket limit, queue = per-tenant queued-work cap) — each one "
+    "a 429 with Retry-After, never a queue-timeout death",
+    labels=("tenant", "reason"),
+)

@@ -21,6 +21,7 @@ class ModelFns(NamedTuple):
     embed: Callable  # (cfg, params, ids [B, S], positions [B, S]) -> h
     stage: Callable  # dense layers: (cfg, layers, h, cache, positions, layer_mask=None)
     stage_paged: Callable  # paged layers: forward_layers_paged's signature
+    stage_rows: Callable  # dense serve-step layers: forward_layers_rows's signature
     final_logits: Callable  # (cfg, params, h) -> fp32 logits
     forward: Callable  # (cfg, params, ids, cache, positions) -> (logits, cache)
 
@@ -32,4 +33,7 @@ def model_fns(cfg: ModelConfig) -> ModelFns:
         m = gpt2
     else:
         raise ValueError(f"unsupported model_type: {cfg.model_type!r}")
-    return ModelFns(m.embed, m.forward_layers, m.forward_layers_paged, m.final_logits, m.forward)
+    return ModelFns(
+        m.embed, m.forward_layers, m.forward_layers_paged, m.forward_layers_rows,
+        m.final_logits, m.forward,
+    )

@@ -4,7 +4,7 @@ of ``llm_sharding_tpu/parallel/serve.py`` (``ServeState`` ``:71-111``,
 ``write_arena_blocks`` / ``write_arena_blocks_q`` ``:465`` / ``:483``,
 ``serve_cancel_rows`` ``:500``, ``serve_admit`` ``:542``,
 ``serve_prefill_chunk`` ``:861``, ``serve_admit_finish`` ``:1074``,
-``serve_chunk`` ``:1198``, the paged branch of ``serve_verify`` ``:1490``).
+``serve_chunk`` ``:1198``, ``serve_verify`` ``:1490``), paged and dense.
 
 There is no mesh: with one stage the JAX package's ring degenerates to a
 plain pass over the layers, so the in-flight ring block, its validity bit
@@ -36,6 +36,17 @@ resets its rows' PRIVATE block scales on the first chunk, and every later
 write (chunks, decode) quantizes against the running block absmax
 (``ops/paged_attention.write_block_kv``).
 
+Dense mode (``make_state`` without ``kv_block_size``, the JAX ``serve``
+default) gives every row its own cache ``[L, M, C, Nkv, D]`` with no
+tables and no scales (JAX ``serve.py:253-300``): capacity is per row. A
+one-shot admission prefills a fresh ``C``-column cache for its rows
+(flash at S = bucket over C) and copies it into their rows; a chunk
+prefills the rows' own cache at the chunk's columns (flash again); a
+decode step writes each row's entry at its own column, gated by a select
+for rows that are done, and attends the row's whole cache on the plain
+path (S = 1); a verify runs over every row at S = K + 1 through flash. The
+same fixed-shape, sync-free contract holds for ``serve_chunk``.
+
 A prefix (an explicit handle's KV, or a radix-cache hit's blocks) puts a
 row's suffix at absolute positions and columns ``prefix + i``. A radix
 hit's shared blocks are already in the arena and are never written again
@@ -52,7 +63,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
-from ..models.cache import POS_SENTINEL, block_pool_shape, block_scale_shape, init_cache
+from ..models.cache import POS_SENTINEL, KVCache, block_pool_shape, block_scale_shape, init_cache
 from ..models.config import ModelConfig
 from ..ops.paged_attention import _bytes, _take, write_block_kv
 from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
@@ -65,13 +76,15 @@ class ServeState:
     """The fields of the JAX ``ServeState`` that one stage needs, plus the
     host's mirrors and sampling settings."""
 
-    k: torch.Tensor  # [L, NB, BS, Nkv, D] pooled arena; block 0 = trash
+    k: torch.Tensor  # paged: [L, NB, BS, Nkv, D] pooled arena, block 0 = trash;
+    #   dense: [L, M, C, Nkv, D], one cache row per serving row
     v: torch.Tensor
     k_scale: Optional[torch.Tensor]  # [L, NB, Nkv] f32 of an int8/fp8 arena, else None
     v_scale: Optional[torch.Tensor]
     cache_dtype: torch.dtype  # the engine's dtype: dense prefill cache, attention queries
     kpos: torch.Tensor  # [M, W] int32 key position per LOGICAL column
-    block_tables: torch.Tensor  # [M, T] int32 (the server owns the host mirror)
+    block_tables: torch.Tensor  # [M, T] int32 (the server owns the host mirror);
+    #   dense: an [M, 1] placeholder of trash entries
     # row state on the device, read and advanced by the programs
     tok: torch.Tensor  # [M] int32 next input token of each row
     pos_slots: torch.Tensor  # [M] int32 position of that token
@@ -88,10 +101,12 @@ class ServeState:
     topk: np.ndarray  # [M] int32 (0 off)
     topp: np.ndarray  # [M] f32 (1.0 off)
     rng: list  # [M] per-row torch.Generator of a sampled row, else None
+    dense: bool = False  # per-row caches instead of the pooled arena
 
     @property
     def block_size(self) -> int:
-        return self.k.shape[2]
+        """The arena's block size; 0 for a dense state."""
+        return 0 if self.dense else self.k.shape[2]
 
     @property
     def rows(self) -> int:
@@ -103,8 +118,8 @@ def make_state(
     rows: int,
     *,
     capacity: int,
-    kv_blocks: int,
-    kv_block_size: int,
+    kv_blocks: int = 0,
+    kv_block_size: int = 0,
     dtype: torch.dtype,
     device: torch.device,
     kv_dtype: str = "bf16",
@@ -112,10 +127,19 @@ def make_state(
     """Empty state: every row free (done), every table entry trash. Each
     row's logical window is ``W = ceil(capacity / BS) * BS`` columns.
     ``kv_dtype`` "int8"/"fp8" allocates 1-byte arenas and zero scales;
-    "bf16" stores in ``dtype``, the engine's own."""
-    T = -(-capacity // kv_block_size)
-    W = T * kv_block_size
-    shape = block_pool_shape(cfg, kv_blocks, kv_block_size)
+    "bf16" stores in ``dtype``, the engine's own. ``kv_block_size`` 0 is
+    dense: per-row ``[L, M, capacity, Nkv, D]`` caches in ``dtype``, an
+    ``[M, 1]`` placeholder table and no scales (``serve.py:253-300``)."""
+    dense = not kv_block_size
+    if dense:
+        if kv_dtype != "bf16":
+            raise ValueError(f"kv_dtype={kv_dtype!r} needs a paged arena")
+        T, W = 1, capacity
+        shape = (cfg.num_hidden_layers, rows, capacity, cfg.num_key_value_heads, cfg.head_dim_)
+    else:
+        T = -(-capacity // kv_block_size)
+        W = T * kv_block_size
+        shape = block_pool_shape(cfg, kv_blocks, kv_block_size)
     store = kv_storage_dtype(kv_dtype, dtype)
     quantized = is_kv_quantized(store)
 
@@ -154,6 +178,7 @@ def make_state(
         topk=np.zeros(rows, np.int32),
         topp=np.ones(rows, np.float32),
         rng=[None] * rows,
+        dense=dense,
     )
 
 
@@ -334,6 +359,7 @@ def serve_admit(
     prefix_len: int = 0,  # real prefix length (positions resume there)
     prefix_in_arena: bool = False,  # the prefix blocks already hold this KV
     rng_states=None,  # per row: a migrated request's generator state, or None
+    prompt_embeds=None,  # [n, Sp, H] hidden states: the rows enter as embeddings
 ) -> torch.Tensor:
     """One-shot admission: prefill the rows' prompts through the dense
     layer path (the flash kernel), scatter the fresh window into the rows'
@@ -355,7 +381,14 @@ def serve_admit(
     mapped shared blocks already hold the prefix) the scatter skips those
     blocks (``serve.py:715-740``), so a quantized shared block is never
     requantized; an explicit handle's freshly allocated blocks are written
-    by every admission that maps them, with the same bytes each time."""
+    by every admission that maps them, with the same bytes each time.
+
+    A dense state gets the rows' whole caches: the prefill runs over a
+    fresh ``C``-column cache (flash at S = Sp over C, as JAX
+    ``serve.py:686-701``), which then replaces the rows' cache rows.
+    ``prompt_embeds`` skips the embedding (the privacy entry,
+    ``serve.py:611-616``): the rows enter as the given hidden states, and
+    ``prompts`` only fills ``out``."""
     dev = state.k.device
     n, Sp = prompts.shape
     BS = state.block_size
@@ -365,7 +398,8 @@ def serve_admit(
     idx = np.arange(Sp)[None, :]
     positions = np.where(idx < prompt_len[:, None], pfx + idx, POS_SENTINEL).astype(np.int32)
     pos_t = to_device(positions, dev)
-    cache = init_cache(cfg, n, Spx + Sp, dtype=state.cache_dtype, device=dev)
+    C = state.kpos.shape[1] if state.dense else Spx + Sp
+    cache = init_cache(cfg, n, C, dtype=state.cache_dtype, device=dev)
     if prefix_kv is not None:
         pk, pv, ppos = prefix_kv
         cache.k[:, :, :Spx] = pk.to(state.cache_dtype)
@@ -373,13 +407,23 @@ def serve_admit(
         cache.pos[:, :Spx] = ppos
         cache.length = Spx
     fns = model_fns(cfg)
-    h = fns.embed(cfg, params, to_device(prompts, dev), pos_t)
+    if prompt_embeds is None:
+        h = fns.embed(cfg, params, to_device(prompts, dev), pos_t)
+    else:
+        h = to_device(prompt_embeds, dev, state.cache_dtype)
     h, cache = fns.stage(cfg, params["layers"], h, cache, pos_t)
     last = to_device(np.asarray(prompt_len, np.int64) - 1, dev)
     h_last = h[torch.arange(n, device=dev), last][:, None]
     logits = fns.final_logits(cfg, params, h_last)[:, 0]
     _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
     tok0 = _sample_rows(state, rows, logits)
+    if state.dense:
+        state.k[:, rows_t] = cache.k
+        state.v[:, rows_t] = cache.v
+        state.kpos[rows_t] = cache.pos
+        _arm_admitted(cfg, state, rows, rows_t, prompts, tok0, pfx, prompt_len, max_new,
+                      Spx + Sp)
+        return tok0
 
     # a radix hit skips the shared prefix blocks: the scatter covers the
     # columns from w0 on, through the table entries from npfx on
@@ -406,23 +450,30 @@ def serve_admit(
     kpos = torch.full((n, state.kpos.shape[1]), POS_SENTINEL, dtype=torch.int32, device=dev)
     kpos[:, : Spx + Sp] = cache.pos
     state.kpos[rows_t] = kpos
+    _arm_admitted(cfg, state, rows, rows_t, prompts, tok0, pfx, prompt_len, max_new, Spx + Sp)
+    return tok0
 
-    # the rows' state on the device, the first token committed
+
+def _arm_admitted(cfg, state: ServeState, rows, rows_t, prompts, tok0, pfx: int, prompt_len,
+                  max_new, write_off: int) -> None:
+    """The rows' state on the device after a one-shot admission, the first
+    token committed: it is the next input, at position ``pfx +
+    prompt_len``, into column ``write_off``."""
     total = pfx + np.asarray(prompt_len, np.int64)
     budget = total + np.asarray(max_new, np.int64)
-    rs = to_device(np.stack([total, budget]).astype(np.int32), dev)
+    rs = to_device(np.stack([total, budget]).astype(np.int32), state.k.device)
     state.tok[rows_t] = tok0
     state.pos_slots[rows_t] = rs[0]
-    state.write_off[rows_t] = Spx + Sp
+    state.write_off[rows_t] = write_off
     state.lengths[rows_t] = rs[0] + 1
     state.budget[rows_t] = rs[1]
     state.done[rows_t] = is_stop(cfg, tok0) | (rs[0] + 1 >= rs[1])
+    Sp = prompts.shape[1]
     for i, r in enumerate(rows):
         state.out[r] = 0
         state.out[r, :Sp] = prompts[i]
         state.mirror_len[r] = total[i]
         state.mirror_budget[r] = budget[i]
-    return tok0
 
 
 def serve_prefill_chunk(
@@ -457,6 +508,9 @@ def serve_prefill_chunk(
     otherwise dequantize to zero under every row that maps them."""
     dev = state.k.device
     n, Sc = tokens.shape
+    if state.dense:
+        _dense_prefill_chunk(cfg, params, state, rows, tokens, positions, chunk_off, reset)
+        return
     BS = state.block_size
     rows_t = to_device(np.asarray(rows, np.int64), dev)
     tbl = state.block_tables[rows_t]
@@ -484,6 +538,33 @@ def serve_prefill_chunk(
     )
     state.kpos[rows_t] = kv_pos
     state.write_off[rows_t] = col0 + Sc
+    state.out[rows, chunk_off : chunk_off + Sc] = tokens
+
+
+def _dense_prefill_chunk(cfg, params, state: ServeState, rows, tokens, positions,
+                         chunk_off: int, reset: bool) -> None:
+    """A dense chunk (``serve.py:1009-1030``): the rows' own caches, reset
+    to zeros and sentinels on the first chunk, take the chunk at columns
+    ``[chunk_off, chunk_off + Sc)`` through the dense layer path (flash at
+    S = Sc over the row's C columns)."""
+    dev = state.k.device
+    Sc = tokens.shape[1]
+    idx = to_device(np.asarray(rows, np.int64), dev)
+    if reset:
+        state.k[:, idx] = 0
+        state.v[:, idx] = 0
+        state.kpos[idx] = POS_SENTINEL
+        state.out[rows] = 0
+    # the rows' caches, gathered, take the chunk and go back
+    cache = KVCache(k=state.k[:, idx], v=state.v[:, idx], pos=state.kpos[idx], length=chunk_off)
+    pos_t = to_device(np.asarray(positions, np.int32), dev)
+    fns = model_fns(cfg)
+    h = fns.embed(cfg, params, to_device(tokens, dev), pos_t)
+    fns.stage(cfg, params["layers"], h, cache, pos_t)
+    state.k[:, idx] = cache.k
+    state.v[:, idx] = cache.v
+    state.kpos[idx] = cache.pos
+    state.write_off[idx] = chunk_off + Sc
     state.out[rows, chunk_off : chunk_off + Sc] = tokens
 
 
@@ -538,7 +619,12 @@ def serve_chunk(
     from the host and copies nothing to the device, so the next chunk may
     be dispatched before this one's log is read: chunks chain on the
     device in dispatch order. It writes the arena and the row state in
-    place, so it must never be dispatched twice."""
+    place, so it must never be dispatched twice.
+
+    On a dense state each row writes its entry into its own cache at its
+    write column, a done row writing back what it read (a select, no
+    boolean-mask index), and attends its whole cache row on the plain path
+    (JAX's dense decode is plain too, ``ops/flash_attention.py:241-244``)."""
     dev = state.k.device
     M, W = state.kpos.shape
     fns = model_fns(cfg)
@@ -549,12 +635,18 @@ def serve_chunk(
         pos = state.pos_slots
         cols = state.write_off.clamp(max=W - 1)  # a done row may sit at W
         state.kpos[ar, cols] = torch.where(live, pos, state.kpos[ar, cols])
-        tables = torch.where(live[:, None], state.block_tables, 0)
         h = fns.embed(cfg, params, state.tok[:, None], pos[:, None])
-        h = fns.stage_paged(
-            cfg, params["layers"], h, state.k, state.v, tables, cols[:, None], state.kpos,
-            pos[:, None], k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
-        )
+        if state.dense:
+            h = fns.stage_rows(
+                cfg, params["layers"], h, state.k, state.v, ar[:, None], cols[:, None],
+                state.kpos, pos[:, None], live=live,
+            )
+        else:
+            tables = torch.where(live[:, None], state.block_tables, 0)
+            h = fns.stage_paged(
+                cfg, params["layers"], h, state.k, state.v, tables, cols[:, None], state.kpos,
+                pos[:, None], k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
+            )
         logits = fns.final_logits(cfg, params, h)[:, 0]
         nxt = _sample_rows(state, range(M), logits)
         commit = live & (state.lengths < state.budget)
@@ -608,12 +700,28 @@ def serve_verify(
     ``filter_rows``. Rollback is a position rewind: ``kpos`` keeps each
     row's accepted prefix and the sentinel past it, never a copy. Like
     ``serve_chunk`` it writes the arena and the row state in place, so it
-    must never be dispatched twice."""
+    must never be dispatched twice.
+
+    A dense state verifies every row at one shape (the dense branch, JAX
+    ``serve.py:1620-1630``): the rows not in ``rows`` draft nothing and are
+    done for the step, each row's K + 1 entries are written at its own
+    columns of its cache (the state holds K + 1 columns over the usable
+    capacity for those that can never commit), gated for rows that are
+    done, and the queries attend the whole cache row through the flash
+    kernel at S = K + 1. The log returned is the ``rows``' own."""
     from ..runtime.spec import _leading_true_count, cap_commits, rejection_commit
 
     dev = state.k.device
+    verified = None
+    if state.dense:
+        M, K = state.rows, draft.shape[1]
+        full, full_len = np.zeros((M, K), np.int32), np.zeros(M, np.int32)
+        full[rows], full_len[rows] = draft, draft_len
+        verified = np.zeros(M, bool)
+        verified[rows] = True
+        picked, rows, draft, draft_len = rows, list(range(M)), full, full_len
     n, K = draft.shape
-    rows_t = to_device(np.asarray(rows, np.int64), dev)
+    rows_t = state.row_ids if state.dense else to_device(np.asarray(rows, np.int64), dev)
     iota_t = torch.arange(K + 1, dtype=torch.int32, device=dev)
     W = state.kpos.shape[1]
     pos_t = state.pos_slots[rows_t][:, None] + iota_t
@@ -623,12 +731,20 @@ def serve_verify(
     rowsel = torch.arange(n, device=dev)[:, None]
     kv_pos = state.kpos[rows_t]
     kv_pos[rowsel, cols_t] = pos_t  # the in-flight entries, this step only
+    lengths, budget, done = state.lengths[rows_t], state.budget[rows_t], state.done[rows_t]
     fns = model_fns(cfg)
     h = fns.embed(cfg, params, toks, pos_t)
-    h = fns.stage_paged(
-        cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
-        kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
-    )
+    if state.dense:
+        done = done | ~to_device(verified, dev)
+        h = fns.stage_rows(
+            cfg, params["layers"], h, state.k, state.v, rowsel, cols_t, kv_pos, pos_t,
+            live=~done,
+        )
+    else:
+        h = fns.stage_paged(
+            cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
+            kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
+        )
     logits = fns.final_logits(cfg, params, h).float()  # [n, K+1, V]
 
     valid = to_device(np.arange(K)[None, :] < np.asarray(draft_len)[:, None], dev)
@@ -651,7 +767,6 @@ def serve_verify(
         a[sel] = a_s.to(a.dtype)
         commit = commit.clone()
         commit[sel] = commit_s
-    lengths, budget, done = state.lengths[rows_t], state.budget[rows_t], state.done[rows_t]
     c, log, eos = cap_commits(cfg, commit, a, budget - lengths, done)
     c = c.to(torch.int32)
     kept = torch.where(iota_t[None, :] < c[:, None], pos_t, POS_SENTINEL)
@@ -663,7 +778,9 @@ def serve_verify(
     state.pos_slots[rows_t] = state.pos_slots[rows_t] + c
     state.write_off[rows_t] = state.write_off[rows_t] + c
     state.lengths[rows_t] = lengths + c
-    state.done[rows_t] = done | eos | (lengths + c >= budget)
+    state.done[rows_t] = state.done[rows_t] | eos | (lengths + c >= budget)
+    if verified is not None:
+        return log.index_select(0, to_device(np.asarray(picked, np.int64), dev))
     return log
 
 

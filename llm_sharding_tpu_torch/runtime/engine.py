@@ -2,21 +2,41 @@
 ``llm_sharding_tpu/runtime/engine.py`` ``PipelineEngine``, ``:76``).
 
 ``Engine.from_shards(dir)`` loads a shard store onto the GPU (or the CPU
-when asked), ``generate_ids`` runs the monolithic oracle and ``serve``
-builds the paged continuous-batching server. One GPU, no pipeline stages:
+when asked) with the store's tokenizer where it has one, ``generate_ids``
+runs the monolithic oracle, ``serve`` builds the continuous-batching
+server (dense, or paged with ``kv_block_size`` / ``kv_blocks``), and the
+text surface (``generate_text``, ``generate_text_stream``) and the privacy
+entry's ``embed_prompt`` sit on top. One GPU, no pipeline stages:
 placement, repartition and the mesh come with the pipeline slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
-from ..device import NotPorted, resolve_device
+from ..device import resolve_device, to_device
 from ..ops.quant import act_dtype, base
+from ..parallel.pipeline import model_fns
 from ..utils import shard_store
 from .generate import GenerateResult, generate
+
+
+def text_deltas(tok, tokens) -> Iterator[str]:
+    """The text a token stream adds, one delta per token that completes
+    text: a delta is held back while the decoded text ends in a partial
+    codepoint (JAX ``engine.py:695-701``, ``cli.py:1012-1016``)."""
+    acc: list = []
+    prev = ""
+    for t in tokens:
+        acc.append(t)
+        text = tok.decode(acc, skip_special_tokens=True)
+        if len(text) > len(prev) and not text.endswith("\ufffd"):
+            yield text[len(prev):]
+            prev = text
 
 
 class Engine:
@@ -33,10 +53,14 @@ class Engine:
         # a quantized table's codes are int8: its scale carries the dtype
         self.device = base(params["embed"]).device
         self.cache_dtype = act_dtype(params["embed"])
-        #: decodes ids for a server's stop strings (``decode(ids,
-        #: skip_special_tokens=True)``, as a Hugging Face tokenizer); None: no
-        #: stop strings
+        #: the store's tokenizer (``from_shards``), as a Hugging Face one:
+        #: ``tok(text)["input_ids"]`` and ``decode(ids,
+        #: skip_special_tokens=True)``; None: ids only (no text surface, no
+        #: stop strings)
         self.tokenizer = None
+        # the text stream's shared servers, by capacity (``_shared_server``)
+        self._servers: dict = {}
+        self._lock = threading.Lock()
 
     @classmethod
     def from_shards(
@@ -44,10 +68,14 @@ class Engine:
     ) -> "Engine":
         """Load a store written by either package: llama family or GPT-2,
         raw or int8 / int4 quantized (``dtype`` casts the raw tensors and
-        the scales, never the codes). Default device: the GPU; raises
-        without one unless ``device="cpu"``."""
+        the scales, never the codes), and its tokenizer where the store
+        holds one and ``transformers`` loads it (JAX ``engine.py:203``).
+        Default device: the GPU; raises without one unless
+        ``device="cpu"``."""
         cfg, params = shard_store.load_full(shards_dir, dtype=dtype, device=resolve_device(device))
-        return cls(cfg, params)
+        eng = cls(cfg, params)
+        eng.tokenizer = shard_store.load_tokenizer(shards_dir)
+        return eng
 
     def generate_ids(self, prompt_ids, max_new_tokens: int = 128, **kw) -> GenerateResult:
         """The monolithic oracle (``runtime/generate.generate``)."""
@@ -85,9 +113,11 @@ class Engine:
         trace_path: Optional[str] = None,
         gauge_sweep_every_s: float = 0.0,
     ):
-        """A paged continuous-batching server over ``batch_per_slot`` rows
-        (``runtime/server.PipelineServer``). Paged KV is required here:
-        dense serving comes with a later slice. ``kv_dtype`` ("bf16" = the
+        """A continuous-batching server over ``batch_per_slot`` rows
+        (``runtime/server.PipelineServer``): dense per-row caches of
+        ``capacity`` columns by default, the JAX ``serve`` default, or the
+        paged arena of ``kv_blocks`` blocks of ``kv_block_size`` (the two
+        go together). ``kv_dtype`` ("bf16" = the
         engine's dtype, "int8", "fp8") is the arena's storage;
         ``paged_attn`` ("auto", "kernel", "plain") the paged attention
         path; ``prefix_cache`` ("off", "hbm", "host", "disk") the automatic
@@ -112,17 +142,6 @@ class Engine:
         async executor (``runtime/async_exec.py``); ``top_k`` / ``top_p``
         are the defaults of requests that give none (JAX
         ``runtime/engine.py:488-612``)."""
-        if kv_block_size is None and kv_blocks is None:
-            raise NotPorted(
-                "dense serving (serve() without kv_block_size/kv_blocks) comes with "
-                "a later slice of the port (ROADMAP.md §A); pass kv_block_size and "
-                "kv_blocks for paged serving"
-            )
-        if (kv_block_size is None) != (kv_blocks is None):
-            raise ValueError(
-                f"kv_block_size and kv_blocks go together (got kv_block_size="
-                f"{kv_block_size!r}, kv_blocks={kv_blocks!r})"
-            )
         from .server import PipelineServer
 
         return PipelineServer(
@@ -138,4 +157,93 @@ class Engine:
             retryable_exceptions=retryable_exceptions, snapshot_every_s=snapshot_every_s,
             snapshot_path=snapshot_path, speculate=speculate, spec_ngram=spec_ngram,
             trace_path=trace_path, gauge_sweep_every_s=gauge_sweep_every_s,
+        )
+
+    # -- the text surface (JAX ``engine.py:449-768``) ----------------------
+
+    def _require_tokenizer(self):
+        if self.tokenizer is None:
+            raise ValueError(
+                "engine has no tokenizer: construct via from_shards on a store "
+                "with tokenizer files, or pass tokenizer= explicitly"
+            )
+        return self.tokenizer
+
+    def generate_text(
+        self,
+        prompt: str,
+        max_new_tokens: int = 128,
+        *,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int = 0,
+    ) -> str:
+        """One prompt's completion as text, through ``generate``."""
+        tok = self._require_tokenizer()
+        ids = np.asarray(tok(prompt)["input_ids"], np.int32)[None]
+        res = self.generate_ids(
+            ids, max_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+        )
+        out_ids = res.tokens[0, ids.shape[1] : int(res.lengths[0])]
+        return tok.decode(out_ids, skip_special_tokens=True)
+
+    def generate_text_stream(
+        self,
+        prompt: str,
+        max_new_tokens: int = 128,
+        *,
+        temperature: float = 0.0,
+        seed: int = 0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        stop=None,
+    ) -> Iterator[str]:
+        """Text deltas as the tokens commit, served by a shared dense
+        server (``_shared_server``); a delta is held back while the decoded
+        text ends in a partial codepoint."""
+        tok = self._require_tokenizer()
+        ids = np.asarray(tok(prompt)["input_ids"], np.int32)
+        srv = self._shared_server(ids.shape[0], max_new_tokens)
+        req = srv.submit(
+            ids, max_new_tokens, temperature=temperature, seed=seed, top_k=top_k, top_p=top_p,
+            stop=stop,
+        )
+        yield from text_deltas(tok, srv.stream(req))
+
+    def _shared_server(self, prompt_len: int, max_new: int):
+        """A ladder of dense servers by capacity (JAX ``engine.py:634``): a
+        request that needs a larger one gets a new server beside the others,
+        whose streams keep going; capacities are powers of two from 64."""
+        from .server import ADMIT_BUCKETS
+
+        if prompt_len > ADMIT_BUCKETS[-1]:
+            raise ValueError(
+                f"prompt length {prompt_len} exceeds the largest admission bucket "
+                f"({ADMIT_BUCKETS[-1]})"
+            )
+        needed = next(b for b in ADMIT_BUCKETS if b >= prompt_len) + max_new
+        with self._lock:
+            for cap in sorted(self._servers):
+                if cap >= needed:
+                    return self._servers[cap]
+            cap = 64
+            while cap < needed:
+                cap *= 2
+            srv = self._servers[cap] = self.serve(capacity=cap)
+            return srv
+
+    def embed_prompt(self, prompt_ids, start: int = 0) -> torch.Tensor:
+        """Token ids → the hidden states the first layer takes ``[B, S, H]``
+        on the engine's device (JAX ``engine.py:706-732``): the table's rows
+        (an int8 row-quantized table dequantized), GPT-2's position
+        embedding (positions from ``start``: a migrated embedding request's
+        tail continues its prompt) and gemma's multiplier. What a server's
+        ``submit_embedding`` takes in place of the ids."""
+        ids = np.asarray(prompt_ids, np.int32)
+        if ids.ndim == 1:
+            ids = ids[None]
+        pos = np.broadcast_to(start + np.arange(ids.shape[1], dtype=np.int32), ids.shape)
+        return model_fns(self.cfg).embed(
+            self.cfg, self.params, to_device(ids, self.device), to_device(pos, self.device)
         )

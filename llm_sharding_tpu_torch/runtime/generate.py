@@ -18,7 +18,7 @@ position limit; that is checked before any work (``generate.py:12-15``).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -141,3 +141,52 @@ def generate(
         done = done | is_stop(cfg, nxt).cpu().numpy()
         tok = nxt
     return GenerateResult(out, lengths.astype(np.int32), cache)
+
+
+def generate_stream(
+    cfg: ModelConfig,
+    params: dict,
+    prompt_ids,  # [1, S] or [S]: streaming is per request
+    max_new_tokens: int = 128,
+    *,
+    capacity: Optional[int] = None,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    seed: int = 0,
+) -> Iterator[int]:
+    """Token-by-token decode (JAX ``generate.py:442``): yields each token id
+    as it is sampled and stops after a stop id or ``max_new_tokens``. Each
+    yield reads one token from the device. Sampling draws from one
+    ``torch.Generator`` seeded with ``seed``, so greedy output equals
+    ``generate``'s."""
+    device = base(params["embed"]).device
+    forward = model_fns(cfg).forward
+    prompt = np.asarray(prompt_ids, np.int32)
+    if prompt.ndim == 1:
+        prompt = prompt[None]
+    B, S = prompt.shape
+    if B != 1:
+        raise ValueError("streaming decode is per-request (batch=1)")
+    capacity = capacity or (S + max_new_tokens)
+    if S + max_new_tokens > capacity:
+        raise ValueError("prompt + max_new_tokens exceeds cache capacity")
+    top_p = validate_top_p(top_p)
+    temperature = float(temperature)
+    gen = torch.Generator(device=device).manual_seed(int(seed)) if temperature > 0 else None
+    cache = init_cache(cfg, B, capacity, dtype=act_dtype(params["embed"]), device=device)
+    logits, cache = forward(
+        cfg, params, torch.from_numpy(prompt).to(device),
+        cache, torch.arange(S, dtype=torch.int32, device=device)[None],
+    )
+    last = logits[:, -1]
+    stops = set(int(t) for t in cfg.eos_token_ids)
+    for i in range(max_new_tokens):
+        tok = sample(last, temperature, int(top_k), top_p, generator=gen)
+        t = int(tok[0])
+        yield t
+        if t in stops or i + 1 == max_new_tokens:
+            return
+        pos = torch.full((B, 1), S + i, dtype=torch.int32, device=device)
+        logits, cache = forward(cfg, params, tok[:, None].to(torch.int32), cache, pos)
+        last = logits[:, 0]

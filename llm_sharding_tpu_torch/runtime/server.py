@@ -1,4 +1,5 @@
-"""Continuous-batching server over the paged KV arena, one GPU: the port of
+"""Continuous-batching server over the paged KV arena or dense per-row
+caches, one GPU: the port of
 ``llm_sharding_tpu/runtime/server.py`` ``PipelineServer`` (``:885``) with
 ``submit`` / ``step`` / ``stream`` / ``result`` / ``cancel`` / ``close`` /
 ``run_until_idle``.
@@ -149,7 +150,24 @@ and its mirrors follow.
 
 ``top_k`` / ``top_p`` are server defaults for requests that give none.
 
-Not in this slice: dense serving and embedding input.
+Dense serving (``server.py:1016-1130``): without ``kv_block_size`` /
+``kv_blocks`` every row owns a ``capacity``-column cache
+(``parallel/serve.make_state``), there is no allocator, and admission
+waits only for a free row. One-shot and chunked admission and speculation
+work as in paged mode; ``kv_dtype`` int8 / fp8, ``paged_attn`` other than
+"auto" and ``prefix_cache`` are refused with the JAX messages. An explicit
+``PrefixHandle`` of a dense server owns no blocks. Snapshots carry the
+held rows' caches; a dense snapshot restores only into a dense server and
+a paged one only into a paged server (``server.py:1911-1925``).
+
+Embedding input (``server.py:2128``): ``submit_embedding`` takes a
+prompt's hidden states (``Engine.embed_prompt``) instead of its ids, dense
+or paged; such a request admits one-shot, only beside other embedding
+requests, never touches the prefix cache, and migrates with its
+embeddings (the adopter embeds the generated tail itself).
+
+``submit(tenant=)`` (``server.py:1568``): the ingress's tenant rides on the
+request, into its ``request`` span, snapshots and ``RequestState``.
 """
 
 from __future__ import annotations
@@ -324,10 +342,12 @@ def _update_load_gauges() -> None:
         queued += len(s._queue)
         live = [i for i, r in enumerate(s._req) if r is not None and not r.done]
         active += len(live)
-        kv_total += s._alloc.capacity_blocks
-        kv_used += s._alloc.in_use
         if not s._closed:
             arena[s.kv_dtype] += s.arena_bytes()
+        if s._alloc is None:
+            continue  # dense: no pool
+        kv_total += s._alloc.capacity_blocks
+        kv_used += s._alloc.in_use
         kv_slots += (s._alloc.in_use - s._alloc.cache_cold) * s.kv_block_size
         kv_live += int(sum(s.state.mirror_len[i] for i in live))
         if s._radix is not None:
@@ -432,7 +452,8 @@ def save_snapshot(snap: dict, path: str) -> None:
         arrays[f"state.{k}"] = v
     for k, v in snap["arena"].items():
         arrays[f"arena.{k}"] = v
-    arrays["paged.tables"] = snap["paged"]["tables"]
+    if snap["paged"] is not None:
+        arrays["paged.tables"] = snap["paged"]["tables"]
     radix_meta = None
     if snap["radix"] is not None:
         arrays.update(snap["radix"]["arrays"])
@@ -440,8 +461,9 @@ def save_snapshot(snap: dict, path: str) -> None:
     meta = {k: snap[k] for k in ("format", "serve_kwargs", "arena_dtype", "rng_device",
                                  "next_id", "counters")}
     meta.update(
-        paged={"row_blocks": snap["paged"]["row_blocks"],
-               "row_shared": snap["paged"]["row_shared"]},
+        paged=None if snap["paged"] is None else {
+            "row_blocks": snap["paged"]["row_blocks"], "row_shared": snap["paged"]["row_shared"],
+        },
         radix=radix_meta, rows=enc_reqs("rows", snap["rows"]),
         queue=enc_reqs("queue", snap["queue"]),
     )
@@ -521,7 +543,7 @@ def load_snapshot(path: str) -> dict:
         {k: meta[k] for k in ("format", "serve_kwargs", "arena_dtype", "rng_device",
                               "next_id", "counters")},
         state=section("state."), arena=section("arena."),
-        paged=dict(meta["paged"], tables=arrays["paged.tables"]),
+        paged=None if meta["paged"] is None else dict(meta["paged"], tables=arrays["paged.tables"]),
         radix=radix, rows=dec_reqs("rows", meta["rows"]), queue=dec_reqs("queue", meta["queue"]),
     )
 
@@ -570,6 +592,20 @@ def _write_arena_blocks(state, blocks, k_host, v_host, *scales) -> None:
         serve_ops.write_arena_blocks_q(
             state.k, state.v, state.k_scale, state.v_scale, list(blocks), k_host, v_host, *scales
         )
+
+
+def _tenant_field(req) -> dict:
+    """The ``request`` span's ``tenant`` field of ingress traffic
+    (``server.py:3648``, ``:4795``): none for a request without one."""
+    return {} if req.tenant is None else {"tenant": req.tenant}
+
+
+def _as_embeds(x, dtype: torch.dtype) -> np.ndarray:
+    """Hidden states (numpy, list or a tensor on any device) as the f32
+    numpy array a request keeps, rounded through ``dtype`` (the engine's):
+    exact to what a bf16 or f32 admission feeds the layers."""
+    t = x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x, np.float32))
+    return t.to(dtype).to("cpu", torch.float32).numpy()
 
 
 class _InFlight:
@@ -666,10 +702,15 @@ class Request:
     def __init__(self, rid: int, prompt: np.ndarray, max_new: int, temperature: float,
                  seed: int, top_k: int, top_p: float, prefix: Optional[PrefixHandle] = None,
                  deadline_s: Optional[float] = None, stop: tuple = (),
-                 trace: Optional[TraceContext] = None):
+                 trace: Optional[TraceContext] = None, embeds: Optional[np.ndarray] = None,
+                 tenant: Optional[str] = None):
         self.id = rid
-        self.prompt = prompt  # with a handle: the suffix only
-        self.prompt_len = int(prompt.shape[0])
+        self.prompt = prompt  # with a handle: the suffix only; embeddings: empty
+        # [S, H] f32 hidden states of an embedding request (exact for a
+        # bf16 or f32 engine), else None
+        self.embeds = embeds
+        self.prompt_len = int(prompt.shape[0] if embeds is None else embeds.shape[0])
+        self.tenant = tenant  # the ingress tenant that sent it, or None
         self.max_new = max_new
         self.temperature = temperature
         self.seed = seed
@@ -719,9 +760,11 @@ class RequestState:
     a sampled request migrates only between servers on one device type, a
     greedy one anywhere. Both are None for greedy and never-admitted
     requests. ``trace`` is the request's span identity: the adopter's spans
-    join the same tree."""
+    join the same tree. An embedding request carries its original
+    ``embeds`` and an empty ``prompt``; the adopter embeds ``tail``
+    (``server.py:3431-3456``)."""
 
-    prompt: np.ndarray  # resumed ids (with a prefix handle: the suffix + tail)
+    prompt: np.ndarray  # resumed ids (with a prefix handle: the suffix + tail; embeddings: empty)
     tail: np.ndarray  # generated ids not yet folded into a prompt
     remaining: int  # new-token budget still unspent
     rng: Optional[np.ndarray]  # uint8 generator state, or None
@@ -729,6 +772,8 @@ class RequestState:
     prefix: Optional[PrefixHandle]  # the source server's handle
     stop: tuple = ()  # the request's stop strings
     trace: Optional[TraceContext] = None
+    embeds: Optional[np.ndarray] = None  # an embedding request's original [S, H] states
+    tenant: Optional[str] = None
 
 
 class PipelineServer:
@@ -746,8 +791,8 @@ class PipelineServer:
         prefill_chunk: Optional[int] = None,
         pipeline_depth: int = 1,
         inflight_steps: int = 1,
-        kv_block_size: int,
-        kv_blocks: int,
+        kv_block_size: Optional[int] = None,
+        kv_blocks: Optional[int] = None,
         kv_dtype: str = "bf16",
         paged_attn: str = "auto",
         prefix_cache: str = "off",
@@ -767,8 +812,34 @@ class PipelineServer:
         trace_path: Optional[str] = None,
         gauge_sweep_every_s: float = 0.0,
     ):
+        if (kv_block_size is None) != (kv_blocks is None):
+            raise ValueError(
+                f"kv_block_size and kv_blocks go together (got kv_block_size="
+                f"{kv_block_size!r}, kv_blocks={kv_blocks!r})"
+            )
+        paged = kv_block_size is not None
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+        # dense serving refuses what lives per arena block (server.py:1062,
+        # :1098, :1125), with the JAX messages
+        if kv_dtype != "bf16" and not paged:
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} needs paged KV serving (set "
+                "kv_block_size/kv_blocks): quantization scales live per "
+                "arena block — dense per-row reservations have no blocks"
+            )
+        if paged_attn != "auto" and not paged:
+            raise ValueError(
+                "paged_attn is only meaningful with paged KV serving "
+                "(set kv_block_size/kv_blocks); dense decode has no block "
+                "tables to stream"
+            )
+        if prefix_cache != "off" and not paged:
+            raise ValueError(
+                "prefix_cache needs paged KV serving (set kv_block_size/"
+                "kv_blocks): the cache shares refcounted arena blocks — "
+                "dense per-row reservations have nothing to share"
+            )
         if kv_dtype == "fp8" and not fp8_kv_supported(engine.device):
             raise ValueError(
                 f"kv_dtype='fp8': {engine.device} cannot serve float8_e4m3fn KV (the "
@@ -783,7 +854,7 @@ class PipelineServer:
             )
         if prefill_chunk is not None and (prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1)):
             raise ValueError("prefill_chunk must be a power of two")
-        if kv_block_size < 1 or kv_block_size & (kv_block_size - 1):
+        if paged and (kv_block_size < 1 or kv_block_size & (kv_block_size - 1)):
             raise ValueError(f"kv_block_size must be a power of two, got {kv_block_size}")
         _validate_prefix_cache(prefix_cache, host_pool_blocks, disk_pool_dir, disk_pool_blocks)
         if max_queue is not None and max_queue < 1:
@@ -825,13 +896,16 @@ class PipelineServer:
         self.top_k = int(top_k)
         self.top_p = validate_top_p(top_p)
         self.prefill_chunk = prefill_chunk
-        self.kv_block_size = int(kv_block_size)
-        self.kv_blocks = int(kv_blocks)
+        #: paged arena (else dense per-row caches)
+        self.paged = paged
+        self.kv_block_size = int(kv_block_size) if paged else None
+        self.kv_blocks = int(kv_blocks) if paged else None
         self.kv_dtype = kv_dtype
         self.speculate = int(speculate)
         self.spec_ngram = int(spec_ngram)
         # K + 1 columns over the usable capacity: a verify's entries past a
-        # row's budget land in trash block 0 through these table entries
+        # row's budget land there (paged: in trash block 0 through these
+        # table entries; dense: in the row's own cache)
         self._spec_cols = self.speculate + 1 if self.speculate else 0
         #: the arena's storage dtype (engine.cache_dtype stays the compute dtype)
         self.kv_store_dtype = kv_storage_dtype(kv_dtype, engine.cache_dtype)
@@ -851,16 +925,18 @@ class PipelineServer:
         self._step_contained = False  # a containment event this step
         self.containment_events = 0
         self.counters = Counters()
-        self._alloc = BlockAllocator(self.kv_blocks, self.kv_block_size)
+        # the block pool (None when dense: a row owns its cache)
+        self._alloc = BlockAllocator(self.kv_blocks, self.kv_block_size) if paged else None
         # blocks pinned by live prefix handles: only release_prefix frees them
         self._handle_pins = 0
         self.state = serve_ops.make_state(
-            self.cfg, self.rows, capacity=self.capacity + self._spec_cols, kv_blocks=self.kv_blocks,
-            kv_block_size=self.kv_block_size, dtype=engine.cache_dtype, device=engine.device,
-            kv_dtype=kv_dtype,
+            self.cfg, self.rows, capacity=self.capacity + self._spec_cols,
+            kv_blocks=self.kv_blocks or 0, kv_block_size=self.kv_block_size or 0,
+            dtype=engine.cache_dtype, device=engine.device, kv_dtype=kv_dtype,
         )
-        # host mirror of the device block tables; pushed before each dispatch
-        # that reads them once a release or a mapping edited it
+        # host mirror of the device block tables (dense: the placeholder);
+        # pushed before each dispatch that reads them once a release or a
+        # mapping edited it
         self._tables = np.zeros(tuple(self.state.block_tables.shape), np.int32)
         self._tables_dirty = False
         self._row_blocks: list[list[int]] = [[] for _ in range(self.rows)]  # private
@@ -898,10 +974,10 @@ class PipelineServer:
         # of blocks, the disk tier below it to another (server.py:1160-1175)
         self.prefix_cache = prefix_cache
         tiered = prefix_cache in ("host", "disk")
-        self.host_pool_blocks = int(host_pool_blocks or self.kv_blocks) if tiered else 0
+        self.host_pool_blocks = int(host_pool_blocks or self.kv_blocks or 0) if tiered else 0
         self.disk_pool_dir = disk_pool_dir if prefix_cache == "disk" else None
         self.disk_pool_blocks = (
-            int(disk_pool_blocks or self.kv_blocks) if prefix_cache == "disk" else 0
+            int(disk_pool_blocks or self.kv_blocks or 0) if prefix_cache == "disk" else 0
         )
         self._radix: Optional[RadixCache] = None
         if prefix_cache != "off":
@@ -946,6 +1022,7 @@ class PipelineServer:
         deadline_s: Optional[float] = None,
         stop=None,
         trace: Optional[TraceContext] = None,
+        tenant: Optional[str] = None,
     ) -> Request:
         """Enqueue a request; it is admitted by a later ``step``. Raises
         ``NeverFits`` for a request no amount of waiting could admit,
@@ -960,7 +1037,8 @@ class PipelineServer:
         of them, the tokens cut to the shortest prefix that does. ``trace``
         (a caller's ``TraceContext``) parents the request's spans; without
         it the request starts a trace of its own. ``top_k`` / ``top_p``
-        default to the server's."""
+        default to the server's. ``tenant`` (the ingress's) rides on the
+        request into its ``request`` span."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         top_k, top_p = self._resolve_filters(top_k, top_p)
         deadline_s = self._resolve_deadline(deadline_s)
@@ -970,13 +1048,63 @@ class PipelineServer:
             self._check_admission()
             self._check_never_fits(bucket, max_new_tokens, spx, chunked)
             req = Request(self._new_id(), prompt, int(max_new_tokens), float(temperature),
-                          int(seed), top_k, top_p, prefix, deadline_s, stop, trace)
-            if self.speculate:
-                req.spec_k = AdaptiveK(self.speculate)
-            self._queue.append(req)
-            self._arm_deadline(req.deadline_at)
-            self.counters.inc("requests_submitted")
-            _update_load_gauges()
+                          int(seed), top_k, top_p, prefix, deadline_s, stop, trace,
+                          tenant=tenant)
+            return self._enqueue(req)
+
+    def submit_embedding(
+        self,
+        prompt_embeds,  # [S, H] (or [1, S, H]) hidden states
+        max_new_tokens: int = 128,
+        *,
+        temperature: float = 0.0,
+        seed: int = 0,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        stop=None,
+        deadline_s: Optional[float] = None,
+        tenant: Optional[str] = None,
+        trace: Optional[TraceContext] = None,
+    ) -> Request:
+        """Enqueue a request that enters as embeddings, the privacy entry
+        (``server.py:2128``): the caller embeds its ids (``Engine.embed_prompt``)
+        and only hidden states reach the server, so ``submit_embedding(
+        engine.embed_prompt(ids)[0], ...)`` generates what ``submit(ids,
+        ...)`` does. The states are cast to the engine's dtype. Such a
+        request always admits one-shot (chunked prefill is an ids-path
+        optimization), dense or paged."""
+        top_k, top_p = self._resolve_filters(top_k, top_p)
+        deadline_s = self._resolve_deadline(deadline_s)
+        h = _as_embeds(prompt_embeds, self.engine.cache_dtype)
+        if h.ndim == 3:
+            if h.shape[0] != 1:
+                raise ValueError(
+                    f"submit_embedding takes one request: got batch {h.shape[0]} "
+                    "(submit each row separately)"
+                )
+            h = h[0]
+        if h.ndim != 2 or h.shape[1] != self.cfg.hidden_size:
+            raise ValueError(
+                f"prompt_embeds must be [S, {self.cfg.hidden_size}], got {tuple(h.shape)}"
+            )
+        bucket = self._plan_request(h, max_new_tokens, None, chunkable=False)[0]
+        stop = self._validate_stop(stop)
+        with self._mutex:
+            self._check_admission()
+            self._check_never_fits(bucket, max_new_tokens, 0, False)
+            req = Request(self._new_id(), np.zeros((0,), np.int32), int(max_new_tokens),
+                          float(temperature), int(seed), top_k, top_p, None, deadline_s, stop,
+                          trace, embeds=h, tenant=tenant)
+            return self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> Request:
+        """A validated request joins the queue (mutex held)."""
+        if self.speculate:
+            req.spec_k = AdaptiveK(self.speculate)
+        self._queue.append(req)
+        self._arm_deadline(req.deadline_at)
+        self.counters.inc("requests_submitted")
+        _update_load_gauges()
         return req
 
     def prefill_prefix(self, prefix_ids) -> PrefixHandle:
@@ -988,7 +1116,9 @@ class PipelineServer:
         n = int(prefix.shape[0])
         if n < 1:
             raise ValueError("prefix must be non-empty")
-        spx = max(self._bucket(n), self.kv_block_size)
+        spx = self._bucket(n)
+        if self.paged:  # block-aligned: the shared blocks are table entries [0, spx / BS)
+            spx = max(spx, self.kv_block_size)
         if spx + 1 > self.capacity:
             raise ValueError(f"prefix bucket ({spx}) exceeds server capacity ({self.capacity})")
         buf = np.zeros((1, spx), np.int32)
@@ -999,6 +1129,9 @@ class PipelineServer:
             kv = serve_ops.prefix_prefill(
                 self.cfg, self.params, buf, n, self.engine.cache_dtype, self.engine.device
             )
+            if not self.paged:  # a dense handle owns no blocks
+                logger.info("prefill_prefix n=%d bucket=%d blocks=-", n, spx)
+                return PrefixHandle(kv, n, spx)
             need = spx // self.kv_block_size
             if self._radix is not None and need > self._alloc.num_free:
                 # cold cached prefixes make way for an explicit, pinned handle
@@ -1346,7 +1479,7 @@ class PipelineServer:
             emit_span(
                 self._trace, "request", dur_s=req.finished_at - req.submitted_at,
                 trace=req.trace, src=self._span_src, id=req.id, tokens=len(req.tokens),
-                outcome="cancelled",
+                outcome="cancelled", **_tenant_field(req),
             )
             _update_load_gauges()
             return True
@@ -1392,7 +1525,10 @@ class PipelineServer:
         return self._health
 
     def arena_bytes(self) -> int:
-        """Device bytes of the KV arena and its scale pools."""
+        """Device bytes of the KV arena and its scale pools (dense: of the
+        per-row caches)."""
+        if self._alloc is None:
+            return 2 * self.state.k.numel() * self.state.k.element_size()
         return self._alloc.arena_bytes(
             num_layers=self.cfg.num_hidden_layers, num_kv_heads=self.cfg.num_key_value_heads,
             head_dim=self.cfg.head_dim_, kv_dtype=self.kv_store_dtype,
@@ -1421,7 +1557,8 @@ class PipelineServer:
         """Checkpoint the live server between steps (``server.py:1710``):
         the arena blocks that rows and the tree hold (codes and scales; a
         free block's bytes are never read, so they are not kept), the
-        rows' key positions, block tables and host bookkeeping, each
+        rows' key positions, block tables and host bookkeeping (a dense
+        server: the caches of the rows that hold a request), each
         sampled row's generator state, block ownership, the prefix tree
         (disk-tier nodes as references to their pool entries), the
         requests in rows and queue (deadlines as time remaining), the next
@@ -1448,14 +1585,24 @@ class PipelineServer:
             self._drain(0)  # the mirrors and the requests are current
             self._flush_tables()
             st = self.state
-            held = set()
-            for b in self._row_blocks + self._row_shared:
-                held.update(b)
             rsnap = None if self._radix is None else self._radix.snapshot()
-            if rsnap is not None:
-                for m in rsnap["nodes"]:
-                    if m["tier"] == "hbm":
-                        held.update(m["blocks"])
+            if self.paged:
+                held = set()
+                for b in self._row_blocks + self._row_shared:
+                    held.update(b)
+                if rsnap is not None:
+                    for m in rsnap["nodes"]:
+                        if m["tier"] == "hbm":
+                            held.update(m["blocks"])
+                arena = self._capture_arena(sorted(held))
+                paged = {
+                    "tables": self._tables.copy(),
+                    "row_blocks": [list(map(int, b)) for b in self._row_blocks],
+                    "row_shared": [list(map(int, b)) for b in self._row_shared],
+                }
+            else:
+                arena = self._capture_rows([i for i, r in enumerate(self._req) if r is not None])
+                paged = None
             return {
                 "format": SNAPSHOT_FORMAT,
                 "serve_kwargs": dict(
@@ -1472,17 +1619,13 @@ class PipelineServer:
                 ),
                 "arena_dtype": str(self.kv_store_dtype),
                 "rng_device": self.engine.device.type,
-                "arena": self._capture_arena(sorted(held)),
+                "arena": arena,
                 "state": dict(
                     {k: serve_ops._raw(getattr(st, k)) for k in _DEVICE_ROW_STATE},
                     kpos=serve_ops._raw(st.kpos), out=st.out.copy(), temp=st.temp.copy(),
                     topk=st.topk.copy(), topp=st.topp.copy(),
                 ),
-                "paged": {
-                    "tables": self._tables.copy(),
-                    "row_blocks": [list(map(int, b)) for b in self._row_blocks],
-                    "row_shared": [list(map(int, b)) for b in self._row_shared],
-                },
+                "paged": paged,
                 "radix": rsnap,
                 "rows": [self._req_dict(r) for r in self._req],
                 "queue": [self._req_dict(r) for r in self._queue],
@@ -1514,6 +1657,19 @@ class PipelineServer:
             raise ValueError(
                 "snapshot carries requests with stop strings but the engine has no tokenizer"
             )
+        # dense and paged are different device layouts (server.py:1911-1925)
+        paged = snap["serve_kwargs"].get("kv_block_size") is not None
+        if paged and not snap.get("paged"):
+            raise ValueError(
+                "dense-mode snapshot cannot restore into a paged server (no block "
+                "ownership recorded): restore without kv_block_size/kv_blocks, or "
+                "re-serve and let requests re-admit"
+            )
+        if not paged and snap.get("paged"):
+            raise ValueError(
+                "paged-mode snapshot cannot restore into a dense server: keep the "
+                "snapshot's kv_block_size/kv_blocks serve kwargs"
+            )
         srv = engine.serve(**snap["serve_kwargs"])
         st = srv.state
         if snap["arena_dtype"] != str(srv.kv_store_dtype):
@@ -1522,10 +1678,12 @@ class PipelineServer:
                 f"{srv.kv_store_dtype} — restore on an engine of the snapshot's dtype"
             )
         host = snap["state"]
-        want = {"kpos": tuple(st.kpos.shape), "tables": srv._tables.shape}
+        want = {"kpos": tuple(st.kpos.shape)}
         want.update({k: getattr(st, k).shape for k in host if k != "kpos"})
-        got = dict({k: np.shape(v) for k, v in host.items()},
-                   tables=np.shape(snap["paged"]["tables"]))
+        got = {k: np.shape(v) for k, v in host.items()}
+        if paged:
+            want["tables"] = srv._tables.shape
+            got["tables"] = np.shape(snap["paged"]["tables"])
         for name, shape in want.items():
             if tuple(got.get(name, ())) != tuple(shape):
                 raise ValueError(
@@ -1542,7 +1700,10 @@ class PipelineServer:
                 f"this engine is on {engine.device.type}: restore on a "
                 f"{snap['rng_device']} device"
             )
-        srv._restore_arena(snap["arena"])
+        if paged:
+            srv._restore_arena(snap["arena"])
+        else:
+            srv._restore_rows(snap["arena"])
         st.kpos.copy_(torch.from_numpy(np.asarray(host["kpos"], np.int32)))
         for k, v in host.items():
             if k in _DEVICE_ROW_STATE:
@@ -1553,20 +1714,22 @@ class PipelineServer:
         # taken at a settled boundary: the mirrors equal the device's rows
         st.mirror_len[:] = np.asarray(host["lengths"], np.int64)
         st.mirror_budget[:] = np.asarray(host["budget"], np.int64)
-        srv._tables[:] = np.asarray(snap["paged"]["tables"], np.int32)
-        srv._push_tables()
-        srv._row_blocks = [[int(x) for x in b] for b in snap["paged"]["row_blocks"]]
-        srv._row_shared = [[int(x) for x in b] for b in snap["paged"]["row_shared"]]
         rsnap = snap.get("radix")
-        tree_owned = []
-        if srv._radix is not None and rsnap is not None:
-            tree_owned = [m["blocks"] for m in rsnap["nodes"] if m["tier"] == "hbm"]
-        elif rsnap is not None:
-            logger.warning(
-                "snapshot carries a prefix-cache tree but this server has prefix_cache=off "
-                "— dropping the cache (row-shared blocks free as their rows finish)"
-            )
-        srv._alloc.restore(srv._row_blocks + tree_owned, srv._row_shared)
+        if paged:
+            srv._tables[:] = np.asarray(snap["paged"]["tables"], np.int32)
+            srv._push_tables()
+            srv._row_blocks = [[int(x) for x in b] for b in snap["paged"]["row_blocks"]]
+            srv._row_shared = [[int(x) for x in b] for b in snap["paged"]["row_shared"]]
+            tree_owned = []
+            if srv._radix is not None and rsnap is not None:
+                tree_owned = [m["blocks"] for m in rsnap["nodes"] if m["tier"] == "hbm"]
+            elif rsnap is not None:
+                logger.warning(
+                    "snapshot carries a prefix-cache tree but this server has "
+                    "prefix_cache=off — dropping the cache (row-shared blocks free as "
+                    "their rows finish)"
+                )
+            srv._alloc.restore(srv._row_blocks + tree_owned, srv._row_shared)
         if srv._radix is not None and rsnap is not None:
             srv._radix.restore(rsnap, rsnap["arrays"])
         now = time.perf_counter()
@@ -1646,7 +1809,10 @@ class PipelineServer:
                 self._release(row, insert=True)
             tail = np.asarray(req.tokens[req.baked:], np.int32)
             remaining = int(req.max_new) - int(tail.shape[0])
-            prompt = np.concatenate([np.asarray(req.prompt, np.int32), tail])
+            if req.embeds is not None:  # the adopter embeds the tail itself
+                prompt = np.zeros((0,), np.int32)
+            else:
+                prompt = np.concatenate([np.asarray(req.prompt, np.int32), tail])
             self._span("extract", req=req, tokens=len(req.tokens), remaining=remaining)
             _update_load_gauges()
         logger.info("extract id=%d tokens=%d remaining=%d rng=%s",
@@ -1654,7 +1820,7 @@ class PipelineServer:
         return RequestState(
             prompt=prompt, tail=tail, remaining=remaining, rng=rng,
             rng_device=None if rng is None else self.engine.device.type, prefix=req.prefix,
-            stop=tuple(req.stop), trace=req.trace,
+            stop=tuple(req.stop), trace=req.trace, embeds=req.embeds, tenant=req.tenant,
         )
 
     def adopt(self, state: RequestState, req: Request, *,
@@ -1697,6 +1863,7 @@ class PipelineServer:
                 emit_span(
                     self._trace, "request", dur_s=req.finished_at - req.submitted_at,
                     trace=req.trace, src=self._span_src, id=req.id, tokens=len(req.tokens),
+                    **_tenant_field(req),
                 )
                 return
             if state.rng is not None and state.rng_device != self.engine.device.type:
@@ -1710,11 +1877,27 @@ class PipelineServer:
                     f"request {req.id} was submitted with a prefix handle: adopt it with "
                     "this server's handle for that prefix (prefix=)"
                 )
+            embeds = None
             prompt = np.asarray(state.prompt, np.int32)
-            bucket, chunked, spx = self._plan_request(prompt, remaining, prefix)
+            if state.embeds is not None:
+                # the generated run embedded here (shared weights: the lookup
+                # the source's decode steps made), at its own positions
+                embeds = np.asarray(state.embeds, np.float32)
+                if state.tail.size:
+                    tail = self.engine.embed_prompt(state.tail, start=embeds.shape[0])[0]
+                    embeds = np.concatenate(
+                        [embeds, _as_embeds(tail, self.engine.cache_dtype)], axis=0
+                    )
+                bucket, chunked, spx = self._plan_request(embeds, remaining, None, chunkable=False)
+                prefix = None
+            else:
+                bucket, chunked, spx = self._plan_request(prompt, remaining, prefix)
             self._check_never_fits(bucket, remaining, spx, chunked)
             req.prompt = prompt
-            req.prompt_len = int(prompt.shape[0])
+            req.embeds = embeds
+            req.prompt_len = int(prompt.shape[0] if embeds is None else embeds.shape[0])
+            if state.tenant is not None:
+                req.tenant = state.tenant
             req.prefix = prefix
             req.max_new = remaining
             req.baked = len(req.tokens)
@@ -1820,10 +2003,11 @@ class PipelineServer:
             )
 
     def _plan_request(self, prompt: np.ndarray, max_new: int,
-                      prefix: Optional[PrefixHandle]) -> tuple:
+                      prefix: Optional[PrefixHandle], chunkable: bool = True) -> tuple:
         """``(bucket, chunked, spx)`` of a request this server could ever
-        admit, shared by ``submit`` and ``adopt``; raises ``NeverFits`` past
-        the capacity or position limit."""
+        admit, shared by ``submit``, ``submit_embedding`` (``prompt`` the
+        ``[S, H]`` states; never chunked) and ``adopt``; raises ``NeverFits``
+        past the capacity or position limit."""
         if max_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
         if prefix is not None:
@@ -1832,7 +2016,7 @@ class PipelineServer:
         if prompt.shape[0] < 1:
             raise ValueError("empty prompt")
         bucket = self._bucket(prompt.shape[0])
-        chunked = self._chunked(bucket)
+        chunked = chunkable and self._chunked(bucket)
         total = bucket + max_new + (1 if chunked else 0)
         if total > self.capacity or total > self.cfg.max_position_embeddings:
             raise NeverFits(
@@ -1853,7 +2037,10 @@ class PipelineServer:
 
     def _check_never_fits(self, bucket: int, max_new: int, spx: int, chunked: bool) -> None:
         """``NeverFits`` for a request whose private blocks exceed what the
-        pool can ever free: its capacity minus the blocks live handles pin."""
+        pool can ever free: its capacity minus the blocks live handles pin.
+        A dense server has no pool: the capacity check was the plan's."""
+        if not self.paged:
+            return
         need = self._blocks_needed(bucket, max_new, spx, chunked)
         ceiling = self._alloc.capacity_blocks - self._handle_pins
         if need > ceiling:
@@ -1886,6 +2073,13 @@ class PipelineServer:
                 f"requested {total_pos} positions > max_position_embeddings "
                 f"({self.cfg.max_position_embeddings})"
             )
+        if not self.paged:
+            if prefix.kv is None:
+                raise ValueError(
+                    "prefix handle carries no KV (a restored stand-in): prefill_prefix "
+                    "the prefix again"
+                )
+            return  # a dense server seeds rows from the handle's KV alone
         if not prefix.owned_by(self) and prefix.blocks is not None:
             raise ValueError(
                 "prefix handle belongs to a different server — its block ids index "
@@ -1893,6 +2087,11 @@ class PipelineServer:
                 "prefill_prefix on THIS server"
             )
         if prefix.blocks is None:
+            if prefix.owner is None:
+                raise ValueError(
+                    "prefix handle was prefilled on a DENSE server — it carries no KV "
+                    "blocks; prefill_prefix on this paged server instead"
+                )
             raise ValueError(
                 "prefix handle was released (release_prefix) — its shared blocks are "
                 "gone; prefill_prefix the prefix again before submitting suffix "
@@ -1947,10 +2146,12 @@ class PipelineServer:
             "temperature": r.temperature, "seed": r.seed, "top_k": r.top_k, "top_p": r.top_p,
             "tokens": [int(t) for t in r.tokens], "done": r.done, "row": r.row,
             "baked": r.baked, "stop": list(r.stop), "stop_checked": r.stop_checked,
-            "trace": r.trace.to_json(),
+            "trace": r.trace.to_json(), "tenant": r.tenant,
             "deadline_left": (None if r.deadline_at is None
                               else max(r.deadline_at - time.perf_counter(), 0.0)),
         }
+        if r.embeds is not None:
+            d["embeds"] = np.asarray(r.embeds, np.float32)
         if r.carried_rng is not None:
             d["carried_rng"] = np.asarray(r.carried_rng, np.uint8)
         if r.prefix is not None:
@@ -1970,9 +2171,12 @@ class PipelineServer:
         prefix = None
         if d.get("spx") is not None:
             prefix = PrefixHandle(None, int(d["prefix_n"]), int(d["spx"]))
+        embeds = d.get("embeds")
         r = Request(int(d["id"]), np.asarray(d["prompt"], np.int32), int(d["max_new"]),
                     float(d["temperature"]), int(d["seed"]), int(d["top_k"]),
-                    float(d["top_p"]), prefix, stop=tuple(d.get("stop", ())))
+                    float(d["top_p"]), prefix, stop=tuple(d.get("stop", ())),
+                    embeds=None if embeds is None else np.asarray(embeds, np.float32),
+                    tenant=d.get("tenant"))
         r.stop_checked = int(d.get("stop_checked", 0))
         tr = TraceContext.from_json(d.get("trace"))
         if tr is not None:
@@ -2024,6 +2228,30 @@ class PipelineServer:
             chunk = blocks[lo : lo + _ARENA_CHUNK_BLOCKS]
             parts = [arena[n][None, :, lo : lo + len(chunk)] for n in names]
             _write_arena_blocks(self.state, chunk, *parts)
+
+    def _capture_rows(self, rows: list) -> dict:
+        """A dense server's held rows on the host, one row's cache at a
+        time: ``k`` / ``v`` ``[L, n, C, Nkv, D]`` raw views."""
+        st = self.state
+        out = {"rows": np.asarray(rows, np.int32)}
+        for name, t in (("k", st.k), ("v", st.v)):
+            parts = [serve_ops._raw(t[:, r]) for r in rows]
+            out[name] = (np.stack(parts, axis=1) if parts
+                         else np.zeros((t.shape[0], 0) + tuple(t.shape[2:]), np.float32))
+        return out
+
+    def _restore_rows(self, arena: dict) -> None:
+        """``_capture_rows``'s bytes copied into this dense server's rows."""
+        st = self.state
+        rows = [int(r) for r in arena["rows"]]
+        if rows and tuple(arena["k"].shape[2:]) != tuple(st.k.shape[2:]):
+            raise ValueError(
+                f"snapshot rows are {arena['k'].shape[2:]}, this server's "
+                f"{tuple(st.k.shape[2:])}"
+            )
+        for i, r in enumerate(rows):
+            for name, t in (("k", st.k), ("v", st.v)):
+                t[:, r] = serve_ops._from_raw(arena[name][:, i], t.dtype, t.device)
 
     def _capture_autosnapshot(self) -> Optional[dict]:
         """End-of-step checkpoint capture under the mutex, once per armed
@@ -2220,7 +2448,7 @@ class PipelineServer:
         emit_span(
             self._trace, "request", dur_s=req.finished_at - req.submitted_at, trace=req.trace,
             src=self._span_src, id=req.id, tokens=len(req.tokens), outcome="failed",
-            error=repr(err)[:200],
+            error=repr(err)[:200], **_tenant_field(req),
         )
 
     def _contain_rows(self, site: str, victims: list, err) -> None:
@@ -2371,7 +2599,7 @@ class PipelineServer:
         (``server.py:3242``). Usable: block-aligned, at least one suffix
         token left, and the layout ``n + bucket(suffix) + max_new`` (+1 if
         the suffix admits chunked) fits the capacity and positions."""
-        if self._radix is None or req.prefix is not None:
+        if self._radix is None or req.prefix is not None or req.embeds is not None:
             return None
         plen = req.prompt_len
         bs = self.kv_block_size
@@ -2403,7 +2631,7 @@ class PipelineServer:
         restore is queued behind that work. Pinned, so the path cannot be
         evicted while the request waits."""
         head = self._queue[0]
-        if head.staged_radix is not None or head.prefix is not None:
+        if head.staged_radix is not None or head.prefix is not None or head.embeds is not None:
             return
         head.staged_radix = self._radix_plan(head)
 
@@ -2441,10 +2669,17 @@ class PipelineServer:
         chunk-admitted row's final prompt token entered by the decode path,
         past the bucket, so its cacheable run ends one token early."""
         req = self._req[row]
+        self.state.rng[row] = None  # the row's generator stops drawing
+        self._req[row] = None
+        if req is not None:
+            req.row = None
+        if not self.paged:
+            return  # the row owns its cache: nothing to free
         priv, shared = self._row_blocks[row], self._row_shared[row]
         rref = self._row_radix[row]
         consumed: set = set()
-        if insert and self._radix is not None and req is not None and req.prefix is None:
+        if (insert and self._radix is not None and req is not None and req.prefix is None
+                and req.embeds is None):
             bs = self.kv_block_size
             plen = req.prompt_len
             spx_n = rref.n if rref is not None else 0
@@ -2455,7 +2690,6 @@ class PipelineServer:
                 consumed = self._radix.insert(np.asarray(req.prompt[: nb * bs], np.int32), cand)
         self._tables[row] = 0
         self._tables_dirty = True
-        self.state.rng[row] = None  # the row's generator stops drawing
         self._alloc.free([b for b in priv if b not in consumed])
         if shared:
             self._alloc.free(shared)
@@ -2464,9 +2698,6 @@ class PipelineServer:
         self._row_blocks[row] = []
         self._row_shared[row] = []
         self._row_radix[row] = None
-        self._req[row] = None
-        if req is not None:
-            req.row = None
 
     def _admit_pending(self) -> bool:
         """FIFO admission into free rows (``server.py:3954-4048``): the queue
@@ -2474,14 +2705,16 @@ class PipelineServer:
         it that co-admit with it. Without a prefix, co-admission means the
         same prompt bucket; with a radix hit, the same matched prefix, the
         same suffix bucket and a layout that fits; with a handle, the same
-        handle. Every request must fit the free blocks, counting the cold
-        tree blocks eviction can free."""
+        handle; embedding requests only with embedding requests of the same
+        bucket (``server.py:3979-4049``). Every request must fit the free
+        blocks, counting the cold tree blocks eviction can free (a dense
+        server needs only the free rows)."""
         admitted = False
         free = self._free_rows()
         while self._queue and free:
             head = self._queue[0]
             pfx = head.prefix
-            if pfx is not None and pfx.blocks is None:
+            if self.paged and pfx is not None and pfx.blocks is None:
                 self._queue.popleft()
                 self._fail_request(head, ValueError(
                     "prefix handle was released while the request was queued — its "
@@ -2495,24 +2728,27 @@ class PipelineServer:
                 self.stepline.pop()
             spx_n = 0 if rplan is None else rplan.n
             bucket = self._bucket(head.prompt_len - spx_n)
+            is_emb = head.embeds is not None
             # the suffix bucket picks the path (server.py:3921 forces a hit
-            # down the chunked path only at cp > 1)
-            chunked = pfx is None and self._chunked(bucket)
+            # down the chunked path only at cp > 1); embeddings admit one-shot
+            chunked = pfx is None and not is_emb and self._chunked(bucket)
             spx = pfx.spx if pfx is not None else spx_n
-            free_left = self._alloc.num_free + (
-                self._radix.evictable_blocks() if self._radix is not None else 0
-            )
-            need = self._blocks_needed(bucket, head.max_new, spx, chunked)
-            if need > free_left:
-                if rplan is not None:
-                    self._radix.release(rplan)
-                logger.info("admission waits: request %d needs more KV blocks "
-                            "than the %d free", head.id, self._alloc.num_free)
-                break
-            free_left -= need
+            free_left = None  # dense: no pool to gate on
+            if self.paged:
+                free_left = self._alloc.num_free + (
+                    self._radix.evictable_blocks() if self._radix is not None else 0
+                )
+                need = self._blocks_needed(bucket, head.max_new, spx, chunked)
+                if need > free_left:
+                    if rplan is not None:
+                        self._radix.release(rplan)
+                    logger.info("admission waits: request %d needs more KV blocks "
+                                "than the %d free", head.id, self._alloc.num_free)
+                    break
+                free_left -= need
 
             def co_admits(r: Request) -> bool:
-                if r.prefix is not pfx:
+                if r.prefix is not pfx or (r.embeds is not None) != is_emb:
                     return False
                 if rplan is None:
                     return self._bucket(r.prompt_len) == bucket
@@ -2527,10 +2763,11 @@ class PipelineServer:
 
             batch = [self._queue.popleft()]
             while len(batch) < len(free) and self._queue and co_admits(self._queue[0]):
-                need = self._blocks_needed(bucket, self._queue[0].max_new, spx, chunked)
-                if need > free_left:
-                    break
-                free_left -= need
+                if free_left is not None:
+                    need = self._blocks_needed(bucket, self._queue[0].max_new, spx, chunked)
+                    if need > free_left:
+                        break
+                    free_left -= need
                 batch.append(self._queue.popleft())
             rows = free[: len(batch)]
             free = free[len(batch):]
@@ -2557,24 +2794,33 @@ class PipelineServer:
         topks = np.zeros(n, np.int32)
         topps = np.ones(n, np.float32)
         rng_states = [r.carried_rng for r in batch]
+        embeds = None
+        if batch[0].embeds is not None:  # the batch enters as hidden states
+            embeds = np.zeros((n, bucket, self.cfg.hidden_size), np.float32)
         now = time.perf_counter()
         for i, (r, row) in enumerate(zip(batch, rows)):
-            # with a radix hit the device sees only the suffix
-            sfx = r.prompt[spx_n:]
-            prompts[i, : len(sfx)] = sfx
-            plen[i], max_new[i], seeds[i] = len(sfx), r.max_new, r.seed
+            if embeds is not None:
+                embeds[i, : r.prompt_len] = r.embeds
+                plen[i] = r.prompt_len
+            else:
+                # with a radix hit the device sees only the suffix
+                sfx = r.prompt[spx_n:]
+                prompts[i, : len(sfx)] = sfx
+                plen[i] = len(sfx)
+            max_new[i], seeds[i] = r.max_new, r.seed
             temps[i], topks[i], topps[i] = r.temperature, r.top_k, r.top_p
             r.row = row
             r.carried_rng = None  # consumed by this admission
             r.started_at = now
             _M_QUEUE_WAIT.observe(now - r.submitted_at, trace_id=r.trace.trace_id)
             self._req[row] = r
-            self._map_row_blocks(row, bucket, r.max_new, spx, shared, chunked)
+            if self.paged:
+                self._map_row_blocks(row, bucket, r.max_new, spx, shared, chunked)
             if rplan is not None:
                 if i > 0:  # one pin per mapping row; take() pinned the first
                     self._radix.pin(rplan)
                 self._row_radix[row] = rplan
-            if self._radix is not None and pfx is None:
+            if self._radix is not None and pfx is None and embeds is None:
                 self._radix.eligible_tokens += r.prompt_len
                 self._radix.hit_tokens += spx_n
                 if spx_n:
@@ -2584,7 +2830,8 @@ class PipelineServer:
                     for tier, tok in tiers.items():
                         if tok:
                             PREFIX_HIT_TOKENS.labels(tier=tier).inc(tok)
-        self._push_tables()  # the admission writes exactly the blocks just mapped
+        if self.paged:
+            self._push_tables()  # the admission writes exactly the blocks just mapped
         sampling = (seeds, temps, topks, topps)
 
         def dispatch():
@@ -2602,7 +2849,7 @@ class PipelineServer:
             return serve_ops.serve_admit(
                 self.cfg, self.params, self.state, rows, prompts, plen, max_new, *sampling,
                 prefix_kv=pkv, prefix_len=pn, prefix_in_arena=rplan is not None,
-                rng_states=rng_states,
+                rng_states=rng_states, prompt_embeds=embeds,
             )
 
         sl = self.stepline
@@ -2623,7 +2870,7 @@ class PipelineServer:
         self._span("admit", dur_s=dt_admit, rows=list(rows), ids=[r.id for r in batch],
                    bucket=bucket, chunked=chunked, n=n)
         for r in batch:
-            if self._radix is not None and pfx is None:
+            if self._radix is not None and pfx is None and embeds is None:
                 # the cache consult's outcome: was a slow request a miss?
                 self._span("radix", req=r, hit=spx_n, prompt=r.prompt_len)
             self._span("prefill", dur_s=dt_admit, req=r, row=r.row, bucket=bucket,
@@ -2835,4 +3082,5 @@ class PipelineServer:
                 self._trace, "request", dur_s=now - req.submitted_at, trace=req.trace,
                 src=self._span_src, id=req.id, tokens=ntok, queue_wait_s=round(queue_wait, 6),
                 ttft_s=round(req.first_token_at - req.submitted_at, 6), tok_s=round(tok_s, 2),
+                **_tenant_field(req),
             )

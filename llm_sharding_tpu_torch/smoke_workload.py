@@ -44,6 +44,14 @@ server runs ``speculate=4``, ``spec_ngram=3`` and no ``prefill_chunk``
 (speculation refuses chunked admission), so every admission is one-shot
 through flash, up to S = 2048, and every decode step is a verify through
 the decode kernel at S = 5.
+
+The front door (``serve(dense=True)`` and ``daemon_args``) serves the
+standard workload as users send it: through the ``serve`` command's HTTP
+ingress, as token-id prompts from the two tenants of ``TENANTS``
+(alternating; half the requests streamed, ``streamed``), dense (the command's
+default: per-row caches of the capacity, no blocks) or paged (the
+standard arena). The in-process twin of each daemon is ``serve`` with the
+same layout.
 """
 
 from __future__ import annotations
@@ -108,13 +116,41 @@ def prompts(vocab_size: int, rng: np.random.Generator, lens=LENS) -> list:
     return [rng.integers(0, vocab_size, n).astype(np.int32) for n in lens]
 
 
+#: the front door's tenants: two keyed tenants of equal weight
+TENANTS = {"tenants": {"alice": {"key": "sk-alice"}, "bob": {"key": "sk-bob"}},
+           "allow_anonymous": False}
+
+
+def streamed(i: int) -> bool:
+    """Whether the front door's ``i``-th request streams: the first of each
+    two pairs, so each tenant streams one short and one long prompt."""
+    return (i // 2) % 2 == 0
+
+
+def daemon_args(model: str, dense: bool) -> list:
+    """The ``serve`` command's flags for ``model``'s standard workload, dense
+    (``--capacity`` alone) or over its paged arena: what ``serve(eng,
+    model, dense=dense)`` builds in-process."""
+    w = WORKLOADS[model]
+    args = ["--capacity", str(w.capacity), "--batch-per-slot", str(ROWS),
+            "--prefill-chunk", str(PREFILL_CHUNK), "--max-new", str(MAX_NEW)]
+    if not dense:
+        args += ["--kv-block-size", str(BLOCK_SIZE), "--kv-blocks", str(w.kv_blocks)]
+    return args
+
+
 def serve(eng, model: str, shared_prefix: bool = False, resilience: bool = False,
-          speculative: bool = False, **kw):
+          speculative: bool = False, dense: bool = False, **kw):
     """A server for ``model``'s workload on ``eng`` (``kw``: e.g. kv_dtype,
     prefix_cache); ``shared_prefix`` picks its ``SHARED_PREFIX`` entry,
     ``resilience`` its ``RESILIENCE`` one, ``speculative`` its
     ``SPECULATIVE`` one (``kw`` may set ``speculate=0``: the same one-shot
-    server without speculation)."""
+    server without speculation); ``dense`` the standard workload on dense
+    per-row caches."""
+    if dense:
+        w = WORKLOADS[model]
+        return eng.serve(capacity=w.capacity, batch_per_slot=ROWS, prefill_chunk=PREFILL_CHUNK,
+                         **kw)
     if speculative:
         w = SPECULATIVE[model]
         kw = dict(dict(speculate=w.speculate, spec_ngram=w.spec_ngram), **kw)

@@ -39,6 +39,11 @@ from llm_sharding_tpu_torch.runtime.faults import FaultPlan, FaultSpec, Permanen
 from llm_sharding_tpu_torch.runtime.generate import generate as tgenerate
 from llm_sharding_tpu_torch.runtime.server import DeadlineExceeded, PipelineServer
 
+# the tests' tensors are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+
 CFG = tcfg.tiny_llama(num_hidden_layers=4)
 BS = 4
 KW = dict(capacity=64, batch_per_slot=3, kv_block_size=BS, kv_blocks=120)

@@ -39,7 +39,6 @@ jnp = jax.numpy
 from llm_sharding_tpu.models import config as jcfg  # models first: ops <-> models cycle
 from llm_sharding_tpu.models import llama as jllama
 from llm_sharding_tpu.runtime.engine import PipelineEngine
-from llm_sharding_tpu_torch.device import NotPorted
 from llm_sharding_tpu_torch.models import config as tcfg
 from llm_sharding_tpu_torch.models import llama as tllama
 from llm_sharding_tpu_torch.obs.metrics import REGISTRY
@@ -49,6 +48,11 @@ from llm_sharding_tpu_torch.runtime.server import (
     PipelineServer, RequestState, ServerClosed, load_snapshot, save_snapshot,
 )
 from llm_sharding_tpu_torch.runtime.engine import Engine
+
+# the tests' tensors are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 CFG = tcfg.tiny_llama(num_hidden_layers=8)
 EOS = CFG.eos_token_ids[0]
@@ -296,7 +300,7 @@ def test_snapshot_is_read_only_on_request_ids(setup):
 
 
 @pytest.mark.parametrize("doctor, exc, match", [
-    (dict(kv_block_size=None, kv_blocks=None), NotPorted, "dense serving"),
+    (dict(kv_block_size=None, kv_blocks=None), ValueError, "paged-mode snapshot"),
     (dict(kv_blocks=None), ValueError, "go together"),
     (dict(paged_attn="kernel"), ValueError, "requires a CUDA device"),
     (dict(kv_dtype="fp9"), ValueError, "kv_dtype"),

@@ -1,0 +1,237 @@
+"""The port's ``generate`` and ``serve`` commands against the JAX package's
+on one JAX-written tiny store (f32, ``tests/test_cli.py``'s stand-in
+tokenizer on both engines): stdout is equal, byte for byte, for
+``generate`` (whole and ``--stream``) and for the stdin daemon (dense,
+paged, speculative). The checks that need no model exit 2 with the JAX
+messages; a flag of a later slice exits 2 before the model loads, naming
+its ``ROADMAP.md`` item; without ``--device cpu`` the commands want a GPU.
+A ``--http-port`` daemon in a subprocess (a store without a tokenizer:
+token-id prompts) answers as the in-process server streams, and SIGTERM
+during a streamed request lets it finish and exits 0.
+"""
+
+import contextlib
+import http.client
+import io
+import json
+import os
+import pathlib
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")  # the JAX package is the reference
+jnp = jax.numpy
+
+from llm_sharding_tpu import cli as jcli
+from llm_sharding_tpu.models import config as jcfg
+from llm_sharding_tpu.models import llama as jllama
+from llm_sharding_tpu.runtime import engine as jengine
+from llm_sharding_tpu.utils import shard_store as jstore
+from llm_sharding_tpu_torch import cli as tcli
+from llm_sharding_tpu_torch.runtime import engine as tengine
+
+# the tests' tensors are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CFG = jcfg.tiny_llama(num_hidden_layers=2, vocab_size=64)
+
+
+class IdTokenizer:
+    """The stand-in for an HF tokenizer of ``tests/test_cli.py:23``."""
+
+    def __call__(self, text):
+        return {"input_ids": [ord(c) % 60 + 1 for c in text]}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(int(i) % 26 + 97) for i in ids)
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("cli") / "tiny_f32")
+    jstore.save_shards(CFG, jllama.init_params(CFG, jax.random.key(0), dtype=jnp.float32), out)
+    return out
+
+
+@pytest.fixture
+def tokenizers(monkeypatch):
+    monkeypatch.setattr(jengine.PipelineEngine, "_require_tokenizer", lambda self: IdTokenizer())
+    monkeypatch.setattr(tengine.Engine, "_require_tokenizer", lambda self: IdTokenizer())
+
+
+def run(mod, argv, stdin=None):
+    """(rc, stdout, stderr) of ``mod.main(argv)`` in this process."""
+    out, err = io.StringIO(), io.StringIO()
+    old = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mod.main(argv)
+    finally:
+        sys.stdin = old
+    return rc, out.getvalue(), err.getvalue()
+
+
+def both(argv, stdin=None):
+    """The JAX command (one stage) and the port's (on the CPU)."""
+    j = run(jcli, argv + ["--stages", "1"], stdin)
+    t = run(tcli, argv + ["--device", "cpu"], stdin)
+    return j, t
+
+
+@pytest.mark.parametrize("extra", [[], ["--stream"]], ids=["whole", "stream"])
+def test_generate_stdout_equals_jax(store, tokenizers, extra):
+    j, t = both(["generate", store, "--prompt", "hello world", "--max-new", "7",
+                 "--dtype", "f32"] + extra)
+    assert j[0] == t[0] == 0
+    assert t[1] == j[1] and t[1].strip()
+
+
+@pytest.mark.parametrize("extra", [[], ["--kv-block-size", "4", "--kv-blocks", "48"],
+                                   ["--speculate", "2"], ["--prefill-chunk", "8"]],
+                         ids=["dense", "paged", "spec", "chunked"])
+def test_stdin_serve_stdout_equals_jax(store, tokenizers, extra):
+    stdin = "hi there\n:counters\nsecond prompt, a longer one\n\n"
+    j, t = both(["serve", store, "--max-new", "6", "--capacity", "64", "--dtype", "f32"]
+                + extra, stdin)
+    assert j[0] == t[0] == 0
+    assert t[1] == j[1] and len(t[1].splitlines()) == 2
+    assert '"requests_completed": 2' in t[2]
+
+
+def test_control_lines_snapshot_restore_stats_profile(store, tokenizers, tmp_path):
+    d = str(tmp_path / "snap")
+    rc, out, err = run(tcli, ["serve", store, "--max-new", "4", "--capacity", "64", "--dtype",
+                              "f32", "--device", "cpu"],
+                       f"first prompt\n:stats\n:profile 0\n:snapshot {d}\n:placement 2\n:bogus\n")
+    assert rc == 0 and len(out.splitlines()) == 1
+    stats = json.loads(next(line for line in err.splitlines() if line.startswith('{"counters"')))
+    assert {"counters", "metrics", "stepline"} <= set(stats)
+    assert "server_ingress_requests_total" in stats["metrics"]
+    assert f"snapshot written to {d}" in err and "§A 15" in err and "unknown control line" in err
+    rc, out2, err2 = run(tcli, ["serve", store, "--restore", d, "--max-new", "4", "--capacity",
+                                "32", "--dtype", "f32", "--device", "cpu"], "first prompt\n")
+    assert rc == 0 and "restored snapshot" in err2 and "--capacity 32 (snapshot: 64)" in err2
+    assert out2 == out  # the same prompt, the same completion
+
+
+FAST_FAIL = [
+    ["--snapshot-every", "5"],
+    ["--kv-block-size", "4"],
+    ["--inflight-steps", "0"],
+    ["--paged-attn", "kernel"],
+    ["--kv-dtype", "int8"],
+    ["--prefix-cache", "hbm"],
+    ["--kv-block-size", "4", "--kv-blocks", "8", "--host-pool-blocks", "4"],
+    ["--kv-block-size", "4", "--kv-blocks", "8", "--prefix-cache", "disk"],
+    ["--disk-pool-blocks", "3"],
+    ["--tenants-config", "{}"],
+    ["--http-port", "1", "--tenants-config", '{"tenants": {"a": {"weight": 0}}}'],
+]
+
+
+@pytest.mark.parametrize("flags", FAST_FAIL, ids=lambda f: " ".join(f)[:40])
+def test_fast_fail_exits_match_jax(flags):
+    """Exit 2 and the JAX message, with no store to load (a missing path)."""
+    argv = ["serve", "/nonexistent/store"] + flags
+    j = run(jcli, argv)
+    t = run(tcli, argv)
+    assert j[0] == t[0] == 2
+    assert t[2] == j[2] and t[2].startswith("error: ")
+
+
+LATER = [
+    (["--data-parallel", "2"], "§A 14"), (["--min-replicas", "2"], "§A 14"),
+    (["--disagg"], "§A 14"), (["--prefill-replicas", "1"], "§A 14"),
+    (["--roles", "prefill,decode"], "§A 14"), (["--profile-json", "p.json"], "§A 14"),
+    (["--autoscale"], "§A 14"), (["--autoscale-cooldown", "1"], "§A 14"),
+    (["--stages", "2"], "§A 15"), (["--ranges", "0:1,1:2"], "§A 15"),
+    (["--tensor-parallel", "2"], "§A 16"), (["--cp", "2"], "§A 16"),
+]
+
+
+@pytest.mark.parametrize("flags,item", LATER, ids=lambda f: " ".join(f) if isinstance(f, list)
+                         else f)
+def test_later_slice_flags_exit_before_loading(flags, item):
+    rc, out, err = run(tcli, ["serve", "/nonexistent/store"] + flags)
+    assert rc == 2 and f"ROADMAP.md {item}" in err and not out
+
+
+def test_commands_want_a_gpu_unless_told(store, tokenizers):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is available")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(tcli, ["generate", store, "--prompt", "x", "--max-new", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(tcli, ["serve", store], "")
+
+
+def _post(port, body, stream=False):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", "/v1/completions", json.dumps({**body, "stream": stream}),
+                 {"Content-Type": "application/json"})
+    return conn, conn.getresponse()
+
+
+def test_http_daemon_round_trip_and_sigterm_drain(store):
+    """The daemon as users start it (a subprocess, a tokenizer-less store):
+    token-id completions, whole and streamed, equal the in-process dense
+    server's; SIGTERM while a stream is live: the stream completes, the
+    daemon exits 0 and says it drained."""
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    p = [int(x) for x in np.random.default_rng(3).integers(3, 60, 6)]
+    eng = Engine.from_shards(store, dtype=torch.float32, device="cpu")
+    srv = eng.serve(capacity=128)
+    want = srv.result(srv.submit(np.asarray(p, np.int32), 40))
+    srv.close()
+    with socket.socket() as sock:  # a free port
+        sock.bind(("127.0.0.1", 0))
+        free = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llm_sharding_tpu_torch", "serve", store, "--device", "cpu",
+         "--dtype", "f32", "--capacity", "128", "--http-port", str(free)],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True,
+    )
+    try:
+        port = None
+        lines = []
+        while port is None:
+            line = proc.stderr.readline()
+            assert line, "".join(lines)
+            lines.append(line)
+            if line.startswith("ingress: http://127.0.0.1:"):
+                port = int(line.split("127.0.0.1:")[1].split("/")[0])
+        conn, resp = _post(port, {"prompt": p, "max_tokens": 40})
+        body = json.loads(resp.read())
+        conn.close()
+        assert body["choices"][0]["token_ids"] == want
+        conn, resp = _post(port, {"prompt": p, "max_tokens": 40}, stream=True)
+        first = resp.readline()
+        assert first.startswith(b"data: ")
+        proc.send_signal(signal.SIGTERM)
+        rest = resp.read().decode()
+        conn.close()
+        events = [json.loads(first[6:])] + [json.loads(x[6:]) for x in rest.splitlines()
+                                            if x.startswith("data: {")]
+        assert [t for e in events for t in e["choices"][0]["token_ids"]] == want
+        assert rest.rstrip().endswith("data: [DONE]")
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, err[-2000:]
+        assert "drained; exiting 0" in err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()

@@ -45,6 +45,11 @@ from llm_sharding_tpu_torch.ops import paged_attention as tpa
 from llm_sharding_tpu_torch.runtime.engine import Engine
 from llm_sharding_tpu_torch.runtime.generate import generate as tgenerate
 
+# the tests' tensors are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+
 SENTINEL = int(POS_SENTINEL)
 D = 256
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -1252,3 +1252,78 @@ def test_sidecar_applies_a_log_in_flight_on_the_card(cuda_device):
     srv.close()
     srv._alloc.check()
     assert srv._alloc.in_use == 0
+
+
+# ---------------------------------------------------- the front door (dense)
+
+_DENSE = dict(capacity=64, batch_per_slot=3, prefill_chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_dense_chained_dispatches_make_no_host_sync(cuda_device, sampled):
+    """Dense ``serve_chunk``: three chunks dispatched back to back under
+    ``set_sync_debug_mode("error")`` (a done row's KV write is a select, no
+    boolean-mask index); the logs then read as the rows' tokens."""
+    eng = _tiny_engine(cuda_device)
+    srv = eng.serve(**dict(_DENSE, prefill_chunk=None))
+    rng = np.random.default_rng(21)
+    kw = dict(temperature=0.8, top_k=20, seed=4) if sampled else {}
+    reqs = [srv.submit(rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32), 20, **kw)
+            for n in (5, 20)]
+    srv.step()
+    srv._drain(0)
+    assert all(not r.done for r in reqs) and srv.state.dense
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            srv._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    logs = [e.log.cpu() for e in srv._pending]
+    assert len(logs) == 3 and all(int(logs[0][0, r.row]) >= 0 for r in reqs)
+    assert int(logs[0][0, 2]) == -1  # the free row commits nothing
+    srv.run_until_idle()
+    assert all(r.done and r.error is None for r in reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(prefill_chunk=None, speculate=3)],
+                         ids=["one_shot_chunked", "speculate"])
+def test_dense_streams_equal_generate_through_flash(cuda_device, kw):
+    """Dense serving on the card (one-shot and chunked admission through
+    flash over the rows' caches, or a verify at S = K + 1 through flash):
+    f32 greedy streams equal ``generate``'s; no paged kernel launches."""
+    eng = _tiny_engine(cuda_device)
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 12)]
+    srv = eng.serve(**dict(_DENSE, **kw))
+    kernels.reset_launch_counts()
+    reqs = [srv.submit(p, 16) for p in prompts]
+    srv.run_until_idle()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] > 0
+    assert counts["paged_attention"] == counts["paged_prefill"] == 0
+    for p, r in zip(prompts, reqs):
+        want = eng.generate_ids(p, 16)
+        assert r.tokens == want.tokens[0, len(p) : want.lengths[0]].tolist()
+    srv.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_submit_embedding_equals_submit_on_the_card(cuda_device, paged):
+    eng = _tiny_engine(cuda_device)
+    kw = dict(_SERVE, prefill_chunk=None) if paged else dict(_DENSE, prefill_chunk=None)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20)]
+    out = []
+    for embed in (False, True):
+        srv = eng.serve(**kw)
+        reqs = [srv.submit_embedding(eng.embed_prompt(p)[0], 12) if embed else srv.submit(p, 12)
+                for p in prompts]
+        srv.run_until_idle()
+        out.append([r.tokens for r in reqs])
+        srv.close()
+    assert out[0] == out[1]

@@ -49,6 +49,11 @@ from llm_sharding_tpu_torch.parallel import serve as tserve
 from llm_sharding_tpu_torch.runtime.engine import Engine
 from llm_sharding_tpu_torch.runtime.server import RequestFailed
 
+# the tests' tensors are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+
 SENTINEL = int(POS_SENTINEL)
 BS = 8
 CAP = 128

@@ -16,7 +16,6 @@ jnp = jax.numpy
 from llm_sharding_tpu.models import config as jcfg
 from llm_sharding_tpu.models import llama as jllama
 from llm_sharding_tpu.runtime.generate import generate as jgenerate
-from llm_sharding_tpu_torch.device import NotPorted
 from llm_sharding_tpu_torch.models import config as tcfg
 from llm_sharding_tpu_torch.models import llama as tllama
 from llm_sharding_tpu_torch.runtime.engine import Engine
@@ -168,9 +167,11 @@ def test_block_allocator_matches_jax():
 
 
 def test_serve_needs_paged_kv(setup):
+    """``serve()`` without KV arguments is the dense server (the JAX
+    default); the paged pair still goes together."""
     eng = setup[0]
-    with pytest.raises(NotPorted, match="dense serving"):
-        eng.serve(capacity=64)
+    srv = eng.serve(capacity=64)
+    assert not srv.paged and srv._alloc is None and srv.state.dense
     with pytest.raises(ValueError, match="go together"):
         eng.serve(capacity=64, kv_block_size=4)
 

@@ -49,6 +49,11 @@ from llm_sharding_tpu_torch.runtime.engine import Engine
 from llm_sharding_tpu_torch.runtime.generate import generate as tgenerate
 from llm_sharding_tpu_torch.runtime.server import PipelineServer
 
+# the tests' tensors are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+
 CFG = tcfg.tiny_llama(num_hidden_layers=4)
 KVS = ["bf16", "int8", "fp8"]
 # block size 4 and a 64-token capacity: a verify's K + 1 entries cross
