@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels MODEL [MODEL ...]
+    python3 chip_smoke.py --fleet
 
 The second form runs (a) and (b) only, bf16 queries, at the named
 models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
 ``gemma_7b``, ``llama2_7b``), and prints the rows as one JSON line: run
-it in two trees in one call to compare their kernels.
+it in two trees in one call to compare their kernels. The third runs (a)
+and the fleet's parts of (c) and (d) alone.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -87,7 +89,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (gap rule) and to CPU ``generate``; sampled rows at ``inflight_steps=2``
     identical to the serial run's; a mid-flight snapshot / restore at
     ``inflight_steps=2`` and an extract / adopt (a sampled row among them)
-    at ``pipeline_depth=2`` continue the streams;
+    at ``pipeline_depth=2`` continue the streams. The fleet, 3B raw
+    (``check_fleet``): ``ReplicatedServer`` at dp 2 on the card against
+    ``generate`` (gap rule), launches counted per replica; a
+    ``replica_step`` fault on group 0 mid-decode (one failover, the
+    migrated count the rows it held), ``drain(1)`` then ``spawn_replica()``,
+    each against the uninterrupted fleet; ``DisaggServer`` 1 + 1 with
+    ``prefix_cache="hbm"``: every hand-off ``ok``, the bytes counted the
+    streamed blocks'; an ``Autoscaler`` (injected load and clock) 2 -> 3 -> 2
+    replicas; no stream dropped;
 (d) write shard stores of seeded random full-depth weights with the
     port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
     quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
@@ -160,7 +170,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     request finishes, the blocks drain,
     all three kernels launch, every step accounts, and each stream equals
     the same arena's (1, 1) stream or first differs at a near tie
-    (``TIE_ULPS``, from a recorded (1, 1) run made only then);
+    (``TIE_ULPS``, from a recorded (1, 1) run made only then). The fleet,
+    full 3B (``fleet_runs``; ``smoke_workload.FLEET``: the standard prompts,
+    every second pair swapped, 320 blocks per replica): the one-replica
+    twin, ``ReplicatedServer`` dp 2 (every replica launching every kernel),
+    dp 2 with a failover, a ``spawn_replica()`` and a drain mid-decode,
+    ``DisaggServer`` 1 + 1, and the ``serve --data-parallel 2 --disagg``
+    daemon over HTTP; streams held to the twin's (``TIE_ULPS``;
+    ``MIGRATED_ULPS`` = 1 for the in-process runs' migrated and handed-off
+    ones, submitted as the twin's), hand-offs ``ok``
+    but for a prompt under one block (``cold``) and the 2048-token one
+    (``fallback``, no layout), bytes the streamed blocks'; decode tok/s and
+    TTFT beside the twin's, launches per replica, hand-off ms (queue /
+    stream / lock) and bytes, the failover's wall and the spawn's seconds
+    printed, and each 3B row of the JSON line carries ``replica_launches``;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -173,6 +196,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -1703,7 +1727,7 @@ def phase_token_check(device, store_root: str) -> None:
     lens = [40, 200, 700, 1000]  # buckets 64 and 256 one-shot, 1024 chunked
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     max_new = 16
-    check_against_generate("3B", eng, prompts, lens, max_new)
+    card_want = check_against_generate("3B", eng, prompts, lens, max_new)
     t0 = time.perf_counter()
     check_observability("3B", eng, prompts, lens, max_new, store_root)
     log(f"[c] 3B observability checks took {time.perf_counter() - t0:.1f}s")
@@ -1726,6 +1750,9 @@ def phase_token_check(device, store_root: str) -> None:
     t0 = time.perf_counter()
     check_frontdoor("3B", eng, prompts, lens, max_new)
     log(f"[c] 3B front door checks took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    check_fleet("3B", eng, cpu_eng, prompts, lens, max_new, card_want)
+    log(f"[c] 3B fleet checks took {time.perf_counter() - t0:.1f}s")
     del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -2694,6 +2721,7 @@ def phase_serve(device, store_root: str) -> dict:
     async_serve_runs(eng, smi)
     log(f"[d] 3B step-loop configurations took {time.perf_counter() - t0:.1f}s")
     dcounts = frontdoor_runs(eng, stores["bf16"], smi, paged_twin)
+    fleet = fleet_runs(eng, stores["bf16"], smi)
     for kv in KV_MODES:
         kv_counts, tokens = serve_run(eng, "llama32_3b", f"3B bf16 weights, kv {kv}", kv)
         counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
@@ -2812,7 +2840,8 @@ def phase_serve(device, store_root: str) -> dict:
             "gemma_7b": s7counts, "llama32_3b/shared_prefix": pcounts,
             "gemma_2b/shared_prefix": mpcounts, "llama32_3b/speculative": scounts,
             "llama32_3b/spec_generate": gcounts_spec, "llama2_7b": lcounts,
-            "llama2_7b/speculative": lscounts, "llama32_3b/dense": dcounts}
+            "llama2_7b/speculative": lscounts, "llama32_3b/dense": dcounts,
+            "llama32_3b/fleet": fleet}
 
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2904,13 +2933,17 @@ def http_workload(port: int, prompts, max_new: int) -> list:
     return out
 
 
-def hold_to(tag: str, got: list, want: list, rec) -> None:
-    """Each stream of ``got`` equals ``want``'s or first differs at a near
-    tie of the run ``rec()`` records (made only then; its streams must be
-    ``want``): a top-2 gap of at most ``TIE_ULPS`` bf16 ulps of its top
-    logit."""
+def hold_to(tag: str, got: list, want: list, rec, ulps=TIE_ULPS, index=None) -> None:
+    """Each stream of ``got`` equals ``want``'s (stream ``index[i]`` of it,
+    where given) or first differs at a near tie of the run ``rec()``
+    records (made only then; its streams must be ``want``): a top-2 gap of
+    at most ``ulps`` bf16 ulps of its top logit (``TIE_ULPS``; a list gives
+    each stream its own)."""
     rec_run = None
-    for i, (g, w) in enumerate(zip(got, want)):
+    limits = list(ulps) if isinstance(ulps, (list, tuple)) else [ulps] * len(got)
+    index = list(index) if index is not None else list(range(len(got)))
+    for i, g in enumerate(got):
+        w = want[index[i]]
         if g == w:
             continue
         if rec_run is None:
@@ -2918,15 +2951,15 @@ def hold_to(tag: str, got: list, want: list, rec) -> None:
             require(rec_run["tokens"] == want, f"phase d {tag}: the recorded run gave other streams")
         j = next((j for j in range(min(len(g), len(w))) if g[j] != w[j]), None)
         require(j is not None, f"phase d {tag}: stream {i} lengths differ at equal tokens")
-        rid = rec_run["ids"][i]
+        rid = rec_run["ids"][index[i]]
         gap, top = rec_run["gaps"][rid][j], rec_run["tops"][rid][j]
         ulp = bf16_ulp(top)
         log(f"[d] {tag}: stream {i} first differs at token {j}: top-2 gap {gap:.4g} "
-            f"({gap / ulp:.1f} bf16 ulp)")
-        require(gap <= TIE_ULPS * ulp, f"phase d {tag}: stream {i} differs at a gap of {gap} "
-                f"> {TIE_ULPS} ulp")
-    same = sum(g == w for g, w in zip(got, want))
-    log(f"[d] {tag}: {same} of {len(want)} streams identical")
+            f"({gap / ulp:.1f} bf16 ulp; limit {limits[i]})")
+        require(gap <= limits[i] * ulp, f"phase d {tag}: stream {i} differs at a gap of {gap} "
+                f"> {limits[i]} ulp")
+    same = sum(g == want[k] for g, k in zip(got, index))
+    log(f"[d] {tag}: {same} of {len(got)} streams identical")
 
 
 def inprocess_run(eng, dense: bool, record: bool = False) -> dict:
@@ -3080,6 +3113,517 @@ def frontdoor_runs(eng, store: str, smi: str, paged_twin: dict) -> dict:
     return dense_counts
 
 
+# ---------------------------------------------------------- the fleet ([c], [d])
+
+# a migrated or handed-off greedy bf16 stream may first differ from the
+# one-replica twin's only where the twin's top-2 gap is at most this many
+# bf16 ulps of its top logit (the re-prefilled KV moved by an ulp, as in
+# the resilience workload's migration)
+MIGRATED_ULPS = 1
+
+
+@contextlib.contextmanager
+def replica_launches():
+    """Each kernel's launches per replica (``r<d>``, its span source) while
+    the block runs: every ``PipelineServer.step`` is wrapped to attribute
+    the launches the kernels' own counters took during it (every kernel of
+    a served run launches inside a step)."""
+    from llm_sharding_tpu_torch.ops import kernels as K
+    from llm_sharding_tpu_torch.runtime.server import PipelineServer
+
+    out: dict = collections.defaultdict(collections.Counter)
+    orig = PipelineServer.step
+
+    def step(self):
+        before = K.launch_counts()
+        try:
+            return orig(self)
+        finally:
+            for k, n in K.launch_counts().items():
+                if n > before.get(k, 0):
+                    out[self._span_src][k] += n - before.get(k, 0)
+
+    PipelineServer.step = step
+    try:
+        yield out
+    finally:
+        PipelineServer.step = orig
+
+
+def run_fleet(rs, prompts, max_new: int, at=None) -> tuple:
+    """Two requests, two router steps, until all are submitted, then the
+    router stepped until every request is done and ``run_until_idle``
+    (hand-offs landed); ``at[n]()`` runs before the router's n-th step.
+    Returns the requests, the group each landed on at submit, and the
+    wall seconds."""
+    at = dict(at or {})
+    reqs, groups, n = [], [], 0
+    t0 = time.perf_counter()
+
+    def step():
+        nonlocal n
+        if n in at:
+            at.pop(n)()
+        rs.step()
+        n += 1
+
+    for i in range(0, len(prompts), 2):
+        for p in prompts[i : i + 2]:
+            reqs.append(rs.submit(p, max_new))
+            groups.append(rs._group_of[rs._owner[reqs[-1]]])
+        step()
+        step()
+    while not all(r.done for r in reqs) or at:
+        require(n < 10_000, "fleet run: requests never finished")
+        step()
+    rs.run_until_idle()
+    return reqs, groups, time.perf_counter() - t0
+
+
+def router_spans(since: float, name: str) -> list:
+    """The router's ``name`` spans in the flight recorder emitted at or
+    after ``since`` (the ring is bounded: by [c] it is full, so positions
+    shift while it records)."""
+    from llm_sharding_tpu_torch.obs.trace import FLIGHT_RECORDER
+
+    return [e for e in FLIGHT_RECORDER.snapshot()
+            if e["ts"] >= since and e.get("src") == "router" and e["span"] == name]
+
+
+def fleet_tally() -> dict:
+    from llm_sharding_tpu_torch.obs import metrics as M
+
+    out = {f"handoff_{k}": M.DISAGG_HANDOFFS.labels(outcome=k).value
+           for k in ("ok", "cold", "retried", "fallback", "no_target", "failed")}
+    out.update(failovers=M.REPLICA_FAILOVERS.value, drains=M.REPLICA_DRAINS.value,
+               spawns=M.REPLICA_SPAWNS.value, bytes=M.HANDOFF_BYTES.value,
+               migrated_ok=M.REQUESTS_MIGRATED.labels(outcome="ok").value,
+               migrated_failed=M.REQUESTS_MIGRATED.labels(outcome="failed").value,
+               as_spawns=M.AUTOSCALE_SPAWNS.value, as_drains=M.AUTOSCALE_DRAINS.value)
+    return out
+
+
+def tally_delta(before: dict) -> dict:
+    after = fleet_tally()
+    return {k: after[k] - before[k] for k in before}
+
+
+def count_moves(rs) -> list:
+    """Wrap the router's ``_migrate_all`` to record, per call, how many live
+    requests the source held when it began (what migration must move)."""
+    seen = []
+    orig = rs._migrate_all
+
+    def migrate_all(src, cause):
+        seen.append(sum(r is not None and not r.done for r in src._req)
+                    + sum(not r.done for r in src._queue))
+        return orig(src, cause)
+
+    rs._migrate_all = migrate_all
+    return seen
+
+
+def block_bytes(cfg, elem_bytes: int, block: int = 64) -> int:
+    """Bytes of one arena block of K and V over every layer."""
+    hd = cfg.head_dim or cfg.hidden_size // cfg.num_attention_heads
+    return 2 * cfg.num_hidden_layers * block * cfg.num_key_value_heads * hd * elem_bytes
+
+
+def check_fleet(tag: str, eng, cpu_eng, prompts, lens, max_new: int, want: list) -> None:
+    """[c] The fleet on the card, f32 3B at 4 layers, the host weights the
+    CPU engine's: ``ReplicatedServer`` at dp 2 (one short and one long
+    prompt per replica), its streams against ``generate``'s by the gap rule
+    (< 1e-4) and every replica's decode kernel launched; a transient
+    ``replica_step`` fault on group 0 mid-decode (failure threshold 1) fails
+    it over: ``server_replica_failovers_total`` + 1, the migrated count the
+    rows it held, every stream as the uninterrupted fleet's (gap rule);
+    ``drain(1)`` then ``spawn_replica()`` mid-decode, likewise; a
+    ``DisaggServer`` (1 prefill + 1 decode, ``prefix_cache="hbm"``) on the
+    prompts of a block or more: every hand-off ``ok``, the bytes counted
+    equal to the streamed blocks times the block's bytes, the streams as
+    ``generate``'s; an ``Autoscaler`` (injected load and clock) takes a dp-3
+    router from 2 live replicas to 3 and back to 2 mid-decode, no stream
+    dropped."""
+    import torch
+
+    from llm_sharding_tpu_torch.runtime.autoscale import Autoscaler
+    from llm_sharding_tpu_torch.runtime.disagg import DisaggServer
+    from llm_sharding_tpu_torch.runtime.faults import FaultPlan
+    from llm_sharding_tpu_torch.runtime.replicated import ReplicatedServer
+
+    cfg, host = eng.cfg, cpu_eng.params
+    kw = dict(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160, prefill_chunk=256)
+    order = [0, 2, 3, 1]  # pairs (short, long) and (long, short): each replica gets one of each
+    ps, ws = [prompts[i] for i in order], [want[i] for i in order]
+
+    rs = ReplicatedServer(cfg, host, data_parallel=2, **kw)
+    with replica_launches() as per:
+        reqs, groups, _ = run_fleet(rs, ps, max_new)
+    rs.close()
+    base = [list(r.tokens) for r in reqs]
+    hold_streams(f"{tag} dp=2 vs generate", base, ws, ps, eng)
+    log(f"[c] {tag} dp=2: requests per replica {collections.Counter(groups)}; kernel launches "
+        f"per replica {dict((k, dict(v)) for k, v in per.items())}")
+    for r in ("r0", "r1"):
+        require(per[r]["paged_attention"] > 0, f"phase c {tag} dp=2: replica {r} never decoded")
+
+    b = fleet_tally()
+    rs = ReplicatedServer(cfg, host, data_parallel=2, failure_threshold=1,
+                          fault_plan=FaultPlan.transient_at("replica_step", 6, key=0), **kw)
+    moves = count_moves(rs)
+    reqs, _, _ = run_fleet(rs, ps, max_new)
+    d = tally_delta(b)
+    require(len(rs.servers) == 1 and 0 not in rs._by_group, f"phase c {tag}: no failover")
+    rs.close()
+    require(d["failovers"] == 1 and d["migrated_failed"] == 0 and moves
+            and d["migrated_ok"] == sum(moves) > 0,
+            f"phase c {tag} failover: deltas {d}, live rows at migration {moves}")
+    require(all(r.error is None for r in reqs), f"phase c {tag} failover: a stream failed")
+    hold_streams(f"{tag} dp=2 failover vs uninterrupted", [r.tokens for r in reqs], base, ps, eng)
+    log(f"[c] {tag} dp=2 failover of group 0 mid-decode: failovers +{d['failovers']:g}, "
+        f"requests migrated ok +{d['migrated_ok']:g} (the {sum(moves)} live on it)")
+
+    b = fleet_tally()
+    rs = ReplicatedServer(cfg, host, data_parallel=2, **kw)
+    moves = count_moves(rs)
+    reqs, _, _ = run_fleet(rs, ps, max_new, at={6: lambda: rs.drain(1),
+                                                 8: lambda: rs.spawn_replica()})
+    d = tally_delta(b)
+    require(sorted(rs._by_group) == [0, 1], f"phase c {tag}: spawn did not revive group 1")
+    rs.close()
+    require(d["drains"] == 1 and d["spawns"] == 1 and d["migrated_ok"] == sum(moves) > 0
+            and all(r.error is None for r in reqs), f"phase c {tag} drain/spawn: deltas {d}")
+    hold_streams(f"{tag} dp=2 drain/spawn vs uninterrupted", [r.tokens for r in reqs], base, ps,
+                 eng)
+    log(f"[c] {tag} dp=2 drain(1) + spawn_replica() mid-decode: {sum(moves)} moved, none dropped")
+
+    long_i = [i for i, n in enumerate(lens) if n >= 64]  # at least one whole block to stream
+    dps, dws = [prompts[i] for i in long_i], [want[i] for i in long_i]
+    b, mark = fleet_tally(), time.time()
+    ds = DisaggServer(cfg, host, data_parallel=2, prefill_replicas=1, prefix_cache="hbm", **kw)
+    with replica_launches() as per:
+        reqs, _, _ = run_fleet(ds, dps, max_new)
+    ds.close()
+    d = tally_delta(b)
+    spans = router_spans(mark, "handoff")
+    streamed = sum(s.get("streamed", 0) for s in spans)
+    require(d["handoff_ok"] == len(dps) and len(spans) == len(dps)
+            and all(s["outcome"] == "ok" for s in spans),
+            f"phase c {tag} disagg: hand-offs {d}, spans {[s['outcome'] for s in spans]}")
+    require(d["bytes"] == sum(s.get("bytes", 0) for s in spans)
+            == streamed // 64 * block_bytes(cfg, 4) > 0,
+            f"phase c {tag} disagg: {d['bytes']} bytes counted, {streamed} tokens streamed")
+    hold_streams(f"{tag} disagg 1+1 vs generate", [r.tokens for r in reqs], dws, dps, eng)
+    log(f"[c] {tag} disagg 1+1: {len(spans)} hand-offs ok, {streamed} tokens / "
+        f"{d['bytes'] / 1e6:.1f} MB streamed; launches per replica "
+        f"{dict((k, dict(v)) for k, v in per.items())}")
+
+    b = fleet_tally()
+    rs = ReplicatedServer(cfg, host, data_parallel=3, min_replicas=2, **kw)
+    rs.drain(2)
+    now, load = [0.0], [0.5]
+    sc = Autoscaler(rs, min_replicas=2, max_replicas=3, up_after_s=0.0, down_after_s=0.0,
+                    cooldown_s=0.0, clock=lambda: now[0], load_fn=lambda: load[0])
+    seen = []
+
+    def tick(lv):
+        load[0] = lv
+        now[0] += 1.0
+        seen.append((sc.tick(), len(rs.servers)))
+
+    reqs, _, _ = run_fleet(rs, ps, max_new, at={3: lambda: tick(2.0), 7: lambda: tick(0.0)})
+    d = tally_delta(b)
+    rs.close()
+    require(seen == [("spawn", 3), ("drain", 2)] and d["as_spawns"] == 1 == d["as_drains"],
+            f"phase c {tag} autoscale: decisions {seen}, deltas {d}")
+    require(all(r.error is None for r in reqs), f"phase c {tag} autoscale: a stream failed")
+    hold_streams(f"{tag} autoscale 2 -> 3 -> 2 vs generate", [r.tokens for r in reqs], ws, ps, eng)
+    log(f"[c] {tag} autoscaler: decisions {seen}, no stream dropped")
+    torch.cuda.empty_cache()
+
+
+def fleet_twin(eng, prompts, record: bool = False) -> dict:
+    """[d] The fleet cell on one replica (``smoke_workload.fleet_kwargs``),
+    staggered: streams, request ids, launches, TTFT and decode tok/s (with
+    ``record`` each token's top-2 gap and top logit)."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    srv = eng.serve(**smoke_workload.fleet_kwargs("llama32_3b"))
+    tops: dict = {}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with (recorded_gaps(srv, tops) if record else contextlib.nullcontext({})) as gaps:
+        reqs = smoke_workload.submit_staggered(srv, prompts)
+        srv.run_until_idle()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for r in reqs:
+        require(r.done and r.error is None, f"phase d fleet twin: request {r.id} failed")
+    out = dict(tokens=[list(r.tokens) for r in reqs], ids=[r.id for r in reqs], gaps=gaps,
+               tops=tops, counts=counts, ttft=[r.first_token_at - r.submitted_at for r in reqs],
+               **fleet_numbers(reqs))
+    srv.close()
+    return out
+
+
+def fleet_numbers(reqs) -> dict:
+    """Decode tok/s (first token to last finish) and TTFT p50 / p99 (ms)."""
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    span = max(r.finished_at for r in reqs) - min(r.first_token_at for r in reqs)
+    return dict(tok_s=sum(len(r.tokens) - 1 for r in reqs) / span,
+                p50=float(np.percentile(ttft, 50) * 1e3), p99=float(np.percentile(ttft, 99) * 1e3))
+
+
+def fleet_line(name: str, got: dict, twin: dict) -> str:
+    return (f"{name}: decode {got['tok_s']:.1f} tok/s ({got['tok_s'] / twin['tok_s']:.3f} of the "
+            f"twin's {twin['tok_s']:.1f}), TTFT p50 {got['p50']:.0f} ms p99 {got['p99']:.0f} ms "
+            f"(twin {twin['p50']:.0f} / {twin['p99']:.0f} ms)")
+
+
+def fleet_runs(eng, store: str, smi: str) -> dict:
+    """[d] The fleet on the full 3B bf16 (the store's engine; its weights
+    copied to the host once, each replica staging its own): the one-replica
+    twin; ``ReplicatedServer`` dp 2; dp 2 with a transient ``replica_step``
+    fault on group 0 mid-decode (failover), then ``spawn_replica()`` (timed)
+    and ``drain(1)``; ``DisaggServer`` 1 + 1 with ``prefix_cache="hbm"``;
+    then the ``serve --data-parallel 2 --disagg`` daemon over HTTP. Every
+    request finishes; streams equal the twin's or first differ at a near
+    tie (``TIE_ULPS``; ``MIGRATED_ULPS`` for the in-process runs' migrated
+    and handed-off ones); every replica of dp 2 launches every kernel; hand-offs are
+    ``ok`` (``cold`` where a prompt has no whole block) and the bytes
+    counted are the streamed blocks'. Prints decode tok/s and TTFT beside
+    the twin's, requests and launches per replica, hand-offs by outcome
+    with their ms and bytes, the failover's wall and the spawn's seconds.
+    Returns each in-process fleet's launches per replica."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.runtime.disagg import DisaggServer
+    from llm_sharding_tpu_torch.runtime.faults import FaultPlan
+    from llm_sharding_tpu_torch.runtime.replicated import ReplicatedServer, map_params
+
+    t_all = time.perf_counter()
+    cfg = eng.cfg
+    kw = smoke_workload.fleet_kwargs("llama32_3b")
+    prompts = smoke_workload.fleet_order(smoke_workload.prompts(
+        cfg.vocab_size, np.random.default_rng(0), smoke_workload.FLEET["llama32_3b"].lens))
+    t0 = time.perf_counter()
+    host = map_params(lambda x: x.to("cpu"), eng.params)
+    log(f"[d] fleet on {smi}: host copy of the 3B weights in {time.perf_counter() - t0:.1f}s")
+    twin = fleet_twin(eng, prompts)
+    recorded: list = []
+
+    def rec():  # the twin recorded once, only if a stream differs
+        if not recorded:
+            recorded.append(fleet_twin(eng, prompts, record=True))
+        return recorded[0]
+
+    log("[d] " + fleet_line("3B fleet twin (1 replica, 320 blocks)", twin, twin))
+    out: dict = {}
+
+    def build(cls, **extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = cls(cfg, host, data_parallel=2, **extra, **kw)
+        torch.cuda.synchronize()
+        return srv, time.perf_counter() - t0
+
+    rs, up_s = build(ReplicatedServer)
+    with replica_launches() as per:
+        reqs, groups, _ = run_fleet(rs, prompts, smoke_workload.MAX_NEW)
+    rs.close()
+    del rs
+    torch.cuda.empty_cache()
+    got = [list(r.tokens) for r in reqs]
+    hold_to("3B dp=2 vs twin", got, twin["tokens"], rec)
+    out["dp2"] = {k: dict(v) for k, v in per.items()}
+    log(f"[d] " + fleet_line(f"3B dp=2 (up in {up_s:.1f}s)", fleet_numbers(reqs), twin))
+    log(f"[d] 3B dp=2: requests per replica {dict(collections.Counter(groups))}; launches per "
+        f"replica {out['dp2']}")
+    for r in ("r0", "r1"):
+        for k in ("flash_attention", "paged_attention", "paged_prefill"):
+            require(per[r][k] > 0, f"phase d dp=2: replica {r} never launched {k}")
+
+    b, mark = fleet_tally(), time.time()
+    rs, _ = build(ReplicatedServer, failure_threshold=1,
+                  fault_plan=FaultPlan.transient_at("replica_step", 14, key=0))
+    moves = count_moves(rs)
+    spawn_s = []
+
+    def spawn():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs.spawn_replica()
+        torch.cuda.synchronize()
+        spawn_s.append(time.perf_counter() - t0)
+
+    # the replica holding the 2048-token prompt cannot be emptied once that
+    # row has a token (its resumed prompt's bucket, 4096, leaves no room in
+    # the capacity for its budget: a drain would fail it), so the drain
+    # takes the revived replica's new traffic: two short prompts again
+    extra = []
+    reqs, _, _ = run_fleet(rs, prompts, smoke_workload.MAX_NEW, at={
+        22: spawn,
+        23: lambda: extra.extend(rs.submit(prompts[i], smoke_workload.MAX_NEW) for i in (0, 3)),
+        26: lambda: rs.drain(0)})
+    d = tally_delta(b)
+    fail = router_spans(mark, "failover")
+    migrated = {s["trace_id"] for s in router_spans(mark, "migrate") if s["outcome"] == "ok"}
+    rs.close()
+    del rs
+    torch.cuda.empty_cache()
+    require(d["failovers"] == 1 and d["spawns"] == 1 and d["drains"] == 1
+            and d["migrated_failed"] == 0 and d["migrated_ok"] == sum(moves) > 0
+            and len(moves) == 2 and moves[1] == 2,
+            f"phase d dp=2 chaos: deltas {d}, live rows at each migration {moves}")
+    require(all(r.done and r.error is None for r in extra), "phase d dp=2 chaos: extra failed")
+    moved = [r.trace.trace_id in migrated for r in reqs + extra]
+    hold_to("3B dp=2 failover/spawn/drain vs twin", [list(r.tokens) for r in reqs + extra],
+            twin["tokens"], rec, ulps=[MIGRATED_ULPS if m else TIE_ULPS for m in moved],
+            index=list(range(len(reqs))) + [0, 3])
+    log(f"[d] 3B dp=2 chaos on {smi}: failover of group 0 at its step 14 in "
+        f"{fail[0]['dur_s'] * 1e3:.0f} ms ({moves[0]} rows moved), spawn_replica() "
+        f"{spawn_s[0]:.2f}s, two new requests on it, drain(0) moved {moves[1]}; "
+        f"{sum(moved)} of {len(moved)} streams migrated, none dropped")
+
+    b, mark = fleet_tally(), time.time()
+    ds, up_s = build(DisaggServer, prefill_replicas=1, prefix_cache="hbm")
+    with replica_launches() as per:
+        reqs, _, _ = run_fleet(ds, prompts, smoke_workload.MAX_NEW)
+    ds.close()
+    del ds
+    torch.cuda.empty_cache()
+    d = tally_delta(b)
+    spans = router_spans(mark, "handoff")
+    outcomes = collections.Counter(s["outcome"] for s in spans)
+    streamed = sum(s.get("streamed", 0) for s in spans)
+    out["disagg"] = {k: dict(v) for k, v in per.items()}
+    # cold: a prompt under one block has nothing to stream; fallback: the
+    # 2048-token prompt's resumed prompt (bucket 4096) does not lay out on
+    # the decode side, so it decodes where it prefilled (no layout)
+    lens = [len(p) for p in prompts]
+    want_out = collections.Counter(
+        "cold" if n < 64 else "fallback" if n + 1 > 2048 else "ok" for n in lens)
+    require(outcomes == want_out and all(s.get("reason", "no_layout") == "no_layout"
+                                         for s in spans if s["outcome"] == "fallback"),
+            f"phase d disagg: hand-off outcomes {dict(outcomes)}, expected {dict(want_out)}")
+    require(d["bytes"] == sum(s.get("bytes", 0) for s in spans)
+            == streamed // 64 * block_bytes(cfg, 2),
+            f"phase d disagg: {d['bytes']} bytes counted for {streamed} streamed tokens")
+    handed = {s["trace_id"] for s in spans if s["outcome"] in ("ok", "cold")}
+    hold_to("3B disagg 1+1 vs twin", [list(r.tokens) for r in reqs], twin["tokens"], rec,
+            ulps=[MIGRATED_ULPS if r.trace.trace_id in handed else TIE_ULPS for r in reqs])
+    ms = [s["dur_s"] * 1e3 for s in spans if s["outcome"] == "ok"]
+    log(f"[d] " + fleet_line(f"3B disagg 1+1 (up in {up_s:.1f}s)", fleet_numbers(reqs), twin))
+    log(f"[d] 3B disagg on {smi}: hand-offs {dict(outcomes)}; ok hand-off ms p50 "
+        f"{np.percentile(ms, 50):.1f} max {max(ms):.1f}, {streamed} tokens / "
+        f"{d['bytes'] / 1e6:.1f} MB streamed ({[s.get('bytes') for s in spans]} B each); launches "
+        f"per replica {out['disagg']}")
+    # where an ok hand-off's wall goes: waiting for the sidecar, the stream
+    # (the replicas' mutexes and the copy), the wait for the router lock
+    log("[d] 3B disagg ok hand-offs (tokens: queue / stream / lock / all ms): " + ", ".join(
+        f"{s['streamed']}: {s['queue_s'] * 1e3:.1f} / {s['stream_s'] * 1e3:.1f} / "
+        f"{s['lock_s'] * 1e3:.1f} / {s['dur_s'] * 1e3:.1f}" for s in spans if s["outcome"] == "ok"))
+
+    tenants = os.path.join(os.path.dirname(store), "tenants.json")
+    with open(tenants, "w") as f:
+        json.dump(smoke_workload.TENANTS, f)
+    dm = Daemon(store, smoke_workload.fleet_daemon_args("llama32_3b"), tenants)
+    tag = "3B daemon --data-parallel 2 --disagg"
+    try:
+        key = smoke_workload.TENANTS["tenants"]["alice"]["key"]
+        warm = np.random.default_rng(99).integers(0, cfg.vocab_size, 300).astype(np.int32)
+        for n in (20, 300):
+            response_tokens(f"phase d {tag} warm-up", *http_post(
+                dm.port, "/v1/completions", {"prompt": [int(t) for t in warm[:n]],
+                                             "max_tokens": 2},
+                {"Authorization": f"Bearer {key}"})[:2])
+        t0 = time.perf_counter()
+        runs = http_workload(dm.port, prompts, smoke_workload.MAX_NEW)
+        wall = time.perf_counter() - t0
+        got = [r[0] for r in runs]
+        # the clients send all 8 within 150 ms, the twin each pair two steps
+        # after the last: other rows share each step, so the front door's
+        # near-tie rule holds here (a handed-off stream first differed at a
+        # 2.0 ulp gap on an NVIDIA H100)
+        hold_to(f"{tag} vs twin", got, twin["tokens"], rec)
+        firsts = [r[2] - r[1] for r in runs if r[2] is not None]
+        twin_firsts = [x for i, x in enumerate(twin["ttft"]) if smoke_workload.streamed(i)]
+        span = max(r[3] for r in runs) - min(r[2] for r in runs if r[2] is not None)
+        statz = json.loads(http_get(dm.metrics_port, "/statz")[1])
+        reps = [(e["replica"], e["role"], e["counters"]["requests_completed"])
+                for e in statz["replicas"]]
+        require([r[1] for r in reps] == ["prefill", "decode"], f"phase d {tag}: roles {reps}")
+        text = http_get(dm.metrics_port, "/metrics")[1].decode()
+        hand = {ln.split('outcome="')[1].split('"')[0]: float(ln.split()[-1])
+                for ln in text.splitlines() if ln.startswith("server_disagg_handoffs_total{")}
+        require(hand.get("ok", 0) >= want_out["ok"] and not hand.get("failed"),
+                f"phase d {tag}: hand-offs {hand}")
+        log(f"[d] {tag} on {smi}: up in {dm.startup_s:.1f}s; {len(got)} HTTP requests in "
+            f"{wall:.2f}s: decode {sum(len(g) - 1 for g in got) / span:.1f} tok/s, TTFT of the "
+            f"{len(firsts)} streamed requests p50 {np.percentile(firsts, 50) * 1e3:.0f} ms p99 "
+            f"{np.percentile(firsts, 99) * 1e3:.0f} ms (the twin: decode {twin['tok_s']:.1f} "
+            f"tok/s, the same requests' TTFT p50 {np.percentile(twin_firsts, 50) * 1e3:.0f} ms p99 "
+            f"{np.percentile(twin_firsts, 99) * 1e3:.0f} ms); replicas (group, role, completed) "
+            f"{reps}; hand-offs {hand}; the daemon's launches {statz['kernels']}")
+        dm.proc.send_signal(15)  # SIGTERM: nothing live, drains and exits 0
+        rc = dm.proc.wait(timeout=120)
+        dm._reader.join(timeout=10)
+        require(rc == 0 and "drained; exiting 0" in "".join(dm.lines),
+                f"phase d {tag}: SIGTERM exit {rc}:\n{dm.tail()}")
+    except Exception:
+        log(f"[d] {tag}: daemon stderr tail:\n{dm.tail()}")
+        raise
+    finally:
+        if dm.proc.poll() is None:
+            dm.proc.send_signal(15)
+            try:
+                dm.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                dm.kill()
+    del host
+    log(f"[d] 3B fleet took {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
+def phase_fleet(device, store_root: str) -> dict:
+    """``--fleet``: [c]'s fleet checks on the f32 3B at 4 layers and [d]'s
+    fleet runs on the full 3B bf16 from a port-written store, alone."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+    from llm_sharding_tpu_torch.utils.shard_store import save_shards
+
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=4)
+    cpu_params = llama.init_params(cfg, seed=7, dtype=torch.float32, device="cpu")
+    eng, cpu_eng = Engine(cfg, to_device(cpu_params, device)), Engine(cfg, cpu_params)
+    rng = np.random.default_rng(7)
+    lens = [40, 200, 700, 1000]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    want = check_against_generate("3B", eng, prompts, lens, 16)
+    t0 = time.perf_counter()
+    check_fleet("3B", eng, cpu_eng, prompts, lens, 16, want)
+    log(f"[c] 3B fleet checks took {time.perf_counter() - t0:.1f}s")
+    del eng, cpu_eng, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config.llama32_3b()
+    t0 = time.perf_counter()
+    store = os.path.join(store_root, "llama32_3b_bf16")
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(cfg, params, store)
+    del params
+    torch.cuda.empty_cache()
+    eng = load_store(store, "3B bf16", device, time.perf_counter() - t0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    return fleet_runs(eng, store, smi)
+
+
 def match_frac(tokens, base) -> float:
     return float(np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)]))
 
@@ -3113,6 +3657,14 @@ def main(argv: list) -> int:
         spills = [ln.strip() for ln in k.build_log.splitlines() if "spill" in ln and " 0 bytes spill" not in ln]
         log(f"[a] built {k.source}; non-zero spill lines: {len(spills)}")
     log(f"[a] kernel build: {secs:.1f}s (nvcc, sm_90a, one process per source)")
+    if argv[:1] == ["--fleet"]:
+        store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        try:
+            print(json.dumps({"replica_launches": phase_fleet(device, store)}))
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        log(f"[e] total {time.perf_counter() - t_all:.0f}s")
+        return 0
     if argv[:1] == ["--kernels"]:
         rows = [r for m in argv[1:]
                 for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",))]
@@ -3149,6 +3701,10 @@ def main(argv: list) -> int:
     for r in rows:
         run = r["model"] if r["workload"] == "standard" else f"{r['model']}/{r['workload']}"
         r["launches"] = counts[run][r["name"]]
+        if run == "llama32_3b":  # the fleet's runs of the same workload, per replica
+            r["replica_launches"] = {
+                fleet: {rep: c.get(r["name"], 0) for rep, c in sorted(per.items())}
+                for fleet, per in counts["llama32_3b/fleet"].items()}
     log(f"[e] total {time.perf_counter() - t_all:.0f}s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

@@ -17,7 +17,11 @@ tenant fairness (``runtime/ingress.py``; ``--tenants-config``),
 ``--metrics-port`` the ``/metrics`` exposition, and SIGTERM drains: new
 HTTP requests are shed with 503, live ones finish, the daemon exits 0. A
 store without a tokenizer still serves: HTTP takes token-id prompts and
-stdin lines are refused one by one. Both commands run on the GPU unless
+stdin lines are refused one by one. ``--data-parallel N`` serves N
+replicas behind the supervised router (``runtime/replicated.py``; all on
+the one ``--device``), with ``:drain N`` and ``:spawn``, ``--autoscale``
+and ``--disagg`` prefill/decode roles (``runtime/disagg.py``;
+``--prefill-replicas``, ``--roles``, ``--profile-json``). Both commands run on the GPU unless
 ``--device cpu`` is given (the one flag the JAX parser lacks). Flags of
 later slices keep the JAX names and exit 2 before the model loads, naming
 the ``ROADMAP.md`` item that ports them.
@@ -129,19 +133,6 @@ def cmd_generate(args) -> int:
 
 # flags the JAX parser has and a later slice ports: (dest, default, flag, item)
 _LATER_SLICE_FLAGS = (
-    ("data_parallel", 1, "--data-parallel", "§A 14 (fleet)"),
-    ("min_replicas", 1, "--min-replicas", "§A 14 (fleet)"),
-    ("disagg", False, "--disagg", "§A 14 (fleet)"),
-    ("prefill_replicas", 0, "--prefill-replicas", "§A 14 (fleet)"),
-    ("roles", None, "--roles", "§A 14 (fleet)"),
-    ("profile_json", None, "--profile-json", "§A 14 (fleet)"),
-    ("autoscale", False, "--autoscale", "§A 14 (fleet)"),
-    ("autoscale_up_load", 0.8, "--autoscale-up-load", "§A 14 (fleet)"),
-    ("autoscale_down_load", 0.3, "--autoscale-down-load", "§A 14 (fleet)"),
-    ("autoscale_up_after", 1.0, "--autoscale-up-after", "§A 14 (fleet)"),
-    ("autoscale_down_after", 5.0, "--autoscale-down-after", "§A 14 (fleet)"),
-    ("autoscale_cooldown", 3.0, "--autoscale-cooldown", "§A 14 (fleet)"),
-    ("rebalance_every", 30.0, "--rebalance-every", "§A 14 (fleet)"),
     ("ranges", None, "--ranges", "§A 15 (pipeline parallelism)"),
     ("tensor_parallel", 1, "--tensor-parallel", "§A 16 (tensor, context and multi-host)"),
     ("cp", 1, "--cp", "§A 16 (tensor, context and multi-host)"),
@@ -214,6 +205,100 @@ def _serve_control(srv, line: str) -> None:
               file=sys.stderr)
 
 
+def _dp_serve_control(srv, line: str) -> None:
+    """The replicated daemon's control lines (JAX ``cli.py:354-432``):
+    ``:drain N`` migrates every live request off replica N and closes it
+    (refused below ``--min-replicas``), ``:spawn`` brings a replica up on
+    the lowest freed group, ``:counters`` / ``:stats`` (the router's view:
+    per-replica health, load and KV, plus every registry metric) and
+    ``:profile N [DIR]`` (the capture fan-out over every replica)."""
+    from .obs.metrics import REGISTRY
+
+    parts = line.split(None, 1)
+    cmd = parts[0]
+    if cmd == ":counters":
+        print(json.dumps(srv.counters.snapshot()), file=sys.stderr)
+    elif cmd == ":stats":
+        print(json.dumps({**srv.stats(), "metrics": REGISTRY.json_snapshot()}, sort_keys=True),
+              file=sys.stderr)
+    elif cmd == ":drain":
+        if len(parts) < 2:
+            print("usage: :drain N  (replica device-group index)", file=sys.stderr)
+            return
+        try:
+            moved = srv.drain(int(parts[1]))
+            print(f"replica {int(parts[1])} drained: {moved} request(s) migrated; "
+                  f"{len(srv.servers)} replica(s) live", file=sys.stderr)
+        except (ValueError, RuntimeError) as e:
+            print(f"drain failed: {e}", file=sys.stderr)
+    elif cmd == ":spawn":
+        try:
+            s = srv.spawn_replica()
+            print(f"replica spawned on group {srv._group_of[s]}; {len(srv.servers)} "
+                  "replica(s) live", file=sys.stderr)
+        except (ValueError, RuntimeError) as e:
+            print(f"spawn failed: {e}", file=sys.stderr)
+    elif cmd == ":profile":
+        sub = parts[1].split() if len(parts) > 1 else []
+        if not sub:
+            print("usage: :profile N [TRACE_DIR]", file=sys.stderr)
+            return
+        try:
+            bundle = srv.stepline_capture(int(sub[0]), trace_dir=sub[1] if len(sub) > 1 else None)
+        except ValueError as e:
+            print(f"profile failed: {e}", file=sys.stderr)
+            return
+        print(json.dumps(bundle, sort_keys=True), file=sys.stderr)
+    else:
+        print(f"unknown control line {cmd!r} (dp daemon: :drain N, :spawn, :counters, "
+              ":stats, :profile)", file=sys.stderr)
+
+
+def _fleet_fast_fail(args) -> str:
+    """The fleet flags' checks (JAX ``cli.py:554-640``), in its order and
+    with its words; '' when they hold together."""
+    if args.autoscale and args.data_parallel < 2:
+        return ("--autoscale needs --data-parallel >= 2 (the autoscaler "
+                "drives ReplicatedServer drain/spawn between --min-replicas "
+                "and the replica count)")
+    if (args.prefill_replicas or args.roles or args.profile_json) and not args.disagg:
+        return "--prefill-replicas/--roles/--profile-json need --disagg"
+    if not args.disagg:
+        return ""
+    dp = args.data_parallel
+    if dp < 2:
+        return ("--disagg needs --data-parallel >= 2 (prefill and "
+                "decode pools each need at least one replica group)")
+    if not args.kv_block_size:
+        return ("--disagg needs paged KV serving "
+                "(--kv-block-size/--kv-blocks): the hand-off engine "
+                "streams arena blocks between replicas")
+    if args.prefix_cache == "off":
+        return ("--disagg needs --prefix-cache hbm, host or disk: the "
+                "hand-off lands streamed KV in the decode replica's radix "
+                "tree so adoption skips re-prefill")
+    if args.prefill_replicas and args.roles:
+        return "--prefill-replicas and --roles are mutually exclusive"
+    if args.prefill_replicas and not 1 <= args.prefill_replicas <= dp - 1:
+        return (f"--prefill-replicas must be in [1, {dp - 1}] (both sides need at "
+                f"least one replica), got {args.prefill_replicas}")
+    if args.roles:
+        from .obs.metrics import REPLICA_ROLES
+
+        roles = [r.strip() for r in args.roles.split(",")]
+        if len(roles) != dp or any(r not in REPLICA_ROLES for r in roles):
+            return (f"--roles needs {dp} comma-separated values from {REPLICA_ROLES}, "
+                    f"got {args.roles!r}")
+    if args.profile_json:
+        from .runtime.placement import PlacementPlanner
+
+        try:
+            PlacementPlanner.from_json(args.profile_json)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            return f"bad --profile-json: {e}"
+    return ""
+
+
 def _fast_fail(args) -> str:
     """The JAX daemon's checks that need no model (``cli.py:439-642``), with
     its messages; '' when the flags hold together."""
@@ -252,6 +337,9 @@ def _fast_fail(args) -> str:
     if args.tenants_config and not args.http_port:
         return ("--tenants-config needs --http-port (tenant policy is "
                 "enforced at the HTTP ingress; stdin prompts have no tenant)")
+    bad = _fleet_fast_fail(args)
+    if bad:
+        return bad
     if args.tenants_config:
         from .runtime.fairness import load_tenants_config
 
@@ -334,12 +422,18 @@ def _restore(eng, args):
 def cmd_serve(args) -> int:
     """The daemon (JAX ``cli.py:433``): one prompt per stdin line, its
     completion streamed per line; ``:`` lines are control lines
-    (``_serve_control``). The checks that need no model run first and exit
-    2, the SIGTERM handler is installed before the model loads (and the
-    caller's handler restored when the daemon returns)."""
+    (``_serve_control``, ``_dp_serve_control`` with ``--data-parallel``).
+    The checks that need no model run first and exit 2, the SIGTERM
+    handler is installed before the model loads (and the caller's handler
+    restored when the daemon returns)."""
     bad = _fast_fail(args)
     if bad:
         print(f"error: {bad}", file=sys.stderr)
+        return 2
+    if args.data_parallel > 1 and args.restore:
+        # JAX cli.py:664-676: one snapshot per replica has no CLI wiring
+        print("--restore with --data-parallel is not supported from the CLI; use "
+              "ReplicatedServer.snapshot/restore_into", file=sys.stderr)
         return 2
     # SIGTERM drains: installed before the model loads, so the contract
     # holds from the first moment a supervisor can see the daemon
@@ -357,6 +451,80 @@ def cmd_serve(args) -> int:
             signal.signal(signal.SIGTERM, prev)
 
 
+def _fleet(args):
+    """``--data-parallel N``: N replicas behind the supervised router (JAX
+    ``cli.py:661-760``), every one on ``--device`` (one GPU serves them
+    all), the weights loaded once on the host; ``--disagg`` gives them
+    prefill/decode roles. Returns the router."""
+    from .device import resolve_device
+    from .utils import shard_store
+
+    dev = resolve_device(args.device)  # no GPU: raise before loading
+    cfg, params = shard_store.load_full(args.shards, dtype=_dtype(args.dtype), device="cpu")
+    extra: dict = {}
+    if args.disagg:
+        from .runtime.disagg import DisaggServer as cls
+
+        roles = [r.strip() for r in args.roles.split(",")] if args.roles else None
+        planner = None
+        if args.profile_json:
+            from .runtime.placement import PlacementPlanner
+
+            planner = PlacementPlanner.from_json(args.profile_json)
+        extra = dict(roles=roles, planner=planner,
+                     prefill_replicas=args.prefill_replicas or (1 if roles is None else None))
+    else:
+        from .runtime.replicated import ReplicatedServer as cls
+    srv = cls(cfg, params, data_parallel=args.data_parallel, devices=[dev] * args.data_parallel,
+              tokenizer=shard_store.load_tokenizer(args.shards),
+              min_replicas=args.min_replicas, **extra, **_serve_kwargs(args))
+    s0 = srv.servers[0]
+    mode = ("dense" if s0.kv_block_size is None
+            else f"paged {s0.kv_blocks} x {s0.kv_block_size}")
+    roles = ""
+    if args.disagg:
+        roles = (" [disagg roles: " + ",".join(srv.roles[d] for d in sorted(srv.roles))
+                 + (", planner: profile.json fits" if srv.planner is not None
+                    else ", planner: none (load routing)") + "]")
+    print(f"serving {cfg.model_type}: {args.data_parallel} replicas on {dev} "
+          f"(capacity={s0.capacity}, rows={s0.rows}, {mode}){roles}; enter a prompt, ^D to "
+          "exit; :drain N / :spawn resize the replica set live", file=sys.stderr)
+    return srv
+
+
+def _start_autoscaler(args, srv, ingress, term: threading.Event):
+    """``--autoscale`` (JAX ``cli.py:934-976``): the controller ticks from
+    the ingress's own thread, with the fair-queue backlog in its load
+    signal, or without ``--http-port`` from a thread of its own."""
+    import time
+
+    from .runtime.autoscale import Autoscaler
+
+    scaler = Autoscaler(
+        srv, min_replicas=args.min_replicas, scale_up_load=args.autoscale_up_load,
+        scale_down_load=args.autoscale_down_load, up_after_s=args.autoscale_up_after,
+        down_after_s=args.autoscale_down_after, cooldown_s=args.autoscale_cooldown,
+        rebalance_every_s=args.rebalance_every,
+        extra_load=(lambda: ingress.fair.depth()) if ingress is not None else None,
+    )
+    if ingress is not None:
+        ingress.attach_autoscaler(scaler)
+    else:
+        def tick_forever():
+            while not term.is_set():
+                try:
+                    scaler.tick()
+                except Exception as e:  # noqa: BLE001 — policy errors never kill the daemon
+                    print(f"autoscale tick failed: {e}", file=sys.stderr)
+                time.sleep(0.25)
+
+        threading.Thread(target=tick_forever, daemon=True, name="autoscale-tick").start()
+    print(f"autoscale: replicas in [{scaler.min_replicas}, {scaler.max_replicas}], up at "
+          f"load >= {scaler.scale_up_load:g}, down at <= {scaler.scale_down_load:g}",
+          file=sys.stderr)
+    return scaler
+
+
 def _serve(args, term: threading.Event) -> int:
     """The daemon's body once its flags hold together (``cmd_serve``)."""
     from .runtime.server import QueueFull, RequestFailed, ServerClosed
@@ -364,12 +532,17 @@ def _serve(args, term: threading.Event) -> int:
     from .ops.kernels import launch_counts as kernel_launches
     from .runtime.engine import text_deltas
 
-    eng = _engine(args)
-    srv = _restore(eng, args) if args.restore else eng.serve(**_serve_kwargs(args))
-    mode = ("dense" if srv.kv_block_size is None
-            else f"paged {srv.kv_blocks} x {srv.kv_block_size}")
-    print(f"serving {eng.cfg.model_type} on {eng.device} (capacity={srv.capacity}, "
-          f"rows={srv.rows}, {mode}); enter a prompt, ^D to exit", file=sys.stderr)
+    fleet = args.data_parallel > 1
+    if fleet:
+        srv = _fleet(args)
+        eng = srv.engines[0]
+    else:
+        eng = _engine(args)
+        srv = _restore(eng, args) if args.restore else eng.serve(**_serve_kwargs(args))
+        mode = ("dense" if srv.kv_block_size is None
+                else f"paged {srv.kv_blocks} x {srv.kv_block_size}")
+        print(f"serving {eng.cfg.model_type} on {eng.device} (capacity={srv.capacity}, "
+              f"rows={srv.rows}, {mode}); enter a prompt, ^D to exit", file=sys.stderr)
     ingress = None
     metrics_srv = _start_metrics(
         args.metrics_port,
@@ -378,6 +551,7 @@ def _serve(args, term: threading.Event) -> int:
             "stepline": lambda: srv.stepline_stats(),
             # each CUDA kernel's launches in this process (0 on the CPU)
             "kernels": kernel_launches,
+            **({"replicas": lambda: srv.stats()["replicas"]} if fleet else {}),
         },
         health=lambda: ingress.health if ingress is not None else srv.health,
         profilez=lambda steps, wait_s: (
@@ -402,13 +576,15 @@ def _serve(args, term: threading.Event) -> int:
         if ingress is not None:
             print(f"ingress: http://127.0.0.1:{ingress.port}/v1/completions "
                   f"(tenants: {', '.join(ingress.fair.tenants())})", file=sys.stderr)
+    if args.autoscale:
+        _start_autoscaler(args, srv, ingress, term)
     n_prompt = 0
     for line in _stdin_lines(term):
         prompt = line.rstrip("\n")
         if not prompt:
             continue
         if prompt.startswith(":"):
-            _serve_control(srv, prompt)
+            (_dp_serve_control if fleet else _serve_control)(srv, prompt)
             continue
         if tok is None:
             print("rejected: this store has no tokenizer — text prompts need one (the "
@@ -443,7 +619,7 @@ def _serve(args, term: threading.Event) -> int:
         if ingress is not None and not ingress.wait_idle(timeout_s=args.drain_grace):
             print("warning: drain grace expired with streams still live — raise "
                   "--drain-grace to let long completions finish", file=sys.stderr)
-        if args.snapshot_dir:
+        if args.snapshot_dir and not fleet:  # a fleet's snapshot is one per replica
             from .runtime.server import save_snapshot
 
             try:
@@ -651,30 +827,46 @@ def _add_serve(sub) -> None:
                    help="JSONL span file (PATH.ingress gets the HTTP root spans)")
     s.add_argument("--gauge-sweep-every", type=float, default=0.0, dest="gauge_sweep_every",
                    help="pace the per-step load-gauge sweep (seconds; 0 = every step)")
+    # the fleet (runtime/replicated.py, disagg.py, autoscale.py)
+    s.add_argument("--data-parallel", type=int, default=1, dest="data_parallel",
+                   help="serve N replicas behind the supervised least-loaded router, all on "
+                   "--device (one GPU serves them all)")
+    s.add_argument("--min-replicas", type=int, default=1, dest="min_replicas",
+                   help="with --data-parallel: refuse ':drain N' below this many live replicas")
+    s.add_argument("--autoscale", action="store_true",
+                   help="with --data-parallel: drain/spawn replicas from the load signal "
+                   "(queued + in-flight + ingress backlog over live slots) with hysteresis")
+    for flag, dest, default, what in (
+        ("--autoscale-up-load", "autoscale_up_load", 0.8, "spawn at load >= this, sustained"),
+        ("--autoscale-down-load", "autoscale_down_load", 0.3, "drain at load <= this, sustained"),
+        ("--autoscale-up-after", "autoscale_up_after", 1.0, "seconds high load must sustain"),
+        ("--autoscale-down-after", "autoscale_down_after", 5.0, "seconds low load must sustain"),
+        ("--autoscale-cooldown", "autoscale_cooldown", 3.0,
+         "seconds after a scale action that only observe"),
+        ("--rebalance-every", "rebalance_every", 30.0,
+         "with --autoscale --disagg --profile-json: seconds between role-rebalance attempts "
+         "(0 = off)"),
+    ):
+        s.add_argument(flag, dest=dest, type=float, default=default,
+                       help=f"{what} (default {default:g})")
+    s.add_argument("--disagg", action="store_true",
+                   help="prefill/decode roles (with --data-parallel >= 2, --kv-block-size/"
+                   "--kv-blocks and --prefix-cache): prefill replicas hand each request's KV "
+                   "blocks to a decode replica after its first token; default 1 prefill, rest "
+                   "decode")
+    s.add_argument("--prefill-replicas", type=int, default=0, dest="prefill_replicas",
+                   help="with --disagg: the first N replicas prefill, the rest decode")
+    s.add_argument("--roles", default=None,
+                   help="with --disagg: comma-separated prefill/decode/unified per replica")
+    s.add_argument("--profile-json", default=None, dest="profile_json",
+                   help="with --disagg: a profile.json (or its directory) of fitted "
+                   "prefill/decode latency models for the placement planner")
     # later slices: parsed under the JAX names, refused before the model loads
     s.add_argument("--stages", type=int)
     s.add_argument("--ranges")
-    for flag, dest, kind, default in (
-        ("--data-parallel", "data_parallel", int, 1),
-        ("--tensor-parallel", "tensor_parallel", int, 1),
-        ("--cp", "cp", int, 1),
-        ("--min-replicas", "min_replicas", int, 1),
-        ("--autoscale-up-load", "autoscale_up_load", float, 0.8),
-        ("--autoscale-down-load", "autoscale_down_load", float, 0.3),
-        ("--autoscale-up-after", "autoscale_up_after", float, 1.0),
-        ("--autoscale-down-after", "autoscale_down_after", float, 5.0),
-        ("--autoscale-cooldown", "autoscale_cooldown", float, 3.0),
-        ("--rebalance-every", "rebalance_every", float, 30.0),
-        ("--prefill-replicas", "prefill_replicas", int, 0),
-        ("--roles", "roles", str, None),
-        ("--profile-json", "profile_json", str, None),
-    ):
-        s.add_argument(flag, dest=dest, type=kind, default=default,
-                       help="a later slice of the port (ROADMAP.md §A 14-16)")
-    s.add_argument("--autoscale", action="store_true",
-                   help="a later slice of the port (ROADMAP.md §A 14)")
-    s.add_argument("--disagg", action="store_true",
-                   help="a later slice of the port (ROADMAP.md §A 14)")
+    for flag, dest in (("--tensor-parallel", "tensor_parallel"), ("--cp", "cp")):
+        s.add_argument(flag, dest=dest, type=int, default=1,
+                       help="a later slice of the port (ROADMAP.md §A 16)")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
 

@@ -4,9 +4,10 @@ registry core and the paged-KV / prefix-cache gauges the server's load
 sweep feeds): that module is stdlib only, but importing it pulls jax in
 through ``llm_sharding_tpu/obs/__init__.py``. Its locks are built by the
 port's ``analysis.lockorder.named_lock`` under the JAX names
-(``obs.metrics.*``). The families of later slices (replica state and role,
-prefill path, jit shape keys, ingress, autoscale, disagg) stay with those
-slices.
+(``obs.metrics.*``). The families of the port's layers follow: the
+ingress, the fleet (cluster index, replica supervision and roles, disagg
+hand-offs, autoscale). Those of later slices (prefill path, jit shape keys,
+context-parallel streams) stay with those slices.
 
 One ``Registry`` holds every metric family; families are labeled
 (Prometheus-style), children are created on first use, and every mutation
@@ -560,6 +561,130 @@ KV_DISK_TIER_BLOCKS = REGISTRY.gauge(
     "disk→host→arena on a later radix hit, and the pool survives "
     "restarts)",
 )
+GLOBAL_INDEX_ENTRIES = REGISTRY.gauge(
+    "server_global_index_entries",
+    "Live {prefix-hash, replica} entries in the cluster-global radix "
+    "index — the map replicas publish their tree contents into and the "
+    "fleet router consults before placing a request (deepest match "
+    "first, then warmest tier)",
+)
+
+
+# -- replica supervision (runtime/replicated.py) ----------------------------
+# The JAX names, kinds, labels and help (JAX ``obs/metrics.py:634-685``): the
+# families exist, and show 0 / no series, before the first ReplicatedServer.
+REPLICA_FAILOVERS = REGISTRY.counter(
+    "server_replica_failovers_total",
+    "Replicas the router classified as FAILED (step raised, or containment "
+    "events crossed the failure threshold inside the window) and failed "
+    "over: quarantined, live requests migrated to survivors, then closed",
+)
+REPLICA_DRAINS = REGISTRY.counter(
+    "server_replica_drains_total",
+    "Elective replica drains (stop admitting, migrate every live request "
+    "out, close): the scale-down half of dp elasticity",
+)
+REPLICA_SPAWNS = REGISTRY.counter(
+    "server_replica_spawns_total",
+    "Replicas spawned onto a freed device group (weights re-staged from "
+    "the shared host arrays): the scale-up half of dp elasticity",
+)
+REQUESTS_MIGRATED = REGISTRY.counter(
+    "server_requests_migrated_total",
+    "Live requests moved between replicas during failover/drain, by "
+    "outcome (ok = re-admitted on a survivor with its stream intact, "
+    "failed = no survivor could adopt it — the request fails typed)",
+    labels=("outcome",),
+)
+
+#: Router-level per-replica states: the three server health states, plus
+#: QUARANTINED (classified failed; migration in progress) and OFFLINE (no
+#: live replica on the device group — drained/failed-over, spawnable).
+REPLICA_STATES = (
+    "SERVING", "DEGRADED", "DRAINING", "QUARANTINED", "OFFLINE",
+)
+REPLICA_STATE = REGISTRY.gauge(
+    "server_replica_state",
+    "Per-replica supervision state, one-hot per replica label (the replica "
+    "label is the device-group index, stable across drain/spawn cycles): "
+    "exactly one state is 1 for each replica",
+    labels=("replica", "state"),
+)
+
+
+def set_replica_state(replica, state: str) -> None:
+    """One-hot flip of ``server_replica_state`` for one replica label (the
+    per-replica analogue of ``StateGauge.set_state`` — a labeled StateGauge
+    per replica would need dynamic registration; this keeps one family)."""
+    if state not in REPLICA_STATES:
+        raise ValueError(
+            f"unknown replica state {state!r}; expected one of "
+            f"{REPLICA_STATES}"
+        )
+    r = str(replica)
+    for s in REPLICA_STATES:
+        REPLICA_STATE.labels(replica=r, state=s).set(1.0 if s == state else 0.0)
+
+
+
+# -- disaggregated prefill/decode serving (runtime/disagg.py) ---------------
+# JAX ``obs/metrics.py:690-746`` without ``server_cp_stream_shards_total``,
+# which comes with context parallelism (ROADMAP.md §A 16).
+DISAGG_HANDOFFS = REGISTRY.counter(
+    "server_disagg_handoffs_total",
+    "Prefill→decode request hand-offs, by outcome (ok = KV blocks streamed "
+    "and the decode replica resumed through the arena-gathered prefix — "
+    "zero re-prefill FLOPs; cold = adopted without streamable KV (the "
+    "decode side re-prefills, token-identically); retried = a transient "
+    "kv_handoff fault deferred the hand-off one sweep; fallback = a "
+    "permanent fault or refused adopt left the request decoding where the "
+    "supervision layer could place it; no_target = no decode-capable "
+    "replica live, the request keeps decoding on its prefill replica; "
+    "failed = no replica could adopt the extracted request — it fails "
+    "typed)",
+    labels=("outcome",),
+)
+HANDOFF_BYTES = REGISTRY.counter(
+    "server_handoff_bytes_total",
+    "Host bytes of KV block data streamed between replicas (prefill→decode "
+    "hand-offs and cross-replica radix fills; quantized arenas stream "
+    "codes + scales, so the figure reflects the wire cost, not the "
+    "logical bf16 size)",
+)
+#: Replica roles in a disaggregated deployment: ``prefill`` replicas admit
+#: fresh requests and hand their KV off after the first token, ``decode``
+#: replicas resume them, ``unified`` replicas do both (the classic mode).
+REPLICA_ROLES = ("prefill", "decode", "unified")
+REPLICA_ROLE = REGISTRY.gauge(
+    "server_replica_role",
+    "Per-replica serving role, one-hot per replica label (the replica "
+    "label is the device-group index): exactly one role is 1 for each "
+    "replica of a disaggregated router; role assignment survives "
+    "drain/spawn cycles on the group",
+    labels=("replica", "role"),
+)
+
+
+def set_replica_role(replica, role: str) -> None:
+    """One-hot flip of ``server_replica_role`` for one replica label (the
+    role analogue of ``set_replica_state``)."""
+    if role not in REPLICA_ROLES:
+        raise ValueError(
+            f"unknown replica role {role!r}; expected one of {REPLICA_ROLES}"
+        )
+    r = str(replica)
+    for x in REPLICA_ROLES:
+        REPLICA_ROLE.labels(replica=r, role=x).set(1.0 if x == role else 0.0)
+
+
+DISAGG_TTFT_ERROR = REGISTRY.gauge(
+    "server_disagg_ttft_error",
+    "Relative |predicted − observed| / observed TTFT of the most recent "
+    "planner-routed request: how well the profiler's fitted latency "
+    "models track the live system (persistently high error means the "
+    "profile.json was fitted on different hardware or load)",
+)
+
 
 
 # -- production ingress (runtime/ingress.py + runtime/fairness.py) ---------
@@ -615,3 +740,27 @@ TENANT_THROTTLED = REGISTRY.counter(
     "a 429 with Retry-After, never a queue-timeout death",
     labels=("tenant", "reason"),
 )
+
+# -- load-driven autoscaling (runtime/autoscale.py) -------------------------
+# JAX ``obs/metrics.py:812-830``.
+AUTOSCALE_SPAWNS = REGISTRY.counter(
+    "server_autoscale_spawns_total",
+    "Replica spawns initiated by the autoscaler (a subset of "
+    "server_replica_spawns_total, which also counts :spawn and API calls)",
+)
+AUTOSCALE_DRAINS = REGISTRY.counter(
+    "server_autoscale_drains_total",
+    "Replica drains initiated by the autoscaler (a subset of "
+    "server_replica_drains_total)",
+)
+AUTOSCALE_REPLICAS = REGISTRY.gauge(
+    "server_autoscale_replicas",
+    "Live replica count as of the autoscaler's last tick",
+)
+AUTOSCALE_LOAD = REGISTRY.gauge(
+    "server_autoscale_load",
+    "The load signal the autoscaler last evaluated: (backend queued + "
+    "in-flight + ingress fair-queue depth) / live slot capacity — >1 "
+    "means work is waiting that no live slot can take",
+)
+

@@ -310,17 +310,71 @@ def gather_prefix_kv(state: ServeState, blocks: list, out_dtype: torch.dtype) ->
     return out[0], out[1], pos
 
 
-def read_arena_blocks(state: ServeState, blocks: list) -> tuple:
-    """Device→host copy of arena blocks (the host half of JAX
-    ``runtime/server.py:3145``/``:3176``): ``(k, v)`` numpy ``[1, L, nb,
-    BS, Nkv, D]`` in the arena's bytes (``_raw``), plus ``(k_scale,
-    v_scale)`` ``[1, L, nb, Nkv]`` f32 for an int8/fp8 arena. The copy is
-    complete when this returns."""
-    idx = torch.as_tensor(blocks, dtype=torch.long, device=state.k.device)
+def _host_bytes(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's bytes as numpy without a copy (``_raw``'s views)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
+
+
+class BlockRead:
+    """Arena blocks gathered on the device and on their way to the host
+    (the JAX ``_read_arena_blocks_dispatch``'s device arrays,
+    ``runtime/server.py:3145``). Building one queues the work and waits for
+    none of it: the gathers go on the current stream, behind every program
+    already queued there (so they read the bytes those programs wrote, and
+    the arena's later writes cannot reach the gathered copies); on the card
+    a ``non_blocking`` copy into pinned host buffers follows, then an event.
+    ``numpy()`` waits for that event (releasing the interpreter lock) and
+    returns the host bytes: call it outside the server's mutex."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, parts: tuple):
+        if parts[0].device.type == "cuda":
+            self.host = tuple(
+                torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in parts
+            )
+            for h, p in zip(self.host, parts):
+                h.copy_(p, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:  # the gathers ran in the call: fresh host tensors already
+            self.host, self.event = parts, None
+
+    def numpy(self, keep_pinned: bool = True) -> tuple:
+        """``read_arena_blocks``'s arrays, once the copy has landed: views
+        of the pinned buffers, or with ``keep_pinned=False`` pageable
+        copies (what a long-lived holder such as the tree's host tier
+        keeps, so pinned memory is not held for the cache's lifetime)."""
+        if self.event is None:
+            return tuple(_host_bytes(h)[None] for h in self.host)
+        self.event.synchronize()
+        return tuple(
+            _host_bytes(h if keep_pinned else h.clone())[None] for h in self.host
+        )
+
+
+def read_arena_blocks_dispatch(state: ServeState, blocks: list) -> BlockRead:
+    """Queue the gathers of arena blocks and their copy to the host
+    (``BlockRead``); the JAX ``runtime/server.py:3145``. Nothing here waits
+    for the device: the block ids go up through a pinned staging copy."""
+    idx = to_device(np.asarray(blocks, np.int64), state.k.device)
     parts = [state.k, state.v]
     if state.k_scale is not None:
         parts += [state.k_scale, state.v_scale]
-    return tuple(_raw(_take(a, (slice(None), idx)))[None] for a in parts)
+    return BlockRead(tuple(_take(a, (slice(None), idx)) for a in parts))
+
+
+def read_arena_blocks(state: ServeState, blocks: list) -> tuple:
+    """Device→host copy of arena blocks (JAX ``runtime/server.py:3176``):
+    ``(k, v)`` numpy ``[1, L, nb, BS, Nkv, D]`` in the arena's bytes
+    (``_raw``), plus ``(k_scale, v_scale)`` ``[1, L, nb, Nkv]`` f32 for an
+    int8/fp8 arena: the dispatch half, then the wait for the copy. The
+    copy is complete when this returns; the arrays are pageable."""
+    return read_arena_blocks_dispatch(state, blocks).numpy(keep_pinned=False)
 
 
 def write_arena_blocks(k_arena, v_arena, blocks: list, k_host, v_host) -> None:

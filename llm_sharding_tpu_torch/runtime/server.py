@@ -578,7 +578,7 @@ def _validate_prefix_cache(prefix_cache, host_pool_blocks, disk_pool_dir, disk_p
 
 def _read_arena_blocks(state, blocks) -> tuple:
     """Device→host copy of arena blocks for the tree's host tier
-    (``server.py:3176``)."""
+    (``server.py:3176``): the dispatch half, then the copy's wait."""
     return serve_ops.read_arena_blocks(state, list(blocks))
 
 
@@ -617,12 +617,16 @@ class _InFlight:
     have landed: nothing waits at dispatch. On the CPU the program ran
     inside the dispatch and its log is on the host already."""
 
-    __slots__ = ("kind", "log", "host", "event", "meta", "done_at")
+    __slots__ = ("kind", "log", "host", "event", "meta", "done_at", "rng_marks")
 
-    def __init__(self, kind: str, log: torch.Tensor, meta):
+    def __init__(self, kind: str, log: torch.Tensor, meta, rng_marks=None):
         self.kind = kind  # "admit", "chunk" or "spec"
         self.log = log
         self.meta = meta  # admit, chunk: [(row, req)]; spec: [(row, req, k, draft)]
+        # {row: generator state before the program drew} of its sampled
+        # rows (``_rng_marks``): what an unsettled extract carries, so the
+        # adopter redraws the dropped tokens as the source drew them
+        self.rng_marks = rng_marks
         # perf_counter when the host first saw the log landed: the
         # device-idle estimate's start
         self.done_at: Optional[float] = None
@@ -946,6 +950,8 @@ class PipelineServer:
         self._admitting: set[int] = set()
         # the logs of dispatched programs not yet applied, oldest first
         self._pending: collections.deque[_InFlight] = collections.deque()
+        # the generator marks of the program being dispatched (_push_pending)
+        self._rng_marks_next: Optional[dict] = None
         # the newest program's entry while its landing is not yet charged
         # as device idle (None: the newest program returned no log)
         self._newest: Optional[_InFlight] = None
@@ -1779,8 +1785,10 @@ class PipelineServer:
         sampled row would carry draws of steps whose tokens it drops (the
         continuation is then another seeded stream). ``settle=False`` skips
         it (a replica that cannot read its logs): the tokens in flight are
-        regenerated by the adopter. Refuses a finished request and one this
-        server does not hold."""
+        regenerated by the adopter, and a sampled row carries its generator
+        state from before the oldest draw in flight (recorded at each
+        launch), so the adopter redraws them as this server drew them.
+        Refuses a finished request and one this server does not hold."""
         with self._mutex:
             if settle is None:
                 settle = not self._closed
@@ -1805,6 +1813,13 @@ class PipelineServer:
                     )
                 gen = self.state.rng[row]
                 rng = None if gen is None else gen.get_state().numpy().copy()
+                # unsettled: the tokens in flight are dropped, so the state
+                # to carry is the one before the oldest pending draw
+                mark = next((e.rng_marks for e in self._pending
+                             if e.rng_marks and row in e.rng_marks), None)
+                if mark is not None:
+                    st = mark[row]
+                    rng = None if st is None else np.asarray(st, np.uint8).copy()
                 serve_ops.serve_cancel_rows(self.state, [row])
                 self._release(row, insert=True)
             tail = np.asarray(req.tokens[req.baked:], np.int32)
@@ -1824,7 +1839,7 @@ class PipelineServer:
         )
 
     def adopt(self, state: RequestState, req: Request, *,
-              prefix: Optional[PrefixHandle] = None) -> None:
+              prefix: Optional[PrefixHandle] = None, front: bool = True) -> None:
         """Re-admit an ``extract``ed request here (``server.py:3458``), the
         same ``Request`` object (taking the state's trace context, so its
         spans join one tree): its resumed prompt goes through the
@@ -1832,8 +1847,10 @@ class PipelineServer:
         append to the same ``tokens`` list, and a carried generator state
         is installed at admission, so a sampled row resumes its draws.
         ``prefix`` is this server's handle for a request submitted with one.
-        It is queued ahead of fresh submissions (it is the oldest work);
-        ``max_queue`` does not gate it (it moves load, adds none).
+        With ``front`` (the default) it is queued ahead of fresh
+        submissions (it is the oldest work), else behind them
+        (``server.py:3572``); ``max_queue`` does not gate it (it moves
+        load, adds none).
 
         Raises ``ServerClosed`` on a closed server, ``ValueError`` (or its
         ``NeverFits``) for a finished request, a resumed prompt that does
@@ -1906,7 +1923,10 @@ class PipelineServer:
             req.staged_radix = None
             req.stop = stop
             req.spec_k = AdaptiveK(self.speculate) if self.speculate else None
-            self._queue.appendleft(req)
+            if front:
+                self._queue.appendleft(req)
+            else:
+                self._queue.append(req)
             self._arm_deadline(req.deadline_at)
             self._span("adopt", req=req, resumed_prompt=req.prompt_len, remaining=remaining,
                        carried_rng=req.carried_rng is not None)
@@ -2324,10 +2344,24 @@ class PipelineServer:
         if e is not None and e.done_at is not None:
             self.stepline.idle(t0 - e.done_at)
 
+    def _rng_marks(self, rows) -> Optional[dict]:
+        """``{row: generator state}`` of the sampled rows among ``rows``,
+        taken just before a program that draws from them is launched (a
+        host read: a CUDA generator's state lives on the host). None when
+        none samples."""
+        marks = {}
+        for r in rows:
+            gen = self.state.rng[r]
+            if gen is not None:
+                marks[r] = gen.get_state()
+        return marks or None
+
     def _push_pending(self, kind: str, log: torch.Tensor, meta) -> None:
         """A dispatched program's log joins ``_pending``; its copy to the
-        host is queued now and read later."""
-        e = _InFlight(kind, log, meta)
+        host is queued now and read later. It takes the generator marks the
+        dispatch left in ``_rng_marks_next``."""
+        e = _InFlight(kind, log, meta, self._rng_marks_next)
+        self._rng_marks_next = None
         self._pending.append(e)
         self._newest = e
 
@@ -2590,8 +2624,28 @@ class PipelineServer:
 
     # ------------------------------------------------ prefix cache internals
 
+    def _read_arena_blocks_dispatch(self, blocks) -> "serve_ops.BlockRead":
+        """Dispatch-only half of ``_read_arena_blocks`` (``server.py:3145``):
+        queue the block gathers and their copy to pinned host memory, and
+        return the ``BlockRead`` without waiting (call its ``numpy()``
+        OUTSIDE the mutex). Value-correct though later programs rewrite the
+        arena: the gathers are queued on the stream the server's programs
+        run on, behind the programs that wrote the blocks and ahead of any
+        that reuse them, and they copy. That is what lets the disagg
+        hand-off sidecar pull the device→host copy off the router's step
+        thread without freezing this server's pump for its duration."""
+        return serve_ops.read_arena_blocks_dispatch(self.state, list(blocks))
+
     def _read_arena_blocks(self, blocks) -> tuple:
-        return _read_arena_blocks(self.state, blocks)
+        """Device→host copy of arena blocks (``server.py:3176``): the
+        dispatch half plus the wait for its copy."""
+        return self._read_arena_blocks_dispatch(blocks).numpy(keep_pinned=False)
+
+    def _write_arena_blocks(self, blocks, k_host, v_host, *scales) -> None:
+        """Host→device write of streamed blocks into fresh arena blocks
+        (``server.py:3189``), codes and scales byte-exact; queued before
+        any program that reads them."""
+        _write_arena_blocks(self.state, blocks, k_host, v_host, *scales)
 
     def _radix_plan(self, req: Request):
         """The longest usable cached prefix of a queued request, taken
@@ -2863,6 +2917,11 @@ class PipelineServer:
             self._contain_rows("admit_dispatch", [(r.row, r) for r in batch], e)
             return False
         if tok0 is not None:
+            # a row's draws before this admission: its carried state, or
+            # None (the request's seed)
+            marks = {row: st for r, row, st in zip(batch, rows, rng_states)
+                     if r.temperature > 0}
+            self._rng_marks_next = marks or None
             self._push_pending("admit", tok0, [(r.row, r) for r in batch])
         sl.pop()
         self.counters.inc("admissions")
@@ -2934,6 +2993,7 @@ class PipelineServer:
             )
 
         self._flush_tables()
+        marks = self._rng_marks(range(self.rows))
         try:
             log = self._retry("chunk_dispatch", do_chunk, real_ok=False)
         except Exception as e:  # noqa: BLE001 — contained to the live rows
@@ -2942,6 +3002,7 @@ class PipelineServer:
             return
         # the rows the chunk drives on the device: the ones a lost log fails
         live = [(i, self._req[i]) for i in self._live_rows(exclude=self._admitting)]
+        self._rng_marks_next = marks
         self._push_pending("chunk", log, live)
         self.counters.inc("chunks")
         self._span("chunk", dur_s=time.perf_counter() - t0, cycles=cycles, rows=len(live))
@@ -2983,11 +3044,13 @@ class PipelineServer:
             )
 
         self._flush_tables()
+        marks = self._rng_marks(rows)
         try:
             log = self._retry("chunk_dispatch", do_verify, real_ok=False)
         except Exception as e:  # noqa: BLE001 — contained to these rows
             self._contain_rows("chunk_dispatch", [(r, self._req[r]) for r in rows], e)
             return
+        self._rng_marks_next = marks
         self._push_pending("spec", log, [
             (row, self._req[row], int(draft_len[i]), draft[i].copy())
             for i, row in enumerate(rows)

@@ -45,6 +45,18 @@ server runs ``speculate=4``, ``spec_ngram=3`` and no ``prefill_chunk``
 through flash, up to S = 2048, and every decode step is a verify through
 the decode kernel at S = 5.
 
+The fleet (``FLEET``, ``fleet_order``, ``fleet_kwargs``,
+``fleet_daemon_args``) serves the standard 8 prompts over the resilience
+workload's arena, 320 blocks in each replica, through two replicas on the
+one card (``runtime/replicated.py``; a failover, a drain and a spawn
+mid-decode), one prefill and one decode replica (``runtime/disagg.py``,
+``prefix_cache="hbm"``), and the ``serve --data-parallel 2 --disagg``
+daemon, each beside the one-replica twin. The prompts go in with every
+second pair swapped: the router's round robin then gives each replica
+two short (one-shot) and two long (chunked) prompts, so each launches
+every kernel, where the standard order would put every short prompt on
+one replica and every long one on the other.
+
 The front door (``serve(dense=True)`` and ``daemon_args``) serves the
 standard workload as users send it: through the ``serve`` command's HTTP
 ingress, as token-id prompts from the two tenants of ``TENANTS``
@@ -110,6 +122,34 @@ SPECULATIVE = {
     "llama32_3b": Speculative(LENS, 64, 4096, 1024, 4, 3),
     "llama2_7b": Speculative(LENS, 64, 4096, 320, 4, 3),
 }
+
+
+FLEET = {"llama32_3b": RESILIENCE["llama32_3b"]}
+
+
+def fleet_order(prompts: list) -> list:
+    """The standard prompts with every second pair swapped (long first)."""
+    out = list(prompts)
+    for i in range(2, len(out) - 1, 4):
+        out[i], out[i + 1] = out[i + 1], out[i]
+    return out
+
+
+def fleet_kwargs(model: str) -> dict:
+    """The serve options of each replica of ``model``'s fleet cell."""
+    w = FLEET[model]
+    return dict(capacity=w.capacity, batch_per_slot=ROWS, kv_block_size=BLOCK_SIZE,
+                kv_blocks=w.kv_blocks, prefill_chunk=PREFILL_CHUNK)
+
+
+def fleet_daemon_args(model: str) -> list:
+    """``serve``'s flags for the fleet cell's disaggregated daemon: two
+    replicas, one prefill and one decode, hand-offs through the tree."""
+    w = FLEET[model]
+    return ["--capacity", str(w.capacity), "--batch-per-slot", str(ROWS),
+            "--prefill-chunk", str(PREFILL_CHUNK), "--max-new", str(MAX_NEW),
+            "--kv-block-size", str(BLOCK_SIZE), "--kv-blocks", str(w.kv_blocks),
+            "--data-parallel", "2", "--disagg", "--prefix-cache", "hbm"]
 
 
 def prompts(vocab_size: int, rng: np.random.Generator, lens=LENS) -> list:

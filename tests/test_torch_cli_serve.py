@@ -138,6 +138,23 @@ FAST_FAIL = [
     ["--disk-pool-blocks", "3"],
     ["--tenants-config", "{}"],
     ["--http-port", "1", "--tenants-config", '{"tenants": {"a": {"weight": 0}}}'],
+    # the fleet's flags (JAX cli.py:554-640)
+    ["--autoscale"],
+    ["--disagg"],
+    ["--data-parallel", "2", "--disagg"],
+    ["--data-parallel", "2", "--disagg", "--kv-block-size", "4", "--kv-blocks", "8"],
+    ["--prefill-replicas", "1"],
+    ["--profile-json", "p.json"],
+    ["--data-parallel", "2", "--disagg", "--kv-block-size", "4", "--kv-blocks", "8",
+     "--prefix-cache", "hbm", "--prefill-replicas", "1", "--roles", "prefill,decode"],
+    ["--data-parallel", "2", "--disagg", "--kv-block-size", "4", "--kv-blocks", "8",
+     "--prefix-cache", "hbm", "--prefill-replicas", "2"],
+    ["--data-parallel", "2", "--disagg", "--kv-block-size", "4", "--kv-blocks", "8",
+     "--prefix-cache", "hbm", "--roles", "prefill,bogus"],
+    ["--data-parallel", "3", "--disagg", "--kv-block-size", "4", "--kv-blocks", "8",
+     "--prefix-cache", "host", "--roles", "prefill,decode"],
+    ["--data-parallel", "2", "--disagg", "--kv-block-size", "4", "--kv-blocks", "8",
+     "--prefix-cache", "hbm", "--profile-json", "/nonexistent/profile.json"],
 ]
 
 
@@ -152,10 +169,6 @@ def test_fast_fail_exits_match_jax(flags):
 
 
 LATER = [
-    (["--data-parallel", "2"], "§A 14"), (["--min-replicas", "2"], "§A 14"),
-    (["--disagg"], "§A 14"), (["--prefill-replicas", "1"], "§A 14"),
-    (["--roles", "prefill,decode"], "§A 14"), (["--profile-json", "p.json"], "§A 14"),
-    (["--autoscale"], "§A 14"), (["--autoscale-cooldown", "1"], "§A 14"),
     (["--stages", "2"], "§A 15"), (["--ranges", "0:1,1:2"], "§A 15"),
     (["--tensor-parallel", "2"], "§A 16"), (["--cp", "2"], "§A 16"),
 ]
@@ -235,3 +248,32 @@ def test_http_daemon_round_trip_and_sigterm_drain(store):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+def test_dp_daemon_drain_spawn_stdout_equals_jax(store, tokenizers):
+    """``serve --data-parallel 2`` on the CPU: the prompts' completions
+    equal the JAX dp daemon's, byte for byte, through ``:drain 1`` and
+    ``:spawn`` (the control lines answer as JAX's), and ``:stats`` carries
+    the per-replica view."""
+    stdin = ("hi there\n:drain 1\nsecond prompt, a longer one\n:drain 0\n:spawn\n:spawn\n"
+             ":stats\nthird\n:bogus\n")
+    j, t = both(["serve", store, "--max-new", "6", "--capacity", "64", "--dtype", "f32",
+                 "--data-parallel", "2", "--kv-block-size", "4", "--kv-blocks", "48"], stdin)
+    assert j[0] == t[0] == 0
+    assert t[1] == j[1] and len(t[1].splitlines()) == 3
+    for line in ("replica 1 drained: 0 request(s) migrated; 1 replica(s) live",
+                 "drain failed: drain refused: 0 replica(s) would remain, below min_replicas=1",
+                 "replica spawned on group 1; 2 replica(s) live",
+                 "spawn failed: no freed device group to spawn on",
+                 "unknown control line ':bogus' (dp daemon"):
+        assert line in t[2] and line in j[2]
+    stats = json.loads(next(x for x in t[2].splitlines() if x.startswith('{"counters"')))
+    assert [r["replica"] for r in stats["replicas"]] == [0, 1] and "metrics" in stats
+    assert stats["offline_groups"] == []
+
+
+def test_dp_daemon_restore_refused_like_jax():
+    argv = ["serve", "/nonexistent/store", "--data-parallel", "2", "--restore", "/x"]
+    j = run(jcli, argv)
+    t = run(tcli, argv)
+    assert j[0] == t[0] == 2 and t[2] == j[2] and "restore_into" in t[2]

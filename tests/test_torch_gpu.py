@@ -1327,3 +1327,101 @@ def test_submit_embedding_equals_submit_on_the_card(cuda_device, paged):
         out.append([r.tokens for r in reqs])
         srv.close()
     assert out[0] == out[1]
+
+
+# ------------------------------------------------------------- the fleet
+
+@pytest.mark.cuda
+def test_replicated_dp2_on_the_card(cuda_device):
+    """Two replicas on the one card (``devices=None``): the router spreads
+    the requests, every greedy f32 stream equals ``generate``, both
+    replicas launch the paged kernels, and a ``replica_step`` fault on
+    group 0 mid-decode moves its rows (a sampled one among them) to group
+    1, where they finish as the unfaulted fleet's."""
+    from llm_sharding_tpu_torch.runtime.faults import FaultPlan
+    from llm_sharding_tpu_torch.runtime.replicated import ReplicatedServer
+
+    eng = _tiny_engine(cuda_device)
+    rng = np.random.default_rng(30)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 12, 9)]
+    kws = [dict(temperature=0.9, seed=5, top_k=20), {}, {}, {}]
+    out = []
+    for plan in (None, FaultPlan.permanent("replica_step", key=0, start=4)):
+        rs = ReplicatedServer(eng.cfg, eng.params, data_parallel=2, fault_plan=plan, **_SERVE)
+        assert all(s.engine.device.type == "cuda" for s in rs.servers)
+        kernels.reset_launch_counts()
+        reqs = [rs.submit(p, 16, **k) for p, k in zip(prompts, kws)]
+        assert [rs._group_of[rs._owner[r]] for r in reqs] == [0, 1, 0, 1]
+        rs.run_until_idle()
+        counts = kernels.launch_counts()
+        assert counts["paged_attention"] > 0 and counts["paged_prefill"] > 0
+        assert all(r.error is None for r in reqs)
+        assert len(rs.servers) == (2 if plan is None else 1)
+        out.append([r.tokens for r in reqs])
+        rs.close()
+    assert out[0] == out[1]
+    for p, toks in list(zip(prompts, out[0]))[1:]:
+        want = eng.generate_ids(p, 16)
+        assert toks == want.tokens[0, len(p) : want.lengths[0]].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_handoff_gather_is_queued_before_the_source_overwrites(cuda_device, kv):
+    """The hand-off's dispatch-only read: with the stream held behind a
+    device sleep, the gathers and their pinned copy are queued, then the
+    same blocks are overwritten on the stream; the bytes read are the ones
+    before the overwrite, and the queueing itself waited for nothing."""
+    eng = _tiny_engine(cuda_device)
+    srv = eng.serve(kv_dtype=kv, **dict(_SERVE, prefix_cache="hbm"))
+    p = np.random.default_rng(31).integers(0, eng.cfg.vocab_size, 25).astype(np.int32)
+    r = srv.submit(p, 4)
+    srv.run_until_idle()
+    assert r.error is None
+    ref = srv._radix.take(p, srv._radix.match_tokens(p))
+    blocks = list(ref.blocks)
+    want = srv._read_arena_blocks(blocks)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)  # ~0.2 s of device time ahead of the read
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        read = srv._read_arena_blocks_dispatch(blocks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not read.event.query()  # queued, not done
+    garbage = tuple(np.full_like(a, 7) for a in want)
+    srv._write_arena_blocks(blocks, *garbage)  # behind the read on the stream
+    got = read.numpy()
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert all(np.array_equal(a, b) for a, b in zip(srv._read_arena_blocks(blocks), garbage))
+    srv._radix.release(ref)
+    srv.close()
+
+
+@pytest.mark.cuda
+def test_disagg_handoff_on_the_card(cuda_device):
+    """One prefill and one decode replica on the card, the hand-off on its
+    sidecar thread: every request hands off ``ok``, the bytes counted are
+    the streamed blocks', and the f32 streams equal ``generate``."""
+    from llm_sharding_tpu_torch.obs.metrics import DISAGG_HANDOFFS, HANDOFF_BYTES
+    from llm_sharding_tpu_torch.runtime.disagg import DisaggServer
+
+    eng = _tiny_engine(cuda_device)
+    ds = DisaggServer(eng.cfg, eng.params, data_parallel=2, prefill_replicas=1,
+                      **dict(_SERVE, prefix_cache="hbm"))
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32) for n in (17, 26, 30)]
+    ok0, b0 = DISAGG_HANDOFFS.labels(outcome="ok").value, HANDOFF_BYTES.value
+    reqs = [ds.submit(p, 12) for p in prompts]
+    ds.run_until_idle()
+    assert DISAGG_HANDOFFS.labels(outcome="ok").value - ok0 == len(prompts)
+    cfg = eng.cfg
+    per_block = 2 * cfg.num_hidden_layers * 8 * cfg.num_key_value_heads * 64 * 4
+    # a chunked admission inserts the prompt's whole blocks but the last token
+    streamed = sum((len(p) - 1) // 8 for p in prompts)
+    assert HANDOFF_BYTES.value - b0 == streamed * per_block
+    for p, r in zip(prompts, reqs):
+        want = eng.generate_ids(p, 12)
+        assert r.error is None and r.tokens == want.tokens[0, len(p) : want.lengths[0]].tolist()
+    assert ds.handoffs_pending() == 0
+    ds.close()
