@@ -4,12 +4,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels MODEL [MODEL ...]
     python3 chip_smoke.py --fleet
+    python3 chip_smoke.py --pipeline
 
 The second form runs (a) and (b) only, bf16 queries, at the named
 models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
 ``gemma_7b``, ``llama2_7b``), and prints the rows as one JSON line: run
 it in two trees in one call to compare their kernels. The third runs (a)
-and the fleet's parts of (c) and (d) alone.
+and the fleet's parts of (c) and (d) alone, the fourth (a) and the
+pipeline's parts.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -97,7 +99,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     each against the uninterrupted fleet; ``DisaggServer`` 1 + 1 with
     ``prefix_cache="hbm"``: every hand-off ``ok``, the bytes counted the
     streamed blocks'; an ``Autoscaler`` (injected load and clock) 2 -> 3 -> 2
-    replicas; no stream dropped;
+    replicas; no stream dropped. Pipeline stages, 3B raw
+    (``check_pipeline``), staged from the CPU copy onto the card repeated:
+    at 2 and 4 stages and the ragged ``0:1,1:4``, the f32, int8 and fp8
+    arenas' streams, one-shot and chunked, against the one-stage server's
+    and the f32 ones against CPU ``generate`` (gap rules as above), every
+    stage launching all three kernels; at 2 stages a radix hit,
+    ``speculate=4``, a snapshot restored, an extract / adopt onto the
+    one-stage engine, ``pipeline_generate`` and ``generate_many`` against
+    CPU ``generate``; ``devices=None`` on the one-GPU host runs a 4-stage
+    chain as one grouped stage;
 (d) write shard stores of seeded random full-depth weights with the
     port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
     quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
@@ -183,7 +194,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (``fallback``, no layout), bytes the streamed blocks'; decode tok/s and
     TTFT beside the twin's, launches per replica, hand-off ms (queue /
     stream / lock) and bytes, the failover's wall and the spawn's seconds
-    printed, and each 3B row of the JSON line carries ``replica_launches``;
+    printed, and each 3B row of the JSON line carries ``replica_launches``.
+    Pipeline stages, full 3B (``pipeline_runs``): the store staged from a
+    host copy onto the card repeated, the standard workload over 8 rows at
+    2 and 4 stages and the ragged ``0:6,6:28``, a 1-stage run before the
+    first and after each, every stream held to the one-stage twin's
+    (``TIE_ULPS``), every stage launching the three kernels; decode tok/s
+    and TTFT beside the mean of the 1-stage runs on either side, launches,
+    weight and head bytes per stage, the dispatch share and each
+    repartition's seconds printed; then a ``serve --stages 2`` daemon over HTTP takes
+    ``:placement 4`` on stdin while round 1 of the workload streams, and
+    serves round 2 on 4 stages (every request 200, both rounds held to the
+    twin's; the swap's ``engine_placement_swap_seconds`` printed); each 3B
+    row of the JSON line carries ``stage_launches``;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -857,7 +880,7 @@ def recorded_gaps(srv, tops=None, noised=None):
         return f._replace(final_logits=final_logits)
 
     def commit_recording(cfg, state, rows, log):
-        if state is srv.state:
+        if state is srv.state and "top" in last:  # pipeline stages: no one-stage logits
             for i, r in enumerate(rows):
                 for j in range(int((log[i] >= 0).sum())):
                     note(srv._req[r].id, last["top"][i, j])
@@ -1753,6 +1776,7 @@ def phase_token_check(device, store_root: str) -> None:
     t0 = time.perf_counter()
     check_fleet("3B", eng, cpu_eng, prompts, lens, max_new, card_want)
     log(f"[c] 3B fleet checks took {time.perf_counter() - t0:.1f}s")
+    check_pipeline("3B", eng, cpu_eng, cpu_params, prompts, lens, max_new, cpu_want, rng)
     del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -2722,6 +2746,7 @@ def phase_serve(device, store_root: str) -> dict:
     log(f"[d] 3B step-loop configurations took {time.perf_counter() - t0:.1f}s")
     dcounts = frontdoor_runs(eng, stores["bf16"], smi, paged_twin)
     fleet = fleet_runs(eng, stores["bf16"], smi)
+    pipeline = pipeline_runs(eng, stores["bf16"], smi, paged_twin)
     for kv in KV_MODES:
         kv_counts, tokens = serve_run(eng, "llama32_3b", f"3B bf16 weights, kv {kv}", kv)
         counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
@@ -2841,7 +2866,7 @@ def phase_serve(device, store_root: str) -> dict:
             "gemma_2b/shared_prefix": mpcounts, "llama32_3b/speculative": scounts,
             "llama32_3b/spec_generate": gcounts_spec, "llama2_7b": lcounts,
             "llama2_7b/speculative": lscounts, "llama32_3b/dense": dcounts,
-            "llama32_3b/fleet": fleet}
+            "llama32_3b/fleet": fleet, "llama32_3b/pipeline": pipeline}
 
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3624,6 +3649,419 @@ def phase_fleet(device, store_root: str) -> dict:
     return fleet_runs(eng, store, smi)
 
 
+# ------------------------------------------------------ the pipeline ([c], [d])
+
+@contextlib.contextmanager
+def stage_launches():
+    """Each kernel's launches per pipeline stage while the block runs:
+    every stage's turn in the chain (``parallel/pipeline.run_stages``, which
+    the serve programs and ``generate`` share) is wrapped to attribute the
+    launches the kernels' counters took during it."""
+    from llm_sharding_tpu_torch.ops import kernels as K
+    from llm_sharding_tpu_torch.parallel import pipeline as pipe_mod
+    from llm_sharding_tpu_torch.parallel import serve as serve_ops
+
+    out: dict = collections.defaultdict(collections.Counter)
+    orig = pipe_mod.run_stages
+
+    def run_stages(stages, h, fn):
+        def counted(i, st, h):
+            before = K.launch_counts()
+            try:
+                return fn(i, st, h)
+            finally:
+                for k, n in K.launch_counts().items():
+                    if n > before.get(k, 0):
+                        out[i][k] += n - before.get(k, 0)
+
+        return orig(stages, h, counted)
+
+    pipe_mod.run_stages = serve_ops.run_stages = run_stages
+    try:
+        yield out
+    finally:
+        pipe_mod.run_stages = serve_ops.run_stages = orig
+
+
+def require_stage_kernels(tag: str, per: dict, n: int, modes=("",)) -> None:
+    """Every one of ``n`` stages launched flash and both paged kernels (in
+    each KV ``mode`` suffix, e.g. ``[int8]``)."""
+    for s in range(n):
+        for m in modes:
+            for k in ("flash_attention", f"paged_attention{m}", f"paged_prefill{m}"):
+                require(per[s][k] > 0, f"{tag}: stage {s} never launched {k}")
+
+
+def tree_bytes(tree) -> int:
+    from llm_sharding_tpu_torch.parallel.pipeline import map_params
+
+    total = [0]
+    map_params(lambda t: total.__setitem__(0, total[0] + t.numel() * t.element_size()), tree)
+    return total[0]
+
+
+def same_or_tie(tag: str, got: list, want: list, gaps: list, limit: float) -> None:
+    """Each stream of ``got`` equals ``want``'s or first differs where the
+    run that made ``want`` had a top-2 gap under ``limit``."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next((j for j in range(min(len(g), len(w))) if g[j] != w[j]), None)
+        require(j is not None and j < len(gaps[i]), f"{tag}: stream {i} lengths differ")
+        log(f"[c] {tag}: stream {i} first differs at token {j}, top-2 gap {gaps[i][j]:.3g}")
+        require(gaps[i][j] < limit, f"{tag}: stream {i} differs at a gap of {gaps[i][j]}")
+    log(f"[c] {tag}: {sum(g == w for g, w in zip(got, want))} of {len(got)} streams identical")
+
+
+# [c]: the 4-layer 3B's placements on the one card
+PIPELINE_C = (("2 stages", None, 2), ("4 stages", None, 4), ("ragged 0:1,1:4", ((0, 1), (1, 4)), 2))
+
+
+def check_pipeline(tag: str, eng, cpu_eng, cpu_params, prompts, lens, max_new: int,
+                   cpu_want: list, rng) -> None:
+    """[c] pipeline stages on one card (``devices=[cuda:0] * 4``), the
+    weights staged from the CPU copy: at 2 and 4 stages and the ragged
+    ``0:1,1:4``, the served streams in the f32, int8 and fp8 arenas,
+    one-shot and chunked, held to the one-stage twin's (gap < 1e-4; the
+    quantized arenas' gap < 1e-3, the twin's recorded gaps) and the f32
+    arena's to CPU ``generate`` (gap < 1e-4); every stage launches all
+    three kernels. At 2 stages: a radix hit, ``speculate=4``, a snapshot
+    restored, an extract / adopt onto the one-stage engine, and
+    ``pipeline_generate`` / ``generate_many`` against ``generate``.
+    ``devices=None`` on this one-GPU host runs a 4-stage chain grouped."""
+    import torch
+
+    from llm_sharding_tpu_torch.parallel.placement import PlacementSpec
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    cfg, dev = eng.cfg, eng.device
+    L = cfg.num_hidden_layers
+    t_all = time.perf_counter()
+    twin = {kv: served_streams(eng, prompts, max_new, kv_dtype=kv) for kv in ("bf16",) + KV_MODES}
+    t0 = time.perf_counter()
+    peng = Engine(cfg, cpu_params, num_stages=2, devices=[dev] * 4)
+    torch.cuda.synchronize()
+    log(f"[c] {tag} pipeline: staged 2 stages from the CPU copy in {time.perf_counter() - t0:.2f}s")
+    for name, ranges, n in PIPELINE_C:
+        spec = (PlacementSpec.from_ranges(ranges, L) if ranges
+                else PlacementSpec.balanced(L, n))
+        peng.apply_placement(spec)
+        require(peng.num_stages == n and peng.exec_placement == spec,
+                f"phase c {tag} {name}: runs {peng.exec_placement}")
+        with stage_launches() as per:
+            for kv in ("bf16",) + KV_MODES:
+                got, _ = served_streams(peng, prompts, max_new, kv_dtype=kv)
+                want, gaps = twin[kv]
+                same_or_tie(f"{tag} {name} {kv} vs one stage", got, want, gaps,
+                            1e-4 if kv == "bf16" else 1e-3)
+                if kv == "bf16":
+                    for i, (g, w) in enumerate(zip(got, cpu_want)):
+                        if g != w:
+                            j = next(j for j in range(min(len(g), len(w))) if g[j] != w[j])
+                            gap = top2_gap(cfg, cpu_eng.params, np.concatenate(
+                                [prompts[i], np.asarray(w[:j], np.int32)]))
+                            require(gap < 1e-4, f"phase c {tag} {name}: stream {i} differs "
+                                    f"from CPU generate at a gap of {gap}")
+        require_stage_kernels(f"phase c {tag} {name}", per, n,
+                              ("",) + tuple(f"[{kv}]" for kv in KV_MODES))
+        log(f"[c] {tag} {name} ({spec.stages}): launches per stage "
+            f"{ {s: dict(c) for s, c in sorted(per.items())} }")
+    peng.apply_placement(PlacementSpec.balanced(L, 2))
+    # a radix hit: a primer caches 3 of its blocks, a second prompt shares 2
+    primer = prompts[1][:200]
+    hit = np.concatenate([primer[:128], prompts[3][:300]]).astype(np.int32)
+    outs = []
+    for e in (eng, peng):
+        srv = resilience_server(e, prefix_cache="hbm")
+        a = srv.submit(primer, max_new)
+        srv.run_until_idle()
+        b = srv.submit(hit, max_new)
+        srv.run_until_idle()
+        outs.append(([list(a.tokens), list(b.tokens)], srv.prefix_cache_stats()["hit_tokens"]))
+        srv.close()
+    require(outs[1][1] == 128 == outs[0][1], f"phase c {tag}: radix hits {outs}")
+    require(outs[1][0] == outs[0][0], f"phase c {tag}: the 2-stage radix hit's streams differ")
+    log(f"[c] {tag} 2 stages: a radix hit of 128 tokens (one-shot suffix, chunked) identical to "
+        "the one-stage server's")
+    # speculation, one-shot admission: against the one-stage speculative server
+    spec_twin = served_streams(eng, prompts, max_new, speculate=4, prefill_chunk=None)
+    got, _ = served_streams(peng, prompts, max_new, speculate=4, prefill_chunk=None)
+    same_or_tie(f"{tag} 2 stages speculate=4 vs one stage", got, spec_twin[0], spec_twin[1], 1e-4)
+    # snapshot / restore mid-decode, and extract / adopt onto the one-stage engine
+    base, gaps = interrupted_run(peng, prompts, max_new, gaps=True, kv_dtype="int8")
+    restored = interrupted_run(peng, prompts, max_new, interrupt=restore_interrupt(peng),
+                               kv_dtype="int8")
+    require(restored == base, f"phase c {tag}: the 2-stage restored streams differ")
+    uninterrupted = interrupted_run(peng, prompts, max_new)
+    moved = interrupted_run(peng, prompts, max_new, interrupt=migrate_interrupt(eng))
+    same_or_tie(f"{tag} 2 stages -> 1 stage migrated", moved, uninterrupted,
+                interrupted_run(eng, prompts, max_new, gaps=True)[1], 1e-4)
+    log(f"[c] {tag} 2 stages: snapshot restored (int8 arena) identical; 4 rows extracted and "
+        "adopted by a one-stage server")
+    # the chain's generate and the many-request schedule against generate
+    few = [p[:200] for p in prompts]
+    pad = np.zeros((len(few), 200), np.int32)
+    for i, p in enumerate(few):
+        pad[i, : len(p)] = p
+    plen = np.array([len(p) for p in few])
+    want = cpu_eng.generate_ids(pad, max_new, prompt_len=plen).tokens
+    for what, res in (("pipeline_generate", peng.generate_ids(pad, max_new, prompt_len=plen)),
+                      ("generate_many", peng.generate_many(pad, max_new, prompt_len=plen))):
+        same = int((res.tokens == want).all(axis=1).sum())
+        log(f"[c] {tag} 2 stages {what}: {same} of {len(few)} rows identical to CPU generate")
+        require(same == len(few), f"phase c {tag}: {what} differs from generate")
+    grouped = Engine(cfg, cpu_params, num_stages=4)
+    require(grouped.num_stages == torch.cuda.device_count() == 1
+            and grouped.placement.num_stages == 4,
+            f"phase c {tag}: devices=None ran {grouped.num_stages} stages")
+    log(f"[c] {tag}: devices=None on this {torch.cuda.device_count()}-GPU host runs the 4-stage "
+        f"chain as {grouped.exec_placement.stages}")
+    del grouped, peng
+    torch.cuda.empty_cache()
+    log(f"[c] {tag} pipeline checks took {time.perf_counter() - t_all:.1f}s")
+
+
+# [d]: the full 3B's placements on the one card, each over the standard
+# workload's 8 rows; a 1-stage run comes before the first and after each
+# (``PIPELINE_BASE``), so each placement is held to the 1-stage runs on
+# either side of it and a drift over the sequence shows apart
+PIPELINE_BASE = ("1 stage", None, 1)
+PIPELINE_D = (("2 stages", None, 2), ("4 stages", None, 4),
+              ("ragged 0:6,6:28", ((0, 6), (6, 28)), 2))
+
+
+def pipeline_serve(eng, stages: int) -> tuple:
+    """The standard workload over 8 rows (``8 // stages`` per slot),
+    staggered, with the stepline's dispatch share; returns ``(tokens,
+    numbers, per-stage launches, dispatch share)``."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.obs.report import step_phase_table
+
+    w = smoke_workload.WORKLOADS["llama32_3b"]
+    srv = eng.serve(capacity=w.capacity, batch_per_slot=smoke_workload.ROWS // stages,
+                    kv_block_size=smoke_workload.BLOCK_SIZE, kv_blocks=w.kv_blocks,
+                    prefill_chunk=smoke_workload.PREFILL_CHUNK)
+    require(srv.rows == smoke_workload.ROWS, f"phase d pipeline: {srv.rows} rows")
+    prompts = smoke_workload.prompts(eng.cfg.vocab_size, np.random.default_rng(0), w.lens)
+    steps0 = srv.stepline.steps_total
+    torch.cuda.synchronize()
+    with stage_launches() as per:
+        reqs = smoke_workload.submit_staggered(srv, prompts)
+        srv.run_until_idle()
+    torch.cuda.synchronize()
+    recs = srv.stepline_snapshot()[-(srv.stepline.steps_total - steps0):]
+    for r in reqs:
+        require(r.done and r.error is None, f"phase d pipeline: request {r.id} failed")
+    srv._alloc.check()
+    require(srv._alloc.in_use == 0, "phase d pipeline: KV blocks still held")
+    share = {r["phase"]: r["wall_pct"] for r in step_phase_table(recs)}.get("dispatch", 0.0)
+    srv.close()
+    return [list(r.tokens) for r in reqs], fleet_numbers(reqs), per, share
+
+
+def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
+    """A ``serve --stages 2`` daemon over HTTP takes ``:placement 4`` on
+    stdin while round 1 of the workload is streaming (sent once two
+    requests have their first token): the ingress pauses, the old server
+    runs its requests to the end, the rebuilt 4-stage one serves round 2.
+    Every request of both rounds answers 200 and its stream is held to the
+    twin's (``TIE_ULPS``); at least one stream of round 1 is still open
+    when the line is sent. Prints the streams cut across the swap and the
+    daemon's ``engine_placement_swap_seconds``."""
+    import threading
+
+    from llm_sharding_tpu_torch import smoke_workload
+
+    tenants = os.path.join(os.path.dirname(store), "tenants.json")
+    with open(tenants, "w") as f:
+        json.dump(smoke_workload.TENANTS, f)
+    args = (["--stages", "2", "--device", str(eng.device)]
+            + smoke_workload.daemon_args("llama32_3b", False))
+    d = Daemon(store, args, tenants)
+
+    def metrics():
+        return json.loads(http_get(d.metrics_port, "/statz")[1])["metrics"]
+
+    def swaps():
+        m = metrics()
+        h = m["engine_placement_swap_seconds"]["series"][0]
+        return h["count"], h["sum"], m["engine_pipeline_stages"]["series"][0]["value"]
+
+    def first_tokens():
+        return sum(x["count"] for x in metrics()["server_ingress_ttft_seconds"]["series"])
+
+    try:
+        require(any("serving llama on 2 stages" in ln for ln in d.lines),
+                f"phase d pipeline daemon: banner\n{d.tail()}")
+        before, ft0 = swaps(), first_tokens()
+        box: dict = {}
+
+        def round1():
+            try:
+                box["runs"] = http_workload(d.port, paged_twin["prompts"], smoke_workload.MAX_NEW)
+            except BaseException as e:  # noqa: BLE001 — the phase fails on it below
+                box["error"] = e
+
+        client = threading.Thread(target=round1)
+        client.start()
+        t0 = time.perf_counter()
+        while first_tokens() < ft0 + 2:
+            require(client.is_alive() and time.perf_counter() - t0 < 300,
+                    f"phase d pipeline daemon: round 1 ended before two first tokens "
+                    f"{box.get('error')!r}\n{d.tail()}")
+            time.sleep(0.01)
+        d.proc.stdin.write(":placement 4\n")
+        d.proc.stdin.flush()
+        sent = time.perf_counter()
+        client.join(timeout=600)
+        require("runs" in box, f"phase d pipeline daemon: round 1 failed: {box.get('error')!r}")
+        while not any("placement applied" in ln or "placement" in ln and "fail" in ln
+                      for ln in d.lines):
+            require(time.perf_counter() - sent < 300 and d.proc.poll() is None,
+                    f"phase d pipeline daemon: no placement line\n{d.tail()}")
+            time.sleep(0.05)
+        line = next(ln for ln in d.lines if "placement" in ln and ("applied" in ln or "fail" in ln))
+        require(line.startswith("placement applied: [(0, 7), (7, 14), (14, 21), (21, 28)]"),
+                f"phase d pipeline daemon: {line}")
+        open_at_swap = sum(r[3] > sent for r in box["runs"])
+        require(open_at_swap >= 1, "phase d pipeline daemon: every stream of round 1 had "
+                "finished before :placement 4 was sent")
+        rounds = [[r[0] for r in box["runs"]],
+                  [r[0] for r in http_workload(d.port, paged_twin["prompts"],
+                                               smoke_workload.MAX_NEW)]]
+        for i, got in enumerate(rounds):
+            hold_to(f"3B serve --stages 2 daemon, round {i + 1} "
+                    f"({'2 stages, :placement 4 mid-run' if i == 0 else '4 stages'}) vs twin",
+                    got, paged_twin["tokens"], rec)
+        after = swaps()
+        require(after[0] == before[0] + 1 and before[2] == 2 and after[2] == 4,
+                f"phase d pipeline daemon: swaps {before} -> {after}")
+        log(f"[d] 3B serve --stages 2 daemon: up in {d.startup_s:.1f}s (its staging: "
+            f"engine_placement_swap_seconds {before[1]:.3f}s); :placement 4 sent "
+            f"{(sent - t0) * 1e3:.0f} ms into round 1 with {open_at_swap} of "
+            f"{len(box['runs'])} streams open, every request 200; {line.strip()}: "
+            f"engine_placement_swap_seconds {after[1] - before[1]:.3f}s, "
+            f"engine_pipeline_stages {before[2]:g} -> {after[2]:g}")
+    except Exception:
+        log(f"[d] pipeline daemon stderr tail:\n{d.tail()}")
+        raise
+    finally:
+        if d.proc.poll() is None:
+            d.proc.send_signal(15)
+            try:
+                d.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                d.kill()
+
+
+def pipeline_runs(eng, store: str, smi: str, paged_twin: dict) -> dict:
+    """[d] The full 3B bf16 from the port-written store, staged from a host
+    copy onto ``cuda:0`` repeated: the standard workload at 2 and 4 stages
+    and at the ragged ``0:6,6:28`` (8 rows each), with a 1-stage run before
+    the first and after each; every stage launches the three kernels,
+    every stream equals the one-stage twin's (the store engine's standard
+    run) or first differs at a near tie (``TIE_ULPS``). Printed: decode
+    tok/s and TTFT p50 / p99 of each run, each placement's beside the mean
+    of the 1-stage runs on either side of it, the spread of the 1-stage
+    runs, launches, weight and head bytes per stage, the stepline's
+    dispatch share and each ``apply_placement``'s seconds. Then
+    ``pipeline_daemon``. Returns the launches per stage of each placement."""
+    import torch
+
+    from llm_sharding_tpu_torch.parallel.placement import PlacementSpec
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    t_all = time.perf_counter()
+    L = eng.cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    peng = Engine.from_shards(store, placement=PlacementSpec.balanced(L, 1),
+                              devices=[eng.device] * 4)
+    torch.cuda.synchronize()
+    log(f"[d] pipeline on {smi}: the 3B store loaded to the host and staged as 1 stage in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rec = lambda: inprocess_run(eng, False, record=True)  # noqa: E731 — only on a mismatch
+    out, runs = {}, []
+    order = [PIPELINE_BASE]
+    for p in PIPELINE_D:
+        order += [p, PIPELINE_BASE]
+    for k, (name, ranges, n) in enumerate(order):
+        spec = (PlacementSpec.from_ranges(ranges, L) if ranges
+                else PlacementSpec.balanced(L, n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        peng.apply_placement(spec)
+        torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t0
+        require(peng.num_stages == n, f"phase d pipeline {name}: {peng.num_stages} stages")
+        tokens, nums, per, share = pipeline_serve(peng, n)
+        runs.append(nums)
+        hold_to(f"3B pipeline {name} (run {k + 1}) vs twin", tokens, paged_twin["tokens"], rec)
+        require_stage_kernels(f"phase d pipeline {name}", per, n)
+        out.setdefault(name, {s: dict(c) for s, c in sorted(per.items())})
+        sizes = [(tree_bytes(st.layers), tree_bytes({k: v for k, v in st.head.items()}))
+                 for st in peng.stages]
+        log(f"[d] 3B pipeline run {k + 1}, {name} ({spec.stages}; applied in {swap_s:.2f}s): "
+            f"decode {nums['tok_s']:.1f} tok/s, TTFT p50 {nums['p50']:.0f} ms p99 "
+            f"{nums['p99']:.0f} ms; dispatch {share:.2f}% of step wall; launches per stage "
+            f"{out[name]}; weight / head bytes per stage "
+            f"{[(f'{a / 1e9:.3f} GB', f'{b / 1e6:.1f} MB') for a, b in sizes]}")
+    for k in range(1, len(order), 2):  # each placement against its two 1-stage neighbours
+        base = {m: (runs[k - 1][m] + runs[k + 1][m]) / 2 for m in ("tok_s", "p50", "p99")}
+        log(f"[d] " + fleet_line(f"3B pipeline {order[k][0]}", runs[k], base)
+            .replace("the twin's", "the 1-stage runs' mean").replace("(twin", "(1-stage mean")
+            + f"; TTFT p50 {runs[k]['p50'] / base['p50']:.3f}x")
+    ones = runs[::2]
+    log(f"[d] 3B pipeline, the {len(ones)} 1-stage runs in order: decode "
+        f"{[round(r['tok_s'], 1) for r in ones]} tok/s, TTFT p50 "
+        f"{[round(r['p50']) for r in ones]} ms")
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_daemon(store, eng, paged_twin, rec)
+    log(f"[d] 3B pipeline took {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
+def phase_pipeline(device, store_root: str) -> dict:
+    """``--pipeline``: [c]'s pipeline checks on the f32 3B at 4 layers and
+    [d]'s pipeline runs on the full 3B bf16 from a port-written store,
+    alone (the twin: the store engine's standard run)."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+    from llm_sharding_tpu_torch.utils.shard_store import save_shards
+
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=4)
+    cpu_params = llama.init_params(cfg, seed=7, dtype=torch.float32, device="cpu")
+    eng, cpu_eng = Engine(cfg, to_device(cpu_params, device)), Engine(cfg, cpu_params)
+    rng = np.random.default_rng(7)
+    lens = [40, 200, 700, 1000]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    cpu_want = check_against_generate("3B vs CPU", eng, prompts, lens, 16, oracle=cpu_eng)
+    check_pipeline("3B", eng, cpu_eng, cpu_params, prompts, lens, 16, cpu_want, rng)
+    del eng, cpu_eng, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config.llama32_3b()
+    t0 = time.perf_counter()
+    store = os.path.join(store_root, "llama32_3b_bf16")
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(cfg, params, store)
+    del params
+    torch.cuda.empty_cache()
+    eng = load_store(store, "3B bf16", device, time.perf_counter() - t0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    paged_twin = inprocess_run(eng, False)
+    log(f"[d] 3B pipeline twin (the store engine, 1 stage, 8 rows): decode "
+        f"{paged_twin['tok_s']:.1f} tok/s, TTFT p50 {np.percentile(paged_twin['ttft'], 50) * 1e3:.0f}"
+        f" ms p99 {np.percentile(paged_twin['ttft'], 99) * 1e3:.0f} ms")
+    return pipeline_runs(eng, store, smi, paged_twin)
+
+
 def match_frac(tokens, base) -> float:
     return float(np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)]))
 
@@ -3661,6 +4099,14 @@ def main(argv: list) -> int:
         store = tempfile.mkdtemp(prefix="chip_smoke_store_")
         try:
             print(json.dumps({"replica_launches": phase_fleet(device, store)}))
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        log(f"[e] total {time.perf_counter() - t_all:.0f}s")
+        return 0
+    if argv[:1] == ["--pipeline"]:
+        store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        try:
+            print(json.dumps({"stage_launches": phase_pipeline(device, store)}))
         finally:
             shutil.rmtree(store, ignore_errors=True)
         log(f"[e] total {time.perf_counter() - t_all:.0f}s")
@@ -3705,6 +4151,10 @@ def main(argv: list) -> int:
             r["replica_launches"] = {
                 fleet: {rep: c.get(r["name"], 0) for rep, c in sorted(per.items())}
                 for fleet, per in counts["llama32_3b/fleet"].items()}
+            # the pipeline runs (bf16 arena), per stage
+            r["stage_launches"] = {
+                run: {str(s): c.get(r["name"], 0) for s, c in per.items()}
+                for run, per in counts["llama32_3b/pipeline"].items()}
     log(f"[e] total {time.perf_counter() - t_all:.0f}s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

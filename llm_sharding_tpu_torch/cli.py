@@ -9,22 +9,25 @@
     python -m llm_sharding_tpu_torch step-report FILES... [--top N] [--json]
 
 ``generate`` runs one text prompt (``cli.py:157``; ``--stream`` through a
-shared server). ``serve`` is the daemon (``cli.py:433-1094``, the one-GPU
-subset): one text prompt per stdin line, its completion streamed to
-stdout; the control lines ``:counters``, ``:stats``, ``:snapshot DIR`` and
-``:profile N [DIR]``; ``--http-port`` starts the HTTP/SSE ingress with
+shared server). ``serve`` is the daemon (``cli.py:433-1094``, without
+tensor and context parallelism): one text prompt per stdin line, its
+completion streamed to stdout; the control lines ``:counters``,
+``:stats``, ``:snapshot DIR``, ``:profile N [DIR]`` and ``:placement``
+(hot repartition); ``--http-port`` starts the HTTP/SSE ingress with
 tenant fairness (``runtime/ingress.py``; ``--tenants-config``),
 ``--metrics-port`` the ``/metrics`` exposition, and SIGTERM drains: new
 HTTP requests are shed with 503, live ones finish, the daemon exits 0. A
 store without a tokenizer still serves: HTTP takes token-id prompts and
 stdin lines are refused one by one. ``--data-parallel N`` serves N
-replicas behind the supervised router (``runtime/replicated.py``; all on
-the one ``--device``), with ``:drain N`` and ``:spawn``, ``--autoscale``
+replicas behind the supervised router (``runtime/replicated.py``), with ``:drain N`` and ``:spawn``, ``--autoscale``
 and ``--disagg`` prefill/decode roles (``runtime/disagg.py``;
-``--prefill-replicas``, ``--roles``, ``--profile-json``). Both commands run on the GPU unless
-``--device cpu`` is given (the one flag the JAX parser lacks). Flags of
-later slices keep the JAX names and exit 2 before the model loads, naming
-the ``ROADMAP.md`` item that ports them.
+``--prefill-replicas``, ``--roles``, ``--profile-json``). ``--stages N``
+/ ``--ranges a:b,...`` cut the model into pipeline stages
+(``parallel/placement.py``). Both commands run on the GPU unless
+``--device cpu`` is given (the one flag the JAX parser lacks): the one
+device runs every stage (and every replica's stages). Flags of later
+slices keep the JAX names and exit 2 before the model loads, naming the
+``ROADMAP.md`` item that ports them.
 
 ``convert`` turns an HF checkpoint directory into a shard store either
 package serves (``cli.py:129-154``, ``:1468-1478``): ``--dtype int8`` /
@@ -102,10 +105,41 @@ def _stdin_lines(stop_evt):
             yield line + "\n"
 
 
-def _engine(args):
-    from .runtime.engine import Engine
+def _parse_ranges(text: str):
+    ranges = []
+    for part in text.split(","):
+        a, b = part.split(":")
+        ranges.append((int(a), int(b)))
+    return ranges
 
-    return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), device=args.device)
+
+def _placement(args, num_layers: int):
+    from .parallel.placement import PlacementSpec
+
+    if getattr(args, "ranges", None):
+        return PlacementSpec.from_ranges(_parse_ranges(args.ranges), num_layers)
+    if getattr(args, "stages", None):
+        return PlacementSpec.balanced(num_layers, args.stages)
+    return None
+
+
+def _engine(args):
+    """The engine of ``--stages`` / ``--ranges`` on ``--device`` (JAX
+    ``cli.py:115``): with either, the store loads into host memory and
+    every stage runs on the one device, listed once per layer so that a
+    later ``:placement`` runs ungrouped; without, the weights load
+    straight onto the device as one stage (the daemon's first
+    ``:placement`` then takes the host copy, ``_apply_placement``)."""
+    from .runtime.engine import Engine
+    from .utils import shard_store
+
+    cfg = shard_store.load_config(args.shards)
+    L = cfg.num_hidden_layers
+    placement = _placement(args, L)
+    if placement is None:
+        return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), device=args.device)
+    return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), placement=placement,
+                              devices=[args.device] * L)
 
 
 def cmd_generate(args) -> int:
@@ -133,7 +167,6 @@ def cmd_generate(args) -> int:
 
 # flags the JAX parser has and a later slice ports: (dest, default, flag, item)
 _LATER_SLICE_FLAGS = (
-    ("ranges", None, "--ranges", "§A 15 (pipeline parallelism)"),
     ("tensor_parallel", 1, "--tensor-parallel", "§A 16 (tensor, context and multi-host)"),
     ("cp", 1, "--cp", "§A 16 (tensor, context and multi-host)"),
 )
@@ -141,24 +174,21 @@ _LATER_SLICE_FLAGS = (
 
 def _later_slice_flag(args) -> str:
     """The refusal of a flag a later slice of the port carries, or ''."""
-    stages = getattr(args, "stages", None)
-    if stages is not None and stages > 1:
-        return ("--stages > 1 (pipeline stages) comes with a later slice of the port: "
-                "ROADMAP.md §A 15 (pipeline parallelism); this port serves on one GPU")
     for dest, default, flag, item in _LATER_SLICE_FLAGS:
         if getattr(args, dest, default) != default:
             return (f"{flag} comes with a later slice of the port: ROADMAP.md {item}; "
-                    "this port serves on one GPU")
+                    "this port runs pipeline stages and replicas, not tensor shards")
     return ""
 
 
-def _serve_control(srv, line: str) -> None:
-    """The daemon's control lines (JAX ``cli.py:207-252``): ``:counters``,
+def _serve_control(eng, srv, line: str, args):
+    """The daemon's control lines (JAX ``cli.py:179-352``): ``:counters``,
     ``:stats`` (counters, every registry metric and the step profiler's
     aggregates as one JSON line), ``:snapshot DIR`` (``serve --restore
-    DIR`` resumes it) and ``:profile N [DIR]`` (an N-step deep capture;
-    with DIR a ``torch.profiler`` trace as well), each printed to stderr.
-    ``:placement`` comes with the pipeline slice."""
+    DIR`` resumes it), ``:profile N [DIR]`` (an N-step deep capture; with
+    DIR a ``torch.profiler`` trace as well), each printed to stderr, and
+    ``:placement 0:6,6:28`` / ``:placement N`` (``_apply_placement``).
+    Returns the server, a new one after a placement."""
     from .obs.metrics import REGISTRY
 
     parts = line.split(None, 1)
@@ -179,17 +209,17 @@ def _serve_control(srv, line: str) -> None:
         sub = parts[1].split() if len(parts) > 1 else []
         if not sub:
             print("usage: :profile N [TRACE_DIR]", file=sys.stderr)
-            return
+            return srv
         try:
             bundle = srv.stepline_capture(int(sub[0]), trace_dir=sub[1] if len(sub) > 1 else None)
         except ValueError as e:
             print(f"profile failed: {e}", file=sys.stderr)
-            return
+            return srv
         print(json.dumps(bundle, sort_keys=True), file=sys.stderr)
     elif cmd == ":snapshot":
         if len(parts) < 2:
             print("usage: :snapshot DIR", file=sys.stderr)
-            return
+            return srv
         from .runtime.server import save_snapshot
 
         try:
@@ -198,11 +228,86 @@ def _serve_control(srv, line: str) -> None:
         except (ValueError, RuntimeError, OSError) as e:
             print(f"snapshot failed: {e}", file=sys.stderr)
     elif cmd == ":placement":
-        print(":placement (hot repartition) comes with a later slice of the port: "
-              "ROADMAP.md §A 15 (pipeline parallelism)", file=sys.stderr)
+        return _apply_placement(eng, srv, parts, args)
     else:
-        print(f"unknown control line {cmd!r} (try :counters, :stats, :snapshot, :profile)",
+        print(f"unknown control line {cmd!r} (try :placement, :counters, :stats, :snapshot, "
+              ":profile)", file=sys.stderr)
+    return srv
+
+
+def _apply_placement(eng, srv, parts: list, args):
+    """``:placement 0:6,6:28`` (ragged ranges) or ``:placement N``
+    (balanced), JAX ``cli.py:253-347``: drain the requests in flight,
+    apply the placement, rebuild the server on it with the live server's
+    options and carry the session counters over. A bad placement keeps the
+    old one serving; a rebuild that fails rolls the placement back; if the
+    rollback fails too, the daemon prints its totals and exits 1."""
+    import collections
+
+    from .parallel.placement import PlacementSpec
+
+    if len(parts) < 2:
+        print("usage: :placement 0:6,6:32  |  :placement N", file=sys.stderr)
+        return srv
+    num_layers = eng.cfg.num_hidden_layers
+    old_spec = eng.placement
+    try:
+        if ":" in parts[1]:
+            spec = PlacementSpec.from_ranges(_parse_ranges(parts[1]), num_layers)
+        else:
+            spec = PlacementSpec.balanced(num_layers, int(parts[1]))
+        srv.run_until_idle()
+        counters = srv.counters
+        if not eng.host_staged:  # loaded straight onto the device: copy it to the host once
+            eng.keep_host_copy([args.device] * num_layers)
+        eng.apply_placement(spec)
+    except (ValueError, KeyError) as e:
+        print(f"bad placement: {e}", file=sys.stderr)
+        return srv
+
+    def build():
+        # every option from the LIVE server: a --restore'd daemon's came
+        # from its snapshot, not from the command line
+        return eng.serve(
+            capacity=srv.capacity, batch_per_slot=srv.batch_per_slot,
+            chunk_cycles=srv.chunk_cycles, prefill_chunk=srv.prefill_chunk,
+            pipeline_depth=srv.pipeline_depth, inflight_steps=srv.inflight_steps,
+            top_k=srv.top_k, top_p=srv.top_p, trace_path=getattr(args, "trace_path", None),
+            speculate=srv.speculate, spec_ngram=srv.spec_ngram, max_queue=srv.max_queue,
+            default_deadline_s=srv.default_deadline_s, snapshot_every_s=srv._snapshot_every_s,
+            snapshot_path=srv._snapshot_path, kv_block_size=srv.kv_block_size,
+            kv_blocks=srv.kv_blocks, kv_dtype=srv.kv_dtype, paged_attn=srv.paged_attn,
+            prefix_cache=srv.prefix_cache,
+            host_pool_blocks=(srv.host_pool_blocks
+                              if srv.prefix_cache in ("host", "disk") else 0),
+            disk_pool_dir=srv.disk_pool_dir, disk_pool_blocks=srv.disk_pool_blocks,
+            gauge_sweep_every_s=srv.gauge_sweep_every_s,
+        )
+
+    try:
+        new_srv = build()
+        applied = spec
+    except Exception as e:  # noqa: BLE001 — keep the daemon alive
+        # the old server reads the engine's swapped stages no more, but its
+        # arenas are sized for them: roll the placement back and rebuild
+        try:
+            eng.apply_placement(old_spec)
+            new_srv = build()
+        except Exception as e2:  # noqa: BLE001
+            print(json.dumps(counters.snapshot()), file=sys.stderr)
+            print(f"placement rebuild failed ({e}) and rollback to {list(old_spec.stages)} "
+                  f"also failed ({e2}); daemon state is unrecoverable, exiting",
+                  file=sys.stderr)
+            raise SystemExit(1)
+        applied = old_spec
+        print(f"placement rebuild failed ({e}); rolled back to {list(old_spec.stages)}",
               file=sys.stderr)
+    srv.close()
+    new_srv.counters = counters  # session totals survive the swap
+    # the JAX line names the mesh's shape, an OrderedDict of its one axis
+    shape = collections.OrderedDict(pipe=eng.num_stages)
+    print(f"placement applied: {list(applied.stages)} over {shape}", file=sys.stderr)
+    return new_srv
 
 
 def _dp_serve_control(srv, line: str) -> None:
@@ -387,7 +492,7 @@ def _restore(eng, args):
         f"--{flag.replace('_', '-')} {got} (snapshot: {used})"
         for flag, got, used in (
             ("capacity", args.capacity, srv.capacity),
-            ("batch_per_slot", args.batch_per_slot, srv.rows),
+            ("batch_per_slot", args.batch_per_slot, srv.batch_per_slot),
             ("prefill_chunk", args.prefill_chunk, srv.prefill_chunk),
             ("top_k", args.top_k, srv.top_k),
             ("top_p", args.top_p, srv.top_p),
@@ -453,13 +558,18 @@ def cmd_serve(args) -> int:
 
 def _fleet(args):
     """``--data-parallel N``: N replicas behind the supervised router (JAX
-    ``cli.py:661-760``), every one on ``--device`` (one GPU serves them
-    all), the weights loaded once on the host; ``--disagg`` gives them
-    prefill/decode roles. Returns the router."""
+    ``cli.py:661-760``), each a chain of ``--stages`` / ``--ranges``
+    stages, all on the one ``--device``, the weights loaded once on the
+    host; ``--disagg`` gives them prefill/decode roles. Returns the
+    router."""
     from .device import resolve_device
     from .utils import shard_store
 
     dev = resolve_device(args.device)  # no GPU: raise before loading
+    cfg = shard_store.load_config(args.shards)
+    placement = _placement(args, cfg.num_hidden_layers)
+    # every stage of every replica on the one device
+    devs = [args.device] * (args.data_parallel * (placement.num_stages if placement else 1))
     cfg, params = shard_store.load_full(args.shards, dtype=_dtype(args.dtype), device="cpu")
     extra: dict = {}
     if args.disagg:
@@ -475,7 +585,7 @@ def _fleet(args):
                      prefill_replicas=args.prefill_replicas or (1 if roles is None else None))
     else:
         from .runtime.replicated import ReplicatedServer as cls
-    srv = cls(cfg, params, data_parallel=args.data_parallel, devices=[dev] * args.data_parallel,
+    srv = cls(cfg, params, data_parallel=args.data_parallel, devices=devs, placement=placement,
               tokenizer=shard_store.load_tokenizer(args.shards),
               min_replicas=args.min_replicas, **extra, **_serve_kwargs(args))
     s0 = srv.servers[0]
@@ -541,7 +651,8 @@ def _serve(args, term: threading.Event) -> int:
         srv = _restore(eng, args) if args.restore else eng.serve(**_serve_kwargs(args))
         mode = ("dense" if srv.kv_block_size is None
                 else f"paged {srv.kv_blocks} x {srv.kv_block_size}")
-        print(f"serving {eng.cfg.model_type} on {eng.device} (capacity={srv.capacity}, "
+        stages = f"{eng.num_stages} stages from " if eng.num_stages > 1 else ""
+        print(f"serving {eng.cfg.model_type} on {stages}{eng.device} (capacity={srv.capacity}, "
               f"rows={srv.rows}, {mode}); enter a prompt, ^D to exit", file=sys.stderr)
     ingress = None
     metrics_srv = _start_metrics(
@@ -584,7 +695,20 @@ def _serve(args, term: threading.Event) -> int:
         if not prompt:
             continue
         if prompt.startswith(":"):
-            (_dp_serve_control if fleet else _serve_control)(srv, prompt)
+            if fleet:
+                _dp_serve_control(srv, prompt)
+                continue
+            # a repartition swaps the engine's stages: the ingress's pump
+            # pauses and then points at the rebuilt server (JAX cli.py:985-1006)
+            freeze = ingress is not None and prompt.split()[0] == ":placement"
+            if freeze:
+                ingress.pause()
+            try:
+                srv = _serve_control(eng, srv, prompt, args)
+            finally:
+                if freeze:
+                    ingress.backend = srv
+                    ingress.resume()
             continue
         if tok is None:
             print("rejected: this store has no tokenizer — text prompts need one (the "

@@ -46,6 +46,13 @@ def to_device(a, device: torch.device, dtype: Optional[torch.dtype] = None) -> t
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def hop(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: itself where it is there already, else a
+    ``non_blocking`` copy ordered behind the work that produced it (how a
+    hidden state moves from one pipeline stage's device to the next)."""
+    return t if t.device == device else t.to(device, non_blocking=True)
+
+
 @functools.lru_cache(maxsize=None)
 def device_const(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A constant (a scalar or a tuple of values) as a cached tensor on

@@ -41,9 +41,12 @@ def init_cache(
     capacity: int,
     dtype=torch.bfloat16,
     device=None,
+    num_layers: int = 0,
 ) -> KVCache:
-    """An empty cache on ``device`` (the caller resolves it)."""
-    shape = (cfg.num_hidden_layers, batch_size, capacity, cfg.num_key_value_heads, cfg.head_dim_)
+    """An empty cache on ``device`` (the caller resolves it), over
+    ``num_layers`` layers (0: the model's; a pipeline stage's own)."""
+    L = num_layers or cfg.num_hidden_layers
+    shape = (L, batch_size, capacity, cfg.num_key_value_heads, cfg.head_dim_)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -51,20 +54,23 @@ def init_cache(
     )
 
 
-def block_pool_shape(cfg: ModelConfig, num_blocks: int, block_size: int) -> tuple:
+def block_pool_shape(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     num_layers: int = 0) -> tuple:
     """Shape of the pooled paged arena, ``[L, num_blocks, block_size, Nkv,
-    D]``. Block 0 is the reserved trash sink (``runtime/blocks.py``)."""
+    D]`` (``L``: ``num_layers``, 0 for the model's). Block 0 is the
+    reserved trash sink (``runtime/blocks.py``)."""
     if num_blocks < 2:
         raise ValueError(
             f"num_blocks must be >= 2 (block 0 is the reserved trash sink), got {num_blocks}"
         )
     if block_size < 1 or (block_size & (block_size - 1)):
         raise ValueError(f"block_size must be a power of two, got {block_size}")
-    return (cfg.num_hidden_layers, num_blocks, block_size, cfg.num_key_value_heads, cfg.head_dim_)
+    return (num_layers or cfg.num_hidden_layers, num_blocks, block_size, cfg.num_key_value_heads,
+            cfg.head_dim_)
 
 
-def block_scale_shape(cfg: ModelConfig, num_blocks: int) -> tuple:
+def block_scale_shape(cfg: ModelConfig, num_blocks: int, num_layers: int = 0) -> tuple:
     """Shape of a quantized arena's per-(block, KV head) f32 scale pool,
     ``[L, num_blocks, Nkv]`` (the JAX state's ``k_scale``/``v_scale`` on
     one stage, ``parallel/serve.py:305-309``)."""
-    return (cfg.num_hidden_layers, num_blocks, cfg.num_key_value_heads)
+    return (num_layers or cfg.num_hidden_layers, num_blocks, cfg.num_key_value_heads)

@@ -764,3 +764,17 @@ AUTOSCALE_LOAD = REGISTRY.gauge(
     "means work is waiting that no live slot can take",
 )
 
+
+# -- pipeline placement (runtime/engine.py) ---------------------------------
+# JAX ``runtime/engine.py:60-74``: every committed placement swap (an
+# engine's construction included), its wall and the resulting stage count.
+PLACEMENT_SWAPS = REGISTRY.counter(
+    "engine_placement_swaps_total", "apply_placement calls that committed",
+)
+PLACEMENT_SWAP_SECONDS = REGISTRY.histogram(
+    "engine_placement_swap_seconds",
+    "Wall time of one placement swap (stage re-slice + device placement)",
+)
+PIPELINE_STAGES = REGISTRY.gauge(
+    "engine_pipeline_stages", "Pipe-axis size of the engine's current mesh",
+)

@@ -1,4 +1,4 @@
-"""Serve programs over the paged KV arena, one stage on one device: the port
+"""Serve programs over the paged KV arena, through the stage chain: the port
 of ``llm_sharding_tpu/parallel/serve.py`` (``ServeState`` ``:71-111``,
 ``prefix_prefill`` ``:345``, ``gather_prefix_kv`` ``:408``,
 ``write_arena_blocks`` / ``write_arena_blocks_q`` ``:465`` / ``:483``,
@@ -6,12 +6,23 @@ of ``llm_sharding_tpu/parallel/serve.py`` (``ServeState`` ``:71-111``,
 ``serve_prefill_chunk`` ``:861``, ``serve_admit_finish`` ``:1074``,
 ``serve_chunk`` ``:1198``, ``serve_verify`` ``:1490``), paged and dense.
 
-There is no mesh: with one stage the JAX package's ring degenerates to a
-plain pass over the layers, so the in-flight ring block, its validity bit
-and the per-slot schedule fields have no counterpart here. Rows are
-independent: each admission fills whichever rows are free, and one decode
-step advances every live row by one token. Pipeline stages come with a
-later slice. The model family's functions come from one table
+There is no mesh: a program takes the model as its stage list
+(``parallel/pipeline.Stage``; a one-device params dict is one stage) and
+runs every live row through stage 0's layers, then stage 1's, and so on,
+the hidden state hopping between the stages' devices: one pass per stage
+per step. The JAX package's interleaved ring (each stage serving another
+slot every microstep) has no counterpart: rows are independent, so the
+tokens are the same, and one host thread issuing every launch would pay
+each layer's launches once per stage per token. So the in-flight ring
+block, its validity bit and the per-slot schedule fields are gone too.
+Each admission fills whichever rows are free, and one decode step
+advances every live row by one token. Each stage holds its own arena
+``[L_stage, NB, BS, Nkv, D]`` (and scales) on its device (``arenas``);
+one block table and the row state, on the first stage's device, serve
+every stage, as JAX's ``[S, Lp, NB, ...]`` arena shares its tables. The
+head is sharded by vocab over the stages (``parallel/head.py``): greedy
+ids come from the per-shard maxima, and only a sampled row's logits are
+gathered. The model family's functions come from one table
 (``parallel/pipeline.model_fns``), so every program serves llama-family
 and GPT-2 weights alike, raw or quantized.
 
@@ -57,30 +68,38 @@ byte-stable under every row that maps them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..device import to_device
-from ..models.cache import POS_SENTINEL, KVCache, block_pool_shape, block_scale_shape, init_cache
+from ..device import hop, to_device
+from ..models.cache import POS_SENTINEL, KVCache, block_pool_shape, block_scale_shape
 from ..models.config import ModelConfig
 from ..ops.paged_attention import _bytes, _take, write_block_kv
 from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
 from ..ops.sampling import filter_rows, gumbel, is_stop, sample
-from .pipeline import model_fns
+from .head import sp_head
+from .pipeline import as_stages, chain_caches, chain_embed, chain_forward, model_fns, run_stages
+
+
+class Arena(NamedTuple):
+    """One stage's KV store on its device."""
+
+    k: torch.Tensor  # paged: [L_stage, NB, BS, Nkv, D] pooled arena, block 0 = trash;
+    #   dense: [L_stage, M, C, Nkv, D], one cache row per serving row
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]  # [L_stage, NB, Nkv] f32 of an int8/fp8 arena, else None
+    v_scale: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass
 class ServeState:
-    """The fields of the JAX ``ServeState`` that one stage needs, plus the
-    host's mirrors and sampling settings."""
+    """The fields of the JAX ``ServeState``, plus the host's mirrors and
+    sampling settings. ``arenas`` holds each stage's KV store in chain
+    order; the tables and the row state are on the first stage's device."""
 
-    k: torch.Tensor  # paged: [L, NB, BS, Nkv, D] pooled arena, block 0 = trash;
-    #   dense: [L, M, C, Nkv, D], one cache row per serving row
-    v: torch.Tensor
-    k_scale: Optional[torch.Tensor]  # [L, NB, Nkv] f32 of an int8/fp8 arena, else None
-    v_scale: Optional[torch.Tensor]
+    arenas: list  # [Arena] per stage
     cache_dtype: torch.dtype  # the engine's dtype: dense prefill cache, attention queries
     kpos: torch.Tensor  # [M, W] int32 key position per LOGICAL column
     block_tables: torch.Tensor  # [M, T] int32 (the server owns the host mirror);
@@ -106,7 +125,25 @@ class ServeState:
     @property
     def block_size(self) -> int:
         """The arena's block size; 0 for a dense state."""
-        return 0 if self.dense else self.k.shape[2]
+        return 0 if self.dense else self.arenas[0].k.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        """The first stage's device: the tables and the row state."""
+        return self.kpos.device
+
+    def _one(self) -> Arena:
+        if len(self.arenas) != 1:
+            raise ValueError(
+                f"the arena is split over {len(self.arenas)} stages: read state.arenas"
+            )
+        return self.arenas[0]
+
+    # a one-stage state's arena under the JAX field names
+    k = property(lambda self: self._one().k)
+    v = property(lambda self: self._one().v)
+    k_scale = property(lambda self: self._one().k_scale)
+    v_scale = property(lambda self: self._one().v_scale)
 
     @property
     def rows(self) -> int:
@@ -123,44 +160,47 @@ def make_state(
     dtype: torch.dtype,
     device: torch.device,
     kv_dtype: str = "bf16",
+    stages: Optional[list] = None,  # [(num_layers, device)] per stage
 ) -> ServeState:
     """Empty state: every row free (done), every table entry trash. Each
     row's logical window is ``W = ceil(capacity / BS) * BS`` columns.
     ``kv_dtype`` "int8"/"fp8" allocates 1-byte arenas and zero scales;
     "bf16" stores in ``dtype``, the engine's own. ``kv_block_size`` 0 is
     dense: per-row ``[L, M, capacity, Nkv, D]`` caches in ``dtype``, an
-    ``[M, 1]`` placeholder table and no scales (``serve.py:253-300``)."""
+    ``[M, 1]`` placeholder table and no scales (``serve.py:253-300``).
+    ``stages`` gives each stage's layer count and device (default: one
+    stage of every layer on ``device``); the tables and the row state go
+    on ``device``, the first stage's."""
     dense = not kv_block_size
-    if dense:
-        if kv_dtype != "bf16":
-            raise ValueError(f"kv_dtype={kv_dtype!r} needs a paged arena")
-        T, W = 1, capacity
-        shape = (cfg.num_hidden_layers, rows, capacity, cfg.num_key_value_heads, cfg.head_dim_)
-    else:
-        T = -(-capacity // kv_block_size)
-        W = T * kv_block_size
-        shape = block_pool_shape(cfg, kv_blocks, kv_block_size)
+    if dense and kv_dtype != "bf16":
+        raise ValueError(f"kv_dtype={kv_dtype!r} needs a paged arena")
+    T = 1 if dense else -(-capacity // kv_block_size)
+    W = capacity if dense else T * kv_block_size
     store = kv_storage_dtype(kv_dtype, dtype)
     quantized = is_kv_quantized(store)
 
-    def arena():
+    def arena(L, dev):
+        if dense:
+            shape = (L, rows, capacity, cfg.num_key_value_heads, cfg.head_dim_)
+        else:
+            shape = block_pool_shape(cfg, kv_blocks, kv_block_size, L)
         if quantized:  # zero bytes, viewed: fills of fp8 tensors are not everywhere
-            return torch.zeros(shape, dtype=torch.uint8, device=device).view(store)
-        return torch.zeros(shape, dtype=store, device=device)
+            return torch.zeros(shape, dtype=torch.uint8, device=dev).view(store)
+        return torch.zeros(shape, dtype=store, device=dev)
 
-    def scales():
+    def scales(L, dev):
         if not quantized:
             return None
-        return torch.zeros(block_scale_shape(cfg, kv_blocks), dtype=torch.float32, device=device)
+        return torch.zeros(block_scale_shape(cfg, kv_blocks, L), dtype=torch.float32, device=dev)
 
     def row_i32():
         return torch.zeros(rows, dtype=torch.int32, device=device)
 
     return ServeState(
-        k=arena(),
-        v=arena(),
-        k_scale=scales(),
-        v_scale=scales(),
+        arenas=[
+            Arena(arena(L, dev), arena(L, dev), scales(L, dev), scales(L, dev))
+            for L, dev in (stages or [(cfg.num_hidden_layers, device)])
+        ],
         cache_dtype=dtype,
         kpos=torch.full((rows, W), POS_SENTINEL, dtype=torch.int32, device=device),
         block_tables=torch.zeros((rows, T), dtype=torch.int32, device=device),
@@ -189,7 +229,7 @@ def _arm_sampling(state: ServeState, rows, seeds, temps, topks, topps, rng_state
     migrated request carries (``torch.Generator.get_state()`` bytes, taken
     on a server of the same device type): the row resumes the draws of its
     uninterrupted run instead of restarting them."""
-    dev = state.k.device
+    dev = state.device
     for i, r in enumerate(rows):
         state.temp[r] = max(float(temps[i]), 0.0)
         state.topk[r] = int(topks[i])
@@ -199,6 +239,27 @@ def _arm_sampling(state: ServeState, rows, seeds, temps, topks, topps, rng_state
             state.rng[r] = torch.Generator(device=dev).manual_seed(int(seeds[i]))
             if rng_states is not None and rng_states[i] is not None:
                 state.rng[r].set_state(torch.from_numpy(np.asarray(rng_states[i], np.uint8)))
+
+
+def _next_tokens(cfg: ModelConfig, stages: list, state: ServeState, rows,
+                 h: torch.Tensor) -> torch.Tensor:
+    """The next token of each of ``rows`` from the final hidden states ``h
+    [n, 1, H]``, on the first stage's device: one stage samples its
+    logits (``_sample_rows``); more take the greedy ids from the
+    vocab-sharded head, and gather the logits of the rows that sample
+    only, which then draw as on one stage."""
+    if len(stages) == 1:
+        logits = model_fns(cfg).final_logits(cfg, stages[0].head, h)[:, 0]
+        return _sample_rows(state, rows, logits)
+    samp = [i for i, r in enumerate(rows) if state.rng[r] is not None]
+    toks, full = sp_head(cfg, stages, h[:, 0], samp)
+    for j, i in enumerate(samp):
+        r = rows[i]
+        toks[i] = sample(
+            full[j : j + 1], float(state.temp[r]), int(state.topk[r]), float(state.topp[r]),
+            generator=state.rng[r],
+        )[0]
+    return toks
 
 
 def _sample_rows(state: ServeState, rows, logits: torch.Tensor) -> torch.Tensor:
@@ -267,47 +328,59 @@ def _from_raw(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+def _cat_layers(parts: list, device: torch.device) -> torch.Tensor:
+    """Per-stage tensors ``[L_stage, ...]`` as one ``[L, ...]`` on
+    ``device`` (one stage: its tensor as it is)."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([hop(p, device) for p in parts])
+
+
 def prefix_prefill(
     cfg: ModelConfig,
-    params: dict,
+    model,  # the stage list, or one device's params dict
     prefix: np.ndarray,  # [1, Spx] right-padded prefix ids
     prefix_len: int,  # real prefix length
     dtype: torch.dtype,  # the engine's compute dtype
     device: torch.device,
 ) -> tuple:
     """Prefill a shared prefix once through the dense layer path (the flash
-    kernel) and return its KV, ``(k [L, 1, Spx, Nkv, D], v, pos [1,
-    Spx])`` with the sentinel past ``prefix_len``: the handle a
-    ``serve_admit(prefix_kv=)`` seeds its rows' caches from
-    (``serve.py:345``)."""
+    kernel) of every stage and return its KV, ``(k [L, 1, Spx, Nkv, D],
+    v, pos [1, Spx])`` on ``device`` with the sentinel past
+    ``prefix_len``: the handle a ``serve_admit(prefix_kv=)`` seeds its
+    rows' caches from (``serve.py:345``)."""
+    stages = as_stages(model)
     Spx = prefix.shape[1]
     idx = np.arange(Spx)[None, :]
     positions = np.where(idx < prefix_len, idx, POS_SENTINEL).astype(np.int32)
     pos_t = torch.from_numpy(positions).to(device)
-    cache = init_cache(cfg, 1, Spx, dtype=dtype, device=device)
-    fns = model_fns(cfg)
-    h = fns.embed(cfg, params, torch.from_numpy(prefix).to(device), pos_t)
-    fns.stage(cfg, params["layers"], h, cache, pos_t)
-    return cache.k, cache.v, cache.pos
+    caches = chain_caches(cfg, stages, 1, Spx, dtype)
+    h = chain_embed(cfg, stages, torch.from_numpy(prefix).to(device), pos_t)
+    chain_forward(cfg, stages, h, caches, pos_t)
+    return (_cat_layers([c.k for c in caches], device), _cat_layers([c.v for c in caches], device),
+            caches[0].pos)
 
 
 def gather_prefix_kv(state: ServeState, blocks: list, out_dtype: torch.dtype) -> tuple:
-    """A radix hit's prefix operand straight from the arena
+    """A radix hit's prefix operand straight from the arenas
     (``serve.py:408``): the ``T`` matched blocks as ``(k [L, 1, T*BS, Nkv,
-    D], v, pos [1, T*BS])``, no prefill. A quantized arena's codes come
-    back dequantized into ``out_dtype``, the engine's compute dtype.
-    Matches are block-aligned and gap-free, so ``pos`` is ``arange``."""
-    dev = state.k.device
-    idx = torch.as_tensor(blocks, dtype=torch.long, device=dev)
-    out = []
-    for arena, scale in ((state.k, state.k_scale), (state.v, state.v_scale)):
-        g = _take(arena, (slice(None), idx))  # [L, T, BS, Nkv, D]
-        if scale is not None:
-            g = kv_dequantize(g, scale[:, idx][:, :, None, :, None], out_dtype)
-        L, T, BS = g.shape[:3]
-        out.append(g.reshape(L, 1, T * BS, *g.shape[3:]))
-    pos = torch.arange(out[0].shape[2], dtype=torch.int32, device=dev)[None]
-    return out[0], out[1], pos
+    D], v, pos [1, T*BS])`` on the first stage's device, no prefill. A
+    quantized arena's codes come back dequantized into ``out_dtype``, the
+    engine's compute dtype. Matches are block-aligned and gap-free, so
+    ``pos`` is ``arange``."""
+    dev = state.device
+    ks, vs = [], []
+    for ar in state.arenas:
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=ar.k.device)
+        for arena, scale, out in ((ar.k, ar.k_scale, ks), (ar.v, ar.v_scale, vs)):
+            g = _take(arena, (slice(None), idx))  # [L, T, BS, Nkv, D]
+            if scale is not None:
+                g = kv_dequantize(g, scale[:, idx][:, :, None, :, None], out_dtype)
+            L, T, BS = g.shape[:3]
+            out.append(g.reshape(L, 1, T * BS, *g.shape[3:]))
+    k, v = _cat_layers(ks, dev), _cat_layers(vs, dev)
+    pos = torch.arange(k.shape[2], dtype=torch.int32, device=dev)[None]
+    return k, v, pos
 
 
 def _host_bytes(t: torch.Tensor) -> np.ndarray:
@@ -327,6 +400,7 @@ class BlockRead:
     already queued there (so they read the bytes those programs wrote, and
     the arena's later writes cannot reach the gathered copies); on the card
     a ``non_blocking`` copy into pinned host buffers follows, then an event.
+    ``parts`` are on one device: the stages' gathers are joined there.
     ``numpy()`` waits for that event (releasing the interpreter lock) and
     returns the host bytes: call it outside the server's mutex."""
 
@@ -360,12 +434,15 @@ class BlockRead:
 def read_arena_blocks_dispatch(state: ServeState, blocks: list) -> BlockRead:
     """Queue the gathers of arena blocks and their copy to the host
     (``BlockRead``); the JAX ``runtime/server.py:3145``. Nothing here waits
-    for the device: the block ids go up through a pinned staging copy."""
-    idx = to_device(np.asarray(blocks, np.int64), state.k.device)
-    parts = [state.k, state.v]
-    if state.k_scale is not None:
-        parts += [state.k_scale, state.v_scale]
-    return BlockRead(tuple(_take(a, (slice(None), idx)) for a in parts))
+    for the device: the block ids go up through a pinned staging copy. The
+    stages' blocks are joined along the layer axis on the first stage's
+    device, so the host arrays are the one-stage layout."""
+    per_stage = []
+    for ar in state.arenas:
+        idx = to_device(np.asarray(blocks, np.int64), ar.k.device)
+        parts = [ar.k, ar.v] + ([] if ar.k_scale is None else [ar.k_scale, ar.v_scale])
+        per_stage.append([_take(a, (slice(None), idx)) for a in parts])
+    return BlockRead(tuple(_cat_layers(list(p), state.device) for p in zip(*per_stage)))
 
 
 def read_arena_blocks(state: ServeState, blocks: list) -> tuple:
@@ -397,9 +474,24 @@ def write_arena_blocks_q(
     v_scale[:, idx] = _from_raw(vs_host[0], torch.float32, v_scale.device)
 
 
+def write_state_blocks(state: ServeState, blocks: list, k_host, v_host, *scales) -> None:
+    """Host arrays in the one-stage layout (``read_arena_blocks``'s ``[1,
+    L, nb, ...]``) written into every stage's arena, each stage taking its
+    layers: codes and, for an int8/fp8 arena, scales, byte-exact."""
+    lo = 0
+    for ar in state.arenas:
+        hi = lo + ar.k.shape[0]
+        cut = [a[:, lo:hi] for a in (k_host, v_host) + tuple(scales)]
+        if ar.k_scale is None:
+            write_arena_blocks(ar.k, ar.v, blocks, *cut)
+        else:
+            write_arena_blocks_q(ar.k, ar.v, ar.k_scale, ar.v_scale, blocks, *cut)
+        lo = hi
+
+
 def serve_admit(
     cfg: ModelConfig,
-    params: dict,
+    model,  # the stage list, or one device's params dict
     state: ServeState,
     rows: list,
     prompts: np.ndarray,  # [n, Sp] right-padded (Sp = the admission bucket)
@@ -442,8 +534,10 @@ def serve_admit(
     ``serve.py:686-701``), which then replaces the rows' cache rows.
     ``prompt_embeds`` skips the embedding (the privacy entry,
     ``serve.py:611-616``): the rows enter as the given hidden states, and
-    ``prompts`` only fills ``out``."""
-    dev = state.k.device
+    ``prompts`` only fills ``out``. Every stage prefills into its own
+    fresh cache and scatters its layers into its own arena."""
+    stages = as_stages(model)
+    dev = state.device
     n, Sp = prompts.shape
     BS = state.block_size
     rows_t = to_device(np.asarray(rows, np.int64), dev)
@@ -453,28 +547,29 @@ def serve_admit(
     positions = np.where(idx < prompt_len[:, None], pfx + idx, POS_SENTINEL).astype(np.int32)
     pos_t = to_device(positions, dev)
     C = state.kpos.shape[1] if state.dense else Spx + Sp
-    cache = init_cache(cfg, n, C, dtype=state.cache_dtype, device=dev)
+    caches = chain_caches(cfg, stages, n, C, state.cache_dtype)
     if prefix_kv is not None:
         pk, pv, ppos = prefix_kv
-        cache.k[:, :, :Spx] = pk.to(state.cache_dtype)
-        cache.v[:, :, :Spx] = pv.to(state.cache_dtype)
-        cache.pos[:, :Spx] = ppos
-        cache.length = Spx
-    fns = model_fns(cfg)
+        for st, cache in zip(stages, caches):
+            cache.k[:, :, :Spx] = hop(pk[st.start : st.end], st.device).to(state.cache_dtype)
+            cache.v[:, :, :Spx] = hop(pv[st.start : st.end], st.device).to(state.cache_dtype)
+            cache.pos[:, :Spx] = hop(ppos, st.device)
+            cache.length = Spx
     if prompt_embeds is None:
-        h = fns.embed(cfg, params, to_device(prompts, dev), pos_t)
+        h = chain_embed(cfg, stages, to_device(prompts, dev), pos_t)
     else:
         h = to_device(prompt_embeds, dev, state.cache_dtype)
-    h, cache = fns.stage(cfg, params["layers"], h, cache, pos_t)
-    last = to_device(np.asarray(prompt_len, np.int64) - 1, dev)
-    h_last = h[torch.arange(n, device=dev), last][:, None]
-    logits = fns.final_logits(cfg, params, h_last)[:, 0]
+    h = chain_forward(cfg, stages, h, caches, pos_t)
+    last = to_device(np.asarray(prompt_len, np.int64) - 1, h.device)
+    h_last = h[torch.arange(n, device=h.device), last][:, None]
     _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
-    tok0 = _sample_rows(state, rows, logits)
+    tok0 = _next_tokens(cfg, stages, state, rows, h_last)
     if state.dense:
-        state.k[:, rows_t] = cache.k
-        state.v[:, rows_t] = cache.v
-        state.kpos[rows_t] = cache.pos
+        for ar, cache in zip(state.arenas, caches):
+            rows_s = hop(rows_t, ar.k.device)
+            ar.k[:, rows_s] = cache.k
+            ar.v[:, rows_s] = cache.v
+        state.kpos[rows_t] = caches[0].pos
         _arm_admitted(cfg, state, rows, rows_t, prompts, tok0, pfx, prompt_len, max_new,
                       Spx + Sp)
         return tok0
@@ -492,17 +587,17 @@ def serve_admit(
     w0 = npfx * BS
     tbl = state.block_tables[rows_t]
     cols = torch.arange(w0, Spx + Sp, device=dev).expand(n, Spx + Sp - w0)
-    for layer in range(cache.num_layers):
-        if state.k_scale is None:
-            write_block_kv(
-                state.k[layer], state.v[layer], tbl, cols, cache.k[layer][:, w0:],
-                cache.v[layer][:, w0:],
-            )
-            continue
-        scatter_pages_q(state.k[layer], state.k_scale[layer], tbl[:, npfx:], cache.k[layer][:, w0:])
-        scatter_pages_q(state.v[layer], state.v_scale[layer], tbl[:, npfx:], cache.v[layer][:, w0:])
+    for ar, cache in zip(state.arenas, caches):
+        tbl_s, cols_s = hop(tbl, ar.k.device), hop(cols, ar.k.device)
+        for layer in range(cache.num_layers):
+            kw, vw = cache.k[layer][:, w0:], cache.v[layer][:, w0:]
+            if ar.k_scale is None:
+                write_block_kv(ar.k[layer], ar.v[layer], tbl_s, cols_s, kw, vw)
+                continue
+            scatter_pages_q(ar.k[layer], ar.k_scale[layer], tbl_s[:, npfx:], kw)
+            scatter_pages_q(ar.v[layer], ar.v_scale[layer], tbl_s[:, npfx:], vw)
     kpos = torch.full((n, state.kpos.shape[1]), POS_SENTINEL, dtype=torch.int32, device=dev)
-    kpos[:, : Spx + Sp] = cache.pos
+    kpos[:, : Spx + Sp] = caches[0].pos
     state.kpos[rows_t] = kpos
     _arm_admitted(cfg, state, rows, rows_t, prompts, tok0, pfx, prompt_len, max_new, Spx + Sp)
     return tok0
@@ -515,7 +610,7 @@ def _arm_admitted(cfg, state: ServeState, rows, rows_t, prompts, tok0, pfx: int,
     prompt_len``, into column ``write_off``."""
     total = pfx + np.asarray(prompt_len, np.int64)
     budget = total + np.asarray(max_new, np.int64)
-    rs = to_device(np.stack([total, budget]).astype(np.int32), state.k.device)
+    rs = to_device(np.stack([total, budget]).astype(np.int32), state.device)
     state.tok[rows_t] = tok0
     state.pos_slots[rows_t] = rs[0]
     state.write_off[rows_t] = write_off
@@ -532,7 +627,7 @@ def _arm_admitted(cfg, state: ServeState, rows, rows_t, prompts, tok0, pfx: int,
 
 def serve_prefill_chunk(
     cfg: ModelConfig,
-    params: dict,
+    model,  # the stage list, or one device's params dict
     state: ServeState,
     rows: list,
     tokens: np.ndarray,  # [n, Sc] one chunk of the right-padded prompts
@@ -560,10 +655,11 @@ def serve_prefill_chunk(
     previous occupant's larger scale does not coarsen this admission's
     codes while the shared prefix blocks keep theirs: their codes would
     otherwise dequantize to zero under every row that maps them."""
-    dev = state.k.device
+    stages = as_stages(model)
+    dev = state.device
     n, Sc = tokens.shape
     if state.dense:
-        _dense_prefill_chunk(cfg, params, state, rows, tokens, positions, chunk_off, reset)
+        _dense_prefill_chunk(cfg, stages, state, rows, tokens, positions, chunk_off, reset)
         return
     BS = state.block_size
     rows_t = to_device(np.asarray(rows, np.int64), dev)
@@ -573,51 +669,62 @@ def serve_prefill_chunk(
         col = torch.arange(state.kpos.shape[1], dtype=torch.int32, device=dev)
         state.kpos[rows_t] = torch.where(col < prefix_off, col, POS_SENTINEL)[None]
         state.out[rows] = 0
-        if state.k_scale is not None:
+        if state.arenas[0].k_scale is not None:
             priv = tbl.long().clone()
             priv[:, : prefix_off // BS] = 0  # shared prefix blocks keep their scales
-            state.k_scale[:, priv] = 0.0
-            state.v_scale[:, priv] = 0.0
+            for ar in state.arenas:
+                priv_s = hop(priv, ar.k.device)
+                ar.k_scale[:, priv_s] = 0.0
+                ar.v_scale[:, priv_s] = 0.0
     pos_t = to_device(np.asarray(positions, np.int32), dev)
     kv_pos = state.kpos[rows_t]
     kv_pos[:, col0 : col0 + Sc] = pos_t
     cols = (col0 + torch.arange(Sc, device=dev)).expand(n, Sc)
     nlive = torch.full((n,), -(-(col0 + Sc) // BS), dtype=torch.int32, device=dev)
     fns = model_fns(cfg)
-    h = fns.embed(cfg, params, to_device(tokens, dev), pos_t)
-    fns.stage_paged(
-        cfg, params["layers"], h, state.k, state.v, tbl, cols, kv_pos, pos_t,
-        prefill=True, nlive=nlive, k_scale=state.k_scale, v_scale=state.v_scale,
-        backend=backend,
-    )
+
+    def stage(i, st, h):
+        ar, d = state.arenas[i], st.device
+        return fns.stage_paged(
+            cfg, st.layers, h, ar.k, ar.v, hop(tbl, d), hop(cols, d), hop(kv_pos, d),
+            hop(pos_t, d), prefill=True, nlive=hop(nlive, d), k_scale=ar.k_scale,
+            v_scale=ar.v_scale, backend=backend,
+        )
+
+    run_stages(stages, chain_embed(cfg, stages, to_device(tokens, dev), pos_t), stage)
     state.kpos[rows_t] = kv_pos
     state.write_off[rows_t] = col0 + Sc
     state.out[rows, chunk_off : chunk_off + Sc] = tokens
 
 
-def _dense_prefill_chunk(cfg, params, state: ServeState, rows, tokens, positions,
+def _dense_prefill_chunk(cfg, stages: list, state: ServeState, rows, tokens, positions,
                          chunk_off: int, reset: bool) -> None:
     """A dense chunk (``serve.py:1009-1030``): the rows' own caches, reset
     to zeros and sentinels on the first chunk, take the chunk at columns
     ``[chunk_off, chunk_off + Sc)`` through the dense layer path (flash at
-    S = Sc over the row's C columns)."""
-    dev = state.k.device
+    S = Sc over the row's C columns), stage by stage."""
+    dev = state.device
     Sc = tokens.shape[1]
     idx = to_device(np.asarray(rows, np.int64), dev)
     if reset:
-        state.k[:, idx] = 0
-        state.v[:, idx] = 0
+        for ar in state.arenas:
+            ar.k[:, hop(idx, ar.k.device)] = 0
+            ar.v[:, hop(idx, ar.k.device)] = 0
         state.kpos[idx] = POS_SENTINEL
         state.out[rows] = 0
     # the rows' caches, gathered, take the chunk and go back
-    cache = KVCache(k=state.k[:, idx], v=state.v[:, idx], pos=state.kpos[idx], length=chunk_off)
+    caches = [
+        KVCache(k=ar.k[:, hop(idx, ar.k.device)], v=ar.v[:, hop(idx, ar.k.device)],
+                pos=hop(state.kpos[idx], ar.k.device), length=chunk_off)
+        for ar in state.arenas
+    ]
     pos_t = to_device(np.asarray(positions, np.int32), dev)
-    fns = model_fns(cfg)
-    h = fns.embed(cfg, params, to_device(tokens, dev), pos_t)
-    fns.stage(cfg, params["layers"], h, cache, pos_t)
-    state.k[:, idx] = cache.k
-    state.v[:, idx] = cache.v
-    state.kpos[idx] = cache.pos
+    chain_forward(cfg, stages, chain_embed(cfg, stages, to_device(tokens, dev), pos_t), caches,
+                  pos_t)
+    for ar, cache in zip(state.arenas, caches):
+        ar.k[:, hop(idx, ar.k.device)] = cache.k
+        ar.v[:, hop(idx, ar.k.device)] = cache.v
+    state.kpos[idx] = caches[0].pos
     state.write_off[idx] = chunk_off + Sc
     state.out[rows, chunk_off : chunk_off + Sc] = tokens
 
@@ -637,7 +744,7 @@ def serve_admit_finish(
     """Arm chunk-prefilled rows on the device: the final prompt token
     becomes each row's next input at position ``prompt_len - 1``; the
     first decode step computes it and samples the first generated token."""
-    dev = state.k.device
+    dev = state.device
     _arm_sampling(state, rows, seeds, temps, topks, topps, rng_states)
     plen = np.asarray(prompt_len, np.int64)
     budget = plen + np.asarray(max_new, np.int64)
@@ -653,7 +760,7 @@ def serve_admit_finish(
 
 
 def serve_chunk(
-    cfg: ModelConfig, params: dict, state: ServeState, cycles: int = 1, backend: str = "auto"
+    cfg: ModelConfig, model, state: ServeState, cycles: int = 1, backend: str = "auto"
 ) -> torch.Tensor:
     """``cycles`` decode steps over all ``M`` rows at one fixed shape (JAX
     ``serve_chunk``, ``serve.py:1198``). Each step feeds every row's next
@@ -678,8 +785,14 @@ def serve_chunk(
     On a dense state each row writes its entry into its own cache at its
     write column, a done row writing back what it read (a select, no
     boolean-mask index), and attends its whole cache row on the plain path
-    (JAX's dense decode is plain too, ``ops/flash_attention.py:241-244``)."""
-    dev = state.k.device
+    (JAX's dense decode is plain too, ``ops/flash_attention.py:241-244``).
+
+    Every stage runs its layers over all ``M`` rows in turn, reading the
+    one table and ``kpos`` (copied to a stage on another device, never
+    through the host), and the head assembles the tokens on the first
+    stage's device."""
+    stages = as_stages(model)
+    dev = state.device
     M, W = state.kpos.shape
     fns = model_fns(cfg)
     ar = state.row_ids
@@ -689,20 +802,26 @@ def serve_chunk(
         pos = state.pos_slots
         cols = state.write_off.clamp(max=W - 1)  # a done row may sit at W
         state.kpos[ar, cols] = torch.where(live, pos, state.kpos[ar, cols])
-        h = fns.embed(cfg, params, state.tok[:, None], pos[:, None])
+        h = chain_embed(cfg, stages, state.tok[:, None], pos[:, None])
         if state.dense:
-            h = fns.stage_rows(
-                cfg, params["layers"], h, state.k, state.v, ar[:, None], cols[:, None],
-                state.kpos, pos[:, None], live=live,
-            )
+            def stage(i, st, h):
+                a, d = state.arenas[i], st.device
+                return fns.stage_rows(
+                    cfg, st.layers, h, a.k, a.v, hop(ar, d)[:, None], hop(cols, d)[:, None],
+                    hop(state.kpos, d), hop(pos, d)[:, None], live=hop(live, d),
+                )
         else:
             tables = torch.where(live[:, None], state.block_tables, 0)
-            h = fns.stage_paged(
-                cfg, params["layers"], h, state.k, state.v, tables, cols[:, None], state.kpos,
-                pos[:, None], k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
-            )
-        logits = fns.final_logits(cfg, params, h)[:, 0]
-        nxt = _sample_rows(state, range(M), logits)
+
+            def stage(i, st, h):
+                a, d = state.arenas[i], st.device
+                return fns.stage_paged(
+                    cfg, st.layers, h, a.k, a.v, hop(tables, d), hop(cols, d)[:, None],
+                    hop(state.kpos, d), hop(pos, d)[:, None], k_scale=a.k_scale,
+                    v_scale=a.v_scale, backend=backend,
+                )
+
+        nxt = _next_tokens(cfg, stages, state, range(M), run_stages(stages, h, stage))
         commit = live & (state.lengths < state.budget)
         step = commit.to(torch.int32)
         state.tok.copy_(torch.where(commit, nxt, state.tok))
@@ -726,7 +845,7 @@ def commit_log(state: ServeState, row: int, run) -> None:
 
 def serve_verify(
     cfg: ModelConfig,
-    params: dict,
+    model,  # the stage list, or one device's params dict
     state: ServeState,
     rows: list,
     draft: np.ndarray,  # [n, K] right-padded n-gram drafts
@@ -765,7 +884,8 @@ def serve_verify(
     kernel at S = K + 1. The log returned is the ``rows``' own."""
     from ..runtime.spec import _leading_true_count, cap_commits, rejection_commit
 
-    dev = state.k.device
+    stages = as_stages(model)
+    dev = state.device
     verified = None
     if state.dense:
         M, K = state.rows, draft.shape[1]
@@ -787,33 +907,48 @@ def serve_verify(
     kv_pos[rowsel, cols_t] = pos_t  # the in-flight entries, this step only
     lengths, budget, done = state.lengths[rows_t], state.budget[rows_t], state.done[rows_t]
     fns = model_fns(cfg)
-    h = fns.embed(cfg, params, toks, pos_t)
+    h = chain_embed(cfg, stages, toks, pos_t)
     if state.dense:
         done = done | ~to_device(verified, dev)
-        h = fns.stage_rows(
-            cfg, params["layers"], h, state.k, state.v, rowsel, cols_t, kv_pos, pos_t,
-            live=~done,
-        )
+        live = ~done
+
+        def stage(i, st, h):
+            a, d = state.arenas[i], st.device
+            return fns.stage_rows(
+                cfg, st.layers, h, a.k, a.v, hop(rowsel, d), hop(cols_t, d), hop(kv_pos, d),
+                hop(pos_t, d), live=hop(live, d),
+            )
     else:
-        h = fns.stage_paged(
-            cfg, params["layers"], h, state.k, state.v, state.block_tables[rows_t], cols_t,
-            kv_pos, pos_t, k_scale=state.k_scale, v_scale=state.v_scale, backend=backend,
-        )
-    logits = fns.final_logits(cfg, params, h).float()  # [n, K+1, V]
+        tables = state.block_tables[rows_t]
+
+        def stage(i, st, h):
+            a, d = state.arenas[i], st.device
+            return fns.stage_paged(
+                cfg, st.layers, h, a.k, a.v, hop(tables, d), hop(cols_t, d), hop(kv_pos, d),
+                hop(pos_t, d), k_scale=a.k_scale, v_scale=a.v_scale, backend=backend,
+            )
+
+    h = run_stages(stages, h, stage)
+    samp = [i for i, r in enumerate(rows) if state.rng[r] is not None]
+    if len(stages) == 1:
+        logits = fns.final_logits(cfg, stages[0].head, h).float()  # [n, K+1, V]
+        choices = logits.argmax(dim=-1).to(torch.int32)
+    else:  # the vocab-sharded head: greedy ids, the sampled rows' logits gathered
+        choices, samp_logits = sp_head(cfg, stages, h, samp)
 
     valid = to_device(np.arange(K)[None, :] < np.asarray(draft_len)[:, None], dev)
-    choices = logits.argmax(dim=-1).to(torch.int32)
     a = _leading_true_count((choices[:, :K] == draft_t) & valid)
     commit = choices
-    samp = [i for i, r in enumerate(rows) if state.rng[r] is not None]
     if samp:
         sel = to_device(np.asarray(samp, np.int64), dev)
+        if len(stages) == 1:
+            samp_logits = logits[sel]
         rs = [rows[i] for i in samp]
         knobs = to_device(np.stack([state.temp[rs], state.topp[rs]]).astype(np.float32), dev)
         scaled = filter_rows(
-            logits[sel] / knobs[0][:, None, None], to_device(state.topk[rs], dev), knobs[1],
+            samp_logits / knobs[0][:, None, None], to_device(state.topk[rs], dev), knobs[1],
         )
-        V = logits.shape[-1]
+        V = samp_logits.shape[-1]
         u = torch.stack([torch.rand(K, generator=state.rng[r], device=dev) for r in rs])
         g = torch.stack([gumbel((K + 1, V), state.rng[r], dev) for r in rs])
         a_s, commit_s = rejection_commit(scaled, draft_t[sel], valid[sel], u, g)

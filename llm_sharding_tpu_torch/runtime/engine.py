@@ -3,26 +3,44 @@
 
 ``Engine.from_shards(dir)`` loads a shard store onto the GPU (or the CPU
 when asked) with the store's tokenizer where it has one, ``generate_ids``
-runs the monolithic oracle, ``serve`` builds the continuous-batching
-server (dense, or paged with ``kv_block_size`` / ``kv_blocks``), and the
-text surface (``generate_text``, ``generate_text_stream``) and the privacy
-entry's ``embed_prompt`` sit on top. One GPU, no pipeline stages:
-placement, repartition and the mesh come with the pipeline slice.
+runs the oracle, ``serve`` builds the continuous-batching server (dense,
+or paged with ``kv_block_size`` / ``kv_blocks``), and the text surface
+(``generate_text``, ``generate_text_stream``) and the privacy entry's
+``embed_prompt`` sit on top.
+
+Pipeline stages: ``num_stages`` / ``placement`` (``parallel/placement``)
+cut the model into contiguous layer ranges, each with its vocab shard of
+the head (``parallel/head.py``), one per ``devices`` entry (a list may
+repeat a device; ``None`` is every visible GPU). A chain longer than the
+list runs grouped, as in JAX. Such an engine keeps the weights on the
+host, and ``apply_placement`` re-slices them onto the devices at any time
+(hot repartition). An engine built with none of the three loads straight
+onto its device as one stage; ``keep_host_copy`` gives it the host copy
+that repartition slices from.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device, to_device
-from ..ops.quant import act_dtype, base
-from ..parallel.pipeline import model_fns
+from ..obs.metrics import PIPELINE_STAGES, PLACEMENT_SWAP_SECONDS, PLACEMENT_SWAPS
+from ..ops.quant import act_dtype
+from ..parallel.pipeline import (
+    as_stages, build_stages, chain_embed, exec_spec, map_params, pipeline_generate,
+    stage_devices, visible_devices,
+)
+from ..parallel.placement import PlacementSpec
 from ..utils import shard_store
-from .generate import GenerateResult, generate
+from .generate import generate
+
+logger = logging.getLogger("llm_sharding_tpu_torch.engine")
 
 
 def text_deltas(tok, tokens) -> Iterator[str]:
@@ -40,19 +58,22 @@ def text_deltas(tok, tokens) -> Iterator[str]:
 
 
 class Engine:
-    """A model's weights on one device, llama family or GPT-2, raw or
-    with int8 / int4 ``QTensor`` weights. The compute KV cache takes the
-    weights' compute dtype (a quantized weight's scale dtype; the attention
-    kernels take queries and an unquantized cache of one dtype); a
-    server's paged arena may instead store int8 or fp8 codes
-    (``serve(kv_dtype=)``), dequantized inside the kernels."""
+    """A model's weights on one device or cut into pipeline stages, llama
+    family or GPT-2, raw or with int8 / int4 ``QTensor`` weights. The
+    compute KV cache takes the weights' compute dtype (a quantized
+    weight's scale dtype; the attention kernels take queries and an
+    unquantized cache of one dtype); a server's paged arena may instead
+    store int8 or fp8 codes (``serve(kv_dtype=)``), dequantized inside the
+    kernels.
 
-    def __init__(self, cfg, params: dict):
+    ``num_stages`` (default: one per device), ``placement`` (a
+    ``PlacementSpec``) and ``devices`` (default every visible GPU) make a
+    pipeline engine over host-resident weights; without them ``params``
+    stay where they are, one stage on their device."""
+
+    def __init__(self, cfg, params: dict, *, num_stages: Optional[int] = None,
+                 placement: Optional[PlacementSpec] = None, devices: Optional[list] = None):
         self.cfg = cfg
-        self.params = params
-        # a quantized table's codes are int8: its scale carries the dtype
-        self.device = base(params["embed"]).device
-        self.cache_dtype = act_dtype(params["embed"])
         #: the store's tokenizer (``from_shards``), as a Hugging Face one:
         #: ``tok(text)["input_ids"]`` and ``decode(ids,
         #: skip_special_tokens=True)``; None: ids only (no text surface, no
@@ -61,25 +82,176 @@ class Engine:
         # the text stream's shared servers, by capacity (``_shared_server``)
         self._servers: dict = {}
         self._lock = threading.Lock()
+        L = cfg.num_hidden_layers
+        if num_stages is None and placement is None and devices is None:
+            # loaded straight onto the device: one stage, no host copy
+            self._host = None
+            stages = as_stages(params)
+            self._devices = [stages[0].device]
+            self._commit(PlacementSpec.balanced(L, 1), PlacementSpec.balanced(L, 1), stages,
+                         time.perf_counter())
+            return
+        # the repartition source stays on the host: only each stage's slice
+        # reaches its device (JAX ``host_staging``, ``engine.py:107-121``)
+        self._host = map_params(lambda t: t.detach().to("cpu"), params)
+        self._devices = visible_devices(devices)
+        if placement is None:
+            placement = PlacementSpec.balanced(L, num_stages or len(self._devices))
+        self.apply_placement(placement)
 
     @classmethod
     def from_shards(
-        cls, shards_dir: str, *, dtype: torch.dtype = torch.bfloat16, device=None
+        cls, shards_dir: str, *, dtype: torch.dtype = torch.bfloat16, device=None,
+        num_stages: Optional[int] = None, placement: Optional[PlacementSpec] = None,
+        devices: Optional[list] = None,
     ) -> "Engine":
         """Load a store written by either package: llama family or GPT-2,
         raw or int8 / int4 quantized (``dtype`` casts the raw tensors and
         the scales, never the codes), and its tokenizer where the store
         holds one and ``transformers`` loads it (JAX ``engine.py:203``).
         Default device: the GPU; raises without one unless
-        ``device="cpu"``."""
-        cfg, params = shard_store.load_full(shards_dir, dtype=dtype, device=resolve_device(device))
-        eng = cls(cfg, params)
+        ``device="cpu"``. With ``num_stages``, ``placement`` or
+        ``devices`` (``device`` alone: a one-entry list) the store loads
+        into host memory and the engine stages it."""
+        if num_stages is None and placement is None and devices is None:
+            cfg, params = shard_store.load_full(shards_dir, dtype=dtype,
+                                                device=resolve_device(device))
+            eng = cls(cfg, params)
+        else:
+            devices = visible_devices(devices if devices is not None or device is None
+                                      else [device])
+            cfg, params = shard_store.load_full(shards_dir, dtype=dtype, device="cpu")
+            eng = cls(cfg, params, num_stages=num_stages, placement=placement, devices=devices)
         eng.tokenizer = shard_store.load_tokenizer(shards_dir)
         return eng
 
-    def generate_ids(self, prompt_ids, max_new_tokens: int = 128, **kw) -> GenerateResult:
-        """The monolithic oracle (``runtime/generate.generate``)."""
-        return generate(self.cfg, self.params, prompt_ids, max_new_tokens, **kw)
+    # -- control plane (JAX ``engine.py:218-356``) --------------------------
+
+    def apply_placement(self, spec: PlacementSpec) -> None:
+        """Hot-apply a new layer → stage mapping: re-slice the host weights
+        onto the devices (a chain longer than the device list runs
+        grouped). Live servers keep the arrays they were built on; new
+        servers see the new placement. An engine loaded straight onto its
+        device (no host copy) has that one device, so it runs any chain
+        as one grouped stage."""
+        if spec.num_layers != self.cfg.num_hidden_layers:
+            raise ValueError(
+                f"placement covers {spec.num_layers} layers but model has "
+                f"{self.cfg.num_hidden_layers}"
+            )
+        t0 = time.perf_counter()
+        ex = exec_spec(spec, len(self._devices))
+        if self._host is None:  # one device: any chain runs grouped as one stage
+            stages = self.stages
+        else:
+            stages = build_stages(self.cfg, self._host, ex,
+                                  stage_devices(spec.num_stages, self._devices))
+        self._commit(spec, ex, stages, t0)
+        logger.info("placement applied: %d stages over %d devices, ranges %s",
+                    spec.num_stages, ex.num_stages, list(spec.stages))
+
+    @property
+    def host_staged(self) -> bool:
+        """Whether the weights' host copy, the repartition source, is kept."""
+        return self._host is not None
+
+    def keep_host_copy(self, devices: list) -> None:
+        """Copy the weights of an engine loaded straight onto its device to
+        the host, as the source of later ``apply_placement`` calls, and take
+        ``devices`` (a list may repeat a device) as its stage devices from
+        the next placement on. The serving daemon calls it at its first
+        ``:placement``, so a daemon that never repartitions keeps the direct
+        load's memory and start-up time."""
+        if self._host is None:
+            self._host = map_params(lambda t: t.detach().to("cpu"), self.params)
+        self._devices = visible_devices(devices)
+
+    def _commit(self, spec: PlacementSpec, ex: PlacementSpec, stages: list, t0: float) -> None:
+        """Swap placement and stages in at once: a concurrent generate sees
+        the old set or the new one, never a mix."""
+        with self._lock:
+            self.placement = spec  # the operator's chain (may be longer)
+            self.exec_placement = ex  # what the devices run
+            self._stages = stages
+            # live servers are bound to the old arrays
+            self._servers = {}
+        PLACEMENT_SWAPS.inc()
+        PLACEMENT_SWAP_SECONDS.observe(time.perf_counter() - t0)
+        PIPELINE_STAGES.set(ex.num_stages)
+
+    @property
+    def stages(self) -> list:
+        """The executed stages (``parallel/pipeline.Stage``), in chain order."""
+        return self._stages
+
+    @property
+    def num_stages(self) -> int:
+        """The executed stage count."""
+        return len(self._stages)
+
+    @property
+    def device(self) -> torch.device:
+        """The first stage's device: where requests enter and tokens land."""
+        return self._stages[0].device
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        # a quantized table's codes are int8: its scale carries the dtype
+        return act_dtype(self._stages[0].head["embed"])
+
+    @property
+    def params(self) -> dict:
+        """A one-stage engine's params on its device (``layers`` and the
+        head leaves); a pipeline engine has no such dict."""
+        st = self._stages
+        if len(st) != 1:
+            raise ValueError(
+                f"a {len(st)}-stage engine holds no one-device params; its stages are "
+                "engine.stages"
+            )
+        return {"layers": st[0].layers, **st[0].head}
+
+    def generate_ids(self, prompt_ids, max_new_tokens: int = 128, **kw):
+        """The monolithic oracle (``runtime/generate.generate``) on one
+        stage; through the stage chain (``pipeline_generate``, which has no
+        speculation) on more (JAX ``engine.py:364-409``)."""
+        with self._lock:
+            stages = self._stages
+        if len(stages) == 1:
+            return generate(self.cfg, self.params, prompt_ids, max_new_tokens, **kw)
+        if kw.get("speculate"):
+            raise ValueError(
+                f"speculate={kw['speculate']}: the pipeline's generate has no speculative "
+                "decoding (serve(speculate=) verifies through the stages)"
+            )
+        kw = {k: v for k, v in kw.items() if k not in ("speculate", "spec_ngram", "spec_burst")}
+        return pipeline_generate(self.cfg, stages, prompt_ids, max_new_tokens, **kw)
+
+    def generate_many(
+        self,
+        prompts,  # [R, S] right-padded, R <= num_stages * batch_per_slot
+        max_new_tokens: int = 128,
+        *,
+        prompt_len=None,
+        capacity: Optional[int] = None,
+        temperature=0.0,
+        top_k=0,
+        top_p=1.0,
+        seeds=None,
+        batch_per_slot: Optional[int] = None,
+    ):
+        """Up to ``num_stages * batch_per_slot`` requests at once, each row
+        with its own sampling settings and seed (JAX ``engine.py:411``;
+        ``parallel/schedule.interleaved_generate``)."""
+        from ..parallel.schedule import interleaved_generate
+
+        with self._lock:
+            stages = self._stages
+        return interleaved_generate(
+            self.cfg, stages, prompts, max_new_tokens, prompt_len=prompt_len, capacity=capacity,
+            batch_per_slot=batch_per_slot, temperature=temperature, top_k=top_k, top_p=top_p,
+            seeds=seeds, num_stages=self.placement.num_stages,
+        )
 
     def serve(
         self,
@@ -113,10 +285,11 @@ class Engine:
         trace_path: Optional[str] = None,
         gauge_sweep_every_s: float = 0.0,
     ):
-        """A continuous-batching server over ``batch_per_slot`` rows
-        (``runtime/server.PipelineServer``): dense per-row caches of
-        ``capacity`` columns by default, the JAX ``serve`` default, or the
-        paged arena of ``kv_blocks`` blocks of ``kv_block_size`` (the two
+        """A continuous-batching server over ``num_stages ×
+        batch_per_slot`` rows (``runtime/server.PipelineServer``, JAX
+        ``server.py:1307``), every program through the stage chain:
+        dense per-row caches of ``capacity`` columns by default, the JAX
+        ``serve`` default, or the paged arena of ``kv_blocks`` blocks of ``kv_block_size`` (the two
         go together). ``kv_dtype`` ("bf16" = the
         engine's dtype, "int8", "fp8") is the arena's storage;
         ``paged_attn`` ("auto", "kernel", "plain") the paged attention
@@ -244,6 +417,5 @@ class Engine:
         if ids.ndim == 1:
             ids = ids[None]
         pos = np.broadcast_to(start + np.arange(ids.shape[1], dtype=np.int32), ids.shape)
-        return model_fns(self.cfg).embed(
-            self.cfg, self.params, to_device(ids, self.device), to_device(pos, self.device)
-        )
+        return chain_embed(self.cfg, self.stages, to_device(ids, self.device),
+                           to_device(pos, self.device))

@@ -6,15 +6,16 @@ router in front: each replica is a full ``Engine`` + ``PipelineServer``
 (continuous batching, chunked prefill, per-request sampling, stop strings,
 cancellation, the embedding entry), and nothing couples them.
 
-Where a replica runs: the JAX router places replica ``d`` on the ``d``-th
-disjoint group of its devices. The port has no pipeline stages yet, so a
-group is one ``torch.device``: ``devices`` lists one device per replica,
-and entries may repeat. ``devices=None`` puts every replica on the default
-device (the GPU), which is how one card serves D replicas: they share its
-memory and its stream, and the router steps them in turn on one thread, so
-D replicas over the same rows sum to no more than one replica's throughput
+Where a replica runs: as the JAX router, replica ``d`` takes the ``d``-th
+of ``data_parallel`` equal, disjoint groups of ``devices``, in order; a
+group is the stage device list of the replica's engine (``num_stages`` /
+``placement``, as ``Engine`` takes them), and entries may repeat.
+``devices=None`` puts every stage of every replica on the default device
+(the GPU), which is how one card serves D replicas: they share its memory
+and its stream, and the router steps them in turn on one thread, so D
+replicas over the same rows sum to no more than one replica's throughput
 (each step is mostly host dispatch). The weights are kept once as CPU
-tensors, and each replica stages its own copy onto its device (a CPU
+tensors, and each replica stages its own copy onto its devices (a CPU
 replica's copy is the host tensors themselves).
 
 Replica SUPERVISION (what turns D replicas into one endpoint that survives
@@ -58,6 +59,7 @@ import torch
 
 from ..analysis.lockorder import named_lock
 from ..device import resolve_device
+from ..parallel.pipeline import map_params
 from ..obs.metrics import (
     REPLICA_DRAINS, REPLICA_FAILOVERS, REPLICA_SPAWNS, REQUESTS_MIGRATED,
     set_replica_state,
@@ -71,20 +73,6 @@ from .server import (
 )
 
 logger = logging.getLogger(__name__)
-
-
-def map_params(fn, tree):
-    """``fn`` over every tensor of a parameter tree (dicts, lists, tuples
-    and the quantized-weight named tuples), the structure kept."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: map_params(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(map_params(fn, v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_params(fn, v) for v in tree)
-    return tree
 
 
 class ReplicatedPrefixHandle:
@@ -143,25 +131,20 @@ class ReplicatedServer:
                 f"min_replicas must be in [0, data_parallel], got "
                 f"{min_replicas} with data_parallel={data_parallel}"
             )
-        if (num_stages or 1) > 1 or placement is not None:
-            raise ValueError(
-                "replicas of pipeline stages (num_stages > 1, placement) come "
-                "with a later slice of the port: ROADMAP.md §A 15 (pipeline "
-                "parallelism); a replica here is one device"
-            )
         if tensor_parallel > 1:
             raise ValueError(
                 "tensor-parallel replicas come with a later slice of the port: "
                 "ROADMAP.md §A 16 (tensor, context and multi-host); a replica "
-                "here is one device"
+                "here is a chain of pipeline stages"
             )
         if devices is None:
-            devices = [resolve_device(None)] * data_parallel
+            per = placement.num_stages if placement is not None else (num_stages or 1)
+            devices = [resolve_device(None)] * (data_parallel * per)
         devices = [resolve_device(d) for d in devices]
-        if len(devices) != data_parallel:
+        if len(devices) % data_parallel:
             raise ValueError(
-                f"{len(devices)} devices for {data_parallel} replicas (one "
-                "device per replica; entries may repeat)"
+                f"{len(devices)} devices not divisible into "
+                f"{data_parallel} replica groups"
             )
         # the weights kept ONCE on the host for the daemon's lifetime: every
         # replica stages its own copy from them, spawn_replica included
@@ -185,6 +168,8 @@ class ReplicatedServer:
         # predecessor's pool
         self._disk_pool_dir = serve_kwargs.pop("disk_pool_dir", None)
         self._cfg = cfg
+        self._num_stages = num_stages
+        self._placement = placement
         self._tokenizer = tokenizer
         self._serve_kwargs = dict(serve_kwargs)
         # the router shares the replicas' fault plan for the replica-level
@@ -196,7 +181,8 @@ class ReplicatedServer:
         self.data_parallel = data_parallel
         # fixed groups; the group index is the replica's stable identity
         # across drain/spawn cycles (metrics label, CLI :drain N)
-        self._groups = [[dev] for dev in devices]
+        group = len(devices) // data_parallel
+        self._groups = [devices[d * group : (d + 1) * group] for d in range(data_parallel)]
         self.engines: list[Engine] = []
         self.servers: list[PipelineServer] = []
         self._by_group: dict[int, PipelineServer] = {}
@@ -234,10 +220,15 @@ class ReplicatedServer:
 
     def _spawn_on_group(self, d: int) -> PipelineServer:
         """Bring a replica up on group ``d``: a fresh engine staged from the
-        host weights + a fresh server with the router's serve kwargs.
+        host weights (one device: loaded straight onto it; else the stages
+        over the group) + a fresh server with the router's serve kwargs.
         Registers it for routing/stepping/supervision."""
-        dev = self._groups[d][0]
-        eng = Engine(self._cfg, map_params(lambda t: t.to(dev), self._host_params))
+        group = self._groups[d]
+        if len(group) == 1 and self._num_stages is None and self._placement is None:
+            eng = Engine(self._cfg, map_params(lambda t: t.to(group[0]), self._host_params))
+        else:
+            eng = Engine(self._cfg, self._host_params, num_stages=self._num_stages,
+                         placement=self._placement, devices=group)
         eng.tokenizer = self._tokenizer
         srv = eng.serve(
             trace_path=(

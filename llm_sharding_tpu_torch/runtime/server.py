@@ -1,11 +1,13 @@
 """Continuous-batching server over the paged KV arena or dense per-row
-caches, one GPU: the port of
+caches, through the engine's pipeline stages: the port of
 ``llm_sharding_tpu/runtime/server.py`` ``PipelineServer`` (``:885``) with
 ``submit`` / ``step`` / ``stream`` / ``result`` / ``cancel`` / ``close`` /
 ``run_until_idle``.
 
-It schedules ``M = batch_per_slot`` independent rows (the JAX server's
-``num_stages × batch_per_slot`` on one stage). Each ``step`` admits queued
+It schedules ``M = num_stages × batch_per_slot`` independent rows, as the
+JAX server does (``server.py:1307``); every program runs them through each
+stage in turn (``parallel/serve.py``), each stage's layers over its own
+arena on its device. Each ``step`` admits queued
 requests into free rows, FIFO and gated on free KV blocks
 (``server.py:4023-4046``: exhaustion is a queue wait), then runs one
 decode step over every live row. The admission path follows
@@ -584,14 +586,9 @@ def _read_arena_blocks(state, blocks) -> tuple:
 
 def _write_arena_blocks(state, blocks, k_host, v_host, *scales) -> None:
     """Host→device restore of demoted blocks into fresh arena blocks
-    (``server.py:3189``), codes and scales byte-exact; queued before the
-    admission that reads them."""
-    if state.k_scale is None:
-        serve_ops.write_arena_blocks(state.k, state.v, list(blocks), k_host, v_host)
-    else:
-        serve_ops.write_arena_blocks_q(
-            state.k, state.v, state.k_scale, state.v_scale, list(blocks), k_host, v_host, *scales
-        )
+    (``server.py:3189``), codes and scales byte-exact, each stage taking
+    its layers; queued before the admission that reads them."""
+    serve_ops.write_state_blocks(state, list(blocks), k_host, v_host, *scales)
 
 
 def _tenant_field(req) -> dict:
@@ -887,9 +884,14 @@ class PipelineServer:
             raise ValueError(f"chunk_cycles must be >= 1, got {chunk_cycles}")
         self.engine = engine
         self.cfg = engine.cfg
-        self.params = engine.params
+        #: the engine's executed stages, fixed for the server's life (a
+        #: repartition builds a new server)
+        self.model = engine.stages
+        self.num_stages = len(self.model)
         self.capacity = int(capacity)
-        self.rows = int(batch_per_slot)
+        self.batch_per_slot = int(batch_per_slot)
+        #: M, the rows every program runs (JAX ``server.py:1307``)
+        self.rows = self.num_stages * self.batch_per_slot
         #: decode steps per dispatched chunk
         self.chunk_cycles = int(chunk_cycles)
         #: logs the serial loop leaves in flight when a step returns
@@ -937,6 +939,7 @@ class PipelineServer:
             self.cfg, self.rows, capacity=self.capacity + self._spec_cols,
             kv_blocks=self.kv_blocks or 0, kv_block_size=self.kv_block_size or 0,
             dtype=engine.cache_dtype, device=engine.device, kv_dtype=kv_dtype,
+            stages=[(st.end - st.start, st.device) for st in self.model],
         )
         # host mirror of the device block tables (dense: the placeholder);
         # pushed before each dispatch that reads them once a release or a
@@ -1133,7 +1136,7 @@ class PipelineServer:
             if self._closed:
                 raise ServerClosed("server is closed; prefill_prefix rejected")
             kv = serve_ops.prefix_prefill(
-                self.cfg, self.params, buf, n, self.engine.cache_dtype, self.engine.device
+                self.cfg, self.model, buf, n, self.engine.cache_dtype, self.engine.device
             )
             if not self.paged:  # a dense handle owns no blocks
                 logger.info("prefill_prefix n=%d bucket=%d blocks=-", n, spx)
@@ -1534,7 +1537,7 @@ class PipelineServer:
         """Device bytes of the KV arena and its scale pools (dense: of the
         per-row caches)."""
         if self._alloc is None:
-            return 2 * self.state.k.numel() * self.state.k.element_size()
+            return sum(2 * a.k.numel() * a.k.element_size() for a in self.state.arenas)
         return self._alloc.arena_bytes(
             num_layers=self.cfg.num_hidden_layers, num_kv_heads=self.cfg.num_key_value_heads,
             head_dim=self.cfg.head_dim_, kv_dtype=self.kv_store_dtype,
@@ -1612,7 +1615,7 @@ class PipelineServer:
             return {
                 "format": SNAPSHOT_FORMAT,
                 "serve_kwargs": dict(
-                    capacity=self.capacity, batch_per_slot=self.rows,
+                    capacity=self.capacity, batch_per_slot=self.batch_per_slot,
                     chunk_cycles=self.chunk_cycles, top_k=self.top_k, top_p=self.top_p,
                     pipeline_depth=self.pipeline_depth, inflight_steps=self.inflight_steps,
                     prefill_chunk=self.prefill_chunk, kv_block_size=self.kv_block_size,
@@ -1624,6 +1627,7 @@ class PipelineServer:
                     speculate=self.speculate, spec_ngram=self.spec_ngram,
                 ),
                 "arena_dtype": str(self.kv_store_dtype),
+                "num_stages": self.num_stages,
                 "rng_device": self.engine.device.type,
                 "arena": arena,
                 "state": dict(
@@ -1675,6 +1679,13 @@ class PipelineServer:
             raise ValueError(
                 "paged-mode snapshot cannot restore into a dense server: keep the "
                 "snapshot's kv_block_size/kv_blocks serve kwargs"
+            )
+        stages = int(snap.get("num_stages", 1))
+        if stages != engine.num_stages:
+            raise ValueError(
+                f"snapshot was taken over {stages} stage(s), engine placement runs "
+                f"{engine.num_stages} — restore needs the same stages/capacity/"
+                "batch_per_slot the snapshot was taken with"
             )
         srv = engine.serve(**snap["serve_kwargs"])
         st = srv.state
@@ -2223,7 +2234,8 @@ class PipelineServer:
         """The arena's and scales' bytes of ``blocks`` on the host, copied in
         chunks: ``k`` / ``v`` ``[L, n, BS, Nkv, D]`` raw views, and for an
         int8/fp8 arena ``k_scale`` / ``v_scale`` ``[L, n, Nkv]``."""
-        names = ("k", "v", "k_scale", "v_scale")[: 2 if self.state.k_scale is None else 4]
+        quantized = self.state.arenas[0].k_scale is not None
+        names = ("k", "v", "k_scale", "v_scale")[: 4 if quantized else 2]
         out = {"blocks": np.asarray(blocks, np.int32)}
         for lo in range(0, len(blocks), _ARENA_CHUNK_BLOCKS):
             chunk = blocks[lo : lo + _ARENA_CHUNK_BLOCKS]
@@ -2238,11 +2250,12 @@ class PipelineServer:
         """``_capture_arena``'s bytes copied into this server's arena, in
         chunks, in place: the device never holds a second arena."""
         blocks = [int(b) for b in arena["blocks"]]
-        names = ("k", "v", "k_scale", "v_scale")[: 2 if self.state.k_scale is None else 4]
-        if blocks and tuple(arena["k"].shape[2:]) != tuple(self.state.k.shape[2:]):
+        ar0 = self.state.arenas[0]
+        names = ("k", "v", "k_scale", "v_scale")[: 2 if ar0.k_scale is None else 4]
+        if blocks and tuple(arena["k"].shape[2:]) != tuple(ar0.k.shape[2:]):
             raise ValueError(
                 f"snapshot arena blocks are {arena['k'].shape[2:]}, this server's "
-                f"{tuple(self.state.k.shape[2:])}"
+                f"{tuple(ar0.k.shape[2:])}"
             )
         for lo in range(0, len(blocks), _ARENA_CHUNK_BLOCKS):
             chunk = blocks[lo : lo + _ARENA_CHUNK_BLOCKS]
@@ -2251,27 +2264,35 @@ class PipelineServer:
 
     def _capture_rows(self, rows: list) -> dict:
         """A dense server's held rows on the host, one row's cache at a
-        time: ``k`` / ``v`` ``[L, n, C, Nkv, D]`` raw views."""
-        st = self.state
+        time: ``k`` / ``v`` ``[L, n, C, Nkv, D]`` raw views, the stages'
+        layers in chain order."""
         out = {"rows": np.asarray(rows, np.int32)}
-        for name, t in (("k", st.k), ("v", st.v)):
-            parts = [serve_ops._raw(t[:, r]) for r in rows]
+        for name in ("k", "v"):
+            ts = [getattr(a, name) for a in self.state.arenas]
+            parts = [np.concatenate([serve_ops._raw(t[:, r]) for t in ts]) for r in rows]
+            L = sum(t.shape[0] for t in ts)
             out[name] = (np.stack(parts, axis=1) if parts
-                         else np.zeros((t.shape[0], 0) + tuple(t.shape[2:]), np.float32))
+                         else np.zeros((L, 0) + tuple(ts[0].shape[2:]), np.float32))
         return out
 
     def _restore_rows(self, arena: dict) -> None:
-        """``_capture_rows``'s bytes copied into this dense server's rows."""
-        st = self.state
+        """``_capture_rows``'s bytes copied into this dense server's rows,
+        each stage taking its layers."""
         rows = [int(r) for r in arena["rows"]]
-        if rows and tuple(arena["k"].shape[2:]) != tuple(st.k.shape[2:]):
+        ar0 = self.state.arenas[0]
+        if rows and tuple(arena["k"].shape[2:]) != tuple(ar0.k.shape[2:]):
             raise ValueError(
                 f"snapshot rows are {arena['k'].shape[2:]}, this server's "
-                f"{tuple(st.k.shape[2:])}"
+                f"{tuple(ar0.k.shape[2:])}"
             )
         for i, r in enumerate(rows):
-            for name, t in (("k", st.k), ("v", st.v)):
-                t[:, r] = serve_ops._from_raw(arena[name][:, i], t.dtype, t.device)
+            lo = 0
+            for a in self.state.arenas:
+                hi = lo + a.k.shape[0]
+                for name in ("k", "v"):
+                    t = getattr(a, name)
+                    t[:, r] = serve_ops._from_raw(arena[name][lo:hi, i], t.dtype, t.device)
+                lo = hi
 
     def _capture_autosnapshot(self) -> Optional[dict]:
         """End-of-step checkpoint capture under the mutex, once per armed
@@ -2901,7 +2922,7 @@ class PipelineServer:
                 pkv = serve_ops.gather_prefix_kv(self.state, rplan.blocks, self.engine.cache_dtype)
                 pn = spx_n
             return serve_ops.serve_admit(
-                self.cfg, self.params, self.state, rows, prompts, plen, max_new, *sampling,
+                self.cfg, self.model, self.state, rows, prompts, plen, max_new, *sampling,
                 prefix_kv=pkv, prefix_len=pn, prefix_in_arena=rplan is not None,
                 rng_states=rng_states, prompt_embeds=embeds,
             )
@@ -2958,7 +2979,7 @@ class PipelineServer:
                 self._flush_tables()
                 self._charge_idle(time.perf_counter())
                 serve_ops.serve_prefill_chunk(
-                    self.cfg, self.params, self.state, rows, prompts[:, off : off + Sc],
+                    self.cfg, self.model, self.state, rows, prompts[:, off : off + Sc],
                     positions[:, off : off + Sc], off, ci == 0, self.attn_backend,
                     prefix_off=prefix_off,
                 )
@@ -2989,7 +3010,7 @@ class PipelineServer:
         def do_chunk():
             self._fault_check("chunk_dispatch")
             return serve_ops.serve_chunk(
-                self.cfg, self.params, self.state, cycles, self.attn_backend
+                self.cfg, self.model, self.state, cycles, self.attn_backend
             )
 
         self._flush_tables()
@@ -3040,7 +3061,7 @@ class PipelineServer:
         def do_verify():
             self._fault_check("chunk_dispatch")
             return serve_ops.serve_verify(
-                self.cfg, self.params, self.state, rows, draft, draft_len, self.attn_backend
+                self.cfg, self.model, self.state, rows, draft, draft_len, self.attn_backend
             )
 
         self._flush_tables()

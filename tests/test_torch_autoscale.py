@@ -226,11 +226,13 @@ def test_ingress_attach_autoscaler_drives_the_port_router(tparams):
         ing.start()
         ing.attach_autoscaler(sc)
         deadline = time.time() + 30
-        while len(rs.servers) < 2 and time.time() < deadline:
+        # the tick thread counts a spawn (drain) just after the router's set
+        # changed: wait for both
+        while (len(rs.servers) < 2 or sc.spawns < 1) and time.time() < deadline:
             time.sleep(0.01)
         assert len(rs.servers) == 2 and sc.spawns >= 1
         load[0] = 0.0
-        while len(rs.servers) > 1 and time.time() < deadline:
+        while (len(rs.servers) > 1 or sc.drains < 1) and time.time() < deadline:
             time.sleep(0.01)
         assert len(rs.servers) == 1 and sc.drains >= 1
     finally:

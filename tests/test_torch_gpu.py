@@ -1425,3 +1425,199 @@ def test_disagg_handoff_on_the_card(cuda_device):
         assert r.error is None and r.tokens == want.tokens[0, len(p) : want.lengths[0]].tolist()
     assert ds.handoffs_pending() == 0
     ds.close()
+
+
+# ------------------------------------------------------- pipeline stages
+
+def _stage_engine(dev, n, dtype=torch.float32):
+    """The tiny model of ``_tiny_engine`` (4 layers) as ``n`` stages on the
+    one card, staged from a CPU copy of the same weights."""
+    cfg = tcfg.tiny_llama(head_dim=64, num_attention_heads=6, num_key_value_heads=2)
+    host = tllama.init_params(cfg, seed=3, dtype=dtype, device="cpu")
+    one = Engine(cfg, {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                           [{n_: t.to(dev) for n_, t in p.items()} for p in v])
+                       for k, v in host.items()})
+    return one, Engine(cfg, host, num_stages=n, devices=[dev] * 4)
+
+
+def _stage_counts(monkeypatch):
+    """Each kernel's launches per stage while the test runs."""
+    from llm_sharding_tpu_torch.parallel import pipeline as pipe_mod
+    from llm_sharding_tpu_torch.parallel import serve as serve_ops
+
+    per: dict = {}
+    orig = pipe_mod.run_stages
+
+    def run_stages(stages, h, fn):
+        def counted(i, st, h):
+            before = kernels.launch_counts()
+            out = fn(i, st, h)
+            for k, v in kernels.launch_counts().items():
+                per.setdefault(i, {}).setdefault(k, 0)
+                per[i][k] += v - before.get(k, 0)
+            return out
+
+        return orig(stages, h, counted)
+
+    monkeypatch.setattr(pipe_mod, "run_stages", run_stages)
+    monkeypatch.setattr(serve_ops, "run_stages", run_stages)
+    return per
+
+
+def _served(srv, prompts, max_new=10, **kw):
+    reqs = [srv.submit(p, max_new, **kw) for p in prompts[:2]]
+    srv.step()
+    reqs += [srv.submit(p, max_new, **kw) for p in prompts[2:]]
+    srv.run_until_idle()
+    assert all(r.error is None for r in reqs)
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_pipeline_stages_on_one_card_equal_the_one_stage_twin(cuda_device, monkeypatch, n, kv):
+    """2 and 4 stages on ``cuda`` repeated, one-shot and chunked admissions
+    mixed: the streams equal the one-stage engine's in the same arena, and
+    every stage launched all three kernels (in the arena's mode)."""
+    one, eng = _stage_engine(cuda_device, n)
+    assert eng.num_stages == n and all(st.device.type == "cuda" for st in eng.stages)
+    rng = np.random.default_rng(50)
+    prompts = [rng.integers(0, one.cfg.vocab_size, m).astype(np.int32) for m in (5, 20, 30, 12)]
+    want = _served(one.serve(kv_dtype=kv, **_SERVE), prompts)
+    per = _stage_counts(monkeypatch)
+    srv = eng.serve(kv_dtype=kv, **_SERVE)
+    assert srv.rows == n * _SERVE["batch_per_slot"]
+    assert _served(srv, prompts) == want
+    srv._alloc.check()
+    assert srv._alloc.in_use == 0
+    mode = "" if kv == "bf16" else f"[{kv}]"
+    for s in range(n):
+        for k in ("flash_attention", f"paged_attention{mode}", f"paged_prefill{mode}"):
+            assert per[s][k] > 0, (s, k, per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+def test_pipeline_stage_kernels_equal_their_plain_versions(cuda_device, monkeypatch, kv):
+    """The inputs stage 1 of a 2-stage server gave each kernel (its first
+    flash, decode and chunked-prefill call, recorded) give the kernel's
+    output and the plain version's within ``TOL``; and in the bf16 and int8
+    arenas the streams through every stage's kernels equal the same
+    server's through the plain versions (fp8's coarser codes leave this
+    random tiny model near ties the two summation orders split, as
+    ``chip_smoke.py`` [c] holds fp8 streams by a gap rule)."""
+    from llm_sharding_tpu_torch.parallel import pipeline as pipe_mod
+    from llm_sharding_tpu_torch.parallel import serve as serve_ops
+
+    _, eng = _stage_engine(cuda_device, 2)
+    stage, seen = [None], {}
+    orig = pipe_mod.run_stages
+
+    def run_stages(stages, h, fn):
+        def tagged(i, st, h):
+            stage[0] = i
+            try:
+                return fn(i, st, h)
+            finally:
+                stage[0] = None
+
+        return orig(stages, h, tagged)
+
+    def recorder(name, f):
+        def wrapped(*a, **k):
+            if stage[0] == 1 and name not in seen:
+                def cp(x):
+                    return x.clone() if isinstance(x, torch.Tensor) else x
+
+                seen[name] = ([cp(x) for x in a], {kk: cp(vv) for kk, vv in k.items()})
+            return f(*a, **k)
+
+        return wrapped
+
+    monkeypatch.setattr(pipe_mod, "run_stages", run_stages)
+    monkeypatch.setattr(serve_ops, "run_stages", run_stages)
+    for name in ("paged_attention", "paged_prefill", "attention_step"):
+        monkeypatch.setattr(tllama, name, recorder(name, getattr(tllama, name)))
+    rng = np.random.default_rng(51)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, m).astype(np.int32) for m in (5, 20, 30, 12)]
+    streams = {a: _served(eng.serve(kv_dtype=kv, paged_attn=a, **_SERVE), prompts)
+               for a in ("plain", "auto")}
+    assert kv == "fp8" or streams["auto"] == streams["plain"]
+    assert set(seen) == {"paged_attention", "paged_prefill", "attention_step"}
+    for name, (a, k) in seen.items():
+        if name == "attention_step":  # the flash kernel on the card, plain on the CPU
+            kernels.reset_launch_counts()
+            got = tfa.attention_step(*a)
+            assert kernels.launch_counts()["flash_attention"] == 1
+            want = tfa.attention_step(*[x.cpu() for x in a]).to(cuda_device)
+        else:
+            fn = getattr(tpa, name)
+            got, want = fn(*a, **{**k, "backend": "kernel"}), fn(*a, **{**k, "backend": "plain"})
+        torch.testing.assert_close(got, want, atol=TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_pipeline_chained_decode_makes_no_host_sync(cuda_device, kv, sampled):
+    """``serve_chunk`` at 2 stages keeps the step loop's contract: three
+    chunks dispatched back to back under ``set_sync_debug_mode("error")``
+    (the vocab-sharded head, the sampled rows' gathered logits included),
+    one fixed shape; the logs then read as the rows' tokens."""
+    _, eng = _stage_engine(cuda_device, 2)
+    srv = eng.serve(kv_dtype=kv, **dict(_SERVE, prefill_chunk=None))
+    rng = np.random.default_rng(52)
+    kw = dict(temperature=0.8, top_k=20, seed=4) if sampled else {}
+    reqs = [srv.submit(rng.integers(0, eng.cfg.vocab_size, m).astype(np.int32), 20, **kw)
+            for m in (5, 20, 12)]
+    srv.step()
+    srv._drain(0)
+    assert all(not r.done for r in reqs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            srv._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    logs = [e.log.cpu() for e in srv._pending]
+    assert len(logs) == 3 and all(tuple(lg.shape) == (1, srv.rows) for lg in logs)
+    srv.run_until_idle()
+    assert all(r.done and r.error is None for r in reqs)
+
+
+@pytest.mark.cuda
+def test_devices_none_groups_the_chain_on_a_one_gpu_host(cuda_device):
+    """``devices=None`` is every visible GPU: on a one-GPU host a 4-stage
+    chain runs as one grouped stage, and generates the twin's tokens."""
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the grouping case of a one-GPU host")
+    one, _ = _stage_engine(cuda_device, 2)
+    host = {k: v for k, v in one.params.items()}
+    eng = Engine(one.cfg, {"layers": [{n: t.cpu() for n, t in p.items()} for p in host["layers"]],
+                           **{k: v.cpu() for k, v in host.items() if k != "layers"}},
+                 num_stages=4)
+    assert eng.placement.num_stages == 4 and eng.num_stages == 1
+    assert eng.exec_placement.stages == ((0, one.cfg.num_hidden_layers),)
+    p = np.random.default_rng(53).integers(0, one.cfg.vocab_size, 9).astype(np.int32)
+    assert (eng.generate_ids(p, 8).tokens == one.generate_ids(p, 8).tokens).all()
+
+
+@pytest.mark.cuda
+def test_keep_host_copy_repartitions_an_engine_loaded_on_the_card(cuda_device):
+    """An engine loaded straight onto the card (one stage, no host copy)
+    takes the host copy at ``keep_host_copy``, as the daemon's first
+    ``:placement`` does; its 2-stage chain then generates its own tokens."""
+    from llm_sharding_tpu_torch.parallel.placement import PlacementSpec
+
+    one, _ = _stage_engine(cuda_device, 2)
+    eng = Engine(one.cfg, one.params)
+    assert not eng.host_staged
+    p = np.random.default_rng(54).integers(0, one.cfg.vocab_size, 9).astype(np.int32)
+    want = eng.generate_ids(p, 8).tokens
+    eng.keep_host_copy([cuda_device] * one.cfg.num_hidden_layers)
+    assert eng.host_staged and all(t.device.type == "cpu" for t in eng._host["layers"][0].values())
+    eng.apply_placement(PlacementSpec.balanced(one.cfg.num_hidden_layers, 2))
+    assert eng.num_stages == 2 and all(st.device.type == "cuda" for st in eng.stages)
+    assert (eng.generate_ids(p, 8).tokens == want).all()

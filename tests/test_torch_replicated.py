@@ -304,8 +304,9 @@ def test_prefix_bound_migration_re_resolves_local_handle(tree, tparams):
 
 def test_bounds_and_refusals_equal_jax(tree, tparams):
     """min_replicas guards drain, a full set refuses spawn, and the
-    supervision knobs refuse as JAX's do, with its messages; stages,
-    tensor parallelism and placement name their later slices."""
+    supervision knobs refuse as JAX's do, with its messages; tensor
+    parallelism names its later slice, and replicas of 2-stage pipelines
+    serve the oracle's streams."""
     t, j = tfleet(tparams, 2, min_replicas=1), jfleet(tree, 2, min_replicas=1)
     try:
         for srv in (t, j):
@@ -335,12 +336,23 @@ def test_bounds_and_refusals_equal_jax(tree, tparams):
         with pytest.raises(ValueError) as je:
             JReplicated(CJ, tree, devices=jax.devices()[:2], **args)
         assert str(te.value) == str(je.value)
-    for kw, item in ((dict(num_stages=2), "§A 15"), (dict(placement=object()), "§A 15"),
-                     (dict(tensor_parallel=2), "§A 16")):
-        with pytest.raises(ValueError, match=item):
-            ReplicatedServer(CFG, tparams, data_parallel=2, devices=["cpu"] * 2, **kw)
-    with pytest.raises(ValueError, match="one device per replica"):
+    with pytest.raises(ValueError, match="§A 16"):
+        ReplicatedServer(CFG, tparams, data_parallel=2, devices=["cpu"] * 2, tensor_parallel=2)
+    with pytest.raises(ValueError) as te:
         ReplicatedServer(CFG, tparams, data_parallel=2, devices=["cpu"] * 3)
+    with pytest.raises(ValueError) as je:
+        JReplicated(CJ, tree, data_parallel=2, devices=jax.devices()[:3])
+    assert str(te.value) == str(je.value)
+    # replicas of pipelines: two 2-stage replicas, each over its group of two
+    two = ReplicatedServer(CFG, tparams, data_parallel=2, num_stages=2, devices=["cpu"] * 4,
+                           **KW)
+    try:
+        assert [e.num_stages for e in two.engines] == [2, 2] and two.servers[0].rows == 4
+        ps = prompts_of(31, 3)
+        reqs = [two.submit(p, 6) for p in ps]
+        assert [list(two.stream(r)) for r in reqs] == [oracle(tparams, p, 6) for p in ps]
+    finally:
+        two.close()
     if not torch.cuda.is_available():  # devices=None means the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ReplicatedServer(CFG, tparams, data_parallel=2)
