@@ -5,13 +5,15 @@
     python3 chip_smoke.py --kernels MODEL [MODEL ...]
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --pipeline
+    python3 chip_smoke.py --parallel
 
 The second form runs (a) and (b) only, bf16 queries, at the named
 models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
 ``gemma_7b``, ``llama2_7b``), and prints the rows as one JSON line: run
 it in two trees in one call to compare their kernels. The third runs (a)
 and the fleet's parts of (c) and (d) alone, the fourth (a) and the
-pipeline's parts.
+pipeline's parts, the fifth (a) and the tensor and context parallel
+parts of (b), (c) and (d), printing its [b] rows as one JSON line.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -36,7 +38,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     2048, bf16 only. Speculative decoding (K = 4): the paged verify's decode
     at S = 5 over 8 rows of 100-2048 tokens, 3B and Llama-2-7B, in each KV
     mode; speculative ``generate``'s verify, flash at S = 5 over 2048 + 5
-    columns (3B). Time kernel, plain version and
+    columns (3B). At a tensor shard's heads (bf16 arena): the 3B's decode,
+    chunked prefill and flash at 12 / 4 heads (tp 2) and 6 / 2 (tp 4),
+    Llama-2-7B's at 16 / 16 (tp 2). Time kernel, plain version and
     (flash only) ``F.scaled_dot_product_attention`` with the equivalent
     boolean mask, a yardstick the port never calls;
 (c) f32 token checks: the served greedy streams, one-shot and chunked,
@@ -108,18 +112,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     ``speculate=4``, a snapshot restored, an extract / adopt onto the
     one-stage engine, ``pipeline_generate`` and ``generate_many`` against
     CPU ``generate``; ``devices=None`` on the one-GPU host runs a 4-stage
-    chain as one grouped stage;
-(d) write shard stores of seeded random full-depth weights with the
-    port's ``save_shards`` (Llama-3.2-3B bf16, and int8 and int4 layers
-    quantized from the same bf16 weights; GPT-2 small bf16; gemma-2B bf16,
-    full depth; gemma-7B bf16, full width, 4 of its 28 layers), load each
+    chain as one grouped stage. Tensor and context parallelism, 3B raw
+    (``check_parallel``), staged from the CPU copy onto the card repeated
+    and held to CPU ``generate`` (gap < 1e-4): ``generate_ids`` at tp 2,
+    tp 4, pp 2 x tp 2 and dp 2 x pp 2; the served streams (one-shot and
+    chunked) at tp 2 and pp 2 x tp 2, every shard launching the three
+    kernels; ``speculate=3``, a prefix handle and the dense server at tp 2;
+    GPT-2 small (4 layers) and int8 weights at tp 2; ``context_generate``
+    at cp 2 and 4 over a 1000-token prompt;
+    ``decode_from_cache(donate_cache=False)`` twice from one ring prefill;
+    a sampled ``context_generate`` against the card's ``generate(seed=)``;
+(d) write shard stores of seeded random full-width weights with the
+    port's ``save_shards`` (Llama-3.2-3B bf16 at ``D_3B`` = 7 of its 28
+    layers, and int8 and int4 layers quantized from the same bf16 weights,
+    7 of them; GPT-2 small bf16, full depth; gemma-2B bf16, 9 of its 18
+    layers; gemma-7B bf16, 4 of its 28 layers), load each
     with ``Engine.from_shards`` and serve its ``smoke_workload`` (8
     staggered requests, 64 new tokens each) through the paged server: the
     3B, GPT-2 and gemma-2B bf16 stores once per KV dtype (bf16, int8,
-    fp8), the others with a bf16 arena. In each run every request must finish, the
+    fp8; the 3B's int8 and fp8 runs at 7 of its 28 layers),
+    the others with a bf16 arena. In each run every request must finish, the
     block allocator must drain and every kernel (mode) of that path must
     have launched; each store's bytes on disk and resident after load are
-    printed. The 3B also serves the shared-prefix workload
+    printed. The 3B (at 7 of its 28 layers) also serves the
+    shared-prefix workload
     (``smoke_workload.SHARED_PREFIX``: a primer caches a 1024-token prefix,
     then 8 staggered requests, each the prefix and a suffix of 20-1000
     tokens), cold (``prefix_cache="off"``) and warm (hbm) in the bf16
@@ -129,8 +145,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     dropped no block may stay held. Then the host tier (prefixes A, B, A
     through a 40-block arena) and the disk tier (A, B, C, A, a 16-block
     host pool, the pool under ``TMPDIR``, removed after) must each show
-    evictions to and hits from their tier. The 3B then serves the resilience
-    workload (``smoke_workload.RESILIENCE``: the 8 prompts over 320 blocks):
+    evictions to and hits from their tier. The 3B (at 7 of its 28
+    layers) then serves the resilience workload
+    (``smoke_workload.RESILIENCE``: the 8 prompts over 320 blocks):
     in each arena, killed once every row holds 8 tokens (``save_snapshot``
     under ``TMPDIR``, the server dropped, ``load_snapshot`` and ``restore``),
     every stream must equal the uninterrupted run's, the tokens streamed
@@ -148,11 +165,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (``QueueFull``), a 50 ms deadline (``DeadlineExceeded``, blocks
     returned) and the health states SERVING, DEGRADED, SERVING, DRAINING;
     the registry's TTFT p50 / p99 beside the host clock's. gemma-2B serves
-    the shared-prefix workload warm. The 3B and Llama-2-7B (full depth,
-    from a port-written bf16 store of ~13.5 GB, written once the earlier
-    stores are gone; it also serves the standard workload in the bf16
-    arena) serve ``smoke_workload.SPECULATIVE`` (the 8 prompts, each a
-    64-token passage repeated, one-shot admission, K = 4) in each arena,
+    the shared-prefix workload warm. The 3B and Llama-2-7B (8 of its 32
+    layers, from a port-written bf16 store of ~3.7 GB, written once the
+    earlier stores are gone; it also serves the standard workload in the
+    bf16 arena; the 3B's speculative runs take 7 of its 28 layers) serve
+    ``smoke_workload.SPECULATIVE`` (the 8 prompts, each a 64-token passage
+    repeated, one-shot admission, K = 4) in each arena,
     beside the same one-shot server without speculation: every request
     finishes, flash and the decode kernel launch and chunked prefill does
     not; acceptance, tokens per verify step, decode tok/s, TTFT, launches
@@ -161,7 +179,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     tie (top-2 gap <= ``TIE_ULPS`` = 4 bf16 ulps of the top logit). The 3B
     also runs
     speculative ``generate`` (K = 4, 7 rows up to 1800 tokens, capacity
-    2048) beside ``generate``. Observability, full 3B, bf16 arena: the
+    2048) beside ``generate``. Observability, the 3B store's 7 layers,
+    bf16 arena: the
     standard workload traced, stepped by a pump thread, with a
     ``MetricsServer`` on 127.0.0.1 scraped during the run (``/metrics``
     with the step families, ``/statz``, ``/debugz``, ``/healthz``,
@@ -170,8 +189,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     holding ``prefill`` and ``decode``; every step must account as in
     [c], all three kernels launch, and the step-phase table is printed;
     then the workload served with tracing off, on, on, off (the flight
-    recorder disabled and no span file when off), the on / off decode
-    tok/s ratio printed. The step loop, full 3B: the standard workload at
+    recorder disabled and no span file when off; 7 of the 3B's 28 layers,
+    a view of the same weights), the on / off decode tok/s
+    ratio printed. The step loop, 3B at 7 of its 28 layers:
+    the standard workload at
     (``inflight_steps``, ``chunk_cycles``) = (1, 1), (2, 1), (4, 1), (2, 4)
     and at ``pipeline_depth=2`` in the bf16 arena, and at (2, 1) in the
     int8 arena, each printing decode tok/s, TTFT p50 / p99, the stepline's
@@ -182,7 +203,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     all three kernels launch, every step accounts, and each stream equals
     the same arena's (1, 1) stream or first differs at a near tie
     (``TIE_ULPS``, from a recorded (1, 1) run made only then). The fleet,
-    full 3B (``fleet_runs``; ``smoke_workload.FLEET``: the standard prompts,
+    3B (``fleet_runs``; in process at 7 of its 28 layers, the
+    daemon on the 7-layer store; ``smoke_workload.FLEET``: the standard prompts,
     every second pair swapped, 320 blocks per replica): the one-replica
     twin, ``ReplicatedServer`` dp 2 (every replica launching every kernel),
     dp 2 with a failover, a ``spawn_replica()`` and a drain mid-decode,
@@ -195,18 +217,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     TTFT beside the twin's, launches per replica, hand-off ms (queue /
     stream / lock) and bytes, the failover's wall and the spawn's seconds
     printed, and each 3B row of the JSON line carries ``replica_launches``.
-    Pipeline stages, full 3B (``pipeline_runs``): the store staged from a
-    host copy onto the card repeated, the standard workload over 8 rows at
-    2 and 4 stages and the ragged ``0:6,6:28``, a 1-stage run before the
-    first and after each, every stream held to the one-stage twin's
+    Pipeline stages, 3B at 7 of its 28 layers
+    (``pipeline_runs``): staged from a host copy onto the card repeated,
+    the standard workload over 8 rows at 2 and 4 stages and the ragged
+    ``0:1,1:7``, a 1-stage run before the first and after each, every
+    stream held to the 7-layer one-stage twin's
     (``TIE_ULPS``), every stage launching the three kernels; decode tok/s
     and TTFT beside the mean of the 1-stage runs on either side, launches,
     weight and head bytes per stage, the dispatch share and each
-    repartition's seconds printed; then a ``serve --stages 2`` daemon over HTTP takes
+    repartition's seconds printed; then a ``serve --stages 2
+    --tensor-parallel 2`` daemon over HTTP (the 7-layer store) takes
     ``:placement 4`` on stdin while round 1 of the workload streams, and
     serves round 2 on 4 stages (every request 200, both rounds held to the
     twin's; the swap's ``engine_placement_swap_seconds`` printed); each 3B
-    row of the JSON line carries ``stage_launches``;
+    row of the JSON line carries ``stage_launches``. Tensor parallelism,
+    the 3B store's 7 layers (``parallel_runs``): the standard workload at
+    tp 2, tp 4 and pp 2 x tp 2 (shards on the card repeated), a tp-1 run before the first
+    and after each, every stream held to the twin's (``TIE_ULPS``), every
+    shard launching each kernel as often as the tp-1 run, every decode step
+    issuing two reduces a layer; decode tok/s and TTFT beside the mean of
+    the tp-1 neighbours, launches per shard, reduces per step, weight bytes
+    per shard and the dispatch share printed (the ``--tensor-parallel 2``
+    daemon is the pipeline's, above); one 8160-token prompt through
+    ``context_generate`` at cp 2 and 4 against ``generate`` (prefill wall,
+    peak memory, the first 32 tokens); ``generate`` at capacity 4096 and
+    288 (the segment rungs, decode tok/s); Llama-2-7B at full depth
+    (weights made on the card: its store holds 8 layers) at tp 2 against
+    its tp-1 run. The shard-shape rows of the JSON line carry their launches
+    per shard (``shard_launches``);
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -249,6 +287,11 @@ TOL_REL = {"bfloat16": 2e-2, "float32": 1e-3}
 SENTINEL = 2**30
 KV_MODES = ("int8", "fp8")
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's boost clock: sleeps at least as long as asked
+# [d]'s depths, cut for the whole script's time limit (widths stay full):
+# the 3B's store, the 3B's earlier paths (views of the store engine's
+# first layers), gemma-2B's store and Llama-2-7B's store (its tp-2 run
+# takes all 32 layers, made on the card)
+D_3B, D_3B_VIEW, D_GEMMA2B, D_7B_STORE = 7, 7, 9, 8
 
 
 def require(cond: bool, msg: str) -> None:
@@ -736,18 +779,21 @@ def kernel_cases(model: str) -> list:
 
 
 def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefix=False,
-                  spec=False, dense=False) -> list:
+                  spec=False, dense=False, tp=False) -> list:
     """Each kernel case of ``model`` against its plain version, with
     queries of each of ``dtypes``, timed; returns the tabled rows (bf16
     queries), tagged with the model and the [d] workload whose run counts
     their launches. ``prefix``: the prefix-cache hit's cases; ``spec``:
-    speculative decoding's; ``dense``: dense serving's."""
+    speculative decoding's; ``dense``: dense serving's; ``tp``: a tensor
+    shard's."""
     import torch
 
     from llm_sharding_tpu_torch.ops import paged_attention
 
     gen = torch.Generator(device=device).manual_seed(1234)
-    if dense:
+    if tp:
+        cases = tp_kernel_cases(model)
+    elif dense:
         cases = dense_kernel_cases(model)
     elif spec:
         cases = spec_kernel_cases(model)
@@ -1777,6 +1823,7 @@ def phase_token_check(device, store_root: str) -> None:
     check_fleet("3B", eng, cpu_eng, prompts, lens, max_new, card_want)
     log(f"[c] 3B fleet checks took {time.perf_counter() - t0:.1f}s")
     check_pipeline("3B", eng, cpu_eng, cpu_params, prompts, lens, max_new, cpu_want, rng)
+    check_parallel("3B", eng, cpu_eng, cpu_params, prompts, lens, max_new, cpu_want)
     del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -1821,6 +1868,17 @@ def phase_token_check(device, store_root: str) -> None:
 
 
 # --------------------------------------------------------------- phase (d)
+
+def depth_view(eng, layers: int):
+    """The first ``layers`` layers of a one-stage engine as an engine of
+    their own, over the same tensors (no copy): an earlier path run at a
+    cut depth."""
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    p = eng.params
+    return Engine(dataclasses.replace(eng.cfg, num_hidden_layers=layers),
+                  {**{k: v for k, v in p.items() if k != "layers"}, "layers": p["layers"][:layers]})
+
 
 def dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
@@ -2270,7 +2328,7 @@ def ttft_window(reqs, before: dict) -> str:
 
 
 def resilience_serve_run(eng, pool_root: str) -> dict:
-    """[d] the full 3B's ``RESILIENCE`` workload (``smoke_workload``: the 8
+    """[d] the 3B's ``RESILIENCE`` workload (``smoke_workload``: the 8
     standard prompts, 64 new tokens, 320 blocks) on ``eng``. In each arena,
     kill and restore: submit all 8, step until every row holds 8 tokens,
     ``save_snapshot`` under TMPDIR, drop the server, ``load_snapshot`` and
@@ -2703,12 +2761,15 @@ def load_store(store: str, tag: str, device, write_s: float):
 
 
 def phase_serve(device, store_root: str) -> dict:
-    """The workloads on random full-size weights loaded from port-written
-    stores: Llama-3.2-3B bf16 (once per KV dtype; its shared-prefix
+    """The workloads on random full-width weights loaded from port-written
+    stores (depths ``D_3B``, ``D_3B_VIEW``, ``D_GEMMA2B``, ``D_7B_STORE``):
+    Llama-3.2-3B bf16 (once per KV dtype; its shared-prefix
     workload cold and warm in each arena, and the host and disk tiers under
     pressure), int8 and int4 (bf16 arena), GPT-2 small and gemma-2B bf16
     (once per KV dtype, gemma-2B's shared-prefix workload warm), then
-    gemma-7B bf16 at 4 layers (bf16 arena). Returns the launch counts of
+    gemma-7B bf16 at 4 layers (bf16 arena) and Llama-2-7B (its store's
+    speculative workload; all 32 layers at tp 1 and 2, made on the card).
+    Returns the launch counts of
     each kernel mode per model and workload (``model`` or
     ``model/shared_prefix``), each from the run that serves through it
     (unquantized modes: the bf16 weights' bf16 arena, warm for the shared
@@ -2717,16 +2778,30 @@ def phase_serve(device, store_root: str) -> dict:
 
     from llm_sharding_tpu_torch.models import config, gpt2, llama
     from llm_sharding_tpu_torch.ops.quant import quantize_params
+    from llm_sharding_tpu_torch.runtime.engine import Engine
     from llm_sharding_tpu_torch.utils.shard_store import save_shards
 
-    cfg = config.llama32_3b()
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"[e] (d) {what} took {now - t_lap[0]:.0f}s")
+        t_lap[0] = now
+
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=D_3B)
     stores, write_s = {}, {}
     params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    cfgv = dataclasses.replace(cfg, num_hidden_layers=D_3B_VIEW)
     for w in ("bf16", "int8", "int4"):
         t0 = time.perf_counter()
         stores[w] = os.path.join(store_root, f"llama32_3b_{w}")
-        out = params if w == "bf16" else quantize_params(params, bits=8 if w == "int8" else 4)
-        save_shards(cfg, out, stores[w])
+        if w == "bf16":
+            save_shards(cfg, params, stores[w])
+            write_s[w] = time.perf_counter() - t0
+            continue
+        out = quantize_params({**params, "layers": params["layers"][:D_3B_VIEW]},
+                              bits=8 if w == "int8" else 4)
+        save_shards(cfgv, out, stores[w])
         del out
         write_s[w] = time.perf_counter() - t0
     del params
@@ -2739,57 +2814,82 @@ def phase_serve(device, store_root: str) -> dict:
                          capture_output=True, text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
     obs_serve_run(eng, store_root, smi)
-    trace_overhead_run(eng, store_root, smi)
+    # the tracing overhead and the step-loop configurations run at 7 of the
+    # 28 layers (a view of the same weights): the whole script's
+    # time limit
+    half = depth_view(eng, D_3B_VIEW)
+    log(f"[d] the tracing overhead and step-loop runs below: 3B at "
+        f"{half.cfg.num_hidden_layers} of the store's {eng.cfg.num_hidden_layers} layers")
+    trace_overhead_run(half, store_root, smi)
     log(f"[d] 3B observability workloads took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    async_serve_runs(eng, smi)
+    async_serve_runs(half, smi)
+    del half
     log(f"[d] 3B step-loop configurations took {time.perf_counter() - t0:.1f}s")
     dcounts = frontdoor_runs(eng, stores["bf16"], smi, paged_twin)
     fleet = fleet_runs(eng, stores["bf16"], smi)
     pipeline = pipeline_runs(eng, stores["bf16"], smi, paged_twin)
+    tp_counts = parallel_runs(eng, stores["bf16"], smi, paged_twin, daemon=False)
+    context_runs(eng, smi)
+    segment_runs(eng, smi)
+    lap("3B standard, observability, step loop, front door, fleet, pipeline, tensor / context")
+    # the quantized arenas' runs, the shared-prefix workload, the
+    # tiers under pressure and the int8 / int4 weight stores take 7 of the
+    # 28 layers (a view of the same weights: the whole script's time limit)
+    half = depth_view(eng, D_3B_VIEW)
+    v = f"3B/{D_3B_VIEW}"
+    _, base = serve_run(half, "llama32_3b", f"{v} bf16 weights, kv bf16")
     for kv in KV_MODES:
-        kv_counts, tokens = serve_run(eng, "llama32_3b", f"3B bf16 weights, kv {kv}", kv)
+        kv_counts, tokens = serve_run(half, "llama32_3b", f"{v} bf16 weights, kv {kv}", kv)
         counts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
-        log(f"[d] kv {kv}: token match against the bf16 arena's run {match_frac(tokens, base):.3f} "
-            f"(random weights: printed, not gated)")
+        log(f"[d] kv {kv}: token match against the {D_3B_VIEW}-layer bf16 arena's run "
+            f"{match_frac(tokens, base):.3f} (random weights: printed, not gated)")
     # the shared-prefix workload, cold (cache off) and warm in each arena,
     # then the host and disk tiers under pressure
     log(f"[d] shared-prefix workload on {smi}")
-    _, cold_tokens, cold = prefix_serve_run(eng, "llama32_3b", "3B shared prefix, cold", "off")
-    pcounts, warm_base, warm = prefix_serve_run(eng, "llama32_3b", "3B shared prefix, warm")
-    log(f"[d] 3B shared prefix: warm / cold TTFT p50 {warm[0] / cold[0]:.3f}, p99 "
+    _, cold_tokens, cold = prefix_serve_run(half, "llama32_3b", f"{v} shared prefix, cold",
+                                            "off")
+    pcounts, warm_base, warm = prefix_serve_run(half, "llama32_3b", f"{v} shared prefix, warm")
+    log(f"[d] {v} shared prefix: warm / cold TTFT p50 {warm[0] / cold[0]:.3f}, p99 "
         f"{warm[1] / cold[1]:.3f}, decode tok/s {warm[2] / cold[2]:.3f}; warm token match against "
         f"cold {match_frac(warm_base, cold_tokens):.3f} (printed, not gated)")
     for kv in KV_MODES:
-        kv_counts, tokens, _ = prefix_serve_run(eng, "llama32_3b", f"3B shared prefix, warm, kv {kv}",
-                                                kv=kv)
+        kv_counts, tokens, _ = prefix_serve_run(half, "llama32_3b",
+                                                f"{v} shared prefix, warm, kv {kv}", kv=kv)
         pcounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
         log(f"[d] shared prefix kv {kv}: token match against the bf16 arena's warm run "
             f"{match_frac(tokens, warm_base):.3f} (random weights: printed, not gated)")
-    prefix_tier_run(eng, "host", store_root)
-    prefix_tier_run(eng, "disk", store_root)
+    prefix_tier_run(half, "host", store_root)
+    prefix_tier_run(half, "disk", store_root)
+    del half
+    lap("3B kv modes, shared prefix and tiers")
     t0 = time.perf_counter()
-    resilience_serve_run(eng, store_root)
+    # the resilience and speculative workloads run at 7 of the 3B's 28
+    # layers (a view of the same weights) for the whole script's time limit
+    half = depth_view(eng, D_3B_VIEW)
+    resilience_serve_run(half, store_root)
     log(f"[d] 3B resilience workload took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     log(f"[d] speculative workload on {smi}")
-    scounts = spec_serve_run(eng, "llama32_3b", "3B speculative, kv bf16")
+    scounts = spec_serve_run(half, "llama32_3b", f"{v} speculative, kv bf16")
     for kv in KV_MODES:
-        kv_counts = spec_serve_run(eng, "llama32_3b", f"3B speculative, kv {kv}", kv)
+        kv_counts = spec_serve_run(half, "llama32_3b", f"{v} speculative, kv {kv}", kv)
         scounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
+    del half
     gcounts_spec = spec_generate_run(eng, "3B")
     log(f"[d] 3B speculative workloads took {time.perf_counter() - t0:.1f}s")
     del eng
     shutil.rmtree(stores["bf16"])
     torch.cuda.empty_cache()
     for w in ("int8", "int4"):
-        eng = load_store(stores[w], f"3B {w}", device, write_s[w])
-        _, tokens = serve_run(eng, "llama32_3b", f"3B {w} weights, kv bf16")
-        log(f"[d] {w} weights: token match against the bf16 weights' run "
+        eng = load_store(stores[w], f"{v} {w}", device, write_s[w])
+        _, tokens = serve_run(eng, "llama32_3b", f"{v} {w} weights, kv bf16")
+        log(f"[d] {w} weights: token match against the {D_3B_VIEW}-layer bf16 weights' run "
             f"{match_frac(tokens, base):.3f} (random weights: printed, not gated)")
         del eng
         shutil.rmtree(stores[w])
         torch.cuda.empty_cache()
+    lap("3B int8 / int4 weights")
 
     gcfg = config.gpt2_small()
     t0 = time.perf_counter()
@@ -2807,8 +2907,9 @@ def phase_serve(device, store_root: str) -> dict:
             f"{match_frac(tokens, gbase):.3f} (random weights: printed, not gated)")
     del eng
     torch.cuda.empty_cache()
+    lap("gpt2")
 
-    mcfg = config.gemma_2b()
+    mcfg = dataclasses.replace(config.gemma_2b(), num_hidden_layers=D_GEMMA2B)
     t0 = time.perf_counter()
     mstore = os.path.join(store_root, "gemma_2b_bf16")
     mparams = llama.init_params(mcfg, seed=0, dtype=torch.bfloat16, device=device)
@@ -2823,6 +2924,7 @@ def phase_serve(device, store_root: str) -> dict:
         log(f"[d] gemma2b kv {kv}: token match against the bf16 arena's run "
             f"{match_frac(tokens, mbase):.3f} (random weights: printed, not gated)")
     mpcounts, _, _ = prefix_serve_run(eng, "gemma_2b", "gemma2b shared prefix, warm")
+    lap("gemma2b")
     del eng
     shutil.rmtree(mstore)
     torch.cuda.empty_cache()
@@ -2837,28 +2939,37 @@ def phase_serve(device, store_root: str) -> dict:
     torch.cuda.empty_cache()
     eng = load_store(sstore, "gemma7b bf16", device, time.perf_counter() - t0)
     s7counts, _ = serve_run(eng, "gemma_7b", "gemma7b bf16 weights, kv bf16")
+    lap("gemma7b")
     del eng
     shutil.rmtree(sstore)
     torch.cuda.empty_cache()
 
-    # Llama-2-7B (G = 1, D = 128) at full width and depth; its ~13.5 GB
-    # store is written once every earlier store is gone
+    # Llama-2-7B (G = 1, D = 128) at full width: a store of its first 8
+    # layers, written once every earlier store is gone, serves the
+    # speculative workload; the standard workload and tp 2 take all 32
+    # layers, on the weights made on the card (no store)
     lcfg = config.llama2_7b()
     t0 = time.perf_counter()
     lstore = os.path.join(store_root, "llama2_7b_bf16")
     lparams = llama.init_params(lcfg, seed=0, dtype=torch.bfloat16, device=device)
-    save_shards(lcfg, lparams, lstore)
-    del lparams
+    save_shards(dataclasses.replace(lcfg, num_hidden_layers=D_7B_STORE),
+                {**lparams, "layers": lparams["layers"][:D_7B_STORE]}, lstore)
     torch.cuda.empty_cache()
-    eng = load_store(lstore, "llama2-7b bf16", device, time.perf_counter() - t0)
+    seng = load_store(lstore, f"llama2-7b/{D_7B_STORE} bf16", device, time.perf_counter() - t0)
     shutil.rmtree(lstore)
-    lcounts, _ = serve_run(eng, "llama2_7b", "llama2-7b bf16 weights, kv bf16")
     t0 = time.perf_counter()
-    lscounts = spec_serve_run(eng, "llama2_7b", "llama2-7b speculative, kv bf16")
+    lscounts = spec_serve_run(seng, "llama2_7b", f"llama2-7b/{D_7B_STORE} speculative, kv bf16")
     for kv in KV_MODES:
-        kv_counts = spec_serve_run(eng, "llama2_7b", f"llama2-7b speculative, kv {kv}", kv)
+        kv_counts = spec_serve_run(seng, "llama2_7b",
+                                   f"llama2-7b/{D_7B_STORE} speculative, kv {kv}", kv)
         lscounts.update({k: n for k, n in kv_counts.items() if k.endswith(f"[{kv}]")})
     log(f"[d] llama2-7b speculative workload took {time.perf_counter() - t0:.1f}s")
+    del seng
+    torch.cuda.empty_cache()
+    eng = Engine(lcfg, lparams)
+    del lparams
+    lcounts, ltokens = serve_run(eng, "llama2_7b", "llama2-7b bf16 weights, kv bf16")
+    l7tp = tp_7b_run(eng, smi, ltokens)
     del eng
     torch.cuda.empty_cache()
     return {"llama32_3b": counts, "gpt2_small": gcounts, "gemma_2b": mcounts,
@@ -2866,7 +2977,8 @@ def phase_serve(device, store_root: str) -> dict:
             "gemma_2b/shared_prefix": mpcounts, "llama32_3b/speculative": scounts,
             "llama32_3b/spec_generate": gcounts_spec, "llama2_7b": lcounts,
             "llama2_7b/speculative": lscounts, "llama32_3b/dense": dcounts,
-            "llama32_3b/fleet": fleet, "llama32_3b/pipeline": pipeline}
+            "llama32_3b/fleet": fleet, "llama32_3b/pipeline": pipeline,
+            "llama2_7b/tp2": l7tp, **{f"llama32_3b/{k}": v for k, v in tp_counts.items()}}
 
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2987,7 +3099,7 @@ def hold_to(tag: str, got: list, want: list, rec, ulps=TIE_ULPS, index=None) -> 
     log(f"[d] {tag}: {same} of {len(got)} streams identical")
 
 
-def inprocess_run(eng, dense: bool, record: bool = False) -> dict:
+def inprocess_run(eng, dense: bool, record: bool = False, model: str = "llama32_3b") -> dict:
     """The standard workload on the in-process twin of a daemon
     (``smoke_workload.serve``, dense or paged bf16), staggered: its streams,
     request ids, launch counts and, unless ``record``, decode tok/s and TTFT
@@ -2998,9 +3110,9 @@ def inprocess_run(eng, dense: bool, record: bool = False) -> dict:
     from llm_sharding_tpu_torch.ops import kernels as K
 
     cfg = eng.cfg
-    srv = smoke_workload.serve(eng, "llama32_3b", dense=dense)
+    srv = smoke_workload.serve(eng, model, dense=dense)
     prompts = smoke_workload.prompts(cfg.vocab_size, np.random.default_rng(0),
-                                     smoke_workload.WORKLOADS["llama32_3b"].lens)
+                                     smoke_workload.WORKLOADS[model].lens)
     tops: dict = {}
     torch.cuda.synchronize()
     K.reset_launch_counts()
@@ -3409,7 +3521,7 @@ def fleet_line(name: str, got: dict, twin: dict) -> str:
 
 
 def fleet_runs(eng, store: str, smi: str) -> dict:
-    """[d] The fleet on the full 3B bf16 (the store's engine; its weights
+    """[d] The fleet on the 3B bf16 (the store's engine; its weights
     copied to the host once, each replica staging its own): the one-replica
     twin; ``ReplicatedServer`` dp 2; dp 2 with a transient ``replica_step``
     fault on group 0 mid-decode (failover), then ``spawn_replica()`` (timed)
@@ -3431,6 +3543,10 @@ def fleet_runs(eng, store: str, smi: str) -> dict:
     from llm_sharding_tpu_torch.runtime.replicated import ReplicatedServer, map_params
 
     t_all = time.perf_counter()
+    # the in-process fleets run at 7 of the 28 layers (a view of the same
+    # weights) for the whole script's time limit; the daemon
+    # serves the whole store and is held to a twin on the store engine
+    full, eng = eng, depth_view(eng, D_3B_VIEW)
     cfg = eng.cfg
     kw = smoke_workload.fleet_kwargs("llama32_3b")
     prompts = smoke_workload.fleet_order(smoke_workload.prompts(
@@ -3440,13 +3556,15 @@ def fleet_runs(eng, store: str, smi: str) -> dict:
     log(f"[d] fleet on {smi}: host copy of the 3B weights in {time.perf_counter() - t0:.1f}s")
     twin = fleet_twin(eng, prompts)
     recorded: list = []
+    src = [eng]  # the twin's engine: the depth view, then the full one
 
     def rec():  # the twin recorded once, only if a stream differs
         if not recorded:
-            recorded.append(fleet_twin(eng, prompts, record=True))
+            recorded.append(fleet_twin(src[0], prompts, record=True))
         return recorded[0]
 
-    log("[d] " + fleet_line("3B fleet twin (1 replica, 320 blocks)", twin, twin))
+    log("[d] " + fleet_line(f"3B/{cfg.num_hidden_layers} fleet twin (1 replica, 320 blocks)",
+                            twin, twin))
     out: dict = {}
 
     def build(cls, **extra):
@@ -3553,6 +3671,10 @@ def fleet_runs(eng, store: str, smi: str) -> dict:
         f"{s['streamed']}: {s['queue_s'] * 1e3:.1f} / {s['stream_s'] * 1e3:.1f} / "
         f"{s['lock_s'] * 1e3:.1f} / {s['dur_s'] * 1e3:.1f}" for s in spans if s["outcome"] == "ok"))
 
+    del host
+    src[0] = full
+    recorded.clear()
+    twin = fleet_twin(full, prompts)
     tenants = os.path.join(os.path.dirname(store), "tenants.json")
     with open(tenants, "w") as f:
         json.dump(smoke_workload.TENANTS, f)
@@ -3609,14 +3731,14 @@ def fleet_runs(eng, store: str, smi: str) -> dict:
                 dm.proc.wait(timeout=60)
             except subprocess.TimeoutExpired:
                 dm.kill()
-    del host
     log(f"[d] 3B fleet took {time.perf_counter() - t_all:.1f}s")
     return out
 
 
 def phase_fleet(device, store_root: str) -> dict:
     """``--fleet``: [c]'s fleet checks on the f32 3B at 4 layers and [d]'s
-    fleet runs on the full 3B bf16 from a port-written store, alone."""
+    fleet runs on the 3B bf16 from a port-written store (``D_3B``
+    layers), alone."""
     import torch
 
     from llm_sharding_tpu_torch.models import config, llama
@@ -3636,7 +3758,7 @@ def phase_fleet(device, store_root: str) -> dict:
     del eng, cpu_eng, cpu_params
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = config.llama32_3b()
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=D_3B)
     t0 = time.perf_counter()
     store = os.path.join(store_root, "llama32_3b_bf16")
     params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
@@ -3821,13 +3943,12 @@ def check_pipeline(tag: str, eng, cpu_eng, cpu_params, prompts, lens, max_new: i
     log(f"[c] {tag} pipeline checks took {time.perf_counter() - t_all:.1f}s")
 
 
-# [d]: the full 3B's placements on the one card, each over the standard
+# [d]: the 3B's placements on the one card, each over the standard
 # workload's 8 rows; a 1-stage run comes before the first and after each
 # (``PIPELINE_BASE``), so each placement is held to the 1-stage runs on
 # either side of it and a drift over the sequence shows apart
 PIPELINE_BASE = ("1 stage", None, 1)
-PIPELINE_D = (("2 stages", None, 2), ("4 stages", None, 4),
-              ("ragged 0:6,6:28", ((0, 6), (6, 28)), 2))
+PIPELINE_D = (("2 stages", None, 2), ("4 stages", None, 4), ("ragged", "ragged", 2))
 
 
 def pipeline_serve(eng, stages: int) -> tuple:
@@ -3862,8 +3983,10 @@ def pipeline_serve(eng, stages: int) -> tuple:
 
 
 def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
-    """A ``serve --stages 2`` daemon over HTTP takes ``:placement 4`` on
-    stdin while round 1 of the workload is streaming (sent once two
+    """A ``serve --stages 2 --tensor-parallel 2`` daemon over HTTP (also
+    the tensor-parallel daemon of the whole script) takes
+    ``:placement 4`` on stdin (4 stages of 2 shards) while round 1 of the
+    workload is streaming (sent once two
     requests have their first token): the ingress pauses, the old server
     runs its requests to the end, the rebuilt 4-stage one serves round 2.
     Every request of both rounds answers 200 and its stream is held to the
@@ -3873,11 +3996,12 @@ def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
     import threading
 
     from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.parallel.placement import PlacementSpec
 
     tenants = os.path.join(os.path.dirname(store), "tenants.json")
     with open(tenants, "w") as f:
         json.dump(smoke_workload.TENANTS, f)
-    args = (["--stages", "2", "--device", str(eng.device)]
+    args = (["--stages", "2", "--tensor-parallel", "2", "--device", str(eng.device)]
             + smoke_workload.daemon_args("llama32_3b", False))
     d = Daemon(store, args, tenants)
 
@@ -3893,8 +4017,8 @@ def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
         return sum(x["count"] for x in metrics()["server_ingress_ttft_seconds"]["series"])
 
     try:
-        require(any("serving llama on 2 stages" in ln for ln in d.lines),
-                f"phase d pipeline daemon: banner\n{d.tail()}")
+        require(any("serving llama on 2 stages from 2 tensor shards each" in ln
+                    for ln in d.lines), f"phase d pipeline daemon: banner\n{d.tail()}")
         before, ft0 = swaps(), first_tokens()
         box: dict = {}
 
@@ -3923,8 +4047,8 @@ def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
                     f"phase d pipeline daemon: no placement line\n{d.tail()}")
             time.sleep(0.05)
         line = next(ln for ln in d.lines if "placement" in ln and ("applied" in ln or "fail" in ln))
-        require(line.startswith("placement applied: [(0, 7), (7, 14), (14, 21), (21, 28)]"),
-                f"phase d pipeline daemon: {line}")
+        want = f"placement applied: {list(PlacementSpec.balanced(eng.cfg.num_hidden_layers, 4).stages)}"
+        require(line.startswith(want), f"phase d pipeline daemon: {line}, not {want}")
         open_at_swap = sum(r[3] > sent for r in box["runs"])
         require(open_at_swap >= 1, "phase d pipeline daemon: every stream of round 1 had "
                 "finished before :placement 4 was sent")
@@ -3932,13 +4056,13 @@ def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
                   [r[0] for r in http_workload(d.port, paged_twin["prompts"],
                                                smoke_workload.MAX_NEW)]]
         for i, got in enumerate(rounds):
-            hold_to(f"3B serve --stages 2 daemon, round {i + 1} "
+            hold_to(f"3B serve --stages 2 --tensor-parallel 2 daemon, round {i + 1} "
                     f"({'2 stages, :placement 4 mid-run' if i == 0 else '4 stages'}) vs twin",
                     got, paged_twin["tokens"], rec)
         after = swaps()
         require(after[0] == before[0] + 1 and before[2] == 2 and after[2] == 4,
                 f"phase d pipeline daemon: swaps {before} -> {after}")
-        log(f"[d] 3B serve --stages 2 daemon: up in {d.startup_s:.1f}s (its staging: "
+        log(f"[d] 3B serve --stages 2 --tensor-parallel 2 daemon: up in {d.startup_s:.1f}s (its staging: "
             f"engine_placement_swap_seconds {before[1]:.3f}s); :placement 4 sent "
             f"{(sent - t0) * 1e3:.0f} ms into round 1 with {open_at_swap} of "
             f"{len(box['runs'])} streams open, every request 200; {line.strip()}: "
@@ -3957,36 +4081,46 @@ def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
 
 
 def pipeline_runs(eng, store: str, smi: str, paged_twin: dict) -> dict:
-    """[d] The full 3B bf16 from the port-written store, staged from a host
-    copy onto ``cuda:0`` repeated: the standard workload at 2 and 4 stages
-    and at the ragged ``0:6,6:28`` (8 rows each), with a 1-stage run before
-    the first and after each; every stage launches the three kernels,
-    every stream equals the one-stage twin's (the store engine's standard
-    run) or first differs at a near tie (``TIE_ULPS``). Printed: decode
+    """[d] The 3B bf16 at 7 of its 28 layers (for the whole
+    script's time limit; a view of the store engine's weights, copied to
+    the host) staged onto ``cuda:0`` repeated: the standard workload at 2
+    and 4 stages and at the ragged ``0:1,1:7`` (8 rows each), with a
+    1-stage run before the first and after each; every stage launches the
+    three kernels, every stream equals the 7-layer one-stage twin's or
+    first differs at a near tie (``TIE_ULPS``). Printed: decode
     tok/s and TTFT p50 / p99 of each run, each placement's beside the mean
     of the 1-stage runs on either side of it, the spread of the 1-stage
     runs, launches, weight and head bytes per stage, the stepline's
     dispatch share and each ``apply_placement``'s seconds. Then
-    ``pipeline_daemon``. Returns the launches per stage of each placement."""
+    ``pipeline_daemon`` on the whole store, held to ``paged_twin``. Returns
+    the launches per stage of each placement."""
     import torch
 
     from llm_sharding_tpu_torch.parallel.placement import PlacementSpec
     from llm_sharding_tpu_torch.runtime.engine import Engine
 
+    from llm_sharding_tpu_torch.parallel.pipeline import map_params
+
     t_all = time.perf_counter()
-    L = eng.cfg.num_hidden_layers
+    full_rec = lambda: inprocess_run(eng, False, record=True)  # noqa: E731 — only on a mismatch
+    half = depth_view(eng, D_3B_VIEW)
+    L = half.cfg.num_hidden_layers
+    twin = inprocess_run(half, False)
+    rec = lambda: inprocess_run(half, False, record=True)  # noqa: E731
     t0 = time.perf_counter()
-    peng = Engine.from_shards(store, placement=PlacementSpec.balanced(L, 1),
-                              devices=[eng.device] * 4)
+    peng = Engine(half.cfg, map_params(lambda t: t.to("cpu"), half.params),
+                  placement=PlacementSpec.balanced(L, 1), devices=[eng.device] * 4)
     torch.cuda.synchronize()
-    log(f"[d] pipeline on {smi}: the 3B store loaded to the host and staged as 1 stage in "
-        f"{time.perf_counter() - t0:.1f}s")
-    rec = lambda: inprocess_run(eng, False, record=True)  # noqa: E731 — only on a mismatch
+    log(f"[d] pipeline on {smi}: the 3B at {L} of its {eng.cfg.num_hidden_layers} layers "
+        f"copied to the host and staged as 1 stage in {time.perf_counter() - t0:.1f}s")
     out, runs = {}, []
     order = [PIPELINE_BASE]
     for p in PIPELINE_D:
         order += [p, PIPELINE_BASE]
     for k, (name, ranges, n) in enumerate(order):
+        if ranges == "ragged":  # the reference's short first stage: 3/14 of the layers
+            ranges = ((0, L * 3 // 14), (L * 3 // 14, L))
+            name = f"ragged 0:{L * 3 // 14},{L * 3 // 14}:{L}"
         spec = (PlacementSpec.from_ranges(ranges, L) if ranges
                 else PlacementSpec.balanced(L, n))
         torch.cuda.synchronize()
@@ -3997,7 +4131,7 @@ def pipeline_runs(eng, store: str, smi: str, paged_twin: dict) -> dict:
         require(peng.num_stages == n, f"phase d pipeline {name}: {peng.num_stages} stages")
         tokens, nums, per, share = pipeline_serve(peng, n)
         runs.append(nums)
-        hold_to(f"3B pipeline {name} (run {k + 1}) vs twin", tokens, paged_twin["tokens"], rec)
+        hold_to(f"3B/{L} pipeline {name} (run {k + 1}) vs twin", tokens, twin["tokens"], rec)
         require_stage_kernels(f"phase d pipeline {name}", per, n)
         out.setdefault(name, {s: dict(c) for s, c in sorted(per.items())})
         sizes = [(tree_bytes(st.layers), tree_bytes({k: v for k, v in st.head.items()}))
@@ -4019,15 +4153,17 @@ def pipeline_runs(eng, store: str, smi: str, paged_twin: dict) -> dict:
     del peng
     gc.collect()
     torch.cuda.empty_cache()
-    pipeline_daemon(store, eng, paged_twin, rec)
+    del half
+    pipeline_daemon(store, eng, paged_twin, full_rec)
     log(f"[d] 3B pipeline took {time.perf_counter() - t_all:.1f}s")
     return out
 
 
 def phase_pipeline(device, store_root: str) -> dict:
     """``--pipeline``: [c]'s pipeline checks on the f32 3B at 4 layers and
-    [d]'s pipeline runs on the full 3B bf16 from a port-written store,
-    alone (the twin: the store engine's standard run)."""
+    [d]'s pipeline runs on the 3B bf16 from a port-written store of
+    ``D_3B`` layers (7 of its 28 in process, the daemon on the whole
+    store), alone."""
     import torch
 
     from llm_sharding_tpu_torch.models import config, llama
@@ -4045,7 +4181,7 @@ def phase_pipeline(device, store_root: str) -> dict:
     del eng, cpu_eng, cpu_params
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = config.llama32_3b()
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=D_3B)
     t0 = time.perf_counter()
     store = os.path.join(store_root, "llama32_3b_bf16")
     params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
@@ -4061,6 +4197,610 @@ def phase_pipeline(device, store_root: str) -> dict:
         f" ms p99 {np.percentile(paged_twin['ttft'], 99) * 1e3:.0f} ms")
     return pipeline_runs(eng, store, smi, paged_twin)
 
+
+# ------------------------------------- tensor and context parallelism ([b]-[d])
+
+def shard_cfg(cfg, tp: int):
+    """``cfg`` at the head counts one of ``tp`` tensor shards attends over
+    (the head dim kept)."""
+    return dataclasses.replace(cfg, num_attention_heads=cfg.num_attention_heads // tp,
+                               num_key_value_heads=cfg.num_key_value_heads // tp,
+                               head_dim=cfg.head_dim_)
+
+
+def tp_kernel_cases(model: str) -> list:
+    """The [b] cases at a tensor shard's shapes (bf16 arena: quantized KV is
+    refused under tp): the 3B's 24 / 8 heads over 2 shards (12 / 4) and 4
+    (6 / 2), Llama-2-7B's 32 / 32 over 2 (16 / 16), G and D as the model's;
+    decode at 8 rows of 100-2048 tokens, chunked prefill at frontiers
+    256 / 2048, flash at S = C = 2048. Launches per shard from the [d]
+    tensor-parallel run of the same degree. Same tuple as
+    ``spec_kernel_cases``."""
+    from llm_sharding_tpu_torch.ops import attention, flash_attention, paged_attention
+
+    dec = ("llm_sharding_tpu/ops/paged_attention.py:484", "llm_sharding_tpu_torch/csrc/paged_attention.cu")
+    pre = ("llm_sharding_tpu/ops/paged_attention.py:689", "llm_sharding_tpu_torch/csrc/paged_prefill.cu")
+    fla = ("llm_sharding_tpu/ops/flash_attention.py:124", "llm_sharding_tpu_torch/csrc/flash_attention.cu")
+    pa, pp, xla = (paged_attention.paged_attention, paged_attention.paged_prefill,
+                   paged_attention.paged_attention_xla)
+    fa, plain_fa = flash_attention.flash_attention, attention.cached_attention
+    tag = {"llama32_3b": "", "llama2_7b": "llama2-7b "}[model]
+    cases = []
+    for tp in ((2, 4) if model == "llama32_3b" else (2,)):
+        def sh(make, tp=tp):
+            return lambda cfg, *a: make(shard_cfg(cfg, tp), *a)
+
+        cases += [
+            ("paged_attention", f"{tag}tp{tp} shard decode B=8 ctx 100-2048", pa, xla,
+             sh(decode_case), *dec, f"tp{tp}"),
+            ("paged_prefill", f"{tag}tp{tp} shard chunk Sc=256 frontiers 256/2048", pp, xla,
+             sh(prefill_case), *pre, f"tp{tp}"),
+            ("flash_attention", f"{tag}tp{tp} shard S=C=2048 causal", fa, plain_fa,
+             sh(lambda *a: flash_case(*a, S=2048)), *fla, f"tp{tp}"),
+        ]
+    return cases
+
+
+@contextlib.contextmanager
+def shard_launches():
+    """Each kernel's launches per tensor shard while the block runs: every
+    shard's part of a layer (``models/stack.tp_reduce``'s per-shard call,
+    which holds the shard's attention) is wrapped to attribute the launches
+    the counters took during it; a one-device layer counts as shard 0."""
+    from llm_sharding_tpu_torch.models import gpt2, llama
+    from llm_sharding_tpu_torch.models import stack
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    out: dict = collections.defaultdict(collections.Counter)
+    orig = stack.tp_reduce
+
+    def tp_reduce(p, h, fn):
+        def counted(pj, hj, j):
+            before = K.launch_counts()
+            try:
+                return fn(pj, hj, j)
+            finally:
+                for k, n in K.launch_counts().items():
+                    if n > before.get(k, 0):
+                        out[j or 0][k] += n - before.get(k, 0)
+
+        return orig(p, h, counted)
+
+    llama.tp_reduce = gpt2.tp_reduce = tp_reduce
+    try:
+        yield out
+    finally:
+        llama.tp_reduce = gpt2.tp_reduce = orig
+
+
+@contextlib.contextmanager
+def decode_reduces():
+    """The reduces each ``serve_chunk`` issued, with its step count:
+    ``[(reduces, cycles), ...]``."""
+    from llm_sharding_tpu_torch.models.stack import reduce_count
+    from llm_sharding_tpu_torch.parallel import serve as serve_ops
+
+    out: list = []
+    orig = serve_ops.serve_chunk
+
+    def serve_chunk(cfg, model, state, cycles=1, backend="auto"):
+        n0 = reduce_count()
+        try:
+            return orig(cfg, model, state, cycles, backend)
+        finally:
+            out.append((reduce_count() - n0, cycles))
+
+    serve_ops.serve_chunk = serve_chunk
+    try:
+        yield out
+    finally:
+        serve_ops.serve_chunk = orig
+
+
+def shard_bytes(eng) -> list:
+    """Weight bytes each tensor shard holds, summed over the stages (the
+    heads and norms of a stage stay whole on its first device)."""
+    from llm_sharding_tpu_torch.models.stack import Shards
+
+    out = [0] * eng.tensor_parallel
+    for st in eng.stages:
+        for layer in st.layers:
+            for j, p in enumerate(layer if isinstance(layer, Shards) else [layer]):
+                out[j] += tree_bytes(p)
+    return out
+
+
+def hold_to_cpu(tag: str, got: list, want: list, prompts, cpu_eng, limit: float = 1e-4) -> None:
+    """Each of ``got`` (token lists) equals ``want``'s (CPU ``generate``'s)
+    or first differs where the CPU run's top-2 gap is under ``limit``."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if list(g) == list(w):
+            continue
+        j = next((j for j in range(min(len(g), len(w))) if g[j] != w[j]), None)
+        require(j is not None, f"phase c {tag}: stream {i} lengths differ at equal tokens")
+        gap = top2_gap(cpu_eng.cfg, cpu_eng.params,
+                       np.concatenate([prompts[i], np.asarray(w[:j], np.int32)]))
+        log(f"[c] {tag}: stream {i} first differs at token {j}, CPU top-2 gap {gap:.3g}")
+        require(gap < limit, f"phase c {tag}: stream {i} differs from CPU generate at a gap "
+                f"of {gap}")
+    log(f"[c] {tag}: {sum(list(g) == list(w) for g, w in zip(got, want))} of {len(got)} "
+        "streams identical to CPU generate")
+
+
+def padded(prompts, S: int) -> tuple:
+    """``prompts`` cut to ``S`` tokens, right-padded to ``[n, S]``, and
+    their lengths."""
+    few = [p[:S] for p in prompts]
+    out = np.zeros((len(few), S), np.int32)
+    for i, p in enumerate(few):
+        out[i, : len(p)] = p
+    return out, np.array([len(p) for p in few])
+
+
+def check_parallel(tag: str, eng, cpu_eng, cpu_params, prompts, lens, max_new: int,
+                   cpu_want: list) -> None:
+    """[c] tensor and context parallelism on one card (``devices=[cuda:0]
+    * n``), f32, the weights staged from the CPU copy; every stream held to
+    ``generate`` run on the CPU (a mismatch passes only where the CPU
+    run's top-2 gap is < 1e-4). ``generate_ids`` at tp 2 and 4, pp 2 × tp 2
+    and dp 2 × pp 2; the served streams (paged, one-shot and chunked) at tp
+    2 and pp 2 × tp 2, every shard launching all three kernels;
+    ``speculate=3``, a prefix handle and the dense server at tp 2; GPT-2
+    small (4 layers, full width: the permuted qkv) and int8 weights at tp
+    2; ``context_generate`` at cp 2 and 4 over a 1000-token prompt;
+    ``decode_from_cache`` with ``donate_cache=False`` twice from
+    one ring prefill; a sampled ``context_generate`` against the card's
+    ``generate(seed=)``."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, gpt2
+    from llm_sharding_tpu_torch.ops.quant import quantize_params
+    from llm_sharding_tpu_torch.parallel.context import context_generate, context_prefill_cache
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+    from llm_sharding_tpu_torch.runtime.generate import decode_from_cache, generate
+
+    cfg, dev = eng.cfg, eng.device
+    t_all = time.perf_counter()
+    pad, plen = padded(prompts, 200)
+    want = cpu_eng.generate_ids(pad, max_new, prompt_len=plen)
+    want_rows = [want.tokens[i, plen[i]: want.lengths[i]].tolist() for i in range(len(plen))]
+    few = [p[:200] for p in prompts]
+    for name, kw in (("tp 2", dict(tensor_parallel=2)), ("tp 4", dict(tensor_parallel=4)),
+                     ("pp 2 x tp 2", dict(num_stages=2, tensor_parallel=2)),
+                     ("dp 2 x pp 2", dict(num_stages=2, data_parallel=2))):
+        n = kw.get("num_stages", 1) * kw.get("tensor_parallel", 1) * kw.get("data_parallel", 1)
+        t0 = time.perf_counter()
+        peng = Engine(cfg, cpu_params, devices=[dev] * n, **kw)
+        torch.cuda.synchronize()
+        staged = time.perf_counter() - t0
+        with shard_launches() as per:
+            res = peng.generate_ids(pad, max_new, prompt_len=plen)
+        got = [res.tokens[i, plen[i]: res.lengths[i]].tolist() for i in range(len(plen))]
+        hold_to_cpu(f"{tag} generate_ids {name}", got, want_rows, few, cpu_eng)
+        tp = kw.get("tensor_parallel", 1)
+        require(all(per[j]["flash_attention"] > 0 for j in range(tp)),
+                f"phase c {tag} {name}: a shard never launched flash ({dict(per)})")
+        log(f"[c] {tag} generate_ids {name}: staged in {staged:.2f}s; flash launches per shard "
+            f"{[per[j]['flash_attention'] for j in range(tp)]}")
+        if name in ("tp 2", "pp 2 x tp 2"):
+            with shard_launches() as per:
+                got, _ = served_streams(peng, prompts, max_new)
+            hold_to_cpu(f"{tag} served {name} (one-shot + chunked)", got, cpu_want, prompts,
+                        cpu_eng)
+            for j in range(tp):
+                for k in ("flash_attention", "paged_attention", "paged_prefill"):
+                    require(per[j][k] > 0, f"phase c {tag} served {name}: shard {j} never "
+                            f"launched {k}")
+            log(f"[c] {tag} served {name}: launches per shard "
+                f"{ {j: dict(c) for j, c in sorted(per.items())} }")
+        if name == "tp 2":
+            got, _ = served_streams(peng, prompts, max_new, speculate=3, prefill_chunk=None)
+            hold_to_cpu(f"{tag} served tp 2 speculate=3", got, cpu_want, prompts, cpu_eng)
+            got, _ = served_streams(peng, prompts, max_new, kv_block_size=None, kv_blocks=None)
+            hold_to_cpu(f"{tag} served tp 2 dense", got, cpu_want, prompts, cpu_eng)
+            srv = peng.serve(capacity=2048, batch_per_slot=2, kv_block_size=64, kv_blocks=160)
+            h = srv.prefill_prefix(prompts[2][:512])
+            r = srv.submit(prompts[2][512:], max_new, prefix=h)
+            srv.run_until_idle()
+            hold_to_cpu(f"{tag} served tp 2 prefix handle (512 + {lens[2] - 512})",
+                        [r.tokens], [cpu_want[2]], [prompts[2]], cpu_eng)
+            srv.close()
+        del peng
+        torch.cuda.empty_cache()
+    # int8 weights at tp 2, against the int8 model on the CPU
+    q = quantize_params(cpu_params, bits=8)
+    qcpu = Engine(cfg, q)
+    qres = Engine(cfg, q, tensor_parallel=2, devices=[dev] * 2).generate_ids(
+        pad, max_new, prompt_len=plen)
+    qwant = qcpu.generate_ids(pad, max_new, prompt_len=plen)
+    hold_to_cpu(f"{tag} int8 weights generate_ids tp 2",
+                [qres.tokens[i, plen[i]: qres.lengths[i]].tolist() for i in range(len(plen))],
+                [qwant.tokens[i, plen[i]: qwant.lengths[i]].tolist() for i in range(len(plen))],
+                few, qcpu)
+    del q, qcpu
+    # GPT-2 small at full width, 4 layers: the permuted fused qkv
+    gcfg = dataclasses.replace(config.gpt2_small(), num_hidden_layers=4)
+    gcpu = gpt2.init_params(gcfg, seed=8, dtype=torch.float32, device="cpu")
+    gpad, gplen = padded([np.random.default_rng(8).integers(0, gcfg.vocab_size, n)
+                          .astype(np.int32) for n in (40, 200)], 200)
+    gres = Engine(gcfg, gcpu, tensor_parallel=2, devices=[dev] * 2).generate_ids(
+        gpad, max_new, prompt_len=gplen)
+    gcpu_eng = Engine(gcfg, gcpu)
+    gwant = gcpu_eng.generate_ids(gpad, max_new, prompt_len=gplen)
+    hold_to_cpu(f"{tag} gpt2 (4 layers) generate_ids tp 2",
+                [gres.tokens[i, gplen[i]: gres.lengths[i]].tolist() for i in range(2)],
+                [gwant.tokens[i, gplen[i]: gwant.lengths[i]].tolist() for i in range(2)],
+                [gpad[i, : gplen[i]] for i in range(2)], gcpu_eng)
+    del gcpu, gcpu_eng
+    # context parallelism: the 1000-token prompt (a multiple of 2 and 4; the
+    # padded case runs in the cuda tests), cp 2 and 4, against CPU generate
+    long = prompts[3][None]
+    by_cp = {}
+    for cp in (2, 4):
+        t0 = time.perf_counter()
+        res = by_cp[cp] = context_generate(cfg, [dev] * cp, eng.params, long, max_new)
+        torch.cuda.synchronize()
+        hold_to_cpu(f"{tag} context_generate cp {cp} (1000 tokens)",
+                    [res.tokens[0, lens[3]: res.lengths[0]].tolist()], [cpu_want[3]],
+                    [prompts[3]], cpu_eng)
+        log(f"[c] {tag} context_generate cp {cp}: {time.perf_counter() - t0:.2f}s")
+    logits, cache = context_prefill_cache(cfg, [dev] * 2, eng.params, long)
+    runs = [decode_from_cache(cfg, eng.params, long, logits, cache, max_new,
+                              donate_cache=False).tokens for _ in range(2)]
+    require((runs[0] == runs[1]).all() and (runs[0] == by_cp[2].tokens).all(),
+            f"phase c {tag}: decode_from_cache(donate_cache=False) twice gave other tokens")
+    sampled = dict(temperature=0.8, top_k=40, seed=11)
+    s_cp = context_generate(cfg, [dev] * 2, eng.params, long, max_new, **sampled)
+    s_gen = generate(cfg, eng.params, long, max_new, **sampled)
+    require((s_cp.tokens == s_gen.tokens).all(),
+            f"phase c {tag}: sampled context_generate differs from generate(seed=)")
+    log(f"[c] {tag}: decode_from_cache(donate_cache=False) twice from one ring prefill "
+        "identical; a sampled context_generate (T 0.8, top-k 40) identical to the card's "
+        "generate(seed=11)")
+    del cache, logits
+    torch.cuda.empty_cache()
+    log(f"[c] {tag} tensor / context parallel checks took {time.perf_counter() - t_all:.1f}s")
+
+
+# [d]: the 3B store engine over the standard workload's 8 rows at each placement,
+# with a tp-1 run before the first and after each (``PARALLEL_BASE``):
+# each placement is held to the mean of the tp-1 runs on either side
+PARALLEL_BASE = ("tp 1", 1, 1)
+PARALLEL_D = (("tp 2", 1, 2), ("tp 4", 1, 4), ("pp 2 x tp 2", 2, 2))
+
+
+def parallel_serve(eng, stages: int, tag: str) -> tuple:
+    """``pipeline_serve`` with each kernel's launches per shard and each
+    decode step's reduces counted; returns ``(tokens, numbers, per-shard
+    launches, dispatch share)``. At tp > 1 every ``serve_chunk`` must have
+    issued two reduces per layer per step."""
+    with shard_launches() as per, decode_reduces() as reds:
+        tokens, nums, _, share = pipeline_serve(eng, stages)
+    L = eng.cfg.num_hidden_layers
+    require(reds, f"phase d {tag}: no decode step ran")
+    if eng.tensor_parallel > 1:
+        bad = [r for r in reds if r[0] != 2 * L * r[1]]
+        require(not bad, f"phase d {tag}: decode steps issued {bad[:3]} (reduces, steps), "
+                f"not {2 * L} reduces a step")
+    nums["reduces_per_step"] = reds[0][0] / reds[0][1]
+    return tokens, nums, per, share
+
+
+def parallel_runs(eng, store: str, smi: str, paged_twin: dict, daemon: bool = True) -> dict:
+    """[d] The 3B bf16 store engine (its weights copied once to the host):
+    the standard workload at tp 2, tp 4 and pp 2 × tp 2 (8 rows each,
+    every stage and shard on ``cuda:0`` repeated), with a tp-1 run (the
+    store engine) before the first and after each; every stream equals the
+    twin's or first differs at a near tie (``TIE_ULPS``); every shard
+    launches each kernel as often as the tp-1 run does; every decode step
+    issues 2 × layers reduces. Printed per run: decode tok/s, TTFT p50 / p99,
+    launches per shard, reduces per step, weight bytes per shard, the
+    stepline's dispatch share; each placement beside the mean of its tp-1
+    neighbours. Then, with ``daemon``, the ``serve --tensor-parallel 2``
+    daemon over HTTP against the twin (the whole script's
+    ``pipeline_daemon`` runs one at 2 stages of 2 shards instead). Returns
+    the launches per shard of each placement."""
+    import torch
+
+    from llm_sharding_tpu_torch.parallel.pipeline import map_params
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    cfg, host = eng.cfg, map_params(lambda t: t.to("cpu"), eng.params)
+    log(f"[d] tensor parallel on {smi}: the 3B ({cfg.num_hidden_layers} layers) copied to the "
+        f"host in {time.perf_counter() - t0:.1f}s")
+    rec = lambda: inprocess_run(eng, False, record=True)  # noqa: E731 — only on a mismatch
+    order = [PARALLEL_BASE]
+    for p in PARALLEL_D:
+        order += [p, PARALLEL_BASE]
+    out, runs, base_counts = {}, [], None
+    for k, (name, stages, tp) in enumerate(order):
+        t0 = time.perf_counter()
+        peng = eng if tp == 1 else Engine(cfg, host, num_stages=stages, tensor_parallel=tp,
+                                          devices=[eng.device] * (stages * tp))
+        torch.cuda.synchronize()
+        staged = time.perf_counter() - t0
+        tokens, nums, per, share = parallel_serve(peng, stages, f"3B {name}")
+        runs.append(nums)
+        hold_to(f"3B {name} (run {k + 1}) vs twin", tokens, paged_twin["tokens"], rec)
+        shards = {j: dict(c) for j, c in sorted(per.items())}
+        if tp == 1:
+            base_counts = base_counts or shards[0]
+        else:
+            same = tokens == paged_twin["tokens"]
+            for j in range(tp):
+                for kname in ("flash_attention", "paged_attention", "paged_prefill"):
+                    require(shards.get(j, {}).get(kname, 0) > 0,
+                            f"phase d 3B {name}: shard {j} never launched {kname}")
+                if same:
+                    require(shards[j] == base_counts, f"phase d 3B {name}: shard {j} launched "
+                            f"{shards[j]}, the tp-1 run {base_counts}")
+            out.setdefault(name.replace(" ", ""), shards)
+        sizes = shard_bytes(peng)
+        log(f"[d] 3B run {k + 1}, {name} (staged in {staged:.2f}s): decode {nums['tok_s']:.1f} "
+            f"tok/s, TTFT p50 {nums['p50']:.0f} ms p99 {nums['p99']:.0f} ms; dispatch "
+            f"{share:.2f}% of step wall; reduces per decode step {nums['reduces_per_step']:g}; "
+            f"launches per shard {shards}; weight bytes per shard "
+            f"{[f'{b / 1e9:.3f} GB' for b in sizes]}")
+        if peng is not eng:
+            del peng
+            gc.collect()
+            torch.cuda.empty_cache()
+    for k in range(1, len(order), 2):
+        base = {m: (runs[k - 1][m] + runs[k + 1][m]) / 2 for m in ("tok_s", "p50", "p99")}
+        log(f"[d] " + fleet_line(f"3B {order[k][0]}", runs[k], base)
+            .replace("the twin's", "the tp-1 runs' mean").replace("(twin", "(tp-1 mean")
+            + f"; TTFT p50 {runs[k]['p50'] / base['p50']:.3f}x")
+    ones = runs[::2]
+    log(f"[d] 3B, the {len(ones)} tp-1 runs in order: decode "
+        f"{[round(r['tok_s'], 1) for r in ones]} tok/s, TTFT p50 "
+        f"{[round(r['p50']) for r in ones]} ms")
+    del host
+    gc.collect()
+    if daemon:
+        tp_daemon(store, eng, paged_twin, rec)
+    log(f"[d] 3B tensor parallel took {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
+def tp_daemon(store: str, eng, paged_twin: dict, rec) -> None:
+    """``serve --tensor-parallel 2`` as users start it: the standard
+    workload over HTTP from two tenants, every request 200, the streams
+    held to the in-process twin's (``TIE_ULPS``); SIGTERM drains it."""
+    from llm_sharding_tpu_torch import smoke_workload
+
+    tenants = os.path.join(os.path.dirname(store), "tenants.json")
+    with open(tenants, "w") as f:
+        json.dump(smoke_workload.TENANTS, f)
+    args = (["--tensor-parallel", "2", "--device", str(eng.device)]
+            + smoke_workload.daemon_args("llama32_3b", False))
+    d = Daemon(store, args, tenants)
+    try:
+        require(any("2 tensor shards each from" in ln for ln in d.lines),
+                f"phase d tp daemon: banner\n{d.tail()}")
+        t0 = time.perf_counter()
+        runs = http_workload(d.port, paged_twin["prompts"], smoke_workload.MAX_NEW)
+        hold_to("3B serve --tensor-parallel 2 daemon vs twin", [r[0] for r in runs],
+                paged_twin["tokens"], rec)
+        log(f"[d] 3B serve --tensor-parallel 2 daemon: up in {d.startup_s:.1f}s, the workload "
+            f"over HTTP in {time.perf_counter() - t0:.1f}s, every request 200")
+    except Exception:
+        log(f"[d] tp daemon stderr tail:\n{d.tail()}")
+        raise
+    finally:
+        if d.proc.poll() is None:
+            d.proc.send_signal(15)
+            try:
+                d.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                d.kill()
+
+
+def tp_7b_run(eng, smi: str, base_tokens: list) -> dict:
+    """[d] Llama-2-7B at full width and depth over two tensor shards on the
+    card (6.5 GB of layers a shard): its standard workload against the
+    tp-1 engine's run (``base_tokens``; ``TIE_ULPS``), every shard
+    launching each kernel. Returns shard 0's launches."""
+    import torch
+
+    from llm_sharding_tpu_torch.parallel.pipeline import map_params
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    host = map_params(lambda t: t.to("cpu"), eng.params)
+    peng = Engine(eng.cfg, host, tensor_parallel=2, devices=[eng.device] * 2)
+    torch.cuda.synchronize()
+    log(f"[d] llama2-7b tp 2 on {smi}: copied to the host and staged over 2 shards in "
+        f"{time.perf_counter() - t0:.1f}s; weight bytes per shard "
+        f"{[f'{b / 1e9:.3f} GB' for b in shard_bytes(peng)]}")
+    del host
+    with shard_launches() as per:
+        _, tokens = serve_run(peng, "llama2_7b", "llama2-7b tp 2, kv bf16")
+    hold_to("llama2-7b tp 2 vs tp 1", tokens, base_tokens,
+            lambda: inprocess_run(eng, False, record=True, model="llama2_7b"))
+    shards = {j: dict(c) for j, c in sorted(per.items())}
+    for j in range(2):
+        for k in ("flash_attention", "paged_attention", "paged_prefill"):
+            require(shards.get(j, {}).get(k, 0) > 0, f"phase d llama2-7b tp 2: shard {j} never "
+                    f"launched {k}")
+    log(f"[d] llama2-7b tp 2: launches per shard {shards}")
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shards[0]
+
+
+def context_runs(eng, smi: str) -> None:
+    """[d] One 8160-token prompt on the 3B bf16 store engine (with its 32 new tokens
+    the 8192 positions the model takes): ``context_generate`` at cp 2 and 4
+    (the ring prefill, plain f32 PyTorch, then ``decode_from_cache``)
+    against ``generate`` (the flash prefill): prefill wall, peak memory,
+    and the 32 tokens equal or first different at a near tie of
+    ``generate``'s run (``TIE_ULPS``)."""
+    import torch
+
+    from llm_sharding_tpu_torch.parallel.context import context_generate, context_prefill_cache
+    from llm_sharding_tpu_torch.runtime.generate import generate
+
+    cfg, params, dev = eng.cfg, eng.params, eng.device
+    n = 32
+    S = cfg.max_position_embeddings - n
+    p = np.random.default_rng(12).integers(0, cfg.vocab_size, (1, S)).astype(np.int32)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    want, _, _ = timed(lambda: generate(cfg, params, p, n))
+    _, pre_s, pre_mem = timed(lambda: generate(cfg, params, p, 1))
+    w = want.tokens[0, S:].tolist()
+    log(f"[d] {S}-token prompt on {smi}: generate (flash prefill) prefill {pre_s * 1e3:.0f} ms, "
+        f"peak {pre_mem:.2f} GiB")
+    for cp in (2, 4):
+        _, pre_s, pre_mem = timed(lambda: context_prefill_cache(cfg, [dev] * cp, params, p))
+        got, _, _ = timed(lambda: context_generate(cfg, [dev] * cp, params, p, n))
+        g = got.tokens[0, S:].tolist()
+        if g != w:
+            j = next(j for j in range(n) if g[j] != w[j])
+            gap, top = top2_gap_top(cfg, params, np.concatenate([p[0], np.asarray(w[:j])]))
+            ulp = bf16_ulp(top)
+            log(f"[d] context cp {cp}: first differs from generate at token {j}, top-2 gap "
+                f"{gap:.4g} ({gap / ulp:.1f} bf16 ulp)")
+            require(gap <= TIE_ULPS * ulp, f"phase d context cp {cp}: differs at token {j}, a "
+                    f"gap of {gap / ulp:.1f} ulp")
+        log(f"[d] context cp {cp}: ring prefill {pre_s * 1e3:.0f} ms, peak {pre_mem:.2f} GiB; "
+            f"first {n} tokens: {sum(a == b for a, b in zip(g, w))} equal to generate's")
+        torch.cuda.empty_cache()
+
+
+def top2_gap_top(cfg, params, ids: np.ndarray) -> tuple:
+    """The top-2 logit gap and the top logit of the next token after
+    ``ids`` under the port's ``generate`` (one prefill, on the weights'
+    device)."""
+    import torch
+
+    from llm_sharding_tpu_torch.models.cache import init_cache
+    from llm_sharding_tpu_torch.ops.quant import act_dtype
+    from llm_sharding_tpu_torch.runtime.generate import prefill
+
+    dev = params["final_norm"].device
+    cache = init_cache(cfg, 1, len(ids), dtype=act_dtype(params["embed"]), device=dev)
+    last, _ = prefill(cfg, params, np.asarray(ids, np.int32)[None], np.array([len(ids)]), cache)
+    top = torch.topk(last[0].float(), 2).values
+    return float(top[0] - top[1]), float(top[0])
+
+
+def segment_runs(eng, smi: str) -> None:
+    """[d] ``generate`` on the 3B bf16 store engine with a 200-token prompt and 200
+    new tokens at capacity 4096 (rungs 256, 1024: the decode attends over
+    the first 256 columns, then 1024) and at capacity 288 (one rung):
+    decode tok/s of each (wall less the prefill's), the rungs it ran, and
+    the tokens equal."""
+    import torch
+
+    from llm_sharding_tpu_torch.runtime.generate import _segment_capacities, generate
+
+    cfg, params = eng.cfg, eng.params
+    p = np.random.default_rng(13).integers(0, cfg.vocab_size, (1, 200)).astype(np.int32)
+    toks = {}
+    for cap, n in ((4096, 200), (288, 88)):
+        def run(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = generate(cfg, params, p, k, capacity=cap)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        run(2)
+        _, pre = run(1)
+        res, wall = run(n)
+        toks[cap] = res.tokens[0, 200:288].tolist()
+        ladder = _segment_capacities(201, cap)
+        ran = ladder[: next((i for i, c in enumerate(ladder) if c >= 200 + n), len(ladder) - 1) + 1]
+        log(f"[d] segmented generate on {smi}, capacity {cap}: {n} tokens, decode "
+            f"{(n - 1) / (wall - pre):.1f} tok/s (wall less the prefill's), rungs run {ran} of "
+            f"the ladder {ladder}")
+    a, b = toks[4096], toks[288]
+    if a != b:  # a rung's shorter view may sum its softmax in another order
+        j = next(j for j in range(len(a)) if a[j] != b[j])
+        gap, top = top2_gap_top(cfg, params, np.concatenate([p[0], np.asarray(b[:j])]))
+        require(gap <= TIE_ULPS * bf16_ulp(top), f"phase d segments: capacity 4096 and 288 "
+                f"differ at token {j}, a gap of {gap / bf16_ulp(top):.1f} ulp")
+    log(f"[d] segmented generate: of the first 88 tokens at capacity 4096 and 288, "
+        f"{sum(x == y for x, y in zip(a, b))} identical")
+
+
+def phase_parallel(device, store_root: str) -> dict:
+    """``--parallel``: [b] the kernels at the shard shapes, [c]'s tensor and
+    context checks on the f32 3B at 4 layers, [d] the 3B bf16 (``D_3B`` layers) from a
+    port-written store (tp runs, the daemon, the 8160-token context, the
+    segmented decode) and Llama-2-7B at tp 2 (random weights on the card,
+    no store). Returns the [b] rows with their launches per shard."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+    from llm_sharding_tpu_torch.utils.shard_store import save_shards
+
+    rows = phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=("bfloat16",),
+                         tp=True)
+    rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),
+                          tp=True)
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=4)
+    cpu_params = llama.init_params(cfg, seed=7, dtype=torch.float32, device="cpu")
+    eng, cpu_eng = Engine(cfg, to_device(cpu_params, device)), Engine(cfg, cpu_params)
+    rng = np.random.default_rng(7)
+    lens = [40, 200, 700, 1000]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    cpu_want = check_against_generate("3B vs CPU", eng, prompts, lens, 16, oracle=cpu_eng)
+    check_parallel("3B", eng, cpu_eng, cpu_params, prompts, lens, 16, cpu_want)
+    del eng, cpu_eng, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=D_3B)
+    t0 = time.perf_counter()
+    store = os.path.join(store_root, "llama32_3b_bf16")
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(cfg, params, store)
+    del params
+    torch.cuda.empty_cache()
+    eng = load_store(store, "3B bf16", device, time.perf_counter() - t0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    paged_twin = inprocess_run(eng, False)
+    counts = {f"llama32_3b/{k}": v
+              for k, v in parallel_runs(eng, store, smi, paged_twin).items()}
+    context_runs(eng, smi)
+    segment_runs(eng, smi)
+    del eng
+    shutil.rmtree(store)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lcfg = config.llama2_7b()
+    leng = Engine(lcfg, llama.init_params(lcfg, seed=0, dtype=torch.bfloat16, device=device))
+    _, ltokens = serve_run(leng, "llama2_7b", "llama2-7b bf16 weights, kv bf16")
+    counts["llama2_7b/tp2"] = tp_7b_run(leng, smi, ltokens)
+    del leng
+    torch.cuda.empty_cache()
+    return attach_tp_launches(rows, counts)
+
+
+def attach_tp_launches(rows: list, counts: dict) -> list:
+    """Each tensor-parallel [b] row's launches: shard 0's, from the [d] run
+    of its model at its degree (``counts``: ``model/tp2`` etc. → launches
+    per shard, or shard 0's alone)."""
+    for r in rows:
+        per = counts[f"{r['model']}/{r['workload']}"]
+        if 0 in per:  # every shard's launches: the row keeps them all
+            r["shard_launches"] = {str(j): c.get(r["name"], 0) for j, c in per.items()}
+            per = per[0]
+        r["launches"] = per.get(r["name"], 0)
+    return rows
 
 def match_frac(tokens, base) -> float:
     return float(np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)]))
@@ -4111,6 +4851,14 @@ def main(argv: list) -> int:
             shutil.rmtree(store, ignore_errors=True)
         log(f"[e] total {time.perf_counter() - t_all:.0f}s")
         return 0
+    if argv[:1] == ["--parallel"]:
+        store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        try:
+            print(json.dumps({"kernels": phase_parallel(device, store)}))
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        log(f"[e] total {time.perf_counter() - t_all:.0f}s")
+        return 0
     if argv[:1] == ["--kernels"]:
         rows = [r for m in argv[1:]
                 for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",))]
@@ -4138,10 +4886,19 @@ def main(argv: list) -> int:
     rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),
                           spec=True)
     rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dense=True)
+    tp_rows = phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=("bfloat16",),
+                            tp=True)
+    tp_rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),
+                             tp=True)
+    log(f"[e] phases (a) and (b) took {time.perf_counter() - t_all:.0f}s")
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
+        t0 = time.perf_counter()
         phase_token_check(device, store)
+        log(f"[e] phase (c) took {time.perf_counter() - t0:.0f}s")
+        t0 = time.perf_counter()
         counts = phase_serve(device, store)
+        log(f"[e] phase (d) took {time.perf_counter() - t0:.0f}s")
     finally:
         shutil.rmtree(store, ignore_errors=True)
     for r in rows:
@@ -4155,6 +4912,7 @@ def main(argv: list) -> int:
             r["stage_launches"] = {
                 run: {str(s): c.get(r["name"], 0) for s, c in per.items()}
                 for run, per in counts["llama32_3b/pipeline"].items()}
+    rows += attach_tp_launches(tp_rows, counts)
     log(f"[e] total {time.perf_counter() - t_all:.0f}s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

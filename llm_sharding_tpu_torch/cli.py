@@ -124,22 +124,25 @@ def _placement(args, num_layers: int):
 
 
 def _engine(args):
-    """The engine of ``--stages`` / ``--ranges`` on ``--device`` (JAX
-    ``cli.py:115``): with either, the store loads into host memory and
-    every stage runs on the one device, listed once per layer so that a
-    later ``:placement`` runs ungrouped; without, the weights load
-    straight onto the device as one stage (the daemon's first
-    ``:placement`` then takes the host copy, ``_apply_placement``)."""
+    """The engine of ``--stages`` / ``--ranges`` / ``--tensor-parallel`` on
+    ``--device`` (JAX ``cli.py:115``): with any of them, the store loads
+    into host memory and every stage (and every tensor shard) runs on the
+    one device, listed ``tp`` times per layer so that a later
+    ``:placement`` runs ungrouped; without, the weights load straight onto
+    the device as one stage (the daemon's first ``:placement`` then takes
+    the host copy, ``_apply_placement``)."""
     from .runtime.engine import Engine
     from .utils import shard_store
 
     cfg = shard_store.load_config(args.shards)
     L = cfg.num_hidden_layers
     placement = _placement(args, L)
-    if placement is None:
+    tp = getattr(args, "tensor_parallel", 1)
+    if placement is None and tp == 1:
         return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), device=args.device)
     return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), placement=placement,
-                              devices=[args.device] * L)
+                              num_stages=None if placement else 1,
+                              devices=[args.device] * (L * tp), tensor_parallel=tp)
 
 
 def cmd_generate(args) -> int:
@@ -167,8 +170,7 @@ def cmd_generate(args) -> int:
 
 # flags the JAX parser has and a later slice ports: (dest, default, flag, item)
 _LATER_SLICE_FLAGS = (
-    ("tensor_parallel", 1, "--tensor-parallel", "§A 16 (tensor, context and multi-host)"),
-    ("cp", 1, "--cp", "§A 16 (tensor, context and multi-host)"),
+    ("cp", 1, "--cp", "§A 16b (context-parallel serving and multi-host)"),
 )
 
 
@@ -177,7 +179,8 @@ def _later_slice_flag(args) -> str:
     for dest, default, flag, item in _LATER_SLICE_FLAGS:
         if getattr(args, dest, default) != default:
             return (f"{flag} comes with a later slice of the port: ROADMAP.md {item}; "
-                    "this port runs pipeline stages and replicas, not tensor shards")
+                    "this port serves pipeline stages, tensor shards and replicas, not "
+                    "a context-parallel arena")
     return ""
 
 
@@ -568,8 +571,9 @@ def _fleet(args):
     dev = resolve_device(args.device)  # no GPU: raise before loading
     cfg = shard_store.load_config(args.shards)
     placement = _placement(args, cfg.num_hidden_layers)
-    # every stage of every replica on the one device
-    devs = [args.device] * (args.data_parallel * (placement.num_stages if placement else 1))
+    # every stage and tensor shard of every replica on the one device
+    tp = args.tensor_parallel
+    devs = [args.device] * (args.data_parallel * (placement.num_stages if placement else 1) * tp)
     cfg, params = shard_store.load_full(args.shards, dtype=_dtype(args.dtype), device="cpu")
     extra: dict = {}
     if args.disagg:
@@ -586,7 +590,7 @@ def _fleet(args):
     else:
         from .runtime.replicated import ReplicatedServer as cls
     srv = cls(cfg, params, data_parallel=args.data_parallel, devices=devs, placement=placement,
-              tokenizer=shard_store.load_tokenizer(args.shards),
+              tensor_parallel=tp, tokenizer=shard_store.load_tokenizer(args.shards),
               min_replicas=args.min_replicas, **extra, **_serve_kwargs(args))
     s0 = srv.servers[0]
     mode = ("dense" if s0.kv_block_size is None
@@ -652,6 +656,8 @@ def _serve(args, term: threading.Event) -> int:
         mode = ("dense" if srv.kv_block_size is None
                 else f"paged {srv.kv_blocks} x {srv.kv_block_size}")
         stages = f"{eng.num_stages} stages from " if eng.num_stages > 1 else ""
+        if eng.tensor_parallel > 1:
+            stages = f"{stages}{eng.tensor_parallel} tensor shards each from "
         print(f"serving {eng.cfg.model_type} on {stages}{eng.device} (capacity={srv.capacity}, "
               f"rows={srv.rows}, {mode}); enter a prompt, ^D to exit", file=sys.stderr)
     ingress = None
@@ -879,6 +885,9 @@ def _add_generate(sub) -> None:
     g.add_argument("--max-new", type=int, default=128, dest="max_new")
     g.add_argument("--stages", type=int)
     g.add_argument("--ranges", help="ragged layer ranges (ROADMAP.md §A 15)")
+    g.add_argument("--tensor-parallel", type=int, default=1, dest="tensor_parallel",
+                   help="megatron tensor parallelism per stage (devices = stages x tp, "
+                   "all on --device)")
     g.add_argument("--dtype", default="bf16")
     g.add_argument("--stream", action="store_true")
     g.add_argument("--temperature", type=float, default=0.0)
@@ -988,9 +997,11 @@ def _add_serve(sub) -> None:
     # later slices: parsed under the JAX names, refused before the model loads
     s.add_argument("--stages", type=int)
     s.add_argument("--ranges")
-    for flag, dest in (("--tensor-parallel", "tensor_parallel"), ("--cp", "cp")):
-        s.add_argument(flag, dest=dest, type=int, default=1,
-                       help="a later slice of the port (ROADMAP.md §A 16)")
+    s.add_argument("--tensor-parallel", type=int, default=1, dest="tensor_parallel",
+                   help="megatron tensor parallelism per pipeline (composes with --stages and "
+                   "--data-parallel: devices = dp x stages x tp, all on --device)")
+    s.add_argument("--cp", dest="cp", type=int, default=1,
+                   help="a later slice of the port (ROADMAP.md §A 16b)")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
 

@@ -23,14 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.flash_attention import attention_step
 from ..ops.norms import layer_norm
 from ..ops.quant import embed_rows, head_logits, out_dim, qmatmul, tied_logits
 from ..utils.convert import params_from_numpy  # noqa: F401 - the JAX tree → port params
 from .cache import KVCache
 from .config import ModelConfig
-from .llama import paged_attn_fn, rows_attn_fn
-from .stack import scan_layers, scan_layers_paged
+from .llama import dense_attn_fn, paged_attn_fn, rows_attn_fn
+from .stack import per_shard, replicated, scan_layers, scan_layers_paged, tp_reduce
 
 Params = dict[str, Any]
 
@@ -95,25 +94,59 @@ def embed(
 
 def attn_mlp_block(
     cfg: ModelConfig,
-    p: Params,
+    p: Params,  # a layer's params, or their ``Shards`` over a tensor group
     h: torch.Tensor,  # [B, S, H]
-    attn_fn,  # (q [B,S,Nh,D], k [B,S,Nh,D], v [B,S,Nh,D]) -> [B,S,Nh,D]
+    attn_fn,  # (q [B,S,Nh,D], k [B,S,Nh,D], v [B,S,Nh,D]) -> [B,S,Nh,D]; Shards per shard
 ) -> torch.Tensor:
     """One GPT-2 block with the attention mechanism injected
     (``gpt2.py:73-129``): pre-LayerNorm, fused qkv, tanh-GELU in f32 cast
-    back before ``w_out``; every bias added after its product."""
+    back before ``w_out``; every bias added after its product.
+
+    Over a tensor group each shard holds its slice of the PERMUTED fused
+    qkv (``parallel/tensor.permute_gpt2_tp_layers``: ``[q_j | k_j | v_j]``),
+    so the local three-way split is the shard's heads; the ``w_proj`` and
+    ``w_out`` partials are summed by ``tp_reduce`` and ``b_proj`` /
+    ``b_out`` added once, after the reduce."""
+
+    def attn(q_p, hh, j):
+        return attn_proj(cfg, q_p, (attn_fn if j is None else attn_fn[j])(*qkv(cfg, q_p, hh)))
+
+    return block_finish(cfg, p, h, tp_reduce(p, h, attn))
+
+
+def qkv(cfg: ModelConfig, p: Params, h, cos=None, sin=None) -> tuple:
+    """ln1 and the fused qkv of one shard, split into its heads (nothing
+    positional: ``cos`` / ``sin`` are taken for the llama signature). The
+    kernels take contiguous queries; k and v are copied into the cache."""
     B, S, _ = h.shape
     D = cfg.head_dim_
     Nh = out_dim(p["w_qkv"]) // (3 * D)
     x = layer_norm(h, p["ln1_w"], p["ln1_b"], cfg.layer_norm_epsilon)
-    qkv = qmatmul(x, p["w_qkv"]) + p["b_qkv"]
-    q, k, v = (t.reshape(B, S, Nh, D) for t in qkv.chunk(3, dim=-1))
-    # the kernels take contiguous queries; k and v are copied into the cache
-    attn = attn_fn(q.contiguous(), k, v)
-    h = h + qmatmul(attn.reshape(B, S, Nh * D), p["w_proj"]) + p["b_proj"]
+    qkv_ = qmatmul(x, p["w_qkv"]) + p["b_qkv"]
+    q, k, v = (t.reshape(B, S, Nh, D) for t in qkv_.chunk(3, dim=-1))
+    return q.contiguous(), k, v
+
+
+def attn_proj(cfg: ModelConfig, p: Params, attn) -> torch.Tensor:
+    """The ``w_proj`` product of one shard's attention output."""
+    B, S, Nh, D = attn.shape
+    return qmatmul(attn.reshape(B, S, Nh * D), p["w_proj"])
+
+
+def block_finish(cfg: ModelConfig, p: Params, h, attn_out) -> torch.Tensor:
+    """The block after its attention: residual + ``b_proj``, then ln2, the
+    MLP (its ``w_out`` partials summed over a tensor group) and
+    ``b_out``."""
+    h = h + attn_out + replicated(p, "b_proj")
+    mlp = tp_reduce(p, h, lambda q_p, hh, j: _mlp_partial(cfg, q_p, hh))
+    return h + mlp + replicated(p, "b_out")
+
+
+def _mlp_partial(cfg: ModelConfig, p: Params, h) -> torch.Tensor:
+    """ln2, ``w_fc`` + GELU and the ``w_out`` product of one shard."""
     x = layer_norm(h, p["ln2_w"], p["ln2_b"], cfg.layer_norm_epsilon)
     mlp = F.gelu((qmatmul(x, p["w_fc"]) + p["b_fc"]).float(), approximate="tanh")
-    return h + qmatmul(mlp.to(x.dtype), p["w_out"]) + p["b_out"]
+    return qmatmul(mlp.to(x.dtype), p["w_out"])
 
 
 def decoder_layer(
@@ -126,13 +159,9 @@ def decoder_layer(
     kv_positions: torch.Tensor,  # [B, C], this step's positions already recorded
     length: int,  # write offset of this step's keys
 ) -> torch.Tensor:
-    def attn_fn(q, k, v):
-        S = q.shape[1]
-        k_row[:, length : length + S] = k.to(k_row.dtype)
-        v_row[:, length : length + S] = v.to(v_row.dtype)
-        return attention_step(q, k_row, v_row, positions, kv_positions)
-
-    return attn_mlp_block(cfg, p, h, attn_fn)
+    return attn_mlp_block(cfg, p, h, per_shard(
+        dense_attn_fn, k_row, v_row, positions, kv_positions, length,
+    ))
 
 
 def forward_layers(
@@ -170,8 +199,8 @@ def forward_layers_paged(
     same contract as ``llama.forward_layers_paged``."""
 
     def apply(p, valid, h, k_l, v_l, ks_l, vs_l):
-        return attn_mlp_block(cfg, p, h, paged_attn_fn(
-            k_l, v_l, block_table, cols, positions, kv_positions, prefill, nlive,
+        return attn_mlp_block(cfg, p, h, per_shard(
+            paged_attn_fn, k_l, v_l, block_table, cols, positions, kv_positions, prefill, nlive,
             ks_l, vs_l, backend, valid,
         ))
 
@@ -193,8 +222,8 @@ def forward_layers_rows(
     """Dense serve-step layers: the contract of
     ``llama.forward_layers_rows``."""
     for i, p in enumerate(layers):
-        h = attn_mlp_block(cfg, p, h, rows_attn_fn(
-            k_cache[i], v_cache[i], rowsel, cols, positions, kv_positions, live,
+        h = attn_mlp_block(cfg, p, h, per_shard(
+            rows_attn_fn, k_cache[i], v_cache[i], rowsel, cols, positions, kv_positions, live,
         ))
     return h
 

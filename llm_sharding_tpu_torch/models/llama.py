@@ -25,7 +25,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from ..device import device_const, resolve_device
+from ..device import device_const, hop, resolve_device
 from ..ops.flash_attention import attention_step
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention, paged_prefill, write_block_kv
@@ -34,7 +34,7 @@ from ..ops.rope import apply_rope, rope_cos_sin
 from ..utils import convert
 from .cache import KVCache
 from .config import ModelConfig
-from .stack import scan_layers, scan_layers_paged
+from .stack import per_shard, replicated, scan_layers, scan_layers_paged, tp_reduce
 
 Params = dict[str, Any]
 
@@ -110,14 +110,33 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, dtype=None, device=None) -> 
 
 def attn_mlp_block(
     cfg: ModelConfig,
-    p: Params,
+    p: Params,  # a layer's params, or their ``Shards`` over a tensor group
     h: torch.Tensor,  # [B, S, H]
     cos: torch.Tensor,
     sin: torch.Tensor,
-    attn_fn,  # (q [B,S,Nh,D], k [B,S,Nkv,D], v [B,S,Nkv,D]) -> [B,S,Nh,D]
+    attn_fn,  # (q [B,S,Nh,D], k [B,S,Nkv,D], v [B,S,Nkv,D]) -> [B,S,Nh,D]; Shards per shard
 ) -> torch.Tensor:
     """One llama block with the attention mechanism injected
-    (``llama.py:113-182``). Projection biases are keyed by presence."""
+    (``llama.py:113-182``). Projection biases are keyed by presence.
+
+    Over a tensor group (``p`` as ``Shards``: wq/wk/wv/w_gate/w_up
+    column-split, wo/w_down row-split, ``parallel/tensor.py``) each shard
+    runs the block up to its two row-parallel products on its own heads,
+    and ``tp_reduce`` sums their partials where JAX ``psum``s; ``bo`` is
+    added once, after the reduce. Head counts come from the weight shapes,
+    so a shard sees its ``Nh / tp`` and ``Nkv / tp``."""
+
+    def attn(q_p, hh, j):
+        d = hh.device
+        q, k, v = qkv(cfg, q_p, hh, hop(cos, d), hop(sin, d))
+        return attn_proj(cfg, q_p, (attn_fn if j is None else attn_fn[j])(q, k, v))
+
+    return block_finish(cfg, p, h, tp_reduce(p, h, attn))
+
+
+def qkv(cfg: ModelConfig, p: Params, h, cos, sin) -> tuple:
+    """Norm, the q/k/v projections (biases by presence) and RoPE of one
+    shard (the whole layer at tp 1): the attention's operands."""
     B, S, _ = h.shape
     D = cfg.head_dim_
     Nh = out_dim(p["wq"]) // D
@@ -132,12 +151,29 @@ def attn_mlp_block(
         vx = vx + p["bv"]
     q = apply_rope(qx.reshape(B, S, Nh, D), cos, sin)
     k = apply_rope(kx.reshape(B, S, Nkv, D), cos, sin)
-    v = vx.reshape(B, S, Nkv, D)
-    attn = attn_fn(q, k, v)
-    attn_out = qmatmul(attn.reshape(B, S, Nh * D), p["wo"])
-    if "bo" in p:
-        attn_out = attn_out + p["bo"]
+    return q, k, vx.reshape(B, S, Nkv, D)
+
+
+def attn_proj(cfg: ModelConfig, p: Params, attn) -> torch.Tensor:
+    """The ``wo`` product of one shard's attention output: the partial the
+    tensor group sums."""
+    B, S, Nh, D = attn.shape
+    return qmatmul(attn.reshape(B, S, Nh * D), p["wo"])
+
+
+def block_finish(cfg: ModelConfig, p: Params, h, attn_out) -> torch.Tensor:
+    """The block after its attention: ``bo`` once on the summed ``wo``
+    product, the residual, then the MLP (its ``w_down`` partials summed
+    over a tensor group)."""
+    bo = replicated(p, "bo")
+    if bo is not None:
+        attn_out = attn_out + bo
     h = h + attn_out
+    return h + tp_reduce(p, h, lambda q_p, hh, j: _mlp_partial(cfg, q_p, hh))
+
+
+def _mlp_partial(cfg: ModelConfig, p: Params, h) -> torch.Tensor:
+    """Post-norm and the gated MLP of one shard, through ``w_down``."""
     x = rms_norm(h, p["post_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     gate = qmatmul(x, p["w_gate"]).float()
     if cfg.hidden_act == "gelu_tanh":
@@ -146,7 +182,7 @@ def attn_mlp_block(
         act = F.silu(gate)
     else:
         raise ValueError(f"unsupported hidden_act {cfg.hidden_act!r}")
-    return h + qmatmul(act.to(x.dtype) * qmatmul(x, p["w_up"]), p["w_down"])
+    return qmatmul(act.to(x.dtype) * qmatmul(x, p["w_up"]), p["w_down"])
 
 
 def decoder_layer(
@@ -161,13 +197,23 @@ def decoder_layer(
     kv_positions: torch.Tensor,  # [B, C], this step's positions already recorded
     length: int,  # write offset of this step's keys
 ) -> torch.Tensor:
+    return attn_mlp_block(cfg, p, h, cos, sin, per_shard(
+        dense_attn_fn, k_row, v_row, positions, kv_positions, length,
+    ))
+
+
+def dense_attn_fn(k_row, v_row, positions, kv_positions, length: int):
+    """The attention of a dense layer (shared by the model families): the
+    step's keys land at columns ``[length, length + S)`` of the cache row,
+    then the dense dispatch (``ops/flash_attention.attention_step``)."""
+
     def attn_fn(q, k, v):
         S = q.shape[1]
         k_row[:, length : length + S] = k.to(k_row.dtype)
         v_row[:, length : length + S] = v.to(v_row.dtype)
         return attention_step(q, k_row, v_row, positions, kv_positions)
 
-    return attn_mlp_block(cfg, p, h, cos, sin, attn_fn)
+    return attn_fn
 
 
 def paged_decoder_layer(
@@ -194,9 +240,9 @@ def paged_decoder_layer(
     running block scales when the arena holds codes), then attention
     streams exactly the blocks the table names. Write-then-attend, so
     causality within a chunk falls out of the position mask."""
-    return attn_mlp_block(cfg, p, h, cos, sin, paged_attn_fn(
-        k_arena, v_arena, block_table, cols, positions, kv_positions, prefill, nlive,
-        k_scale, v_scale, backend, valid,
+    return attn_mlp_block(cfg, p, h, cos, sin, per_shard(
+        paged_attn_fn, k_arena, v_arena, block_table, cols, positions, kv_positions, prefill,
+        nlive, k_scale, v_scale, backend, valid,
     ))
 
 
@@ -313,8 +359,8 @@ def forward_layers_rows(
     Key-position bookkeeping stays with the caller."""
     cos, sin = rope_cos_sin(positions, cfg)
     for i, p in enumerate(layers):
-        h = attn_mlp_block(cfg, p, h, cos, sin, rows_attn_fn(
-            k_cache[i], v_cache[i], rowsel, cols, positions, kv_positions, live,
+        h = attn_mlp_block(cfg, p, h, cos, sin, per_shard(
+            rows_attn_fn, k_cache[i], v_cache[i], rowsel, cols, positions, kv_positions, live,
         ))
     return h
 

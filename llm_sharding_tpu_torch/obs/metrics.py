@@ -629,7 +629,7 @@ def set_replica_state(replica, state: str) -> None:
 
 # -- disaggregated prefill/decode serving (runtime/disagg.py) ---------------
 # JAX ``obs/metrics.py:690-746`` without ``server_cp_stream_shards_total``,
-# which comes with context parallelism (ROADMAP.md §A 16).
+# which comes with context-parallel serving (ROADMAP.md §A 16b).
 DISAGG_HANDOFFS = REGISTRY.counter(
     "server_disagg_handoffs_total",
     "Prefill→decode request hand-offs, by outcome (ok = KV blocks streamed "

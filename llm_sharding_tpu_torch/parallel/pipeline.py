@@ -17,6 +17,14 @@ process issuing each stage's layers on its device in turn, which is the
 same order of work for one request in flight (``pipeline_generate``,
 the reference's chain). A one-device params dict is a one-stage chain
 (``as_stages``): the serve programs take either.
+
+Tensor parallelism (``parallel/tensor.py``): a stage may run over a
+tensor group of ``tp`` devices (``Stage.group``). Its layers are then
+``Shards`` of megatron slices, its KV ``HeadShards`` of ``Nkv / tp`` heads
+each, and its head stays whole on the group's first device: the vocab is
+sharded over the stages only, so the logits are computed once per stage,
+not once per shard. ``build_stages`` takes ``stages × tp`` devices in the
+JAX grid order, tensor innermost.
 """
 
 from __future__ import annotations
@@ -28,8 +36,9 @@ import torch
 
 from ..device import hop, resolve_device
 from ..models import gpt2, llama
-from ..models.cache import POS_SENTINEL, init_cache
+from ..models.cache import POS_SENTINEL, KVCache, init_cache
 from ..models.config import ModelConfig
+from ..models.stack import HeadShards
 from ..ops.quant import act_dtype, base
 from ..ops.sampling import is_stop, sample, validate_top_p
 from .head import is_sharded_head, shard_head_host, sp_embed, sp_logits, sp_next_token, stage_head
@@ -47,7 +56,11 @@ class ModelFns(NamedTuple):
     forward: Callable  # (cfg, params, ids, cache, positions) -> (logits, cache)
 
 
-def model_fns(cfg: ModelConfig) -> ModelFns:
+def model_fns(cfg: ModelConfig, tp_axis: Optional[str] = None) -> ModelFns:
+    """The family's functions (``pipeline.py:80-116``). ``tp_axis`` is
+    taken for the JAX signature: a tensor group is carried by the
+    parameters themselves (``Shards`` layers, ``HeadShards`` KV), so the
+    same functions serve every tensor degree."""
     if cfg.model_type == "llama":
         m = llama
     elif cfg.model_type == "gpt2":
@@ -86,6 +99,12 @@ class Stage(NamedTuple):
     layers: list
     head: dict
     lo: int = 0
+    group: tuple = ()  # the tensor group's devices, ``device`` first; () at tp 1
+
+    @property
+    def tp(self) -> int:
+        """The stage's tensor degree."""
+        return max(len(self.group), 1)
 
 
 def as_stages(model) -> list:
@@ -137,34 +156,46 @@ def stage_devices(num_stages: int, devices=None) -> list:
     return devs[: pipe_size(num_stages, len(devs))]
 
 
-def exec_spec(spec: PlacementSpec, n_dev: int) -> PlacementSpec:
-    """What ``n_dev`` devices run of ``spec``: itself, or grouped."""
-    pipe = pipe_size(spec.num_stages, n_dev)
-    return spec if pipe == spec.num_stages else spec.grouped(spec.num_stages // pipe)
-
-
-def build_stages(cfg: ModelConfig, host_params: dict, spec: PlacementSpec, devices: list) -> list:
+def build_stages(cfg: ModelConfig, host_params: dict, spec: PlacementSpec, devices: list,
+                 tp: int = 1) -> list:
     """Stage each range of ``spec`` from host (CPU) params onto its device:
     its layers and its vocab shard of the head. Only a stage's own slice
     reaches its device; on the CPU the slices are views of the host
-    tensors where no copy is needed."""
-    if len(devices) != spec.num_stages:
+    tensors where no copy is needed. With ``tp`` > 1, ``devices`` holds
+    ``tp`` per stage (tensor innermost) and each stage's layers are split
+    into their megatron shards over its group (``tensor.shard_layer_tp``),
+    its head whole on the group's first device."""
+    from .tensor import shard_layer_tp, validate_tp
+
+    if len(devices) != spec.num_stages * tp:
         raise ValueError(
             f"{spec.num_stages} stages need {spec.num_stages} devices, got {len(devices)}"
+            if tp == 1 else
+            f"{spec.num_stages} stages x tp {tp} need {spec.num_stages * tp} devices, "
+            f"got {len(devices)}"
         )
+    if tp > 1:
+        validate_tp(cfg, tp)
     S = spec.num_stages
     head_host = {k: v for k, v in host_params.items() if k != "layers"}
     sharded = ensure_sharded_head(cfg, head_host, S) if S > 1 else None
     Vs = -(-cfg.vocab_size // S)
     stages = []
-    for i, (layers, (a, b), dev) in enumerate(
-        zip(split_stage_layers(spec, host_params["layers"]), spec.stages, devices)
+    for i, (layers, (a, b)) in enumerate(
+        zip(split_stage_layers(spec, host_params["layers"]), spec.stages)
     ):
+        group = tuple(devices[i * tp : (i + 1) * tp])
+        dev = group[0]
         head = (
             stage_head(sharded, i, dev) if sharded is not None
             else map_params(lambda t, d=dev: t.to(d), head_host)
         )
-        stages.append(Stage(dev, a, b, map_params(lambda t, d=dev: t.to(d), layers), head, i * Vs))
+        if tp > 1:
+            staged = [shard_layer_tp(cfg, layer, list(group)) for layer in layers]
+        else:
+            staged = map_params(lambda t, d=dev: t.to(d), layers)
+            group = ()
+        stages.append(Stage(dev, a, b, staged, head, i * Vs, group))
     return stages
 
 
@@ -245,9 +276,21 @@ class PipelineResult(NamedTuple):
 
 def chain_caches(cfg: ModelConfig, stages: list, batch: int, capacity: int, dtype) -> list:
     """One dense KV cache per stage, ``[L_stage, B, C, Nkv, D]`` on its
-    device."""
-    return [init_cache(cfg, batch, capacity, dtype=dtype, device=st.device,
-                       num_layers=st.end - st.start) for st in stages]
+    device; a tensor-parallel stage's ``k`` / ``v`` are ``HeadShards`` of
+    ``Nkv / tp`` heads per shard, its ``pos`` on the group's first device."""
+    caches = []
+    for st in stages:
+        L = st.end - st.start
+        if st.tp == 1:
+            caches.append(init_cache(cfg, batch, capacity, dtype=dtype, device=st.device,
+                                     num_layers=L))
+            continue
+        shape = (L, batch, capacity, cfg.num_key_value_heads // st.tp, cfg.head_dim_)
+        k, v = (HeadShards([torch.zeros(shape, dtype=dtype, device=d) for d in st.group])
+                for _ in range(2))
+        pos = torch.full((batch, capacity), POS_SENTINEL, dtype=torch.int32, device=st.device)
+        caches.append(KVCache(k=k, v=v, pos=pos))
+    return caches
 
 
 def chain_forward(cfg: ModelConfig, stages: list, h: torch.Tensor, caches: list,
@@ -260,6 +303,40 @@ def chain_forward(cfg: ModelConfig, stages: list, h: torch.Tensor, caches: list,
         return fns.stage(cfg, st.layers, h, caches[i], hop(positions, st.device))[0]
 
     return run_stages(stages, h, stage)
+
+
+def mesh_axis_sizes(grid) -> tuple:
+    """(data, pipe, tensor) sizes of a device grid (``parallel/mesh.Grid``;
+    absent axes count as 1), ``pipeline.py:118``."""
+    from .mesh import DATA_AXIS, PIPE_AXIS
+    from .tensor import TENSOR_AXIS
+
+    shape = dict(grid.shape)
+    return shape.get(DATA_AXIS, 1), shape.get(PIPE_AXIS, 1), shape.get(TENSOR_AXIS, 1)
+
+
+def stage_layer_specs(cfg: ModelConfig, tp: int, stage_layers: Optional[dict] = None):
+    """The split rule of each layer leaf of a stage over a tensor group of
+    ``tp`` (``pipeline.py:132-165``): None at tp 1 (no split), else the
+    family's rules (``tensor.tp_specs``), per component for a quantized
+    leaf of ``stage_layers`` (one layer's dict; its keys select the rules),
+    the whole table without it."""
+    if tp == 1:
+        return None
+    from .tensor import quant_leaf_spec, tp_specs
+
+    per_leaf = tp_specs(cfg)["layers"]
+    if stage_layers is None:
+        return dict(per_leaf)
+    return {k: quant_leaf_spec(per_leaf[k], v) for k, v in stage_layers.items()}
+
+
+def _replica_seed(seed: int, d: int) -> int:
+    """The sampling seed of data-parallel replica ``d``: ``seed`` itself for
+    the first, a distinct one for each other (JAX folds the replica index
+    into its key, ``pipeline.py:318-324``: deterministic, and not the
+    monolith's stream past the first replica)."""
+    return int(seed) if d == 0 else (int(seed) * 1_000_003 + d) % (2**63)
 
 
 def pipeline_generate(
@@ -284,7 +361,36 @@ def pipeline_generate(
     draws from one ``torch.Generator`` seeded with ``seed`` there, so the
     tokens equal ``runtime/generate.generate``'s on one stage. With
     ``prompt_embeds`` the prompt enters as hidden states and
-    ``prompt_ids`` only sizes the output (pass zeros)."""
+    ``prompt_ids`` only sizes the output (pass zeros).
+
+    ``stages`` may be a list of chains, one per data-parallel replica
+    (``Engine(data_parallel=)``): replica ``d`` takes rows ``[d, d + 1) *
+    B / dp`` and the batch must divide; the replicas run one after the
+    other in this process, each until its own rows stop. Stages over a
+    tensor group (``Stage.group``) run their megatron shards."""
+    if stages and isinstance(stages[0], list):
+        dp = len(stages)
+        prompt = np.asarray(prompt_ids, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        B = prompt.shape[0]
+        if B % dp != 0:
+            raise ValueError(f"batch {B} not divisible by data-parallel size {dp}")
+        Bl = B // dp
+        plen = None if prompt_len is None else np.asarray(prompt_len, np.int64)
+        parts = [
+            pipeline_generate(
+                cfg, chain, prompt[d * Bl : (d + 1) * Bl], max_new_tokens,
+                prompt_len=None if plen is None else plen[d * Bl : (d + 1) * Bl],
+                capacity=capacity, temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=_replica_seed(seed, d),
+                prompt_embeds=None if prompt_embeds is None
+                else np.asarray(prompt_embeds)[d * Bl : (d + 1) * Bl],
+            )
+            for d, chain in enumerate(stages)
+        ]
+        return PipelineResult(np.concatenate([r.tokens for r in parts]),
+                              np.concatenate([r.lengths for r in parts]))
     prompt = np.asarray(prompt_ids, np.int32)
     if prompt.ndim == 1:
         prompt = prompt[None]

@@ -26,6 +26,16 @@ gathered. The model family's functions come from one table
 (``parallel/pipeline.model_fns``), so every program serves llama-family
 and GPT-2 weights alike, raw or quantized.
 
+Under tensor parallelism a stage's arena is one per shard of its tensor
+group: ``Arena.k`` / ``v`` are ``models/stack.HeadShards``, each part
+``[L_stage, NB, BS, Nkv / tp, D]`` on its shard's device (JAX ``_kv_spec``
+puts the KV heads on the tensor axis, ``serve.py:122-137``), while the
+tables and the row state stay once, on the first device. What leaves the
+arena (a prefix operand, blocks read for the host tier, a snapshot) is
+joined by head into the one-shard layout, and what enters it is split by
+head, so host copies do not depend on the tensor degree. A quantized arena
+is refused under tensor parallelism, as in JAX.
+
 The arena, the per-column key positions and the per-row state (``tok``,
 ``pos_slots``, ``write_off``, ``lengths``, ``done``, ``budget``, under the
 JAX names) live on the device, and every program reads and advances them
@@ -76,6 +86,7 @@ import torch
 from ..device import hop, to_device
 from ..models.cache import POS_SENTINEL, KVCache, block_pool_shape, block_scale_shape
 from ..models.config import ModelConfig
+from ..models.stack import HeadShards, full_heads, per_shard
 from ..ops.paged_attention import _bytes, _take, write_block_kv
 from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
 from ..ops.sampling import filter_rows, gumbel, is_stop, sample
@@ -160,7 +171,7 @@ def make_state(
     dtype: torch.dtype,
     device: torch.device,
     kv_dtype: str = "bf16",
-    stages: Optional[list] = None,  # [(num_layers, device)] per stage
+    stages: Optional[list] = None,  # [(num_layers, devices)] per stage: its tensor group
 ) -> ServeState:
     """Empty state: every row free (done), every table entry trash. Each
     row's logical window is ``W = ceil(capacity / BS) * BS`` columns.
@@ -168,9 +179,11 @@ def make_state(
     "bf16" stores in ``dtype``, the engine's own. ``kv_block_size`` 0 is
     dense: per-row ``[L, M, capacity, Nkv, D]`` caches in ``dtype``, an
     ``[M, 1]`` placeholder table and no scales (``serve.py:253-300``).
-    ``stages`` gives each stage's layer count and device (default: one
-    stage of every layer on ``device``); the tables and the row state go
-    on ``device``, the first stage's."""
+    ``stages`` gives each stage's layer count and tensor group, a tuple of
+    devices (default: one stage of every layer on ``device``); a group of
+    more than one device gets one arena per shard of ``Nkv / tp`` heads,
+    as ``HeadShards``. The tables and the row state go on ``device``, the
+    first stage's."""
     dense = not kv_block_size
     if dense and kv_dtype != "bf16":
         raise ValueError(f"kv_dtype={kv_dtype!r} needs a paged arena")
@@ -179,19 +192,25 @@ def make_state(
     store = kv_storage_dtype(kv_dtype, dtype)
     quantized = is_kv_quantized(store)
 
-    def arena(L, dev):
+    def arena(L, group):
         if dense:
             shape = (L, rows, capacity, cfg.num_key_value_heads, cfg.head_dim_)
         else:
             shape = block_pool_shape(cfg, kv_blocks, kv_block_size, L)
+        if len(group) > 1:
+            if quantized:
+                raise ValueError("a quantized arena is not split over a tensor group")
+            shape = shape[:-2] + (shape[-2] // len(group), shape[-1])
+            return HeadShards([torch.zeros(shape, dtype=store, device=d) for d in group])
         if quantized:  # zero bytes, viewed: fills of fp8 tensors are not everywhere
-            return torch.zeros(shape, dtype=torch.uint8, device=dev).view(store)
-        return torch.zeros(shape, dtype=store, device=dev)
+            return torch.zeros(shape, dtype=torch.uint8, device=group[0]).view(store)
+        return torch.zeros(shape, dtype=store, device=group[0])
 
-    def scales(L, dev):
+    def scales(L, group):
         if not quantized:
             return None
-        return torch.zeros(block_scale_shape(cfg, kv_blocks, L), dtype=torch.float32, device=dev)
+        return torch.zeros(block_scale_shape(cfg, kv_blocks, L), dtype=torch.float32,
+                           device=group[0])
 
     def row_i32():
         return torch.zeros(rows, dtype=torch.int32, device=device)
@@ -199,7 +218,7 @@ def make_state(
     return ServeState(
         arenas=[
             Arena(arena(L, dev), arena(L, dev), scales(L, dev), scales(L, dev))
-            for L, dev in (stages or [(cfg.num_hidden_layers, device)])
+            for L, dev in (stages or [(cfg.num_hidden_layers, (device,))])
         ],
         cache_dtype=dtype,
         kpos=torch.full((rows, W), POS_SENTINEL, dtype=torch.int32, device=device),
@@ -357,8 +376,8 @@ def prefix_prefill(
     caches = chain_caches(cfg, stages, 1, Spx, dtype)
     h = chain_embed(cfg, stages, torch.from_numpy(prefix).to(device), pos_t)
     chain_forward(cfg, stages, h, caches, pos_t)
-    return (_cat_layers([c.k for c in caches], device), _cat_layers([c.v for c in caches], device),
-            caches[0].pos)
+    return (_cat_layers([full_heads(c.k, device) for c in caches], device),
+            _cat_layers([full_heads(c.v, device) for c in caches], device), caches[0].pos)
 
 
 def gather_prefix_kv(state: ServeState, blocks: list, out_dtype: torch.dtype) -> tuple:
@@ -373,7 +392,7 @@ def gather_prefix_kv(state: ServeState, blocks: list, out_dtype: torch.dtype) ->
     for ar in state.arenas:
         idx = torch.as_tensor(blocks, dtype=torch.long, device=ar.k.device)
         for arena, scale, out in ((ar.k, ar.k_scale, ks), (ar.v, ar.v_scale, vs)):
-            g = _take(arena, (slice(None), idx))  # [L, T, BS, Nkv, D]
+            g = full_heads(per_shard(_take_blocks, arena, idx))  # [L, T, BS, Nkv, D]
             if scale is not None:
                 g = kv_dequantize(g, scale[:, idx][:, :, None, :, None], out_dtype)
             L, T, BS = g.shape[:3]
@@ -381,6 +400,11 @@ def gather_prefix_kv(state: ServeState, blocks: list, out_dtype: torch.dtype) ->
     k, v = _cat_layers(ks, dev), _cat_layers(vs, dev)
     pos = torch.arange(k.shape[2], dtype=torch.int32, device=dev)[None]
     return k, v, pos
+
+
+def _take_blocks(arena: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Blocks ``idx`` of every layer of one arena (``[L, nb, ...]``)."""
+    return _take(arena, (slice(None), idx))
 
 
 def _host_bytes(t: torch.Tensor) -> np.ndarray:
@@ -441,7 +465,7 @@ def read_arena_blocks_dispatch(state: ServeState, blocks: list) -> BlockRead:
     for ar in state.arenas:
         idx = to_device(np.asarray(blocks, np.int64), ar.k.device)
         parts = [ar.k, ar.v] + ([] if ar.k_scale is None else [ar.k_scale, ar.v_scale])
-        per_stage.append([_take(a, (slice(None), idx)) for a in parts])
+        per_stage.append([full_heads(per_shard(_take_blocks, a, idx)) for a in parts])
     return BlockRead(tuple(_cat_layers(list(p), state.device) for p in zip(*per_stage)))
 
 
@@ -477,12 +501,18 @@ def write_arena_blocks_q(
 def write_state_blocks(state: ServeState, blocks: list, k_host, v_host, *scales) -> None:
     """Host arrays in the one-stage layout (``read_arena_blocks``'s ``[1,
     L, nb, ...]``) written into every stage's arena, each stage taking its
-    layers: codes and, for an int8/fp8 arena, scales, byte-exact."""
+    layers (and each shard of a tensor group its heads): codes and, for an
+    int8/fp8 arena, scales, byte-exact."""
     lo = 0
     for ar in state.arenas:
         hi = lo + ar.k.shape[0]
         cut = [a[:, lo:hi] for a in (k_host, v_host) + tuple(scales)]
-        if ar.k_scale is None:
+        if isinstance(ar.k, HeadShards):
+            tp = len(ar.k.parts)
+            heads = [np.split(a, tp, axis=-2) for a in cut]
+            for j, (kp, vp) in enumerate(zip(ar.k.parts, ar.v.parts)):
+                write_arena_blocks(kp, vp, blocks, heads[0][j], heads[1][j])
+        elif ar.k_scale is None:
             write_arena_blocks(ar.k, ar.v, blocks, *cut)
         else:
             write_arena_blocks_q(ar.k, ar.v, ar.k_scale, ar.v_scale, blocks, *cut)
@@ -592,7 +622,7 @@ def serve_admit(
         for layer in range(cache.num_layers):
             kw, vw = cache.k[layer][:, w0:], cache.v[layer][:, w0:]
             if ar.k_scale is None:
-                write_block_kv(ar.k[layer], ar.v[layer], tbl_s, cols_s, kw, vw)
+                per_shard(write_block_kv, ar.k[layer], ar.v[layer], tbl_s, cols_s, kw, vw)
                 continue
             scatter_pages_q(ar.k[layer], ar.k_scale[layer], tbl_s[:, npfx:], kw)
             scatter_pages_q(ar.v[layer], ar.v_scale[layer], tbl_s[:, npfx:], vw)

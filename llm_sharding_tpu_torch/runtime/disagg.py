@@ -1,7 +1,7 @@
 """Disaggregated prefill/decode serving: role-typed replica pools with
 profiler-driven placement and cross-replica KV block streaming (the port
 of ``llm_sharding_tpu/runtime/disagg.py``, whole but for context
-parallelism, which comes with ``ROADMAP.md`` §A 16).
+parallelism, which comes with ``ROADMAP.md`` §A 16b).
 
 Prefill and decode have opposite hardware profiles — prefill is
 compute-bound (one big batched matmul over the prompt), decode is

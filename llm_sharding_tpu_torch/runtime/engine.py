@@ -17,6 +17,16 @@ host, and ``apply_placement`` re-slices them onto the devices at any time
 (hot repartition). An engine built with none of the three loads straight
 onto its device as one stage; ``keep_host_copy`` gives it the host copy
 that repartition slices from.
+
+Tensor and data parallelism (JAX ``engine.py:90-185``):
+``tensor_parallel=T`` runs every stage over a tensor group of ``T``
+devices (its megatron shards, ``parallel/tensor.py``), and
+``data_parallel=D`` keeps ``D`` replicas of the chain that ``generate_ids``
+splits a batch over. The devices follow the JAX grid ``(data, pipe,
+tensor)``, tensor innermost, so ``devices = D × stages × T``; the stage
+count defaults to ``devices / (D·T)``. ``serve`` composes with tensor
+parallelism, not with in-program data parallelism
+(``runtime/replicated.ReplicatedServer`` replicates servers instead).
 """
 
 from __future__ import annotations
@@ -32,11 +42,13 @@ import torch
 from ..device import resolve_device, to_device
 from ..obs.metrics import PIPELINE_STAGES, PLACEMENT_SWAP_SECONDS, PLACEMENT_SWAPS
 from ..ops.quant import act_dtype
+from ..parallel.mesh import hybrid_mesh
 from ..parallel.pipeline import (
-    as_stages, build_stages, chain_embed, exec_spec, map_params, pipeline_generate,
-    stage_devices, visible_devices,
+    as_stages, build_stages, chain_embed, map_params, pipe_size, pipeline_generate,
+    visible_devices,
 )
 from ..parallel.placement import PlacementSpec
+from ..parallel.tensor import validate_tp
 from ..utils import shard_store
 from .generate import generate
 
@@ -72,7 +84,8 @@ class Engine:
     stay where they are, one stage on their device."""
 
     def __init__(self, cfg, params: dict, *, num_stages: Optional[int] = None,
-                 placement: Optional[PlacementSpec] = None, devices: Optional[list] = None):
+                 placement: Optional[PlacementSpec] = None, devices: Optional[list] = None,
+                 tensor_parallel: int = 1, data_parallel: int = 1):
         self.cfg = cfg
         #: the store's tokenizer (``from_shards``), as a Hugging Face one:
         #: ``tok(text)["input_ids"]`` and ``decode(ids,
@@ -82,13 +95,20 @@ class Engine:
         # the text stream's shared servers, by capacity (``_shared_server``)
         self._servers: dict = {}
         self._lock = threading.Lock()
+        self.data_parallel = int(data_parallel)
+        self.tensor_parallel = int(tensor_parallel)
+        if self.data_parallel < 1 or self.tensor_parallel < 1:
+            raise ValueError("data_parallel/tensor_parallel must be >= 1")
+        if self.tensor_parallel > 1:
+            validate_tp(cfg, self.tensor_parallel)
         L = cfg.num_hidden_layers
-        if num_stages is None and placement is None and devices is None:
+        parallel = self.data_parallel > 1 or self.tensor_parallel > 1
+        if num_stages is None and placement is None and devices is None and not parallel:
             # loaded straight onto the device: one stage, no host copy
             self._host = None
             stages = as_stages(params)
             self._devices = [stages[0].device]
-            self._commit(PlacementSpec.balanced(L, 1), PlacementSpec.balanced(L, 1), stages,
+            self._commit(PlacementSpec.balanced(L, 1), PlacementSpec.balanced(L, 1), [stages],
                          time.perf_counter())
             return
         # the repartition source stays on the host: only each stage's slice
@@ -96,14 +116,34 @@ class Engine:
         self._host = map_params(lambda t: t.detach().to("cpu"), params)
         self._devices = visible_devices(devices)
         if placement is None:
-            placement = PlacementSpec.balanced(L, num_stages or len(self._devices))
+            n = num_stages
+            if n is None:
+                rep = self.data_parallel * self.tensor_parallel
+                if len(self._devices) % rep:
+                    raise ValueError(
+                        f"{len(self._devices)} devices not divisible by dp×tp = {rep}"
+                    )
+                n = len(self._devices) // rep
+            placement = PlacementSpec.balanced(L, n)
         self.apply_placement(placement)
+
+    def _pipe_size(self, num_virtual: int) -> int:
+        """The executed stage count of a ``num_virtual``-stage chain (JAX
+        ``engine.py:155-172``): ``pipe_size`` over the ``devices / (dp·tp)``
+        pipe devices."""
+        rep = self.data_parallel * self.tensor_parallel
+        if rep > 1 and len(self._devices) < rep:
+            raise ValueError(
+                f"a {num_virtual}-stage chain needs at least one pipe device; 0 available "
+                f"(dp×tp uses {rep} of {len(self._devices)})"
+            )
+        return pipe_size(num_virtual, len(self._devices) // rep)
 
     @classmethod
     def from_shards(
         cls, shards_dir: str, *, dtype: torch.dtype = torch.bfloat16, device=None,
         num_stages: Optional[int] = None, placement: Optional[PlacementSpec] = None,
-        devices: Optional[list] = None,
+        devices: Optional[list] = None, tensor_parallel: int = 1, data_parallel: int = 1,
     ) -> "Engine":
         """Load a store written by either package: llama family or GPT-2,
         raw or int8 / int4 quantized (``dtype`` casts the raw tensors and
@@ -112,16 +152,22 @@ class Engine:
         Default device: the GPU; raises without one unless
         ``device="cpu"``. With ``num_stages``, ``placement`` or
         ``devices`` (``device`` alone: a one-entry list) the store loads
-        into host memory and the engine stages it."""
-        if num_stages is None and placement is None and devices is None:
+        into host memory and the engine stages it; so it does with
+        ``tensor_parallel`` / ``data_parallel`` > 1 (``device`` alone: each
+        shard and replica on it)."""
+        parallel = tensor_parallel > 1 or data_parallel > 1
+        if num_stages is None and placement is None and devices is None and not parallel:
             cfg, params = shard_store.load_full(shards_dir, dtype=dtype,
                                                 device=resolve_device(device))
             eng = cls(cfg, params)
         else:
-            devices = visible_devices(devices if devices is not None or device is None
-                                      else [device])
+            if devices is None and device is not None:
+                n = placement.num_stages if placement is not None else (num_stages or 1)
+                devices = [device] * (n * tensor_parallel * data_parallel)
+            devices = visible_devices(devices)
             cfg, params = shard_store.load_full(shards_dir, dtype=dtype, device="cpu")
-            eng = cls(cfg, params, num_stages=num_stages, placement=placement, devices=devices)
+            eng = cls(cfg, params, num_stages=num_stages, placement=placement, devices=devices,
+                      tensor_parallel=tensor_parallel, data_parallel=data_parallel)
         eng.tokenizer = shard_store.load_tokenizer(shards_dir)
         return eng
 
@@ -140,13 +186,16 @@ class Engine:
                 f"{self.cfg.num_hidden_layers}"
             )
         t0 = time.perf_counter()
-        ex = exec_spec(spec, len(self._devices))
+        dp, tp = self.data_parallel, self.tensor_parallel
+        pipe = self._pipe_size(spec.num_stages)
+        ex = spec if pipe == spec.num_stages else spec.grouped(spec.num_stages // pipe)
         if self._host is None:  # one device: any chain runs grouped as one stage
-            stages = self.stages
+            replicas = [self.stages]
         else:
-            stages = build_stages(self.cfg, self._host, ex,
-                                  stage_devices(spec.num_stages, self._devices))
-        self._commit(spec, ex, stages, t0)
+            grid = hybrid_mesh(data=dp, pipe=pipe, tensor=tp, devices=self._devices)
+            replicas = [build_stages(self.cfg, self._host, ex, list(grid.devices[d].reshape(-1)),
+                                     tp=tp) for d in range(dp)]
+        self._commit(spec, ex, replicas, t0)
         logger.info("placement applied: %d stages over %d devices, ranges %s",
                     spec.num_stages, ex.num_stages, list(spec.stages))
 
@@ -166,13 +215,14 @@ class Engine:
             self._host = map_params(lambda t: t.detach().to("cpu"), self.params)
         self._devices = visible_devices(devices)
 
-    def _commit(self, spec: PlacementSpec, ex: PlacementSpec, stages: list, t0: float) -> None:
+    def _commit(self, spec: PlacementSpec, ex: PlacementSpec, replicas: list, t0: float) -> None:
         """Swap placement and stages in at once: a concurrent generate sees
         the old set or the new one, never a mix."""
         with self._lock:
             self.placement = spec  # the operator's chain (may be longer)
             self.exec_placement = ex  # what the devices run
-            self._stages = stages
+            self._replicas = replicas  # one chain per data-parallel replica
+            self._stages = replicas[0]
             # live servers are bound to the old arrays
             self._servers = {}
         PLACEMENT_SWAPS.inc()
@@ -202,12 +252,12 @@ class Engine:
     @property
     def params(self) -> dict:
         """A one-stage engine's params on its device (``layers`` and the
-        head leaves); a pipeline engine has no such dict."""
+        head leaves); a pipeline or tensor-parallel engine has no such dict."""
         st = self._stages
-        if len(st) != 1:
+        if len(st) != 1 or self.tensor_parallel > 1:
             raise ValueError(
-                f"a {len(st)}-stage engine holds no one-device params; its stages are "
-                "engine.stages"
+                f"a {len(st)}-stage engine at tensor degree {self.tensor_parallel} holds no "
+                "one-device params; its stages are engine.stages"
             )
         return {"layers": st[0].layers, **st[0].head}
 
@@ -216,8 +266,8 @@ class Engine:
         stage; through the stage chain (``pipeline_generate``, which has no
         speculation) on more (JAX ``engine.py:364-409``)."""
         with self._lock:
-            stages = self._stages
-        if len(stages) == 1:
+            stages, replicas = self._stages, self._replicas
+        if len(stages) == 1 and len(replicas) == 1 and self.tensor_parallel == 1:
             return generate(self.cfg, self.params, prompt_ids, max_new_tokens, **kw)
         if kw.get("speculate"):
             raise ValueError(
@@ -225,7 +275,8 @@ class Engine:
                 "decoding (serve(speculate=) verifies through the stages)"
             )
         kw = {k: v for k, v in kw.items() if k not in ("speculate", "spec_ngram", "spec_burst")}
-        return pipeline_generate(self.cfg, stages, prompt_ids, max_new_tokens, **kw)
+        return pipeline_generate(self.cfg, replicas if len(replicas) > 1 else stages,
+                                 prompt_ids, max_new_tokens, **kw)
 
     def generate_many(
         self,
@@ -245,6 +296,7 @@ class Engine:
         ``parallel/schedule.interleaved_generate``)."""
         from ..parallel.schedule import interleaved_generate
 
+        self._require_pipe_only("generate_many")
         with self._lock:
             stages = self._stages
         return interleaved_generate(
@@ -284,6 +336,7 @@ class Engine:
         spec_ngram: int = 3,
         trace_path: Optional[str] = None,
         gauge_sweep_every_s: float = 0.0,
+        cp: int = 1,
     ):
         """A continuous-batching server over ``num_stages ×
         batch_per_slot`` rows (``runtime/server.PipelineServer``, JAX
@@ -314,9 +367,26 @@ class Engine:
         logs left in flight by the serial loop, ``inflight_steps`` > 1 the
         async executor (``runtime/async_exec.py``); ``top_k`` / ``top_p``
         are the defaults of requests that give none (JAX
-        ``runtime/engine.py:488-612``)."""
+        ``runtime/engine.py:488-612``). On a tensor-parallel engine every
+        program runs the stages' shards over head-split arenas (quantized
+        KV refused, as in JAX); an in-program data-parallel engine does not
+        serve (``_validate_serve``). ``cp`` > 1 (context-parallel serving)
+        is refused: with tensor parallelism in the JAX words, alone as a
+        later slice of the port (``ROADMAP.md`` §A 16b)."""
         from .server import PipelineServer
 
+        self._validate_serve()
+        if cp > 1 and self.tensor_parallel > 1:
+            raise NotImplementedError(
+                "serve×cp×tp: the cp arena sharding and megatron heads "
+                "sharding both claim the KV leaves' trailing dims — pick "
+                "one (cp for long context, tp for big models)"
+            )
+        if cp > 1:
+            raise NotImplementedError(
+                f"serve(cp={cp}) comes with a later slice of the port: ROADMAP.md §A 16b "
+                "(context-parallel serving)"
+            )
         return PipelineServer(
             self, capacity=capacity, batch_per_slot=batch_per_slot, chunk_cycles=chunk_cycles,
             top_k=top_k, top_p=top_p, prefill_chunk=prefill_chunk,
@@ -331,6 +401,38 @@ class Engine:
             snapshot_path=snapshot_path, speculate=speculate, spec_ngram=spec_ngram,
             trace_path=trace_path, gauge_sweep_every_s=gauge_sweep_every_s,
         )
+
+    def _validate_serve(self) -> None:
+        """The engine's capability checks for serving, shared by ``serve``
+        and ``PipelineServer.restore`` (JAX ``engine.py:468-490``, the same
+        exception classes and words)."""
+        if self.data_parallel > 1:
+            raise NotImplementedError(
+                "serve on an in-program dp engine: use "
+                "runtime.replicated.ReplicatedServer — D replica servers "
+                "over disjoint device groups behind a router (it forwards "
+                "tensor_parallel, so dp×pp×tp serving is replicas of a "
+                "pp×tp server)"
+            )
+        if self.tensor_parallel > 1 and self.cfg.model_type != "llama":
+            raise NotImplementedError(
+                "serve×tp supports the llama family (llama/qwen2): the "
+                "engine stores llama weights megatron-pre-split, while "
+                "gpt2's fused qkv is column-permuted inside "
+                "pipeline_generate — its serve-side permutation is not "
+                "implemented"
+            )
+
+    def _require_pipe_only(self, what: str) -> None:
+        if self.data_parallel > 1 or self.tensor_parallel > 1:
+            raise NotImplementedError(
+                f"{what} runs on a pipe-only engine; in-program dp/tp hybrid "
+                "engines support generate_ids (the shard_map pipeline "
+                "program) and serve() composes with tp. For data-parallel "
+                "continuous batching use runtime.replicated.ReplicatedServer "
+                "— D replica servers over disjoint device groups behind a "
+                "router."
+            )
 
     # -- the text surface (JAX ``engine.py:449-768``) ----------------------
 

@@ -131,15 +131,9 @@ class ReplicatedServer:
                 f"min_replicas must be in [0, data_parallel], got "
                 f"{min_replicas} with data_parallel={data_parallel}"
             )
-        if tensor_parallel > 1:
-            raise ValueError(
-                "tensor-parallel replicas come with a later slice of the port: "
-                "ROADMAP.md §A 16 (tensor, context and multi-host); a replica "
-                "here is a chain of pipeline stages"
-            )
         if devices is None:
             per = placement.num_stages if placement is not None else (num_stages or 1)
-            devices = [resolve_device(None)] * (data_parallel * per)
+            devices = [resolve_device(None)] * (data_parallel * per * tensor_parallel)
         devices = [resolve_device(d) for d in devices]
         if len(devices) % data_parallel:
             raise ValueError(
@@ -169,6 +163,9 @@ class ReplicatedServer:
         self._disk_pool_dir = serve_kwargs.pop("disk_pool_dir", None)
         self._cfg = cfg
         self._num_stages = num_stages
+        # every replica is a pp×tp server: dp×pp×tp serving (JAX
+        # ``replicated.py:179``)
+        self._tp = int(tensor_parallel)
         self._placement = placement
         self._tokenizer = tokenizer
         self._serve_kwargs = dict(serve_kwargs)
@@ -224,11 +221,12 @@ class ReplicatedServer:
         over the group) + a fresh server with the router's serve kwargs.
         Registers it for routing/stepping/supervision."""
         group = self._groups[d]
-        if len(group) == 1 and self._num_stages is None and self._placement is None:
+        if (len(group) == 1 and self._num_stages is None and self._placement is None
+                and self._tp == 1):
             eng = Engine(self._cfg, map_params(lambda t: t.to(group[0]), self._host_params))
         else:
             eng = Engine(self._cfg, self._host_params, num_stages=self._num_stages,
-                         placement=self._placement, devices=group)
+                         placement=self._placement, devices=group, tensor_parallel=self._tp)
         eng.tokenizer = self._tokenizer
         srv = eng.serve(
             trace_path=(

@@ -191,6 +191,7 @@ import torch
 
 from ..analysis.lockorder import named_lock
 from ..models.cache import POS_SENTINEL
+from ..models.stack import full_heads
 from ..obs.metrics import (
     ARENA_BYTES, DEFAULT_RATE_BUCKETS, KV_BLOCKS_IN_USE, KV_BLOCKS_TOTAL,
     KV_DISK_TIER_BLOCKS, KV_HOST_TIER_BLOCKS, KV_WASTE_FRAC, PREFIX_HIT_RATE,
@@ -829,6 +830,14 @@ class PipelineServer:
                 "kv_block_size/kv_blocks): quantization scales live per "
                 "arena block — dense per-row reservations have no blocks"
             )
+        tp = engine.tensor_parallel
+        if kv_dtype != "bf16" and tp > 1:
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r} with tensor_parallel={tp}: "
+                "the per-block-per-head scale arenas are not heads-sharded "
+                "yet — serve quantized KV on pp (or dp×pp) meshes, or keep "
+                "kv_dtype='bf16' under tp"
+            )
         if paged_attn != "auto" and not paged:
             raise ValueError(
                 "paged_attn is only meaningful with paged KV serving "
@@ -888,6 +897,8 @@ class PipelineServer:
         #: repartition builds a new server)
         self.model = engine.stages
         self.num_stages = len(self.model)
+        #: the tensor degree of every stage (its megatron shards)
+        self.tp = tp
         self.capacity = int(capacity)
         self.batch_per_slot = int(batch_per_slot)
         #: M, the rows every program runs (JAX ``server.py:1307``)
@@ -939,7 +950,7 @@ class PipelineServer:
             self.cfg, self.rows, capacity=self.capacity + self._spec_cols,
             kv_blocks=self.kv_blocks or 0, kv_block_size=self.kv_block_size or 0,
             dtype=engine.cache_dtype, device=engine.device, kv_dtype=kv_dtype,
-            stages=[(st.end - st.start, st.device) for st in self.model],
+            stages=[(st.end - st.start, st.group or (st.device,)) for st in self.model],
         )
         # host mirror of the device block tables (dense: the placeholder);
         # pushed before each dispatch that reads them once a release or a
@@ -1628,6 +1639,7 @@ class PipelineServer:
                 ),
                 "arena_dtype": str(self.kv_store_dtype),
                 "num_stages": self.num_stages,
+                "tensor_parallel": self.tp,
                 "rng_device": self.engine.device.type,
                 "arena": arena,
                 "state": dict(
@@ -1686,6 +1698,13 @@ class PipelineServer:
                 f"snapshot was taken over {stages} stage(s), engine placement runs "
                 f"{engine.num_stages} — restore needs the same stages/capacity/"
                 "batch_per_slot the snapshot was taken with"
+            )
+        tp = int(snap.get("tensor_parallel", 1))
+        if tp != engine.tensor_parallel:
+            raise ValueError(
+                f"snapshot was taken at tensor_parallel={tp}, engine runs "
+                f"{engine.tensor_parallel} — restore needs the tensor degree the "
+                "snapshot was taken with (extract/adopt moves requests across degrees)"
             )
         srv = engine.serve(**snap["serve_kwargs"])
         st = srv.state
@@ -2269,7 +2288,8 @@ class PipelineServer:
         out = {"rows": np.asarray(rows, np.int32)}
         for name in ("k", "v"):
             ts = [getattr(a, name) for a in self.state.arenas]
-            parts = [np.concatenate([serve_ops._raw(t[:, r]) for t in ts]) for r in rows]
+            parts = [np.concatenate([serve_ops._raw(full_heads(t[:, r])) for t in ts])
+                     for r in rows]
             L = sum(t.shape[0] for t in ts)
             out[name] = (np.stack(parts, axis=1) if parts
                          else np.zeros((L, 0) + tuple(ts[0].shape[2:]), np.float32))

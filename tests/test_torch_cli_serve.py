@@ -171,7 +171,7 @@ def test_fast_fail_exits_match_jax(flags):
     assert t[2] == j[2] and t[2].startswith("error: ")
 
 
-LATER = [(["--tensor-parallel", "2"], "§A 16"), (["--cp", "2"], "§A 16")]
+LATER = [(["--cp", "2"], "§A 16b")]
 
 
 @pytest.mark.parametrize("flags,item", LATER, ids=lambda f: " ".join(f) if isinstance(f, list)
@@ -210,6 +210,38 @@ def test_pipeline_flags_stdout_equals_jax(store4, tokenizers, flags, cmd):
     assert t[1] == j[1] and t[1].strip()
     if cmd == "serve":
         assert "stages from cpu" in t[2]
+
+
+TP = [("generate", ["--tensor-parallel", "2"]),
+      ("generate", ["--stages", "2", "--tensor-parallel", "2"]),
+      ("serve", ["--tensor-parallel", "2"]),
+      ("serve", ["--stages", "2", "--tensor-parallel", "2"]),
+      ("serve", ["--data-parallel", "2", "--tensor-parallel", "2"])]
+
+
+@pytest.mark.parametrize("cmd,flags", TP, ids=[f"{c} {' '.join(f)}" for c, f in TP])
+def test_tensor_parallel_stdout_equals_jax(store4, tokenizers, cmd, flags):
+    """``--tensor-parallel 2`` (with ``--stages 2``, and behind two
+    replicas) on both packages: the port's shards on the CPU (one --device
+    runs every stage and shard), the JAX megatron program over its CPU
+    mesh; stdout equal byte for byte. The JAX ``generate`` parser has no
+    tensor flags: its run there is the unsharded chain (the same tokens)."""
+    common = ["--max-new", "6", "--dtype", "f32"]
+    if cmd == "generate":
+        argv = ["generate", store4, "--prompt", "hello world"] + common
+        stdin = None
+        # (JAX's chain defaults to one stage per device, more than 4 layers)
+        jflags = flags[:2] if flags[0] == "--stages" else ["--stages", "1"]
+    else:
+        argv = ["serve", store4, "--capacity", "64"] + common
+        stdin = "hi there\nsecond one\n"
+        jflags = flags
+    j = run(jcli, argv + jflags, stdin)
+    t = run(tcli, argv + flags + ["--device", "cpu"], stdin)
+    assert j[0] == t[0] == 0
+    assert t[1] == j[1] and t[1].strip()
+    if cmd == "serve" and "--data-parallel" not in flags:
+        assert "2 tensor shards each from cpu" in t[2]
 
 
 def test_commands_want_a_gpu_unless_told(store, tokenizers):

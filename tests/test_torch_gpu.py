@@ -1621,3 +1621,142 @@ def test_keep_host_copy_repartitions_an_engine_loaded_on_the_card(cuda_device):
     eng.apply_placement(PlacementSpec.balanced(one.cfg.num_hidden_layers, 2))
     assert eng.num_stages == 2 and all(st.device.type == "cuda" for st in eng.stages)
     assert (eng.generate_ids(p, 8).tokens == want).all()
+
+
+# -------------------------------------------- tensor and context parallelism
+
+
+def _shard_inputs(dev, Nh, Nkv, dtype, S, seed=60):
+    """Two rows over a 17-block arena (block size 16, head_dim 128) at a
+    tensor shard's head counts: row 0 holds 100 keys, row 1 37; the S
+    queries sit at each row's last positions."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, BS, T, D = 2, 16, 8, 128
+    lens = (100, 37)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    k, v = t(1 + B * T, BS, Nkv, D), t(1 + B * T, BS, Nkv, D)
+    tbl = torch.arange(1, 1 + B * T, dtype=torch.int32, device=dev).reshape(B, T)
+    col = torch.arange(T * BS, device=dev)
+    kvpos = torch.stack([torch.where(col < n, col, POS_SENTINEL) for n in lens]).to(torch.int32)
+    qpos = torch.stack([torch.arange(n - S, n, device=dev) for n in lens]).to(torch.int32)
+    return t(B, S, Nh, D), k, v, tbl, qpos, kvpos, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("Nh,Nkv", [(12, 4), (6, 2), (16, 16)],
+                         ids=["3B-tp2", "3B-tp4", "llama2-7b-tp2"])
+def test_kernels_at_shard_heads_equal_plain(cuda_device, Nh, Nkv, dtype):
+    """The three kernels at the head counts a tensor shard gives them (the
+    3B's 24/8 heads over 2 and 4 shards, Llama-2-7B's 32/32 over 2): each
+    launches (no gate sends a shard to the plain version) and agrees with
+    its plain version within ``TOL``."""
+    q1, k, v, tbl, qpos1, kvpos, lens = _shard_inputs(cuda_device, Nh, Nkv, dtype, 1)
+    kernels.reset_launch_counts()
+    got = tpa.paged_attention(q1, k, v, tbl, qpos1, kvpos, backend="kernel")
+    want = tpa.paged_attention(q1, k, v, tbl, qpos1, kvpos, backend="plain")
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    q16, _, _, _, qpos16, _, _ = _shard_inputs(cuda_device, Nh, Nkv, dtype, 16, seed=61)
+    nlive = torch.tensor([-(-n // 16) for n in lens], dtype=torch.int32, device=cuda_device)
+    got = tpa.paged_prefill(q16, k, v, tbl, qpos16, kvpos, nlive=nlive, backend="kernel")
+    want = tpa.paged_prefill(q16, k, v, tbl, qpos16, kvpos, nlive=nlive, backend="plain")
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    dense_k, dense_v = k[tbl.long()].flatten(1, 2), v[tbl.long()].flatten(1, 2)
+    got = tfa.flash_attention(q16, dense_k.contiguous(), dense_v.contiguous(), qpos16, kvpos)
+    want = tfa.flash_attention(q16.cpu(), dense_k.cpu(), dense_v.cpu(), qpos16.cpu(), kvpos.cpu())
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=TOL[dtype], rtol=0)
+    counts = kernels.launch_counts()
+    assert [counts[n] for n in ("paged_attention", "paged_prefill", "flash_attention")] == [1, 1, 1]
+
+
+def _tp_engines(dev, tp, stages=1):
+    """A tiny f32 llama (12 heads over 4 KV heads, head_dim 64) on the card
+    as one stage, and the same weights as ``stages`` stages of ``tp``
+    shards on the card repeated."""
+    cfg = tcfg.tiny_llama(head_dim=64, num_attention_heads=12, num_key_value_heads=4)
+    host = tllama.init_params(cfg, seed=3, dtype=torch.float32, device="cpu")
+    one = Engine(cfg, {k: ([{n: t.to(dev) for n, t in p.items()} for p in v] if k == "layers"
+                           else v.to(dev)) for k, v in host.items()})
+    eng = Engine(cfg, host, num_stages=stages, tensor_parallel=tp, devices=[dev] * (stages * tp))
+    return one, eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("tp,stages", [(2, 1), (4, 1), (2, 2)], ids=["tp2", "tp4", "pp2xtp2"])
+def test_tp_served_streams_equal_the_tp1_twin(cuda_device, tp, stages, paged):
+    """Tensor shards on ``cuda`` repeated, one-shot and chunked admissions
+    mixed: the streams equal the one-device engine's, every shard launches
+    what the one-device run launches (``tp`` times its kernels in all), and
+    each decode step issues two reduces per layer."""
+    from llm_sharding_tpu_torch.models.stack import reduce_count
+
+    one, eng = _tp_engines(cuda_device, tp, stages)
+    kw = dict(_SERVE) if paged else dict(capacity=64, batch_per_slot=3, prefill_chunk=8)
+    rng = np.random.default_rng(62)
+    prompts = [rng.integers(0, one.cfg.vocab_size, m).astype(np.int32) for m in (5, 20, 30, 12)]
+    kernels.reset_launch_counts()
+    # as many rows as the staged server (stages x batch_per_slot): the same steps
+    want = _served(one.serve(**dict(kw, batch_per_slot=kw["batch_per_slot"] * stages)), prompts)
+    base = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    srv = eng.serve(**kw)
+    assert _served(srv, prompts) == want
+    got = kernels.launch_counts()
+    for name in ("flash_attention", "paged_attention", "paged_prefill") if paged else (
+            "flash_attention",):
+        assert base[name] > 0 and got[name] == tp * base[name], (name, base, got)
+    reduce_count(reset=True)
+    srv.submit(prompts[0], 4)
+    srv.run_until_idle()
+    assert reduce_count() % (2 * one.cfg.num_hidden_layers) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_tp_chained_decode_makes_no_host_sync(cuda_device, paged):
+    """``serve_chunk`` at tp 2 keeps the step loop's contract: three chunks
+    dispatched back to back under ``set_sync_debug_mode("error")``, the
+    reduces and the shards' kernels included; the logs then read as the
+    rows' tokens."""
+    _, eng = _tp_engines(cuda_device, 2)
+    kw = dict(_SERVE, prefill_chunk=None) if paged else dict(capacity=64, batch_per_slot=3)
+    srv = eng.serve(**kw)
+    rng = np.random.default_rng(63)
+    reqs = [srv.submit(rng.integers(0, eng.cfg.vocab_size, m).astype(np.int32), 20)
+            for m in (5, 20, 12)]
+    srv.step()
+    srv._drain(0)
+    assert all(not r.done for r in reqs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            srv._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    logs = [e.log.cpu() for e in srv._pending]
+    assert len(logs) == 3 and all(tuple(lg.shape) == (1, srv.rows) for lg in logs)
+    srv.run_until_idle()
+    assert all(r.done and r.error is None for r in reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cp", [2, 4])
+def test_context_generate_on_the_card_equals_generate(cuda_device, cp):
+    """The ring prefill on ``cuda`` repeated, then ``decode_from_cache``
+    (greedy and seeded): the tokens of the card's own ``generate``."""
+    from llm_sharding_tpu_torch.parallel.context import context_generate
+    from llm_sharding_tpu_torch.runtime.generate import generate
+
+    one, _ = _tp_engines(cuda_device, 2)
+    p = np.random.default_rng(64).integers(1, one.cfg.vocab_size, (2, 32)).astype(np.int32)
+    plen = np.array([32, 27])
+    for kw in ({}, dict(temperature=0.8, seed=5)):
+        got = context_generate(one.cfg, [cuda_device] * cp, one.params, p, 12, prompt_len=plen,
+                               **kw)
+        want = generate(one.cfg, one.params, p, 12, prompt_len=plen, **kw)
+        assert (got.tokens == want.tokens).all() and (got.lengths == want.lengths).all()

@@ -336,8 +336,12 @@ def test_bounds_and_refusals_equal_jax(tree, tparams):
         with pytest.raises(ValueError) as je:
             JReplicated(CJ, tree, devices=jax.devices()[:2], **args)
         assert str(te.value) == str(je.value)
-    with pytest.raises(ValueError, match="§A 16"):
+    # a tensor-parallel replica needs tp devices in its group: one is refused
+    with pytest.raises(ValueError) as te:
         ReplicatedServer(CFG, tparams, data_parallel=2, devices=["cpu"] * 2, tensor_parallel=2)
+    with pytest.raises(ValueError) as je:
+        JReplicated(CJ, tree, data_parallel=2, devices=jax.devices()[:2], tensor_parallel=2)
+    assert str(te.value) == str(je.value)
     with pytest.raises(ValueError) as te:
         ReplicatedServer(CFG, tparams, data_parallel=2, devices=["cpu"] * 3)
     with pytest.raises(ValueError) as je:
