@@ -36,8 +36,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     16 shared blocks, in each KV mode. Llama-2-7B (G = 1, D = 128): decode
     at 8 rows, chunked prefill at frontiers 256/2048, flash at S = C =
     2048, bf16 only. Speculative decoding (K = 4): the paged verify's decode
-    at S = 5 over 8 rows of 100-2048 tokens, 3B and Llama-2-7B, in each KV
-    mode; speculative ``generate``'s verify, flash at S = 5 over 2048 + 5
+    at S = 5 over 8 rows of 100-2048 tokens, 3B, Llama-2-7B and gemma-2B
+    (G * S = 40 folded rows), in each KV mode; speculative ``generate``'s verify, flash at S = 5 over 2048 + 5
     columns (3B). At a tensor shard's heads (bf16 arena): the 3B's decode,
     chunked prefill and flash at 12 / 4 heads (tp 2) and 6 / 2 (tp 4),
     Llama-2-7B's at 16 / 16 (tp 2). Time kernel, plain version and
@@ -364,7 +364,8 @@ def decode_case(cfg, dtype, device, gen, kv=None, ctx=None, T=64, S=1):
     """Decode rows (default 8, contexts 100-2048), block size 64, table
     width ``T`` (64: capacity 4096) with the tail trash-mapped; trash
     block 0 holds NaN/Inf (an Inf scale for a code arena). ``S`` > 1 is a
-    paged verify: each row's last S context positions are its queries."""
+    paged verify: each row's last S context positions are its queries. The
+    kernel gets ``nlive``, the blocks of each row's context."""
     import torch
 
     BS = 64
@@ -392,11 +393,14 @@ def decode_case(cfg, dtype, device, gen, kv=None, ctx=None, T=64, S=1):
         k, ks, v, vs = quantize_arena(k, v, kv)
         scales = {"k_scale": ks, "v_scale": vs}
     args = (q, k, v, torch.from_numpy(tbl).to(device), qpos, torch.from_numpy(kvpos).to(device))
+    # the kernel reads each row's blocks up to its written frontier, as the
+    # server passes them
+    nlive = torch.from_numpy(np.asarray(nblk, np.int32)).to(device)
     isz = q.element_size()
     nbytes = (2 * q.numel() * isz + 2 * int(ctx.sum()) * Nkv * D * code_bytes(kv, isz)
               + tbl.nbytes + kvpos.nbytes + (2 * sum(nblk) * Nkv * 4 if kv else 0))
     flops = 4.0 * Nh * D * float((qpos_np.astype(np.int64) + 1).sum())
-    return args, scales, scales, nbytes, flops, None
+    return args, {"nlive": nlive, **scales}, scales, nbytes, flops, None
 
 
 def prefill_case(cfg, dtype, device, gen, kv=None, frontier=(256, 2048, 256, 2048), trash=False,
@@ -645,7 +649,8 @@ def spec_kernel_cases(model: str) -> list:
     """The [b] cases of speculative decoding at ``model``'s serving shapes
     (``smoke_workload.SPECULATIVE``: K = 4, block size 64, capacity 4096):
     the paged verify's decode at S = K + 1 = 5 over 8 rows of 100-2048
-    tokens in each KV mode, launches from the [d] ``SPECULATIVE`` run; for
+    tokens in each KV mode, launches from the [d] ``SPECULATIVE`` run
+    (gemma-2B, G * S = 40: its standard run's decode launches); for
     the 3B also speculative ``generate``'s verify, flash at S = 5 over C =
     2048 + 5, launches from the [d] speculative ``generate`` run. Each
     tuple is ``kernel_cases``'s with the [d] workload appended."""
@@ -653,13 +658,16 @@ def spec_kernel_cases(model: str) -> list:
 
     dec = ("llm_sharding_tpu/ops/paged_attention.py:484", "llm_sharding_tpu_torch/csrc/paged_attention.cu")
     fla = ("llm_sharding_tpu/ops/flash_attention.py:124", "llm_sharding_tpu_torch/csrc/flash_attention.cu")
-    tag = {"llama32_3b": "", "llama2_7b": "llama2-7b "}[model]
+    tag = {"llama32_3b": "", "llama2_7b": "llama2-7b ", "gemma_2b": "gemma2b "}[model]
+    # gemma-2B (G * S = 40 at K = 4) serves no speculative [d] run: its
+    # verify rows take the decode kernel's launches of its standard run
+    workload = "standard" if model == "gemma_2b" else "speculative"
     cases = []
     for kv in (None, *KV_MODES):
         mode = f"[{kv}]" if kv else ""
         cases.append((f"paged_attention{mode}", f"{tag}verify S=5 B=8 ctx 100-2048",
                       paged_attention.paged_attention, paged_attention.paged_attention_xla,
-                      lambda *a, kv=kv: decode_case(*a, kv=kv, S=5), *dec, "speculative"))
+                      lambda *a, kv=kv: decode_case(*a, kv=kv, S=5), *dec, workload))
     if model == "llama32_3b":
         cases.append(("flash_attention", "verify S=5 B=8 C=2048+5 (spec generate)",
                       flash_attention.flash_attention, attention.cached_attention,
@@ -4865,7 +4873,7 @@ def main(argv: list) -> int:
         rows += [r for m in argv[1:] if m in ("llama32_3b", "gemma_2b")
                  for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",),
                                         prefix=True)]
-        rows += [r for m in argv[1:] if m in ("llama32_3b", "llama2_7b")
+        rows += [r for m in argv[1:] if m in ("llama32_3b", "llama2_7b", "gemma_2b")
                  for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",),
                                         spec=True)]
         rows += [r for m in argv[1:] if m == "llama32_3b"
@@ -4885,6 +4893,7 @@ def main(argv: list) -> int:
                           spec=True)
     rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),
                           spec=True)
+    rows += phase_kernels(config.gemma_2b(), device, "gemma_2b", dtypes=("bfloat16",), spec=True)
     rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dense=True)
     tp_rows = phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=("bfloat16",),
                             tp=True)

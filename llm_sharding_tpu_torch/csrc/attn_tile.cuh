@@ -1,6 +1,6 @@
 // Shared core of the port's CUDA-core attention paths (paged_prefill.cu
 // and flash_attention.cu for f32 queries; paged_attention.cu uses its
-// helpers, its merge pass and its contract): one CTA owns one query tile of
+// helpers, its fused merge and its contract): one CTA owns one query tile of
 // GQA-folded rows of one (batch row, KV head) and streams KV tiles of
 // kBK keys through shared memory with the online-softmax recurrence of
 // llm_sharding_tpu/ops/paged_attention.py:376-401 (_online_update) and
@@ -23,9 +23,11 @@
 // with a select, never read: the shared trash block may hold Inf/NaN.
 //
 // What is true of each kernel now:
-// - paged_attention.cu (decode) is split-KV: many CTAs per (row, KV head),
-//   per-warp cp.async rings (its own note); it keeps this header's
-//   conversions, the contract above and the merge pass below.
+// - paged_attention.cu (decode, verify) holds every folded row of a KV
+//   head in one CTA (mma.sync for bf16), reads TMA rings of 64-key tiles,
+//   cuts the rows' live tiles into equal pieces and merges a row's pieces
+//   in its own launch (last_run, merge_runs below; its own note); it keeps
+//   this header's conversions and the contract above.
 // - flash_attention.cu runs bf16 on the tensor cores (wgmma fed by TMA,
 //   hopper.cuh) and keeps this Tile for f32 queries only.
 // - paged_prefill.cu runs bf16 queries on the tensor cores (wgmma fed by
@@ -57,7 +59,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+#include <utility>
+#include <vector>
 
 namespace attn {
 
@@ -393,15 +398,34 @@ __device__ void attend(Tile<T, D, RI, KT>& t, const KT* k, const KT* v, int ncol
   }
 }
 
-// Set the dynamic shared-memory limit of a kernel instantiation, launch it
-// with `threads` threads per CTA on the caller's stream and return
+// Raise a kernel's dynamic shared-memory limit to `smem` bytes on the
+// current device, once per (kernel, device): cudaFuncSetAttribute is a host
+// call of its own, so every launch after the first skips it. Each kernel
+// instantiation is launched with one constant size.
+inline int smem_attr_once(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : done)
+    if (d.first == kernel && d.second == dev) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done.emplace_back(kernel, dev);
+  return 0;
+}
+
+// Launch a kernel instantiation with `threads` threads per CTA on the
+// caller's stream (its shared-memory limit set once) and return
 // cudaGetLastError().
 template <typename Kernel, typename... Args>
 int launch_n(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
              Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int e = smem_attr_once(reinterpret_cast<const void*>(kernel), smem);
+  if (e != 0) return e;
   kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -412,8 +436,146 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... a
   return launch_n(kernel, grid, kThreads, smem, stream, args...);
 }
 
-// The merge pass of the split kernels (paged_attention.cu's split-KV
-// decode, paged_prefill.cu's split tensor-core prefill). Partial row
+// Barrier `id` among the first `n` threads of the CTA (a multiple of 32).
+__device__ __forceinline__ void named_bar(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The merge of the decode kernel's pieces (paged_attention.cu), fused into
+// its launch. A run of one (row, KV head) pair's columns writes its f32
+// partial (acc [D] unnormalised, then (m, l), m in the log2 domain) for
+// each of its folded rows into the pair's slot of the scratch; then
+// last_run takes a ticket
+// on the pair's counter. The CTA that draws the last of the pair's nparts
+// tickets merges every slot in slot (= column) order, so the result does
+// not depend on which CTA finished last, and resets the counter to 0 for
+// the next launch. Called by the `n` threads of named barrier `bar`
+// (thread `tid` of them) after each has written its part of the partial.
+__device__ __forceinline__ bool last_run(int* ticket, int nparts, int* sflag, int bar, int n,
+                                         int tid) {
+  __threadfence();
+  named_bar(bar, n);
+  if (tid == 0) *sflag = atomicAdd(ticket, 1) == nparts - 1;
+  named_bar(bar, n);
+  const bool last = *sflag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// Fold the nparts partials of folded rows [0, rows) of one pair (partial
+// i of row r: acc [D] at acc_of(i) + r * D, (m, l) at ml_of(i) + r * 2)
+// with the recurrence of combine_attn_stats (m = max m_i, l = sum 2^(m_i -
+// m) l_i, acc likewise; a run that saw nothing, (0, -1e30, 0), weighs 0
+// against any seen key) and write acc / max(l, 1e-30) of row r, element d,
+// to out(r, d). The work is four rows by 128 columns at a time, dealt to
+// warp `warp` of `nwarps` in turn: its lanes fold (m, l) of parts lane,
+// lane + 32, ... and combine across the warp, then stream every part's
+// acc as float4s with the part's weight 2^(m_i - m) / l shuffled from the
+// lane that holds it. Partials are read past L1 (other CTAs wrote them).
+template <typename T, int D, typename AccOf, typename MlOf, typename Out>
+__device__ void merge_runs(AccOf acc_of, MlOf ml_of, int nparts, int rows, Out out, int warp,
+                           int nwarps) {
+  constexpr int RPW = 4;              // rows of a group
+  constexpr int C4 = D / 4;           // float4 chunks of a row
+  constexpr int CG = (C4 + 31) / 32;  // column groups of 32 chunks
+  const int lane = threadIdx.x % 32;
+  const int ngroups = (rows + RPW - 1) / RPW * CG;
+  for (int it = warp; it < ngroups; it += nwarps) {
+    const int rb = (it / CG) * RPW, cc = (it % CG) * 32 + lane;
+    float M[RPW], L[RPW], inv[RPW];
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      M[q] = kNegInf;
+      L[q] = 0.f;
+    }
+    for (int i = lane; i < nparts; i += 32) {
+#pragma unroll
+      for (int q = 0; q < RPW; ++q) {
+        if (rb + q >= rows) continue;
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(ml_of(i) + (rb + q) * 2));
+        const float mn = fmaxf(M[q], x.x);
+        L[q] = L[q] * ex2(M[q] - mn) + x.y * ex2(x.x - mn);
+        M[q] = mn;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, M[q], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, L[q], o);
+        const float mn = fmaxf(M[q], mo);
+        L[q] = L[q] * ex2(M[q] - mn) + lo * ex2(mo - mn);
+        M[q] = mn;
+      }
+      inv[q] = 1.f / fmaxf(L[q], 1e-30f);
+    }
+    float4 a[RPW];
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int base = 0; base < nparts; base += 32) {
+      float wq[RPW];  // the weight of part base + lane in each row
+      const int i = base + lane;
+#pragma unroll
+      for (int q = 0; q < RPW; ++q)
+        wq[q] = i < nparts && rb + q < rows
+                    ? ex2(__ldcg(ml_of(i) + (rb + q) * 2) - M[q]) * inv[q]
+                    : 0.f;
+      const int n = min(32, nparts - base);
+#pragma unroll 4
+      for (int jj = 0; jj < n; ++jj) {
+        const float* ap = acc_of(base + jj);
+#pragma unroll
+        for (int q = 0; q < RPW; ++q) {
+          const float w = __shfl_sync(0xffffffffu, wq[q], jj);
+          if (rb + q >= rows || cc >= C4) continue;
+          const float4 x = __ldcg(reinterpret_cast<const float4*>(ap + (rb + q) * D) + cc);
+          a[q].x = fmaf(w, x.x, a[q].x);
+          a[q].y = fmaf(w, x.y, a[q].y);
+          a[q].z = fmaf(w, x.z, a[q].z);
+          a[q].w = fmaf(w, x.w, a[q].w);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < RPW; ++q) {
+      if (rb + q >= rows || cc >= C4) continue;
+      T* dst = out(rb + q, cc * 4);
+      dst[0] = from_f<T>(a[q].x);
+      dst[1] = from_f<T>(a[q].y);
+      dst[2] = from_f<T>(a[q].z);
+      dst[3] = from_f<T>(a[q].w);
+    }
+  }
+}
+
+// Four 1-byte codes (the bytes of w, lowest first) to f32, exactly.
+template <typename KT>
+__device__ __forceinline__ void codes4_to_f(uint32_t w, float* f);
+template <>
+__device__ __forceinline__ void codes4_to_f<int8_t>(uint32_t w, float* f) {
+  // bias each byte to x + 128, put it under the exponent byte of 2^23 (one
+  // byte permute) and subtract 2^23 + 128: exact, and no conversion
+  // instruction
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+template <>
+__device__ __forceinline__ void codes4_to_f<__nv_fp8_e4m3>(uint32_t w, float* f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>((w >> (16 * i)) & 0xFFFFu), __NV_E4M3);
+    const float2 x = __half22float2(__half2(h));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// The merge pass of paged_prefill.cu's split tensor-core prefill, a second
+// launch (decode merges in its own launch: merge_runs above). Partial row
 // ((b * Nkv + kh) * nsplit + split) * G*S + r of folded row r = g*S + s
 // (query head kh*G + g) holds acc [D] (unnormalised, f32) in part_acc and
 // (m, l) in part_ml, m in the log2 domain. One thread per head-dim

@@ -265,16 +265,10 @@ int run_wgmma(const FlashArgs& a) {
       !hopper::map_bf16_4d(&tk, a.k, D, a.Nkv, a.C, a.B) ||
       !hopper::map_bf16_4d(&tv, a.v, D, a.Nkv, a.C, a.B))
     return attn::kNoTensorMap;
-  const size_t smem = Smem<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.S + kBM * kWG - 1) / (kBM * kWG), a.Nh, a.B);
-  flash_wgmma_kernel<D><<<grid, kFlashThreads, smem, a.stream>>>(
-      tq, tk, tv, a.qpos, a.kvpos, static_cast<__nv_bfloat16*>(a.out), a.S, a.C, a.Nh, a.Nkv,
-      a.scale);
-  return static_cast<int>(cudaGetLastError());
+  return attn::launch_n(flash_wgmma_kernel<D>, grid, kFlashThreads, Smem<D>::BYTES, a.stream, tq,
+                        tk, tv, a.qpos, a.kvpos, static_cast<__nv_bfloat16*>(a.out), a.S, a.C,
+                        a.Nh, a.Nkv, a.scale);
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
-// (flash_attention.cu, paged_prefill.cu): mbarriers, TMA tile loads, the
-// proxy fence, wgmma shared-memory descriptors for 128-byte-swizzled bf16
-// tiles, the wgmma shapes the kernels issue, and the host-side tensor-map
-// encoders.
+// (flash_attention.cu, paged_prefill.cu, paged_attention.cu): mbarriers,
+// TMA tile loads, the proxy fence, wgmma shared-memory descriptors for
+// 128-byte-swizzled bf16 tiles, the wgmma shapes the kernels issue, the
+// mma.sync / ldmatrix fragments of the decode kernel, and the host-side
+// tensor-map encoders.
 //
 // The tensor-map encoder (cuTensorMapEncodeTiled) lives in libcuda, not in
 // the runtime. It is looked up in the already-loaded libcuda with dlsym, so the
@@ -138,6 +139,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ------------------------------------------------------ mma.sync, ldmatrix
+// Four 8 x 8 b16 matrices from shared memory (lanes 8i..8i+7 give the row
+// addresses of matrix i); .trans hands each thread the transposed element.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate (the
+// m16n8k16 fragments: a row-major, b column-major).
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+
 // ------------------------------------------------------------------- host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -159,18 +184,35 @@ inline EncodeTiled encode_tiled() {
 // past the end of dim 2 are zero-filled. A box of fewer than 64 rows lands
 // at a 1024-byte-aligned row offset of a 64-row tile with the tile's
 // swizzle (box_rows a multiple of 8). Returns false if libcuda refuses.
-inline bool map_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-                        uint64_t d2, uint64_t d3, uint32_t box_rows = 64) {
+// A dense tensor [d3][d2][d1][d0] of `esize`-byte elements read in boxes of
+// box0 x 1 x box_rows x 1 elements; boxes past the end of dim 2 are
+// zero-filled.
+inline bool map_4d(CUtensorMap* map, const void* base, CUtensorMapDataType dt, uint64_t esize,
+                   uint64_t d0, uint64_t d1, uint64_t d2, uint64_t d3, uint32_t box0,
+                   uint32_t box_rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
-  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
-  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint64_t strides[3] = {d0 * esize, d0 * d1 * esize, d0 * d1 * d2 * esize};
+  const cuuint32_t box[4] = {box0, 1, box_rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return enc(map, dt, 4, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool map_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                        uint64_t d2, uint64_t d3, uint32_t box_rows = 64) {
+  return map_4d(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, d0, d1, d2, d3, 64, box_rows,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An f32 tensor read like map_bf16_4d: 32-column (128-byte) boxes,
+// 128-byte swizzled.
+inline bool map_f32_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                       uint64_t d2, uint64_t d3, uint32_t box_rows) {
+  return map_4d(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, d0, d1, d2, d3, 32, box_rows,
+                CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A 1-byte tensor [d3][d2][d1][d0] (int8 / fp8 codes, d0 contiguous, dense;
@@ -178,16 +220,8 @@ inline bool map_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_
 // d0 x 1 x box_rows x 1 bytes: rows of d0 bytes, one after another.
 inline bool map_u8_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
                       uint64_t d3, uint32_t box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {d0, d1, d2, d3};
-  const cuuint64_t strides[3] = {d0, d0 * d1, d0 * d1 * d2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d0), 1, box_rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return map_4d(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, d0, d1, d2, d3,
+                static_cast<uint32_t>(d0), box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

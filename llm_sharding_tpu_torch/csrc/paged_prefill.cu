@@ -164,32 +164,8 @@ struct PSmem {
   // barriers: full [kStages], empty [kStages], Q, code full [kCodeStages],
   // code empty [kCodeStages]
   static constexpr size_t BYTES = BAR + (2 * kStages + 1 + 2 * kCodeStages) * 8 + 1024;
+  static_assert(BYTES <= 232448, "shared memory");
 };
-
-// Four 1-byte codes (the bytes of w, lowest first) to f32, exactly.
-template <typename KT>
-__device__ __forceinline__ void codes4_to_f(uint32_t w, float* f);
-template <>
-__device__ __forceinline__ void codes4_to_f<int8_t>(uint32_t w, float* f) {
-  // bias each byte to x + 128, put it under the exponent byte of 2^23 (one
-  // byte permute) and subtract 2^23 + 128: exact, and no conversion
-  // instruction
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
-}
-template <>
-__device__ __forceinline__ void codes4_to_f<__nv_fp8_e4m3>(uint32_t w, float* f) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>((w >> (16 * i)) & 0xFFFFu), __NV_E4M3);
-    const float2 x = __half22float2(__half2(h));
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
 
 template <int D, typename KT>
 __global__ void __launch_bounds__(PSmem<D, !std::is_same<KT, __nv_bfloat16>::value>::kThreads, 1)
@@ -431,7 +407,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
               for (int i = 0; i < 4; ++i) {
                 float f[4];
-                codes4_to_f<KT>(x[i], f);
+                attn::codes4_to_f<KT>(x[i], f);
                 w[2 * i] = hopper::pack_bf16(f[0] * s, f[1] * s);
                 w[2 * i + 1] = hopper::pack_bf16(f[2] * s, f[3] * s);
               }
@@ -528,17 +504,12 @@ int run_wgmma(const PrefillArgs& a) {
          hopper::map_bf16_4d(&tv, a.v, D, a.Nkv, a.BS, a.NBk, rows);
   }
   if (!ok) return attn::kNoTensorMap;
-  const size_t smem = L::BYTES;
-  const cudaError_t e = cudaFuncSetAttribute(prefill_wgmma_kernel<D, KT>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.S + kBM * kWG - 1) / (kBM * kWG), a.Nh, a.B * a.nsplit);
   auto* out = static_cast<__nv_bfloat16*>(a.out);
-  prefill_wgmma_kernel<D, KT><<<grid, L::kThreads, smem, a.stream>>>(
-      tq, tk, tv, a.k_scale, a.v_scale, a.tbl, a.qpos, a.kvpos, a.nlive, out, a.part_acc,
-      a.part_ml, a.S, a.Nh, a.Nkv, a.BS, a.Tb, a.nsplit, a.scale);
-  const int le = static_cast<int>(cudaGetLastError());
+  const int le = attn::launch_n(prefill_wgmma_kernel<D, KT>, grid, L::kThreads, L::BYTES,
+                                a.stream, tq, tk, tv, a.k_scale, a.v_scale, a.tbl, a.qpos,
+                                a.kvpos, a.nlive, out, a.part_acc, a.part_ml, a.S, a.Nh, a.Nkv,
+                                a.BS, a.Tb, a.nsplit, a.scale);
   if (le != 0 || a.nsplit == 1) return le;
   return attn::launch_merge<__nv_bfloat16>(a.part_acc, a.part_ml, out, a.B, a.S, a.Nh, a.Nkv, D,
                                            a.nsplit, a.stream);

@@ -229,7 +229,7 @@ def paged_decoder_layer(
     positions: torch.Tensor,  # [B, S] int32
     kv_positions: torch.Tensor,  # [B, T * BS] int32, this step's already recorded
     prefill: bool = False,  # chunk-shaped queries: the chunked-prefill kernel
-    nlive: Optional[torch.Tensor] = None,  # [B] prefill traffic clamp
+    nlive: Optional[torch.Tensor] = None,  # [B] blocks covering each row's written frontier
     k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arena, in place
     v_scale: Optional[torch.Tensor] = None,
     backend: str = "auto",  # ops/paged_attention.BACKENDS
@@ -263,7 +263,8 @@ def paged_attn_fn(
                 backend=backend, **qkw,
             )
         return paged_attention(
-            q, k_arena, v_arena, block_table, positions, kv_positions, backend=backend, **qkw
+            q, k_arena, v_arena, block_table, positions, kv_positions, nlive=nlive,
+            backend=backend, **qkw,
         )
 
     return attn_fn

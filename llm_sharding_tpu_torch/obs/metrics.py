@@ -5,9 +5,11 @@ sweep feeds): that module is stdlib only, but importing it pulls jax in
 through ``llm_sharding_tpu/obs/__init__.py``. Its locks are built by the
 port's ``analysis.lockorder.named_lock`` under the JAX names
 (``obs.metrics.*``). The families of the port's layers follow: the
-ingress, the fleet (cluster index, replica supervision and roles, disagg
-hand-offs, autoscale). Those of later slices (prefill path, jit shape keys,
-context-parallel streams) stay with those slices.
+attention paths and the blocks they read (decode backend, prefill path,
+admission buckets, batched cancels), the ingress, the fleet (cluster
+index, replica supervision and roles, disagg hand-offs, autoscale). Those
+of later slices (jit shape keys, context-parallel streams) stay with those
+slices.
 
 One ``Registry`` holds every metric family; families are labeled
 (Prometheus-style), children are created on first use, and every mutation
@@ -567,6 +569,92 @@ GLOBAL_INDEX_ENTRIES = REGISTRY.gauge(
     "index — the map replicas publish their tree contents into and the "
     "fleet router consults before placing a request (deepest match "
     "first, then warmest tier)",
+)
+
+
+# -- attention paths (runtime/server.py, parallel/serve.py) -----------------
+# The JAX names, kinds, labels and help (JAX ``obs/metrics.py:567-627``,
+# ``parallel/serve.py:64`` and ``:514``). The port's label values: backend
+# ``kernel`` = the CUDA paged kernel, ``xla`` = the plain
+# ``paged_attention_xla`` path, ``dense`` = dense serving (``interpret``
+# stays 0: the port has no emulated kernel); prefill path ``kernel`` /
+# ``xla`` likewise, ``gather`` = dense. The block counters are host-side
+# estimates from the length mirrors, as in JAX: nothing reads the device.
+
+#: Decode-attention implementations a live server can run
+#: (``ops/paged_attention`` dispatch; "dense" = non-paged serving,
+#: "interpret" = the Pallas kernel emulated off-TPU via
+#: PAGED_FORCE_KERNEL).
+ATTN_BACKENDS = ("kernel", "interpret", "xla", "dense")
+ATTN_BACKEND = REGISTRY.gauge(
+    "server_attn_backend",
+    "Live servers by resolved decode-attention backend: kernel = the "
+    "Pallas paged kernel streaming only each row's mapped arena blocks, "
+    "xla = the exact gather fallback, interpret = the kernel emulated "
+    "off-TPU, dense = non-paged serving. One-hot over the labels for a "
+    "single-server process; a count per backend otherwise",
+    labels=("backend",),
+)
+ATTN_BLOCKS_READ = REGISTRY.counter(
+    "server_attn_blocks_read_total",
+    "KV arena blocks attended by paged decode steps, summed over live "
+    "rows and ring cycles (host-side estimate from the length mirrors: "
+    "ceil(len / block_size) per row per decode/verify step). Multiply by "
+    "block_size x Nkv x Dh x 2 x dtype bytes x layers for an "
+    "attention-bytes-per-step estimate; the dense equivalent reads "
+    "capacity slots per row regardless of length",
+)
+
+#: Chunked-prefill implementations a dispatch can take: ``kernel`` = the
+#: chunked-prefill kernel over the arena, ``xla`` = the plain gather path
+#: over the arena, ``gather`` = the dense full-window path (non-paged
+#: serving).
+PREFILL_PATHS = ("kernel", "xla", "gather")
+PREFILL_PATH = REGISTRY.gauge(
+    "server_prefill_path",
+    "Chunked-prefill attention path of the most recent chunk dispatch, "
+    "one-hot over {kernel, xla, gather}: kernel = the Pallas "
+    "chunked-prefill kernel streaming table-named arena blocks "
+    "(interpret-emulated off-TPU counts as kernel), xla = the arena "
+    "gather inside the op (exact fallback), gather = dense (non-paged) "
+    "full-window prefill",
+    labels=("path",),
+)
+PREFILL_BLOCKS_READ = REGISTRY.counter(
+    "server_prefill_blocks_read_total",
+    "KV arena blocks attended by chunked-prefill dispatches, summed over "
+    "admitting rows per chunk (host-side: ceil((prefix_offset + "
+    "chunk_end) / block_size) per row — the written frontier each "
+    "chunk's queries attend). Multiply by block bytes x layers for a "
+    "prefill-attention-HBM estimate; the retired gather path moved the "
+    "row's WHOLE mapped window in AND out per chunk on top of this",
+)
+
+
+def set_prefill_path(path: str) -> None:
+    """One-hot flip of ``server_prefill_path`` (the chunk-dispatch-site
+    analogue of the ``server_attn_backend`` sweep)."""
+    if path not in PREFILL_PATHS:
+        raise ValueError(f"unknown prefill path {path!r}; expected one of {PREFILL_PATHS}")
+    for p in PREFILL_PATHS:
+        PREFILL_PATH.labels(path=p).set(1.0 if p == path else 0.0)
+
+
+# Admission-bucket usage, labeled by the padded prompt bucket: which rungs
+# of the bucket ladder carry traffic (JAX ``parallel/serve.py:64``).
+ADMIT_BUCKET_USED = REGISTRY.counter(
+    "server_admit_bucket_total",
+    "Admissions per prompt bucket (one compiled serve_admit shape each)",
+    labels=("bucket",),
+)
+# Rows stopped per ``serve_cancel_rows`` call: a cancel, a deadline sweep or
+# a containment batches every row it stops into one call (JAX
+# ``parallel/serve.py:514``).
+CANCEL_BATCH_ROWS = REGISTRY.histogram(
+    "server_cancel_batch_rows",
+    "Rows stopped per batched serve_cancel_rows dispatch (cancel, deadline "
+    "sweep, failure containment)",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
 )
 
 

@@ -35,9 +35,11 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 HEADERS = ("attn_tile.cuh", "hopper.cuh", "wgmma_attn.cuh")
+# --split-compile=0: the optimizer runs the kernels of one source on every
+# CPU (the decode source's 36 instantiations build in ~39 s instead of ~84 s)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 # after the source: hopper.cuh finds libcuda's cuTensorMapEncodeTiled with dlsym
 LINK_FLAGS = ("-ldl",)
@@ -112,7 +114,7 @@ FLASH = CudaKernel(
 )
 PAGED_DECODE = CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_fwd",
-    [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P],
+    [_P] * 12 + [_I] * 11 + [_F, _I, _I, _P],
 )
 PAGED_PREFILL = CudaKernel(
     "paged_prefill", "paged_prefill.cu", "paged_prefill_fwd",

@@ -12,16 +12,20 @@ Counterpart of ``llm_sharding_tpu/ops/paged_attention.py``:
   ``attn_stats`` and ``combine_attn_stats``, the latter over a leading
   split axis: the plain form of the decode kernel's split-KV merge;
 - ``paged_attention`` → ``csrc/paged_attention.cu``, the port of
-  ``paged_attention_tpu`` (``:484``, body ``_paged_kernel`` at ``:404``),
-  as split-KV: ``plan_splits`` cuts each row's columns into runs, one CTA
-  each, and a second pass merges the runs' partials;
+  ``paged_attention_tpu`` (``:484``, body ``_paged_kernel`` at ``:404``):
+  one CTA holds every folded query row of its KV head, and the live tiles
+  of all rows (each row's ``nlive`` blocks) are cut into equal pieces on
+  the card (``plan_decode`` sizes the grid from shapes alone;
+  ``decode_pieces`` is the same partition in Python), whose partials the
+  last piece of each (row, KV head) merges in the same launch;
 - ``paged_prefill`` → ``csrc/paged_prefill.cu``, the port of
   ``paged_prefill_tpu`` (``:689``, body ``_paged_prefill_kernel`` at
   ``:619``): bf16 queries at block sizes 16, 32 or a multiple of 64 run
   on the tensor cores (``prefill_design``), each row's live columns cut
   into runs when the chunk's CTAs fall short of the SMs
-  (``plan_prefill_splits``, ``prefill_run_cols``), merged like decode's;
-  f32 queries and other block sizes run on the CUDA-core tile.
+  (``plan_prefill_splits``, ``prefill_run_cols``) and merged by a second,
+  dependent launch; f32 queries and other block sizes run on the CUDA-core
+  tile.
 
 The arena is ``[NB, BS, Nkv, D]``, the block table ``[B, T]`` (entry 0
 is the reserved trash block, which reads as zeros everywhere), and
@@ -46,6 +50,8 @@ the row's whole window. Rows with a visible key agree.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -55,13 +61,11 @@ from .attention import NEG_INF, cached_attention
 from .quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize
 
 BACKENDS = ("auto", "kernel", "plain")
-# split-KV decode: CTAs wanted per SM, and the shortest and longest column
-# run of one CTA (csrc/paged_attention.cu stages a run's positions in shared
-# memory); chosen by timing chip_smoke.py's decode cases on the H100 at
-# several values
-SPLIT_CTAS_PER_SM = 4
-SPLIT_MIN_COLS = 128
-SPLIT_MAX_COLS = 2048
+# paged decode: the most batch rows the kernel's on-card plan holds, and
+# the most folded query rows one CTA holds with bf16 queries (three m16
+# row tiles; more run as further row groups)
+DECODE_MAX_BATCH = 512
+DECODE_MAX_ROWS = 48
 # chunked prefill on the tensor cores: query rows (chunk positions of one
 # head) per CTA, keys per K/V tile, and the most runs a row is cut into
 PREFILL_Q_ROWS = 128
@@ -272,18 +276,114 @@ def combine_attn_stats(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> t
     )
 
 
-def plan_splits(B: int, Nkv: int, T: int, BS: int, sm_count: int) -> tuple[int, int]:
-    """Split-KV plan of the decode kernel: ``(split_cols, nsplit)``. Each
-    row's ``T * BS`` columns are cut into ``nsplit`` runs of ``split_cols``
-    (a multiple of ``BS``; the last run may be shorter), enough that ``B *
-    Nkv * nsplit`` CTAs give each SM ``SPLIT_CTAS_PER_SM`` of them, but no
-    run shorter than ``SPLIT_MIN_COLS`` (a CTA's fixed cost must buy some
-    columns) or longer than ``SPLIT_MAX_COLS`` (the kernel stages a run's
-    positions in shared memory). Depends on nothing but its arguments."""
-    want = -(-SPLIT_CTAS_PER_SM * sm_count // max(1, B * Nkv))
-    split_blocks = max(-(-T // max(1, min(T, want))), -(-SPLIT_MIN_COLS // BS))
-    split_blocks = max(1, min(split_blocks, T, SPLIT_MAX_COLS // BS))
-    return split_blocks * BS, -(-T // split_blocks)
+def decode_block_size_ok(block_size: int) -> bool:
+    """Block sizes the decode kernel takes: 8, 16, 32 or a multiple of 64
+    (its TMA boxes are whole 8-row swizzle atoms that tile a 64-key, or a
+    32-key f32, tile)."""
+    return block_size in (8, 16, 32) or (block_size > 0 and block_size % 64 == 0)
+
+
+def decode_tile_cols(dtype: torch.dtype) -> int:
+    """Keys per K/V tile of the decode kernel: 64 for bf16 queries, 32 for
+    f32 (a tile row is 128 bytes either way)."""
+    return 64 if dtype == torch.bfloat16 else 32
+
+
+def decode_row_group(GS: int, dtype: torch.dtype) -> int:
+    """Folded query rows one decode CTA holds: bf16 pads ``G * S`` up to
+    whole 16-row tiles, at most ``DECODE_MAX_ROWS``; f32 holds 16."""
+    if dtype != torch.bfloat16:
+        return 16
+    return 16 * min(DECODE_MAX_ROWS // 16, -(-GS // 16))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The decode kernel's launch, from shapes alone: grid ``(pieces, Nkv,
+    groups)``; ``rows`` folded rows of partial per slot and ``slots`` slots
+    per (row, KV head, group) in the f32 scratch; ``tile_cols`` keys per
+    tile; each busy piece holds at least ``min_tiles`` tiles (fewer pieces
+    when the rows are short), so that no row's partials outweigh its KV."""
+
+    pieces: int
+    slots: int
+    groups: int
+    rows: int
+    tile_cols: int
+    min_tiles: int
+
+    def scratch_floats(self, B: int, Nkv: int, D: int) -> int:
+        # per (row, KV head, group): acc [slots][rows][D], then (m, l) pairs
+        # padded to whole float4s
+        n = self.slots * self.rows
+        return B * Nkv * self.groups * (n * D + -(-2 * n // 4) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_decode(
+    B: int, S: int, Nh: int, Nkv: int, T: int, BS: int, dtype: torch.dtype, sm_count: int
+) -> DecodePlan:
+    """Launch plan of the decode kernel. One CTA per SM: each of the
+    ``Nkv * groups`` (KV head, row group) pairs gets ``sm_count // (Nkv *
+    groups)`` pieces (at least one), and a row is cut into at most as many
+    pieces as its table has tiles. Depends on nothing but its arguments (so
+    it is cached): the lengths stay on the card (``decode_pieces``)."""
+    GS = (Nh // Nkv) * S
+    rg = decode_row_group(GS, dtype)
+    groups = -(-GS // rg)
+    tk = decode_tile_cols(dtype)
+    pieces = max(1, sm_count // (Nkv * groups))
+    slots = max(1, min(pieces, -(-T * BS // tk)))
+    rows = min(rg, GS)
+    # a partial is 4 * rows * D bytes written and read, a tile 256 * D of
+    # K and V: a piece of ceil(rows / 8) tiles keeps them under a quarter
+    return DecodePlan(pieces, slots, groups, rows, tk, max(1, -(-rows // 8)))
+
+
+def decode_live_cols(B: int, T: int, BS: int, nlive=None) -> list:
+    """Each row's live columns as the decode kernel reads them on the card:
+    ``min(T, nlive) * BS`` when ``nlive`` is given, else the table's width
+    ``T * BS``."""
+    if nlive is None:
+        return [T * BS] * B
+    return [min(T, max(int(n), 0)) * BS for n in nlive]
+
+
+def decode_pieces(live_cols, tile_cols: int, pieces: int, min_tiles: int = 1) -> list:
+    """The decode kernel's partition, as each CTA computes it on the card:
+    the rows' live tiles (``ceil(live / tile_cols)`` each) in row order
+    form one line cut into ``P = min(pieces, ceil(N / min_tiles))`` equal
+    pieces (piece j holds tiles ``[j N / P, (j + 1) N / P)``; pieces past
+    ``P`` are idle). Returns, per piece, its runs ``(row,
+    col_begin, col_end, slot, nparts)``: the run covers the row's columns
+    ``[col_begin, col_end)`` (``col_end`` clipped at the live end), is
+    partial ``slot`` of the row's ``nparts``, and the row's runs cover its
+    live columns exactly once."""
+    nt = [-(-int(c) // tile_cols) for c in live_cols]
+    pre = [0]
+    for n in nt:
+        pre.append(pre[-1] + n)
+    N = pre[-1]
+    # no piece is empty, so a row's pieces are consecutive runs
+    P = min(pieces, -(-N // min_tiles))
+
+    def piece_of(u):
+        return ((u + 1) * P + N - 1) // N - 1
+
+    out = []
+    for j in range(pieces):
+        lo, hi = (j * N // P, (j + 1) * N // P) if j < P else (0, 0)
+        runs, b, u = [], 0, lo
+        while u < hi:
+            while pre[b + 1] <= u:
+                b += 1
+            t_lo, t_hi = u - pre[b], min(hi, pre[b + 1]) - pre[b]
+            jf, jl = piece_of(pre[b]), piece_of(pre[b + 1] - 1)
+            runs.append((b, t_lo * tile_cols, min(t_hi * tile_cols, int(live_cols[b])),
+                         j - jf, jl - jf + 1))
+            u = pre[b] + t_hi
+        out.append(runs)
+    return out
 
 
 def prefill_design(dtype: torch.dtype, block_size: int) -> str:
@@ -363,6 +463,20 @@ def _scale_ptrs(k_scale, v_scale) -> tuple[int, int]:
     return k_scale.data_ptr(), v_scale.data_ptr()
 
 
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The decode kernel's merge tickets on ``device``: int32 zeros,
+    allocated once (grown when a launch needs more) and left zero by every
+    launch, so no call copies or reads anything for them."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
 def paged_attention(
     q: torch.Tensor,  # [B, S, Nh, D], decode S = 1
     k_arena: torch.Tensor,  # [NB, BS, Nkv, D]
@@ -372,36 +486,51 @@ def paged_attention(
     kv_positions: torch.Tensor,  # [B, T * BS] int32
     scale: Optional[float] = None,
     *,
+    nlive: Optional[torch.Tensor] = None,  # [B] int32 blocks covering the written frontier
     k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arenas only
     v_scale: Optional[torch.Tensor] = None,
     backend: str = "auto",
 ) -> torch.Tensor:
     """Decode attention of each row over exactly the blocks its table
-    names (kernel 1, or ``paged_attention_xla``; see ``backend``)."""
+    names (kernel 1, or ``paged_attention_xla``; see ``backend``). The
+    kernel reads each row's first ``nlive`` blocks only (the server passes
+    the blocks covering its written frontier, 0 for a finished row, whose
+    output is then zeros), or the whole table without ``nlive``; the plain
+    version reads the window."""
     if not _use_kernel("paged_attention", q, backend):
         return paged_attention_xla(
             q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale, v_scale
         )
     B, S, Nh, D = q.shape
-    BS, Nkv = k_arena.shape[1], k_arena.shape[2]
+    NBk, BS, Nkv = k_arena.shape[:3]
     T = block_table.shape[1]
+    if not decode_block_size_ok(BS):
+        raise ValueError(f"paged_attention: block size {BS} (the kernel takes 8, 16, 32 or a "
+                         "multiple of 64)")
+    if B > DECODE_MAX_BATCH:
+        raise ValueError(f"paged_attention: {B} rows (the kernel plans at most "
+                         f"{DECODE_MAX_BATCH})")
     if scale is None:
         scale = D ** -0.5
     code, tbl, qpos, kvpos = _check_paged(
         q, k_arena, v_arena, block_table, q_positions, kv_positions, k_scale, v_scale
     )
+    nl = 0
+    if nlive is not None:
+        nl = kernels.int32_operand("nlive", nlive, (B,), q.device).data_ptr()
     kv, mode = kernels.kv_storage(k_arena)
-    split_cols, nsplit = plan_splits(B, Nkv, T, BS, kernels.sm_count(q.device))
-    # per-split partials (acc [B, Nkv, nsplit, G*S, D], then (m, l) pairs)
-    # that the kernel's second pass merges; the kernel allocates nothing
-    rows = B * Nkv * nsplit * (Nh // Nkv) * S
-    part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+    plan = plan_decode(B, S, Nh, Nkv, T, BS, q.dtype, kernels.sm_count(q.device))
+    # per-piece partials (acc, then (m, l) pairs, per (group, row, KV head)),
+    # merged in the launch; the kernel allocates nothing
+    part = torch.empty(plan.scratch_floats(B, Nkv, D), dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, B * Nkv * plan.groups)
     out = torch.empty_like(q)
     kernels.PAGED_DECODE.launch(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), out.data_ptr(), part.data_ptr(),
-        part.data_ptr() + rows * D * 4, B, S, Nh, Nkv, D, BS, T, split_cols, nsplit,
-        float(scale), code, kv, kernels.current_stream_handle(q.device), mode=mode,
+        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl, out.data_ptr(), part.data_ptr(),
+        tickets.data_ptr(), B, S, Nh, Nkv, D, BS, T, NBk, plan.pieces, plan.slots,
+        plan.min_tiles, float(scale), code, kv, kernels.current_stream_handle(q.device),
+        mode=mode,
     )
     return out
 

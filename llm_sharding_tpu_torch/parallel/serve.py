@@ -87,6 +87,7 @@ from ..device import hop, to_device
 from ..models.cache import POS_SENTINEL, KVCache, block_pool_shape, block_scale_shape
 from ..models.config import ModelConfig
 from ..models.stack import HeadShards, full_heads, per_shard
+from ..obs.metrics import CANCEL_BATCH_ROWS
 from ..ops.paged_attention import _bytes, _take, write_block_kv
 from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
 from ..ops.sampling import filter_rows, gumbel, is_stop, sample
@@ -842,13 +843,16 @@ def serve_chunk(
                 )
         else:
             tables = torch.where(live[:, None], state.block_tables, 0)
+            # the blocks covering each row's written frontier, this entry
+            # included; a done row reads none
+            nlive = torch.where(live, cols // state.block_size + 1, 0).to(torch.int32)
 
             def stage(i, st, h):
                 a, d = state.arenas[i], st.device
                 return fns.stage_paged(
                     cfg, st.layers, h, a.k, a.v, hop(tables, d), hop(cols, d)[:, None],
-                    hop(state.kpos, d), hop(pos, d)[:, None], k_scale=a.k_scale,
-                    v_scale=a.v_scale, backend=backend,
+                    hop(state.kpos, d), hop(pos, d)[:, None], nlive=hop(nlive, d),
+                    k_scale=a.k_scale, v_scale=a.v_scale, backend=backend,
                 )
 
         nxt = _next_tokens(cfg, stages, state, range(M), run_stages(stages, h, stage))
@@ -950,12 +954,15 @@ def serve_verify(
             )
     else:
         tables = state.block_tables[rows_t]
+        # the blocks covering each row's written frontier, the K + 1 entries included
+        nlive = (cols_t[:, -1] // state.block_size + 1).to(torch.int32)
 
         def stage(i, st, h):
             a, d = state.arenas[i], st.device
             return fns.stage_paged(
                 cfg, st.layers, h, a.k, a.v, hop(tables, d), hop(cols_t, d), hop(kv_pos, d),
-                hop(pos_t, d), k_scale=a.k_scale, v_scale=a.v_scale, backend=backend,
+                hop(pos_t, d), nlive=hop(nlive, d), k_scale=a.k_scale, v_scale=a.v_scale,
+                backend=backend,
             )
 
     h = run_stages(stages, h, stage)
@@ -1017,9 +1024,12 @@ def commit_verify(cfg: ModelConfig, state: ServeState, rows: list, log: np.ndarr
 def serve_cancel_rows(state: ServeState, rows: list) -> None:
     """Stop rows (``serve.py:500``): they are done on the device before the
     next program runs, so they take no further decode steps and commit
-    nothing; their generators are dropped."""
+    nothing; their generators are dropped. One call per batch of rows,
+    observed in ``server_cancel_batch_rows`` (``serve.py:514-528``)."""
+    rows = list(rows)
+    CANCEL_BATCH_ROWS.observe(len(rows))
     mask = np.zeros(state.rows, bool)
-    mask[list(rows)] = True
+    mask[rows] = True
     state.done |= to_device(mask, state.done.device)
     for r in rows:
         state.rng[r] = None

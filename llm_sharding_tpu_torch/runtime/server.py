@@ -193,12 +193,14 @@ from ..analysis.lockorder import named_lock
 from ..models.cache import POS_SENTINEL
 from ..models.stack import full_heads
 from ..obs.metrics import (
-    ARENA_BYTES, DEFAULT_RATE_BUCKETS, KV_BLOCKS_IN_USE, KV_BLOCKS_TOTAL,
-    KV_DISK_TIER_BLOCKS, KV_HOST_TIER_BLOCKS, KV_WASTE_FRAC, PREFIX_HIT_RATE,
-    PREFIX_HIT_TOKENS, REGISTRY,
+    ADMIT_BUCKET_USED, ARENA_BYTES, ATTN_BACKEND, ATTN_BACKENDS, ATTN_BLOCKS_READ,
+    DEFAULT_RATE_BUCKETS, KV_BLOCKS_IN_USE, KV_BLOCKS_TOTAL, KV_DISK_TIER_BLOCKS,
+    KV_HOST_TIER_BLOCKS, KV_WASTE_FRAC, PREFILL_BLOCKS_READ, PREFIX_HIT_RATE, PREFIX_HIT_TOKENS,
+    REGISTRY, set_prefill_path,
 )
 from ..obs.stepline import StepProfiler
 from ..obs.trace import TraceContext, TraceWriter, emit_span
+from ..ops.paged_attention import decode_block_size_ok
 from ..ops.quant import KV_DTYPES, fp8_kv_supported, kv_storage_dtype
 from ..ops.sampling import validate_top_p
 from ..parallel import serve as serve_ops
@@ -335,18 +337,20 @@ _LIVE_SERVERS: "weakref.WeakSet" = weakref.WeakSet()
 
 def _update_load_gauges() -> None:
     """Recompute the process-wide load and KV gauges from every live server
-    (``server.py:169``): queue depth, active rows, the paged pool's blocks
-    and waste, arena bytes by dtype, the prefix cache's tiers and hit
-    rate."""
+    (``server.py:169``): queue depth, active rows, open servers by decode
+    attention backend, the paged pool's blocks and waste, arena bytes by
+    dtype, the prefix cache's tiers and hit rate."""
     queued = active = kv_total = kv_used = kv_slots = kv_live = 0
     host_blocks = disk_blocks = hit_tok = elig_tok = 0
     arena = dict.fromkeys(KV_DTYPES, 0)
+    backends = dict.fromkeys(ATTN_BACKENDS, 0)
     for s in list(_LIVE_SERVERS):
         queued += len(s._queue)
         live = [i for i, r in enumerate(s._req) if r is not None and not r.done]
         active += len(live)
         if not s._closed:
             arena[s.kv_dtype] += s.arena_bytes()
+            backends[s.attn_path] += 1
         if s._alloc is None:
             continue  # dense: no pool
         kv_total += s._alloc.capacity_blocks
@@ -362,6 +366,8 @@ def _update_load_gauges() -> None:
     _M_ACTIVE.set(active)
     for name, nbytes in arena.items():
         ARENA_BYTES.labels(dtype=name).set(nbytes)
+    for name, n in backends.items():
+        ATTN_BACKEND.labels(backend=name).set(n)
     KV_BLOCKS_TOTAL.set(kv_total)
     KV_BLOCKS_IN_USE.set(kv_used)
     KV_HOST_TIER_BLOCKS.set(host_blocks)
@@ -932,6 +938,11 @@ class PipelineServer:
         self.attn_backend = (
             "kernel" if paged_attn != "plain" and engine.device.type == "cuda" else "plain"
         )
+        if paged and self.attn_backend == "kernel" and not decode_block_size_ok(kv_block_size):
+            raise ValueError(
+                f"kv_block_size {kv_block_size}: the paged decode kernel takes 8, 16, 32 or a "
+                "multiple of 64 (or serve with paged_attn='plain')"
+            )
         self.max_queue = max_queue
         self.default_deadline_s = default_deadline_s
         self._fault_plan = fault_plan
@@ -2927,6 +2938,7 @@ class PipelineServer:
                             PREFIX_HIT_TOKENS.labels(tier=tier).inc(tok)
         if self.paged:
             self._push_tables()  # the admission writes exactly the blocks just mapped
+        ADMIT_BUCKET_USED.labels(bucket=str(bucket)).inc()
         sampling = (seeds, temps, topks, topps)
 
         def dispatch():
@@ -2994,10 +3006,15 @@ class PipelineServer:
         positions = np.where(idx < plen[:, None], prefix_off + idx, POS_SENTINEL).astype(np.int32)
         positions[np.arange(n), plen - 1] = POS_SENTINEL
         self._admitting.update(rows)
+        set_prefill_path(self.prefill_path)
         try:
             for ci, off in enumerate(range(0, bucket, Sc)):
                 self._flush_tables()
                 self._charge_idle(time.perf_counter())
+                if self.paged:
+                    # the blocks this chunk's queries attend: each row's
+                    # written frontier (prefix + chunks through this one)
+                    PREFILL_BLOCKS_READ.inc(n * -(-(prefix_off + off + Sc) // self.kv_block_size))
                 serve_ops.serve_prefill_chunk(
                     self.cfg, self.model, self.state, rows, prompts[:, off : off + Sc],
                     positions[:, off : off + Sc], off, ci == 0, self.attn_backend,
@@ -3013,6 +3030,33 @@ class PipelineServer:
         last_tok = prompts[np.arange(n), plen - 1]
         serve_ops.serve_admit_finish(self.state, rows, last_tok, prefix_off + plen, max_new,
                                      *sampling, rng_states=rng_states)
+
+    @property
+    def attn_path(self) -> str:
+        """This server's ``server_attn_backend`` label: ``kernel`` (the CUDA
+        paged kernel), ``xla`` (the plain paged path) or ``dense``."""
+        if not self.paged:
+            return "dense"
+        return "kernel" if self.attn_backend == "kernel" else "xla"
+
+    @property
+    def prefill_path(self) -> str:
+        """This server's ``server_prefill_path`` label: ``kernel``, ``xla``
+        (the plain paged path) or ``gather`` (dense)."""
+        return "gather" if not self.paged else self.attn_path
+
+    def _record_blocks_read(self, rows, steps: int = 1) -> None:
+        """Feed ``server_attn_blocks_read_total`` from the host length
+        mirrors (``server.py:1538-1552``): ``ceil(len / block_size)`` blocks
+        per row per decode or verify step, an estimate (the mirrors trail
+        the device by the logs in flight) that reads nothing from the
+        device."""
+        if not self.paged:
+            return
+        bs = self.kv_block_size
+        blocks = sum(-(-max(int(self.state.mirror_len[r]), 1) // bs) for r in rows)
+        if blocks:
+            ATTN_BLOCKS_READ.inc(blocks * steps)
 
     def _dispatch_chunk(self, cycles: Optional[int] = None) -> None:
         """Dispatch one decode chunk over every row (``serve_chunk``,
@@ -3045,6 +3089,7 @@ class PipelineServer:
         live = [(i, self._req[i]) for i in self._live_rows(exclude=self._admitting)]
         self._rng_marks_next = marks
         self._push_pending("chunk", log, live)
+        self._record_blocks_read([i for i, _ in live], steps=cycles)
         self.counters.inc("chunks")
         self._span("chunk", dur_s=time.perf_counter() - t0, cycles=cycles, rows=len(live))
         sl.pop()
@@ -3096,6 +3141,7 @@ class PipelineServer:
             (row, self._req[row], int(draft_len[i]), draft[i].copy())
             for i, row in enumerate(rows)
         ])
+        self._record_blocks_read(rows)
         self.counters.inc("chunks")
         self._span("chunk", dur_s=time.perf_counter() - t0, rows=n)
 

@@ -56,10 +56,10 @@ from . import smoke_workload
 
 
 BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
-# the port's CUDA kernels by function name (csrc/*.cu); the split merge is
-# one kernel, launched by both split paths (decode and tensor-core prefill)
+# the port's CUDA kernels by function name (csrc/*.cu); decode merges its
+# runs in its own launch, the split tensor-core prefill in split_merge_kernel
 PORT_KERNELS = (
-    "flash_wgmma_kernel", "flash_kernel", "split_decode_kernel", "split_merge_kernel",
+    "flash_wgmma_kernel", "flash_kernel", "paged_decode_kernel", "split_merge_kernel",
     "prefill_wgmma_kernel", "paged_prefill_kernel",
 )
 

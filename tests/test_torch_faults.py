@@ -396,11 +396,22 @@ def test_close_is_a_real_shutdown(setup):
 def test_close_unblocks_a_stream_in_another_thread(setup):
     """A consumer streaming (and pumping) on another thread gets its partial
     tokens, then RequestFailed caused by ServerClosed, when the server is
-    closed under it; no block stays held."""
+    closed under it; no block stays held. Once the request holds 3 tokens,
+    the consumer's next step waits until ``close`` has run, so the request
+    is still in flight when the server closes."""
     eng, _ = setup
     srv = eng.serve(**KW)
     r = srv.submit(prompt(73), 40)
     out, errors = [], []
+    closed = threading.Event()
+    step = srv.step
+
+    def gated_step():
+        if len(r.tokens) >= 3:
+            closed.wait(timeout=60)
+        return step()
+
+    srv.step = gated_step
 
     def consume():
         try:
@@ -414,7 +425,9 @@ def test_close_unblocks_a_stream_in_another_thread(setup):
     deadline = time.time() + 60
     while len(r.tokens) < 3 and time.time() < deadline:
         time.sleep(0.001)
+    assert not r.done
     srv.close()
+    closed.set()
     t.join(timeout=60)
     assert not t.is_alive()
     assert len(errors) == 1 and isinstance(errors[0].__cause__, ServerClosed)

@@ -832,6 +832,120 @@ def test_served_prefix_cache_goes_through_the_kernels(cuda_device, tmp_path, kv)
     assert streams["disk", "auto"] == want
 
 
+# ------------------------------ decode by live length, chunked prefill splits
+
+# decode contexts over a capacity-width table: one 2048-token row among
+# short ones (one key, a block, ragged lengths)
+WIDE_CTX = [2048, 100, 37, 500, 5, 64, 130, 700]
+
+
+def _wide_case(dev, dtype, ctx, kv, S=1, G=3, Nkv=2, D=128, BS=64, T=None, seed=80):
+    """Decode (S = 1) or verify (S > 1) rows over a table of T blocks
+    (default capacity 4096), each row's blocks in random arena order, the
+    rest trash block 0 (NaN/Inf; 0x7F codes and Inf scales for a code
+    arena); the queries sit at each row's last S positions. Returns the
+    args, the scales and ``nlive`` (each row's blocks)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    T = 4096 // BS if T is None else T
+    nblk = [-(-c // BS) for c in ctx]
+    NB = sum(nblk) + 1
+    k = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((NB, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    k[0], v[0] = float("nan"), float("inf")
+    perm = (torch.randperm(NB - 1, generator=g, device=dev) + 1).to(torch.int32)
+    B = len(ctx)
+    tbl = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    kvpos = torch.full((B, T * BS), POS_SENTINEL, dtype=torch.int32, device=dev)
+    qpos = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    j = 0
+    for b, c in enumerate(ctx):
+        tbl[b, : nblk[b]] = perm[j : j + nblk[b]]
+        j += nblk[b]
+        kvpos[b, :c] = torch.arange(c)
+        qpos[b] = torch.arange(c - S, c)
+    q = torch.randn((B, S, Nkv * G, D), generator=g, device=dev).to(dtype)
+    sc = {}
+    if kv is not None:
+        k, ks, v, vs = _quantize(k, v, kv)
+        sc = dict(k_scale=ks, v_scale=vs)
+    return (q, k, v, tbl, qpos, kvpos), sc, torch.tensor(nblk, dtype=torch.int32, device=dev)
+
+
+def _decode_once(args, sc, kv, nlive):
+    """The decode kernel's output over each row's ``nlive`` blocks, its
+    plain version's over the window, and the kernel's launches for the
+    call."""
+    kernels.reset_launch_counts()
+    got = tpa.paged_attention(*args, **sc, nlive=nlive, backend="kernel")
+    want = tpa.paged_attention_xla(*args, **sc)
+    torch.cuda.synchronize()
+    return got, want, kernels.launch_counts()["paged_attention" + (f"[{kv}]" if kv else "")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G,S", [(3, 1), (3, 5), (8, 5)], ids=["GS3", "GS15", "GS40"])
+def test_decode_holds_every_folded_row_of_a_kv_head(cuda_device, G, S, D, kv, dtype):
+    """G * S = 3 (the 3B's decode), 15 (its verify at S = 5) and 40
+    (gemma-2B's verify: three 16-row tiles with bf16 queries, three row
+    groups with f32) over a capacity-width table (T = 64, block size 64)
+    with one 2048-token row among short ones: one launch, the plain
+    version's output."""
+    args, sc, nlive = _wide_case(cuda_device, dtype, WIDE_CTX, kv, S=S, G=G, D=D)
+    got, want, launches = _decode_once(args, sc, kv, nlive)
+    assert launches == 1
+    assert torch.isfinite(got).all()
+    _assert_close_rows(got, want, dtype, step=D == 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("BS", [16, 32, 64, 128])
+def test_decode_at_each_block_size(cuda_device, BS, kv):
+    """Block sizes 16 and 32 (several TMA boxes per 64-key tile), 64 (one)
+    and 128 (a block is two tiles) over a capacity-4096 table, over the
+    rows' written frontiers and over the whole table."""
+    args, sc, nlive = _wide_case(cuda_device, torch.bfloat16, [2048, 77, 300, 1500], kv, BS=BS)
+    for rows in (nlive, None):  # the written frontiers, then the whole table
+        got, want, launches = _decode_once(args, sc, kv, rows)
+        assert launches == 1
+        _assert_close_rows(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("ctx", [2048, 64, 5])
+def test_decode_one_row_over_a_capacity_table(cuda_device, ctx, kv, dtype):
+    """B = 1 over T = 64: 2048 tokens cut across the pieces of every KV
+    head (the merge in the launch), one block, a part of one."""
+    args, sc, nlive = _wide_case(cuda_device, dtype, [ctx], kv)
+    got, want, launches = _decode_once(args, sc, kv, nlive)
+    assert launches == 1
+    _assert_close_rows(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_chunk_prefill_at_frontiers_256_and_2048(cuda_device, B, kv):
+    """Chunks of 256 queries at frontiers 2048 (B = 1: its rows cut into
+    runs merged in the launch) or 256 and 2048 in turn (B = 4, 8), block
+    size 64, head dim 128: one launch, trash inside row 0's window."""
+    frontiers = (2048,) if B == 1 else (256, 2048) * (B // 2)
+    args, kw, plain_kw, rows = _prefill_case(cuda_device, torch.bfloat16, frontiers, 256, 64, 128,
+                                             kv)
+    kernels.reset_launch_counts()
+    got = tpa.paged_prefill(*args, **kw)
+    want = tpa.paged_attention_xla(*args, **plain_kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_prefill" + (f"[{kv}]" if kv else "")] == 1
+    assert torch.isfinite(got).all()
+    _assert_close_rows(got[rows], want[rows], torch.bfloat16)
+
+
 # ---------------------------------------------- resilience on the card
 
 

@@ -7,6 +7,7 @@ the port's copy. The two packages keep separate process-wide registries, so
 the server-level checks compare deltas of the port's own tallies.
 """
 
+import collections
 import json
 import re
 import threading
@@ -39,6 +40,13 @@ SERVER_FAMILIES = (
         "requests_submitted", "requests_completed", "requests_cancelled",
         "requests_failed", "tokens_generated", "admissions", "chunks")),
 )
+# the attention-path families: decode backend and blocks read, prefill path
+# and blocks read, admission buckets, batched cancels
+ATTN_FAMILIES = (
+    "server_attn_backend", "server_attn_blocks_read_total", "server_prefill_path",
+    "server_prefill_blocks_read_total", "server_admit_bucket_total", "server_cancel_batch_rows",
+)
+SERVER_FAMILIES += ATTN_FAMILIES
 
 
 def feed(m):
@@ -239,10 +247,103 @@ def test_counters_inc_mirrors_the_port_registry():
 def test_server_families_match_the_jax_registrations(name):
     """Each family the port's server and fault plan feed is registered in
     the port's registry with the JAX family's kind, labels and buckets."""
-    from llm_sharding_tpu.runtime import async_exec, faults  # noqa: F401  register families
+    from llm_sharding_tpu.parallel import serve  # noqa: F401  register families
+    from llm_sharding_tpu.runtime import async_exec, faults  # noqa: F401
     from llm_sharding_tpu_torch.runtime import async_exec as tasync  # noqa: F401
     from llm_sharding_tpu_torch.runtime import faults as tfaults  # noqa: F401
 
     got, want = tmetrics.REGISTRY.get(name), jmetrics.REGISTRY.get(name)
     assert got is not None and want is not None
     assert (got.kind, got.label_names, got.buckets) == (want.kind, want.label_names, want.buckets)
+
+
+@pytest.mark.parametrize("name", ATTN_FAMILIES)
+def test_attention_families_match_the_jax_help(name):
+    """The attention-path families carry the JAX help text and label values
+    (``ATTN_BACKENDS``, ``PREFILL_PATHS``)."""
+    from llm_sharding_tpu.parallel import serve  # noqa: F401  register families
+
+    got, want = tmetrics.REGISTRY.get(name), jmetrics.REGISTRY.get(name)
+    assert got.help == want.help
+    assert tmetrics.ATTN_BACKENDS == jmetrics.ATTN_BACKENDS
+    assert tmetrics.PREFILL_PATHS == jmetrics.PREFILL_PATHS
+
+
+def _value(name, **labels):
+    fam = tmetrics.REGISTRY.get(name)
+    return fam.labels(**labels).value if labels else fam.value
+
+
+def _cancel_hist():
+    _, total, count = tmetrics.REGISTRY.get("server_cancel_batch_rows").labels().snap()
+    return count, total
+
+
+@pytest.mark.parametrize("mode", ["paged", "chunked", "dense"])
+def test_attention_families_fed_by_a_served_run(mode):
+    """A paged, a chunked (paged, prompt above ``prefill_chunk``) and a
+    dense run on the CPU, one request cancelled mid-decode in each: the
+    server's backend label counts in ``server_attn_backend``, paged decode
+    steps add blocks read and dense ones none, a chunked admission flips
+    ``server_prefill_path`` one-hot (``xla``: the plain paged path on the
+    CPU; ``gather`` dense) and adds ``ceil((off + Sc) / BS)`` blocks per
+    chunk, each admission counts its bucket, and the cancel is one batch of
+    one row."""
+    import numpy as np
+    import torch
+
+    from llm_sharding_tpu_torch.models import config as tcfg
+    from llm_sharding_tpu_torch.models import llama as tllama
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    cfg = tcfg.tiny_llama()
+    eng = Engine(cfg, tllama.init_params(cfg, seed=5, dtype=torch.float32, device="cpu"))
+    BS, Sc = 4, 8
+    kw = dict(capacity=64)
+    if mode != "dense":
+        kw.update(kv_block_size=BS, kv_blocks=64)
+    if mode != "paged":
+        kw.update(prefill_chunk=Sc)
+    rng = np.random.default_rng(11)
+    long_prompt = rng.integers(3, cfg.vocab_size, 20).astype(np.int32)
+    short = rng.integers(3, cfg.vocab_size, 5).astype(np.int32)
+    srv = eng.serve(**kw)
+    prompts = [short, long_prompt] if mode != "paged" else [short, short[:3]]
+    buckets = [srv._bucket(len(p)) for p in prompts]
+    want_path = {"paged": "xla", "chunked": "xla", "dense": "dense"}[mode]
+    assert srv.attn_path == want_path
+    blocks0 = _value("server_attn_blocks_read_total")
+    pblocks0 = _value("server_prefill_blocks_read_total")
+    admit0 = {b: _value("server_admit_bucket_total", bucket=str(b)) for b in set(buckets)}
+    cancel0 = _cancel_hist()
+    victim = srv.submit(short, 40)
+    srv.step()
+    srv.step()
+    assert not victim.done
+    assert srv.cancel(victim)
+    reqs = [srv.submit(p, 6) for p in prompts]
+    srv.run_until_idle()
+    assert all(r.done and r.error is None for r in reqs)
+    tserver._update_load_gauges()
+    assert _value("server_attn_backend", backend=want_path) >= 1
+    count, total = _cancel_hist()
+    assert (count - cancel0[0], total - cancel0[1]) == (1, 1)
+    admissions = collections.Counter([srv._bucket(len(short))] + buckets)
+    for b, n in admissions.items():
+        assert _value("server_admit_bucket_total", bucket=str(b)) - admit0.get(b, 0) >= n
+    decode_blocks = _value("server_attn_blocks_read_total") - blocks0
+    prefill_blocks = _value("server_prefill_blocks_read_total") - pblocks0
+    if mode == "dense":
+        assert decode_blocks == 0 and prefill_blocks == 0
+    else:
+        assert decode_blocks > 0
+    if mode == "paged":
+        assert prefill_blocks == 0
+    if mode == "chunked":
+        bucket = srv._bucket(len(long_prompt))
+        assert prefill_blocks == sum(-(-(off + Sc) // BS) for off in range(0, bucket, Sc))
+    if mode != "paged":
+        want = "gather" if mode == "dense" else "xla"
+        assert {p: _value("server_prefill_path", path=p) for p in tmetrics.PREFILL_PATHS} == {
+            p: float(p == want) for p in tmetrics.PREFILL_PATHS}
+    srv.close()

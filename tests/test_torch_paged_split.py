@@ -11,10 +11,12 @@ pass implements, against the JAX package.
 - ``combine_attn_stats`` over a leading split axis equals the JAX
   ``combine_attn_stats`` run under ``jax.vmap(..., axis_name=...)`` on the
   same stacked triples, dead splits and a row no split sees included.
-- Stats over the decode planner's column partition, merged, equal
-  ``paged_attention_xla`` (f32, 1e-5): one split no row can see, one row
-  whose keys all fall in one split, NaN in trash block 0.
-- ``plan_splits`` covers every column exactly once and is deterministic.
+- Stats over the decode kernel's partition (``decode_pieces``), merged,
+  equal ``paged_attention_xla`` (f32, 1e-5): columns written ahead lie
+  past the row's live end, one row's keys all fall in one piece, NaN in
+  trash block 0.
+- ``plan_decode`` depends on shapes alone and its pieces cover every live
+  column exactly once.
 """
 
 import numpy as np
@@ -109,10 +111,10 @@ def test_combine_matches_jax_over_an_axis():
     assert (got[1, 2] == 0).all()
 
 
-def test_partition_merge_equals_paged_attention(monkeypatch):
-    """Stats over the planner's splits, merged, equal single-pass attention
-    (runs as short as one block, so a small table splits four ways)."""
-    monkeypatch.setattr(tpa, "SPLIT_MIN_COLS", 1)
+def test_partition_merge_equals_paged_attention():
+    """Stats over the decode kernel's pieces (``decode_pieces`` over each
+    row's ``nlive`` blocks, tiles of one block so a small table splits four
+    ways), merged per row in slot order, equal single-pass attention."""
     rng = np.random.default_rng(34)
     B, S, Nkv, G, D, BS, T, NB = 2, 3, 2, 2, 16, 4, 8, 17
     k = rng.normal(size=(NB, BS, Nkv, D)).astype(np.float32)
@@ -123,24 +125,33 @@ def test_partition_merge_equals_paged_attention(monkeypatch):
     tbl[1, :2] = [12, 9]  # row 1 maps two blocks, the rest is trash
     kvpos = np.full((B, T * BS), SENTINEL, np.int32)
     kvpos[0, :24] = np.arange(24)
-    kvpos[0, 24:] = 100 + np.arange(8)  # written ahead: invisible to row 0
+    kvpos[0, 24:] = 100 + np.arange(8)  # written ahead: past row 0's live columns
     kvpos[1, :6] = np.arange(6)
     qpos = np.array([[21, 22, 23], [3, 4, 5]], np.int32)
     q = rng.normal(size=(B, S, Nkv * G, D)).astype(np.float32)
-    split_cols, nsplit = tpa.plan_splits(B, Nkv, T, BS, sm_count=4)
-    assert (split_cols, nsplit) == (8, 4)  # columns 24-31: the split no row sees
+    # the blocks covering each row's written frontier (24 and 6 keys)
+    live = tpa.decode_live_cols(B, T, BS, [6, 2])
+    assert live == [24, 8]  # the kernel never visits columns 24-31 of row 0
+    pieces = tpa.decode_pieces(live, BS, 4)
+    assert [[(b, c0, c1) for b, c0, c1, _, _ in runs] for runs in pieces] == [
+        [(0, 0, 8)], [(0, 8, 16)], [(0, 16, 24)], [(1, 0, 8)]]
     t = {n: torch.from_numpy(x) for n, x in
          dict(q=q, k=k, v=v, tbl=tbl, qpos=qpos, kvpos=kvpos).items()}
-    stats = []
     col = torch.arange(T * BS)
-    for i in range(nsplit):
-        inside = (col >= i * split_cols) & (col < (i + 1) * split_cols)
-        kvp = torch.where(inside[None], t["kvpos"], torch.tensor(SENTINEL, dtype=torch.int32))
-        stats.append(tpa.attn_stats(t["q"], t["k"], t["v"], t["tbl"], t["qpos"], kvp))
-    acc, m, l = (torch.stack(x) for x in zip(*stats))
-    assert (l[3] == 0).all() and (m[3] == -1e30).all()  # the unseen split
-    assert (l[1:, 1] == 0).all()  # row 1's keys all lie in split 0
-    got = tpa.combine_attn_stats(acc, m, l)
+    got = []
+    for b in range(B):
+        runs = sorted((r for runs in pieces for r in runs if r[0] == b), key=lambda r: r[3])
+        stats = []
+        for _, c0, c1, slot, nparts in runs:
+            assert nparts == len(runs)
+            inside = (col >= c0) & (col < c1)
+            kvp = torch.where(inside[None], t["kvpos"][b : b + 1],
+                              torch.tensor(SENTINEL, dtype=torch.int32))
+            stats.append(tpa.attn_stats(t["q"][b : b + 1], t["k"], t["v"], t["tbl"][b : b + 1],
+                                        t["qpos"][b : b + 1], kvp))
+        acc, m, l = (torch.stack(x) for x in zip(*stats))
+        got.append(tpa.combine_attn_stats(acc, m, l))
+    got = torch.cat(got)
     want = tpa.paged_attention_xla(t["q"], t["k"], t["v"], t["tbl"], t["qpos"], t["kvpos"])
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
@@ -150,16 +161,18 @@ def test_partition_merge_equals_paged_attention(monkeypatch):
 @pytest.mark.parametrize("B,Nkv,T,BS", [(1, 8, 64, 64), (8, 8, 64, 64), (3, 2, 7, 16),
                                          (64, 8, 200, 16), (2, 1, 1, 8), (1, 8, 40, 4096)])
 def test_plan_splits_covers_each_column_once(B, Nkv, T, BS, sm_count):
-    split_cols, nsplit = tpa.plan_splits(B, Nkv, T, BS, sm_count)
-    assert (split_cols, nsplit) == tpa.plan_splits(B, Nkv, T, BS, sm_count)
+    """The decode plan depends on shapes alone (one CTA per SM over the KV
+    heads); its pieces cover every live column of every row exactly once,
+    each row in at most ``slots`` runs, whatever the lengths."""
+    plan = tpa.plan_decode(B, 1, 3 * Nkv, Nkv, T, BS, torch.bfloat16, sm_count)
+    assert plan == tpa.plan_decode(B, 1, 3 * Nkv, Nkv, T, BS, torch.bfloat16, sm_count)
+    assert plan.pieces == max(1, sm_count // Nkv) and plan.groups == 1 and plan.rows == 3
     W = T * BS
-    assert split_cols % BS == 0 and nsplit >= 1
-    assert split_cols <= max(BS, tpa.SPLIT_MAX_COLS)
-    assert split_cols >= min(W, tpa.SPLIT_MIN_COLS)
-    cover = np.zeros(W, np.int64)
-    for i in range(nsplit):
-        cover[i * split_cols : min(W, (i + 1) * split_cols)] += 1
-    assert (cover == 1).all() and (nsplit - 1) * split_cols < W
-    want = -(-tpa.SPLIT_CTAS_PER_SM * sm_count // (B * Nkv))
-    # at least half the CTAs wanted, where T and the shortest run allow
-    assert 2 * nsplit >= min(T, want, W // tpa.SPLIT_MIN_COLS)
+    rng = np.random.default_rng(B * 131 + T)
+    for live in ([W] * B, [int(x) for x in rng.integers(0, W + 1, B)]):
+        cover = [np.zeros(n, np.int64) for n in live]
+        for runs in tpa.decode_pieces(live, plan.tile_cols, plan.pieces, plan.min_tiles):
+            for b, c0, c1, slot, nparts in runs:
+                assert nparts <= plan.slots and c0 % plan.tile_cols == 0
+                cover[b][c0:c1] += 1
+        assert all((c == 1).all() for c in cover)

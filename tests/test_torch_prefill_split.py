@@ -179,6 +179,8 @@ def test_serve_profile_totals_each_port_kernel_by_name():
         "void (anonymous namespace)::flash_kernel<float, 128, 4>(float const*)": 10.0,
         "void (anonymous namespace)::flash_wgmma_kernel<128>(CUtensorMap)": 20.0,
         "void attn::split_merge_kernel<__nv_bfloat16>(float const*)": 7.0,
+        "void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16, 128, signed char, 1>"
+        "(CUtensorMap)": 4.0,
         "nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNT": 9000.0,
     }
     calls = collections.Counter({k: 3 for k in per_kernel})
@@ -190,6 +192,7 @@ def test_serve_profile_totals_each_port_kernel_by_name():
         ("flash_kernel", "-"): (0.01, 3),
         ("flash_wgmma_kernel", "-"): (0.02, 3),
         ("split_merge_kernel", "-"): (0.007, 3),
+        ("paged_decode_kernel", "int8"): (0.004, 3),
     }
 
 
