@@ -857,6 +857,121 @@ def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefi
     return rows
 
 
+def shard_plane(tbl, cp: int, shard: int):
+    """Shard ``shard``'s plane of a table whose logical block ``j`` lives on
+    shard ``j % cp`` (``ShardedBlockAllocator.alloc_at``'s stripes): the
+    other shards' blocks map to trash block 0."""
+    import torch
+
+    cols = torch.arange(tbl.shape[1], device=tbl.device) % cp == shard
+    return torch.where(cols[None, :], tbl, torch.zeros_like(tbl))
+
+
+def check_stats(tag: str, got, want, dname: str) -> tuple:
+    """A stats-mode triple against ``attn_stats``'s: dead rows exactly (0,
+    -1e30, 0), live rows' m to 1e-3 and l to 1e-3 relative, and acc / l
+    within the normalised outputs' limits. Returns the normalised
+    output's max abs and row-relative errors."""
+    import torch
+
+    acc, m, l = got
+    wacc, wm, wl = want
+    for x in got:
+        require(bool(torch.isfinite(x).all()), f"{tag}: non-finite stats output")
+    dead = wl == 0
+    require(bool((l[dead] == 0).all() and (m[dead] == -1e30).all() and (acc[dead] == 0).all()),
+            f"{tag}: a row that sees no key is not (0, -1e30, 0)")
+    live = ~dead
+    m_err = (m[live] - wm[live]).abs().max().item() if live.any() else 0.0
+    l_err = ((l[live] - wl[live]).abs() / wl[live]).max().item() if live.any() else 0.0
+    require(m_err <= 1e-3, f"{tag}: row max off by {m_err}")
+    require(l_err <= 1e-3, f"{tag}: exp-sum off by {l_err} relative")
+    o = (acc / l.clamp_min(1e-30)[..., None])[live]
+    w = (wacc / wl.clamp_min(1e-30)[..., None])[live]
+    diff = (o - w).abs()
+    err = diff.max().item()
+    rel = (diff / w.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)).max().item()
+    require(err <= TOL_ABS[dname] and rel <= TOL_REL[dname],
+            f"{tag}: normalised output off by {err} abs, {rel} row-relative")
+    return err, rel, int(dead.sum())
+
+
+def phase_stats_kernels(cfg, device, model: str, cp: int = 2) -> list:
+    """[b] The stats mode of the decode and chunked-prefill kernels (what a
+    context-parallel server's shards run), at ``model``'s decode and chunk
+    shapes, on shard 0's plane of a table striped over ``cp`` shards:
+    against ``attn_stats`` on the same inputs, every KV mode in bf16 and
+    the query-dtype arena in f32 too. The bound counts the shard's own
+    blocks only. Returns the rows of the bf16 arena in bf16 (the [d] cp
+    runs serve that arena), tagged with the ``cp2`` workload whose [d] run
+    counts their launches; the code arenas are checked and printed."""
+    import torch
+
+    from llm_sharding_tpu_torch.ops import paged_attention as tpa
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    dec = ("llm_sharding_tpu/ops/paged_attention.py:484",
+           "llm_sharding_tpu_torch/csrc/paged_attention.cu")
+    pre = ("llm_sharding_tpu/ops/paged_attention.py:689",
+           "llm_sharding_tpu_torch/csrc/paged_prefill.cu")
+    cases = []
+    for kv in (None, *KV_MODES):
+        mode = f"[{kv},stats]" if kv else "[stats]"
+        cases += [
+            (f"paged_attention{mode}", f"cp {cp} shard 0 decode B=8 ctx 100-2048",
+             tpa.paged_attention, lambda *a, kv=kv: decode_case(*a, kv=kv), *dec),
+            (f"paged_prefill{mode}", f"cp {cp} shard 0 chunk Sc=256 frontiers 256/2048",
+             tpa.paged_prefill, lambda *a, kv=kv: prefill_case(*a, kv=kv), *pre),
+        ]
+    rows = []
+    Nh, D = cfg.num_attention_heads, cfg.head_dim_
+    for name, label, fn, make, replaces, source in cases:
+        dtypes = (torch.bfloat16, torch.float32) if "[stats]" in name else (torch.bfloat16,)
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[-1]
+            args, kw, plain_kw, _, _, _ = make(cfg, dtype, device, gen)
+            q, k, v, tbl, qpos, kvpos = args
+            args = (q, k, v, shard_plane(tbl, cp, 0), qpos, kvpos)
+            got = fn(*args, stats=True, **kw)
+            want = tpa.attn_stats(*args, **plain_kw)
+            torch.cuda.synchronize()
+            err, rel, dead = check_stats(f"phase b {name} {label} {dname}", got, want, dname)
+            ms = cuda_ms(lambda: fn(*args, stats=True, **kw), iters=20)
+            plain_ms = cuda_ms(lambda: tpa.attn_stats(*args, **plain_kw), iters=3, warmup=1)
+            # the shard's share: its owned live columns, each read once,
+            # and the f32 triple written once
+            tb = args[3].cpu().numpy()
+            BS = k.shape[1]
+            nl = kw["nlive"].cpu().numpy()
+            kvp = kvpos.cpu().numpy()
+            qp = qpos.cpu().numpy().astype(np.int64)
+            isz, csz = q.element_size(), k.element_size()
+            owned = sum(int(np.count_nonzero(tb[b, : nl[b]])) for b in range(tb.shape[0]))
+            pairs = 0
+            for b in range(tb.shape[0]):
+                live = np.repeat(tb[b, : nl[b]] != 0, BS)
+                kp = kvp[b, : nl[b] * BS][live]
+                pairs += int((kp[None, :] <= qp[b][:, None]).sum())
+            Nkv = k.shape[2]
+            nbytes = (q.numel() * isz + 2 * owned * BS * Nkv * D * csz + tb.nbytes + kvp.nbytes
+                      + q.numel() * 4 + 2 * q.numel() // D * 4
+                      + (2 * owned * Nkv * 4 if "k_scale" in kw else 0))
+            bms, by = bound(nbytes, 4.0 * Nh * D * pairs, dname)
+            log(f"[b] {name:27s} {label:45s} {dname:8s} max_abs_err={err:.3g} "
+                f"tol={TOL_ABS[dname]:g} max_row_rel_err={rel:.3g} tol={TOL_REL[dname]:g} ok "
+                f"dead_rows={dead} owned_blocks={owned} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms=- bound_ms={bms:.4f} ({by})")
+            if dtype == torch.bfloat16 and "[stats]" in name:
+                rows.append(dict(
+                    name=name, model=model, workload="cp2", shape=label, route="cuda",
+                    source=source, replaces=replaces, launches=None, max_abs_err=err,
+                    max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None,
+                ))
+            del args, got, want
+    return rows
+
+
 # --------------------------------------------------------------- phase (c)
 
 def top2_gap(cfg, params, ids: np.ndarray) -> float:
@@ -1208,7 +1323,11 @@ def check_observability(tag: str, eng, prompts, lens, max_new: int, trace_root: 
     trace_dir=)`` on a second thread: ``torch.profiler`` with CUDA
     activity brackets the window) must be identical to the streams
     without; the capture is complete and its Chrome trace holds kernels;
-    each request gives one tree; every step accounts."""
+    each request gives one tree; every step accounts. The serving thread
+    takes the window's four steps, then waits until the capture has
+    stopped the profiler and written its trace before it steps on: that
+    export holds the interpreter for a while, and a step running beside it
+    would count the stall as unattributed time."""
     import threading
 
     base, _ = served_streams(eng, prompts, max_new)
@@ -1218,10 +1337,11 @@ def check_observability(tag: str, eng, prompts, lens, max_new: int, trace_root: 
     order = [*range(0, len(prompts), 2), *range(1, len(prompts), 2)]
     first = (len(prompts) + 1) // 2
     out = {}
+    exported = threading.Event()  # set once stepline_capture has returned
 
     def drive():
         """``served_streams``' schedule, once the capture is armed: the
-        window is steps 1-4."""
+        window is steps 1-4; the steps after it wait for the export."""
         try:
             t0 = time.perf_counter()
             while not srv.stepline.armed:
@@ -1231,6 +1351,9 @@ def check_observability(tag: str, eng, prompts, lens, max_new: int, trace_root: 
             srv.step()
             srv.step()
             reqs += [srv.submit(prompts[i], max_new) for i in order[first:]]
+            srv.step()
+            srv.step()
+            require(exported.wait(300), f"phase c {tag}: the capture never returned")
             srv.run_until_idle()
             out["reqs"] = reqs
         except BaseException as e:  # noqa: BLE001 — re-raised below
@@ -1239,7 +1362,11 @@ def check_observability(tag: str, eng, prompts, lens, max_new: int, trace_root: 
     t = threading.Thread(target=drive)
     t.start()
     # the profiler starts and stops on this thread; the steps run on the other
-    bundle = srv.stepline_capture(4, wait_s=300, trace_dir=os.path.join(trace_root, "c_prof"))
+    try:
+        bundle = srv.stepline_capture(4, wait_s=300,
+                                      trace_dir=os.path.join(trace_root, "c_prof"))
+    finally:
+        exported.set()
     t.join(timeout=600)
     require(not t.is_alive(), f"phase c {tag}: the serving thread did not return")
     if "error" in out:
@@ -1832,6 +1959,7 @@ def phase_token_check(device, store_root: str) -> None:
     log(f"[c] 3B fleet checks took {time.perf_counter() - t0:.1f}s")
     check_pipeline("3B", eng, cpu_eng, cpu_params, prompts, lens, max_new, cpu_want, rng)
     check_parallel("3B", eng, cpu_eng, cpu_params, prompts, lens, max_new, cpu_want)
+    check_cp("3B", eng, cpu_eng, cpu_params, prompts, lens, max_new, cpu_want, card_want)
     del eng, cpu_eng, cpu_params
     for bits, head in ((8, True), (4, False)):
         tag = f"3B int{bits}{' +head' if head else ''} store"
@@ -2834,13 +2962,20 @@ def phase_serve(device, store_root: str) -> dict:
     async_serve_runs(half, smi)
     del half
     log(f"[d] 3B step-loop configurations took {time.perf_counter() - t0:.1f}s")
-    dcounts = frontdoor_runs(eng, stores["bf16"], smi, paged_twin)
-    fleet = fleet_runs(eng, stores["bf16"], smi)
-    pipeline = pipeline_runs(eng, stores["bf16"], smi, paged_twin)
+    try:
+        dcounts = frontdoor_runs(eng, stores["bf16"], smi, paged_twin)
+        fleet = fleet_runs(eng, stores["bf16"], smi)
+        pipeline = pipeline_runs(eng, stores["bf16"], smi, paged_twin)
+    finally:
+        stop_prestarted()
     tp_counts = parallel_runs(eng, stores["bf16"], smi, paged_twin, daemon=False)
     context_runs(eng, smi)
     segment_runs(eng, smi)
-    lap("3B standard, observability, step loop, front door, fleet, pipeline, tensor / context")
+    cp_counts = cp_runs(eng, smi, paged_twin)
+    cp_long_run(device, smi)
+    launch_run(eng, stores["bf16"], smi)
+    lap("3B standard, observability, step loop, front door, fleet, pipeline, tensor / context, "
+        "context-parallel serving, launch")
     # the quantized arenas' runs, the shared-prefix workload, the
     # tiers under pressure and the int8 / int4 weight stores take 7 of the
     # 28 layers (a view of the same weights: the whole script's time limit)
@@ -2986,7 +3121,8 @@ def phase_serve(device, store_root: str) -> dict:
             "llama32_3b/spec_generate": gcounts_spec, "llama2_7b": lcounts,
             "llama2_7b/speculative": lscounts, "llama32_3b/dense": dcounts,
             "llama32_3b/fleet": fleet, "llama32_3b/pipeline": pipeline,
-            "llama2_7b/tp2": l7tp, **{f"llama32_3b/{k}": v for k, v in tp_counts.items()}}
+            "llama2_7b/tp2": l7tp, **{f"llama32_3b/{k}": v for k, v in tp_counts.items()},
+            **{f"llama32_3b/{k}": v for k, v in cp_counts.items()}}
 
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2997,9 +3133,11 @@ class Daemon:
     a subprocess with the HTTP ingress and the metrics exposition on free
     local ports and the tenants file, its stdin held open (the daemon reads
     prompts from it) and its stderr collected by a thread. Ready once the
-    ingress banner is printed."""
+    ingress banner is printed; ``startup_s`` runs from the start to the
+    banner (``wait=False``: the caller waits with ``wait_ready``)."""
 
-    def __init__(self, store: str, args: list, tenants: str, timeout_s: float = 300.0):
+    def __init__(self, store: str, args: list, tenants: str, timeout_s: float = 300.0,
+                 wait: bool = True):
         import socket
         import threading
 
@@ -3010,7 +3148,9 @@ class Daemon:
                 ports.append(sk.getsockname()[1])
         self.port, self.metrics_port = ports
         self.lines: list = []
-        t0 = time.perf_counter()
+        self.ready_at = None
+        self._timeout_s = timeout_s
+        self._t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "llm_sharding_tpu_torch", "serve", store, *args,
              "--http-port", str(self.port), "--metrics-port", str(self.metrics_port),
@@ -3020,15 +3160,21 @@ class Daemon:
         )
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
-        while not any(ln.startswith("ingress: http://") for ln in self.lines):
-            if self.proc.poll() is not None or time.perf_counter() - t0 > timeout_s:
+        if wait:
+            self.wait_ready()
+
+    def wait_ready(self) -> None:
+        while self.ready_at is None:
+            if self.proc.poll() is not None or time.perf_counter() - self._t0 > self._timeout_s:
                 self.kill()
                 raise RuntimeError("the serve daemon did not come up:\n" + self.tail())
             time.sleep(0.05)
-        self.startup_s = time.perf_counter() - t0
+        self.startup_s = self.ready_at - self._t0
 
     def _read(self) -> None:
         for line in self.proc.stderr:
+            if self.ready_at is None and line.startswith("ingress: http://"):
+                self.ready_at = time.perf_counter()
             self.lines.append(line)
 
     def tail(self, n: int = 30) -> str:
@@ -3038,6 +3184,59 @@ class Daemon:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+
+
+# daemons started ahead by ``prestart_daemons``, by (store, args)
+_PRESTARTED: dict = {}
+
+
+def prestart_daemons(store: str, arg_lists: list, tenants: str) -> None:
+    """Start the [d] daemons all at once and wait until every one is up,
+    before any of them is measured: each takes ~13 s to reach the card and
+    load the store, which one after another the script's time limit pays
+    for each. ``daemon`` hands them out; an idle one sleeps in its poll
+    loop and holds only its memory on the card."""
+    started = [(tuple(a), Daemon(store, a, tenants, wait=False)) for a in arg_lists]
+    try:
+        for args, d in started:
+            d.wait_ready()
+    except Exception:
+        for _, d in started:
+            d.kill()
+        raise
+    _PRESTARTED.update({(store, args): d for args, d in started})
+    log(f"[d] {len(started)} daemons started together, up in "
+        f"{max(d.startup_s for _, d in started):.1f}s ({', '.join(f'{d.startup_s:.1f}' for _, d in started)})")
+
+
+def daemon(store: str, args: list, tenants: str) -> "Daemon":
+    """The daemon of ``args`` on ``store``: the one started ahead, else a
+    new one."""
+    d = _PRESTARTED.pop((store, tuple(args)), None)
+    return d if d is not None else Daemon(store, args, tenants)
+
+
+def stop_prestarted() -> None:
+    """Kill the daemons started ahead that no part took (a part failed)."""
+    while _PRESTARTED:
+        _PRESTARTED.popitem()[1].kill()
+
+
+def write_tenants(store: str) -> str:
+    """The daemons' tenants file beside ``store``."""
+    from llm_sharding_tpu_torch import smoke_workload
+
+    tenants = os.path.join(os.path.dirname(store), "tenants.json")
+    with open(tenants, "w") as f:
+        json.dump(smoke_workload.TENANTS, f)
+    return tenants
+
+
+def pipeline_daemon_args(eng) -> list:
+    from llm_sharding_tpu_torch import smoke_workload
+
+    return (["--stages", "2", "--tensor-parallel", "2", "--device", str(eng.device)]
+            + smoke_workload.daemon_args("llama32_3b", False))
 
 
 def http_workload(port: int, prompts, max_new: int) -> list:
@@ -3156,19 +3355,21 @@ def frontdoor_runs(eng, store: str, smi: str, paged_twin: dict) -> dict:
     from llm_sharding_tpu_torch import smoke_workload
 
     t_all = time.perf_counter()
-    tenants = os.path.join(os.path.dirname(store), "tenants.json")
-    with open(tenants, "w") as f:
-        json.dump(smoke_workload.TENANTS, f)
-    dense_counts = None
+    tenants = write_tenants(store)
+    dense_twin = inprocess_run(eng, True)
+    dense_counts = dense_twin["counts"]
+    require(dense_counts["flash_attention"] > 0, "phase d 3B daemon dense: flash never launched")
+    torch.cuda.empty_cache()
+    # this part's two daemons, the fleet's and the pipeline's
+    prestart_daemons(store, [smoke_workload.daemon_args("llama32_3b", True),
+                             smoke_workload.daemon_args("llama32_3b", False),
+                             smoke_workload.fleet_daemon_args("llama32_3b"),
+                             pipeline_daemon_args(eng)], tenants)
     for dense in (True, False):
         layout = "dense" if dense else "paged"
         tag = f"3B daemon {layout}"
-        twin = inprocess_run(eng, dense) if dense else paged_twin
-        if dense:
-            dense_counts = twin["counts"]
-            require(twin["counts"]["flash_attention"] > 0, f"phase d {tag}: flash never launched")
-        torch.cuda.empty_cache()
-        d = Daemon(store, smoke_workload.daemon_args("llama32_3b", dense), tenants)
+        twin = dense_twin if dense else paged_twin
+        d = daemon(store, smoke_workload.daemon_args("llama32_3b", dense), tenants)
         try:
             # two requests first, one-shot and chunked: the fresh process loads
             # the kernels and warms its libraries, as the twin's did long before
@@ -3268,32 +3469,42 @@ MIGRATED_ULPS = 1
 
 
 @contextlib.contextmanager
-def replica_launches():
-    """Each kernel's launches per replica (``r<d>``, its span source) while
-    the block runs: every ``PipelineServer.step`` is wrapped to attribute
-    the launches the kernels' own counters took during it (every kernel of
-    a served run launches inside a step)."""
+def launches_per(sites, wrap):
+    """Each kernel's launches per key while the block runs: every
+    ``(owner, attr)`` in ``sites`` is replaced by ``wrap(orig, count)``, in
+    which ``count(key, fn, *args)`` calls ``fn(*args)`` and attributes the
+    launches the kernels' own counters took during it to ``key``."""
     from llm_sharding_tpu_torch.ops import kernels as K
-    from llm_sharding_tpu_torch.runtime.server import PipelineServer
 
     out: dict = collections.defaultdict(collections.Counter)
-    orig = PipelineServer.step
 
-    def step(self):
+    def count(key, fn, *a, **kw):
         before = K.launch_counts()
         try:
-            return orig(self)
+            return fn(*a, **kw)
         finally:
             for k, n in K.launch_counts().items():
                 if n > before.get(k, 0):
-                    out[self._span_src][k] += n - before.get(k, 0)
+                    out[key][k] += n - before.get(k, 0)
 
-    PipelineServer.step = step
+    origs = [(o, attr, getattr(o, attr)) for o, attr in sites]
+    for o, attr, fn in origs:
+        setattr(o, attr, wrap(fn, count))
     try:
         yield out
     finally:
-        PipelineServer.step = orig
+        for o, attr, fn in origs:
+            setattr(o, attr, fn)
 
+
+def replica_launches():
+    """Each kernel's launches per replica (``r<d>``, its span source) while
+    the block runs: every ``PipelineServer.step`` is wrapped (every kernel
+    of a served run launches inside a step)."""
+    from llm_sharding_tpu_torch.runtime.server import PipelineServer
+
+    return launches_per([(PipelineServer, "step")],
+                        lambda fn, count: lambda self: count(self._span_src, fn, self))
 
 def run_fleet(rs, prompts, max_new: int, at=None) -> tuple:
     """Two requests, two router steps, until all are submitted, then the
@@ -3683,10 +3894,8 @@ def fleet_runs(eng, store: str, smi: str) -> dict:
     src[0] = full
     recorded.clear()
     twin = fleet_twin(full, prompts)
-    tenants = os.path.join(os.path.dirname(store), "tenants.json")
-    with open(tenants, "w") as f:
-        json.dump(smoke_workload.TENANTS, f)
-    dm = Daemon(store, smoke_workload.fleet_daemon_args("llama32_3b"), tenants)
+    tenants = write_tenants(store)
+    dm = daemon(store, smoke_workload.fleet_daemon_args("llama32_3b"), tenants)
     tag = "3B daemon --data-parallel 2 --disagg"
     try:
         key = smoke_workload.TENANTS["tenants"]["alice"]["key"]
@@ -3781,37 +3990,18 @@ def phase_fleet(device, store_root: str) -> dict:
 
 # ------------------------------------------------------ the pipeline ([c], [d])
 
-@contextlib.contextmanager
 def stage_launches():
     """Each kernel's launches per pipeline stage while the block runs:
     every stage's turn in the chain (``parallel/pipeline.run_stages``, which
-    the serve programs and ``generate`` share) is wrapped to attribute the
-    launches the kernels' counters took during it."""
-    from llm_sharding_tpu_torch.ops import kernels as K
+    the serve programs and ``generate`` share) is attributed to its stage."""
     from llm_sharding_tpu_torch.parallel import pipeline as pipe_mod
     from llm_sharding_tpu_torch.parallel import serve as serve_ops
 
-    out: dict = collections.defaultdict(collections.Counter)
-    orig = pipe_mod.run_stages
+    def wrap(orig, count):
+        return lambda stages, h, fn: orig(
+            stages, h, lambda i, st, h: count(i, fn, i, st, h))
 
-    def run_stages(stages, h, fn):
-        def counted(i, st, h):
-            before = K.launch_counts()
-            try:
-                return fn(i, st, h)
-            finally:
-                for k, n in K.launch_counts().items():
-                    if n > before.get(k, 0):
-                        out[i][k] += n - before.get(k, 0)
-
-        return orig(stages, h, counted)
-
-    pipe_mod.run_stages = serve_ops.run_stages = run_stages
-    try:
-        yield out
-    finally:
-        pipe_mod.run_stages = serve_ops.run_stages = orig
-
+    return launches_per([(pipe_mod, "run_stages"), (serve_ops, "run_stages")], wrap)
 
 def require_stage_kernels(tag: str, per: dict, n: int, modes=("",)) -> None:
     """Every one of ``n`` stages launched flash and both paged kernels (in
@@ -4006,12 +4196,7 @@ def pipeline_daemon(store: str, eng, paged_twin: dict, rec) -> None:
     from llm_sharding_tpu_torch import smoke_workload
     from llm_sharding_tpu_torch.parallel.placement import PlacementSpec
 
-    tenants = os.path.join(os.path.dirname(store), "tenants.json")
-    with open(tenants, "w") as f:
-        json.dump(smoke_workload.TENANTS, f)
-    args = (["--stages", "2", "--tensor-parallel", "2", "--device", str(eng.device)]
-            + smoke_workload.daemon_args("llama32_3b", False))
-    d = Daemon(store, args, tenants)
+    d = daemon(store, pipeline_daemon_args(eng), write_tenants(store))
 
     def metrics():
         return json.loads(http_get(d.metrics_port, "/statz")[1])["metrics"]
@@ -4249,37 +4434,17 @@ def tp_kernel_cases(model: str) -> list:
     return cases
 
 
-@contextlib.contextmanager
 def shard_launches():
     """Each kernel's launches per tensor shard while the block runs: every
     shard's part of a layer (``models/stack.tp_reduce``'s per-shard call,
-    which holds the shard's attention) is wrapped to attribute the launches
-    the counters took during it; a one-device layer counts as shard 0."""
+    which holds the shard's attention) is attributed to its shard; a
+    one-device layer counts as shard 0."""
     from llm_sharding_tpu_torch.models import gpt2, llama
-    from llm_sharding_tpu_torch.models import stack
-    from llm_sharding_tpu_torch.ops import kernels as K
 
-    out: dict = collections.defaultdict(collections.Counter)
-    orig = stack.tp_reduce
+    def wrap(orig, count):
+        return lambda p, h, fn: orig(p, h, lambda pj, hj, j: count(j or 0, fn, pj, hj, j))
 
-    def tp_reduce(p, h, fn):
-        def counted(pj, hj, j):
-            before = K.launch_counts()
-            try:
-                return fn(pj, hj, j)
-            finally:
-                for k, n in K.launch_counts().items():
-                    if n > before.get(k, 0):
-                        out[j or 0][k] += n - before.get(k, 0)
-
-        return orig(p, h, counted)
-
-    llama.tp_reduce = gpt2.tp_reduce = tp_reduce
-    try:
-        yield out
-    finally:
-        llama.tp_reduce = gpt2.tp_reduce = orig
-
+    return launches_per([(llama, "tp_reduce"), (gpt2, "tp_reduce")], wrap)
 
 @contextlib.contextmanager
 def decode_reduces():
@@ -4470,6 +4635,160 @@ def check_parallel(tag: str, eng, cpu_eng, cpu_params, prompts, lens, max_new: i
     log(f"[c] {tag} tensor / context parallel checks took {time.perf_counter() - t_all:.1f}s")
 
 
+@contextlib.contextmanager
+def cp_launches():
+    """Each kernel's launches per context-parallel shard while the block
+    runs, and ``register(srv)``: every shard's attention call of a cp layer
+    (``models/llama.cp_attn_fn`` calls the kernel wrappers once per shard)
+    is attributed to its shard by the arena storage it reads, which a
+    registered server's state names (-1: not registered)."""
+    from llm_sharding_tpu_torch.models import llama
+
+    owner: dict = {}
+
+    def register(srv):
+        for ar in srv.state.arenas:
+            for sh, part in enumerate(ar.k.parts):
+                owner[part.untyped_storage().data_ptr()] = sh
+
+    def wrap(fn, count):
+        return lambda q, k_arena, *a, **kw: count(
+            owner.get(k_arena.untyped_storage().data_ptr(), -1), fn, q, k_arena, *a, **kw)
+
+    with launches_per([(llama, "paged_attention"), (llama, "paged_prefill")], wrap) as out:
+        yield out, register
+
+def stats_only(tag: str, per: dict, cp: int) -> None:
+    """Every shard launched the stats mode of both paged kernels, and no
+    shard ran the normal mode (a cp server's attention is stats only)."""
+    for sh in range(cp):
+        c = per.get(sh, {})
+        for k in ("paged_attention[stats]", "paged_prefill[stats]"):
+            require(c.get(k, 0) > 0, f"{tag}: shard {sh} never launched {k} ({dict(c)})")
+        normal = {k: n for k, n in c.items() if "stats" not in k and n}
+        require(not normal, f"{tag}: shard {sh} launched the normal mode {normal}")
+    require(-1 not in per, f"{tag}: paged launches outside the cp shards: {dict(per.get(-1, {}))}")
+
+
+def cp_engine(cfg, params, dev, cp: int):
+    """A one-stage engine with room for a cp-shard grid (``devices=[dev] *
+    cp``: every shard on the one card)."""
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+
+    return Engine(cfg, params, num_stages=1, devices=[dev] * cp)
+
+
+def check_cp(tag: str, eng, cpu_eng, cpu_params, prompts, lens, max_new: int,
+             cpu_want: list, card_want: list) -> None:
+    """[c] context-parallel serving on one card (``serve(cp=N)``, every
+    shard on ``cuda:0``), f32: the served streams (one-shot and chunked) at
+    cp 2 and 4 held to the cp-1 server's and to ``generate`` on the CPU
+    (a mismatch passes only where the CPU run's top-2 gap is < 1e-4), every
+    shard launching the stats mode of both paged kernels and no normal
+    mode; at cp 2 a radix hit (admitted chunked), a snapshot restored into
+    a fresh server mid-decode, and a disagg hand-off between two cp-2
+    replicas (``ok``, streamed per shard)."""
+    import torch
+
+    from llm_sharding_tpu_torch.obs.metrics import CP_STREAM_SHARDS, DISAGG_HANDOFFS
+    from llm_sharding_tpu_torch.runtime.disagg import DisaggServer
+    from llm_sharding_tpu_torch.runtime.server import PipelineServer
+
+    cfg, dev = eng.cfg, eng.device
+    t_all = time.perf_counter()
+    cp1, _ = served_streams(eng, prompts, max_new)
+    hold_to_cpu(f"{tag} served cp 1 vs the card's generate", cp1, card_want, prompts, cpu_eng)
+    for cp in (2, 4):
+        ceng = cp_engine(cfg, cpu_params, dev, cp)
+        with cp_launches() as (per, register_cp):
+            orig = ceng.serve
+
+            def serve(**kw):
+                srv = orig(**kw)
+                register_cp(srv)
+                return srv
+
+            ceng.serve = serve
+            got, _ = served_streams(ceng, prompts, max_new, cp=cp)
+        del ceng.serve
+        hold_to_cpu(f"{tag} served cp {cp} vs cp 1 (one-shot + chunked)", got, cp1,
+                    prompts, cpu_eng)
+        hold_to_cpu(f"{tag} served cp {cp} vs CPU generate", got, cpu_want, prompts, cpu_eng)
+        stats_only(f"phase c {tag} cp {cp}", per, cp)
+        log(f"[c] {tag} served cp {cp}: launches per shard "
+            f"{ {sh: dict(c) for sh, c in sorted(per.items())} } "
+            f"({time.perf_counter() - t_all:.1f}s in)")
+        if cp == 4:
+            del ceng
+            continue
+        # a radix hit: the long prompt's first 512 tokens, then another suffix
+        srv = ceng.serve(capacity=2048, batch_per_slot=2, kv_block_size=64, kv_blocks=160,
+                         prefill_chunk=256, prefix_cache="hbm", cp=cp)
+        r1 = srv.submit(prompts[3], max_new)
+        srv.run_until_idle()
+        p2 = np.concatenate([prompts[3][:512], prompts[1]])
+        hit0 = srv._radix.hit_tokens
+        r2 = srv.submit(p2, max_new)
+        srv.run_until_idle()
+        require(srv._radix.hit_tokens - hit0 == 512, f"phase c {tag} cp 2: the radix hit fell "
+                f"back ({srv._radix.hit_tokens - hit0} tokens)")
+        w2 = cpu_eng.generate_ids(p2, max_new)
+        hold_to_cpu(f"{tag} cp 2 radix hit (512 + {len(prompts[1])})", [r1.tokens, r2.tokens],
+                    [cpu_want[3], w2.tokens[0, len(p2): w2.lengths[0]].tolist()],
+                    [prompts[3], p2], cpu_eng)
+        srv._alloc.check()
+        srv._radix.check()
+        srv.close()
+        log(f"[c] {tag} cp 2 radix hit: 512 tokens ({time.perf_counter() - t_all:.1f}s in)")
+        # snapshot mid-decode, restored into a fresh server
+        srv = ceng.serve(capacity=2048, batch_per_slot=4, kv_block_size=64, kv_blocks=160,
+                         prefill_chunk=256, cp=cp)
+        reqs = [srv.submit(p, max_new) for p in prompts]
+        for _ in range(40):
+            srv.step()
+            if all(r.tokens for r in reqs):
+                break
+        srv.step()
+        snap = srv.snapshot()
+        srv.close()
+        srv2 = PipelineServer.restore(ceng, snap)
+        require(srv2.cp == 2, f"phase c {tag}: restored at cp {srv2.cp}")
+        revived = {r.id: r for r in list(srv2._req) + list(srv2._queue) if r is not None}
+        srv2.run_until_idle()
+        got = [revived[r.id].tokens if r.id in revived else r.tokens for r in reqs]
+        hold_to_cpu(f"{tag} cp 2 snapshot / restore", got, cpu_want, prompts, cpu_eng)
+        srv2._alloc.check()
+        srv2.close()
+        del ceng
+        torch.cuda.empty_cache()
+    # the disagg hand-off between two cp-2 replicas, streamed per shard
+    ok0 = DISAGG_HANDOFFS.labels(outcome="ok").value
+    sh0 = CP_STREAM_SHARDS.labels(outcome="ok").value
+    ds = DisaggServer(cfg, cpu_params, data_parallel=2, cp=2, devices=[dev] * 4,
+                      roles=["prefill", "decode"], capacity=2048, kv_block_size=64,
+                      kv_blocks=160, prefill_chunk=256, prefix_cache="hbm", async_handoff=False)
+    reqs = []
+    for p in prompts[2:]:
+        r = ds.submit(p, max_new)
+        reqs.append(r)
+        while not r.tokens:
+            ds.step()
+    ds.run_until_idle()
+    hold_to_cpu(f"{tag} cp 2 disagg hand-off", [r.tokens for r in reqs], cpu_want[2:],
+                prompts[2:], cpu_eng)
+    oks = DISAGG_HANDOFFS.labels(outcome="ok").value - ok0
+    shards = CP_STREAM_SHARDS.labels(outcome="ok").value - sh0
+    require(oks == len(reqs), f"phase c {tag}: {oks} of {len(reqs)} cp hand-offs ok")
+    require(shards >= 2 * len(reqs), f"phase c {tag}: {shards} per-shard stream passes")
+    for s in ds.servers:
+        s._alloc.check()
+    ds.close()
+    del ds
+    torch.cuda.empty_cache()
+    log(f"[c] {tag} cp 2 disagg: {oks:g} hand-offs ok, {shards:g} per-shard stream passes; "
+        f"context-parallel serving checks took {time.perf_counter() - t_all:.1f}s")
+
+
 # [d]: the 3B store engine over the standard workload's 8 rows at each placement,
 # with a tp-1 run before the first and after each (``PARALLEL_BASE``):
 # each placement is held to the mean of the tp-1 runs on either side
@@ -4578,12 +4897,9 @@ def tp_daemon(store: str, eng, paged_twin: dict, rec) -> None:
     held to the in-process twin's (``TIE_ULPS``); SIGTERM drains it."""
     from llm_sharding_tpu_torch import smoke_workload
 
-    tenants = os.path.join(os.path.dirname(store), "tenants.json")
-    with open(tenants, "w") as f:
-        json.dump(smoke_workload.TENANTS, f)
     args = (["--tensor-parallel", "2", "--device", str(eng.device)]
             + smoke_workload.daemon_args("llama32_3b", False))
-    d = Daemon(store, args, tenants)
+    d = Daemon(store, args, write_tenants(store))
     try:
         require(any("2 tensor shards each from" in ln for ln in d.lines),
                 f"phase d tp daemon: banner\n{d.tail()}")
@@ -4684,6 +5000,203 @@ def context_runs(eng, smi: str) -> None:
         log(f"[d] context cp {cp}: ring prefill {pre_s * 1e3:.0f} ms, peak {pre_mem:.2f} GiB; "
             f"first {n} tokens: {sum(a == b for a, b in zip(g, w))} equal to generate's")
         torch.cuda.empty_cache()
+
+
+def cp_serve(eng, cp: int) -> tuple:
+    """The standard workload over 8 rows at one stage, the arena over
+    ``cp`` shards (``cp`` 1: the unsharded server), staggered; returns
+    ``(tokens, numbers, per-shard launches, all launches, server_cp_combine_
+    seconds count and mean)``."""
+    import torch
+
+    from llm_sharding_tpu_torch import smoke_workload
+    from llm_sharding_tpu_torch.ops import kernels as K
+    from llm_sharding_tpu_torch.runtime.server import CP_COMBINE_SECONDS
+
+    w = smoke_workload.WORKLOADS["llama32_3b"]
+    hist = CP_COMBINE_SECONDS.labels()
+    n0, s0 = hist.count, hist.sum
+    srv = eng.serve(capacity=w.capacity, batch_per_slot=smoke_workload.ROWS,
+                    kv_block_size=smoke_workload.BLOCK_SIZE, kv_blocks=w.kv_blocks,
+                    prefill_chunk=smoke_workload.PREFILL_CHUNK, cp=cp)
+    prompts = smoke_workload.prompts(eng.cfg.vocab_size, np.random.default_rng(0), w.lens)
+    torch.cuda.synchronize()
+    before = K.launch_counts()
+    with cp_launches() as (per, register_cp):
+        if cp > 1:
+            register_cp(srv)
+        reqs = smoke_workload.submit_staggered(srv, prompts)
+        srv.run_until_idle()
+    torch.cuda.synchronize()
+    totals = {k: n - before.get(k, 0) for k, n in K.launch_counts().items()}
+    for r in reqs:
+        require(r.done and r.error is None, f"phase d cp {cp}: request {r.id} failed")
+    srv._alloc.check()
+    require(srv._alloc.in_use == 0, f"phase d cp {cp}: KV blocks still held")
+    srv.close()
+    n = hist.count - n0
+    return ([list(r.tokens) for r in reqs], fleet_numbers(reqs), per, totals,
+            (n, (hist.sum - s0) / max(n, 1)))
+
+
+def cp_runs(eng, smi: str, paged_twin: dict) -> dict:
+    """[d] The 3B bf16 store engine over the standard workload at cp 2 and
+    cp 4 (every shard on ``cuda:0``, the weights staged once from a host
+    copy), with a cp-1 run (the store engine) before the first and after
+    each; every stream equals the twin's or first differs at a near tie
+    (``TIE_ULPS``; the shards' merge sums in another order); every shard
+    launches the stats mode of both paged kernels and nothing of the normal
+    mode. Printed per run: decode tok/s, TTFT p50 / p99, launches per
+    shard, ``server_cp_combine_seconds``; each cp run beside the mean of its
+    cp-1 neighbours. Returns the cp runs' launch counts, all shards
+    summed (``cp2``, ``cp4``) and per shard (``cp2/shards``, ...)."""
+    import torch
+
+    from llm_sharding_tpu_torch.parallel.pipeline import map_params
+
+    t_all = time.perf_counter()
+    cfg = eng.cfg
+    host = map_params(lambda t: t.to("cpu"), eng.params)
+    rec = lambda: inprocess_run(eng, False, record=True)  # noqa: E731 — only on a mismatch
+    order = [1, 2, 1, 4, 1]
+    out, runs = {}, []
+    for k, cp in enumerate(order):
+        t0 = time.perf_counter()
+        peng = eng if cp == 1 else cp_engine(cfg, host, eng.device, cp)
+        torch.cuda.synchronize()
+        staged = time.perf_counter() - t0
+        tokens, nums, per, totals, (ncomb, mcomb) = cp_serve(peng, cp)
+        runs.append(nums)
+        hold_to(f"3B cp {cp} (run {k + 1}) vs twin", tokens, paged_twin["tokens"], rec)
+        shards = {sh: dict(c) for sh, c in sorted(per.items())}
+        comb = ""
+        if cp > 1:
+            stats_only(f"phase d 3B cp {cp}", per, cp)
+            out[f"cp{cp}"] = totals
+            out[f"cp{cp}/shards"] = shards
+            comb = (f"; server_cp_combine_seconds: {ncomb} decode dispatches, mean "
+                    f"{mcomb * 1e3:.3f} ms")
+            del peng
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"[d] 3B run {k + 1}, cp {cp} (staged in {staged:.2f}s) on {smi}: decode "
+            f"{nums['tok_s']:.1f} tok/s, TTFT p50 {nums['p50']:.0f} ms p99 {nums['p99']:.0f} ms; "
+            f"launches per shard {shards if cp > 1 else totals}{comb}")
+    for k in (1, 3):
+        base = {m: (runs[k - 1][m] + runs[k + 1][m]) / 2 for m in ("tok_s", "p50", "p99")}
+        log(f"[d] 3B cp {order[k]}: decode {runs[k]['tok_s'] / base['tok_s']:.3f}x, TTFT p50 "
+            f"{runs[k]['p50'] / base['p50']:.3f}x, p99 {runs[k]['p99'] / base['p99']:.3f}x the "
+            "cp-1 runs' mean")
+    del host
+    gc.collect()
+    log(f"[d] 3B context-parallel serving took {time.perf_counter() - t_all:.1f}s")
+    return out
+
+
+def cp_long_run(device, smi: str) -> None:
+    """[d] One 8160-token prompt served at cp 2 on Llama-3.2-3B at its
+    full 28 layers (random weights made on the card; the positions the
+    model takes raised to 16384, within the 131072 of the published
+    config, since the admission bucket of 8160 tokens is 8192), with 79
+    usable blocks of 64 per shard: the prompt's 129 blocks exceed one
+    shard's arena, so cp 1 refuses it (``NeverFits``) and cp 2 admits it,
+    its blocks on both shards. Its 32 tokens equal ``generate``'s (the flash
+    prefill) or first differ at a near tie (``TIE_ULPS``). Printed: the
+    admission wall (submit to first token, 32 chunks through the stats
+    kernels), decode tok/s, peak memory, launches per shard."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.runtime.generate import generate
+    from llm_sharding_tpu_torch.runtime.server import NeverFits
+
+    t_all = time.perf_counter()
+    cfg = dataclasses.replace(config.llama32_3b(), max_position_embeddings=16384)
+    params = llama.init_params(cfg, seed=3, dtype=torch.bfloat16, device=device)
+    n, S = 32, 8160
+    p = np.random.default_rng(13).integers(0, cfg.vocab_size, S).astype(np.int32)
+    want = generate(cfg, params, p[None], n).tokens[0, S:].tolist()
+    ceng = cp_engine(cfg, params, device, 2)
+    del params
+    torch.cuda.empty_cache()
+    kw = dict(capacity=8256, batch_per_slot=1, kv_block_size=64, kv_blocks=80,
+              prefill_chunk=256)
+    srv1 = ceng.serve(cp=1, **kw)
+    try:
+        srv1.submit(p, n)
+        require(False, "phase d long context: cp 1 admitted a prompt past one shard's arena")
+    except NeverFits as e:
+        require("KV blocks" in str(e), f"phase d long context: cp 1 refused with {e}")
+    srv1.close()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with cp_launches() as (per, register_cp):
+        srv = ceng.serve(cp=2, **kw)
+        register_cp(srv)
+        r = srv.submit(p, n)
+        while not r.tokens and not r.done:
+            srv.step()
+        require(r.error is None, f"phase d long context: the request failed: {r.error!r}")
+        owners = {srv._alloc.owner(g) for row in srv._row_blocks for g in row}
+        srv.run_until_idle()
+    torch.cuda.synchronize()
+    require(r.error is None and owners == {0, 1}, f"phase d long context: owners {owners}, "
+            f"error {r.error!r}")
+    g = list(r.tokens)
+    if g != want:
+        j = next(j for j in range(n) if g[j] != want[j])
+        gap, top = top2_gap_top(cfg, ceng.params, np.concatenate([p, np.asarray(want[:j])]))
+        ulp = bf16_ulp(top)
+        log(f"[d] long context cp 2: first differs from generate at token {j}, top-2 gap "
+            f"{gap:.4g} ({gap / ulp:.1f} bf16 ulp)")
+        require(gap <= TIE_ULPS * ulp, f"phase d long context cp 2: differs at token {j}, a gap "
+                f"of {gap / ulp:.1f} ulp")
+    stats_only("phase d long context cp 2", per, 2)
+    admit = r.first_token_at - r.submitted_at
+    decode = (len(g) - 1) / (r.finished_at - r.first_token_at)
+    log(f"[d] long context on {smi}: {S}-token prompt at cp 2, 28 layers, 79 usable blocks per "
+        f"shard (the prompt needs 129): admission {admit * 1e3:.0f} ms, decode {decode:.1f} tok/s, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches per shard "
+        f"{ {sh: dict(c) for sh, c in sorted(per.items())} }; "
+        f"{sum(a == b for a, b in zip(g, want))} of {n} tokens equal to generate's; "
+        f"took {time.perf_counter() - t_all:.1f}s")
+    srv.close()
+    del ceng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def launch_run(eng, store: str, smi: str) -> None:
+    """[d] ``launch --processes 2`` on the card: two worker processes over
+    ``gloo``, each loading its half of the 3B store's layers onto
+    ``cuda:0`` and passing the hidden state through pinned host memory;
+    rank 0's ids must equal the one-process ``generate`` of the same
+    store (this engine: ``generate`` command's path). Printed: the launch
+    wall and each rank's hops and bytes."""
+    n = 16
+    p = np.random.default_rng(14).integers(0, eng.cfg.vocab_size, 64).astype(np.int32)
+    res = eng.generate_ids(p, n)
+    want = " ".join(str(int(t)) for t in res.tokens[0, len(p): int(res.lengths[0])])
+    logs = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "llm_sharding_tpu_torch", "launch", store, "--processes", "2",
+         "--prompt-ids", ",".join(str(int(t)) for t in p), "--max-new", str(n), "--dtype",
+         "bf16", "--device", "cuda", "--log-dir", logs,
+         "--timeout", "120"],
+        capture_output=True, text=True, timeout=180, cwd=REPO_ROOT,
+    )
+    wall = time.perf_counter() - t0
+    worker = []
+    for i in range(2):
+        with open(os.path.join(logs, f"worker_{i}.log")) as fh:
+            worker += [ln.strip() for ln in fh if "hops" in ln]
+    shutil.rmtree(logs, ignore_errors=True)
+    require(proc.returncode == 0, f"phase d launch: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    require(proc.stdout.strip() == want, f"phase d launch: rank 0 printed {proc.stdout.strip()!r}, "
+            f"generate {want!r}")
+    log(f"[d] launch --processes 2 on {smi}: {eng.cfg.num_hidden_layers}-layer 3B store, "
+        f"{n} tokens equal to the one-process generate; wall {wall:.1f}s; {'; '.join(worker)}")
 
 
 def top2_gap_top(cfg, params, ids: np.ndarray) -> tuple:
@@ -4810,6 +5323,72 @@ def attach_tp_launches(rows: list, counts: dict) -> list:
         r["launches"] = per.get(r["name"], 0)
     return rows
 
+def attach_cp_launches(rows: list, counts: dict) -> list:
+    """Each stats-mode [b] row's launches in the [d] cp-2 run, all shards
+    summed, and per shard; a kernel of that run's path that never launched
+    fails the script."""
+    for r in rows:
+        key = f"{r['model']}/{r['workload']}"
+        r["launches"] = counts[key].get(r["name"], 0)
+        r["shard_launches"] = {str(sh): c.get(r["name"], 0)
+                               for sh, c in counts[f"{key}/shards"].items()}
+        require(r["launches"] > 0, f"{r['name']}: no launch in the {key} run")
+    return rows
+
+
+def phase_cp(device, store_root: str) -> list:
+    """``--cp``: [b] the stats-mode rows, [c]'s context-parallel checks on
+    the f32 3B at 4 layers, [d] the 3B bf16 store (``D_3B`` layers) at cp 1
+    / 2 / 1 / 4 / 1, the 8160-token prompt on 28 layers at cp 2, and the
+    2-rank launch. Returns the [b] rows with their launches."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.runtime.engine import Engine
+    from llm_sharding_tpu_torch.utils.shard_store import save_shards
+
+    t0 = time.perf_counter()
+    rows = phase_stats_kernels(config.llama32_3b(), device, "llama32_3b")
+    log(f"[e] (b) stats-mode rows took {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=4)
+    cpu_params = llama.init_params(cfg, seed=7, dtype=torch.float32, device="cpu")
+    eng, cpu_eng = Engine(cfg, to_device(cpu_params, device)), Engine(cfg, cpu_params)
+    rng = np.random.default_rng(7)
+    lens = [40, 200, 700, 1000]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    card_want = check_against_generate("3B", eng, prompts, lens, 16)
+    cpu_want = check_against_generate("3B vs CPU", eng, prompts, lens, 16, oracle=cpu_eng)
+    check_cp("3B", eng, cpu_eng, cpu_params, prompts, lens, 16, cpu_want, card_want)
+    log(f"[e] (c) took {time.perf_counter() - t0:.0f}s")
+    del eng, cpu_eng, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=D_3B)
+    t0 = time.perf_counter()
+    store = os.path.join(store_root, "llama32_3b_bf16")
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(cfg, params, store)
+    del params
+    torch.cuda.empty_cache()
+    eng = load_store(store, "3B bf16", device, time.perf_counter() - t0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    paged_twin = inprocess_run(eng, False)
+    log(f"[e] (d) store and twin took {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    launch_run(eng, store, smi)
+    log(f"[e] (d) launch took {time.perf_counter() - t0:.0f}s")
+    counts = {f"llama32_3b/{k}": v for k, v in cp_runs(eng, smi, paged_twin).items()}
+    t0 = time.perf_counter()
+    cp_long_run(device, smi)
+    log(f"[e] (d) long context took {time.perf_counter() - t0:.0f}s")
+    del eng
+    shutil.rmtree(store)
+    return attach_cp_launches(rows, counts)
+
+
 def match_frac(tokens, base) -> float:
     return float(np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)]))
 
@@ -4867,6 +5446,14 @@ def main(argv: list) -> int:
             shutil.rmtree(store, ignore_errors=True)
         log(f"[e] total {time.perf_counter() - t_all:.0f}s")
         return 0
+    if argv[:1] == ["--cp"]:
+        store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        try:
+            print(json.dumps({"kernels": phase_cp(device, store)}))
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        log(f"[e] total {time.perf_counter() - t_all:.0f}s")
+        return 0
     if argv[:1] == ["--kernels"]:
         rows = [r for m in argv[1:]
                 for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",))]
@@ -4899,6 +5486,7 @@ def main(argv: list) -> int:
                             tp=True)
     tp_rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),
                              tp=True)
+    stats_rows = phase_stats_kernels(config.llama32_3b(), device, "llama32_3b")
     log(f"[e] phases (a) and (b) took {time.perf_counter() - t_all:.0f}s")
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
@@ -4922,6 +5510,7 @@ def main(argv: list) -> int:
                 run: {str(s): c.get(r["name"], 0) for s, c in per.items()}
                 for run, per in counts["llama32_3b/pipeline"].items()}
     rows += attach_tp_launches(tp_rows, counts)
+    rows += attach_cp_launches(stats_rows, counts)
     log(f"[e] total {time.perf_counter() - t_all:.0f}s")
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

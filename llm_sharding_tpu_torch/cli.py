@@ -7,10 +7,12 @@
         [--dtype bf16|f32|int8|int4] [--quantize-head]
     python -m llm_sharding_tpu_torch trace-report FILES... [--top N] [--trace ID] [--json]
     python -m llm_sharding_tpu_torch step-report FILES... [--top N] [--json]
+    python -m llm_sharding_tpu_torch launch STORE --processes N --prompt TEXT [--max-new N]
+    python -m llm_sharding_tpu_torch worker STORE --coordinator HOST:PORT --processes N \
+        --process-id I --prompt TEXT
 
 ``generate`` runs one text prompt (``cli.py:157``; ``--stream`` through a
-shared server). ``serve`` is the daemon (``cli.py:433-1094``, without
-tensor and context parallelism): one text prompt per stdin line, its
+shared server). ``serve`` is the daemon (``cli.py:433-1094``): one text prompt per stdin line, its
 completion streamed to stdout; the control lines ``:counters``,
 ``:stats``, ``:snapshot DIR``, ``:profile N [DIR]`` and ``:placement``
 (hot repartition); ``--http-port`` starts the HTTP/SSE ingress with
@@ -23,11 +25,21 @@ replicas behind the supervised router (``runtime/replicated.py``), with ``:drain
 and ``--disagg`` prefill/decode roles (``runtime/disagg.py``;
 ``--prefill-replicas``, ``--roles``, ``--profile-json``). ``--stages N``
 / ``--ranges a:b,...`` cut the model into pipeline stages
-(``parallel/placement.py``). Both commands run on the GPU unless
-``--device cpu`` is given (the one flag the JAX parser lacks): the one
-device runs every stage (and every replica's stages). Flags of later
-slices keep the JAX names and exit 2 before the model loads, naming the
-``ROADMAP.md`` item that ports them.
+(``parallel/placement.py``), ``--tensor-parallel T`` shards each stage,
+``--cp N`` splits the paged arena over N shards (context-parallel
+serving). Both commands run on the GPU unless ``--device cpu`` is given
+(the one flag the JAX parser lacks): the one device runs every stage,
+shard and replica. A store without a tokenizer takes ``--prompt-ids``
+(comma-separated token ids) and prints the generated ids.
+
+``worker`` / ``launch`` (``cli.py:1125``, ``:1162``) run the model as one
+OS process per pipeline stage, the reference's ring: each rank joins a
+``torch.distributed`` group over ``gloo`` (``parallel/distributed.py``;
+the one backend that puts several ranks on one GPU, named by every rank),
+loads its stage's layers only, and passes the hidden state on; the last
+rank's token goes back to rank 0, which prints the completion, the text
+of the one-process ``generate``. ``launch`` spawns the N workers on this
+host with their logs in ``--log-dir/worker_<i>.log``.
 
 ``convert`` turns an HF checkpoint directory into a shard store either
 package serves (``cli.py:129-154``, ``:1468-1478``): ``--dtype int8`` /
@@ -138,21 +150,36 @@ def _engine(args):
     L = cfg.num_hidden_layers
     placement = _placement(args, L)
     tp = getattr(args, "tensor_parallel", 1)
-    if placement is None and tp == 1:
+    cp = getattr(args, "cp", 1)
+    if placement is None and tp == 1 and cp == 1:
         return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), device=args.device)
+    # --cp N: the server's cp × stages grid comes from the engine's devices
     return Engine.from_shards(args.shards, dtype=_dtype(args.dtype), placement=placement,
                               num_stages=None if placement else 1,
-                              devices=[args.device] * (L * tp), tensor_parallel=tp)
+                              devices=[args.device] * (L * tp * cp), tensor_parallel=tp)
+
+
+def _prompt_ids(text: str) -> np.ndarray:
+    """``--prompt-ids``: comma-separated token ids."""
+    return np.asarray([int(t) for t in text.split(",") if t.strip()], np.int32)
+
+
+def _ids_text(ids) -> str:
+    """Generated ids as ``--prompt-ids`` prints them."""
+    return " ".join(str(int(t)) for t in ids)
 
 
 def cmd_generate(args) -> int:
     """One prompt (JAX ``cli.py:157``): the completion, or with ``--stream``
-    its deltas as they commit through a shared server."""
-    bad = _later_slice_flag(args)
-    if bad:
-        print(f"error: {bad}", file=sys.stderr)
-        return 2
+    its deltas as they commit through a shared server. ``--prompt-ids``
+    (a store without a tokenizer): the generated ids."""
     eng = _engine(args)
+    if args.prompt_ids is not None:
+        p = _prompt_ids(args.prompt_ids)
+        res = eng.generate_ids(p, args.max_new, temperature=args.temperature, top_k=args.top_k,
+                               top_p=args.top_p, seed=args.seed)
+        print(_ids_text(res.tokens[0, len(p) : int(res.lengths[0])]))
+        return 0
     if args.stream:
         for delta in eng.generate_text_stream(
             args.prompt, args.max_new, temperature=args.temperature, seed=args.seed,
@@ -166,22 +193,6 @@ def cmd_generate(args) -> int:
             top_p=args.top_p, seed=args.seed,
         ))
     return 0
-
-
-# flags the JAX parser has and a later slice ports: (dest, default, flag, item)
-_LATER_SLICE_FLAGS = (
-    ("cp", 1, "--cp", "§A 16b (context-parallel serving and multi-host)"),
-)
-
-
-def _later_slice_flag(args) -> str:
-    """The refusal of a flag a later slice of the port carries, or ''."""
-    for dest, default, flag, item in _LATER_SLICE_FLAGS:
-        if getattr(args, dest, default) != default:
-            return (f"{flag} comes with a later slice of the port: ROADMAP.md {item}; "
-                    "this port serves pipeline stages, tensor shards and replicas, not "
-                    "a context-parallel arena")
-    return ""
 
 
 def _serve_control(eng, srv, line: str, args):
@@ -442,6 +453,19 @@ def _fast_fail(args) -> str:
         return ("--disk-pool-dir/--disk-pool-blocks configure the disk "
                 "KV tier — they need --prefix-cache disk (got --prefix-cache "
                 f"{args.prefix_cache})")
+    if args.cp > 1:  # JAX cli.py:524-543, the same order and words
+        if not args.kv_block_size:
+            return ("--cp needs paged KV serving "
+                    "(--kv-block-size/--kv-blocks): context parallelism "
+                    "shards the paged arena")
+        if args.tensor_parallel > 1:
+            return "--cp with --tensor-parallel is not supported yet"
+        if args.speculate:
+            return "--cp with --speculate is not supported yet"
+        if args.prefix_cache != "off" and not args.prefill_chunk:
+            return ("--cp with --prefix-cache needs --prefill-chunk: "
+                    "radix hits admit through the chunked ring-prefill "
+                    "path under context parallelism")
     if args.tenants_config and not args.http_port:
         return ("--tenants-config needs --http-port (tenant policy is "
                 "enforced at the HTTP ingress; stdin prompts have no tenant)")
@@ -455,7 +479,7 @@ def _fast_fail(args) -> str:
             load_tenants_config(args.tenants_config)
         except (OSError, ValueError, TypeError, KeyError) as e:
             return f"bad --tenants-config: {e}"
-    return _later_slice_flag(args)
+    return ""
 
 
 def _serve_kwargs(args) -> dict:
@@ -470,7 +494,7 @@ def _serve_kwargs(args) -> dict:
         kv_dtype=args.kv_dtype, paged_attn="plain" if args.paged_attn == "xla" else args.paged_attn,
         prefix_cache=args.prefix_cache, host_pool_blocks=args.host_pool_blocks,
         disk_pool_dir=args.disk_pool_dir, disk_pool_blocks=args.disk_pool_blocks,
-        gauge_sweep_every_s=args.gauge_sweep_every,
+        gauge_sweep_every_s=args.gauge_sweep_every, cp=args.cp,
     )
 
 
@@ -512,6 +536,7 @@ def _restore(eng, args):
             ("host_pool_blocks", args.host_pool_blocks or None, srv.host_pool_blocks or None),
             ("disk_pool_dir", args.disk_pool_dir, srv.disk_pool_dir),
             ("disk_pool_blocks", args.disk_pool_blocks or None, srv.disk_pool_blocks or None),
+            ("cp", args.cp, srv.cp),
         )
         if got != used
     ]
@@ -573,7 +598,8 @@ def _fleet(args):
     placement = _placement(args, cfg.num_hidden_layers)
     # every stage and tensor shard of every replica on the one device
     tp = args.tensor_parallel
-    devs = [args.device] * (args.data_parallel * (placement.num_stages if placement else 1) * tp)
+    per = (placement.num_stages if placement else 1) * tp * args.cp
+    devs = [args.device] * (args.data_parallel * per)
     cfg, params = shard_store.load_full(args.shards, dtype=_dtype(args.dtype), device="cpu")
     extra: dict = {}
     if args.disagg:
@@ -658,6 +684,8 @@ def _serve(args, term: threading.Event) -> int:
         stages = f"{eng.num_stages} stages from " if eng.num_stages > 1 else ""
         if eng.tensor_parallel > 1:
             stages = f"{stages}{eng.tensor_parallel} tensor shards each from "
+        if srv.cp > 1:
+            mode = f"{mode} per shard, {srv.cp} context-parallel shards"
         print(f"serving {eng.cfg.model_type} on {stages}{eng.device} (capacity={srv.capacity}, "
               f"rows={srv.rows}, {mode}); enter a prompt, ^D to exit", file=sys.stderr)
     ingress = None
@@ -789,6 +817,156 @@ def _start_metrics(port, statz_extra=None, health=None, profilez=None):
     return ms
 
 
+def cmd_worker(args) -> int:
+    """One process of the ring (JAX ``cli.py:1125``, after the reference's
+    ``start_node.py``): joins the ``torch.distributed`` group over gloo
+    (named explicitly: several ranks may share one GPU), loads its stage's layers only (``--ranges``, else
+    the layers balanced over the ranks), runs ``ring_generate`` with its
+    neighbours, and rank 0 prints the completion: the text (or with
+    ``--prompt-ids`` the ids) of the one-process ``generate``."""
+    import torch
+
+    from .device import resolve_device
+    from .parallel.distributed import StageTransport, initialize_multihost, ring_generate
+    from .parallel.placement import PlacementSpec
+    from .utils import shard_store
+
+    if args.cp > 1:  # JAX server.py:1267-1270: no per-shard push across processes
+        print("error: cp > 1 on a multi-controller mesh: the per-shard "
+              "block-table push is single-controller for now", file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)  # no GPU: raise before joining
+    initialize_multihost(args.coordinator, args.processes, args.process_id,
+                         backend="gloo")
+    try:
+        print(f"[worker {args.process_id}] joined: {args.processes} processes over "
+              f"gloo, device {dev}", file=sys.stderr)
+        metrics_srv = _start_metrics(
+            args.metrics_port + args.process_id if args.metrics_port else 0
+        )
+        cfg = shard_store.load_config(args.shards)
+        L = cfg.num_hidden_layers
+        spec = (PlacementSpec.from_ranges(_parse_ranges(args.ranges), L) if args.ranges
+                else PlacementSpec.balanced(L, args.processes))
+        if spec.num_stages != args.processes:
+            print(f"error: {spec.num_stages} stages for {args.processes} processes "
+                  "(one stage per process)", file=sys.stderr)
+            return 2
+        lo, hi = spec.stages[args.process_id]
+        dtype = getattr(torch, DTYPES[args.dtype])
+        stage = shard_store.load_stage(args.shards, lo, hi, dtype, device=dev)
+        tok = None
+        if args.prompt_ids is not None:
+            ids = _prompt_ids(args.prompt_ids)
+        else:
+            tok = shard_store.load_tokenizer(args.shards)
+            if tok is None:
+                print("error: the store has no tokenizer: pass --prompt-ids", file=sys.stderr)
+                return 2
+            ids = np.asarray(tok(args.prompt)["input_ids"], np.int32)
+        transport = StageTransport(dev, cfg.hidden_size, dtype)
+        out = ring_generate(cfg, stage, ids, args.max_new, transport)
+        print(f"[worker {args.process_id}] layers [{lo}, {hi}): {transport.hops} hops, "
+              f"{transport.bytes} bytes sent", file=sys.stderr)
+        if args.process_id == 0:
+            print(_ids_text(out) if tok is None else tok.decode(out, skip_special_tokens=True),
+                  flush=True)
+        if metrics_srv is not None:
+            metrics_srv.stop()
+        return 0
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def cmd_launch(args) -> int:
+    """Spawn ``--processes`` workers on this host and wait (JAX
+    ``cli.py:1162``, after the reference's ``run_this.sh``): rank 0's
+    completion goes to stdout, every worker's output into
+    ``--log-dir/worker_<i>.log``. A worker that fails stops the job, as
+    does ``--timeout``. Every rank runs on ``--device`` (default cuda: all
+    ranks on the one card) unless ``--platform cpu`` asks for the CPU."""
+    import contextlib
+    import socket
+    import subprocess
+    import time
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    device = "cpu" if args.platform == "cpu" else args.device
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
+    )
+    # every rank is on this host: gloo talks over the loopback interface
+    # (its default, the host name's interface, may not reach itself on a
+    # machine without a network)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.makedirs(args.log_dir, exist_ok=True)
+    rc = 0
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        procs, logs = [], []
+        for pid in range(args.processes):
+            cmd = [
+                sys.executable, "-m", "llm_sharding_tpu_torch", "worker", args.shards,
+                "--coordinator", f"localhost:{port}", "--processes", str(args.processes),
+                "--process-id", str(pid), "--max-new", str(args.max_new),
+                "--dtype", args.dtype, "--device", device,
+            ]
+            cmd += (["--prompt-ids", args.prompt_ids] if args.prompt_ids is not None
+                    else ["--prompt", args.prompt])
+            if args.ranges:
+                cmd += ["--ranges", args.ranges]
+            if args.metrics_port:
+                cmd += ["--metrics-port", str(args.metrics_port)]
+            log_path = os.path.join(args.log_dir, f"worker_{pid}.log")
+            logs.append(log_path)
+            log = stack.enter_context(open(log_path, "w"))
+            p = subprocess.Popen(cmd, stdout=subprocess.PIPE if pid == 0 else log, stderr=log,
+                                 text=True, env=env)
+            stack.callback(lambda p=p: p.poll() is None and p.kill())
+            procs.append(p)
+        # rank 0's stdout drains on a thread: a completion larger than the
+        # pipe buffer would otherwise block the worker
+        out0: list = []
+        drain0 = threading.Thread(target=lambda: out0.append(procs[0].stdout.read()),
+                                  daemon=True)
+        drain0.start()
+        deadline = time.monotonic() + args.timeout if args.timeout else None
+        failed = None
+        while any(p.poll() is None for p in procs):
+            failed = next(((i, p.returncode) for i, p in enumerate(procs)
+                           if p.poll() is not None and p.returncode != 0), None)
+            if failed or (deadline and time.monotonic() > deadline):
+                for p in procs:
+                    if p.poll() is None:
+                        p.terminate()
+                if failed is None:
+                    print(f"launch timed out after {args.timeout}s; workers terminated",
+                          file=sys.stderr)
+                break
+            time.sleep(0.05)
+        for pid, p in enumerate(procs):
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            if p.returncode != 0:
+                rc = rc or p.returncode or 1
+                print(f"worker {pid} exited {p.returncode}; see {logs[pid]}", file=sys.stderr)
+        drain0.join(timeout=10)
+        if out0 and out0[0]:
+            print(out0[0], end="")
+    print(f"launch: {args.processes} workers in {time.perf_counter() - t0:.3f} s",
+          file=sys.stderr)
+    return rc
+
+
 def cmd_convert(args) -> int:
     from .utils.shard_store import convert_hf_checkpoint
 
@@ -881,7 +1059,7 @@ def _add_device(p) -> None:
 def _add_generate(sub) -> None:
     g = sub.add_parser("generate", help="run one prompt")
     g.add_argument("shards")
-    g.add_argument("--prompt", required=True)
+    _add_prompt(g)
     g.add_argument("--max-new", type=int, default=128, dest="max_new")
     g.add_argument("--stages", type=int)
     g.add_argument("--ranges", help="ragged layer ranges (ROADMAP.md §A 15)")
@@ -896,6 +1074,14 @@ def _add_generate(sub) -> None:
     g.add_argument("--seed", type=int, default=0)
     _add_device(g)
     g.set_defaults(fn=cmd_generate)
+
+
+def _add_prompt(p) -> None:
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("--prompt")
+    g.add_argument("--prompt-ids", dest="prompt_ids",
+                   help="comma-separated token ids instead of --prompt (a store without a "
+                   "tokenizer); the generated ids are printed")
 
 
 def _add_serve(sub) -> None:
@@ -994,16 +1180,55 @@ def _add_serve(sub) -> None:
     s.add_argument("--profile-json", default=None, dest="profile_json",
                    help="with --disagg: a profile.json (or its directory) of fitted "
                    "prefill/decode latency models for the placement planner")
-    # later slices: parsed under the JAX names, refused before the model loads
     s.add_argument("--stages", type=int)
     s.add_argument("--ranges")
     s.add_argument("--tensor-parallel", type=int, default=1, dest="tensor_parallel",
                    help="megatron tensor parallelism per pipeline (composes with --stages and "
                    "--data-parallel: devices = dp x stages x tp, all on --device)")
     s.add_argument("--cp", dest="cp", type=int, default=1,
-                   help="a later slice of the port (ROADMAP.md §A 16b)")
+                   help="context-parallel serving: split the paged arena over N shards "
+                   "(--kv-blocks per shard; devices = cp x stages, all on --device), so a "
+                   "context cp times one shard's arena admits; greedy output is cp=1's")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
+
+
+def _add_ring(sub) -> None:
+    """``worker`` and ``launch`` (JAX ``cli.py:1817-1860``): the same flags,
+    plus ``--device`` and ``--prompt-ids``. ``--platform`` defaults to
+    ``inherit`` (the card, through ``--device``): JAX's default ``cpu``
+    would run a port entry point on the CPU unasked."""
+    w = sub.add_parser("worker", help="one process of the multi-process ring (one per stage)")
+    w.add_argument("shards")
+    w.add_argument("--coordinator", required=True, help="host:port of rank 0's rendezvous")
+    w.add_argument("--processes", type=int, required=True)
+    w.add_argument("--process-id", type=int, required=True, dest="process_id")
+    _add_prompt(w)
+    w.add_argument("--max-new", type=int, default=64, dest="max_new")
+    w.add_argument("--ranges", help="each rank's layers, a:b,... (default balanced)")
+    w.add_argument("--dtype", default="bf16")
+    w.add_argument("--metrics-port", type=int, default=0, dest="metrics_port",
+                   help="expose /metrics on 127.0.0.1:(PORT + process-id) (0 = off)")
+    w.add_argument("--cp", type=int, default=1, help="refused above 1: one process's server only")
+    _add_device(w)
+    w.set_defaults(fn=cmd_worker)
+
+    la = sub.add_parser("launch", help="spawn N workers on this host")
+    la.add_argument("shards")
+    la.add_argument("--processes", type=int, default=2)
+    _add_prompt(la)
+    la.add_argument("--max-new", type=int, default=64, dest="max_new")
+    la.add_argument("--ranges")
+    la.add_argument("--dtype", default="bf16")
+    la.add_argument("--platform", default="inherit", choices=["cpu", "inherit"],
+                    help="inherit: every rank on --device (default); cpu: on the CPU")
+    la.add_argument("--log-dir", default="results/launch", dest="log_dir")
+    la.add_argument("--timeout", type=float, default=900.0,
+                    help="kill all workers after this many seconds (0 = no limit)")
+    la.add_argument("--metrics-port", type=int, default=0, dest="metrics_port",
+                    help="base port for per-worker /metrics: worker i binds PORT+i (0 = off)")
+    _add_device(la)
+    la.set_defaults(fn=cmd_launch)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1015,6 +1240,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     _add_generate(sub)
     _add_serve(sub)
+    _add_ring(sub)
     c = sub.add_parser("convert", help="HF checkpoint dir -> shard store")
     c.add_argument("model_dir")
     c.add_argument("out_dir")

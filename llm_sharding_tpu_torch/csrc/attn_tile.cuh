@@ -50,12 +50,26 @@
 // by the same select, so an Inf scale on the trash block never meets a
 // zero code (Inf x 0 = NaN). With KT = T the code path is the
 // unquantized one.
+//
+// Stats mode (context-parallel serving: each shard attends its own blocks
+// and the shards' partials are merged by combine_attn_stats; the port of
+// attn_stats_xla, llm_sharding_tpu/ops/paged_attention.py:284-346): the
+// paged kernels write the unnormalised triple instead of acc / l, all f32,
+// acc [B, S, Nh, D] (the sum of p * v), m [B, S, Nh] (the row max in the
+// natural-log domain) and l [B, S, Nh] (the sum of p). A column is live
+// only where its table entry is not 0 AND its position is visible, and a
+// masked column adds exactly zero: its score is -inf instead of -1e30, so
+// p = exp(-inf - m) = 0 even while the running max is still -1e30 (with
+// -1e30 a wholly masked tile met first would add exp(0) = 1 per column). A
+// row that sees no live column comes out as (0, -1e30, 0), and a merge of
+// such parts stays finite (each part weighs 2^0 = 1 against an l of 0).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <climits>
 #include <math.h>
 #include <stdint.h>
 
@@ -74,6 +88,13 @@ constexpr int kTY = 16;             // threads across query rows
 constexpr int kPadPos = -2147483647 - 1;  // q position of a tile-padding row
 constexpr int kBadArgs = -1;        // unsupported dtype / head_dim
 constexpr int kNoTensorMap = -2;    // cuTensorMapEncodeTiled missing or refused
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A stats-mode row max as the plain version gives it: natural-log domain
+// from the kernels' log2 one, and -1e30 for a row that saw no live column.
+__device__ __forceinline__ float stat_m(float m_log2, float l) {
+  return l > 0.f ? m_log2 * kLn2 : kNegInf;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -143,6 +164,7 @@ struct Tile {
   float* sks;       // [kBK] K scale of each key row (quantized only)
   float* svs;       // [kBK] V scale of each key row (quantized only)
   int tx, ty;
+  float masked;  // score of a masked column: -1e30, or -inf in stats mode
   float m[RI], l[RI], acc[RI][DJ];
 
   __device__ explicit Tile(char* smem) {
@@ -157,6 +179,7 @@ struct Tile {
     svs = sks + kBK;
     tx = threadIdx.x % kTX;
     ty = threadIdx.x / kTX;
+    masked = kNegInf;
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       m[i] = kNegInf;
@@ -271,7 +294,7 @@ struct Tile {
           x = -INFINITY;
         } else {
           x = s[i][jj] * scale;
-          if (!(skpos[c] <= qp)) x = kNegInf;
+          if (!(skpos[c] <= qp)) x = masked;
         }
         s[i][jj] = x;
         mx = fmaxf(mx, x);
@@ -323,6 +346,25 @@ struct Tile {
       for (int j = 0; j < DJ; ++j) dst[tx + kTX * j] = from_f<T>(acc[i][j] / den);
     }
   }
+
+  // Stats mode: acc [B, S, Nh, D], m and l [B, S, Nh], f32 (m is in the
+  // natural-log domain already: this tile runs expf).
+  __device__ void store_stats(float* sacc, float* sm, float* sl, int b, int kh, int r0,
+                              QGeom g) const {
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int fr = r0 + ty + kTY * i;
+      if (fr >= g.GS) continue;
+      const int gg = fr / g.S, s = fr % g.S;
+      const size_t row = (size_t(b) * g.S + s) * g.Nh + size_t(kh) * g.G + gg;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) sacc[row * D + tx + kTX * j] = acc[i][j];
+      if (tx == 0) {
+        sm[row] = m[i];
+        sl[row] = l[i];
+      }
+    }
+  }
 };
 
 // Key columns of one (row, KV head) of the pooled paged arena, for the
@@ -339,7 +381,10 @@ struct PagedCols {
   const float* k_scale; // [NB, Nkv] (null for an unquantized arena)
   const float* v_scale;
   int num_kv, kh;
-  __device__ int pos(int c) const { return kvpos[c]; }
+  bool stats;  // stats mode: a column of table entry 0 is never visible
+  __device__ int pos(int c) const {
+    return stats && tbl[c / block_size] == 0 ? INT_MAX : kvpos[c];
+  }
   __device__ long long offset(int c) const {
     const int blk = tbl[c / block_size];
     if (blk == 0) return -1;
@@ -356,10 +401,13 @@ struct PagedCols {
 // Stream ncols logical key columns through the tile. Cols supplies, per
 // column c, its key position (pos), the element offset of its K/V row in
 // the source arrays (offset; -1 = dead, loaded as zeros) and, for 1-byte
-// codes, its K and V scales (scales).
+// codes, its K and V scales (scales). In stats mode (t.masked = -inf) a
+// tile that no row can see adds exactly zero whatever the rows have seen,
+// so every such tile is skipped, the shard's trash tiles among them.
 template <typename T, int D, int RI, typename KT, typename Cols>
 __device__ void attend(Tile<T, D, RI, KT>& t, const KT* k, const KT* v, int ncols,
                        const Cols& cols, float scale, int r0, int GS) {
+  const bool stats = t.masked == -INFINITY;
   for (int c0 = 0; c0 < ncols; c0 += kBK) {
     const int n = min(kBK, ncols - c0);
     for (int r = threadIdx.x; r < kBK; r += kThreads) {
@@ -390,7 +438,7 @@ __device__ void attend(Tile<T, D, RI, KT>& t, const KT* k, const KT* v, int ncol
     }
     const int all_seeded = __syncthreads_and(seeded);
     const int any_visible = __syncthreads_or(visible);
-    if (all_seeded && !any_visible) continue;
+    if ((all_seeded || stats) && !any_visible) continue;
     t.load_kv(k, v, n);
     __syncthreads();
     t.update(n, scale);
@@ -472,9 +520,16 @@ __device__ __forceinline__ bool last_run(int* ticket, int nparts, int* sflag, in
 // lane + 32, ... and combine across the warp, then stream every part's
 // acc as float4s with the part's weight 2^(m_i - m) / l shuffled from the
 // lane that holds it. Partials are read past L1 (other CTAs wrote them).
-template <typename T, int D, typename AccOf, typename MlOf, typename Out>
+// kStats: the stats-mode merge, which writes acc unnormalised (the weight
+// is 2^(m_i - m) alone) through out(r, d), an f32 pointer, and hands each
+// row's (m, l) to stat(r, m, l), m converted by stat_m.
+__device__ __forceinline__ void put_f(float* d, float x) { *d = x; }
+__device__ __forceinline__ void put_f(__nv_bfloat16* d, float x) { *d = __float2bfloat16(x); }
+
+template <typename T, int D, bool kStats = false, typename AccOf, typename MlOf, typename Out,
+          typename Stat = int>
 __device__ void merge_runs(AccOf acc_of, MlOf ml_of, int nparts, int rows, Out out, int warp,
-                           int nwarps) {
+                           int nwarps, Stat stat = 0) {
   constexpr int RPW = 4;              // rows of a group
   constexpr int C4 = D / 4;           // float4 chunks of a row
   constexpr int CG = (C4 + 31) / 32;  // column groups of 32 chunks
@@ -508,7 +563,13 @@ __device__ void merge_runs(AccOf acc_of, MlOf ml_of, int nparts, int rows, Out o
         L[q] = L[q] * ex2(M[q] - mn) + lo * ex2(mo - mn);
         M[q] = mn;
       }
-      inv[q] = 1.f / fmaxf(L[q], 1e-30f);
+      inv[q] = kStats ? 1.f : 1.f / fmaxf(L[q], 1e-30f);
+    }
+    if constexpr (kStats) {
+      if (it % CG == 0 && lane == 0)
+#pragma unroll
+        for (int q = 0; q < RPW; ++q)
+          if (rb + q < rows) stat(rb + q, stat_m(M[q], L[q]), L[q]);
     }
     float4 a[RPW];
 #pragma unroll
@@ -540,11 +601,11 @@ __device__ void merge_runs(AccOf acc_of, MlOf ml_of, int nparts, int rows, Out o
 #pragma unroll
     for (int q = 0; q < RPW; ++q) {
       if (rb + q >= rows || cc >= C4) continue;
-      T* dst = out(rb + q, cc * 4);
-      dst[0] = from_f<T>(a[q].x);
-      dst[1] = from_f<T>(a[q].y);
-      dst[2] = from_f<T>(a[q].z);
-      dst[3] = from_f<T>(a[q].w);
+      auto* dst = out(rb + q, cc * 4);
+      put_f(dst + 0, a[q].x);
+      put_f(dst + 1, a[q].y);
+      put_f(dst + 2, a[q].z);
+      put_f(dst + 3, a[q].w);
     }
   }
 }
@@ -582,10 +643,12 @@ __device__ __forceinline__ void codes4_to_f<__nv_fp8_e4m3>(uint32_t w, float* f)
 // element of one folded row folds the nsplit partials with the recurrence
 // of combine_attn_stats (m = max m_i, l = sum 2^(m_i - m) l_i, acc
 // likewise; a dead run's (0, -1e30, 0) weighs 0 against any seen key) and
-// writes acc / max(l, 1e-30).
+// writes acc / max(l, 1e-30). Stats mode (sm, sl not null): acc
+// unnormalised into out as f32, and (m, l) of the row by thread 0.
 template <typename T>
-__global__ void split_merge_kernel(const float* part_acc, const float* part_ml, T* out, int S,
-                                   int Nh, int Nkv, int D, int nsplit) {
+__global__ void split_merge_kernel(const float* part_acc, const float* part_ml, void* out,
+                                   float* sm, float* sl, int S, int Nh, int Nkv, int D,
+                                   int nsplit) {
   // launched early (programmatic dependent launch): wait here until the
   // split kernel's partials are complete and visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -601,16 +664,24 @@ __global__ void split_merge_kernel(const float* part_acc, const float* part_ml, 
     L += c * part_ml[pr * 2 + 1];
     A += c * part_acc[pr * D + d];
   }
-  out[((size_t(b) * S + r % S) * Nh + size_t(kh) * G + r / S) * D + d] =
-      from_f<T>(A / fmaxf(L, 1e-30f));
+  const size_t orow = (size_t(b) * S + r % S) * Nh + size_t(kh) * G + r / S;
+  if (sm != nullptr) {
+    static_cast<float*>(out)[orow * D + d] = A;
+    if (d == 0) {
+      sm[orow] = stat_m(M, L);
+      sl[orow] = L;
+    }
+    return;
+  }
+  static_cast<T*>(out)[orow * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
 }
 
 // Launch the merge as a programmatic dependent of the split kernel just
 // queued on `stream` (its launch overlaps that kernel's tail); returns
 // 0 or the error.
 template <typename T>
-int launch_merge(const float* part_acc, const float* part_ml, T* out, int B, int S, int Nh,
-                 int Nkv, int D, int nsplit, cudaStream_t stream) {
+int launch_merge(const float* part_acc, const float* part_ml, void* out, float* sm, float* sl,
+                 int B, int S, int Nh, int Nkv, int D, int nsplit, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((Nh / Nkv) * S, Nkv, B);
   cfg.blockDim = dim3(D);
@@ -621,7 +692,8 @@ int launch_merge(const float* part_acc, const float* part_ml, T* out, int B, int
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, split_merge_kernel<T>, part_acc, part_ml, out, S, Nh, Nkv, D, nsplit);
+      cudaLaunchKernelEx(&cfg, split_merge_kernel<T>, part_acc, part_ml, out, sm, sl, S, Nh, Nkv,
+                         D, nsplit);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 

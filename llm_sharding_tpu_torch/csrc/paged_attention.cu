@@ -53,6 +53,14 @@
 // -1e30 and the running max starts there, l summed from p in f32, p
 // rounded to T before P V, out = acc / max(l, 1e-30); a code is
 // converted to f32 exactly, times its scale, rounded once to T.
+//
+// Stats mode (context-parallel serving, attn_tile.cuh's note): the producer
+// gives a key of table entry 0 position INT_MAX (never visible), a masked
+// score is -inf (it adds exactly zero), and the results are the f32 triple
+// (acc, m, l): a piece that covers its row writes it, otherwise the fused
+// merge folds the pieces without the final division. A row with no live
+// column is (0, -1e30, 0). Tiles of trash blocks are zero-filled by the
+// producer, never loaded, so a shard reads only the blocks it owns.
 
 #include <climits>
 
@@ -133,9 +141,9 @@ __global__ void __launch_bounds__(DL<T, D, KT, MT>::kThreads, 1)
 paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const T* q,
                     const float* k_scale, const float* v_scale, const int* tbl,
-                    const int* qpos, const int* kvpos, const int* nlive, T* out, float* part,
-                    int* tickets, int B, int S, int Nh, int Nkv, int BS, int T_blocks,
-                    int slots, int min_tiles, float sl2) {
+                    const int* qpos, const int* kvpos, const int* nlive, T* out, float* st_acc,
+                    float* st_m, float* st_l, float* part, int* tickets, int B, int S, int Nh,
+                    int Nkv, int BS, int T_blocks, int slots, int min_tiles, float sl2) {
   using L = DL<T, D, KT, MT>;
   constexpr int TK = L::TK, RG = L::RG, kStages = L::kStages, kCodeStages = L::kCodeStages;
   constexpr bool kQuant = L::kQuant;
@@ -154,6 +162,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   auto cfull = [&](int st) { return sb + L::BAR + 8 * (2 * kStages + st); };
   auto cempty = [&](int st) { return sb + L::BAR + 8 * (2 * kStages + kCodeStages + st); };
 
+  const bool stats = st_m != nullptr;
+  const float mk = stats ? -INFINITY : kNegInf;  // the score of a masked key
   const int j = blockIdx.x, kh = blockIdx.y;
   const int G = Nh / Nkv, GS = G * S, r0 = blockIdx.z * RG, GSz = min(RG, GS - r0);
   const int W = T_blocks * BS;
@@ -230,10 +240,15 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
         f.c0 = (u - spre[fb]) * TK;
         const int live = slive[fb];
         const int* kp = kvpos + size_t(fb) * W;
-        f.pos0 = f.c0 + lane < live ? kp[f.c0 + lane] : 0;
-        f.pos1 = TK > 32 && f.c0 + 32 + lane < live ? kp[f.c0 + 32 + lane] : 0;
+        const int* tb = tbl + size_t(fb) * T_blocks;
+        // stats mode: a key of table entry 0 is never visible
+        auto key_pos = [&](int c) {
+          return c < live ? (stats && tb[c / BS] == 0 ? INT_MAX : kp[c]) : 0;
+        };
+        f.pos0 = key_pos(f.c0 + lane);
+        f.pos1 = TK > 32 ? key_pos(f.c0 + 32 + lane) : 0;
         const int cj = f.c0 + lane * box_rows;
-        f.blk = lane < nsub && cj < live ? tbl[size_t(fb) * T_blocks + cj / BS] : 0;
+        f.blk = lane < nsub && cj < live ? tb[cj / BS] : 0;
         return f;
       };
       auto fetch_scales = [&](const Fetch& f, float& ks, float& vs) {
@@ -375,10 +390,22 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
   // -------------------------------------------------------------- consumers
   const int tid = threadIdx.x;
   // rows with no live column: CTA b % gridDim.x writes them as zeros
+  // (stats mode: (0, -1e30, 0))
   for (int b = 0; b < B; ++b) {
     if (spre[b + 1] != spre[b] || b % int(gridDim.x) != j) continue;
-    for (int idx = tid; idx < GSz * D; idx += kCThreads)
-      out[qrow(b, r0 + idx / D, S, Nh, kh, G, D) + idx % D] = attn::from_f<T>(0.f);
+    for (int idx = tid; idx < GSz * D; idx += kCThreads) {
+      const size_t e = qrow(b, r0 + idx / D, S, Nh, kh, G, D) + idx % D;
+      if (stats)
+        st_acc[e] = 0.f;
+      else
+        out[e] = attn::from_f<T>(0.f);
+    }
+    if (stats)
+      for (int r = tid; r < GSz; r += kCThreads) {
+        const size_t e = qrow(b, r0 + r, S, Nh, kh, G, D) / D;
+        st_m[e] = kNegInf;
+        st_l[e] = 0.f;
+      }
   }
   T* sq = reinterpret_cast<T*>(smem + L::Q);
   int stage = 0, tcount = 0;
@@ -407,6 +434,12 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
     float* pacc = part + pair * (size_t(slots) * rstride * D + mlsz);
     float* pml = pacc + size_t(slots) * rstride * D;
     auto out_at = [&](int r, int d) { return out + qrow(b, r0 + r, S, Nh, kh, G, D) + d; };
+    auto sacc_at = [&](int r, int d) { return st_acc + qrow(b, r0 + r, S, Nh, kh, G, D) + d; };
+    auto stat_at = [&](int r, float mv, float lv) {
+      const size_t e = qrow(b, r0 + r, S, Nh, kh, G, D) / D;
+      st_m[e] = mv;
+      st_l[e] = lv;
+    };
 
     if constexpr (L::kTC) {
       // ------------------------------------------- bf16: tensor cores
@@ -472,7 +505,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
               for (int e = 0; e < 2; ++e) {
                 const int key = 16 * warp + 8 * nt + 2 * t4 + e;
                 float& v = s[mt][nt][2 * h + e];
-                v = c0 + key >= live ? -INFINITY : sp[key] <= qp[mt][h] ? v * sl2 : kNegInf;
+                v = c0 + key >= live ? -INFINITY : sp[key] <= qp[mt][h] ? v * sl2 : mk;
                 x = fmaxf(x, v);
               }
             x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -564,7 +597,9 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
           for (int nt = 0; nt < NT; ++nt) {
             const int d = warp * (D / 4) + nt * 8 + 2 * t4;
             const float x0 = o[mt][nt][2 * h], x1 = o[mt][nt][2 * h + 1];
-            if (nparts == 1) {
+            if (nparts == 1 && stats) {
+              *reinterpret_cast<float2*>(sacc_at(row, d)) = make_float2(x0, x1);
+            } else if (nparts == 1) {
               *reinterpret_cast<__nv_bfloat162*>(out_at(row, d)) =
                   __floats2bfloat162_rn(x0 / den, x1 / den);
             } else {
@@ -575,6 +610,8 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
           if (nparts > 1 && warp == 0 && t4 == 0)
             *reinterpret_cast<float2*>(pml + (size_t(slot) * rstride + row) * 2) =
                 make_float2(m[mt][h], l[mt][h]);
+          if (nparts == 1 && stats && warp == 0 && t4 == 0)
+            stat_at(row, attn::stat_m(m[mt][h], l[mt][h]), l[mt][h]);
         }
     } else {
       // -------------------------------------------- f32: CUDA cores
@@ -616,7 +653,7 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
             }
           }
           pbuf[r * L::PLD + key] =
-              c0 + key >= live ? -INFINITY : sp[key] <= qpos_of(r) ? dot * sl2 : kNegInf;
+              c0 + key >= live ? -INFINITY : sp[key] <= qpos_of(r) ? dot * sl2 : mk;
         }
         attn::named_bar(kBar, kCThreads);
         for (int r = tid; r < GSz; r += kCThreads) {
@@ -672,7 +709,9 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
         for (int jj = 0; jj < DPT; ++jj) {
           const int d = dcol + jj * kCThreads;
-          if (nparts == 1)
+          if (nparts == 1 && stats)
+            *sacc_at(r, d) = acc[i][jj];
+          else if (nparts == 1)
             *out_at(r, d) = acc[i][jj] / den;
           else
             pacc[(size_t(slot) * rstride + r) * D + d] = acc[i][jj];
@@ -682,12 +721,18 @@ paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
         for (int r = tid; r < GSz; r += kCThreads)
           *reinterpret_cast<float2*>(pml + (size_t(slot) * rstride + r) * 2) =
               make_float2(sm[r], sl[r]);
+      else if (stats)
+        for (int r = tid; r < GSz; r += kCThreads) stat_at(r, attn::stat_m(sm[r], sl[r]), sl[r]);
     }
     if (nparts > 1 &&
         attn::last_run(tickets + pair, nparts, sflag, kBar, kCThreads, tid)) {
-      attn::merge_runs<T, D>([&](int i) { return pacc + size_t(i) * rstride * D; },
-                             [&](int i) { return pml + size_t(i) * rstride * 2; }, nparts, GSz,
-                             out_at, warp, kCWarps);
+      auto acc_of = [&](int i) { return pacc + size_t(i) * rstride * D; };
+      auto ml_of = [&](int i) { return pml + size_t(i) * rstride * 2; };
+      if (stats)
+        attn::merge_runs<T, D, true>(acc_of, ml_of, nparts, GSz, sacc_at, warp, kCWarps,
+                                     stat_at);
+      else
+        attn::merge_runs<T, D>(acc_of, ml_of, nparts, GSz, out_at, warp, kCWarps);
       if (tid == 0) tickets[pair] = 0;
     }
     attn::named_bar(kBar, kCThreads);  // Q, the row state and the flag are free again
@@ -699,6 +744,7 @@ struct DecodeArgs {
   const float *k_scale, *v_scale;
   const int *tbl, *qpos, *kvpos, *nlive;
   void* out;
+  float *sacc, *sm, *sl;  // stats mode (null otherwise)
   float* part;
   int* tickets;
   int B, S, Nh, Nkv, BS, Tb, NBk, pieces, slots, min_tiles;
@@ -727,8 +773,8 @@ int run_mt(const DecodeArgs& a) {
   const dim3 grid(a.pieces, a.Nkv, (GS + L::RG - 1) / L::RG);
   return attn::launch_n(paged_decode_kernel<T, D, KT, MT>, grid, L::kThreads, L::BYTES,
                         a.stream, tk, tv, static_cast<const T*>(a.q), a.k_scale, a.v_scale,
-                        a.tbl, a.qpos, a.kvpos, a.nlive, static_cast<T*>(a.out), a.part,
-                        a.tickets, a.B, a.S, a.Nh, a.Nkv, a.BS, a.Tb, a.slots, a.min_tiles,
+                        a.tbl, a.qpos, a.kvpos, a.nlive, static_cast<T*>(a.out), a.sacc, a.sm,
+                        a.sl, a.part, a.tickets, a.B, a.S, a.Nh, a.Nkv, a.BS, a.Tb, a.slots, a.min_tiles,
                         a.scale * 1.4426950408889634f);
 }
 
@@ -758,7 +804,9 @@ int run(const DecodeArgs& a, int kv) {
 // q [B,S,Nh,D], arenas [NBk,BS,Nkv,D], scales [NBk,Nkv] f32 (null when
 // kv_dtype = 0), tbl [B,T] int32, qpos [B,S], kvpos [B,T*BS] int32, nlive
 // [B] int32 blocks covering each row's written frontier, or null (the
-// whole table), out like q; part: f32 scratch of
+// whole table), out like q (null in stats mode); sacc [B,S,Nh,D], sm and
+// sl [B,S,Nh] f32, the stats-mode outputs (all null otherwise); part: f32
+// scratch of
 // ops/paged_attention.plan_decode's size; tickets: B*Nkv*groups int32
 // zeros, left zero. pieces, slots and min_tiles from plan_decode. dtype 0 = float32,
 // 1 = bfloat16; kv_dtype 0 = the query dtype, 1 = int8, 2 = fp8-e4m3. One
@@ -766,16 +814,19 @@ int run(const DecodeArgs& a, int kv) {
 extern "C" int paged_attention_fwd(const void* q, const void* k_arena, const void* v_arena,
                                    const float* k_scale, const float* v_scale, const int* tbl,
                                    const int* qpos, const int* kvpos, const int* nlive, void* out,
-                                   float* part, int* tickets, int B, int S, int Nh, int Nkv, int D,
+                                   float* sacc, float* sm, float* sl, float* part, int* tickets,
+                                   int B, int S, int Nh, int Nkv, int D,
                                    int BS, int T, int NBk, int pieces, int slots, int min_tiles,
                                    float scale, int dtype, int kv_dtype, void* stream) {
   const bool bs_ok = BS == 8 || BS == 16 || BS == 32 || (BS > 0 && BS % 64 == 0);
   if (!bs_ok || B < 1 || B > kMaxRows || pieces < 1 || slots < 1 || min_tiles < 1)
     return attn::kBadArgs;
+  if ((sm == nullptr) != (sacc == nullptr) || (sm == nullptr) != (sl == nullptr))
+    return attn::kBadArgs;
   const DecodeArgs a{q,      k_arena, v_arena, k_scale, v_scale,   tbl,  qpos, kvpos,
-                     nlive,  out,     part,    tickets, B,         S,    Nh,   Nkv,
-                     BS,     T,       NBk,     pieces,  slots,     min_tiles, scale,
-                     static_cast<cudaStream_t>(stream)};
+                     nlive,  out,     sacc,    sm,      sl,        part, tickets, B,
+                     S,      Nh,      Nkv,     BS,      T,         NBk,  pieces,  slots,
+                     min_tiles, scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 0 && D == 64) return run<float, 64>(a, kv_dtype);
   if (dtype == 0 && D == 128) return run<float, 128>(a, kv_dtype);
   if (dtype == 0 && D == 256) return run<float, 256>(a, kv_dtype);

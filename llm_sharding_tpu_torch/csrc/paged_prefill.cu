@@ -67,6 +67,13 @@
 //   writes f32 partials (acc, m, l) that attn::split_merge_kernel folds,
 //   launched as a programmatic dependent; a run no row of the CTA can see
 //   loads nothing and leaves (0, -1e30, 0). One call is one launch count.
+//
+// Stats mode (context-parallel serving, attn_tile.cuh's note) runs the same
+// kernels with three changes: a key of table entry 0 gets position INT_MAX
+// (never visible), a masked score is -inf (it adds exactly zero), and the
+// epilogue (or the split merge) writes (acc, m, l) in f32 instead of
+// acc / l. A tile no row of the CTA can see is then skipped whatever the
+// rows have seen, so a shard's tiles of trash blocks load nothing.
 
 #include <climits>
 
@@ -82,20 +89,25 @@ template <typename T, int D, int RI, typename KT>
 __global__ void __launch_bounds__(attn::kThreads)
 paged_prefill_kernel(const T* q, const KT* k_arena, const KT* v_arena, const float* k_scale,
                      const float* v_scale, const int* tbl, const int* qpos, const int* kvpos,
-                     const int* nlive, T* out, int S, int Nh, int Nkv, int BS, int T_blocks,
-                     float scale) {
+                     const int* nlive, T* out, float* sacc, float* sm, float* sl, int S, int Nh,
+                     int Nkv, int BS, int T_blocks, float scale) {
   extern __shared__ __align__(16) char smem[];
   attn::Tile<T, D, RI, KT> t(smem);
   const int b = blockIdx.z, kh = blockIdx.y, r0 = blockIdx.x * attn::Tile<T, D, RI, KT>::BQ;
   const int G = Nh / Nkv;
   const attn::QGeom g{S, G, Nh, G * S};
+  const bool stats = sm != nullptr;
+  if (stats) t.masked = -INFINITY;
   t.load_q(q, qpos, b, kh, r0, g);
   const int live_blocks = min(T_blocks, max(nlive[b], 0));
   const attn::PagedCols cols{tbl + size_t(b) * T_blocks, kvpos + size_t(b) * T_blocks * BS, BS,
                              static_cast<long long>(Nkv) * D, static_cast<long long>(kh) * D,
-                             k_scale, v_scale, Nkv, kh};
+                             k_scale, v_scale, Nkv, kh, stats};
   attn::attend(t, k_arena, v_arena, live_blocks * BS, cols, scale, r0, g.GS);
-  t.store(out, b, kh, r0, g);
+  if (stats)
+    t.store_stats(sacc, sm, sl, b, kh, r0, g);
+  else
+    t.store(out, b, kh, r0, g);
 }
 
 struct PrefillArgs {
@@ -103,6 +115,7 @@ struct PrefillArgs {
   const float *k_scale, *v_scale;
   const int *tbl, *qpos, *kvpos, *nlive;
   void* out;
+  float *sacc, *sm, *sl;  // stats mode (null otherwise)
   float *part_acc, *part_ml;
   int B, S, Nh, Nkv, BS, Tb, NBk, nsplit, kv;
   float scale;
@@ -117,7 +130,8 @@ int run_kv(const PrefillArgs& a) {
   return attn::launch(paged_prefill_kernel<T, D, RI, KT>, grid, Tl::smem_bytes(), a.stream,
                       static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
                       static_cast<const KT*>(a.v), a.k_scale, a.v_scale, a.tbl, a.qpos, a.kvpos,
-                      a.nlive, static_cast<T*>(a.out), a.S, a.Nh, a.Nkv, a.BS, a.Tb, a.scale);
+                      a.nlive, static_cast<T*>(a.out), a.sacc, a.sm, a.sl, a.S, a.Nh, a.Nkv, a.BS,
+                      a.Tb, a.scale);
 }
 
 template <typename T, int D, int RI>
@@ -173,8 +187,9 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const float* k_scale,
                      const float* v_scale, const int* tbl, const int* qpos, const int* kvpos,
-                     const int* nlive, __nv_bfloat16* out, float* part_acc, float* part_ml,
-                     int S, int Nh, int Nkv, int BS, int T_blocks, int nsplit, float scale) {
+                     const int* nlive, __nv_bfloat16* out, float* sacc, float* sm, float* sl,
+                     float* part_acc, float* part_ml, int S, int Nh, int Nkv, int BS,
+                     int T_blocks, int nsplit, float scale) {
   constexpr bool kQuant = !std::is_same<KT, __nv_bfloat16>::value;
   using L = PSmem<D, kQuant>;
   constexpr int NB = L::NB, kStages = L::kStages, kCodeStages = L::kCodeStages;
@@ -197,6 +212,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto k_off = [&](int st, int nb) { return L::K + (st * NB + nb) * kBox; };
   auto v_off = [&](int st, int nb) { return L::V + (st * NB + nb) * kBox; };
 
+  const bool stats = sm != nullptr;
   const int h = blockIdx.y, b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
   const int s0 = (gridDim.x - 1 - blockIdx.x) * (kBM * kWG);  // heaviest tiles first
   const int G = Nh / Nkv, kh = h / G;
@@ -267,9 +283,13 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // positions and table entries (lane j holds box j's block, 0 = not
       // loaded: trash, or past the end), then, one tile ahead, the scales
       // of those blocks (code arenas), so no tile waits on a global load.
+      // (stats mode: a key of table entry 0 is never visible)
+      auto key_pos = [&](int cc) {
+        return cc < c_end && !(stats && tb[cc / BS] == 0) ? kp[cc] : INT_MAX;
+      };
       auto fetch = [&](int c, int& pos0, int& pos1, int& blk_lane) {
-        pos0 = c + lane < c_end ? kp[c + lane] : INT_MAX;
-        pos1 = c + 32 + lane < c_end ? kp[c + 32 + lane] : INT_MAX;
+        pos0 = key_pos(c + lane);
+        pos1 = key_pos(c + 32 + lane);
         const int cj = c + lane * box_rows;
         blk_lane = lane < nsub && cj < c_end ? tb[cj / BS] : 0;
       };
@@ -291,7 +311,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fetch_scales(nbj, nks, nvs);
         const int tmin = __reduce_min_sync(0xffffffffu, min(p0, p1));
         // a tile that adds exactly zero to every row is skipped
-        if (!(tmin > qmax && seen <= qmin)) {
+        if (!(tmin > qmax && (stats || seen <= qmin))) {
           seen = min(seen, tmin);
           const int tmax = __reduce_max_sync(0xffffffffu, max(p0, p1));
           const int all = c0 + kBN <= c_end && tmax <= qmin;
@@ -456,7 +476,8 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   float m[2] = {attn::kNegInf, attn::kNegInf}, l[2] = {0.f, 0.f};
   hopper::mbar_wait(qbar, 0);
   const wgattn::Ring ring{sb + L::K, sb + L::V, full(0), empty(0), spos, sc0, sall};
-  wgattn::consume<D, kStages>(ring, sb + L::Q + wg * NB * kBox, c_end, qp, sl2, o, m, l);
+  wgattn::consume<D, kStages>(ring, sb + L::Q + wg * NB * kBox, c_end, qp, sl2, o, m, l,
+                              stats ? -INFINITY : attn::kNegInf);
 
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
@@ -465,7 +486,20 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     ls += __shfl_xor_sync(0xffffffffu, ls, 2);
     const int s = s0 + row + 8 * t;
     if (s >= S) continue;
-    if (nsplit == 1) {
+    if (nsplit == 1 && stats) {
+      const size_t orow = (size_t(b) * S + s) * Nh + h;
+      float* dst = sacc + orow * D + 2 * quad;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(dst + 64 * nb + 8 * j) =
+              make_float2(o[32 * nb + 4 * j + 2 * t], o[32 * nb + 4 * j + 2 * t + 1]);
+      if (quad == 0) {
+        sm[orow] = attn::stat_m(m[t], ls);
+        sl[orow] = ls;
+      }
+    } else if (nsplit == 1) {
       const float den = fmaxf(ls, 1e-30f);
       __nv_bfloat16* dst = out + ((size_t(b) * S + s) * Nh + h) * D + 2 * quad;
 #pragma unroll
@@ -508,11 +542,11 @@ int run_wgmma(const PrefillArgs& a) {
   auto* out = static_cast<__nv_bfloat16*>(a.out);
   const int le = attn::launch_n(prefill_wgmma_kernel<D, KT>, grid, L::kThreads, L::BYTES,
                                 a.stream, tq, tk, tv, a.k_scale, a.v_scale, a.tbl, a.qpos,
-                                a.kvpos, a.nlive, out, a.part_acc, a.part_ml, a.S, a.Nh, a.Nkv,
-                                a.BS, a.Tb, a.nsplit, a.scale);
+                                a.kvpos, a.nlive, out, a.sacc, a.sm, a.sl, a.part_acc, a.part_ml,
+                                a.S, a.Nh, a.Nkv, a.BS, a.Tb, a.nsplit, a.scale);
   if (le != 0 || a.nsplit == 1) return le;
-  return attn::launch_merge<__nv_bfloat16>(a.part_acc, a.part_ml, out, a.B, a.S, a.Nh, a.Nkv, D,
-                                           a.nsplit, a.stream);
+  return attn::launch_merge<__nv_bfloat16>(a.part_acc, a.part_ml, a.sm ? a.sacc : a.out, a.sm,
+                                           a.sl, a.B, a.S, a.Nh, a.Nkv, D, a.nsplit, a.stream);
 }
 
 template <int D>
@@ -527,7 +561,9 @@ int run_wgmma_kv(const PrefillArgs& a) {
 
 // q [B,Sc,Nh,D], arenas [NB,BS,Nkv,D], scales [NB,Nkv] f32 (null when
 // kv_dtype = 0), tbl [B,T] int32, qpos [B,Sc], kvpos [B,T*BS] int32,
-// nlive [B] int32, out like q; part_acc [B*Nkv*nsplit*G*Sc*D] and part_ml
+// nlive [B] int32, out like q (null in stats mode); sacc [B,Sc,Nh,D], sm
+// and sl [B,Sc,Nh] f32, the stats-mode outputs (all null otherwise, when
+// out is written); part_acc [B*Nkv*nsplit*G*Sc*D] and part_ml
 // [B*Nkv*nsplit*G*Sc*2] f32 scratch (null when nsplit = 1). dtype 0 =
 // float32, 1 = bfloat16; kv_dtype 0 = the query dtype, 1 = int8, 2 =
 // fp8-e4m3; design 0 = the CUDA-core tile (nsplit 1), 1 = the tensor-core
@@ -535,12 +571,15 @@ int run_wgmma_kv(const PrefillArgs& a) {
 extern "C" int paged_prefill_fwd(const void* q, const void* k_arena, const void* v_arena,
                                  const float* k_scale, const float* v_scale, const int* tbl,
                                  const int* qpos, const int* kvpos, const int* nlive, void* out,
-                                 float* part_acc, float* part_ml, int B, int S, int Nh, int Nkv,
+                                 float* sacc, float* sm, float* sl, float* part_acc,
+                                 float* part_ml, int B, int S, int Nh, int Nkv,
                                  int D, int BS, int T, int NBk, int nsplit, float scale,
                                  int dtype, int kv_dtype, int design, void* stream) {
-  const PrefillArgs a{q,   k_arena, v_arena,  k_scale,  v_scale, tbl,    qpos,
-                      kvpos, nlive, out,      part_acc, part_ml, B,      S,
-                      Nh,  Nkv,     BS,       T,        NBk,     nsplit, kv_dtype,
+  if ((sm == nullptr) != (sacc == nullptr) || (sm == nullptr) != (sl == nullptr))
+    return attn::kBadArgs;
+  const PrefillArgs a{q,     k_arena, v_arena, k_scale, v_scale,  tbl,     qpos,   kvpos,
+                      nlive, out,     sacc,    sm,      sl,       part_acc, part_ml, B,
+                      S,     Nh,      Nkv,     BS,      T,        NBk,     nsplit, kv_dtype,
                       scale, static_cast<cudaStream_t>(stream)};
   if (design == 1) {
     const bool bs_ok = BS == 16 || BS == 32 || (BS > 0 && BS % 64 == 0);

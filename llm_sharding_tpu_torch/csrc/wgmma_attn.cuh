@@ -64,10 +64,12 @@ struct Ring {
 // m (running max, log2 domain) and l (this thread's columns' share of the
 // row sum; the quad is summed by the caller). sq: this warpgroup's Q
 // boxes; C: the walk's end column; qp: the two rows' query positions;
-// sl2: scale * log2(e).
+// sl2: scale * log2(e); masked: the score of a masked key (-1e30, or -inf
+// in the paged kernels' stats mode, attn_tile.cuh's note).
 template <int D, int kStages>
 __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const int* qp,
-                                        float sl2, float* o, float* m, float* l) {
+                                        float sl2, float* o, float* m, float* l,
+                                        float masked = attn::kNegInf) {
   constexpr int NB = D / 64;
   constexpr bool kEarly = D <= 128;  // issue the next tile's S before this softmax
   const int quad = threadIdx.x % 4;
@@ -138,7 +140,7 @@ __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * t + e, col = 8 * j + 2 * quad + e;
-            sa[i] = c0 + col >= C ? -INFINITY : sp[col] <= qp[t] ? sa[i] * sl2 : attn::kNegInf;
+            sa[i] = c0 + col >= C ? -INFINITY : sp[col] <= qp[t] ? sa[i] * sl2 : masked;
           }
       }
 #pragma unroll

@@ -28,13 +28,17 @@ import torch.nn.functional as F
 from ..device import device_const, hop, resolve_device
 from ..ops.flash_attention import attention_step
 from ..ops.norms import rms_norm
-from ..ops.paged_attention import paged_attention, paged_prefill, write_block_kv
+from ..ops.paged_attention import (
+    combine_attn_stats, paged_attention, paged_prefill, write_block_kv,
+)
 from ..ops.quant import embed_rows, head_logits, out_dim, qmatmul, tied_logits
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..utils import convert
 from .cache import KVCache
 from .config import ModelConfig
-from .stack import per_shard, replicated, scan_layers, scan_layers_paged, tp_reduce
+from .stack import (
+    CpShards, cp_part, per_shard, replicated, scan_layers, scan_layers_paged, tp_reduce,
+)
 
 Params = dict[str, Any]
 
@@ -252,7 +256,13 @@ def paged_attn_fn(
 ):
     """The attention of a paged layer, shared by the model families:
     scatter the fresh K/V (gated by ``valid``), then the chunked-prefill
-    kernel for chunk-shaped queries or the decode kernel."""
+    kernel for chunk-shaped queries or the decode kernel. An arena of
+    ``CpShards`` is a context-parallel one (``cp_attn_fn``)."""
+    if isinstance(k_arena, CpShards):
+        return cp_attn_fn(
+            k_arena, v_arena, block_table, cols, positions, kv_positions, prefill, nlive,
+            k_scale, v_scale, backend, valid,
+        )
     qkw = dict(k_scale=k_scale, v_scale=v_scale)
 
     def attn_fn(q, k, v):
@@ -266,6 +276,41 @@ def paged_attn_fn(
             q, k_arena, v_arena, block_table, positions, kv_positions, nlive=nlive,
             backend=backend, **qkw,
         )
+
+    return attn_fn
+
+
+def cp_attn_fn(
+    k_arena, v_arena, block_table, cols, positions, kv_positions, prefill, nlive,
+    k_scale, v_scale, backend, valid,
+):
+    """The attention of a context-parallel paged layer (JAX ``llama.py:
+    208-280`` with ``cp_axis``): ``k_arena`` / ``v_arena`` (and the scales)
+    are ``CpShards``, one arena per shard of the group, and ``block_table``
+    the shards' planes of LOCAL block ids, where a column another shard owns
+    maps to the shard's trash block 0. Each shard writes the step's fresh
+    KV through its own plane (owned columns land in its blocks, the rest in
+    its trash), then attends its blocks in stats mode, and
+    ``combine_attn_stats`` merges the shards' ``(acc, m, l)`` on the first
+    shard's device: attention over the whole window. The projections
+    around it run once, on that device."""
+    fn = paged_prefill if prefill else paged_attention
+
+    def attn_fn(q, k, v):
+        d0 = q.device
+        parts = []
+        for s, d in enumerate(k_arena.devices):
+            ka, va, tbl = k_arena.parts[s], v_arena.parts[s], block_table.parts[s]
+            qkw = dict(k_scale=cp_part(k_scale, s), v_scale=cp_part(v_scale, s))
+            write_block_kv(ka, va, tbl, hop(cols, d), hop(k, d), hop(v, d),
+                           valid=None if valid is None else hop(valid, d), **qkw)
+            parts.append(tuple(hop(x, d0) for x in fn(
+                hop(q, d), ka, va, tbl, hop(positions, d), hop(kv_positions, d),
+                nlive=None if nlive is None else hop(nlive, d), backend=backend, stats=True,
+                **qkw,
+            )))
+        acc, m, l = (torch.stack(x) for x in zip(*parts))
+        return combine_attn_stats(acc, m, l).to(q.dtype)
 
     return attn_fn
 

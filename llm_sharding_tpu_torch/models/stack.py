@@ -19,6 +19,11 @@ shard. ``per_shard`` binds a shard's attention to its own KV, and
 ``tp_reduce`` sums the row-parallel partials, where the JAX package's
 block ``psum``s over the tensor axis. With plain parameters and tensors
 every helper reduces to the one-device call.
+
+Context-parallel serving (``serve(cp=N)``) splits a paged arena by BLOCK
+over a shard group: its KV (and scales, and the block table it is read
+through) are ``CpShards``, one whole arena of ``kv_blocks`` blocks per
+shard, each read through the shard's own table of local block ids.
 """
 
 from __future__ import annotations
@@ -101,6 +106,54 @@ class HeadShards:
 
     def element_size(self) -> int:
         return self.parts[0].element_size()
+
+
+class CpShards:
+    """Per-shard tensors of a context-parallel group (``serve(cp=N)``):
+    ``parts[s]`` lives on ``devices[s]``. Each part is a whole tensor of
+    its shard (an arena of the shard's blocks, its scales, or its plane of
+    the block table), so indexing applies to every part alike. ``shape``,
+    ``dtype`` and ``device`` are the first part's."""
+
+    def __init__(self, parts, devices=None):
+        self.parts = list(parts)
+        self.devices = tuple(devices or (p.device for p in self.parts))
+
+    def __getitem__(self, idx) -> "CpShards":
+        return CpShards([p[_on(idx, d)] for p, d in zip(self.parts, self.devices)], self.devices)
+
+    def __len__(self) -> int:
+        return len(self.parts)
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.parts[0].shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def numel(self) -> int:
+        return sum(p.numel() for p in self.parts)
+
+    def element_size(self) -> int:
+        return self.parts[0].element_size()
+
+
+def _on(idx, dev):
+    """An index with its tensors on ``dev``."""
+    if isinstance(idx, tuple):
+        return tuple(_on(i, dev) for i in idx)
+    return hop(idx, dev) if isinstance(idx, torch.Tensor) else idx
+
+
+def cp_part(x, s: int):
+    """Shard ``s``'s part of a ``CpShards`` (None stays None)."""
+    return None if x is None else x.parts[s]
 
 
 def full_heads(x, device=None):

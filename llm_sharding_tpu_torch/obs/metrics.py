@@ -716,8 +716,7 @@ def set_replica_state(replica, state: str) -> None:
 
 
 # -- disaggregated prefill/decode serving (runtime/disagg.py) ---------------
-# JAX ``obs/metrics.py:690-746`` without ``server_cp_stream_shards_total``,
-# which comes with context-parallel serving (ROADMAP.md §A 16b).
+# JAX ``obs/metrics.py:690-746``.
 DISAGG_HANDOFFS = REGISTRY.counter(
     "server_disagg_handoffs_total",
     "Prefill→decode request hand-offs, by outcome (ok = KV blocks streamed "
@@ -730,6 +729,17 @@ DISAGG_HANDOFFS = REGISTRY.counter(
     "replica live, the request keeps decoding on its prefill replica; "
     "failed = no replica could adopt the extracted request — it fails "
     "typed)",
+    labels=("outcome",),
+)
+CP_STREAM_SHARDS = REGISTRY.counter(
+    "server_cp_stream_shards_total",
+    "Per-shard block-stream passes through a context-parallel paged arena "
+    "(reads that gather blocks from their owner shard and writes that land "
+    "blocks on the adopter's owner shard), by outcome (ok = the shard's "
+    "slice moved; error = the pass raised — injected cp_shard_stream "
+    "faults and real transfer failures both land here). Incremented only "
+    "at cp>1; each snapshot, hand-off, host-tier demote/restore, or "
+    "migration touches every owner shard of the rows it moves",
     labels=("outcome",),
 )
 HANDOFF_BYTES = REGISTRY.counter(

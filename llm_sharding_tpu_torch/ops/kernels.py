@@ -11,9 +11,11 @@ Nothing here runs at import: the CPU tests import every module, and this
 machine-independent part is all they touch.
 
 Each ``CudaKernel`` keeps a ``launches`` counter per KV mode (``""`` for
-an arena in the query dtype, ``"int8"``, ``"fp8"``) that its wrapper's
-launch path adds one to, and nothing else does; ``launch_counts`` names a
-quantized mode ``"paged_attention[int8]"`` once it has launched.
+an arena in the query dtype, ``"int8"``, ``"fp8"``; the paged kernels'
+stats mode, which context-parallel serving runs, adds ``"stats"``, as in
+``"int8,stats"``) that its wrapper's launch path adds one to, and nothing
+else does; ``launch_counts`` names such a mode ``"paged_attention[int8]"``
+or ``"paged_prefill[stats]"`` once it has launched.
 """
 
 from __future__ import annotations
@@ -114,11 +116,11 @@ FLASH = CudaKernel(
 )
 PAGED_DECODE = CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_fwd",
-    [_P] * 12 + [_I] * 11 + [_F, _I, _I, _P],
+    [_P] * 15 + [_I] * 11 + [_F, _I, _I, _P],
 )
 PAGED_PREFILL = CudaKernel(
     "paged_prefill", "paged_prefill.cu", "paged_prefill_fwd",
-    [_P] * 12 + [_I] * 9 + [_F, _I, _I, _I, _P],
+    [_P] * 15 + [_I] * 9 + [_F, _I, _I, _I, _P],
 )
 KERNELS = (FLASH, PAGED_DECODE, PAGED_PREFILL)
 
@@ -169,10 +171,14 @@ def launch_counts() -> dict:
     return out
 
 
-def kv_storage(arena: torch.Tensor) -> tuple[int, str]:
+def kv_storage(arena: torch.Tensor, stats: bool = False) -> tuple[int, str]:
     """The paged kernels' KV storage code of an arena and its launch-count
-    mode: ``(0, "")``, ``(1, "int8")`` or ``(2, "fp8")``."""
-    return KV_STORAGE.get(arena.dtype, (0, ""))
+    mode: ``(0, "")``, ``(1, "int8")`` or ``(2, "fp8")``; ``stats`` adds
+    ``"stats"`` to the mode (``"stats"``, ``"int8,stats"``, ...)."""
+    code, mode = KV_STORAGE.get(arena.dtype, (0, ""))
+    if stats:
+        mode = f"{mode},stats" if mode else "stats"
+    return code, mode
 
 
 def current_stream_handle(device: torch.device) -> int:
@@ -206,11 +212,14 @@ def check_operand(
 
 
 def int32_operand(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
-    """A position, table or count operand as the kernels take it."""
+    """A position, table or count operand as the kernels take it. The
+    kernels read these one int at a time, so a row of a larger table (a
+    context-parallel shard's plane of ``[cp, M, T]``) needs only its
+    element alignment."""
     if t.dtype != torch.int32:
         raise ValueError(f"{name} must be int32, got {t.dtype}")
     t = t.contiguous()
-    check_operand(name, t, device, torch.int32, shape)
+    check_operand(name, t, device, torch.int32, shape, align=4)
     return t
 
 

@@ -42,6 +42,14 @@ the kernel on a CUDA tensor and runs the plain version on a CPU tensor;
 ``"kernel"`` on a CPU tensor raises; ``"plain"`` is the plain version
 anywhere, and on the card only ever an explicit caller choice.
 
+``stats=True`` (context-parallel serving: each shard attends the blocks it
+owns, and ``combine_attn_stats`` merges the shards) returns the
+``attn_stats`` triple ``(acc, m, l)`` instead of the normalised output, on
+every path: ``attn_stats`` on a CPU tensor, the same two kernels on the
+card, which then mask columns of table entry 0 as well as by position and
+write the f32 triple (``csrc/attn_tile.cuh``'s note). A row that sees no
+live column is ``(0, -1e30, 0)`` on both.
+
 Rows with no visible key are garbage on every path and are discarded by
 the callers. They can differ between paths in one way: the prefill
 kernel stops each row at ``nlive`` blocks, while the plain version reads
@@ -463,6 +471,19 @@ def _scale_ptrs(k_scale, v_scale) -> tuple[int, int]:
     return k_scale.data_ptr(), v_scale.data_ptr()
 
 
+def _outputs(q: torch.Tensor, stats: bool):
+    """The paged kernels' outputs: ``(out, None, (out, 0, 0, 0))``, or in
+    stats mode ``(None, (acc, m, l), (0, acc, m, l))``, f32 ``acc [B, S,
+    Nh, D]`` and ``m`` / ``l [B, S, Nh]``, with the pointers the entry
+    points take (out, then the stats triple; null where unused)."""
+    if not stats:
+        out = torch.empty_like(q)
+        return out, None, (out.data_ptr(), 0, 0, 0)
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m, l = torch.empty((2,) + tuple(q.shape[:3]), dtype=torch.float32, device=q.device)
+    return None, (acc, m, l), (0, acc.data_ptr(), m.data_ptr(), l.data_ptr())
+
+
 _TICKETS: dict = {}
 
 
@@ -490,14 +511,22 @@ def paged_attention(
     k_scale: Optional[torch.Tensor] = None,  # [NB, Nkv] f32, quantized arenas only
     v_scale: Optional[torch.Tensor] = None,
     backend: str = "auto",
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """Decode attention of each row over exactly the blocks its table
     names (kernel 1, or ``paged_attention_xla``; see ``backend``). The
     kernel reads each row's first ``nlive`` blocks only (the server passes
     the blocks covering its written frontier, 0 for a finished row, whose
     output is then zeros), or the whole table without ``nlive``; the plain
-    version reads the window."""
+    version reads the window. ``stats=True`` returns ``(acc, m, l)``
+    (``attn_stats``'s triple) instead; a row with no live column is then
+    ``(0, -1e30, 0)``."""
     if not _use_kernel("paged_attention", q, backend):
+        if stats:
+            return attn_stats(
+                q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale,
+                v_scale,
+            )
         return paged_attention_xla(
             q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale, v_scale
         )
@@ -518,21 +547,21 @@ def paged_attention(
     nl = 0
     if nlive is not None:
         nl = kernels.int32_operand("nlive", nlive, (B,), q.device).data_ptr()
-    kv, mode = kernels.kv_storage(k_arena)
+    kv, mode = kernels.kv_storage(k_arena, stats)
     plan = plan_decode(B, S, Nh, Nkv, T, BS, q.dtype, kernels.sm_count(q.device))
     # per-piece partials (acc, then (m, l) pairs, per (group, row, KV head)),
     # merged in the launch; the kernel allocates nothing
     part = torch.empty(plan.scratch_floats(B, Nkv, D), dtype=torch.float32, device=q.device)
     tickets = _tickets(q.device, B * Nkv * plan.groups)
-    out = torch.empty_like(q)
+    out, st, ptrs = _outputs(q, stats)
     kernels.PAGED_DECODE.launch(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl, out.data_ptr(), part.data_ptr(),
+        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl, *ptrs, part.data_ptr(),
         tickets.data_ptr(), B, S, Nh, Nkv, D, BS, T, NBk, plan.pieces, plan.slots,
         plan.min_tiles, float(scale), code, kv, kernels.current_stream_handle(q.device),
         mode=mode,
     )
-    return out
+    return st if stats else out
 
 
 def paged_prefill(
@@ -548,14 +577,21 @@ def paged_prefill(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     backend: str = "auto",
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """Chunked-prefill attention over the arena (kernel 2, or
     ``paged_attention_xla``, which reads the whole window: the ``nlive``
     clamp only bounds the kernel's KV traffic). On the card the route is
     ``prefill_design(q.dtype, BS)``; the tensor-core route cuts rows into
     ``plan_prefill_splits`` runs whose partials a second pass merges (one
-    launch count per call)."""
+    launch count per call). ``stats=True`` returns ``(acc, m, l)``
+    (``attn_stats``'s triple) instead."""
     if not _use_kernel("paged_prefill", q, backend):
+        if stats:
+            return attn_stats(
+                q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale,
+                v_scale,
+            )
         return paged_attention_xla(
             q, k_arena, v_arena, block_table, q_positions, kv_positions, scale, k_scale, v_scale
         )
@@ -570,7 +606,7 @@ def paged_prefill(
     if nlive is None:
         nlive = torch.full((B,), T, dtype=torch.int32, device=q.device)
     nl = kernels.int32_operand("nlive", nlive.clamp(0, T).to(torch.int32), (B,), q.device)
-    kv, mode = kernels.kv_storage(k_arena)
+    kv, mode = kernels.kv_storage(k_arena, stats)
     design = prefill_design(q.dtype, BS)
     nsplit = 1
     if design == "wgmma":
@@ -582,11 +618,11 @@ def paged_prefill(
         rows = B * nsplit * Nh * S
         part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
         part_acc, part_ml = part.data_ptr(), part.data_ptr() + rows * D * 4
-    out = torch.empty_like(q)
+    out, st, ptrs = _outputs(q, stats)
     kernels.PAGED_PREFILL.launch(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),
-        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl.data_ptr(), out.data_ptr(),
+        tbl.data_ptr(), qpos.data_ptr(), kvpos.data_ptr(), nl.data_ptr(), *ptrs,
         part_acc, part_ml, B, S, Nh, Nkv, D, BS, T, k_arena.shape[0], nsplit, float(scale), code,
         kv, int(design == "wgmma"), kernels.current_stream_handle(q.device), mode=mode,
     )
-    return out
+    return st if stats else out

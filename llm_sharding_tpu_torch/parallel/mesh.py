@@ -7,7 +7,7 @@ device's work, so a grid is a nested list of ``torch.device``s in the
 same order: axis 0 outermost. The hybrid axis order is the JAX one,
 ``(data, pipe, seq, tensor)``, tensor innermost: a stage's tensor group is
 ``tp`` consecutive devices of the list, and ``devices = dp × stages ×
-tp``. An explicit device list is honoured verbatim and may repeat a
+tp``; a context-parallel server's grid is ``(cp, pipe)``. An explicit device list is honoured verbatim and may repeat a
 device (one card standing in for several).
 """
 
@@ -62,6 +62,15 @@ def pipeline_data_mesh(num_stages: int, data_parallel: int,
     """2-D grid: the chain ``data_parallel`` times, pipe minor
     (``mesh.py:74-85``)."""
     return Grid(_device_grid((data_parallel, num_stages), devices), (DATA_AXIS, PIPE_AXIS))
+
+
+def pipeline_cp_mesh(cp: int, num_stages: int, devices: Optional[Sequence] = None) -> Grid:
+    """2-D grid for context-parallel serving (``mesh.py:61``): ``cp``
+    copies of the chain, pipe minor, each holding one shard of every
+    stage's paged arena; stage ``i``'s shard group is column ``i``. Pass the
+    engine's own devices, so a replica builds its grid from its slice of
+    the machine."""
+    return Grid(_device_grid((cp, num_stages), devices), (CP_AXIS, PIPE_AXIS))
 
 
 def hybrid_mesh(*, data: int = 1, pipe: int = 1, seq: int = 1, tensor: int = 1,

@@ -68,6 +68,23 @@ for rows that are done, and attends the row's whole cache on the plain
 path (S = 1); a verify runs over every row at S = K + 1 through flash. The
 same fixed-shape, sync-free contract holds for ``serve_chunk``.
 
+Context parallelism (``serve(cp=N)``, JAX ``serve.py:122-156``, ``:231-315``)
+splits each stage's paged arena by block over a shard group: ``Arena.k`` /
+``v`` (and the scales) are ``models/stack.CpShards``, one arena of
+``kv_blocks`` blocks per shard on its device, and ``block_tables`` is
+``[cp, M, T]``, each shard's plane of LOCAL block ids (the server's host
+mirror keeps global ids ``shard * kv_blocks + local`` and projects the
+planes when it pushes them; a column another shard owns is the shard's
+trash block 0). Every program writes the fresh KV through every shard's
+plane, so an owned column lands in a real block and the rest in trash, and
+each paged layer attends shard by shard in stats mode and merges the
+partials (``models/llama.cp_attn_fn``). The one-shot admission still
+prefills once, densely (flash), and scatters the window through each
+shard's plane; a chunk is the ring pass of JAX's chunked prefill. What
+leaves or enters the arena by block id (snapshots, the host tier, a
+hand-off's stream) takes global ids and reads or writes each block on its
+owner shard, so host copies do not depend on the shard count.
+
 A prefix (an explicit handle's KV, or a radix-cache hit's blocks) puts a
 row's suffix at absolute positions and columns ``prefix + i``. A radix
 hit's shared blocks are already in the arena and are never written again
@@ -86,7 +103,7 @@ import torch
 from ..device import hop, to_device
 from ..models.cache import POS_SENTINEL, KVCache, block_pool_shape, block_scale_shape
 from ..models.config import ModelConfig
-from ..models.stack import HeadShards, full_heads, per_shard
+from ..models.stack import CpShards, HeadShards, cp_part, full_heads, per_shard
 from ..obs.metrics import CANCEL_BATCH_ROWS
 from ..ops.paged_attention import _bytes, _take, write_block_kv
 from ..ops.quant import is_kv_quantized, kv_dequantize, kv_qmax, kv_quantize, kv_storage_dtype
@@ -115,7 +132,8 @@ class ServeState:
     cache_dtype: torch.dtype  # the engine's dtype: dense prefill cache, attention queries
     kpos: torch.Tensor  # [M, W] int32 key position per LOGICAL column
     block_tables: torch.Tensor  # [M, T] int32 (the server owns the host mirror);
-    #   dense: an [M, 1] placeholder of trash entries
+    #   dense: an [M, 1] placeholder of trash entries; context-parallel:
+    #   [cp, M, T], each shard's plane of local block ids
     # row state on the device, read and advanced by the programs
     tok: torch.Tensor  # [M] int32 next input token of each row
     pos_slots: torch.Tensor  # [M] int32 position of that token
@@ -161,6 +179,11 @@ class ServeState:
     def rows(self) -> int:
         return self.kpos.shape[0]
 
+    @property
+    def cp(self) -> int:
+        """The context-parallel degree: the shards each arena is split over."""
+        return self.block_tables.shape[0] if self.block_tables.dim() == 3 else 1
+
 
 def make_state(
     cfg: ModelConfig,
@@ -173,6 +196,7 @@ def make_state(
     device: torch.device,
     kv_dtype: str = "bf16",
     stages: Optional[list] = None,  # [(num_layers, devices)] per stage: its tensor group
+    cp_groups: Optional[list] = None,  # per stage: its context-parallel shard devices
 ) -> ServeState:
     """Empty state: every row free (done), every table entry trash. Each
     row's logical window is ``W = ceil(capacity / BS) * BS`` columns.
@@ -184,7 +208,9 @@ def make_state(
     devices (default: one stage of every layer on ``device``); a group of
     more than one device gets one arena per shard of ``Nkv / tp`` heads,
     as ``HeadShards``. The tables and the row state go on ``device``, the
-    first stage's."""
+    first stage's. ``cp_groups`` (paged only, one shard group per stage)
+    gives each stage one arena of ``kv_blocks`` blocks (and scales) per
+    shard, as ``CpShards``, and ``[cp, M, T]`` tables."""
     dense = not kv_block_size
     if dense and kv_dtype != "bf16":
         raise ValueError(f"kv_dtype={kv_dtype!r} needs a paged arena")
@@ -216,14 +242,27 @@ def make_state(
     def row_i32():
         return torch.zeros(rows, dtype=torch.int32, device=device)
 
+    stages = stages or [(cfg.num_hidden_layers, (device,))]
+    if cp_groups is not None:
+        if dense:
+            raise ValueError("a context-parallel arena is paged")
+
+        def sharded(make, L, shards):
+            parts = [make(L, (d,)) for d in shards]
+            return None if parts[0] is None else CpShards(parts, shards)
+
+        arenas = [Arena(*(sharded(f, L, tuple(g)) for f in (arena, arena, scales, scales)))
+                  for (L, _), g in zip(stages, cp_groups)]
+        tables = (len(cp_groups[0]), rows, T)
+    else:
+        arenas = [Arena(arena(L, dev), arena(L, dev), scales(L, dev), scales(L, dev))
+                  for L, dev in stages]
+        tables = (rows, T)
     return ServeState(
-        arenas=[
-            Arena(arena(L, dev), arena(L, dev), scales(L, dev), scales(L, dev))
-            for L, dev in (stages or [(cfg.num_hidden_layers, (device,))])
-        ],
+        arenas=arenas,
         cache_dtype=dtype,
         kpos=torch.full((rows, W), POS_SENTINEL, dtype=torch.int32, device=device),
-        block_tables=torch.zeros((rows, T), dtype=torch.int32, device=device),
+        block_tables=torch.zeros(tables, dtype=torch.int32, device=device),
         tok=row_i32(),
         pos_slots=row_i32(),
         write_off=row_i32(),
@@ -356,6 +395,26 @@ def _cat_layers(parts: list, device: torch.device) -> torch.Tensor:
     return torch.cat([hop(p, device) for p in parts])
 
 
+def _shard_views(ar: Arena, tbl: torch.Tensor):
+    """``(k, v, k_scale, v_scale, table)`` of each shard of stage arena
+    ``ar``, ``tbl`` the rows' tables (``[n, T]``, or ``[cp, n, T]`` of a
+    context-parallel arena, whose shard ``s`` reads plane ``s``): one entry
+    without context parallelism."""
+    if not isinstance(ar.k, CpShards):
+        return [(ar.k, ar.v, ar.k_scale, ar.v_scale, tbl)]
+    return [(ar.k.parts[s], ar.v.parts[s], cp_part(ar.k_scale, s), cp_part(ar.v_scale, s),
+             None if tbl is None else tbl[s]) for s in range(len(ar.k))]
+
+
+def _stage_tables(ar: Arena, tbl: torch.Tensor, device: torch.device):
+    """The tables stage arena ``ar`` is read through, on its devices: ``tbl``
+    on ``device``, or for a context-parallel arena each shard's plane on
+    the shard's device, as ``CpShards``."""
+    if not isinstance(ar.k, CpShards):
+        return hop(tbl, device)
+    return CpShards([hop(tbl[s], d) for s, d in enumerate(ar.k.devices)], ar.k.devices)
+
+
 def prefix_prefill(
     cfg: ModelConfig,
     model,  # the stage list, or one device's params dict
@@ -456,16 +515,43 @@ class BlockRead:
         )
 
 
+def _by_owner(blocks, per_shard_blocks: int) -> list:
+    """Global block ids of a context-parallel arena by owner shard: ``[(s,
+    positions in blocks, local ids)]`` for each shard that holds any."""
+    g = np.asarray(blocks, np.int64)
+    own = g // per_shard_blocks
+    return [(int(s), np.nonzero(own == s)[0], g[own == s] % per_shard_blocks)
+            for s in np.unique(own)]
+
+
+def _take_global(a: CpShards, blocks, device: torch.device) -> torch.Tensor:
+    """Blocks of global ids ``blocks`` of every layer of a context-parallel
+    arena (or scales) ``a``, each read on its owner shard, joined in order
+    on ``device``."""
+    out = None
+    for s, pos, local in _by_owner(blocks, a.shape[1]):
+        part = hop(_take_blocks(a.parts[s], to_device(local, a.devices[s])), device)
+        if out is None:
+            out = torch.empty((part.shape[0], len(blocks)) + tuple(part.shape[2:]),
+                              dtype=part.dtype, device=device)
+        _bytes(out)[:, to_device(pos, device)] = _bytes(part)
+    return out
+
+
 def read_arena_blocks_dispatch(state: ServeState, blocks: list) -> BlockRead:
     """Queue the gathers of arena blocks and their copy to the host
     (``BlockRead``); the JAX ``runtime/server.py:3145``. Nothing here waits
     for the device: the block ids go up through a pinned staging copy. The
     stages' blocks are joined along the layer axis on the first stage's
-    device, so the host arrays are the one-stage layout."""
+    device, so the host arrays are the one-stage layout. A context-parallel
+    arena takes global ids and reads each block on its owner shard."""
     per_stage = []
     for ar in state.arenas:
-        idx = to_device(np.asarray(blocks, np.int64), ar.k.device)
         parts = [ar.k, ar.v] + ([] if ar.k_scale is None else [ar.k_scale, ar.v_scale])
+        if isinstance(ar.k, CpShards):
+            per_stage.append([_take_global(a, blocks, ar.k.device) for a in parts])
+            continue
+        idx = to_device(np.asarray(blocks, np.int64), ar.k.device)
         per_stage.append([full_heads(per_shard(_take_blocks, a, idx)) for a in parts])
     return BlockRead(tuple(_cat_layers(list(p), state.device) for p in zip(*per_stage)))
 
@@ -502,12 +588,23 @@ def write_arena_blocks_q(
 def write_state_blocks(state: ServeState, blocks: list, k_host, v_host, *scales) -> None:
     """Host arrays in the one-stage layout (``read_arena_blocks``'s ``[1,
     L, nb, ...]``) written into every stage's arena, each stage taking its
-    layers (and each shard of a tensor group its heads): codes and, for an
-    int8/fp8 arena, scales, byte-exact."""
+    layers (each shard of a tensor group its heads, and each block of a
+    context-parallel arena, a global id, its owner shard): codes and, for
+    an int8/fp8 arena, scales, byte-exact."""
     lo = 0
     for ar in state.arenas:
         hi = lo + ar.k.shape[0]
         cut = [a[:, lo:hi] for a in (k_host, v_host) + tuple(scales)]
+        if isinstance(ar.k, CpShards):  # each block onto its owner shard
+            for s, pos, local in _by_owner(blocks, ar.k.shape[1]):
+                views = _shard_views(ar, None)[s]
+                sel = [a[:, :, pos] for a in cut]
+                if views[2] is None:
+                    write_arena_blocks(views[0], views[1], list(local), *sel)
+                else:
+                    write_arena_blocks_q(*views[:4], list(local), *sel)
+            lo = hi
+            continue
         if isinstance(ar.k, HeadShards):
             tp = len(ar.k.parts)
             heads = [np.split(a, tp, axis=-2) for a in cut]
@@ -616,17 +713,21 @@ def serve_admit(
             )
         npfx = Spx // BS
     w0 = npfx * BS
-    tbl = state.block_tables[rows_t]
+    tbl = state.block_tables[..., rows_t, :]
     cols = torch.arange(w0, Spx + Sp, device=dev).expand(n, Spx + Sp - w0)
     for ar, cache in zip(state.arenas, caches):
-        tbl_s, cols_s = hop(tbl, ar.k.device), hop(cols, ar.k.device)
-        for layer in range(cache.num_layers):
-            kw, vw = cache.k[layer][:, w0:], cache.v[layer][:, w0:]
-            if ar.k_scale is None:
-                per_shard(write_block_kv, ar.k[layer], ar.v[layer], tbl_s, cols_s, kw, vw)
-                continue
-            scatter_pages_q(ar.k[layer], ar.k_scale[layer], tbl_s[:, npfx:], kw)
-            scatter_pages_q(ar.v[layer], ar.v_scale[layer], tbl_s[:, npfx:], vw)
+        # context-parallel: every shard takes the window through its own
+        # plane (its columns land in its blocks, the rest in its trash)
+        for ka, va, ks, vs, tb in _shard_views(ar, tbl):
+            d = ka.device
+            tbl_s, cols_s = hop(tb, d), hop(cols, d)
+            for layer in range(cache.num_layers):
+                kw, vw = hop(cache.k[layer][:, w0:], d), hop(cache.v[layer][:, w0:], d)
+                if ks is None:
+                    per_shard(write_block_kv, ka[layer], va[layer], tbl_s, cols_s, kw, vw)
+                    continue
+                scatter_pages_q(ka[layer], ks[layer], tbl_s[:, npfx:], kw)
+                scatter_pages_q(va[layer], vs[layer], tbl_s[:, npfx:], vw)
     kpos = torch.full((n, state.kpos.shape[1]), POS_SENTINEL, dtype=torch.int32, device=dev)
     kpos[:, : Spx + Sp] = caches[0].pos
     state.kpos[rows_t] = kpos
@@ -694,7 +795,7 @@ def serve_prefill_chunk(
         return
     BS = state.block_size
     rows_t = to_device(np.asarray(rows, np.int64), dev)
-    tbl = state.block_tables[rows_t]
+    tbl = state.block_tables[..., rows_t, :]
     col0 = prefix_off + chunk_off
     if reset:
         col = torch.arange(state.kpos.shape[1], dtype=torch.int32, device=dev)
@@ -702,11 +803,12 @@ def serve_prefill_chunk(
         state.out[rows] = 0
         if state.arenas[0].k_scale is not None:
             priv = tbl.long().clone()
-            priv[:, : prefix_off // BS] = 0  # shared prefix blocks keep their scales
+            priv[..., : prefix_off // BS] = 0  # shared prefix blocks keep their scales
             for ar in state.arenas:
-                priv_s = hop(priv, ar.k.device)
-                ar.k_scale[:, priv_s] = 0.0
-                ar.v_scale[:, priv_s] = 0.0
+                for _, _, ks, vs, pv in _shard_views(ar, priv):
+                    pv = hop(pv, ks.device)
+                    ks[:, pv] = 0.0
+                    vs[:, pv] = 0.0
     pos_t = to_device(np.asarray(positions, np.int32), dev)
     kv_pos = state.kpos[rows_t]
     kv_pos[:, col0 : col0 + Sc] = pos_t
@@ -717,9 +819,9 @@ def serve_prefill_chunk(
     def stage(i, st, h):
         ar, d = state.arenas[i], st.device
         return fns.stage_paged(
-            cfg, st.layers, h, ar.k, ar.v, hop(tbl, d), hop(cols, d), hop(kv_pos, d),
-            hop(pos_t, d), prefill=True, nlive=hop(nlive, d), k_scale=ar.k_scale,
-            v_scale=ar.v_scale, backend=backend,
+            cfg, st.layers, h, ar.k, ar.v, _stage_tables(ar, tbl, d), hop(cols, d),
+            hop(kv_pos, d), hop(pos_t, d), prefill=True, nlive=hop(nlive, d),
+            k_scale=ar.k_scale, v_scale=ar.v_scale, backend=backend,
         )
 
     run_stages(stages, chain_embed(cfg, stages, to_device(tokens, dev), pos_t), stage)
@@ -842,6 +944,7 @@ def serve_chunk(
                     hop(state.kpos, d), hop(pos, d)[:, None], live=hop(live, d),
                 )
         else:
+            # (every shard's plane, context-parallel)
             tables = torch.where(live[:, None], state.block_tables, 0)
             # the blocks covering each row's written frontier, this entry
             # included; a done row reads none
@@ -850,7 +953,8 @@ def serve_chunk(
             def stage(i, st, h):
                 a, d = state.arenas[i], st.device
                 return fns.stage_paged(
-                    cfg, st.layers, h, a.k, a.v, hop(tables, d), hop(cols, d)[:, None],
+                    cfg, st.layers, h, a.k, a.v, _stage_tables(a, tables, d),
+                    hop(cols, d)[:, None],
                     hop(state.kpos, d), hop(pos, d)[:, None], nlive=hop(nlive, d),
                     k_scale=a.k_scale, v_scale=a.v_scale, backend=backend,
                 )
@@ -918,6 +1022,14 @@ def serve_verify(
     kernel at S = K + 1. The log returned is the ``rows``' own."""
     from ..runtime.spec import _leading_true_count, cap_commits, rejection_commit
 
+    if state.cp > 1:  # JAX serve.py:1512-1561 refuses it in the same words
+        raise NotImplementedError(
+            "serve_verify does not support context-parallel serving (cp > "
+            "1): speculative decode commits a VARIABLE number of tokens per "
+            "row, and the cross-shard combine for its K+1-position "
+            "traversal is not wired — the server gates speculate off under "
+            "cp (ROADMAP: cp-aware speculation)"
+        )
     stages = as_stages(model)
     dev = state.device
     verified = None

@@ -12,9 +12,9 @@ frees; exhaustion is the typed ``BlockExhausted``, and the server checks
 ``share`` adds a reference to a block another owner holds (a prefix
 handle's, or a radix-tree node's, mapped read-only into a row), and the
 ``_cached`` marks tag the blocks whose owning reference is the prefix
-cache's (``runtime/radix.py``). The context-parallel
-``ShardedBlockAllocator`` and its ``alloc_at`` placement hint come with
-the context-parallel slice.
+cache's (``runtime/radix.py``). ``ShardedBlockAllocator`` is the
+context-parallel pool (``blocks.py:240``): per-shard free lists over
+global block ids, its ``alloc_at`` striping a row's blocks over the shards.
 """
 
 from __future__ import annotations
@@ -119,6 +119,12 @@ class BlockAllocator:
         self._ref[taken] = 1
         return taken
 
+    def alloc_at(self, start_col: int, n: int) -> list[int]:
+        """``alloc`` with a placement hint (``blocks.py:158``): ``start_col``
+        is the first logical column, in blocks, the run will map. One pool
+        has no placement to prefer; ``ShardedBlockAllocator`` stripes."""
+        return self.alloc(n)
+
     def share(self, blocks) -> None:
         """Add a reference to each of ``blocks`` (``blocks.py:166``): a row
         maps an already-allocated block read-only into its table."""
@@ -185,3 +191,161 @@ class BlockAllocator:
             )
         if self._ref[TRASH_BLOCK] != 1:
             raise AssertionError("trash block refcount must stay pinned at 1")
+
+
+class ShardedBlockAllocator(BlockAllocator):
+    """Per-shard free lists over one global block id space, the host half
+    of context-parallel paged serving (``serve(cp=N)``; JAX
+    ``blocks.py:240-460``).
+
+    Global id ``gid = shard * blocks_per_shard + local``: shard ``gid //
+    blocks_per_shard`` holds the block at local id ``gid %
+    blocks_per_shard`` of its own arena. The server's host table keeps
+    global ids and projects each shard's plane of local ids when it pushes
+    them (a column another shard owns maps to the local trash block 0).
+    Every shard's local block 0 (gid ``s * blocks_per_shard``) is that
+    shard's trash, pinned as the base pool's block 0 is.
+
+    ``alloc_at`` stripes ownership round-robin by logical column, falling
+    back to the most-free shard when the preferred one is dry, so the total
+    free count (``num_free``) stays a sufficient admission bound. The base
+    class's flat free list is kept as a view of the per-shard lists, so
+    ``num_free``, ``in_use`` and the KV gauges read it unchanged."""
+
+    def __init__(self, shards: int, blocks_per_shard: int, block_size: int):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if blocks_per_shard < 2:
+            raise ValueError(
+                f"blocks_per_shard must be >= 2 (each shard's local block "
+                f"0 is its reserved trash sink), got {blocks_per_shard}"
+            )
+        super().__init__(shards * blocks_per_shard, block_size)
+        self.shards = shards
+        self.blocks_per_shard = blocks_per_shard
+        for s in range(1, shards):
+            self._ref[s * blocks_per_shard] = 1  # each shard's trash, pinned
+        self._shard_free: list[list[int]] = [
+            list(range((s + 1) * blocks_per_shard - 1, s * blocks_per_shard, -1))
+            for s in range(shards)
+        ]
+        self._sync_free()
+
+    def _sync_free(self) -> None:
+        # the per-shard lists are the truth; the flat list is their view
+        self._free = [b for fl in self._shard_free for b in fl]
+
+    def owner(self, gid: int) -> int:
+        """The shard that holds global block ``gid``."""
+        return int(gid) // self.blocks_per_shard
+
+    def owner_shards(self, blocks) -> list[int]:
+        """The distinct shards that hold ``blocks``, in order: the
+        per-shard passes of a block stream (snapshot, hand-off, host-tier
+        demote and restore), and the keys of its ``cp_shard_stream``
+        fault probe."""
+        return sorted({self.owner(b) for b in blocks})
+
+    @property
+    def capacity_blocks(self) -> int:
+        """Allocatable blocks: each shard keeps its local block 0."""
+        return self.shards * (self.blocks_per_shard - 1)
+
+    def _take(self, shard: int) -> int:
+        b = self._shard_free[shard].pop()
+        self._ref[b] = 1
+        return b
+
+    def _most_free(self) -> int:
+        return max(range(self.shards), key=lambda i: len(self._shard_free[i]))
+
+    def _check_free(self, n: int, what: str) -> None:
+        if n < 0:
+            raise ValueError(what)
+        if n > self.num_free:
+            raise BlockExhausted(
+                f"need {n} KV blocks, {self.num_free} free "
+                f"(of {self.capacity_blocks} across {self.shards} shards)"
+            )
+
+    def alloc(self, n: int) -> list[int]:
+        """``n`` blocks with no placement (a radix restore, a hand-off's
+        landing): each from the most-free shard."""
+        self._check_free(n, f"alloc({n})")
+        taken = [self._take(self._most_free()) for _ in range(n)]
+        self._sync_free()
+        return taken
+
+    def alloc_at(self, start_col: int, n: int) -> list[int]:
+        """Block ``j`` of the run (logical column block ``start_col + j``)
+        from shard ``(start_col + j) % shards``, or the most-free shard when
+        that one has none: a row's KV, and with it each decode step's write
+        and each chunk's columns, spreads over the shards."""
+        self._check_free(n, f"alloc_at({start_col}, {n})")
+        taken = []
+        for j in range(n):
+            s = (int(start_col) + j) % self.shards
+            taken.append(self._take(s if self._shard_free[s] else self._most_free()))
+        self._sync_free()
+        return taken
+
+    def _refuse_trash(self, blocks, what: str) -> None:
+        for b in blocks:
+            if int(b) % self.blocks_per_shard == 0:
+                raise ValueError(f"{what} of reserved trash block {int(b)}")
+
+    def share(self, blocks) -> None:
+        self._refuse_trash(blocks, "share")
+        super().share(blocks)
+
+    def mark_cached(self, blocks) -> None:
+        self._refuse_trash(blocks, "mark_cached")
+        super().mark_cached(blocks)
+
+    def free(self, blocks) -> None:
+        for b in blocks:
+            b = int(b)
+            if b % self.blocks_per_shard == 0:
+                raise ValueError("free of a reserved trash block")
+            if self._ref[b] < 1:
+                raise ValueError(f"double free of block {b}")
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._shard_free[b // self.blocks_per_shard].append(b)
+        self._sync_free()
+
+    def restore(self, private_rows, shared_rows) -> None:
+        super().restore(private_rows, shared_rows)
+        self._shard_free = [
+            sorted((b for b in self._free if b // self.blocks_per_shard == s), reverse=True)
+            for s in range(self.shards)
+        ]
+        self._sync_free()
+
+    def check(self) -> None:
+        """The base invariant per shard: the free lists and the held blocks
+        partition the pool, every shard's trash pinned and never cached,
+        and each free entry filed under its own shard."""
+        NB = self.blocks_per_shard
+        flat = [b for fl in self._shard_free for b in fl]
+        if sorted(flat) != sorted(self._free):
+            raise AssertionError("per-shard free lists drifted from the flat view")
+        if len(set(flat)) != len(flat):
+            raise AssertionError(f"free list has duplicates: {flat}")
+        for s in range(self.shards):
+            if self._ref[s * NB] != 1:
+                raise AssertionError(f"shard {s} trash refcount must stay pinned at 1")
+            if self._cached[s * NB]:
+                raise AssertionError(f"shard {s} trash block cache-marked")
+            for b in self._shard_free[s]:
+                if b // NB != s or b % NB == 0:
+                    raise AssertionError(f"free-list entry {b} misfiled under shard {s}")
+                if self._ref[b] != 0:
+                    raise AssertionError(f"free block {b} has refcount {self._ref[b]}")
+                if self._cached[b]:
+                    raise AssertionError(f"free block {b} still cache-marked")
+        held = [b for b in range(self.num_blocks) if b % NB != 0 and self._ref[b] > 0]
+        if len(held) + len(flat) != self.capacity_blocks:
+            raise AssertionError(
+                f"{len(held)} held + {len(flat)} free != {self.capacity_blocks} blocks"
+            )

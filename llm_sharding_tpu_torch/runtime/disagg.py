@@ -1,7 +1,8 @@
 """Disaggregated prefill/decode serving: role-typed replica pools with
 profiler-driven placement and cross-replica KV block streaming (the port
-of ``llm_sharding_tpu/runtime/disagg.py``, whole but for context
-parallelism, which comes with ``ROADMAP.md`` §A 16b).
+of ``llm_sharding_tpu/runtime/disagg.py``, context-parallel replicas
+included: their streams read and land each block on its owner shard, and
+a ``cp_shard_stream`` probe per shard guards the hand-off).
 
 Prefill and decode have opposite hardware profiles — prefill is
 compute-bound (one big batched matmul over the prompt), decode is
@@ -71,7 +72,7 @@ import numpy as np
 
 from ..analysis.lockorder import named_lock
 from ..obs.metrics import (
-    DISAGG_HANDOFFS, DISAGG_TTFT_ERROR, HANDOFF_BYTES, REPLICA_ROLES,
+    CP_STREAM_SHARDS, DISAGG_HANDOFFS, DISAGG_TTFT_ERROR, HANDOFF_BYTES, REPLICA_ROLES,
     REPLICA_SPAWNS, set_replica_role,
 )
 from .blocks import BlockExhausted
@@ -521,6 +522,42 @@ class DisaggServer(ReplicatedServer):
                     logger.warning(
                         "kv_handoff fault for request %d: %r — decoding "
                         "stays on replica %d",
+                        req.id, e, self._group_of[src],
+                    )
+                return True
+        if self._fault_plan is not None and src.cp > 1:
+            # the per-shard probe of a context-parallel stream before the
+            # extract (JAX ``disagg.py:524-560``): a shard that cannot serve
+            # its slice defers (transient: retried) or falls back
+            # (permanent) while the request still lives on its prefill
+            # replica, classified as kv_handoff is
+            try:
+                for sh in range(src.cp):
+                    self._fault_plan.check("cp_shard_stream", key=sh)
+            except Exception as e:  # noqa: BLE001 — classified below
+                CP_STREAM_SHARDS.labels(outcome="error").inc()
+                if is_transient(e) and attempts < self.handoff_retries:
+                    self._pending_handoff[req] = attempts + 1
+                    DISAGG_HANDOFFS.labels(outcome="retried").inc()
+                    self._decision(
+                        "handoff", req=req, outcome="retried",
+                        attempts=attempts + 1,
+                    )
+                    logger.warning(
+                        "transient cp_shard_stream fault for request %d "
+                        "(attempt %d/%d): %r — retrying next sweep",
+                        req.id, attempts + 1, self.handoff_retries, e,
+                    )
+                else:
+                    self._no_handoff.add(req)
+                    DISAGG_HANDOFFS.labels(outcome="fallback").inc()
+                    self._decision(
+                        "handoff", req=req, outcome="fallback",
+                        reason="fault", attempts=attempts,
+                    )
+                    logger.warning(
+                        "cp_shard_stream fault for request %d: %r — "
+                        "decoding stays on replica %d",
                         req.id, e, self._group_of[src],
                     )
                 return True

@@ -370,9 +370,13 @@ class Engine:
         ``runtime/engine.py:488-612``). On a tensor-parallel engine every
         program runs the stages' shards over head-split arenas (quantized
         KV refused, as in JAX); an in-program data-parallel engine does not
-        serve (``_validate_serve``). ``cp`` > 1 (context-parallel serving)
-        is refused: with tensor parallelism in the JAX words, alone as a
-        later slice of the port (``ROADMAP.md`` §A 16b)."""
+        serve (``_validate_serve``). ``cp`` > 1 is context-parallel serving
+        (JAX ``engine.py:581-631``): each stage's paged arena is split by
+        block over ``cp`` shards of the engine's devices (``cp × stages`` of
+        them, a list may repeat a device), ``kv_blocks`` per shard, each
+        shard attending its own blocks and the partials merged; the llama
+        family only, paged, without speculation or tensor parallelism, and
+        a prefix cache needs ``prefill_chunk``."""
         from .server import PipelineServer
 
         self._validate_serve()
@@ -381,11 +385,6 @@ class Engine:
                 "serve×cp×tp: the cp arena sharding and megatron heads "
                 "sharding both claim the KV leaves' trailing dims — pick "
                 "one (cp for long context, tp for big models)"
-            )
-        if cp > 1:
-            raise NotImplementedError(
-                f"serve(cp={cp}) comes with a later slice of the port: ROADMAP.md §A 16b "
-                "(context-parallel serving)"
             )
         return PipelineServer(
             self, capacity=capacity, batch_per_slot=batch_per_slot, chunk_cycles=chunk_cycles,
@@ -399,7 +398,7 @@ class Engine:
             fault_retries=fault_retries, fault_backoff_s=fault_backoff_s,
             retryable_exceptions=retryable_exceptions, snapshot_every_s=snapshot_every_s,
             snapshot_path=snapshot_path, speculate=speculate, spec_ngram=spec_ngram,
-            trace_path=trace_path, gauge_sweep_every_s=gauge_sweep_every_s,
+            trace_path=trace_path, gauge_sweep_every_s=gauge_sweep_every_s, cp=cp,
         )
 
     def _validate_serve(self) -> None:

@@ -14,11 +14,12 @@ plan raises ``TransientFault`` or ``PermanentFault`` according to its
 specs. Triggering is by explicit per-site call index, a "from this call
 on" threshold, and/or a seeded per-spec RNG rate — all fully
 deterministic given the same call sequence, so a chaos test can assert
-token-exactness against the fault-free run. The port's one-GPU server
-checks ``admit_dispatch``, ``chunk_dispatch``, ``log_fetch``,
-``request_apply`` and ``snapshot_write``; a plan naming another site
-(``replica_step``, ``http_request``, ``slow_client``, ``kv_handoff``,
-``cp_shard_stream``) constructs, and nothing checks it yet.
+token-exactness against the fault-free run. The port's server checks
+``admit_dispatch``, ``chunk_dispatch``, ``log_fetch``, ``request_apply``
+and ``snapshot_write``; the fleet ``replica_step`` and ``kv_handoff``, the
+ingress ``http_request`` and ``slow_client``, and a context-parallel
+server and the disagg hand-off ``cp_shard_stream``, once per owner shard
+of a block stream.
 
 The retry policy lives next to it: the server wraps dispatch and fetch in
 bounded retry-with-backoff, retrying exactly the errors ``is_transient``

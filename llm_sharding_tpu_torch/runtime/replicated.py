@@ -131,9 +131,12 @@ class ReplicatedServer:
                 f"min_replicas must be in [0, data_parallel], got "
                 f"{min_replicas} with data_parallel={data_parallel}"
             )
+        # a context-parallel replica (serve_kwargs cp > 1) spans cp × stages
+        # devices of its group (JAX ``replicated.py``: dp × cp × stages)
+        cp = int(serve_kwargs.get("cp", 1) or 1)
         if devices is None:
             per = placement.num_stages if placement is not None else (num_stages or 1)
-            devices = [resolve_device(None)] * (data_parallel * per * tensor_parallel)
+            devices = [resolve_device(None)] * (data_parallel * per * tensor_parallel * cp)
         devices = [resolve_device(d) for d in devices]
         if len(devices) % data_parallel:
             raise ValueError(
@@ -225,7 +228,12 @@ class ReplicatedServer:
                 and self._tp == 1):
             eng = Engine(self._cfg, map_params(lambda t: t.to(group[0]), self._host_params))
         else:
-            eng = Engine(self._cfg, self._host_params, num_stages=self._num_stages,
+            # a cp replica's group holds cp × stages devices: its stage count
+            # is the router's, its cp grid the group (PipelineServer's mesh)
+            stages = self._num_stages
+            if stages is None and self._placement is None and self._serve_kwargs.get("cp", 1) > 1:
+                stages = 1
+            eng = Engine(self._cfg, self._host_params, num_stages=stages,
                          placement=self._placement, devices=group, tensor_parallel=self._tp)
         eng.tokenizer = self._tokenizer
         srv = eng.serve(

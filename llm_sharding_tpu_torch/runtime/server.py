@@ -196,7 +196,7 @@ from ..obs.metrics import (
     ADMIT_BUCKET_USED, ARENA_BYTES, ATTN_BACKEND, ATTN_BACKENDS, ATTN_BLOCKS_READ,
     DEFAULT_RATE_BUCKETS, KV_BLOCKS_IN_USE, KV_BLOCKS_TOTAL, KV_DISK_TIER_BLOCKS,
     KV_HOST_TIER_BLOCKS, KV_WASTE_FRAC, PREFILL_BLOCKS_READ, PREFIX_HIT_RATE, PREFIX_HIT_TOKENS,
-    REGISTRY, set_prefill_path,
+    CP_STREAM_SHARDS, REGISTRY, set_prefill_path,
 )
 from ..obs.stepline import StepProfiler
 from ..obs.trace import TraceContext, TraceWriter, emit_span
@@ -205,7 +205,7 @@ from ..ops.quant import KV_DTYPES, fp8_kv_supported, kv_storage_dtype
 from ..ops.sampling import validate_top_p
 from ..parallel import serve as serve_ops
 from .async_exec import INFLIGHT_STEPS, SCHEDULER_LAG, _CompletionSidecar, _StepScheduler
-from .blocks import BlockAllocator
+from .blocks import BlockAllocator, ShardedBlockAllocator
 from .faults import backoff_delays, is_transient
 from .radix import RadixCache
 from .spec import AdaptiveK, count_accepted, ngram_draft, observe
@@ -217,7 +217,8 @@ ADMIT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32
 
 #: The port's snapshot format. Its own: neither package reads the other's
 #: snapshots (the arena travels as raw views, the sampling state as torch
-#: generator states).
+#: generator states). ``serve_kwargs`` options added later (the step-loop
+#: knobs, ``cp``) restore with their defaults when a snapshot lacks them.
 SNAPSHOT_FORMAT = 1
 # arena blocks moved per device<->host copy by snapshot and restore: the
 # device holds one such chunk beside the arena, never a second arena
@@ -265,6 +266,19 @@ class RequestFailed(RuntimeError):
         super().__init__(msg)
         self.request = request
 
+
+# -- context-parallel serving (JAX ``server.py:241-252``) --------------------
+CP_SHARDS = REGISTRY.gauge(
+    "server_cp_shards",
+    "Context-parallel degree of the live server (1 = arena unsharded)",
+)
+CP_COMBINE_SECONDS = REGISTRY.histogram(
+    "server_cp_combine_seconds",
+    "Host-observed wall time of each cp > 1 decode dispatch (trace + "
+    "enqueue of the serve_chunk program containing the cross-shard "
+    "softmax combine; device execution is async — compare against cp=1 "
+    "for the combine's dispatch-side overhead)",
+)
 
 # -- serving telemetry (``server.py:130-300``) --------------------------------
 _M_QUEUE_WAIT = REGISTRY.histogram(
@@ -469,6 +483,8 @@ def save_snapshot(snap: dict, path: str) -> None:
         radix_meta = {"nodes": snap["radix"]["nodes"], "counters": snap["radix"]["counters"]}
     meta = {k: snap[k] for k in ("format", "serve_kwargs", "arena_dtype", "rng_device",
                                  "next_id", "counters")}
+    # the topology restore checks (a file without them restores as 1, 1)
+    meta.update({k: snap.get(k, 1) for k in ("num_stages", "tensor_parallel")})
     meta.update(
         paged=None if snap["paged"] is None else {
             "row_blocks": snap["paged"]["row_blocks"], "row_shared": snap["paged"]["row_shared"],
@@ -551,6 +567,7 @@ def load_snapshot(path: str) -> dict:
     return dict(
         {k: meta[k] for k in ("format", "serve_kwargs", "arena_dtype", "rng_device",
                               "next_id", "counters")},
+        num_stages=meta.get("num_stages", 1), tensor_parallel=meta.get("tensor_parallel", 1),
         state=section("state."), arena=section("arena."),
         paged=None if meta["paged"] is None else dict(meta["paged"], tables=arrays["paged.tables"]),
         radix=radix, rows=dec_reqs("rows", meta["rows"]), queue=dec_reqs("queue", meta["queue"]),
@@ -819,7 +836,10 @@ class PipelineServer:
         spec_ngram: int = 3,
         trace_path: Optional[str] = None,
         gauge_sweep_every_s: float = 0.0,
+        cp: int = 1,
     ):
+        if cp < 1:
+            raise ValueError(f"cp must be >= 1, got {cp}")
         if (kv_block_size is None) != (kv_blocks is None):
             raise ValueError(
                 f"kv_block_size and kv_blocks go together (got kv_block_size="
@@ -903,6 +923,20 @@ class PipelineServer:
         #: repartition builds a new server)
         self.model = engine.stages
         self.num_stages = len(self.model)
+        #: the context-parallel degree: each stage's arena split by block
+        #: over ``cp`` shards (``self.mesh``, ``cp × stages``)
+        self.cp = int(cp)
+        self.mesh = None
+        cp_groups = None
+        if self.cp > 1:
+            self._check_cp(paged, tp, speculate, prefix_cache, prefill_chunk)
+            from ..parallel.mesh import pipeline_cp_mesh
+
+            # the engine's own devices: a replica of a ReplicatedServer
+            # builds its grid from its own slice of the machine
+            self.mesh = pipeline_cp_mesh(self.cp, self.num_stages, engine._devices)
+            cp_groups = [tuple(self.mesh.devices[:, i]) for i in range(self.num_stages)]
+        CP_SHARDS.set(float(self.cp))
         #: the tensor degree of every stage (its megatron shards)
         self.tp = tp
         self.capacity = int(capacity)
@@ -953,8 +987,16 @@ class PipelineServer:
         self._step_contained = False  # a containment event this step
         self.containment_events = 0
         self.counters = Counters()
-        # the block pool (None when dense: a row owns its cache)
-        self._alloc = BlockAllocator(self.kv_blocks, self.kv_block_size) if paged else None
+        # the block pool (None when dense: a row owns its cache). At cp > 1
+        # it hands out GLOBAL ids over the shards (owner = gid // kv_blocks)
+        # and stripes a row's blocks over them; the host mirror keeps the
+        # global ids and _push_tables projects each shard's local plane
+        self._alloc = None
+        if paged:
+            self._alloc = (
+                ShardedBlockAllocator(self.cp, self.kv_blocks, self.kv_block_size)
+                if self.cp > 1 else BlockAllocator(self.kv_blocks, self.kv_block_size)
+            )
         # blocks pinned by live prefix handles: only release_prefix frees them
         self._handle_pins = 0
         self.state = serve_ops.make_state(
@@ -962,11 +1004,13 @@ class PipelineServer:
             kv_blocks=self.kv_blocks or 0, kv_block_size=self.kv_block_size or 0,
             dtype=engine.cache_dtype, device=engine.device, kv_dtype=kv_dtype,
             stages=[(st.end - st.start, st.group or (st.device,)) for st in self.model],
+            cp_groups=cp_groups,
         )
-        # host mirror of the device block tables (dense: the placeholder);
-        # pushed before each dispatch that reads them once a release or a
-        # mapping edited it
-        self._tables = np.zeros(tuple(self.state.block_tables.shape), np.int32)
+        # host mirror of the device block tables (dense: the placeholder;
+        # cp > 1: global ids, one [M, T] for every shard's plane); pushed
+        # before each dispatch that reads them once a release or a mapping
+        # edited it
+        self._tables = np.zeros(tuple(self.state.block_tables.shape[-2:]), np.int32)
         self._tables_dirty = False
         self._row_blocks: list[list[int]] = [[] for _ in range(self.rows)]  # private
         self._row_shared: list[list[int]] = [[] for _ in range(self.rows)]  # mapped read-only
@@ -1015,10 +1059,19 @@ class PipelineServer:
             # the callbacks close over the state, not the server: a bound
             # method would make a server <-> tree cycle, and a dropped
             # server's arena would wait for the garbage collector
+            # (cp > 1: through the server, whose block streams probe every
+            # owner shard, by a weak reference for the same reason; the
+            # demoted nodes carry their blocks' owner shards)
+            read_kv = functools.partial(_read_arena_blocks, self.state)
+            write_kv = functools.partial(_write_arena_blocks, self.state)
+            if self.cp > 1:
+                me = weakref.ref(self)
+                read_kv = lambda blocks: me()._read_arena_blocks(blocks)  # noqa: E731
+                write_kv = lambda blocks, *a: me()._write_arena_blocks(blocks, *a)  # noqa: E731
             self._radix = RadixCache(
                 self._alloc, self.kv_block_size, host_pool_blocks=self.host_pool_blocks,
-                read_kv=functools.partial(_read_arena_blocks, self.state),
-                write_kv=functools.partial(_write_arena_blocks, self.state),
+                read_kv=read_kv, write_kv=write_kv,
+                block_owner=self._alloc.owner if self.cp > 1 else None,
                 disk_pool_dir=self.disk_pool_dir, disk_pool_blocks=self.disk_pool_blocks,
             )
             if self.disk_pool_blocks:
@@ -1037,6 +1090,45 @@ class PipelineServer:
             self._scheduler.start()
             self._sidecar.start()
         INFLIGHT_STEPS.set(float(self.inflight_steps))
+
+    def _check_cp(self, paged: bool, tp: int, speculate: int, prefix_cache: str,
+                  prefill_chunk) -> None:
+        """What context-parallel serving refuses, in the JAX server's words
+        and order (``server.py:1231-1266``)."""
+        if not paged:
+            raise ValueError(
+                "cp > 1 needs paged KV serving (set kv_block_size/"
+                "kv_blocks): context-parallel serving shards the block "
+                "arena — dense per-row reservations have no block dim "
+                "to shard"
+            )
+        if tp > 1:
+            raise NotImplementedError(
+                "cp × tp serving: the cp arena sharding and megatron "
+                "heads sharding both claim the KV leaves' trailing "
+                "dims — pick one"
+            )
+        if self.cfg.model_type != "llama":
+            raise NotImplementedError(
+                "context-parallel serving supports the llama family "
+                "only (the cross-shard softmax combine is threaded "
+                "through the llama paged layer)"
+            )
+        if speculate:
+            raise NotImplementedError(
+                "cp > 1 with speculate: serve_verify's variable-length "
+                "commits have no cross-shard combine yet — serve "
+                "speculative on cp=1, or long-context on cp without "
+                "speculation (ROADMAP: cp-aware speculation)"
+            )
+        if prefix_cache != "off" and prefill_chunk is None:
+            raise ValueError(
+                "cp > 1 with prefix_cache needs prefill_chunk: a radix "
+                "hit's resident prefix spans multiple shards, so its "
+                "suffix must prefill arena-native (chunked) — the "
+                "one-shot gather path cannot assemble a cross-shard "
+                "window"
+            )
 
     # ---------------------------------------------------------------- API
 
@@ -1143,6 +1235,15 @@ class PipelineServer:
         handle. The prefix is padded to an admission bucket, at least one
         block, so its blocks are exactly the table entries ``[0, spx /
         block_size)``; suffix positions resume at its real length ``n``."""
+        if self.cp > 1:
+            raise NotImplementedError(
+                "prefill_prefix does not support context-parallel serving "
+                "(cp > 1): an explicit PrefixHandle seeds whole-prefix KV "
+                "into admission, which would need per-shard window gathers "
+                "across the cp-sharded arena. Use prefix_cache='hbm' (the "
+                "radix tree admits hits through the cp-aware chunked path) "
+                "or serve with cp=1."
+            )
         prefix = np.asarray(prefix_ids, np.int32).reshape(-1)
         n = int(prefix.shape[0])
         if n < 1:
@@ -1647,6 +1748,9 @@ class PipelineServer:
                     disk_pool_blocks=self.disk_pool_blocks, max_queue=self.max_queue,
                     default_deadline_s=self.default_deadline_s,
                     speculate=self.speculate, spec_ngram=self.spec_ngram,
+                    # the shard count: restore refuses a grid it cannot
+                    # build rather than reshard (JAX server.py:1845-1848)
+                    cp=self.cp,
                 ),
                 "arena_dtype": str(self.kv_store_dtype),
                 "num_stages": self.num_stages,
@@ -1676,8 +1780,8 @@ class PipelineServer:
         snapshot restored with the cache off is dropped: the rows sharing
         its blocks own them and free them on finish. A snapshot without the
         step-loop options (``chunk_cycles``, ``pipeline_depth``,
-        ``inflight_steps``, ``top_k``, ``top_p``) restores with their
-        defaults."""
+        ``inflight_steps``, ``top_k``, ``top_p``) or without ``cp``
+        restores with their defaults."""
         if snap.get("format") != SNAPSHOT_FORMAT:
             raise ValueError(
                 f"unknown snapshot format {snap.get('format')!r} (this package writes "
@@ -1717,6 +1821,21 @@ class PipelineServer:
                 f"{engine.tensor_parallel} — restore needs the tensor degree the "
                 "snapshot was taken with (extract/adopt moves requests across degrees)"
             )
+        cp = int(snap["serve_kwargs"].get("cp", 1) or 1)
+        if cp > 1:
+            # the arena was captured over cp shards: a restore onto fewer
+            # would need a resharding pass (JAX server.py:1891-1909)
+            have = len(engine._devices)
+            if cp * stages > have:
+                raise ValueError(
+                    f"snapshot was taken at cp={cp} but the restoring "
+                    f"engine has {have} device(s) for {stages} pipeline "
+                    f"stage(s) — a context-parallel restore needs "
+                    f"cp×stages={cp * stages} devices on the same "
+                    "topology. Restore on a matching mesh, or move the "
+                    "live requests instead: extract/adopt re-admits them "
+                    "on a survivor of any cp."
+                )
         srv = engine.serve(**snap["serve_kwargs"])
         st = srv.state
         if snap["arena_dtype"] != str(srv.kv_store_dtype):
@@ -1763,6 +1882,7 @@ class PipelineServer:
         st.mirror_budget[:] = np.asarray(host["budget"], np.int64)
         rsnap = snap.get("radix")
         if paged:
+            # global ids at cp > 1: the push re-projects every shard's plane
             srv._tables[:] = np.asarray(snap["paged"]["tables"], np.int32)
             srv._push_tables()
             srv._row_blocks = [[int(x) for x in b] for b in snap["paged"]["row_blocks"]]
@@ -2042,6 +2162,17 @@ class PipelineServer:
     def _chunked(self, bucket: int) -> bool:
         return self.prefill_chunk is not None and bucket > self.prefill_chunk
 
+    def _use_chunked(self, bucket: int, spx_n: int = 0) -> bool:
+        """The admission path of a ``bucket``-sized suffix past an
+        ``spx_n``-token radix match (JAX ``server.py:3920-3937``), read by
+        the admission, the radix plan and the release's insert alike. At
+        cp > 1 a hit always goes chunked: its blocks live on their owner
+        shards, and only the chunked prefill attends across shards (the
+        one-shot path's ``gather_prefix_kv`` reads one arena)."""
+        if self.cp > 1 and spx_n > 0:
+            return True
+        return self._chunked(bucket)
+
     def _resolve_deadline(self, deadline_s: Optional[float]) -> Optional[float]:
         """Per-request deadline against the server default (``server.py:2877``)."""
         if deadline_s is None:
@@ -2175,9 +2306,18 @@ class PipelineServer:
     def _push_tables(self) -> None:
         """The host's tables onto the device, ordered behind the programs in
         flight without waiting for them: on the card from a pinned copy
-        taken now, so later edits of the mirror never race the copy."""
+        taken now, so later edits of the mirror never race the copy. At
+        cp > 1 the mirror's global ids are projected into each shard's
+        plane of local ids (``server.py:3094-3110``): shard ``s`` keeps ``g %
+        kv_blocks`` where it owns ``g`` and maps every other column to its
+        trash block 0, so one logical write lands on the owner alone."""
         self.stepline.push("table_push")
-        src = torch.from_numpy(self._tables)
+        tables = self._tables
+        if self.cp > 1:
+            nb = self.kv_blocks
+            sh = np.arange(self.cp, dtype=np.int32)[:, None, None]
+            tables = np.where(tables[None] // nb == sh, tables[None] % nb, 0).astype(np.int32)
+        src = torch.from_numpy(np.ascontiguousarray(tables))
         if self.state.block_tables.device.type == "cuda":
             src = src.pin_memory()
         self.state.block_tables.copy_(src, non_blocking=True)
@@ -2269,7 +2409,7 @@ class PipelineServer:
         out = {"blocks": np.asarray(blocks, np.int32)}
         for lo in range(0, len(blocks), _ARENA_CHUNK_BLOCKS):
             chunk = blocks[lo : lo + _ARENA_CHUNK_BLOCKS]
-            got = serve_ops.read_arena_blocks(self.state, chunk)
+            got = self._read_arena_blocks(chunk)
             for name, a in zip(names, got):
                 if name not in out:
                     out[name] = np.empty((a.shape[1], len(blocks)) + a.shape[3:], a.dtype)
@@ -2290,7 +2430,7 @@ class PipelineServer:
         for lo in range(0, len(blocks), _ARENA_CHUNK_BLOCKS):
             chunk = blocks[lo : lo + _ARENA_CHUNK_BLOCKS]
             parts = [arena[n][None, :, lo : lo + len(chunk)] for n in names]
-            _write_arena_blocks(self.state, chunk, *parts)
+            self._write_arena_blocks(chunk, *parts)
 
     def _capture_rows(self, rows: list) -> dict:
         """A dense server's held rows on the host, one row's cache at a
@@ -2686,6 +2826,7 @@ class PipelineServer:
         that reuse them, and they copy. That is what lets the disagg
         hand-off sidecar pull the device→host copy off the router's step
         thread without freezing this server's pump for its duration."""
+        self._cp_stream_check(blocks)
         return serve_ops.read_arena_blocks_dispatch(self.state, list(blocks))
 
     def _read_arena_blocks(self, blocks) -> tuple:
@@ -2696,8 +2837,29 @@ class PipelineServer:
     def _write_arena_blocks(self, blocks, k_host, v_host, *scales) -> None:
         """Host→device write of streamed blocks into fresh arena blocks
         (``server.py:3189``), codes and scales byte-exact; queued before
-        any program that reads them."""
+        any program that reads them. At cp > 1 each block lands on its
+        owner shard: block bytes do not depend on the shard count, so a
+        stream from a server of any cp lands here."""
+        self._cp_stream_check(blocks)
         _write_arena_blocks(self.state, blocks, k_host, v_host, *scales)
+
+    def _cp_stream_check(self, blocks) -> None:
+        """One block stream through a context-parallel arena, shard by
+        shard (``server.py:3125-3139``): the ``cp_shard_stream`` fault probe
+        keyed by each owner shard, and one ``server_cp_stream_shards_total``
+        sample per shard. A shard whose probe raises counts ``error`` and
+        aborts the stream before any device work is queued: the caller
+        (hand-off, host tier, snapshot) retries or falls back, never
+        half-streams. Nothing at cp 1."""
+        if self.cp <= 1:
+            return
+        for sh in self._alloc.owner_shards(blocks):
+            try:
+                self._fault_check("cp_shard_stream", key=sh)
+            except BaseException:
+                CP_STREAM_SHARDS.labels(outcome="error").inc()
+                raise
+            CP_STREAM_SHARDS.labels(outcome="ok").inc()
 
     def _radix_plan(self, req: Request):
         """The longest usable cached prefix of a queued request, taken
@@ -2714,7 +2876,7 @@ class PipelineServer:
 
         def usable(n: int) -> bool:
             bucket = self._bucket(plen - n)
-            total = n + bucket + req.max_new + (1 if self._chunked(bucket) else 0)
+            total = n + bucket + req.max_new + (1 if self._use_chunked(bucket, n) else 0)
             return total <= self.capacity and total <= self.cfg.max_position_embeddings
 
         while m > 0 and not usable(m):
@@ -2757,7 +2919,8 @@ class PipelineServer:
         need = self._blocks_needed(bucket, max_new, spx, chunked)
         if self._radix is not None and need > self._alloc.num_free:
             self._radix.ensure_free(need)
-        priv = self._alloc.alloc(need)
+        # the placement hint stripes a context-parallel row over the shards
+        priv = self._alloc.alloc_at(n_pfx, need)
         self._row_blocks[row] = priv
         tbl = self._tables[row]
         tbl[:] = 0
@@ -2789,7 +2952,7 @@ class PipelineServer:
             bs = self.kv_block_size
             plen = req.prompt_len
             spx_n = rref.n if rref is not None else 0
-            chunked = plen > spx_n and self._chunked(self._bucket(plen - spx_n))
+            chunked = plen > spx_n and self._use_chunked(self._bucket(plen - spx_n), spx_n)
             nb = (plen - (1 if chunked else 0)) // bs
             cand = [int(b) for b in self._tables[row][:nb]]
             if nb > 0 and 0 not in cand:
@@ -2835,9 +2998,9 @@ class PipelineServer:
             spx_n = 0 if rplan is None else rplan.n
             bucket = self._bucket(head.prompt_len - spx_n)
             is_emb = head.embeds is not None
-            # the suffix bucket picks the path (server.py:3921 forces a hit
-            # down the chunked path only at cp > 1); embeddings admit one-shot
-            chunked = pfx is None and not is_emb and self._chunked(bucket)
+            # the suffix bucket picks the path (a hit at cp > 1 goes
+            # chunked); embeddings admit one-shot
+            chunked = pfx is None and not is_emb and self._use_chunked(bucket, spx_n)
             spx = pfx.spx if pfx is not None else spx_n
             free_left = None  # dense: no pool to gate on
             if self.paged:
@@ -3079,12 +3242,15 @@ class PipelineServer:
 
         self._flush_tables()
         marks = self._rng_marks(range(self.rows))
+        t_dispatch = time.perf_counter()
         try:
             log = self._retry("chunk_dispatch", do_chunk, real_ok=False)
         except Exception as e:  # noqa: BLE001 — contained to the live rows
             sl.pop()
             self._contain_dispatch_failure("chunk_dispatch", e)
             return
+        if self.cp > 1:
+            CP_COMBINE_SECONDS.observe(time.perf_counter() - t_dispatch)
         # the rows the chunk drives on the device: the ones a lost log fails
         live = [(i, self._req[i]) for i in self._live_rows(exclude=self._admitting)]
         self._rng_marks_next = marks

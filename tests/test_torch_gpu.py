@@ -1874,3 +1874,149 @@ def test_context_generate_on_the_card_equals_generate(cuda_device, cp):
                                **kw)
         want = generate(one.cfg, one.params, p, 12, prompt_len=plen, **kw)
         assert (got.tokens == want.tokens).all() and (got.lengths == want.lengths).all()
+
+
+# --------------------------------------------------------------- stats mode
+# (context-parallel serving: each shard attends the blocks it owns and
+# emits (acc, m, l); ops/paged_attention.combine_attn_stats merges them)
+
+# shapes: (Nkv, G, D, BS, decode frontiers, (prefill frontiers, Sc))
+STATS_SHAPES = {
+    "d64": (2, 3, 64, 16, (1, 16, 50, 300), ((300, 130), 100)),
+    "d128": (2, 3, 128, 64, (20, 64, 700, 1500), ((1500,), 256)),
+    # Llama-3.2-3B's heads (24 query, 8 KV, head dim 128) at the served
+    # block size 64: eight decode rows, and a chunk of six rows whose CTAs
+    # fill the card (no split runs)
+    "3b": (8, 3, 128, 64, (1, 130, 2048, 700, 64, 33, 1000, 5),
+           ((512, 640, 1024, 2048, 256, 1500), 128)),
+}
+
+
+def _striped_case(dev, dtype, kv, cp, frontiers, S, Nkv, G, D, BS, seed=70):
+    """One table striped over ``cp`` shards as the server's
+    ``ShardedBlockAllocator.alloc_at`` stripes it: a row's logical block j
+    lives on shard j % cp, at the shard's next free local block (local 0 is
+    each shard's trash, NaN/Inf: 0x7F codes and Inf scales for a code
+    arena). Returns the queries and positions, the per-shard arenas, local
+    tables and scale keywords, and the global arena, table and scales (the
+    shards' blocks side by side) for the whole-window reference."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(frontiers)
+    T = max(-(-f // BS) for f in frontiers) + 1
+    NBs = -(-B * T // cp) + 2
+    k = torch.randn((cp * NBs, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((cp * NBs, BS, Nkv, D), generator=g, device=dev).to(dtype)
+    nxt = [1] * cp
+    gtbl = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    kvpos = torch.full((B, T * BS), POS_SENTINEL, dtype=torch.int32, device=dev)
+    qpos = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for b, f in enumerate(frontiers):
+        for j in range(-(-f // BS)):
+            s = j % cp
+            gtbl[b, j] = s * NBs + nxt[s]
+            nxt[s] += 1
+        kvpos[b, :f] = torch.arange(f)
+        qpos[b] = torch.arange(f - S, f)
+    shards, glob = [], []
+    for s in range(cp):
+        ks, vs = k[s * NBs : (s + 1) * NBs].clone(), v[s * NBs : (s + 1) * NBs].clone()
+        ks[0], vs[0] = float("nan"), float("inf")
+        sc = {}
+        if kv is not None:
+            ks, kss, vs, vss = _quantize(ks, vs, kv)
+            sc = dict(k_scale=kss, v_scale=vss)
+        local = torch.where(gtbl // NBs == s, gtbl % NBs, 0).to(torch.int32)
+        local[gtbl == 0] = 0
+        shards.append((ks, vs, local, sc))
+        glob.append((ks, vs, sc))
+    gk = torch.cat([x[0] for x in glob])
+    gv = torch.cat([x[1] for x in glob])
+    gsc = {} if kv is None else {
+        n: torch.cat([x[2][n] for x in glob]) for n in ("k_scale", "v_scale")
+    }
+    q = torch.randn((B, S, Nkv * G, D), generator=g, device=dev).to(dtype)
+    return q, qpos, kvpos, shards, (gk, gv, gtbl, gsc)
+
+
+def _check_stats(got, want, dtype):
+    """A kernel's triple against ``attn_stats``'s: dead rows exactly (0,
+    -1e30, 0); live rows' m to 1e-3, l to 1e-3 relative, and acc / l within
+    the normalised outputs' limits."""
+    acc, m, l = got
+    wacc, wm, wl = want
+    assert torch.isfinite(acc).all() and torch.isfinite(m).all() and torch.isfinite(l).all()
+    dead = wl == 0
+    assert (l[dead] == 0).all() and (m[dead] == -1e30).all()
+    assert (acc[dead] == 0).all()
+    live = ~dead
+    torch.testing.assert_close(m[live], wm[live], atol=1e-3, rtol=0)
+    torch.testing.assert_close(l[live], wl[live], atol=0, rtol=1e-3)
+    _assert_close_rows((acc / l.clamp_min(1e-30)[..., None])[live],
+                       (wacc / wl.clamp_min(1e-30)[..., None])[live], dtype)
+    return dead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(STATS_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"], ids=["query-dtype", "int8", "fp8"])
+@pytest.mark.parametrize("which", ["decode", "prefill"])
+@pytest.mark.parametrize("cp", [2, 4])
+def test_stats_mode_matches_attn_stats(cuda_device, cp, which, kv, dtype, shape):
+    """Stats mode of the decode and chunked-prefill kernels over every
+    shard of a round-robin-striped table, against the plain ``attn_stats``
+    on the same shard: rows that see no key on a shard (a one-block row,
+    every shard but the first), tiles wholly of trash blocks, and NaN/Inf
+    in each shard's trash block; then the shards merged by
+    ``combine_attn_stats`` against attention over the whole window. Every
+    call is one stats-mode launch."""
+    Nkv, G, D, BS, dec, (pre, Sc) = STATS_SHAPES[shape]
+    frontiers, S = (dec, 1) if which == "decode" else (pre, Sc)
+    q, qpos, kvpos, shards, (gk, gv, gtbl, gsc) = _striped_case(
+        cuda_device, dtype, kv, cp, frontiers, S, Nkv, G, D, BS)
+    nlive = torch.tensor([-(-f // BS) for f in frontiers], dtype=torch.int32,
+                         device=cuda_device)
+    fn = tpa.paged_attention if which == "decode" else tpa.paged_prefill
+    name = ("paged_attention" if which == "decode" else "paged_prefill") + (
+        f"[{kv},stats]" if kv else "[stats]")
+    parts, dead_any = [], False
+    for ks, vs, local, sc in shards:
+        kernels.reset_launch_counts()
+        got = fn(q, ks, vs, local, qpos, kvpos, nlive=nlive, stats=True, **sc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == 1
+        want = tpa.attn_stats(q, ks, vs, local, qpos, kvpos, **sc)
+        dead_any |= bool(_check_stats(got, want, dtype).any())
+        parts.append(got)
+    if which == "decode":
+        assert dead_any  # the one-block rows see nothing on the later shards
+    acc, m, l = (torch.stack(x) for x in zip(*parts))
+    merged = tpa.combine_attn_stats(acc, m, l)
+    whole = tpa.paged_attention_xla(q, gk, gv, gtbl, qpos, kvpos, **gsc)
+    _assert_close_rows(merged, whole.float(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cp", [2, 4])
+def test_cp_served_streams_go_through_the_stats_kernels(cuda_device, cp):
+    """A context-parallel server on ``cuda`` repeated (every shard on the
+    card), one-shot and chunked admissions mixed, at a table width (25
+    blocks) that puts each shard's plane at an offset of 100 bytes: the
+    streams equal the cp-1 server's (f32), every shard launched the stats
+    mode of both paged kernels, and no normal-mode paged launch ran."""
+    cfg = tcfg.tiny_llama(head_dim=64, num_attention_heads=6, num_key_value_heads=2)
+    host = tllama.init_params(cfg, seed=5, dtype=torch.float32, device="cpu")
+    eng = Engine(cfg, host, num_stages=1, devices=[cuda_device] * cp)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 40, 30, 12)]
+    kw = dict(capacity=200, batch_per_slot=3, kv_block_size=8, kv_blocks=40, prefill_chunk=16)
+    want = _served(eng.serve(**kw), prompts)
+    kernels.reset_launch_counts()
+    srv = eng.serve(cp=cp, **kw)
+    assert tuple(srv.state.block_tables.shape) == (cp, 3, 25)
+    assert _served(srv, prompts) == want
+    counts = kernels.launch_counts()
+    assert counts["paged_attention[stats]"] > 0 and counts["paged_prefill[stats]"] > 0
+    assert counts["paged_attention"] == counts["paged_prefill"] == 0
+    srv._alloc.check()
+    assert srv._alloc.in_use == 0
