@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --pipeline
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --profile
 
 The second form runs (a) and (b) only, bf16 queries, at the named
 models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
@@ -13,7 +14,9 @@ models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
 it in two trees in one call to compare their kernels. The third runs (a)
 and the fleet's parts of (c) and (d) alone, the fourth (a) and the
 pipeline's parts, the fifth (a) and the tensor and context parallel
-parts of (b), (c) and (d), printing its [b] rows as one JSON line.
+parts of (b), (c) and (d), printing its [b] rows as one JSON line. The
+last runs (a), [b]'s profile rows and [d]'s profile part alone, on a
+3B store of ``D_3B`` layers it writes itself.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -40,7 +43,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (G * S = 40 folded rows), in each KV mode; speculative ``generate``'s verify, flash at S = 5 over 2048 + 5
     columns (3B). At a tensor shard's heads (bf16 arena): the 3B's decode,
     chunked prefill and flash at 12 / 4 heads (tp 2) and 6 / 2 (tp 4),
-    Llama-2-7B's at 16 / 16 (tp 2). Time kernel, plain version and
+    Llama-2-7B's at 16 / 16 (tp 2). The profiler's sweep: flash at the 3B's
+    S = C = 8 and 512, one row. Time kernel, plain version and
     (flash only) ``F.scaled_dot_product_attention`` with the equivalent
     boolean mask, a yardstick the port never calls;
 (c) f32 token checks: the served greedy streams, one-shot and chunked,
@@ -244,7 +248,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     288 (the segment rungs, decode tok/s); Llama-2-7B at full depth
     (weights made on the card: its store holds 8 layers) at tp 2 against
     its tp-1 run. The shard-shape rows of the JSON line carry their launches
-    per shard (``shard_launches``);
+    per shard (``shard_launches``). The profile part (``profile_runs``):
+    ``profile --preset llama32_3b --hops 4 --suggest-stages 2`` in this
+    process, Llama-3.2-3B at full width and depth (28 layers, bf16, weights
+    made on the card, the hop ring 4 stages on the card): every prefill
+    latency and both ``c_k`` finite and positive, the decode curve strictly
+    rising, ``max_layers_fit`` (the card's memory) 28, the suggested
+    placement covering 28 layers, ``profile.json`` read back by the
+    planner with a finite ``predict_ttft``, and flash launched once a layer
+    for every prefill forward the command ran (warm-ups and the decode
+    curve's prompt included); hop rings of 1 and 2 beside the command's 4
+    (``PROFILE_RING_REPEATS`` samples); then ``profile --shards`` on the
+    3B's ``D_3B``-layer store with ``--cold-start``, which must time every
+    layer. The lengths, latencies, ``c_k``, fits, verdict, hops, cold
+    start, ``max_layers_fit`` and the part's seconds are printed beside the
+    card's name and power limit;
 (e) one JSON line of per-kernel, per-mode numbers, then the card's name and
     power limit, then the final ``{"ok": true, "device": ...}`` line.
 
@@ -645,6 +663,18 @@ def prefix_kernel_cases(model: str) -> list:
     return cases
 
 
+def profile_kernel_cases(model: str) -> list:
+    """The [b] cases of the profiler's prefill sweep (``profile`` command,
+    [d]'s profile part): flash at its extreme lengths, S = C = 8 and 512,
+    one row. Same tuple as ``kernel_cases``."""
+    from llm_sharding_tpu_torch.ops import attention, flash_attention
+
+    fla = ("llm_sharding_tpu/ops/flash_attention.py:124", "llm_sharding_tpu_torch/csrc/flash_attention.cu")
+    return [("flash_attention", f"profile sweep S=C={S} B=1", flash_attention.flash_attention,
+             attention.cached_attention, lambda *a, S=S: flash_case(*a, S=S), *fla)
+            for S in (8, 512)]
+
+
 def spec_kernel_cases(model: str) -> list:
     """The [b] cases of speculative decoding at ``model``'s serving shapes
     (``smoke_workload.SPECULATIVE``: K = 4, block size 64, capacity 4096):
@@ -787,13 +817,13 @@ def kernel_cases(model: str) -> list:
 
 
 def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefix=False,
-                  spec=False, dense=False, tp=False) -> list:
+                  spec=False, dense=False, tp=False, profile=False) -> list:
     """Each kernel case of ``model`` against its plain version, with
     queries of each of ``dtypes``, timed; returns the tabled rows (bf16
     queries), tagged with the model and the [d] workload whose run counts
     their launches. ``prefix``: the prefix-cache hit's cases; ``spec``:
     speculative decoding's; ``dense``: dense serving's; ``tp``: a tensor
-    shard's."""
+    shard's; ``profile``: the profiler's sweep's."""
     import torch
 
     from llm_sharding_tpu_torch.ops import paged_attention
@@ -805,6 +835,8 @@ def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefi
         cases = dense_kernel_cases(model)
     elif spec:
         cases = spec_kernel_cases(model)
+    elif profile:
+        cases = [(*c, "profile") for c in profile_kernel_cases(model)]
     else:
         workload = "shared_prefix" if prefix else "standard"
         cases = [(*c, workload) for c in (prefix_kernel_cases(model) if prefix
@@ -2974,8 +3006,9 @@ def phase_serve(device, store_root: str) -> dict:
     cp_counts = cp_runs(eng, smi, paged_twin)
     cp_long_run(device, smi)
     launch_run(eng, stores["bf16"], smi)
+    profile_counts = profile_runs(device, stores["bf16"], smi)
     lap("3B standard, observability, step loop, front door, fleet, pipeline, tensor / context, "
-        "context-parallel serving, launch")
+        "context-parallel serving, launch, profile")
     # the quantized arenas' runs, the shared-prefix workload, the
     # tiers under pressure and the int8 / int4 weight stores take 7 of the
     # 28 layers (a view of the same weights: the whole script's time limit)
@@ -3121,7 +3154,8 @@ def phase_serve(device, store_root: str) -> dict:
             "llama32_3b/spec_generate": gcounts_spec, "llama2_7b": lcounts,
             "llama2_7b/speculative": lscounts, "llama32_3b/dense": dcounts,
             "llama32_3b/fleet": fleet, "llama32_3b/pipeline": pipeline,
-            "llama2_7b/tp2": l7tp, **{f"llama32_3b/{k}": v for k, v in tp_counts.items()},
+            "llama2_7b/tp2": l7tp, "llama32_3b/profile": profile_counts,
+            **{f"llama32_3b/{k}": v for k, v in tp_counts.items()},
             **{f"llama32_3b/{k}": v for k, v in cp_counts.items()}}
 
 
@@ -5199,6 +5233,160 @@ def launch_run(eng, store: str, smi: str) -> None:
         f"{n} tokens equal to the one-process generate; wall {wall:.1f}s; {'; '.join(worker)}")
 
 
+#: [d]'s profile part: the hop rings measured beside the command's ring
+#: of 4, with fewer samples than the command's default 30 (the part's budget)
+PROFILE_RINGS, PROFILE_RING_REPEATS = (1, 2), 10
+
+
+def run_profile_command(argv: list, tag: str) -> tuple:
+    """``python -m llm_sharding_tpu_torch profile ARGV`` in this process (so
+    its launches count): the printed payload, the flash launches during the
+    command, and its seconds."""
+    import io
+
+    from llm_sharding_tpu_torch import cli
+    from llm_sharding_tpu_torch.ops import kernels as K
+
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["profile", *argv])
+    secs = time.perf_counter() - t0
+    flash = K.launch_counts()["flash_attention"]
+    require(rc == 0, f"phase d profile {tag}: exit {rc}")
+    return json.loads(buf.getvalue()), flash, secs
+
+
+def check_profile_payload(tag: str, pay: dict, layers: int, smi: str) -> None:
+    """The report's numbers finite and positive, the decode curve strictly
+    rising; prints them beside the card's name and power limit."""
+    pre, dec, sim = pay["prefill"], pay["decode"], pay["similarity"]
+    lat = pre["latencies_s"]
+    require(all(np.isfinite(t) and t > 0 for t in lat),
+            f"phase d profile {tag}: prefill latencies {lat}")
+    for what, c_k in (("prefill", pre["capability_c_k"]), ("decode", dec["capability_c_k"])):
+        require(np.isfinite(c_k) and c_k > 0, f"phase d profile {tag}: {what} c_k {c_k}")
+    cums = dec["cumulative_s"]
+    require(all(b > a for a, b in zip(cums, cums[1:])) and cums[0] > 0,
+            f"phase d profile {tag}: decode curve not strictly rising: {cums}")
+    require(pre["num_layers_measured"] == layers,
+            f"phase d profile {tag}: {pre['num_layers_measured']} layers measured, not {layers}")
+    log(f"[d] profile {tag} on {smi}: prefill lengths {pre['lengths']} latencies_ms "
+        f"{[round(t * 1e3, 4) for t in lat]}")
+    log(f"[d] profile {tag} on {smi}: c_k prefill {pre['capability_c_k']:.6e} decode "
+        f"{dec['capability_c_k']:.6e} s/(token*layer); decode cumulative_ms at "
+        f"{dec['token_counts']}: {[round(t * 1e3, 3) for t in cums]}")
+    for what, rep in (("prefill", pre), ("decode", dec)):
+        for kind, fit in sorted(rep["fits"].items()):
+            log(f"[d] profile {tag} on {smi}: {what} {kind} fit coeffs {fit['coeffs']} rmse "
+                f"{fit['rmse']:.6e} r2 {fit['r2']:.6f}")
+    log(f"[d] profile {tag} on {smi}: similarity avg {sim['avg_ratio']:.4f} slope "
+        f"{sim['slope_ratio']:.4f} quadratic marginal {sim['quadratic_marginal_ratio']:.4f} "
+        f"similar {sim['similar']} (threshold {sim['threshold']})")
+
+
+def profile_runs(device, store: str, smi: str) -> dict:
+    """[d]'s profile part: the ``profile`` command on Llama-3.2-3B at full
+    width and depth (28 layers, bf16, random weights made on the card, hop
+    ring of 4 stages all on the card), then on the 7-layer 3B store with
+    ``--cold-start``; hop rings of 1 and 2 beside the command's. Fails
+    unless the numbers are finite and positive, the decode curve rises,
+    ``max_layers_fit`` (from the card's memory) is 28, the suggested
+    placement covers 28 layers, ``profile.json`` reads back through the
+    planner, every prefill forward launched flash once a layer and the
+    cold start timed every layer of the store. Returns the flash launches
+    of the 3B command (``llama32_3b/profile``)."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config
+    from llm_sharding_tpu_torch.profiler.profiler import (
+        DEFAULT_PREFILL_LENGTHS, DEFAULT_REPEATS, measure_hop_latency,
+    )
+    from llm_sharding_tpu_torch.runtime.placement import PlacementPlanner
+
+    t_part = time.perf_counter()
+    cfg = config.llama32_3b()
+    L = cfg.num_hidden_layers
+    out = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        pay, flash, secs = run_profile_command(
+            ["--preset", "llama32_3b", "--hops", "4", "--suggest-stages", "2", "--out", out],
+            "3B")
+        check_profile_payload("3B", pay, L, smi)
+        n_len = len(pay["prefill"]["lengths"])
+        require(pay["prefill"]["lengths"] == list(DEFAULT_PREFILL_LENGTHS),
+                f"phase d profile 3B: lengths {pay['prefill']['lengths']}")
+        # two warm-ups, one per length, the timed repeats, then the decode
+        # curve's prompt prefill; the curve's one-token steps take no flash
+        forwards = 2 + n_len + n_len * DEFAULT_REPEATS + 1
+        require(flash == L * forwards,
+                f"phase d profile 3B: flash launched {flash} times, not {L} x {forwards}")
+        total = torch.cuda.get_device_properties(device).total_memory
+        require(pay.get("max_layers_fit") == L,
+                f"phase d profile 3B: max_layers_fit {pay.get('max_layers_fit')} != {L}")
+        stages = [tuple(s) for s in pay["suggested_placement"]]
+        require(len(stages) == 2 and stages[0][0] == 0 and stages[-1][1] == L
+                and all(a[1] == b[0] for a, b in zip(stages, stages[1:])),
+                f"phase d profile 3B: suggested placement {stages} does not cover {L} layers")
+        planner = PlacementPlanner.from_json(out)
+        ttft = planner.predict_ttft(512)
+        require(np.isfinite(ttft) and ttft > 0, f"phase d profile 3B: predict_ttft {ttft}")
+        log(f"[d] profile 3B on {smi}: flash launches {flash} = {L} layers x {forwards} "
+            f"prefill forwards (2 warm-ups + {n_len} + {n_len} x {DEFAULT_REPEATS} repeats + "
+            f"the decode prompt); max_layers_fit {pay['max_layers_fit']} of {L} on "
+            f"{total / 2**30:.3f} GiB; suggested placement {stages}; planner predict_ttft(512) "
+            f"{ttft * 1e3:.4f} ms; command {secs:.1f}s")
+        hops = {4: (pay["hop_latency"], 30)}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for n in PROFILE_RINGS:
+        rep = measure_hop_latency([device] * n, hidden_size=cfg.hidden_size,
+                                  repeats=PROFILE_RING_REPEATS)
+        hops[n] = (dataclasses.asdict(rep), PROFILE_RING_REPEATS)
+    for n, (h, reps) in sorted(hops.items()):
+        require(np.isfinite(h["p50_us"]) and h["p99_us"] >= h["p50_us"] >= 0,
+                f"phase d profile: hop ring {n}: {h}")
+        log(f"[d] profile hop ring of {n} on {smi}: p50 {h['p50_us']:.4f} us p99 "
+            f"{h['p99_us']:.4f} us mean {h['mean_us']:.4f} us, {h['bytes_per_hop']} bytes a hop, "
+            f"{h['hops_per_sample']} hops a sample, repeats={reps} (an on-card copy, one card)")
+    out = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        spay, _, ssecs = run_profile_command(
+            ["--shards", store, "--cold-start", "--out", out], f"3B/{D_3B} store")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check_profile_payload(f"3B/{D_3B} store", spay, D_3B, smi)
+    cold = spay["cold_start"]
+    require(cold["num_layers"] == D_3B and len(cold["per_layer_s"]) == D_3B
+            and all(t > 0 for t in cold["per_layer_s"]),
+            f"phase d profile store: cold start {cold}")
+    log(f"[d] profile 3B/{D_3B} store on {smi}: cold start {cold['total_s'] * 1e3:.3f} ms total, "
+        f"per layer ms {[round(t * 1e3, 3) for t in cold['per_layer_s']]}; max_layers_fit "
+        f"{spay['max_layers_fit']} of {D_3B}; command {ssecs:.1f}s")
+    log(f"[d] profile part took {time.perf_counter() - t_part:.1f}s on {smi}")
+    return {"flash_attention": flash}
+
+
+def phase_profile(device, store_root: str) -> dict:
+    """``--profile``: [d]'s profile part alone, on a 3B store of ``D_3B``
+    layers written here as [d] writes it."""
+    import torch
+
+    from llm_sharding_tpu_torch.models import config, llama
+    from llm_sharding_tpu_torch.utils.shard_store import save_shards
+
+    cfg = dataclasses.replace(config.llama32_3b(), num_hidden_layers=D_3B)
+    store = os.path.join(store_root, "llama32_3b_bf16")
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    save_shards(cfg, params, store)
+    del params
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    return profile_runs(device, store, smi)
+
+
 def top2_gap_top(cfg, params, ids: np.ndarray) -> tuple:
     """The top-2 logit gap and the top logit of the next token after
     ``ids`` under the port's ``generate`` (one prefill, on the weights'
@@ -5454,6 +5642,19 @@ def main(argv: list) -> int:
             shutil.rmtree(store, ignore_errors=True)
         log(f"[e] total {time.perf_counter() - t_all:.0f}s")
         return 0
+    if argv[:1] == ["--profile"]:
+        rows = phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=("bfloat16",),
+                             profile=True)
+        store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        try:
+            counts = phase_profile(device, store)
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        for r in rows:
+            r["launches"] = counts[r["name"]]
+        print(json.dumps({"kernels": rows}))
+        log(f"[e] total {time.perf_counter() - t_all:.0f}s")
+        return 0
     if argv[:1] == ["--kernels"]:
         rows = [r for m in argv[1:]
                 for r in phase_kernels(getattr(config, m)(), device, m, dtypes=("bfloat16",))]
@@ -5482,6 +5683,8 @@ def main(argv: list) -> int:
                           spec=True)
     rows += phase_kernels(config.gemma_2b(), device, "gemma_2b", dtypes=("bfloat16",), spec=True)
     rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dense=True)
+    rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=("bfloat16",),
+                          profile=True)
     tp_rows = phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=("bfloat16",),
                             tp=True)
     tp_rows += phase_kernels(config.llama2_7b(), device, "llama2_7b", dtypes=("bfloat16",),

@@ -2,7 +2,8 @@
 port's own copy of the runtime half of ``llm_sharding_tpu/analysis/lockorder.py``
 (``ORDER``, ``named_lock``, the tracked and the timed modes). That module is
 stdlib only, but the port imports nothing of the JAX package. The static
-half (the lint rules that read ``ORDER``) stays with the JAX package.
+half is the port's own lock-order rule (``rule_lockorder.py``), which reads
+``ORDER``: ``python -m llm_sharding_tpu_torch lint``.
 
 Every lock the port's runtime and obs modules hold is built by
 :func:`named_lock` under a name of ``ORDER`` (the JAX package's names, so

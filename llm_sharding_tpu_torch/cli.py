@@ -10,6 +10,11 @@
     python -m llm_sharding_tpu_torch launch STORE --processes N --prompt TEXT [--max-new N]
     python -m llm_sharding_tpu_torch worker STORE --coordinator HOST:PORT --processes N \
         --process-id I --prompt TEXT
+    python -m llm_sharding_tpu_torch profile (--preset NAME | --shards STORE) [--out DIR] \
+        [--dtype bf16] [--decode-tokens 64] [--hops N] [--cold-start] [--hbm-gib G] \
+        [--suggest-stages N]
+    python -m llm_sharding_tpu_torch lint [--rule RULE] [--json] [--baseline FILE] \
+        [--write-baseline]
 
 ``generate`` runs one text prompt (``cli.py:157``; ``--stream`` through a
 shared server). ``serve`` is the daemon (``cli.py:433-1094``): one text prompt per stdin line, its
@@ -49,6 +54,12 @@ tables too. ``trace-report`` and ``step-report`` (``cli.py:1364``,
 ``:1402``, parser ``:1899-1944``: the same flags and output) render span
 files and step-profiler captures of either package; they need no GPU, no
 model and no torch (``obs/report.py``).
+
+``profile`` (``cli.py:1288``, parser ``:1870-1894``: the same flags) runs
+the capability profiler (``profiler/``) on one model, a store or a preset
+with random weights, and writes ``profile.json``; ``lint`` (``:1435``,
+parser ``:1946-1975``) runs shardlint's lock-order, metrics and trace rules
+over this package (``analysis/``), with no torch.
 """
 
 from __future__ import annotations
@@ -1048,6 +1059,92 @@ def cmd_step_report(args) -> int:
     return 0
 
 
+def cmd_profile(args) -> int:
+    """Capability sweeps of one model on ``--device`` and their artifacts
+    (JAX ``cli.py:1288``): the prefill sweep, the decode curve, the
+    similarity verdict, optionally the hop latency, the cold start, the
+    layers that fit and a capability-weighted placement; ``profile.json``
+    under ``--out`` and the payload on stdout."""
+    from .device import resolve_device
+    from .profiler.artifacts import save_profile_artifacts
+    from .profiler.profiler import (
+        Profiler, detect_hbm_bytes, max_layers_fit, measure_hop_latency, profile_cold_start,
+    )
+
+    device = resolve_device(args.device)
+    dtype = _dtype(args.dtype)
+    cold = None
+    if args.shards:
+        from .utils import shard_store
+
+        cfg, params = shard_store.load_full(args.shards, dtype=dtype, device=device)
+        if args.cold_start:
+            cold = profile_cold_start(args.shards, dtype=dtype, device=device)
+    else:
+        from .models import config as config_mod
+
+        cfg = getattr(config_mod, args.preset)()
+        if cfg.model_type == "llama":
+            from .models import llama as model_mod
+        elif cfg.model_type == "gpt2":
+            from .models import gpt2 as model_mod
+        else:
+            raise SystemExit(
+                f"preset {args.preset!r} has unsupported model_type "
+                f"{cfg.model_type!r} for random-weight profiling"
+            )
+        params = model_mod.init_params(cfg, seed=0, dtype=dtype, device=device)
+
+    prof = Profiler(cfg, params, dtype=dtype)
+    prefill = prof.profile_prefill()
+    decode = prof.profile_decode(max_tokens=args.decode_tokens)
+    verdict = Profiler.similarity_verdict(prefill, decode)
+
+    hop = None
+    if args.hops:
+        from .parallel.pipeline import stage_devices
+
+        # a ring of --hops stages, all on --device (as --stages places them)
+        ring = stage_devices(args.hops, [device] * args.hops)
+        hop = measure_hop_latency(ring, hidden_size=cfg.hidden_size, dtype=dtype)
+
+    extra = {"config": json.loads(cfg.to_json())}
+    # the memory fit only where device memory is known: --hbm-gib, or the
+    # card's; on the CPU the field is left out rather than guessed
+    hbm = int(args.hbm_gib * 1024**3) if args.hbm_gib else detect_hbm_bytes(device)
+    if hbm is not None:
+        extra["max_layers_fit"] = max_layers_fit(cfg, param_dtype=dtype, hbm_bytes=hbm)
+    if args.suggest_stages:
+        from .parallel.placement import PlacementSpec
+
+        # homogeneous devices: each stage's capability is 1 / c_k
+        spec = PlacementSpec.from_capabilities(
+            cfg.num_hidden_layers, [1.0 / prefill.capability_c_k] * args.suggest_stages
+        )
+        extra["suggested_placement"] = list(spec.stages)
+
+    payload = save_profile_artifacts(
+        args.out, prefill=prefill, decode=decode, verdict=verdict,
+        cold_start=cold, hop=hop, extra=extra,
+    )
+    print(json.dumps(payload, indent=2))
+    print(f"artifacts -> {args.out}", file=sys.stderr)
+    return 0
+
+
+def cmd_lint(args) -> int:
+    """shardlint over the port (``analysis/``; JAX ``cli.py:1435``): exits
+    nonzero on findings not in the baseline. Needs no torch."""
+    from .analysis.core import run_lint
+
+    return run_lint(
+        only=args.rule or None,
+        baseline_path=args.baseline,
+        as_json=args.json,
+        write_baseline=args.write_baseline,
+    )
+
+
 def _add_device(p) -> None:
     p.add_argument(
         "--device", default="cuda",
@@ -1288,7 +1385,68 @@ def build_parser() -> argparse.ArgumentParser:
     sr.add_argument("--json", action="store_true",
                     help="machine-readable report (one JSON object)")
     sr.set_defaults(fn=cmd_step_report)
+    _add_profile(sub)
+    _add_lint(sub)
     return p
+
+
+def _add_profile(sub) -> None:
+    """The JAX ``profile`` parser (``cli.py:1870-1894``), plus ``--device``."""
+    pr = sub.add_parser("profile", help="capability sweeps + artifacts")
+    src = pr.add_mutually_exclusive_group(required=True)
+    src.add_argument("--shards")
+    src.add_argument(
+        "--preset",
+        help="config preset name (random weights), e.g. tiny_llama, llama32_3b",
+    )
+    pr.add_argument("--out", default="results/profiling")
+    pr.add_argument("--dtype", default="bf16")
+    pr.add_argument("--decode-tokens", type=int, default=64, dest="decode_tokens")
+    pr.add_argument(
+        "--hops", type=int, default=0,
+        help="measure the per-hop latency of a decode-shaped block around a ring of N "
+        "stages, all on --device",
+    )
+    pr.add_argument("--cold-start", action="store_true", dest="cold_start")
+    pr.add_argument(
+        "--hbm-gib", type=float, default=0.0, dest="hbm_gib",
+        help="device memory to assume for max_layers_fit (read from the card by "
+        "default; omitted from the report on the CPU)",
+    )
+    pr.add_argument(
+        "--suggest-stages", type=int, default=0, dest="suggest_stages",
+        help="emit a capability-weighted placement for N stages",
+    )
+    _add_device(pr)
+    pr.set_defaults(fn=cmd_profile)
+
+
+def _add_lint(sub) -> None:
+    """The JAX ``lint`` parser (``cli.py:1946-1975``), over the port."""
+    li = sub.add_parser(
+        "lint",
+        help="shardlint over the port: lock order, metrics/trace discipline; "
+        "exits nonzero on new findings",
+    )
+    li.add_argument(
+        "--rule", action="append", default=None, metavar="RULE",
+        help="run only this rule (repeatable): lock-order, metrics-discipline, "
+        "trace-discipline (dispatch-statics and donation-safety are jit rules, "
+        "not ported)",
+    )
+    li.add_argument("--json", action="store_true",
+                    help="machine-readable report (one JSON object)")
+    li.add_argument(
+        "--baseline", default=None,
+        help="baseline file of known finding fingerprints (default: "
+        "llm_sharding_tpu_torch/analysis/baseline.json, committed empty)",
+    )
+    li.add_argument(
+        "--write-baseline", action="store_true",
+        help="regenerate the baseline from the current findings instead of "
+        "failing on them (the intended state is an empty baseline)",
+    )
+    li.set_defaults(fn=cmd_lint)
 
 
 def main(argv=None) -> int:

@@ -96,7 +96,7 @@ class _CounterChild:
     __slots__ = ("_lock", "_value")
 
     def __init__(self, lock):
-        self._lock = lock
+        self._lock = lock  # shardlint: lock obs.metrics.family
         self._value = 0.0
 
     def inc(self, n: float = 1.0) -> None:
@@ -115,7 +115,7 @@ class _GaugeChild:
     __slots__ = ("_lock", "_value")
 
     def __init__(self, lock):
-        self._lock = lock
+        self._lock = lock  # shardlint: lock obs.metrics.family
         self._value = 0.0
 
     def set(self, v: float) -> None:
@@ -139,7 +139,7 @@ class _HistogramChild:
     __slots__ = ("_lock", "bounds", "counts", "sum", "count", "exemplars")
 
     def __init__(self, lock, bounds: Tuple[float, ...]):
-        self._lock = lock
+        self._lock = lock  # shardlint: lock obs.metrics.family
         self.bounds = bounds
         self.counts = [0] * (len(bounds) + 1)  # +1: the +Inf bucket
         self.sum = 0.0

@@ -32,13 +32,13 @@ parallelism, not with in-program data parallelism
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from ..analysis.lockorder import named_lock
 from ..device import resolve_device, to_device
 from ..obs.metrics import PIPELINE_STAGES, PLACEMENT_SWAP_SECONDS, PLACEMENT_SWAPS
 from ..ops.quant import act_dtype
@@ -94,7 +94,7 @@ class Engine:
         self.tokenizer = None
         # the text stream's shared servers, by capacity (``_shared_server``)
         self._servers: dict = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("engine.reconfig")
         self.data_parallel = int(data_parallel)
         self.tensor_parallel = int(tensor_parallel)
         if self.data_parallel < 1 or self.tensor_parallel < 1:

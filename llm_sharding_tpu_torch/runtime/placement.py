@@ -2,11 +2,12 @@
 port's own copy of ``llm_sharding_tpu/runtime/placement.py`` (numpy only),
 the arithmetic unchanged.
 
-A profiler measures each device kind's prefill and decode latency curves
-and least-squares-fits them into a ``profile.json``; this module is the
-half that CONSUMES the fits at serve time. The port has no profiler of its
-own yet (``ROADMAP.md`` §A 17): a ``profile.json`` written by the JAX
-package's profiler, or any payload of its schema, feeds it.
+The port's profiler (``profiler/profiler.py``, ``profiler/artifacts.py``;
+``python -m llm_sharding_tpu_torch profile``) measures each device kind's
+prefill and decode latency curves and least-squares-fits them into a
+``profile.json``; this module is the half that CONSUMES the fits at serve
+time. A ``profile.json`` of the JAX package's profiler has the same schema
+and feeds it too.
 
 - **ratio**: prefill and decode have opposite hardware profiles
   (compute-bound vs bandwidth-bound). Given the offered workload mix

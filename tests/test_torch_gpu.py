@@ -2020,3 +2020,26 @@ def test_cp_served_streams_go_through_the_stats_kernels(cuda_device, cp):
     assert counts["paged_attention"] == counts["paged_prefill"] == 0
     srv._alloc.check()
     assert srv._alloc.in_use == 0
+
+
+@pytest.mark.cuda
+def test_profiler_sweep_goes_through_flash(cuda_device):
+    """The capability profiler on the card (``profiler/profiler.py``): every
+    prefill forward of the sweep, warm-ups included, launches the flash
+    kernel once a layer; the decode curve's prompt prefill does too, its
+    one-token steps do not; the samples are positive and the curve rises."""
+    from llm_sharding_tpu_torch.profiler.profiler import Profiler, detect_hbm_bytes
+
+    cfg = tcfg.tiny_llama(hidden_size=256, intermediate_size=512)  # head dim 64
+    params = tllama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda_device)
+    prof = Profiler(cfg, params, dtype=torch.bfloat16)
+    kernels.reset_launch_counts()
+    rep = prof.profile_prefill(lengths=(8, 16, 64), repeats=2)
+    forwards = 2 + 3 + 3 * 2  # two warm-ups, one per length, then the repeats
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_hidden_layers * forwards
+    assert all(t > 0 for t in rep.latencies_s) and rep.capability_c_k > 0
+    kernels.reset_launch_counts()
+    dec = prof.profile_decode(max_tokens=16, measure_every=4)
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_hidden_layers
+    assert all(b > a for a, b in zip(dec.cumulative_s, dec.cumulative_s[1:]))
+    assert detect_hbm_bytes(cuda_device) == torch.cuda.get_device_properties(0).total_memory
