@@ -7,6 +7,7 @@
     python3 chip_smoke.py --pipeline
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --profile
+    python3 chip_smoke.py --flash
 
 The second form runs (a) and (b) only, bf16 queries, at the named
 models' shapes (``llama32_3b``, ``gpt2_small``, ``gemma_2b``,
@@ -15,8 +16,10 @@ it in two trees in one call to compare their kernels. The third runs (a)
 and the fleet's parts of (c) and (d) alone, the fourth (a) and the
 pipeline's parts, the fifth (a) and the tensor and context parallel
 parts of (b), (c) and (d), printing its [b] rows as one JSON line. The
-last runs (a), [b]'s profile rows and [d]'s profile part alone, on a
-3B store of ``D_3B`` layers it writes itself.
+sixth runs (a), [b]'s profile rows and [d]'s profile part alone, on a
+3B store of ``D_3B`` layers it writes itself. ``--flash`` builds the flash
+kernel alone, prints its instantiations' registers and spills and runs
+every [b] flash case (each route), printing the rows as one JSON line.
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -278,6 +281,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -350,6 +354,51 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_ptxas(build_log: str) -> list:
+    """``ptxas -v``'s registers and spill bytes of each flash instantiation
+    (``flash_wgmma_kernel<D, fold>``, ``flash_f32_kernel<D>``), from the
+    build's log: ``[{"kernel", "registers", "spill_stores", "spill_loads"}]``."""
+    names = {}
+
+    def label(mangled: str) -> str:
+        w = re.search(r"flash_wgmma_kernelILi(\d+)ELb([01])E", mangled)
+        if w:
+            return f"{'fold' if w.group(2) == '1' else 'heads'} bf16 D={w.group(1)}"
+        f = re.search(r"flash_f32_kernelILi(\d+)E", mangled)
+        return f"f32 D={f.group(1)}" if f else ""
+
+    cur = ""
+    for ln in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            cur = label(m.group(1))
+            if cur:
+                names.setdefault(cur, {"kernel": cur})
+            continue
+        if not cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            names[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            names[cur]["registers"] = int(m.group(1))
+    return sorted(names.values(), key=lambda r: r["kernel"])
+
+
+def log_flash_ptxas(K) -> list:
+    """Print each flash instantiation's registers and spills; every one must
+    spill nothing."""
+    rows = flash_ptxas(K.FLASH.build_log)
+    for r in rows:
+        log(f"[a] ptxas flash {r['kernel']:16s} registers={r.get('registers')} "
+            f"spill_stores={r.get('spill_stores')} spill_loads={r.get('spill_loads')}")
+    require(len(rows) == 9, f"flash: expected 9 instantiations in the ptxas log, got {rows}")
+    spilled = [r for r in rows if r.get("spill_stores") != 0 or r.get("spill_loads") != 0]
+    require(not spilled, f"flash: instantiations spill registers: {spilled}")
+    return rows
 
 
 # --------------------------------------------------------------- phase (b)
@@ -816,17 +865,24 @@ def kernel_cases(model: str) -> list:
     ]
 
 
+# the f32 flash case that is tabled (workload "f32": its launches come from
+# the [c] f32 3B run), with SDPA in f32 beside it
+F32_FLASH_ROW = ("llama32_3b", "S=C=2048 causal")
+
+
 def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefix=False,
-                  spec=False, dense=False, tp=False, profile=False) -> list:
+                  spec=False, dense=False, tp=False, profile=False, only=None) -> list:
     """Each kernel case of ``model`` against its plain version, with
     queries of each of ``dtypes``, timed; returns the tabled rows (bf16
-    queries), tagged with the model and the [d] workload whose run counts
-    their launches. ``prefix``: the prefix-cache hit's cases; ``spec``:
-    speculative decoding's; ``dense``: dense serving's; ``tp``: a tensor
-    shard's; ``profile``: the profiler's sweep's."""
+    queries, and ``F32_FLASH_ROW`` in f32), tagged with the model and the
+    [d] workload whose run counts their launches. ``prefix``: the
+    prefix-cache hit's cases; ``spec``: speculative decoding's; ``dense``:
+    dense serving's; ``tp``: a tensor shard's; ``profile``: the profiler's
+    sweep's; ``only``: the cases of that kernel alone. A flash row names its
+    route (``flash_route``)."""
     import torch
 
-    from llm_sharding_tpu_torch.ops import paged_attention
+    from llm_sharding_tpu_torch.ops import flash_attention, paged_attention
 
     gen = torch.Generator(device=device).manual_seed(1234)
     if tp:
@@ -843,6 +899,8 @@ def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefi
                                           else kernel_cases(model))]
     rows = []
     for name, label, fn, plain, make, replaces, source, workload in cases:
+        if only is not None and name != only:
+            continue
         for dtype in (getattr(torch, d) for d in dtypes):
             dname = str(dtype).split(".")[-1]
             args, kw, plain_kw, nbytes, flops, library = make(cfg, dtype, device, gen)
@@ -868,6 +926,10 @@ def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefi
                 design = paged_attention.prefill_design(dtype, args[1].shape[1])
                 require(dtype != torch.bfloat16 or design == "wgmma",
                         f"{name} {label}: bf16 at block size 64 must take the wgmma route")
+            if name == "flash_attention":
+                q, k = args[0], args[1]
+                design = flash_attention.flash_route(dtype, q.shape[1], k.shape[1], q.shape[2],
+                                                     k.shape[2], q.shape[3])
             log(
                 f"[b] {name:21s} {label:40s} {dname:8s} {design or '':5s} max_abs_err={err:.3g} tol={tol:g} "
                 f"max_row_rel_err={rel:.3g} tol={tol_rel:g} {status} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -877,9 +939,11 @@ def phase_kernels(cfg, device, model: str, dtypes=("bfloat16", "float32"), prefi
             require(err <= tol, f"{name} {label} {dname}: max abs error {err} > {tol}")
             require(rel <= tol_rel,
                     f"{name} {label} {dname}: max row-relative error {rel} > {tol_rel}")
-            if replaces is not None and dtype == torch.bfloat16:
+            f32_row = dtype == torch.float32 and (model, label) == F32_FLASH_ROW
+            if replaces is not None and (dtype == torch.bfloat16 or f32_row):
                 rows.append(dict(
-                    name=name, model=model, workload=workload, shape=label, route="cuda",
+                    name=name, model=model, workload="f32" if f32_row else workload,
+                    shape=label + (" f32" if f32_row else ""), route="cuda",
                     source=source, replaces=replaces,
                     launches=None, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=lib_ms,
@@ -1938,7 +2002,7 @@ def check_speculation_7b(device) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_token_check(device, store_root: str) -> None:
+def phase_token_check(device, store_root: str) -> dict:
     """f32 token checks: Llama-3.2-3B at 4 layers (raw weights, then from
     an int8 store with the head quantized and from an int4 store, both
     written by the port), GPT-2 small at full depth, and gemma-2B at 4
@@ -1946,10 +2010,13 @@ def phase_token_check(device, store_root: str) -> None:
     held against ``generate`` run on this machine's CPU (a reference with
     no kernel in it: the weights are made on the CPU and copied to the
     card), and the raw 3B's prefix-cache hits against the cache-off
-    streams and that CPU reference (``check_prefix_cache``)."""
+    streams and that CPU reference (``check_prefix_cache``). Returns the
+    flash launches of the raw 3B's first check (its f32 route's, for the
+    tabled f32 row)."""
     import torch
 
     from llm_sharding_tpu_torch.models import config, gpt2, llama
+    from llm_sharding_tpu_torch.ops import kernels as K
     from llm_sharding_tpu_torch.ops.quant import quantize_params
     from llm_sharding_tpu_torch.runtime.engine import Engine
     from llm_sharding_tpu_torch.utils.shard_store import save_shards
@@ -1963,7 +2030,11 @@ def phase_token_check(device, store_root: str) -> None:
     lens = [40, 200, 700, 1000]  # buckets 64 and 256 one-shot, 1024 chunked
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
     max_new = 16
+    K.reset_launch_counts()
     card_want = check_against_generate("3B", eng, prompts, lens, max_new)
+    f32_flash = K.launch_counts()["flash_attention"]
+    require(f32_flash > 0, "phase c 3B: the f32 streams never launched flash")
+    log(f"[c] 3B f32: flash's f32 route launched {f32_flash} times (served and generate)")
     t0 = time.perf_counter()
     check_observability("3B", eng, prompts, lens, max_new, store_root)
     log(f"[c] 3B observability checks took {time.perf_counter() - t0:.1f}s")
@@ -2033,6 +2104,7 @@ def phase_token_check(device, store_root: str) -> None:
     del meng, cpu_params
     torch.cuda.empty_cache()
     check_speculation_7b(device)
+    return {"flash_attention": f32_flash}
 
 
 # --------------------------------------------------------------- phase (d)
@@ -5581,6 +5653,29 @@ def match_frac(tokens, base) -> float:
     return float(np.mean([np.mean([a == b for a, b in zip(t, u)]) for t, u in zip(tokens, base)]))
 
 
+def flash_rows(device) -> list:
+    """``--flash``: every [b] flash case alone (each model, the prefix,
+    speculative, dense, profiler and shard shapes; f32 where [b] runs it),
+    against the plain version and timed beside SDPA."""
+    from llm_sharding_tpu_torch.models import config
+
+    fl, bf = "flash_attention", ("bfloat16",)
+    rows = []
+    for m in ("llama32_3b", "gpt2_small", "gemma_2b"):
+        rows += phase_kernels(getattr(config, m)(), device, m, only=fl)
+    for m in ("gemma_7b", "llama2_7b"):
+        rows += phase_kernels(getattr(config, m)(), device, m, dtypes=bf, only=fl)
+    for m in ("llama32_3b", "gemma_2b"):
+        rows += phase_kernels(getattr(config, m)(), device, m, prefix=True, only=fl)
+    rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=bf, spec=True, only=fl)
+    rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dense=True, only=fl)
+    rows += phase_kernels(config.llama32_3b(), device, "llama32_3b", dtypes=bf, profile=True,
+                          only=fl)
+    for m in ("llama32_3b", "llama2_7b"):
+        rows += phase_kernels(getattr(config, m)(), device, m, dtypes=bf, tp=True, only=fl)
+    return rows
+
+
 def main(argv: list) -> int:
     try:
         import torch
@@ -5602,14 +5697,20 @@ def main(argv: list) -> int:
     device = torch.device("cuda")
     t_all = time.perf_counter()
 
-    secs = K.build_all()
+    built = [K.FLASH] if argv[:1] == ["--flash"] else list(K.KERNELS)
+    secs = K.build_all(built)
     with open(K.BUILD_DIR / "ptxas.log", "w") as f:
-        for k in K.KERNELS:
+        for k in built:
             f.write(f"=== {k.source}\n{k.build_log}\n")
-    for k in K.KERNELS:
+    for k in built:
         spills = [ln.strip() for ln in k.build_log.splitlines() if "spill" in ln and " 0 bytes spill" not in ln]
         log(f"[a] built {k.source}; non-zero spill lines: {len(spills)}")
     log(f"[a] kernel build: {secs:.1f}s (nvcc, sm_90a, one process per source)")
+    ptxas = log_flash_ptxas(K)
+    if argv[:1] == ["--flash"]:
+        print(json.dumps({"kernels": flash_rows(device), "ptxas": ptxas}))
+        log(f"[e] total {time.perf_counter() - t_all:.0f}s")
+        return 0
     if argv[:1] == ["--fleet"]:
         store = tempfile.mkdtemp(prefix="chip_smoke_store_")
         try:
@@ -5694,10 +5795,11 @@ def main(argv: list) -> int:
     store = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         t0 = time.perf_counter()
-        phase_token_check(device, store)
+        f32_counts = phase_token_check(device, store)
         log(f"[e] phase (c) took {time.perf_counter() - t0:.0f}s")
         t0 = time.perf_counter()
         counts = phase_serve(device, store)
+        counts["llama32_3b/f32"] = f32_counts
         log(f"[e] phase (d) took {time.perf_counter() - t0:.0f}s")
     finally:
         shutil.rmtree(store, ignore_errors=True)
@@ -5715,7 +5817,7 @@ def main(argv: list) -> int:
     rows += attach_tp_launches(tp_rows, counts)
     rows += attach_cp_launches(stats_rows, counts)
     log(f"[e] total {time.perf_counter() - t_all:.0f}s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "flash_ptxas": ptxas}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -1,6 +1,6 @@
-// Shared core of the port's CUDA-core attention paths (paged_prefill.cu
-// and flash_attention.cu for f32 queries; paged_attention.cu uses its
-// helpers, its fused merge and its contract): one CTA owns one query tile of
+// Shared core of the port's CUDA-core attention path (paged_prefill.cu for
+// f32 queries; paged_attention.cu and flash_attention.cu use its helpers,
+// the fused merge's ticket and its contract): one CTA owns one query tile of
 // GQA-folded rows of one (batch row, KV head) and streams KV tiles of
 // kBK keys through shared memory with the online-softmax recurrence of
 // llm_sharding_tpu/ops/paged_attention.py:376-401 (_online_update) and
@@ -29,7 +29,9 @@
 //   in its own launch (last_run, merge_runs below; its own note); it keeps
 //   this header's conversions and the contract above.
 // - flash_attention.cu runs bf16 on the tensor cores (wgmma fed by TMA,
-//   hopper.cuh) and keeps this Tile for f32 queries only.
+//   hopper.cuh), per query head or a KV head's folded rows, split over the
+//   SMs and merged in its launch (last_run below; its own merge), and f32
+//   as 3xTF32 products on mma.sync; it keeps this header's contract.
 // - paged_prefill.cu runs bf16 queries on the tensor cores (wgmma fed by
 //   TMA boxes over the block table, wgmma_attn.cuh, split into runs merged
 //   by split_merge_kernel below when a chunk's CTAs fall short of the SMs)

@@ -2,8 +2,9 @@
 // (flash_attention.cu, paged_prefill.cu, paged_attention.cu): mbarriers,
 // TMA tile loads, the proxy fence, wgmma shared-memory descriptors for
 // 128-byte-swizzled bf16 tiles, the wgmma shapes the kernels issue, the
-// mma.sync / ldmatrix fragments of the decode kernel, and the host-side
-// tensor-map encoders.
+// mma.sync / ldmatrix fragments of the decode kernel, cp.async and the
+// TF32 split products of flash's f32 route, and the host-side tensor-map
+// encoders.
 //
 // The tensor-map encoder (cuTensorMapEncodeTiled) lives in libcuda, not in
 // the runtime. It is looked up in the already-loaded libcuda with dlsym, so the
@@ -63,6 +64,26 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// cp.async of 16 bytes (or `bytes` < 16, the rest zero-filled; 0 reads
+// nothing) from global to shared memory, completed by cp_async_wait.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+// cp.async of one 4-byte word (0 bytes: zero-filled, nothing read).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Order this thread's plain shared-memory stores before later reads of
@@ -162,6 +183,31 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x rounded to TF32 (round to nearest, ties away), as an f32 bit pattern
+// whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+// x as the TF32 pair (big, small) with x ~= big + small to ~2^-22
+// relative: the operands of a 3xTF32 product.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+// d[16 x 8] += a[16 x 8] . b[8 x 8], TF32 in, f32 accumulate (the m16n8k8
+// fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (k t, n g), b1 (k t + 4, n g); d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8,
+// 2t), d3 (g + 8, 2t + 1); g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_1688_tf32(float* d, const uint32_t* a, uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // ------------------------------------------------------------------- host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -179,32 +225,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [d3][d2][d1][d0] (d0 contiguous, dense) read in boxes of
-// 64 x 1 x box_rows x 1 elements (dims 0 and 2), 128-byte swizzled; boxes
-// past the end of dim 2 are zero-filled. A box of fewer than 64 rows lands
-// at a 1024-byte-aligned row offset of a 64-row tile with the tile's
-// swizzle (box_rows a multiple of 8). Returns false if libcuda refuses.
 // A dense tensor [d3][d2][d1][d0] of `esize`-byte elements read in boxes of
-// box0 x 1 x box_rows x 1 elements; boxes past the end of dim 2 are
-// zero-filled.
+// box0 x box1 x box_rows x 1 elements, landing in shared memory as
+// box1 * box_rows consecutive rows of box0 elements (dim 1 fastest); boxes
+// past the end of dims 1 and 2 are zero-filled. Returns false if libcuda
+// refuses.
 inline bool map_4d(CUtensorMap* map, const void* base, CUtensorMapDataType dt, uint64_t esize,
                    uint64_t d0, uint64_t d1, uint64_t d2, uint64_t d3, uint32_t box0,
-                   uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+                   uint32_t box_rows, CUtensorMapSwizzle swizzle, uint32_t box1 = 1) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
   const cuuint64_t strides[3] = {d0 * esize, d0 * d1 * esize, d0 * d1 * d2 * esize};
-  const cuuint32_t box[4] = {box0, 1, box_rows, 1};
+  const cuuint32_t box[4] = {box0, box1, box_rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return enc(map, dt, 4, const_cast<void*>(base), dims, strides, box, estr,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A bf16 tensor [d3][d2][d1][d0] (d0 contiguous, dense) read in boxes of
+// 64 x box1 x box_rows x 1 elements, 128-byte swizzled: box1 * box_rows rows
+// of 128 bytes, as a 64-row wgmma tile's rows (at most 64 of them; a box of
+// fewer than 64 rows lands at a 1024-byte-aligned row offset of a tile with
+// the tile's swizzle when box_rows is a multiple of 8).
 inline bool map_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-                        uint64_t d2, uint64_t d3, uint32_t box_rows = 64) {
+                        uint64_t d2, uint64_t d3, uint32_t box_rows = 64, uint32_t box1 = 1) {
   return map_4d(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, d0, d1, d2, d3, 64, box_rows,
-                CU_TENSOR_MAP_SWIZZLE_128B);
+                CU_TENSOR_MAP_SWIZZLE_128B, box1);
 }
 
 // An f32 tensor read like map_bf16_4d: 32-column (128-byte) boxes,

@@ -59,17 +59,24 @@ struct Ring {
   const int* all;  // [kStages] 1 = every key exists and is visible to every row
 };
 
+// The consumers' per-tile hook when a separate producer warp fills the ring.
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // Walk the ring until the producer's end marker, accumulating this
 // thread's rows (row, row + 8 of its warpgroup) into o (unnormalised),
 // m (running max, log2 domain) and l (this thread's columns' share of the
 // row sum; the quad is summed by the caller). sq: this warpgroup's Q
 // boxes; C: the walk's end column; qp: the two rows' query positions;
 // sl2: scale * log2(e); masked: the score of a masked key (-1e30, or -inf
-// in the paged kernels' stats mode, attn_tile.cuh's note).
-template <int D, int kStages>
+// in the paged kernels' stats mode, attn_tile.cuh's note). hook: called by
+// every consumer thread at the top of each tile's turn (flash's inline
+// producer refills the ring there; NoHook otherwise).
+template <int D, int kStages, typename Hook = NoHook>
 __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const int* qp,
                                         float sl2, float* o, float* m, float* l,
-                                        float masked = attn::kNegInf) {
+                                        float masked = attn::kNegInf, Hook hook = Hook()) {
   constexpr int NB = D / 64;
   constexpr bool kEarly = D <= 128;  // issue the next tile's S before this softmax
   const int quad = threadIdx.x % 4;
@@ -103,6 +110,7 @@ __device__ __forceinline__ void consume(const Ring& r, uint32_t sq, int C, const
     fence_regs<32>(sa);
   }
   while (c0 >= 0) {
+    hook();
     int nstage = stage + 1;
     uint32_t nparity = parity;
     if (nstage == kStages) {

@@ -76,6 +76,7 @@ class CudaKernel:
         self.build_log = ""
         self._fn = None
         self._lib = None
+        self._tickets = {}
 
     def library_path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
@@ -100,6 +101,17 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def tickets(self, device: torch.device, n: int) -> torch.Tensor:
+        """The kernel's merge tickets on ``device`` (its fused merge's
+        atomic counters): int32 zeros, allocated once (grown when a launch
+        needs more) and left zero by every launch, so no call copies or
+        reads anything for them."""
+        t = self._tickets.get(device)
+        if t is None or t.numel() < n:
+            t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            self._tickets[device] = t
+        return t
+
     def launch(self, *args, mode: str = "") -> None:
         """Call the C entry point on the current stream's work; raise if the
         launch was refused or an earlier asynchronous fault surfaced."""
@@ -112,7 +124,7 @@ class CudaKernel:
 
 FLASH = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_fwd",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    [_P] * 8 + [_I] * 8 + [_F, _I, _P],
 )
 PAGED_DECODE = CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_fwd",
@@ -130,13 +142,16 @@ def build_all(kernels=KERNELS) -> float:
     started together; returns the wall seconds spent. Raises with the
     compiler's output if any build fails. Each library is written under a
     temporary name and renamed into place, so concurrent builders never
-    load a half-written file."""
+    load a half-written file; the compiler's output (``ptxas -v``) is kept
+    beside it and read back into ``build_log`` for a library already built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
     for k in kernels:
         path = k.library_path()
         if path.exists():
+            log = path.with_suffix(".log")
+            k.build_log = log.read_text() if log.exists() else k.build_log
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         p = subprocess.Popen(
@@ -151,6 +166,7 @@ def build_all(kernels=KERNELS) -> float:
         if p.returncode != 0:
             failed.append(f"--- {k.source} (nvcc exit {p.returncode})\n{out}")
             continue
+        path.with_suffix(".log").write_text(out)
         os.replace(tmp, path)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

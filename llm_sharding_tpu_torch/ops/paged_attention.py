@@ -484,20 +484,6 @@ def _outputs(q: torch.Tensor, stats: bool):
     return None, (acc, m, l), (0, acc.data_ptr(), m.data_ptr(), l.data_ptr())
 
 
-_TICKETS: dict = {}
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The decode kernel's merge tickets on ``device``: int32 zeros,
-    allocated once (grown when a launch needs more) and left zero by every
-    launch, so no call copies or reads anything for them."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
-
-
 def paged_attention(
     q: torch.Tensor,  # [B, S, Nh, D], decode S = 1
     k_arena: torch.Tensor,  # [NB, BS, Nkv, D]
@@ -552,7 +538,7 @@ def paged_attention(
     # per-piece partials (acc, then (m, l) pairs, per (group, row, KV head)),
     # merged in the launch; the kernel allocates nothing
     part = torch.empty(plan.scratch_floats(B, Nkv, D), dtype=torch.float32, device=q.device)
-    tickets = _tickets(q.device, B * Nkv * plan.groups)
+    tickets = kernels.PAGED_DECODE.tickets(q.device, B * Nkv * plan.groups)
     out, st, ptrs = _outputs(q, stats)
     kernels.PAGED_DECODE.launch(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *_scale_ptrs(k_scale, v_scale),

@@ -334,8 +334,9 @@ def test_flash_tensor_core_kernel_sentinel_padded_rows(cuda_device, D):
 
 @pytest.mark.cuda
 def test_flash_f32_inputs_take_the_tile_path(cuda_device):
-    """The same inputs in f32 (dispatched by dtype to the CUDA-core tile,
-    never the tensor cores) meet the f32 limits; in bf16 the bf16 ones."""
+    """The same inputs in f32 (dispatched by dtype to the f32 route:
+    3xTF32 products, never plain TF32) meet the f32 limits; in bf16 the
+    bf16 ones."""
     args32 = _flash_case(cuda_device, torch.float32, 200, 128, 3, B=2, pad=56)
     args16 = tuple(a.bfloat16() if a.is_floating_point() else a for a in args32)
     for args, dtype in ((args32, torch.float32), (args16, torch.bfloat16)):
@@ -622,8 +623,8 @@ def test_prefill_f32_queries_head_dim_256_take_the_tile_path(cuda_device, kv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [8, 1])
 def test_flash_f32_head_dim_256_takes_the_tile_path(cuda_device, G):
-    """f32 flash at D = 256 (the CUDA-core tile) at f32 limits: a padded
-    admission bucket, with and without GQA."""
+    """f32 flash at D = 256 (the f32 route's 64-row tile) at f32 limits: a
+    padded admission bucket, with and without GQA."""
     args = _flash_case(cuda_device, torch.float32, 200, 256, G, B=2, pad=56)
     got, want = tfa.flash_attention(*args), tfa.cached_attention(*args)
     torch.cuda.synchronize()
@@ -1130,6 +1131,127 @@ def test_flash_at_verify_width_over_scratch_columns(cuda_device, K, D):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention"] == 1
     _assert_close_rows(got, want, torch.bfloat16, step=D == 256)
+
+
+def _flash_route_case(dev, dtype, kind, B, S, C, Nh, Nkv, D, seed=60):
+    """Inputs of one of flash's call shapes: ``verify`` (S queries at each
+    row's own positions over C columns, the in-flight keys in the top S
+    columns, sentinel between), ``prefix`` (S queries past a C - S prefix),
+    ``admit`` (a bucket whose last quarter is the sentinel, over C columns
+    written up to the real prompt) or ``causal`` (S = C)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qpos = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    kvpos = torch.full((B, C), POS_SENTINEL, dtype=torch.int32, device=dev)
+    for b in range(B):
+        if kind == "verify":
+            p = 100 + (b * 997) % (C - S - 100)
+            kvpos[b, :p] = torch.arange(p)
+            kvpos[b, C - S :] = p + torch.arange(S)
+            qpos[b] = p + torch.arange(S)
+        elif kind == "prefix":
+            kvpos[b] = torch.arange(C)
+            qpos[b] = C - S + torch.arange(S)
+        elif kind == "admit":
+            real = S - S // 4
+            kvpos[b, :real] = torch.arange(real)
+            qpos[b, :real] = torch.arange(real)
+            qpos[b, real:] = POS_SENTINEL
+        else:
+            kvpos[b] = qpos[b] = torch.arange(S)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return t(B, S, Nh, D), t(B, C, Nkv, D), t(B, C, Nkv, D), qpos, kvpos
+
+
+# (kind, B, S, C, Nh, Nkv, D): the folded route at verify widths (G * S 15 and
+# 40), the per-head route at the profiler's S = 8, split over the SMs (past a
+# prefix, a dense admission's sentinel rows, a tp-4 shard's 6 heads) and
+# unsplit (a full card)
+FLASH_ROUTE_CASES = [
+    ("verify", 8, 5, 2053, 24, 8, 128),
+    ("verify", 4, 5, 1029, 8, 1, 256),
+    ("verify", 3, 5, 700, 6, 2, 64),
+    ("causal", 1, 8, 8, 24, 8, 128),
+    ("prefix", 1, 256, 1280, 24, 8, 128),
+    ("prefix", 1, 256, 1280, 8, 1, 256),
+    ("prefix", 2, 200, 900, 4, 4, 64),
+    ("admit", 1, 256, 4096, 24, 8, 128),
+    ("causal", 1, 2048, 2048, 6, 2, 128),
+    ("causal", 1, 2048, 2048, 24, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", FLASH_ROUTE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_routes_match_plain(cuda_device, case, dtype):
+    """Each route of the flash kernel (the folded and per-head tensor-core
+    routes, split or not, and f32's 3xTF32) against the plain version at
+    the present limits, in one launch; the route and the split are the
+    ones ``flash_route`` / ``plan_flash`` name for the shapes."""
+    kind, B, S, C, Nh, Nkv, D = case
+    args = _flash_route_case(cuda_device, dtype, kind, B, S, C, Nh, Nkv, D)
+    plan = tfa.plan_flash(B, S, C, Nh, Nkv, D, dtype, kernels.sm_count(cuda_device))
+    assert plan.route == tfa.flash_route(dtype, S, C, Nh, Nkv, D)
+    kernels.reset_launch_counts()
+    got = tfa.flash_attention(*args)
+    want = tfa.cached_attention(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    _assert_close_rows(got, want, dtype, step=dtype == torch.bfloat16 and D == 256)
+
+
+# split launches: the folded route at verify, the per-head route past a prefix
+FLASH_SPLIT_CASES = [FLASH_ROUTE_CASES[0], FLASH_ROUTE_CASES[4], FLASH_ROUTE_CASES[5],
+                     FLASH_ROUTE_CASES[7]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_SPLIT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_split_is_deterministic_and_sync_free(cuda_device, case):
+    """A split launch: the plan splits these shapes; two launches give
+    bit-identical outputs (the merge folds the runs in column order,
+    whichever finishes last); and a warm call runs under
+    ``set_sync_debug_mode("error")`` (the plan is from shapes, the tickets
+    and scratch are allocated without a copy, nothing is read back)."""
+    kind, B, S, C, Nh, Nkv, D = case
+    args = _flash_route_case(cuda_device, torch.bfloat16, kind, B, S, C, Nh, Nkv, D, seed=61)
+    assert tfa.plan_flash(B, S, C, Nh, Nkv, D, torch.bfloat16,
+                          kernels.sm_count(cuda_device)).split
+    first = tfa.flash_attention(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.reset_launch_counts()
+        second = tfa.flash_attention(*args)
+        assert kernels.launch_counts()["flash_attention"] == 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_close_rows(second, tfa.cached_attention(*args), torch.bfloat16, step=D == 256)
+
+
+@pytest.mark.cuda
+def test_flash_split_scratch_is_not_reused_within_its_launch(cuda_device):
+    """A split launch's f32 partials live in scratch the wrapper holds until
+    the launch is queued: at a tp-4 shard's shapes (an output of 3 MB, from
+    the allocator's large pool like the scratch), with a NaN-filled block
+    freed before each call, the scratch and the output never alias, and
+    every output stays finite and close to the plain version."""
+    kind, B, S, C, Nh, Nkv, D = FLASH_ROUTE_CASES[8]
+    args = _flash_route_case(cuda_device, torch.bfloat16, kind, B, S, C, Nh, Nkv, D, seed=62)
+    plan = tfa.plan_flash(B, S, C, Nh, Nkv, D, torch.bfloat16, kernels.sm_count(cuda_device))
+    assert plan.split
+    want = tfa.cached_attention(*args)
+    for _ in range(3):
+        junk = torch.full((plan.scratch_floats(B, D),), float("nan"), device=cuda_device)
+        del junk
+        got = tfa.flash_attention(*args)
+        torch.cuda.synchronize()
+        _assert_close_rows(got, want, torch.bfloat16)
 
 
 def _spec_prompts(eng):
